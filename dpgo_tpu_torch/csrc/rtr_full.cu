@@ -24,9 +24,10 @@
 // ELL gather over the per-pose incidence list instead of atomics (so results
 // repeat bit for bit from run to run and tCG iteration counts do not flip
 // against the plain version); the edge payload of the agent stays in shared
-// memory for all sweeps; the loop vectors live in a per-agent global
-// workspace, which stays in L2; reductions are a warp-shuffle tree plus one
-// shared-memory pass whose result every thread reads in the same order, so
+// memory for all sweeps when it fits (up to ~3.6k edges per agent at d = 3)
+// and in the per-agent global workspace otherwise; the loop vectors live in
+// that workspace, which stays in L2; reductions are a warp-shuffle tree plus
+// one shared-memory pass whose result every thread reads in the same order, so
 // every loop condition is block-uniform.  The per-pose math (tangent
 // projection, the (d+1)x(d+1) preconditioner solves, the Newton-Schulz
 // sweeps) is unrolled over the template parameters (R, D).  Spreading one
@@ -51,6 +52,8 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxSums = 4;
 constexpr float kEps = 1e-30f;
+constexpr size_t kRedBytes = kWarps * kMaxSums * sizeof(float);
+constexpr size_t kMaxSharedBytes = 232448;  // 227 KB per block on sm_90
 constexpr int kNsSweeps = 24;
 
 struct Problem {
@@ -61,12 +64,12 @@ struct Problem {
   const float* S;      // [D*D, n]
   const int* inc;      // [n, kinc]
   const float* incm;   // [n, kinc]
-  const int* ei;       // shared [E]
-  const int* ej;       // shared [E]
-  const float* rot;    // shared [D*D, E]
-  const float* trn;    // shared [D, E]
-  const float* wk;     // shared [E]
-  const float* wt;     // shared [E]
+  const int* ei;       // payload [E] (shared, or global when too large)
+  const int* ej;       // payload [E]
+  const float* rot;    // payload [D*D, E]
+  const float* trn;    // payload [D, E]
+  const float* wk;     // payload [E]
+  const float* wt;     // payload [E]
   float* gbuf;         // global [2E, RK]
   float* red;          // shared [kWarps * kMaxSums]
 };
@@ -527,20 +530,20 @@ __device__ void retract(const Problem& P, const float* V, float* out) {
   __syncthreads();
 }
 
-// Shared-memory layout of one agent's edge payload (see smem_bytes).
+// Layout of one agent's edge payload (payload_bytes), in shared memory or
+// in the global workspace.
 template <int D>
-__device__ void load_edges(Problem& P, unsigned char* smem, int a, int Ep,
+__device__ void load_edges(Problem& P, unsigned char* payload, int a, int Ep,
                            int T, const int* idx_i, const int* idx_j,
                            const float* rot, const float* trn,
                            const float* wk, const float* wt) {
   const int E = P.E;
-  int* ei = reinterpret_cast<int*>(smem);
+  int* ei = reinterpret_cast<int*>(payload);
   int* ej = ei + E;
   float* srot = reinterpret_cast<float*>(ej + E);
   float* strn = srot + D * D * E;
   float* swk = strn + D * E;
   float* swt = swk + E;
-  P.red = swt + E;
   const int nt = Ep / T;
   const size_t base = (size_t)a * Ep;
   for (int e = threadIdx.x; e < E; e += blockDim.x) {
@@ -568,6 +571,7 @@ __device__ void load_edges(Problem& P, unsigned char* smem, int a, int Ep,
 
 struct Args {
   int A, n, s, Ep, T, E, kinc;
+  int payload_in_smem;  // else the payload follows gbuf in the workspace
   const int* idx_i;
   const int* idx_j;
   const float* rot;
@@ -607,8 +611,13 @@ __device__ Problem setup(const Args& g, unsigned char* smem, int a,
   float* S = ws + 8 * vec;
   P.S = S;
   P.gbuf = S + (size_t)D * D * g.n;
-  load_edges<D>(P, smem, a, g.Ep, g.T, g.idx_i, g.idx_j, g.rot, g.trn, g.wk,
-                g.wt);
+  P.red = reinterpret_cast<float*>(smem);
+  unsigned char* payload =
+      g.payload_in_smem
+          ? smem + kRedBytes
+          : reinterpret_cast<unsigned char*>(P.gbuf + 2 * (size_t)g.E * RK);
+  load_edges<D>(P, payload, a, g.Ep, g.T, g.idx_i, g.idx_j, g.rot, g.trn,
+                g.wk, g.wt);
   return P;
 }
 
@@ -730,15 +739,23 @@ tcg_kernel(Args args, const float* Sc, const float* gc, const float* radius,
   }
 }
 
-size_t smem_bytes(int d, int E) {
-  return (size_t)E * 4 * (d * d + d + 4) + kWarps * kMaxSums * 4;
+size_t payload_bytes(int d, int E) {
+  return (size_t)E * 4 * (d * d + d + 4);
+}
+
+bool payload_fits_smem(int d, int E) {
+  return kRedBytes + payload_bytes(d, E) <= kMaxSharedBytes;
+}
+
+size_t smem_bytes(const Args& args, int d) {
+  return kRedBytes + (args.payload_in_smem ? payload_bytes(d, args.E) : 0);
 }
 
 template <int R, int D>
 int launch_rtr_full(const Args& args, float initial_radius, int max_rejections,
                     float grad_tol, float* X_out, float* stats, int* tcg_iters,
                     cudaStream_t stream) {
-  const size_t smem = smem_bytes(D, args.E);
+  const size_t smem = smem_bytes(args, D);
   cudaError_t err = cudaFuncSetAttribute(
       rtr_full_kernel<R, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -752,7 +769,7 @@ template <int R, int D>
 int launch_tcg(const Args& args, const float* Sc, const float* gc,
                const float* radius, float* eta, float* heta, float* stats,
                cudaStream_t stream) {
-  const size_t smem = smem_bytes(D, args.E);
+  const size_t smem = smem_bytes(args, D);
   cudaError_t err = cudaFuncSetAttribute(
       tcg_kernel<R, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -762,7 +779,7 @@ int launch_tcg(const Args& args, const float* Sc, const float* gc,
   return (int)cudaGetLastError();
 }
 
-Args make_args(int A, int n, int s, int Ep, int T, int E, int kinc,
+Args make_args(int d, int A, int n, int s, int Ep, int T, int E, int kinc,
                const void* idx_i, const void* idx_j, const void* rot,
                const void* trn, const void* wk, const void* wt,
                const void* X, const void* Z, const void* L,
@@ -777,6 +794,7 @@ Args make_args(int A, int n, int s, int Ep, int T, int E, int kinc,
   g.T = T;
   g.E = E;
   g.kinc = kinc;
+  g.payload_in_smem = payload_fits_smem(d, E) ? 1 : 0;
   g.idx_i = static_cast<const int*>(idx_i);
   g.idx_j = static_cast<const int*>(idx_j);
   g.rot = static_cast<const float*>(rot);
@@ -798,8 +816,6 @@ Args make_args(int A, int n, int s, int Ep, int T, int E, int kinc,
 }
 
 constexpr int kUnsupportedShape = -1;
-constexpr int kSharedMemoryTooLarge = -2;
-constexpr size_t kMaxSharedBytes = 232448;  // 227 KB per block on sm_90
 
 }  // namespace
 
@@ -808,11 +824,14 @@ constexpr size_t kMaxSharedBytes = 232448;  // 227 KB per block on sm_90
 
 extern "C" {
 
-// Floats of per-agent workspace: 8 loop vectors [RK, n], S [D*D, n] and the
-// per-edge gradient rows [2E, RK].
+// Floats of per-agent workspace: 8 loop vectors [RK, n], S [D*D, n], the
+// per-edge gradient rows [2E, RK] and, when it does not fit in shared
+// memory, the edge payload.
 long long dpgo_rtr_workspace_floats(int r, int d, int n, int e_max) {
   const long long rk = (long long)r * (d + 1);
-  return 8 * rk * n + (long long)d * d * n + 2LL * e_max * rk;
+  const long long payload =
+      payload_fits_smem(d, e_max) ? 0 : payload_bytes(d, e_max) / 4;
+  return 8 * rk * n + (long long)d * d * n + 2LL * e_max * rk + payload;
 }
 
 int dpgo_rtr_full_launch(int r, int d, int A, int n, int s, int Ep, int T,
@@ -825,8 +844,7 @@ int dpgo_rtr_full_launch(int r, int d, int A, int n, int s, int Ep, int T,
                          long long ws_stride, int max_iters, float kappa,
                          float theta, float initial_radius,
                          int max_rejections, float grad_tol, void* stream) {
-  if (smem_bytes(d, e_max) > kMaxSharedBytes) return kSharedMemoryTooLarge;
-  const Args g = make_args(A, n, s, Ep, T, e_max, kinc, idx_i, idx_j, rot,
+  const Args g = make_args(d, A, n, s, Ep, T, e_max, kinc, idx_i, idx_j, rot,
                            trn, wk, wt, X, Z, L, inc_slot, inc_mask, n_local,
                            ws, ws_stride, max_iters, kappa, theta);
   float* xo = static_cast<float*>(X_out);
@@ -855,9 +873,8 @@ int dpgo_tcg_launch(int r, int d, int A, int n, int Ep, int T, int e_max,
                     const void* n_local, void* eta, void* heta, void* stats,
                     void* ws, long long ws_stride, int max_iters, float kappa,
                     float theta, void* stream) {
-  if (smem_bytes(d, e_max) > kMaxSharedBytes) return kSharedMemoryTooLarge;
   // The tCG sweeps are Hessian sweeps only: no neighbor slots are read.
-  const Args a = make_args(A, n, 0, Ep, T, e_max, kinc, idx_i, idx_j, rot,
+  const Args a = make_args(d, A, n, 0, Ep, T, e_max, kinc, idx_i, idx_j, rot,
                            trn, wk, wt, X, X, L, inc_slot, inc_mask, n_local,
                            ws, ws_stride, max_iters, kappa, theta);
   const float* sc = static_cast<const float*>(S);

@@ -15,6 +15,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .device import resolve_device
 from .models.rbcd import GraphMeta, MultiAgentGraph, RBCDState
 from .types import EdgeSet
 
@@ -37,12 +38,13 @@ def meta_from_numpy(meta) -> GraphMeta:
 
 
 def graph_from_numpy(arrays, dtype: torch.dtype | None = None,
-                     device="cpu") -> MultiAgentGraph:
+                     device="cuda") -> MultiAgentGraph:
     """A ``MultiAgentGraph`` from the JAX package's arrays.  Float fields
     take ``dtype`` (default: the type of the edge rotations); indices
     become int64 where they index tensors and int32 where the kernel reads
     them.  The graph must carry the kernel's edge tiles
     (``build_graph(pallas_sel=True)`` on the JAX side)."""
+    device = resolve_device(device)
     a = _fields(arrays)
     e = _fields(a["edges"])
     if a.get("eidx_i") is None:
@@ -83,10 +85,11 @@ def graph_from_numpy(arrays, dtype: torch.dtype | None = None,
 
 
 def state_from_numpy(arrays, dtype: torch.dtype | None = None,
-                     device="cpu") -> RBCDState:
+                     device="cuda") -> RBCDState:
     """An ``RBCDState`` from the JAX package's.  The Nesterov, warm-start
     and dense-Q fields are not ported and must be absent (None); the GNC
     ``mu`` and the ASYNC keys are not carried."""
+    device = resolve_device(device)
     a = _fields(arrays)
     for key in ("V", "X_init", "Qbuf"):
         if a.get(key) is not None:

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..config import AgentParams, ROptAlg, RobustCostType, Schedule
+from ..device import default_dtype, resolve_device
 from ..ops import chordal, manifold, quadratic, rtr_kernel, solver
 from ..types import EdgeSet, Measurements, edge_set_from_measurements
 from ..utils.graph_plan import color_agents, plan_python
@@ -34,23 +35,6 @@ from .local_pgo import lift, round_solution
 #: Edge-tile width of the tile-major edge layout (the JAX package's
 #: ``pallas_tcg.TILE``); halved for pose buffers above 1024 slots.
 TILE = 256
-
-
-def resolve_device(device) -> torch.device:
-    """``device`` as a ``torch.device``; raises when CUDA is asked for and
-    absent — an entry point never moves to the CPU on its own."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device={str(device)!r} was requested but CUDA is not "
-            "available; pass device='cpu' to run on the CPU")
-    return dev
-
-
-def default_dtype(device: torch.device) -> torch.dtype:
-    """float32 on a CUDA device (the kernel's type, as the TPU ran with
-    x64 off), float64 on the CPU (the JAX package's default)."""
-    return torch.float32 if device.type == "cuda" else torch.float64
 
 
 def _not_ported(what: str, item: str):
@@ -115,12 +99,12 @@ def edge_tile_shape(n_max: int, s_max: int, e_max: int) -> tuple[int, int]:
 
 
 def build_graph(part: Partition, rank: int, dtype=torch.float64,
-                device="cpu") -> tuple[MultiAgentGraph, GraphMeta]:
+                device="cuda") -> tuple[MultiAgentGraph, GraphMeta]:
     """Padded per-agent arrays from a partitioned measurement set: each
     shared measurement appears in both endpoint agents' edge lists with the
     remote endpoint redirected to a neighbor slot (``PGOAgent.cpp:228-
     248``).  Topology from the Python planner (``utils.graph_plan``)."""
-    dev = torch.device(device)
+    dev = resolve_device(device)
     A = part.num_robots
     meas = part.meas
     d = meas.d
@@ -252,26 +236,21 @@ def _formulation(meta: GraphMeta, params: AgentParams | None,
     """Which local-solve formulation a round runs: ``"kernel"`` (the fused
     RTR step of ``ops.rtr_kernel``) or ``"ell"`` (plain PyTorch over the
     ELL incidence).  The kernel runs on CUDA, for RTR in float32 — the
-    JAX package's rule at its ``rbcd.py:666``.  ``pallas_tcg=True`` forces
-    the kernel's formulation and raises when it cannot run; on CPU tensors
-    its wrapper runs the kernel's plain version."""
+    JAX package's rule at its ``rbcd.py:666``; on CUDA there is no other
+    condition, so a problem the kernel does not take raises in its wrapper
+    instead of running plain PyTorch.  ``pallas_tcg=True`` forces the
+    kernel's formulation and raises when it cannot run; on CPU tensors its
+    wrapper runs the kernel's plain version."""
     if params is None:
         return "ell"
     if params.solver.dense_quadratic:
         raise _not_ported("dense_quadratic", "Queue A item 5")
     rtr = params.solver.algorithm == ROptAlg.RTR
-    fits = rtr_kernel.kernel_fits(meta.rank, meta.d, meta.e_max)
-    kernel_ok = rtr and dtype == torch.float32 and fits
+    kernel_ok = rtr and dtype == torch.float32
     if params.solver.pallas_tcg is True:
         if not kernel_ok:
-            if not rtr:
-                reason = "algorithm is not RTR"
-            elif dtype != torch.float32:
-                reason = (f"the kernel is float32-only and the problem is "
-                          f"{dtype}")
-            else:
-                reason = (f"(r, d) = {(meta.rank, meta.d)} with e_max = "
-                          f"{meta.e_max} is not a shape the kernel takes")
+            reason = "algorithm is not RTR" if not rtr else (
+                f"the kernel is float32-only and the problem is {dtype}")
             raise ValueError(f"pallas_tcg=True cannot run: {reason}")
         return "kernel"
     if params.solver.pallas_tcg is None and kernel_ok \
@@ -414,7 +393,7 @@ def init_state(graph: MultiAgentGraph, meta: GraphMeta, X0: torch.Tensor,
 
 
 def lifting_matrix(meta: GraphMeta, dtype=torch.float64,
-                   device="cpu") -> torch.Tensor:
+                   device="cuda") -> torch.Tensor:
     """The shared lifting matrix YLift for this problem's (rank, d)."""
     return _lifting_matrix(meta.rank, meta.d, dtype, device)
 

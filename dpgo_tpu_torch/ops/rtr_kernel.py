@@ -50,12 +50,10 @@ LAUNCHES = 0
 #: Launches of the ``tcg`` kernel.
 TCG_LAUNCHES = 0
 
-#: (r, d) shapes the kernel is instantiated for (``csrc/rtr_full.cu``).
-SUPPORTED_SHAPES = ((5, 3), (4, 3), (3, 3), (3, 2), (2, 2))
 #: Newton-Schulz sweeps of the retraction (fixed in the kernel source).
 NS_SWEEPS = 24
-#: Dynamic shared memory one block may use on sm_90.
-MAX_SHARED_BYTES = 232448
+#: The launchers' own error code (others are ``cudaError_t`` values).
+_UNSUPPORTED_SHAPE = -1
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "rtr_full.cu"
@@ -74,20 +72,6 @@ class TCGOut(NamedTuple):
     eta: torch.Tensor    # [A, r(d+1), n]
     heta: torch.Tensor   # [A, r(d+1), n]
     stats: torch.Tensor  # [A, 2] iterations, hit boundary
-
-
-def smem_bytes(d: int, e_max: int) -> int:
-    """Dynamic shared memory of one block: the agent's edge payload (two
-    index rows, d*d + d + 2 float rows) plus the reduction scratch — the
-    layout of ``load_edges`` in ``csrc/rtr_full.cu``."""
-    return e_max * 4 * (d * d + d + 4) + 8 * 4 * 4
-
-
-def kernel_fits(r: int, d: int, e_max: int) -> bool:
-    """Whether the kernel takes this problem: an instantiated (r, d) and an
-    edge payload that fits in one block's shared memory."""
-    return (r, d) in SUPPORTED_SHAPES and \
-        smem_bytes(d, e_max) <= MAX_SHARED_BYTES
 
 
 # ---------------------------------------------------------------------------
@@ -326,12 +310,9 @@ def load():
     return lib
 
 
-def _check(name: str, r: int, d: int, e_max: int, dev, tensors: dict,
-           shapes: dict) -> None:
-    """Device, dtype, shape and contiguity checks shared by both wrappers."""
-    if (r, d) not in SUPPORTED_SHAPES:
-        raise ValueError(f"{name}: (r, d) = {(r, d)} is not one of the "
-                         f"kernel's shapes {SUPPORTED_SHAPES}")
+def _check(name: str, dev, tensors: dict, shapes: dict) -> None:
+    """Device, dtype, shape and contiguity checks shared by both wrappers;
+    the kernel's launcher checks the shape (r, d) itself."""
     for key, t in tensors.items():
         if t.device != dev:
             raise ValueError(f"{name}: {key} is on {t.device}, expected "
@@ -354,9 +335,17 @@ def _check(name: str, r: int, d: int, e_max: int, dev, tensors: dict,
             raise RuntimeError(f"{name}: tensors on {dev}; the kernel runs "
                                "on CUDA devices and the plain version on "
                                "the CPU")
-        if smem_bytes(d, e_max) > MAX_SHARED_BYTES:
-            raise ValueError(f"{name}: e_max={e_max} edges per agent exceed "
-                             "one block's shared memory")
+
+
+def _raise_on(name: str, err: int, r: int, d: int) -> None:
+    """Turn a launcher's non-zero return into an exception."""
+    if err == _UNSUPPORTED_SHAPE:
+        raise ValueError(f"{name}: (r, d) = {(r, d)} is not a shape the "
+                         "kernel is instantiated for (DPGO_DISPATCH in "
+                         f"{SOURCE.name})")
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed (cudaError_t "
+                           f"{err})")
 
 
 def _shapes(idx_i, r, d, n, s, K, A):
@@ -383,8 +372,7 @@ def rtr_full(idx_i, idx_j, rot, trn, wk, wt, Xc, Zc, Lc, inc_slot, inc_mask,
     tensors = dict(idx_i=idx_i, idx_j=idx_j, rot=rot, trn=trn, wk=wk, wt=wt,
                    Xc=Xc, Zc=Zc, Lc=Lc, inc_slot=inc_slot,
                    inc_mask=inc_mask, n_local=n_local)
-    _check("rtr_full", r, d, e_max, Xc.device, tensors,
-           _shapes(idx_i, r, d, n, s, K, A))
+    _check("rtr_full", Xc.device, tensors, _shapes(idx_i, r, d, n, s, K, A))
     kw = dict(r=r, d=d, e_max=e_max, max_iters=max_iters, kappa=kappa,
               theta=theta, initial_radius=initial_radius,
               max_rejections=max_rejections, grad_tol=grad_tol)
@@ -407,8 +395,7 @@ def rtr_full(idx_i, idx_j, rot, trn, wk, wt, Xc, Zc, Lc, inc_slot, inc_mask,
                                  stats, iters, ws)),
         ws_floats, max_iters, kappa, theta, initial_radius, max_rejections,
         grad_tol, stream)
-    if err != 0:
-        raise RuntimeError(f"rtr_full kernel launch failed (code {err})")
+    _raise_on("rtr_full", err, r, d)
     LAUNCHES += 1
     return RTRFullOut(X_out, stats, iters)
 
@@ -425,8 +412,7 @@ def tcg(idx_i, idx_j, rot, trn, wk, wt, Xc, Sc, Lc, gc, radius, inc_slot,
     tensors = dict(idx_i=idx_i, idx_j=idx_j, rot=rot, trn=trn, wk=wk, wt=wt,
                    Xc=Xc, Sc=Sc, Lc=Lc, gc=gc, radius=radius,
                    inc_slot=inc_slot, inc_mask=inc_mask)
-    _check("tcg", r, d, e_max, Xc.device, tensors,
-           _shapes(idx_i, r, d, n, 0, K, A))
+    _check("tcg", Xc.device, tensors, _shapes(idx_i, r, d, n, 0, K, A))
     kw = dict(r=r, d=d, e_max=e_max, max_iters=max_iters, kappa=kappa,
               theta=theta)
     if Xc.device.type == "cpu":
@@ -448,7 +434,6 @@ def tcg(idx_i, idx_j, rot, trn, wk, wt, Xc, Sc, Lc, gc, radius, inc_slot,
                                  Lc, gc, radius, inc_slot, inc_mask, n_local,
                                  eta, heta, stats, ws)),
         ws_floats, max_iters, kappa, theta, stream)
-    if err != 0:
-        raise RuntimeError(f"tcg kernel launch failed (code {err})")
+    _raise_on("tcg", err, r, d)
     TCG_LAUNCHES += 1
     return TCGOut(eta, heta, stats)

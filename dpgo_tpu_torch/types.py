@@ -15,6 +15,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .device import resolve_device
+
 
 @dataclasses.dataclass
 class Measurements:
@@ -86,9 +88,10 @@ def loop_closure_mask(meas: Measurements) -> np.ndarray:
 
 
 def edge_set_from_measurements(meas: Measurements, dtype=torch.float64,
-                               device="cpu") -> EdgeSet:
+                               device="cuda") -> EdgeSet:
     """EdgeSet over global pose indices ``p1``/``p2`` (the centralized
     problem), on ``device`` in ``dtype``."""
+    device = resolve_device(device)
     m = len(meas)
     d = meas.d
 

@@ -17,6 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import resolve_device
+
 
 def quat_to_rotation(q: np.ndarray) -> np.ndarray:
     """Quaternion(s) [..., 4] in (x, y, z, w) order -> rotations [..., 3, 3]
@@ -159,10 +161,10 @@ def fixed_stiefel(r: int, d: int) -> np.ndarray:
 
 
 def lifting_matrix(rank: int, d: int, dtype=torch.float64,
-                   device="cpu") -> torch.Tensor:
+                   device="cuda") -> torch.Tensor:
     """The shared lifting matrix YLift in St(rank, d): identity for
     rank == d, else ``fixed_stiefel`` (reference ``PGOAgent.cpp:46``)."""
     if rank < d:
         raise ValueError(f"relaxation rank {rank} must be >= d = {d}")
     Y = np.eye(d) if rank == d else fixed_stiefel(rank, d)
-    return torch.as_tensor(Y, dtype=dtype, device=device)
+    return torch.as_tensor(Y, dtype=dtype, device=resolve_device(device))

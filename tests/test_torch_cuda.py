@@ -89,3 +89,31 @@ def test_solve_launches_kernel_once_per_round(card):
     ref = rbcd.solve_rbcd(meas, 4, plain, max_iters=res.iterations,
                           grad_norm_tol=0.0)
     assert float((res.X - ref.X).abs().max()) <= 5e-4
+
+
+def test_edge_payload_too_large_for_shared_memory(card):
+    # One agent with ~4000 edges: the payload (64 B an edge at d = 3) does
+    # not fit in one block's 227 KB and lives in the global workspace.
+    prob, params, X, Z, chol = _round(card, n=2000, A=1, num_lc=2000)
+    assert prob.meta.e_max * 64 > 232448
+    args = rbcd.kernel_operands(X, Z, prob.graph.edges, chol, prob.graph)
+    kw = rbcd.kernel_options(params, prob.meta)
+    out = rk.rtr_full(*args, **kw)
+    ref = rk.rtr_full_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert float((out.X - ref.X).abs().max()) <= 1e-4
+    assert torch.equal(out.stats[:, :2], ref.stats[:, :2])
+    torch.testing.assert_close(out.stats[:, 2:], ref.stats[:, 2:],
+                               rtol=1e-4, atol=0)
+
+
+def test_shape_without_kernel_raises_on_card(card):
+    # r = 6 has no instantiation: the solve raises rather than running the
+    # plain formulation on the card.
+    meas = make_measurements(np.random.default_rng(5), n=40, d=3, num_lc=10,
+                             rot_noise=0.05, trans_noise=0.05)[0]
+    params = AgentParams(d=3, r=6, num_robots=2)
+    before = rk.LAUNCHES
+    with pytest.raises(ValueError, match="instantiated"):
+        rbcd.solve_rbcd(meas, 2, params, max_iters=2)
+    assert rk.LAUNCHES == before

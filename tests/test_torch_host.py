@@ -20,6 +20,7 @@ from dpgo_tpu.utils import graph_plan as jplan
 from dpgo_tpu.utils import lie as jlie
 from dpgo_tpu.utils import partition as jpart
 from dpgo_tpu.utils import synthetic as jsyn
+from dpgo_tpu_torch import interop, types
 from dpgo_tpu_torch.models import local_pgo, rbcd
 from dpgo_tpu_torch.utils import g2o, graph_plan, lie, partition, synthetic
 
@@ -77,7 +78,7 @@ def test_build_graph_bitwise(d, rank, A):
                                    jnp.float64, pallas_sel=True,
                                    planner="python")
     gb, meta_b = rbcd.build_graph(partition.partition_contiguous(mb, A),
-                                  rank, torch.float64)
+                                  rank, torch.float64, device="cpu")
     assert meta_a.__dict__ == meta_b.__dict__
     for f in gb._fields:
         if f == "edges":
@@ -91,7 +92,7 @@ def test_build_graph_bitwise(d, rank, A):
 
 @pytest.mark.parametrize("r,d", [(5, 3), (3, 2), (4, 3), (3, 3)])
 def test_lifting_lift_and_round(r, d):
-    Y = lie.lifting_matrix(r, d)
+    Y = lie.lifting_matrix(r, d, device="cpu")
     np.testing.assert_allclose(
         Y.numpy(), np.asarray(jlie.lifting_matrix(r, d, jnp.float64)),
         rtol=0, atol=1e-12)
@@ -142,3 +143,26 @@ def test_solve_defaults_to_cuda_and_refuses_cpu_fallback():
         rbcd.prepare_problem(mb, 2)
     res = rbcd.solve_rbcd(mb, 2, max_iters=2, device="cpu")
     assert res.X.device.type == "cpu" and res.X.dtype == torch.float64
+
+
+@pytest.mark.parametrize("entry", [
+    "build_graph", "lifting_matrix", "rbcd.lifting_matrix",
+    "edge_set_from_measurements", "graph_from_numpy", "state_from_numpy"])
+def test_entry_points_default_to_cuda(entry):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device runs")
+    _, (mb, _) = _pair(3, n=12, num_lc=3)
+    part = partition.partition_contiguous(mb, 2)
+    meta = rbcd.GraphMeta(num_robots=2, n_max=6, e_max=8, s_max=2, p_max=2,
+                          d=3, rank=5)
+    call = {
+        "build_graph": lambda: rbcd.build_graph(part, 5),
+        "lifting_matrix": lambda: lie.lifting_matrix(5, 3),
+        "rbcd.lifting_matrix": lambda: rbcd.lifting_matrix(meta),
+        "edge_set_from_measurements":
+            lambda: types.edge_set_from_measurements(mb),
+        "graph_from_numpy": lambda: interop.graph_from_numpy({}),
+        "state_from_numpy": lambda: interop.state_from_numpy({}),
+    }[entry]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        call()

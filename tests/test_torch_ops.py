@@ -37,7 +37,7 @@ def prob():
     meas = make_measurements(np.random.default_rng(11), n=30, d=3,
                              num_lc=10, rot_noise=0.05, trans_noise=0.05)[0]
     part = partition_contiguous(meas, 3)
-    graph, meta = rbcd.build_graph(part, 5, torch.float64)
+    graph, meta = rbcd.build_graph(part, 5, torch.float64, device="cpu")
     X0 = rbcd.centralized_chordal_init(part, meta, graph, torch.float64)
     Z = rbcd.neighbor_buffer(rbcd.public_table(X0, graph), graph)
     chol = rbcd.precond_chol(graph.edges, meta.n_max, meta.s_max,
@@ -185,7 +185,8 @@ def test_rtr_single_step_matches_jax(prob):
 
 def test_chordal_initialization_matches_jax(prob):
     meas = prob["meas"]
-    e = edge_set_from_measurements(meas, torch.float64)
+    e = edge_set_from_measurements(meas, torch.float64,
+                                   device="cpu")
     je = JEdgeSet(**{k: _j(v) for k, v in e._asdict().items()})
     T = chordal.chordal_initialization(e, meas.num_poses)
     np.testing.assert_allclose(

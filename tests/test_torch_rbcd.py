@@ -41,9 +41,11 @@ def test_jacobi_rounds_match_jax(alg):
         tp = AgentParams(d=3, r=5, num_robots=3, solver=SolverParams(
             algorithm=ROptAlg.RGD, rgd_stepsize=1e-2))
     js = jrbcd.init_state(prob.graph, prob.meta, prob.X0, params=jp)
-    graph = interop.graph_from_numpy(jax.tree.map(np.asarray, prob.graph))
+    graph = interop.graph_from_numpy(jax.tree.map(np.asarray, prob.graph),
+                                     device="cpu")
     meta = interop.meta_from_numpy(prob.meta)
-    ts = interop.state_from_numpy(jax.tree.map(np.asarray, js))
+    ts = interop.state_from_numpy(jax.tree.map(np.asarray, js),
+                                  device="cpu")
     np.testing.assert_allclose(ts.chol.numpy(), np.asarray(js.chol),
                                rtol=1e-12)
     for _ in range(3):

@@ -19,7 +19,7 @@ from dpgo_tpu.config import AgentParams as JAgentParams
 from dpgo_tpu.models import rbcd as jrbcd
 from dpgo_tpu.ops import pallas_tcg as ptcg
 from dpgo_tpu.types import EdgeSet as JEdgeSet
-from dpgo_tpu_torch.config import AgentParams
+from dpgo_tpu_torch.config import AgentParams, SolverParams
 from dpgo_tpu_torch.models import rbcd
 from dpgo_tpu_torch.ops import manifold, quadratic
 from dpgo_tpu_torch.ops import rtr_kernel as rk
@@ -38,7 +38,7 @@ def _problem(seed, n, A, d, rank, num_lc, dtype=torch.float32):
                                 num_lc=num_lc, rot_noise=0.05,
                                 trans_noise=0.05)
     part = partition_contiguous(meas, A)
-    graph, meta = rbcd.build_graph(part, rank, dtype)
+    graph, meta = rbcd.build_graph(part, rank, dtype, device="cpu")
     X0 = rbcd.centralized_chordal_init(part, meta, graph, dtype)
     Z = rbcd.neighbor_buffer(rbcd.public_table(X0, graph), graph)
     params = AgentParams(d=d, r=rank, num_robots=A)
@@ -71,7 +71,7 @@ def test_tcg_reference_matches_pallas_tcg(radius):
     ref = rk.tcg_reference(
         *[ops[k] for k in ORDER[:7]], Sc, ops["Lc"], g, rad,
         ops["inc_slot"], ops["inc_mask"], r=r, d=d, e_max=meta.e_max, **KW)
-    for a in range(2):
+    for a in range(meta.num_robots):
         eta_c, heta_c, stats = ptcg.tcg_call(
             *[_j(ops[k][a]) for k in ORDER[:7]], _j(Sc[a]), _j(ops["Lc"][a]),
             _j(g[a]), jnp.full((1, 1), radius, jnp.float32), r=r, d=d,
@@ -149,7 +149,7 @@ def test_wrapper_runs_plain_version_on_cpu_tensors():
         rk.rtr_full(*args[:9], args[9].long(), *args[10:], **kw)
     with pytest.raises(ValueError, match="shape"):
         rk.rtr_full(*args[:6], args[6][:1], *args[7:], **kw)
-    with pytest.raises(ValueError, match="kernel's shapes"):
+    with pytest.raises(ValueError, match="shape"):
         rk.rtr_full(*args, **dict(kw, r=7))
 
 
@@ -176,3 +176,28 @@ def test_cuda_tensor_without_cuda_raises():
     # back to the plain version either.
     with pytest.raises(RuntimeError, match="CUDA devices"):
         rk.rtr_full(*_kernel_args("meta"), r=5, d=3, e_max=4, **RTR_KW)
+
+
+def test_formulation_runs_the_kernel_for_every_float32_rtr_cuda_problem():
+    # On CUDA nothing but the algorithm and the type decides: a shape the
+    # kernel is not built for, or an edge payload too large for shared
+    # memory, still goes to the kernel's wrapper, which launches or raises.
+    meta = rbcd.GraphMeta(num_robots=1, n_max=2500, e_max=4948, s_max=0,
+                          p_max=0, d=3, rank=6)
+    params = AgentParams(d=3, r=6, num_robots=1)
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    assert rbcd._formulation(meta, params, None, torch.float32,
+                             cuda) == "kernel"
+    assert rbcd._formulation(meta, params, None, torch.float32,
+                             cpu) == "ell"
+    assert rbcd._formulation(meta, params, None, torch.float64,
+                             cuda) == "ell"
+    off = AgentParams(d=3, r=6, num_robots=1,
+                      solver=SolverParams(pallas_tcg=False))
+    assert rbcd._formulation(meta, off, None, torch.float32, cuda) == "ell"
+    forced = AgentParams(d=3, r=6, num_robots=1,
+                         solver=SolverParams(pallas_tcg=True))
+    assert rbcd._formulation(meta, forced, None, torch.float32,
+                             cpu) == "kernel"
+    with pytest.raises(ValueError, match="float32-only"):
+        rbcd._formulation(meta, forced, None, torch.float64, cuda)
