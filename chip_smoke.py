@@ -4,21 +4,28 @@
     python3 chip_smoke.py [--profile]
 
 Needs one CUDA device (exits non-zero without one).  Builds the port's
-CUDA kernel from ``dpgo_tpu_torch/csrc`` with ``nvcc``, holds each kernel
-against its plain PyTorch version on the card, drives the main path — the
-single-device JACOBI RBCD solve (``models.rbcd.prepare_problem`` +
-``dispatch_prepared``) on the synthetic stand-in for sphere2500 (2500
-poses, 4948 edges, 8 robots, rank 5, float32) — and times the kernels.
+CUDA kernels from ``dpgo_tpu_torch/csrc`` with ``nvcc``, holds each kernel
+against its plain PyTorch version on the card, drives the two paths on the
+synthetic stand-in for sphere2500 (2500 poses, 4948 edges, 8 robots, rank
+5, float32) and times the kernels:
+
+* ``solve`` — the single-device JACOBI RBCD solve
+  (``models.rbcd.prepare_problem`` + ``dispatch_prepared``), kernel B2;
+* ``refine`` — a float32 JACOBI descent to a fixed round count, then the
+  re-centered terminal refinement (``models.refine.solve_refine``,
+  accelerated, 3 cycles of 50 rounds towards an unreachable target) from
+  the float64 handoff iterate, kernel B4 once per refine round.
 
 Each phase prints one JSON line; any failure raises.  The line before the
 last is the kernel table ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``.  ``--profile`` adds a phase that
-traces one more solve with ``torch.profiler`` (device busy share and the
-kernels by device time).
+``{"ok": true, "device": {...}}``.  ``--profile`` adds phases that trace
+one more solve and one more refine cycle with ``torch.profiler`` (device
+busy share and the kernels by device time).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -33,17 +40,25 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
 from dpgo_tpu_torch.config import AgentParams, SolverParams  # noqa: E402
-from dpgo_tpu_torch.models import rbcd  # noqa: E402
+from dpgo_tpu_torch.models import rbcd, refine  # noqa: E402
 from dpgo_tpu_torch.ops import manifold, quadratic  # noqa: E402
 from dpgo_tpu_torch.ops import rtr_kernel as rk  # noqa: E402
+from dpgo_tpu_torch.utils import partition  # noqa: E402
 from dpgo_tpu_torch.utils.synthetic import make_measurements  # noqa: E402
 
 #: The main path's problem: bench.py's synthetic sphere2500 stand-in.
 N_POSES, NUM_LC, ROBOTS, RANK = 2500, 2449, 8, 5
 MAX_ITERS, GRAD_TOL = 200, 0.1
+#: The refine path (bench_convergence.py's settings: tight local solves,
+#: no consensus stop): descent rounds, then cycles of refine rounds.
+DESCENT_ROUNDS, REFINE_CYCLES, ROUNDS_PER_CYCLE = 300, 3, 50
 #: Parity bounds on the card (float32; summation order differs between
 #: the kernel and the plain version).
 X_ATOL, STAT_RTOL, TRAJ_ATOL = 1e-4, 1e-4, 5e-4
+#: B4 parity: the correction's change relative to the step's own size, and
+#: the cost increments relative to their largest magnitude (both are small
+#: differences of float32 sums taken in another order).
+D_STEP_RTOL, DF_RTOL, D_TRAJ_RTOL = 1e-3, 1e-3, 1e-2
 #: Published H100 SXM peaks (dense FP32 outside the tensor cores; HBM3).
 PEAK_FP32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
 
@@ -85,8 +100,8 @@ def cuda_ms(fn, reps: int, inner: int = 1, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def profile_solve(prob) -> dict:
-    """Device busy share of one solve and its kernels by device time, from
+def profile_run(fn) -> dict:
+    """Device busy share of ``fn()`` and its kernels by device time, from
     ``torch.profiler``."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -94,8 +109,7 @@ def profile_solve(prob) -> dict:
     torch.cuda.synchronize()
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        res = rbcd.dispatch_prepared(prob, max_iters=MAX_ITERS,
-                                     grad_norm_tol=GRAD_TOL)
+        rounds = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = [(e.key, e.self_device_time_total, e.count)
@@ -103,7 +117,7 @@ def profile_solve(prob) -> dict:
             if e.device_type == torch.autograd.DeviceType.CUDA]
     device_us = sum(r[1] for r in rows)
     rows.sort(key=lambda r: -r[1])
-    return {"rounds": res.iterations, "wall_s": wall,
+    return {"rounds": rounds, "wall_s": wall,
             "device_busy_s": device_us / 1e6,
             "device_busy_share": device_us / 1e6 / wall,
             "device_kernels": len(rows),
@@ -131,17 +145,29 @@ def _unit_ops(r: int, d: int) -> dict:
         init_pose=precond + 4 * rk_,
         retract_pose=4 * r * d * d + 2 * r + 24 * (6 * d ** 3 + 2 * d * d),
         start_pose=2 * r * d * d + d * d + tproj + 2 * rk_,
-        mdec_pose=4 * rk_, rk=rk_)
+        mdec_pose=4 * rk_, rk=rk_,
+        # The refine kernel: the re-centered start (S1, S, g, |g|^2, Y),
+        # the radius' preconditioner pass, the cost increment (cross and
+        # quadratic terms) and the polar-correction series.
+        refine_start_pose=8 * r * d * d + 2 * d * d + 5 * rk_,
+        refine_radius_pose=precond + 2 * rk_,
+        refine_cost_edge=edge_res + 4 * r * k + 6,
+        refine_retract_pose=rk_ + 8 * r * d * d + r * d + d * d
+        + 6 * d ** 3 + 7 * d * d)
+
+
+#: Per-edge rows of the tile-major edge operands (``[A, nt, c, T]``).
+EDGE_KEYS = ("idx_i", "idx_j", "rot", "trn", "wk", "wt", "rho_rot",
+             "rho_trn")
 
 
 def _inputs_bytes(ops: dict, e_max: int, A: int) -> int:
     """Bytes of the edge payload rows the kernel reads (e_max per agent)
     plus every other operand, read once."""
-    d = ops["trn"].shape[2]
-    edge_bytes = A * e_max * 4 * (2 + d * d + d + 2)
+    rows = sum(ops[k].shape[2] for k in EDGE_KEYS if k in ops)
     rest = sum(t.numel() * t.element_size() for key, t in ops.items()
-               if key not in ("idx_i", "idx_j", "rot", "trn", "wk", "wt"))
-    return edge_bytes + rest
+               if key not in EDGE_KEYS)
+    return A * e_max * 4 * rows + rest
 
 
 def rtr_full_work(ops: dict, out, graph, meta) -> tuple[int, int]:
@@ -170,6 +196,24 @@ def tcg_work(ops: dict, out, graph, meta) -> tuple[int, int]:
     sweep = E * u["sweep_edge"] + inc * u["rk"]
     flops = n * u["init_pose"] + iters * (
         sweep + n * (u["hess_pose"] + u["update_pose"]))
+    out_bytes = sum(t.numel() * t.element_size() for t in out)
+    return (_inputs_bytes(ops, meta.e_max, meta.num_robots) + out_bytes,
+            int(flops.sum().item()))
+
+
+def rtr_refine_full_work(ops: dict, out, graph, meta) -> tuple[int, int]:
+    u = _unit_ops(meta.rank, meta.d)
+    E = graph.edges.mask.sum(1).double()
+    inc = graph.inc_mask.sum((1, 2)).double()
+    n = graph.n.double()
+    iters = out.tcg_iters.double()
+    att = out.stats[:, 0].double()
+    sweep = E * u["sweep_edge"] + inc * u["rk"]
+    flops = (sweep + n * (u["refine_start_pose"] + u["refine_radius_pose"])
+             + E * u["refine_cost_edge"]
+             + att * (n * (u["init_pose"] + u["refine_retract_pose"]
+                           + u["mdec_pose"]) + E * u["refine_cost_edge"])
+             + iters * (sweep + n * (u["hess_pose"] + u["update_pose"])))
     out_bytes = sum(t.numel() * t.element_size() for t in out)
     return (_inputs_bytes(ops, meta.e_max, meta.num_robots) + out_bytes,
             int(flops.sum().item()))
@@ -211,6 +255,178 @@ def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float(((a - b).abs() / b.abs().clamp(min=1e-30)).max())
 
 
+REFINE_ORDER = ("idx_i", "idx_j", "rot", "trn", "wk", "wt", "rho_rot",
+                "rho_trn", "Rc", "Dc", "Dzc", "g0c", "Grefc", "S0c", "Lc",
+                "inc_slot", "inc_mask", "n_local")
+
+
+def refine_operands(D, consts, graph) -> dict:
+    Dz = rbcd.neighbor_buffer(rbcd.public_table(D, graph), graph)
+    return dict(zip(REFINE_ORDER,
+                    refine.refine_kernel_operands(D, Dz, consts, graph)))
+
+
+def refine_parity(ops: dict, kw: dict) -> tuple[dict, object]:
+    """B4 against its plain version on one refine round's operands."""
+    out = rk.rtr_refine_full(*ops.values(), **kw)
+    ref = rk.rtr_refine_full_reference(*ops.values(), **kw)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(out.D).all() and torch.isfinite(out.stats)
+               .all()), "rtr_refine_full returned non-finite values")
+    step = float((ref.D - ops["Dc"]).abs().max())
+    err_d = float((out.D - ref.D).abs().max())
+    df = ref.stats[:, 2:4]
+    row = {"max_abs_dD": err_d, "max_abs_step": step,
+           "rel_dD": err_d / max(step, 1e-30),
+           "stat_flips": int((out.stats[:, :2] != ref.stats[:, :2]).any(1)
+                             .sum()),
+           "rel_d_df0_df": float((out.stats[:, 2:4] - df).abs().max()
+                                 / df.abs().max().clamp(min=1e-30)),
+           "rel_d_gn0": rel_err(out.stats[:, 4], ref.stats[:, 4]),
+           "attempts": out.stats[:, 0].tolist(),
+           "tcg_iters": out.tcg_iters.tolist()}
+    check(row["stat_flips"] == 0 and row["rel_dD"] <= D_STEP_RTOL
+          and row["rel_d_df0_df"] <= DF_RTOL
+          and row["rel_d_gn0"] <= STAT_RTOL,
+          "rtr_refine_full kernel disagrees with its plain version")
+    return row, out
+
+
+def gradnorm64(X64: np.ndarray, e64, d: int) -> float:
+    return refine.central_gradnorm64(refine._np_project_manifold(X64, d),
+                                     e64, len(X64), d)
+
+
+def refine_phase(prob, meas, card: str, profile: bool) -> list:
+    """The refine path, counted, its parity checks on the card, B4's
+    timing, and (``profile``) one traced refine cycle.  Returns B4's row
+    of the kernel table."""
+    dev = prob.graph.global_index.device
+    rparams = AgentParams(d=3, r=RANK, num_robots=ROBOTS,
+                          rel_change_tol=0.0,
+                          solver=SolverParams(grad_norm_tol=1e-9))
+    rprob = dataclasses.replace(prob, params=rparams)
+    graph, meta = rprob.graph, rprob.meta
+    edges64 = refine.host_edges_f64(meas)
+    e64 = refine.np_edges_batched(edges64)
+
+    # --- the path, counted: descent, handoff, refinement ------------------
+    rk.LAUNCHES = 0
+    rk.REFINE_LAUNCHES = 0
+    refine.ROUNDS = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = rbcd.dispatch_prepared(rprob, max_iters=DESCENT_ROUNDS,
+                                 grad_norm_tol=0.0,
+                                 eval_every=DESCENT_ROUNDS)
+    t1 = time.perf_counter()
+    Xg64 = rbcd.gather_to_global(res.X, graph, N_POSES).double().cpu() \
+        .numpy()
+    f_hand = refine.global_cost(refine._np_project_manifold(Xg64, 3),
+                                edges64)
+    t2 = time.perf_counter()
+    X64, gap, cycles, hist = refine.solve_refine(
+        Xg64, graph, meta, rparams, edges64, f_opt=f_hand, rel_gap=-1.0,
+        rounds_per_cycle=ROUNDS_PER_CYCLE, max_cycles=REFINE_CYCLES,
+        accel=True)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    launches = {"rtr_full": rk.LAUNCHES, "rtr_refine_full":
+                rk.REFINE_LAUNCHES}
+    rounds = refine.ROUNDS
+    f_final = refine.global_cost(X64, edges64)
+    # Each verified cycle's gradient norm: the same refinement cut after
+    # 1 .. cycles - 1 cycles (uncounted; the kernel repeats bit for bit).
+    gn_cycles = [gradnorm64(Xg64, e64, 3)]
+    for c in range(1, cycles):
+        Xc = refine.solve_refine(
+            Xg64, graph, meta, rparams, edges64, f_opt=f_hand, rel_gap=-1.0,
+            rounds_per_cycle=ROUNDS_PER_CYCLE, max_cycles=c, accel=True)[0]
+        gn_cycles.append(gradnorm64(Xc, e64, 3))
+    gn_cycles.append(gradnorm64(X64, e64, 3))
+    YY = X64[..., :3]
+    orth = float(np.abs(np.swapaxes(YY, -1, -2) @ YY - np.eye(3)).max())
+    emit({"phase": "refine", "poses": N_POSES, "robots": ROBOTS,
+          "rank": RANK, "dtype": "float32",
+          "descent_rounds": res.iterations, "refine_cycles": cycles,
+          "refine_rounds": rounds, "launches": launches,
+          "f64_cost_handoff": f_hand, "f64_cost_final": f_final,
+          "f64_cost_per_verify": [f_hand * (1.0 + g) for g, _ in hist],
+          "central_gradnorm64_per_cycle": gn_cycles,
+          "rel_drop": (f_hand - f_final) / f_hand, "max_orth_err": orth,
+          "descent_s": t1 - t0, "setup_s": t2 - t1, "refine_s": t3 - t2,
+          "s_per_refine_round": (t3 - t2) / max(rounds, 1)})
+    check(res.iterations == DESCENT_ROUNDS
+          and launches["rtr_full"] == DESCENT_ROUNDS,
+          "the descent did not launch B2 once per round")
+    check(rounds > 0 and rounds % ROUNDS_PER_CYCLE == 0,
+          "the refinement did not run whole cycles")
+    check(launches["rtr_refine_full"] == rounds > 0,
+          "the refinement did not launch B4 once per refine round")
+    check(bool(np.isfinite(X64).all()) and X64.shape == (N_POSES, RANK, 4),
+          "the refined iterate is malformed")
+    check(f_final < f_hand, "refinement did not lower the f64 cost")
+    check(orth <= 1e-8, "the refined iterate left the manifold")
+
+    # --- parity on the card -----------------------------------------------
+    kw = rbcd.kernel_options(rparams, meta)
+    ref = refine.recenter(Xg64, graph, meta, rparams, edges64)
+    D0 = torch.zeros_like(ref.consts.R)
+    D = refine.refine_rounds(D0, ref.consts, graph, meta, rparams, 3)
+    ops = refine_operands(D, ref.consts, graph)
+    row, out = refine_parity(ops, kw)
+    emit({"phase": "parity", "kernel": "rtr_refine_full", "agents": ROBOTS,
+          **row})
+    err_d = row["max_abs_dD"]
+
+    part1 = partition.partition_contiguous(meas, 1)
+    g1, m1 = rbcd.build_graph(part1, RANK, torch.float32, dev)
+    ref1 = refine.recenter(Xg64, g1, m1, rparams, edges64)
+    ops1 = refine_operands(torch.zeros_like(ref1.consts.R), ref1.consts, g1)
+    row1, _ = refine_parity(ops1, rbcd.kernel_options(rparams, m1))
+    emit({"phase": "parity", "kernel": "rtr_refine_full", "agents": 1,
+          "e_max": m1.e_max, "payload_bytes": m1.e_max * 144, **row1})
+
+    plain = dataclasses.replace(rparams, solver=dataclasses.replace(
+        rparams.solver, pallas_tcg=False))
+    Dk, De = D0, D0
+    for _ in range(10):
+        Dk = refine.refine_round(Dk, ref.consts, graph, meta, rparams)[0]
+        De = refine.refine_round(De, ref.consts, graph, meta, plain)[0]
+    traj = float((Dk - De).abs().max())
+    scale = float(De.abs().max())
+    emit({"phase": "parity", "kernel": "rtr_refine_full", "rounds": 10,
+          "formulations": ["kernel", "ell"], "max_abs_dD": traj,
+          "max_abs_D": scale})
+    check(traj <= D_TRAJ_RTOL * scale,
+          "the refine kernel's rounds leave the plain formulation's")
+
+    # --- timing at the slice shape -----------------------------------------
+    ms = cuda_ms(lambda: rk.rtr_refine_full(*ops.values(), **kw), reps=20,
+                 inner=10)
+    plain_ms = cuda_ms(
+        lambda: rk.rtr_refine_full_reference(*ops.values(), **kw), reps=5,
+        warmup=1)
+    nbytes, flops = rtr_refine_full_work(ops, out, graph, meta)
+    b_ms, b_by = bound(nbytes, flops)
+    emit({"phase": "timing", "card": card, "kernel": "rtr_refine_full",
+          "ms": ms, "plain_ms": plain_ms, "ctas": ROBOTS})
+    if profile:
+        def cycle():
+            refine.refine_rounds_accel(D0, ref.consts, graph, meta, rparams,
+                                       ROUNDS_PER_CYCLE)
+            return ROUNDS_PER_CYCLE
+        emit({"phase": "profile", "path": "refine", "card": card,
+              **profile_run(cycle)})
+    return {"name": "rtr_refine_full", "route": "cuda",
+            "source": "dpgo_tpu_torch/csrc/rtr_full.cu",
+            "replaces": "dpgo_tpu/ops/pallas_tcg.py:715",
+            "launches": launches["rtr_refine_full"], "max_abs_err": err_d,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None, "bytes": nbytes,
+            "flops": flops}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -232,7 +448,9 @@ def main() -> int:
                     if "registers" in ln or "spill" in ln]})
     emit({"phase": "kernels", "kernels": [
         {"name": "rtr_full", "replaces": "pallas_tcg._rtr_full_kernel"},
-        {"name": "tcg", "replaces": "pallas_tcg._tcg_kernel"}]})
+        {"name": "tcg", "replaces": "pallas_tcg._tcg_kernel"},
+        {"name": "rtr_refine_full",
+         "replaces": "pallas_tcg._rtr_refine_full_kernel"}]})
 
     # --- parity: each kernel against its plain version, same inputs ----
     meas = make_measurements(np.random.default_rng(0), n=N_POSES, d=3,
@@ -365,8 +583,15 @@ def main() -> int:
           "ctas": ROBOTS, "sms": torch.cuda.get_device_properties(0)
           .multi_processor_count})
 
-    if "--profile" in sys.argv[1:]:
-        emit({"phase": "profile", "card": card, **profile_solve(prob)})
+    profile = "--profile" in sys.argv[1:]
+    if profile:
+        def solve():
+            return rbcd.dispatch_prepared(prob, max_iters=MAX_ITERS,
+                                          grad_norm_tol=GRAD_TOL).iterations
+        emit({"phase": "profile", "path": "solve", "card": card,
+              **profile_run(solve)})
+
+    rows.append(refine_phase(prob, meas, card, profile))
 
     print(card, flush=True)
     emit({"kernels": rows})

@@ -10,6 +10,20 @@
 //     and f did not rise, else radius / 4}.
 //   * _tcg_kernel (tcg_call) -> tcg_kernel below: the Steihaug-Toint
 //     truncated CG alone, from a given S and g.
+//   * _rtr_refine_full_kernel (rtr_refine_full_call) ->
+//     rtr_refine_full_kernel below: the re-centered step of the terminal
+//     refinement (models/refine.py).  The variable is a small float32
+//     correction D about a reference point Rc that the host holds in
+//     float64; the expansion point is Y = Rc + D.  One launch is the whole
+//     step of every agent for one refine round: the increment gradient dG
+//     at [D | Dz], S1 = sym(D_Y^T Gref_Y + Y_Y^T dG_Y), S = S0 + S1,
+//     g = g0 + dG with g_Y -= Rc_Y S1 + D_Y S, gn0, the early exit, the
+//     initial radius min(initial_radius, 10 |precond(g)|), then the
+//     attempts of B2 with the cost replaced by the increment
+//     f(Rc + D) - f(Rc) = sum_e w [<rho, L> + |L|^2 / 2] against the
+//     reference residuals rho, and the Newton-Schulz retraction replaced
+//     by the four-term polar-correction series on U = D + eta.  Every f32
+//     rounding error therefore scales with |D|, never with f or |G|.
 //
 // What bounds it on this card: neither bytes nor flops.  At the sphere2500
 // shape (8 agents) one agent is ~310 poses, ~900 edges and ~25 KB per tCG
@@ -33,6 +47,11 @@
 // sweeps) is unrolled over the template parameters (R, D).  Spreading one
 // agent over several CTAs, to occupy more SMs, is left for later work.
 //
+// The refine kernel is bound the same way: its payload adds r*d + r floats
+// of reference residuals per edge (144 B an edge at r = 5, d = 3 instead of
+// 64), which still fits in shared memory at the sphere2500 shape (e_max 920,
+// ~132 KB) and moves to the global workspace from ~1.6k edges per agent.
+//
 // Layout (matches the tile-major arrays of models/rbcd.build_graph):
 //   idx_i, idx_j  [A, nt, 1, T] int32 into the [n + s] pose buffer; index
 //                 n + s is padding and gathers zero, as does any index >= n
@@ -41,6 +60,8 @@
 //   trn           [A, nt, D, T] f32;  wk, wt [A, nt, 1, T] f32
 //   X [A, RK, n], Z [A, RK, s], L [A, K*K, n] (lower Cholesky, i*K + p)
 //   inc_slot / inc_mask [A, n, Kinc]: ELL incidence into [gi (E) | gj (E)]
+//   rho_rot       [A, nt, R*D, T] f32 reference rotation residuals (refine),
+//                 component a*D + c;  rho_trn [A, nt, R, T] (refine)
 // Only the first E = e_max tile positions carry edges.
 
 #include <cuda_runtime.h>
@@ -55,6 +76,8 @@ constexpr float kEps = 1e-30f;
 constexpr size_t kRedBytes = kWarps * kMaxSums * sizeof(float);
 constexpr size_t kMaxSharedBytes = 232448;  // 227 KB per block on sm_90
 constexpr int kNsSweeps = 24;
+constexpr int kVecs = 8;        // per-agent loop vectors of B1/B2
+constexpr int kRefineVecs = 9;  // B4 adds the expansion point Y
 
 struct Problem {
   int n, s, E, kinc, n_act;
@@ -70,6 +93,8 @@ struct Problem {
   const float* trn;    // payload [D, E]
   const float* wk;     // payload [E]
   const float* wt;     // payload [E]
+  const float* rho_rot;  // payload [R*D, E] (refine only)
+  const float* rho_trn;  // payload [R, E] (refine only)
   float* gbuf;         // global [2E, RK]
   float* red;          // shared [kWarps * kMaxSums]
 };
@@ -298,6 +323,35 @@ __device__ float cost(const Problem& P, const float* V, const float* Zv) {
   }
   block_sum<1>(acc, P.red);
   return 0.5f * acc[0];
+}
+
+// Refine mode: f(Rc + V) - f(Rc) over the buffer [V | Zv], the cross term
+// against the reference residuals plus half the quadratic term
+// (pallas_tcg._build_math.cost with refine set).
+template <int R, int D>
+__device__ float refine_cost(const Problem& P, const float* V,
+                             const float* Zv) {
+  float acc[1] = {0.f};
+  for (int e = threadIdx.x; e < P.E; e += blockDim.x) {
+    float rR[R][D], rt[R], Rm[D * D], t[D];
+    edge_residuals<R, D>(P, e, V, Zv, rR, rt, Rm, t);
+    float cR = 0.f, ct = 0.f, qR = 0.f, qt = 0.f;
+#pragma unroll
+    for (int a = 0; a < R; ++a) {
+#pragma unroll
+      for (int c = 0; c < D; ++c) {
+        cR += P.rho_rot[(a * D + c) * P.E + e] * rR[a][c];
+        qR += rR[a][c] * rR[a][c];
+      }
+      ct += P.rho_trn[a * P.E + e] * rt[a];
+      qt += rt[a] * rt[a];
+    }
+    const float wk = P.wk[e];
+    const float wt = P.wt[e];
+    acc[0] += wk * cR + wt * ct + 0.5f * (wk * qR + wt * qt);
+  }
+  block_sum<1>(acc, P.red);
+  return acc[0];
 }
 
 struct TcgVecs {
@@ -530,13 +584,82 @@ __device__ void retract(const Problem& P, const float* V, float* out) {
   __syncthreads();
 }
 
+// Refine mode: D_new with Rc + D_new = polar(Rc + D + V), from the small
+// quantities only (pallas_tcg._build_math.retract_refine): U = D + V,
+// E = sym(Rc^T U + U^T Rc + U^T U) (Rc^T Rc = I, projected in float64 on
+// the host), C = -E/2 + 3/8 E^2 - 5/16 E^3 + 35/128 E^4 ~ (I + E)^(-1/2) - I,
+// D_new_Y = U_Y + (Rc_Y + U_Y) C, D_new_t = U_t.  Poses at or past the
+// agent's own count keep their D.
+template <int R, int D>
+__device__ void retract_refine(const Problem& P, const float* Rc,
+                               const float* Dv, const float* V, float* out) {
+  constexpr int K = D + 1;
+  constexpr int RK = R * K;
+  const int n = P.n;
+  for (int p = threadIdx.x; p < n; p += blockDim.x) {
+    float u[RK];
+    load_pose<RK>(Dv, n, p, u);
+    if (p >= P.n_act) {
+      store_pose<RK>(out, n, p, u);
+      continue;
+    }
+    float rc[RK], v[RK];
+    load_pose<RK>(Rc, n, p, rc);
+    load_pose<RK>(V, n, p, v);
+#pragma unroll
+    for (int q = 0; q < RK; ++q) u[q] += v[q];
+    float M[D][D], E[D][D], E2[D][D], E3[D][D], E4[D][D];
+#pragma unroll
+    for (int b = 0; b < D; ++b)
+#pragma unroll
+      for (int c = 0; c < D; ++c) {
+        float s = 0.f;
+#pragma unroll
+        for (int a = 0; a < R; ++a)
+          s += rc[a * K + b] * u[a * K + c] + u[a * K + b] * rc[a * K + c] +
+               u[a * K + b] * u[a * K + c];
+        M[b][c] = s;
+      }
+#pragma unroll
+    for (int b = 0; b < D; ++b)
+#pragma unroll
+      for (int c = 0; c < D; ++c) E[b][c] = 0.5f * (M[b][c] + M[c][b]);
+    matmul3<D>(E, E, E2);
+    matmul3<D>(E2, E, E3);
+    matmul3<D>(E2, E2, E4);
+#pragma unroll
+    for (int b = 0; b < D; ++b)
+#pragma unroll
+      for (int c = 0; c < D; ++c)
+        M[b][c] = -0.5f * E[b][c] + 0.375f * E2[b][c] -
+                  0.3125f * E3[b][c] + 0.2734375f * E4[b][c];
+    float o[RK];
+#pragma unroll
+    for (int a = 0; a < R; ++a) {
+#pragma unroll
+      for (int c = 0; c < D; ++c) {
+        float s = 0.f;
+#pragma unroll
+        for (int b = 0; b < D; ++b)
+          s += (rc[a * K + b] + u[a * K + b]) * M[b][c];
+        o[a * K + c] = u[a * K + c] + s;
+      }
+      o[a * K + D] = u[a * K + D];
+    }
+    store_pose<RK>(out, n, p, o);
+  }
+  __syncthreads();
+}
+
 // Layout of one agent's edge payload (payload_bytes), in shared memory or
-// in the global workspace.
-template <int D>
+// in the global workspace; the refine kernel's reference residuals follow
+// the edge transforms and weights.
+template <int R, int D>
 __device__ void load_edges(Problem& P, unsigned char* payload, int a, int Ep,
                            int T, const int* idx_i, const int* idx_j,
                            const float* rot, const float* trn,
-                           const float* wk, const float* wt) {
+                           const float* wk, const float* wt,
+                           const float* rho_rot, const float* rho_trn) {
   const int E = P.E;
   int* ei = reinterpret_cast<int*>(payload);
   int* ej = ei + E;
@@ -544,21 +667,32 @@ __device__ void load_edges(Problem& P, unsigned char* payload, int a, int Ep,
   float* strn = srot + D * D * E;
   float* swk = strn + D * E;
   float* swt = swk + E;
+  float* srr = swt + E;
+  float* srt = srr + R * D * E;
   const int nt = Ep / T;
   const size_t base = (size_t)a * Ep;
   for (int e = threadIdx.x; e < E; e += blockDim.x) {
     const int tl = e / T;
     const int ln = e - tl * T;
+    const size_t tile = (size_t)a * nt + tl;
     ei[e] = idx_i[base + e];
     ej[e] = idx_j[base + e];
     swk[e] = wk[base + e];
     swt[e] = wt[base + e];
 #pragma unroll
     for (int c = 0; c < D * D; ++c)
-      srot[c * E + e] = rot[(((size_t)a * nt + tl) * (D * D) + c) * T + ln];
+      srot[c * E + e] = rot[(tile * (D * D) + c) * T + ln];
 #pragma unroll
     for (int c = 0; c < D; ++c)
-      strn[c * E + e] = trn[(((size_t)a * nt + tl) * D + c) * T + ln];
+      strn[c * E + e] = trn[(tile * D + c) * T + ln];
+    if (rho_rot != nullptr) {
+#pragma unroll
+      for (int c = 0; c < R * D; ++c)
+        srr[c * E + e] = rho_rot[(tile * (R * D) + c) * T + ln];
+#pragma unroll
+      for (int c = 0; c < R; ++c)
+        srt[c * E + e] = rho_trn[(tile * R + c) * T + ln];
+    }
   }
   P.ei = ei;
   P.ej = ej;
@@ -566,6 +700,8 @@ __device__ void load_edges(Problem& P, unsigned char* payload, int a, int Ep,
   P.trn = strn;
   P.wk = swk;
   P.wt = swt;
+  P.rho_rot = srr;
+  P.rho_trn = srt;
   __syncthreads();
 }
 
@@ -578,6 +714,8 @@ struct Args {
   const float* trn;
   const float* wk;
   const float* wt;
+  const float* rho_rot;  // refine only, else nullptr
+  const float* rho_trn;
   const float* X;
   const float* Z;
   const float* L;
@@ -592,7 +730,7 @@ struct Args {
 
 template <int R, int D>
 __device__ Problem setup(const Args& g, unsigned char* smem, int a,
-                         float** vecs) {
+                         float** vecs, int nvec) {
   constexpr int RK = R * (D + 1);
   Problem P;
   P.n = g.n;
@@ -607,8 +745,8 @@ __device__ Problem setup(const Args& g, unsigned char* smem, int a,
   P.incm = g.incm + (size_t)a * g.n * g.kinc;
   float* ws = g.ws + (size_t)a * g.ws_stride;
   const size_t vec = (size_t)RK * g.n;
-  for (int i = 0; i < 8; ++i) vecs[i] = ws + i * vec;
-  float* S = ws + 8 * vec;
+  for (int i = 0; i < nvec; ++i) vecs[i] = ws + i * vec;
+  float* S = ws + nvec * vec;
   P.S = S;
   P.gbuf = S + (size_t)D * D * g.n;
   P.red = reinterpret_cast<float*>(smem);
@@ -616,8 +754,8 @@ __device__ Problem setup(const Args& g, unsigned char* smem, int a,
       g.payload_in_smem
           ? smem + kRedBytes
           : reinterpret_cast<unsigned char*>(P.gbuf + 2 * (size_t)g.E * RK);
-  load_edges<D>(P, payload, a, g.Ep, g.T, g.idx_i, g.idx_j, g.rot, g.trn,
-                g.wk, g.wt);
+  load_edges<R, D>(P, payload, a, g.Ep, g.T, g.idx_i, g.idx_j, g.rot, g.trn,
+                   g.wk, g.wt, g.rho_rot, g.rho_trn);
   return P;
 }
 
@@ -629,8 +767,8 @@ rtr_full_kernel(Args args, float initial_radius, int max_rejections,
   constexpr int RK = R * K;
   extern __shared__ __align__(16) unsigned char smem[];
   const int a = blockIdx.x;
-  float* v[8];
-  Problem P = setup<R, D>(args, smem, a, v);
+  float* v[kVecs];
+  Problem P = setup<R, D>(args, smem, a, v, kVecs);
   float* g = v[0];
   float* xp = v[7];
   TcgVecs W{v[1], v[2], v[3], v[4], v[5], v[6]};
@@ -725,8 +863,8 @@ tcg_kernel(Args args, const float* Sc, const float* gc, const float* radius,
   constexpr int RK = R * (D + 1);
   extern __shared__ __align__(16) unsigned char smem[];
   const int a = blockIdx.x;
-  float* v[8];
-  Problem P = setup<R, D>(args, smem, a, v);
+  float* v[kVecs];
+  Problem P = setup<R, D>(args, smem, a, v, kVecs);
   P.S = Sc + (size_t)a * D * D * P.n;
   const size_t off = (size_t)a * RK * P.n;
   TcgVecs W{eta_out + off, heta_out + off, v[3], v[4], v[5], v[6]};
@@ -739,27 +877,193 @@ tcg_kernel(Args args, const float* Sc, const float* gc, const float* radius,
   }
 }
 
-size_t payload_bytes(int d, int E) {
-  return (size_t)E * 4 * (d * d + d + 4);
+// Per-recenter constants of the refine kernel, [A, ...] component-major.
+struct RefineConsts {
+  const float* Rc;    // [RK, n] reference point
+  const float* g0;    // [RK, n] Riemannian gradient at Rc
+  const float* Gref;  // [RK, n] Euclidean gradient at Rc
+  const float* S0;    // [D*D, n] sym(Rc_Y^T Gref_Y)
+};
+
+// Args.X is the correction D and Args.Z its neighbor slots Dz.
+template <int R, int D>
+__global__ void __launch_bounds__(kThreads)
+rtr_refine_full_kernel(Args args, RefineConsts rc, float initial_radius,
+                       int max_rejections, float grad_tol, float* D_out,
+                       float* stats, int* tcg_iters) {
+  constexpr int K = D + 1;
+  constexpr int RK = R * K;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int a = blockIdx.x;
+  float* v[kRefineVecs];
+  Problem P = setup<R, D>(args, smem, a, v, kRefineVecs);
+  const int n = P.n;
+  const size_t off = (size_t)a * RK * n;
+  const float* Dst = P.X;
+  const float* Rc = rc.Rc + off;
+  const float* g0 = rc.g0 + off;
+  const float* Gref = rc.Gref + off;
+  const float* S0 = rc.S0 + (size_t)a * D * D * n;
+  float* g = v[0];
+  float* dp = v[7];
+  float* Y = v[8];
+  TcgVecs W{v[1], v[2], v[3], v[4], v[5], v[6]};
+  float* dout = D_out + off;
+  float* S = const_cast<float*>(P.S);
+
+  // dG = egrad([D | Dz]) into W.hd (the residual map is affine with this
+  // linear part), then Y, S = S0 + S1 and the re-centered gradient g.
+  grad_sweep<R, D>(P, Dst, P.Z, W.hd);
+  float gg[1] = {0.f};
+  for (int p = threadIdx.x; p < n; p += blockDim.x) {
+    float dd[RK], y[RK], G[RK], Gr[RK], gv[RK];
+    load_pose<RK>(Dst, n, p, dd);
+    load_pose<RK>(Rc, n, p, y);
+    load_pose<RK>(W.hd, n, p, G);
+    load_pose<RK>(Gref, n, p, Gr);
+    load_pose<RK>(g0, n, p, gv);
+    store_pose<RK>(dout, n, p, dd);
+    float S1[D][D], St[D][D];
+#pragma unroll
+    for (int b = 0; b < D; ++b)
+#pragma unroll
+      for (int c = 0; c < D; ++c) {
+        float s = 0.f;
+#pragma unroll
+        for (int q = 0; q < R; ++q)
+          s += dd[q * K + b] * Gr[q * K + c] +
+               (y[q * K + b] + dd[q * K + b]) * G[q * K + c];
+        S1[b][c] = s;  // M1 for now
+      }
+#pragma unroll
+    for (int b = 0; b < D; ++b)
+#pragma unroll
+      for (int c = b; c < D; ++c) {
+        const float sy = 0.5f * (S1[b][c] + S1[c][b]);
+        S1[b][c] = sy;
+        S1[c][b] = sy;
+      }
+#pragma unroll
+    for (int b = 0; b < D; ++b)
+#pragma unroll
+      for (int c = 0; c < D; ++c) {
+        St[b][c] = S0[(b * D + c) * n + p] + S1[b][c];
+        S[(b * D + c) * n + p] = St[b][c];
+      }
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+#pragma unroll
+      for (int c = 0; c < D; ++c) {
+        float s = 0.f;
+#pragma unroll
+        for (int b = 0; b < D; ++b)
+          s += y[q * K + b] * S1[b][c] + dd[q * K + b] * St[b][c];
+        gv[q * K + c] = gv[q * K + c] + G[q * K + c] - s;
+      }
+      gv[q * K + D] = gv[q * K + D] + G[q * K + D];
+    }
+    store_pose<RK>(g, n, p, gv);
+    gg[0] += dot<RK>(gv, gv);
+#pragma unroll
+    for (int q = 0; q < RK; ++q) y[q] += dd[q];
+    store_pose<RK>(Y, n, p, y);
+  }
+  block_sum<1>(gg, P.red);
+  const float gn0 = sqrtf(gg[0]);
+  P.X = Y;  // projections, curvature and preconditioner are taken at Y
+
+  // Initial radius at the preconditioned-gradient (Cauchy) scale.
+  float pp[1] = {0.f};
+  for (int p = threadIdx.x; p < n; p += blockDim.x) {
+    float y[RK], pg[RK];
+    load_pose<RK>(Y, n, p, y);
+    load_pose<RK>(g, n, p, pg);
+    precond<R, D>(P, p, y, pg);
+    pp[0] += dot<RK>(pg, pg);
+  }
+  block_sum<1>(pp, P.red);
+  float radius = fminf(initial_radius, 10.f * sqrtf(pp[0]));
+  const float f0 = refine_cost<R, D>(P, Dst, P.Z);
+
+  int k_att = (gn0 < grad_tol) ? max_rejections : 0;
+  float f_best = f0;
+  bool accepted = false;
+  int iters = 0;
+  while (k_att < max_rejections && !accepted) {
+    bool hit;
+    iters += tcg<R, D>(P, g, radius, args.max_iters, args.kappa, args.theta,
+                       W, &hit);
+    retract_refine<R, D>(P, Rc, Dst, W.eta, dp);
+    const float f_prop = refine_cost<R, D>(P, dp, P.Z);
+    float m2[2] = {0.f, 0.f};
+    for (int p = threadIdx.x; p < n; p += blockDim.x) {
+      float gv[RK], et[RK], he[RK];
+      load_pose<RK>(g, n, p, gv);
+      load_pose<RK>(W.eta, n, p, et);
+      load_pose<RK>(W.heta, n, p, he);
+      m2[0] += dot<RK>(gv, et);
+      m2[1] += dot<RK>(et, he);
+    }
+    block_sum<2>(m2, P.red);
+    const float mdec = -(m2[0] + 0.5f * m2[1]);
+    const float rho = (f0 - f_prop) / fmaxf(mdec, kEps);
+    const bool ok = (rho > 0.1f) && (f_prop <= f0);
+    if (ok) {
+      for (int p = threadIdx.x; p < n; p += blockDim.x) {
+        float x[RK];
+        load_pose<RK>(dp, n, p, x);
+        store_pose<RK>(dout, n, p, x);
+      }
+      f_best = f_prop;
+    } else {
+      radius = radius / 4.f;
+    }
+    ++k_att;
+    accepted = ok;
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) {
+    float* st = stats + (size_t)a * 5;
+    st[0] = (float)k_att;
+    st[1] = accepted ? 1.f : 0.f;
+    st[2] = f0;
+    st[3] = f_best;
+    st[4] = gn0;
+    tcg_iters[a] = iters;
+  }
 }
 
-bool payload_fits_smem(int d, int E) {
-  return kRedBytes + payload_bytes(d, E) <= kMaxSharedBytes;
+// The one formula for an agent's edge payload: indices, transforms and
+// weights, plus the reference residuals in refine mode.
+size_t payload_bytes(int r, int d, int E, bool refine) {
+  return (size_t)E * 4 * (d * d + d + 4 + (refine ? r * d + r : 0));
 }
 
-size_t smem_bytes(const Args& args, int d) {
-  return kRedBytes + (args.payload_in_smem ? payload_bytes(d, args.E) : 0);
+bool payload_fits_smem(int r, int d, int E, bool refine) {
+  return kRedBytes + payload_bytes(r, d, E, refine) <= kMaxSharedBytes;
+}
+
+size_t smem_bytes(const Args& args, int r, int d) {
+  return kRedBytes + (args.payload_in_smem
+                          ? payload_bytes(r, d, args.E,
+                                          args.rho_rot != nullptr)
+                          : 0);
+}
+
+template <typename Kern>
+int prepare_launch(Kern kern, const Args& args, int r, int d, size_t* smem) {
+  *smem = smem_bytes(args, r, d);
+  return (int)cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
 }
 
 template <int R, int D>
 int launch_rtr_full(const Args& args, float initial_radius, int max_rejections,
                     float grad_tol, float* X_out, float* stats, int* tcg_iters,
                     cudaStream_t stream) {
-  const size_t smem = smem_bytes(args, D);
-  cudaError_t err = cudaFuncSetAttribute(
-      rtr_full_kernel<R, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  size_t smem;
+  const int err = prepare_launch(rtr_full_kernel<R, D>, args, R, D, &smem);
+  if (err != 0) return err;
   rtr_full_kernel<R, D><<<args.A, kThreads, smem, stream>>>(
       args, initial_radius, max_rejections, grad_tol, X_out, stats, tcg_iters);
   return (int)cudaGetLastError();
@@ -769,19 +1073,33 @@ template <int R, int D>
 int launch_tcg(const Args& args, const float* Sc, const float* gc,
                const float* radius, float* eta, float* heta, float* stats,
                cudaStream_t stream) {
-  const size_t smem = smem_bytes(args, D);
-  cudaError_t err = cudaFuncSetAttribute(
-      tcg_kernel<R, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  size_t smem;
+  const int err = prepare_launch(tcg_kernel<R, D>, args, R, D, &smem);
+  if (err != 0) return err;
   tcg_kernel<R, D><<<args.A, kThreads, smem, stream>>>(args, Sc, gc, radius,
                                                         eta, heta, stats);
   return (int)cudaGetLastError();
 }
 
-Args make_args(int d, int A, int n, int s, int Ep, int T, int E, int kinc,
-               const void* idx_i, const void* idx_j, const void* rot,
-               const void* trn, const void* wk, const void* wt,
+template <int R, int D>
+int launch_rtr_refine_full(const Args& args, const RefineConsts& rc,
+                           float initial_radius, int max_rejections,
+                           float grad_tol, float* D_out, float* stats,
+                           int* tcg_iters, cudaStream_t stream) {
+  size_t smem;
+  const int err =
+      prepare_launch(rtr_refine_full_kernel<R, D>, args, R, D, &smem);
+  if (err != 0) return err;
+  rtr_refine_full_kernel<R, D><<<args.A, kThreads, smem, stream>>>(
+      args, rc, initial_radius, max_rejections, grad_tol, D_out, stats,
+      tcg_iters);
+  return (int)cudaGetLastError();
+}
+
+Args make_args(int r, int d, int A, int n, int s, int Ep, int T, int E,
+               int kinc, const void* idx_i, const void* idx_j,
+               const void* rot, const void* trn, const void* wk,
+               const void* wt, const void* rho_rot, const void* rho_trn,
                const void* X, const void* Z, const void* L,
                const void* inc_slot, const void* inc_mask,
                const void* n_local, void* ws, long long ws_stride,
@@ -794,13 +1112,15 @@ Args make_args(int d, int A, int n, int s, int Ep, int T, int E, int kinc,
   g.T = T;
   g.E = E;
   g.kinc = kinc;
-  g.payload_in_smem = payload_fits_smem(d, E) ? 1 : 0;
+  g.payload_in_smem = payload_fits_smem(r, d, E, rho_rot != nullptr) ? 1 : 0;
   g.idx_i = static_cast<const int*>(idx_i);
   g.idx_j = static_cast<const int*>(idx_j);
   g.rot = static_cast<const float*>(rot);
   g.trn = static_cast<const float*>(trn);
   g.wk = static_cast<const float*>(wk);
   g.wt = static_cast<const float*>(wt);
+  g.rho_rot = static_cast<const float*>(rho_rot);
+  g.rho_trn = static_cast<const float*>(rho_trn);
   g.X = static_cast<const float*>(X);
   g.Z = static_cast<const float*>(Z);
   g.L = static_cast<const float*>(L);
@@ -824,14 +1144,18 @@ constexpr int kUnsupportedShape = -1;
 
 extern "C" {
 
-// Floats of per-agent workspace: 8 loop vectors [RK, n], S [D*D, n], the
-// per-edge gradient rows [2E, RK] and, when it does not fit in shared
-// memory, the edge payload.
-long long dpgo_rtr_workspace_floats(int r, int d, int n, int e_max) {
+// Floats of per-agent workspace: the loop vectors [RK, n] (8, or 9 for
+// the refine kernel), S [D*D, n], the per-edge gradient rows [2E, RK] and,
+// when it does not fit in shared memory, the edge payload.
+long long dpgo_rtr_workspace_floats(int r, int d, int n, int e_max,
+                                    int refine) {
   const long long rk = (long long)r * (d + 1);
+  const bool rf = refine != 0;
   const long long payload =
-      payload_fits_smem(d, e_max) ? 0 : payload_bytes(d, e_max) / 4;
-  return 8 * rk * n + (long long)d * d * n + 2LL * e_max * rk + payload;
+      payload_fits_smem(r, d, e_max, rf) ? 0
+                                         : payload_bytes(r, d, e_max, rf) / 4;
+  return (rf ? kRefineVecs : kVecs) * rk * n + (long long)d * d * n +
+         2LL * e_max * rk + payload;
 }
 
 int dpgo_rtr_full_launch(int r, int d, int A, int n, int s, int Ep, int T,
@@ -844,9 +1168,10 @@ int dpgo_rtr_full_launch(int r, int d, int A, int n, int s, int Ep, int T,
                          long long ws_stride, int max_iters, float kappa,
                          float theta, float initial_radius,
                          int max_rejections, float grad_tol, void* stream) {
-  const Args g = make_args(d, A, n, s, Ep, T, e_max, kinc, idx_i, idx_j, rot,
-                           trn, wk, wt, X, Z, L, inc_slot, inc_mask, n_local,
-                           ws, ws_stride, max_iters, kappa, theta);
+  const Args g = make_args(r, d, A, n, s, Ep, T, e_max, kinc, idx_i, idx_j,
+                           rot, trn, wk, wt, nullptr, nullptr, X, Z, L,
+                           inc_slot, inc_mask, n_local, ws, ws_stride,
+                           max_iters, kappa, theta);
   float* xo = static_cast<float*>(X_out);
   float* st = static_cast<float*>(stats);
   int* it = static_cast<int*>(tcg_iters);
@@ -874,9 +1199,10 @@ int dpgo_tcg_launch(int r, int d, int A, int n, int Ep, int T, int e_max,
                     void* ws, long long ws_stride, int max_iters, float kappa,
                     float theta, void* stream) {
   // The tCG sweeps are Hessian sweeps only: no neighbor slots are read.
-  const Args a = make_args(d, A, n, 0, Ep, T, e_max, kinc, idx_i, idx_j, rot,
-                           trn, wk, wt, X, X, L, inc_slot, inc_mask, n_local,
-                           ws, ws_stride, max_iters, kappa, theta);
+  const Args a = make_args(r, d, A, n, 0, Ep, T, e_max, kinc, idx_i, idx_j,
+                           rot, trn, wk, wt, nullptr, nullptr, X, X, L,
+                           inc_slot, inc_mask, n_local, ws, ws_stride,
+                           max_iters, kappa, theta);
   const float* sc = static_cast<const float*>(S);
   const float* gc = static_cast<const float*>(g);
   const float* rd = static_cast<const float*>(radius);
@@ -889,6 +1215,41 @@ int dpgo_tcg_launch(int r, int d, int A, int n, int Ep, int T, int e_max,
   DPGO_DISPATCH(3, 3, launch_tcg)(a, sc, gc, rd, e, h, st, cs);
   DPGO_DISPATCH(3, 2, launch_tcg)(a, sc, gc, rd, e, h, st, cs);
   DPGO_DISPATCH(2, 2, launch_tcg)(a, sc, gc, rd, e, h, st, cs);
+  return kUnsupportedShape;
+}
+
+int dpgo_rtr_refine_full_launch(
+    int r, int d, int A, int n, int s, int Ep, int T, int e_max, int kinc,
+    const void* idx_i, const void* idx_j, const void* rot, const void* trn,
+    const void* wk, const void* wt, const void* rho_rot, const void* rho_trn,
+    const void* Rc, const void* D, const void* Dz, const void* g0,
+    const void* Gref, const void* S0, const void* L, const void* inc_slot,
+    const void* inc_mask, const void* n_local, void* D_out, void* stats,
+    void* tcg_iters, void* ws, long long ws_stride, int max_iters,
+    float kappa, float theta, float initial_radius, int max_rejections,
+    float grad_tol, void* stream) {
+  const Args g = make_args(r, d, A, n, s, Ep, T, e_max, kinc, idx_i, idx_j,
+                           rot, trn, wk, wt, rho_rot, rho_trn, D, Dz, L,
+                           inc_slot, inc_mask, n_local, ws, ws_stride,
+                           max_iters, kappa, theta);
+  const RefineConsts rc{static_cast<const float*>(Rc),
+                        static_cast<const float*>(g0),
+                        static_cast<const float*>(Gref),
+                        static_cast<const float*>(S0)};
+  float* dout = static_cast<float*>(D_out);
+  float* st = static_cast<float*>(stats);
+  int* it = static_cast<int*>(tcg_iters);
+  cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  DPGO_DISPATCH(5, 3, launch_rtr_refine_full)(
+      g, rc, initial_radius, max_rejections, grad_tol, dout, st, it, cs);
+  DPGO_DISPATCH(4, 3, launch_rtr_refine_full)(
+      g, rc, initial_radius, max_rejections, grad_tol, dout, st, it, cs);
+  DPGO_DISPATCH(3, 3, launch_rtr_refine_full)(
+      g, rc, initial_radius, max_rejections, grad_tol, dout, st, it, cs);
+  DPGO_DISPATCH(3, 2, launch_rtr_refine_full)(
+      g, rc, initial_radius, max_rejections, grad_tol, dout, st, it, cs);
+  DPGO_DISPATCH(2, 2, launch_rtr_refine_full)(
+      g, rc, initial_radius, max_rejections, grad_tol, dout, st, it, cs);
   return kUnsupportedShape;
 }
 

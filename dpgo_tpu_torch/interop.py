@@ -1,11 +1,13 @@
 """Carry a problem and its solver state across from the JAX package.
 
 DPGO has no model weights: its parameters are the problem (the per-agent
-graph) and the solver state.  ``graph_from_numpy`` and ``state_from_numpy``
-turn the JAX package's ``MultiAgentGraph`` / ``RBCDState`` — given as
-mappings or NamedTuples whose leaves are numpy arrays, e.g.
-``jax.tree.map(np.asarray, graph)`` — into this package's, so both packages
-can be fed identical inputs.  This module imports no JAX.
+graph) and the solver state.  ``graph_from_numpy``, ``state_from_numpy``
+and ``refine_consts_from_numpy`` turn the JAX package's
+``MultiAgentGraph`` / ``RBCDState`` / ``refine.RefineConstants`` — given
+as mappings or NamedTuples whose leaves are numpy arrays, e.g.
+``jax.tree.map(np.asarray, graph)`` — into this package's, so both
+packages can be fed identical inputs.  The refinement's float64 host
+iterate (``RefineRef.Xg``) is numpy in both.  This module imports no JAX.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch
 
 from .device import resolve_device
 from .models.rbcd import GraphMeta, MultiAgentGraph, RBCDState
+from .models.refine import RefineConstants
 from .types import EdgeSet
 
 
@@ -110,3 +113,16 @@ def state_from_numpy(arrays, dtype: torch.dtype | None = None,
         rel_change=f(a["rel_change"]),
         ready=torch.as_tensor(np.array(a["ready"], bool), device=device),
         chol=None if chol is None else f(chol))
+
+
+def refine_consts_from_numpy(arrays, device="cuda") -> RefineConstants:
+    """A ``RefineConstants`` from the JAX package's (float32 leaves).  The
+    kernel layouts stay None where the JAX side built none (a graph
+    without edge tiles); such constants serve the "ell" formulation
+    only."""
+    device = resolve_device(device)
+    a = _fields(arrays)
+    return RefineConstants(**{
+        k: None if a.get(k) is None else torch.as_tensor(
+            np.array(a[k], np.float32), device=device)
+        for k in RefineConstants._fields})

@@ -186,6 +186,16 @@ def build_graph(part: Partition, rank: int, dtype=torch.float64,
     return graph, meta
 
 
+def with_weights(graph: MultiAgentGraph, weights) -> MultiAgentGraph:
+    """Graph with ``edges.weight`` replaced by ``weights [A, E_max]`` — to
+    evaluate or refine the objective a robust (GNC) solve minimized
+    (``RBCDState.weights``): weight updates live in the state, not in the
+    build-time graph."""
+    w = graph.edges.weight
+    return graph._replace(edges=graph.edges._replace(
+        weight=torch.as_tensor(weights, dtype=w.dtype, device=w.device)))
+
+
 # ---------------------------------------------------------------------------
 # Global <-> per-agent layout and the pose exchange
 # ---------------------------------------------------------------------------

@@ -44,6 +44,24 @@ def retract(X: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
     return join(project_to_stiefel(Y + W), p + w)
 
 
+def retract_correction(D: torch.Tensor, eta: torch.Tensor,
+                       R: torch.Tensor) -> torch.Tensor:
+    """``D_new`` with ``R + D_new = retract(R + D, eta)``, computed from the
+    small quantities only: with ``U = D + eta``,
+    ``E = sym(R_Y^T U_Y + U_Y^T R_Y + U_Y^T U_Y)`` and the series
+    ``C = -E/2 + 3/8 E^2 - 5/16 E^3 + 35/128 E^4 ~ (I + E)^(-1/2) - I``,
+    ``D_new_Y = U_Y + (R_Y + U_Y) C``.  ``R`` must lie on the manifold
+    (``R_Y^T R_Y = I``)."""
+    d = R.shape[-1] - 1
+    U = D + eta
+    UY, RY = U[..., :d], R[..., :d]
+    E = sym(RY.transpose(-1, -2) @ UY + UY.transpose(-1, -2) @ RY
+            + UY.transpose(-1, -2) @ UY)
+    E2 = E @ E
+    C = -0.5 * E + 0.375 * E2 - 0.3125 * (E2 @ E) + 0.2734375 * (E2 @ E2)
+    return join(UY + (RY + UY) @ C, U[..., d])
+
+
 def inner(U: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
     """Euclidean inner product over the trailing (n, r, d+1) axes."""
     return torch.sum(U * V, dim=(-3, -2, -1))

@@ -69,6 +69,21 @@ def cost(Xbuf: torch.Tensor, edges: EdgeSet) -> torch.Tensor:
     return 0.5 * torch.sum(w * quad, dim=-1)
 
 
+def delta_cost(Dbuf: torch.Tensor, rhoR: torch.Tensor, rhot: torch.Tensor,
+               edges: EdgeSet) -> torch.Tensor:
+    """``f(R + D) - f(R)`` from the correction buffer ``Dbuf`` and the
+    residuals ``(rhoR, rhot)`` at the reference R, without forming the
+    large ``f(R)`` terms: the cross term plus half the quadratic term of
+    the increment (exact, since the cost is quadratic)."""
+    LR, Lt = _edge_terms(Dbuf, edges)
+    w = edges.mask * edges.weight
+    cross = edges.kappa * torch.sum(rhoR * LR, dim=(-2, -1)) \
+        + edges.tau * torch.sum(rhot * Lt, dim=-1)
+    quad = edges.kappa * torch.sum(LR * LR, dim=(-2, -1)) \
+        + edges.tau * torch.sum(Lt * Lt, dim=-1)
+    return torch.sum(w * (cross + 0.5 * quad), dim=-1)
+
+
 def _edge_grad_terms(Xbuf: torch.Tensor, edges: EdgeSet):
     """Per-edge gradient contributions (gi to endpoint i, gj to endpoint j),
     each [..., E, r, d+1]."""

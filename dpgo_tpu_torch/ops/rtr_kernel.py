@@ -6,11 +6,16 @@ Port of the TPU kernels ``dpgo_tpu/ops/pallas_tcg.py``:
 * ``rtr_full`` replaces ``_rtr_full_kernel`` / ``rtr_full_call`` — one
   launch solves every agent's local problem for one RBCD round (start-point
   gradient, truncated CG, retraction, cost and the accept/shrink loop);
-* ``tcg`` replaces ``_tcg_kernel`` / ``tcg_call`` — the truncated CG alone.
+* ``tcg`` replaces ``_tcg_kernel`` / ``tcg_call`` — the truncated CG alone;
+* ``rtr_refine_full`` replaces ``_rtr_refine_full_kernel`` /
+  ``rtr_refine_full_call`` — one launch is the re-centered step of the
+  terminal refinement (``models.refine``) for every agent: the correction
+  ``D`` about a float64 host reference ``Rc``.
 
 Each wrapper runs the kernel for CUDA tensors and raises when it cannot; it
-takes its plain version (``rtr_full_reference`` / ``tcg_reference``) only
-when the tensors it was given lie on the CPU.  The kernel is compiled with
+takes its plain version (``rtr_full_reference`` / ``tcg_reference`` /
+``rtr_refine_full_reference``) only when the tensors it was given lie on
+the CPU.  The kernel is compiled with
 ``nvcc`` for ``sm_90a`` at first use, from the source in this package, into
 ``dpgo_tpu_torch/_build/``, and bound through ``ctypes``.
 
@@ -25,7 +30,11 @@ batched over agents with a leading ``A``:
 * ``Lc [A, (d+1)^2, n]`` the block-Jacobi Cholesky factors;
 * ``inc_slot, inc_mask [A, n, K]`` the ELL incidence into ``[gi | gj]``;
 * ``n_local [A]`` int32: the agent's own pose count; padded poses past it
-  are returned unchanged.
+  are returned unchanged;
+* refine only: ``rho_rot [A, nt, r*d, T]`` / ``rho_trn [A, nt, r, T]`` the
+  edge residuals at the reference, ``Rc, Dc, g0c, Grefc [A, r(d+1), n]``,
+  ``Dzc [A, r(d+1), s]`` and ``S0c [A, d*d, n]`` (``models.refine.
+  RefineConstants``); ``wk, wt`` are the constants' weight tiles.
 """
 
 from __future__ import annotations
@@ -43,12 +52,14 @@ import torch
 from ..types import EdgeSet
 from . import manifold, quadratic
 from .smallmat import polar_orthonormalize
-from .solver import _sel, truncated_cg
+from .solver import _sel, refine_attempts, truncated_cg
 
 #: Launches of the ``rtr_full`` kernel (not of its plain version).
 LAUNCHES = 0
 #: Launches of the ``tcg`` kernel.
 TCG_LAUNCHES = 0
+#: Launches of the ``rtr_refine_full`` kernel.
+REFINE_LAUNCHES = 0
 
 #: Newton-Schulz sweeps of the retraction (fixed in the kernel source).
 NS_SWEEPS = 24
@@ -65,6 +76,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 class RTRFullOut(NamedTuple):
     X: torch.Tensor          # [A, r(d+1), n] updated poses
     stats: torch.Tensor      # [A, 5] attempts, accepted, f0, f, gn0
+    tcg_iters: torch.Tensor  # [A] int32 tCG iterations over all attempts
+
+
+class RTRRefineOut(NamedTuple):
+    D: torch.Tensor          # [A, r(d+1), n] updated corrections
+    stats: torch.Tensor      # [A, 5] attempts, accepted, df0, df, gn0
     tcg_iters: torch.Tensor  # [A] int32 tCG iterations over all attempts
 
 
@@ -245,6 +262,64 @@ def rtr_full_reference(idx_i, idx_j, rot, trn, wk, wt, Xc, Zc, Lc, inc_slot,
     return RTRFullOut(comp_major(X_best), stats, iters)
 
 
+def rtr_refine_full_reference(idx_i, idx_j, rot, trn, wk, wt, rho_rot,
+                              rho_trn, Rc, Dc, Dzc, g0c, Grefc, S0c, Lc,
+                              inc_slot, inc_mask, n_local, *, r: int, d: int,
+                              e_max: int, max_iters: int, kappa: float,
+                              theta: float, initial_radius: float,
+                              max_rejections: int,
+                              grad_tol: float) -> RTRRefineOut:
+    """Plain version of ``rtr_refine_full``, computing in ``Dc.dtype`` and
+    batched over agents: the increment gradient at ``[D | Dz]``, the
+    re-centered gradient and curvature term at ``Y = Rc + D``, the initial
+    radius ``min(initial_radius, 10 |precond(g)|)``, and the attempts with
+    the cost increment and the polar-correction retraction."""
+    dtype = Dc.dtype
+    k = d + 1
+    A, _, n = Dc.shape
+    s = Dzc.shape[-1]
+    loc = _local(idx_i, idx_j, rot, trn, wk, wt, Lc, inc_slot, inc_mask,
+                 d=d, e_max=e_max, n=n, s=s, dtype=dtype)
+
+    def blocks(c):
+        return comp_minor(c.to(dtype), r, k)
+
+    D, Dz, R, g0, Gref = (blocks(c) for c in (Dc, Dzc, Rc, g0c, Grefc))
+    S0 = S0c.to(dtype).reshape(A, d, d, n).permute(0, 3, 1, 2)
+    rhoR = _untile(rho_rot, e_max).reshape(A, e_max, r, d).to(dtype)
+    rhot = _untile(rho_trn, e_max).to(dtype)
+
+    dG = quadratic.egrad_ell(_buffer(D, Dz, loc.n_buf), loc.edges,
+                             loc.inc_slot, loc.inc_mask)
+    Y = R + D
+    S1 = manifold.sym(D[..., :-1].transpose(-1, -2) @ Gref[..., :-1]
+                      + Y[..., :-1].transpose(-1, -2) @ dG[..., :-1])
+    S = S0 + S1
+    g = g0 + dG
+    g = manifold.join(g[..., :-1] - R[..., :-1] @ S1 - D[..., :-1] @ S,
+                      g[..., -1])
+    radius0 = torch.clamp(10.0 * manifold.norm(_precond(loc, Y, g)),
+                          max=initial_radius)
+    live = (torch.arange(n, device=D.device)[None, :]
+            < n_local.to(D.device)[:, None])
+
+    def dcost(V):
+        return quadratic.delta_cost(_buffer(V, Dz, loc.n_buf), rhoR, rhot,
+                                    loc.edges)
+
+    def retract(eta):
+        return _sel(live, manifold.retract_correction(D, eta, R), D)
+
+    out = refine_attempts(
+        Y, D, g, radius0, lambda V: _rhess(loc, Y, S, V),
+        lambda V: _precond(loc, Y, V), dcost, retract, max_iters=max_iters,
+        kappa=kappa, theta=theta, max_rejections=max_rejections,
+        grad_tol=grad_tol)
+    stats = torch.stack([out.attempts, out.accepted.to(dtype), out.df0,
+                         out.df, out.grad_norm], dim=-1)
+    return RTRRefineOut(comp_major(out.D), stats, out.iters)
+
+
 # ---------------------------------------------------------------------------
 # The kernel: build, bind, launch
 # ---------------------------------------------------------------------------
@@ -298,7 +373,7 @@ def load():
     lib = ctypes.CDLL(str(build()))
     P, I, F, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
         ctypes.c_longlong
-    lib.dpgo_rtr_workspace_floats.argtypes = [I, I, I, I]
+    lib.dpgo_rtr_workspace_floats.argtypes = [I, I, I, I, I]
     lib.dpgo_rtr_workspace_floats.restype = LL
     lib.dpgo_rtr_full_launch.argtypes = (
         [I] * 9 + [P] * 16 + [LL, I, F, F, F, I, F, P])
@@ -306,6 +381,9 @@ def load():
     lib.dpgo_tcg_launch.argtypes = (
         [I] * 8 + [P] * 18 + [LL, I, F, F, P])
     lib.dpgo_tcg_launch.restype = I
+    lib.dpgo_rtr_refine_full_launch.argtypes = (
+        [I] * 9 + [P] * 22 + [LL, I, F, F, F, I, F, P])
+    lib.dpgo_rtr_refine_full_launch.restype = I
     _lib = lib
     return lib
 
@@ -356,7 +434,10 @@ def _shapes(idx_i, r, d, n, s, K, A):
                 wk=(A, nt, 1, T), wt=(A, nt, 1, T),
                 Xc=(A, rk, n), Zc=(A, rk, s), Lc=(A, k * k, n),
                 Sc=(A, d * d, n), gc=(A, rk, n), radius=(A,),
-                inc_slot=(A, n, K), inc_mask=(A, n, K), n_local=(A,))
+                inc_slot=(A, n, K), inc_mask=(A, n, K), n_local=(A,),
+                rho_rot=(A, nt, r * d, T), rho_trn=(A, nt, r, T),
+                Rc=(A, rk, n), Dc=(A, rk, n), Dzc=(A, rk, s),
+                g0c=(A, rk, n), Grefc=(A, rk, n), S0c=(A, d * d, n))
 
 
 def rtr_full(idx_i, idx_j, rot, trn, wk, wt, Xc, Zc, Lc, inc_slot, inc_mask,
@@ -382,7 +463,7 @@ def rtr_full(idx_i, idx_j, rot, trn, wk, wt, Xc, Zc, Lc, inc_slot, inc_mask,
     lib = load()
     nt, T = idx_i.shape[1], idx_i.shape[-1]
     dev = Xc.device
-    ws_floats = lib.dpgo_rtr_workspace_floats(r, d, n, e_max)
+    ws_floats = lib.dpgo_rtr_workspace_floats(r, d, n, e_max, 0)
     ws = torch.empty((A, ws_floats), dtype=torch.float32, device=dev)
     X_out = torch.empty_like(Xc)
     stats = torch.empty((A, 5), dtype=torch.float32, device=dev)
@@ -421,7 +502,7 @@ def tcg(idx_i, idx_j, rot, trn, wk, wt, Xc, Sc, Lc, gc, radius, inc_slot,
     lib = load()
     nt, T = idx_i.shape[1], idx_i.shape[-1]
     dev = Xc.device
-    ws_floats = lib.dpgo_rtr_workspace_floats(r, d, n, e_max)
+    ws_floats = lib.dpgo_rtr_workspace_floats(r, d, n, e_max, 0)
     ws = torch.empty((A, ws_floats), dtype=torch.float32, device=dev)
     n_local = torch.full((A,), n, dtype=torch.int32, device=dev)
     eta = torch.empty_like(Xc)
@@ -437,3 +518,46 @@ def tcg(idx_i, idx_j, rot, trn, wk, wt, Xc, Sc, Lc, gc, radius, inc_slot,
     _raise_on("tcg", err, r, d)
     TCG_LAUNCHES += 1
     return TCGOut(eta, heta, stats)
+
+
+def rtr_refine_full(idx_i, idx_j, rot, trn, wk, wt, rho_rot, rho_trn, Rc,
+                    Dc, Dzc, g0c, Grefc, S0c, Lc, inc_slot, inc_mask,
+                    n_local, *, r: int, d: int, e_max: int, max_iters: int,
+                    kappa: float, theta: float, initial_radius: float,
+                    max_rejections: int, grad_tol: float) -> RTRRefineOut:
+    """One re-centered RTR step on the corrections ``Dc`` for every agent
+    (see the module docstring for the layouts).  CUDA tensors launch the
+    kernel on the current stream, once for all agents; CPU tensors run
+    ``rtr_refine_full_reference``."""
+    global REFINE_LAUNCHES
+    A, _, n = Dc.shape
+    s, K = Dzc.shape[-1], inc_slot.shape[-1]
+    tensors = dict(idx_i=idx_i, idx_j=idx_j, rot=rot, trn=trn, wk=wk, wt=wt,
+                   rho_rot=rho_rot, rho_trn=rho_trn, Rc=Rc, Dc=Dc, Dzc=Dzc,
+                   g0c=g0c, Grefc=Grefc, S0c=S0c, Lc=Lc, inc_slot=inc_slot,
+                   inc_mask=inc_mask, n_local=n_local)
+    _check("rtr_refine_full", Dc.device, tensors,
+           _shapes(idx_i, r, d, n, s, K, A))
+    kw = dict(r=r, d=d, e_max=e_max, max_iters=max_iters, kappa=kappa,
+              theta=theta, initial_radius=initial_radius,
+              max_rejections=max_rejections, grad_tol=grad_tol)
+    if Dc.device.type == "cpu":
+        return rtr_refine_full_reference(*tensors.values(), **kw)
+    lib = load()
+    nt, T = idx_i.shape[1], idx_i.shape[-1]
+    dev = Dc.device
+    ws_floats = lib.dpgo_rtr_workspace_floats(r, d, n, e_max, 1)
+    ws = torch.empty((A, ws_floats), dtype=torch.float32, device=dev)
+    D_out = torch.empty_like(Dc)
+    stats = torch.empty((A, 5), dtype=torch.float32, device=dev)
+    iters = torch.empty((A,), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.dpgo_rtr_refine_full_launch(
+        r, d, A, n, s, nt * T, T, e_max, K,
+        *(t.data_ptr() for t in (*tensors.values(), D_out, stats, iters,
+                                 ws)),
+        ws_floats, max_iters, kappa, theta, initial_radius, max_rejections,
+        grad_tol, stream)
+    _raise_on("rtr_refine_full", err, r, d)
+    REFINE_LAUNCHES += 1
+    return RTRRefineOut(D_out, stats, iters)

@@ -160,3 +160,52 @@ def rtr_single_step(problem: Problem, X0: torch.Tensor, params: SolverParams,
     return RTRState(X=X, radius=radius, f=f, grad_norm=gn,
                     grad_norm_init=gn0, iters=iters, accepted=accepted,
                     done=done)
+
+
+class RefineStep(NamedTuple):
+    D: torch.Tensor         # [A, n, r, k] accepted correction (or the input)
+    attempts: torch.Tensor  # [A]
+    accepted: torch.Tensor  # [A] bool
+    df0: torch.Tensor       # [A] f(R + D) - f(R) at the input
+    df: torch.Tensor        # [A] the same at the output
+    grad_norm: torch.Tensor  # [A] gn0
+    iters: torch.Tensor     # [A] int32 tCG iterations over all attempts
+
+
+def refine_attempts(Y, D, g, radius0, hvp, precond, dcost, retract, *,
+                    max_iters: int, kappa: float, theta: float,
+                    max_rejections: int, grad_tol: float) -> RefineStep:
+    """The re-centered single-step RTR on the correction ``D`` (expansion
+    point ``Y = R + D``, Riemannian gradient ``g``), batched over agents:
+    the early exit when ``|g| < grad_tol``, then at most ``max_rejections``
+    attempts of {tCG at the radius, ``retract(eta)``, the cost increment
+    ``dcost``, accept when rho > 0.1 and the increment did not rise, else
+    radius / 4} from ``radius0`` — the loop of the JAX package's
+    ``refine._agent_refine`` and of its fused kernel."""
+    gn0 = manifold.norm(g)
+    df0 = dcost(D)
+    k_att = torch.where(gn0 < grad_tol, float(max_rejections), 0.0).to(
+        g.dtype)
+    radius = radius0
+    D_best, df_best = D, df0
+    accepted = torch.zeros(gn0.shape, dtype=torch.bool, device=g.device)
+    iters = torch.zeros(gn0.shape, dtype=torch.int32, device=g.device)
+    while True:
+        active = (k_att < max_rejections) & ~accepted
+        if not bool(active.any()):
+            break
+        res = truncated_cg(Y, g, hvp, precond, radius, max_iters, kappa,
+                           theta)
+        D_prop = retract(res.eta)
+        df_prop = dcost(D_prop)
+        mdec = -(manifold.inner(g, res.eta)
+                 + 0.5 * manifold.inner(res.eta, res.heta))
+        rho = (df0 - df_prop) / torch.clamp(mdec, min=1e-30)
+        ok = (rho > 0.1) & (df_prop <= df0) & active
+        D_best = _sel(ok, D_prop, D_best)
+        df_best = torch.where(ok, df_prop, df_best)
+        radius = torch.where(active & ~ok, radius / 4.0, radius)
+        k_att = torch.where(active, k_att + 1.0, k_att)
+        iters = torch.where(active, iters + res.iters, iters)
+        accepted = accepted | ok
+    return RefineStep(D_best, k_att, accepted, df0, df_best, gn0, iters)

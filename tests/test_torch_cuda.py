@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card, against their plain PyTorch
-versions (``dpgo_tpu_torch.ops.rtr_kernel``), and the solve's launch
-count.  Every test needs a CUDA device and skips without one.
+versions (``dpgo_tpu_torch.ops.rtr_kernel``), and the launch counts of the
+solve and of the refinement.  Every test needs a CUDA device and skips
+without one.
 
 This file imports no JAX, so it also runs where only PyTorch is installed:
 
@@ -12,7 +13,7 @@ import pytest
 import torch
 
 from dpgo_tpu_torch.config import AgentParams, SolverParams
-from dpgo_tpu_torch.models import rbcd
+from dpgo_tpu_torch.models import rbcd, refine
 from dpgo_tpu_torch.ops import manifold, quadratic
 from dpgo_tpu_torch.ops import rtr_kernel as rk
 from dpgo_tpu_torch.utils.synthetic import make_measurements
@@ -117,3 +118,82 @@ def test_shape_without_kernel_raises_on_card(card):
     with pytest.raises(ValueError, match="instantiated"):
         rbcd.solve_rbcd(meas, 2, params, max_iters=2)
     assert rk.LAUNCHES == before
+
+
+def _refine_operands(card, d=3, r=5, n=60, A=4, num_lc=20, rounds=20):
+    """One refine round's kernel operands on the card: a few float32 JACOBI
+    rounds, the handoff iterate recentered in float64, and a random
+    correction made feasible (R + D on the manifold; zero on padded
+    poses)."""
+    meas = make_measurements(np.random.default_rng(5), n=n, d=d,
+                             num_lc=num_lc, rot_noise=0.05,
+                             trans_noise=0.05)[0]
+    params = AgentParams(d=d, r=r, num_robots=A, rel_change_tol=0.0,
+                         solver=SolverParams(grad_norm_tol=1e-9))
+    prob = rbcd.prepare_problem(meas, A, params, device=card)
+    g, m = prob.graph, prob.meta
+    state = rbcd.init_state(g, m, prob.X0, params)
+    for _ in range(rounds):
+        state = rbcd.rbcd_step(state, g, m, params)
+    Xg = rbcd.gather_to_global(state.X, g, n).double().cpu().numpy()
+    ref = refine.recenter(Xg, g, m, params, refine.host_edges_f64(meas))
+    gen = torch.Generator(device=card).manual_seed(0)
+    D = torch.randn(ref.consts.R.shape, generator=gen, device=card) * 1e-4
+    D = refine._retract_d0(D * g.pose_mask[:, :, None, None].to(D.dtype),
+                           ref.consts.R)
+    Dz = rbcd.neighbor_buffer(rbcd.public_table(D, g), g)
+    ops = refine.refine_kernel_operands(D, Dz, ref.consts, g)
+    return prob, params, ref, ops
+
+
+def _assert_refine_matches(out, ref_out, D_in):
+    step = float((ref_out.D - D_in).abs().max())
+    assert float((out.D - ref_out.D).abs().max()) <= 1e-3 * max(step, 1e-12)
+    assert torch.equal(out.stats[:, :2], ref_out.stats[:, :2])
+    torch.testing.assert_close(out.stats[:, 2:], ref_out.stats[:, 2:],
+                               rtol=1e-3, atol=1e-9)
+
+
+@pytest.mark.parametrize("d,r", [(3, 5), (2, 3)])
+def test_rtr_refine_full_kernel_matches_plain_version(card, d, r):
+    prob, params, ref, ops = _refine_operands(card, d=d, r=r)
+    kw = rbcd.kernel_options(params, prob.meta)
+    before = rk.REFINE_LAUNCHES
+    out = rk.rtr_refine_full(*ops, **kw)
+    plain = rk.rtr_refine_full_reference(*ops, **kw)
+    torch.cuda.synchronize()
+    assert rk.REFINE_LAUNCHES == before + 1
+    _assert_refine_matches(out, plain, ops[9])
+    # Refinement rounds launch the kernel once each, for all agents.
+    D0 = torch.zeros_like(ref.consts.R)
+    refine.refine_rounds_accel(D0, ref.consts, prob.graph, prob.meta,
+                               params, 5)
+    assert rk.REFINE_LAUNCHES == before + 6
+
+
+def test_refine_payload_too_large_for_shared_memory(card):
+    # One agent with ~2000 edges: the refine payload (144 B an edge at
+    # d = 3, r = 5) does not fit in one block's 227 KB.
+    prob, params, ref, ops = _refine_operands(card, n=1000, A=1,
+                                              num_lc=1000, rounds=3)
+    assert prob.meta.e_max * 144 > 232448
+    kw = rbcd.kernel_options(params, prob.meta)
+    out = rk.rtr_refine_full(*ops, **kw)
+    plain = rk.rtr_refine_full_reference(*ops, **kw)
+    torch.cuda.synchronize()
+    _assert_refine_matches(out, plain, ops[9])
+
+
+def test_refine_shape_without_kernel_raises_on_card(card):
+    meas = make_measurements(np.random.default_rng(5), n=40, d=3, num_lc=10,
+                             rot_noise=0.05, trans_noise=0.05)[0]
+    params = AgentParams(d=3, r=6, num_robots=2)
+    prob = rbcd.prepare_problem(meas, 2, params, device=card)
+    Xg = rbcd.gather_to_global(prob.X0, prob.graph, 40).double().cpu()
+    ref = refine.recenter(Xg.numpy(), prob.graph, prob.meta, params,
+                          refine.host_edges_f64(meas))
+    before = rk.REFINE_LAUNCHES
+    with pytest.raises(ValueError, match="instantiated"):
+        refine.refine_round(torch.zeros_like(ref.consts.R), ref.consts,
+                            prob.graph, prob.meta, params)
+    assert rk.REFINE_LAUNCHES == before
