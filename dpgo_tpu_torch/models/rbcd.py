@@ -242,7 +242,7 @@ def precond_chol(edges: EdgeSet, n_max: int, s_max: int,
 
 def _formulation(meta: GraphMeta, params: AgentParams | None,
                  graph: MultiAgentGraph, dtype: torch.dtype,
-                 device: torch.device) -> str:
+                 device: torch.device, rtr: bool | None = None) -> str:
     """Which local-solve formulation a round runs: ``"kernel"`` (the fused
     RTR step of ``ops.rtr_kernel``) or ``"ell"`` (plain PyTorch over the
     ELL incidence).  The kernel runs on CUDA, for RTR in float32 — the
@@ -250,12 +250,15 @@ def _formulation(meta: GraphMeta, params: AgentParams | None,
     condition, so a problem the kernel does not take raises in its wrapper
     instead of running plain PyTorch.  ``pallas_tcg=True`` forces the
     kernel's formulation and raises when it cannot run; on CPU tensors its
-    wrapper runs the kernel's plain version."""
+    wrapper runs the kernel's plain version.  ``rtr`` says whether the
+    round is an RTR step; by default ``params.solver.algorithm`` decides
+    (a refine round always is one, ``models.refine``)."""
     if params is None:
         return "ell"
     if params.solver.dense_quadratic:
         raise _not_ported("dense_quadratic", "Queue A item 5")
-    rtr = params.solver.algorithm == ROptAlg.RTR
+    if rtr is None:
+        rtr = params.solver.algorithm == ROptAlg.RTR
     kernel_ok = rtr and dtype == torch.float32
     if params.solver.pallas_tcg is True:
         if not kernel_ok:

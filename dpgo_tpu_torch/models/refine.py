@@ -35,7 +35,7 @@ from __future__ import annotations
 
 import math
 import time
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -72,6 +72,9 @@ class RefineConstants(NamedTuple):
     Gref_c: torch.Tensor | None = None     # [A, r*k, n]
     S0_c: torch.Tensor | None = None       # [A, d*d, n]
     Lc: torch.Tensor | None = None         # [A, k*k, n] preconditioner factors
+    # The graph's ELL incidence mask in float32 (the graph's own tensor
+    # when it is float32 already); the JAX package has no such field.
+    inc_mask_f: torch.Tensor | None = None  # [A, n, K]
 
 
 class RefineRef(NamedTuple):
@@ -267,6 +270,8 @@ def recenter(Xg64: np.ndarray, graph, meta, params: AgentParams,
          for arr in fields.values()])
     dev = graph.global_index.device
     consts = _unpack_consts(torch.from_numpy(packed).to(dev), chol, layout)
+    consts = consts._replace(
+        inc_mask_f=graph.inc_mask.to(torch.float32).contiguous())
     return RefineRef(Xg=Xg64, f_ref=f_ref, consts=consts)
 
 
@@ -355,29 +360,17 @@ _delta_cost = quadratic.delta_cost
 _retract_d = manifold.retract_correction
 
 
-def _formulation(params: AgentParams, device: torch.device) -> str:
-    """``"kernel"`` (``ops.rtr_kernel.rtr_refine_full``) or ``"ell"`` (the
-    plain copy of the JAX package's XLA path) — B2's rule
-    (``rbcd._formulation``) for a float32 RTR round: on CUDA the kernel
-    unless ``pallas_tcg=False``; ``pallas_tcg=True`` forces the kernel's
-    formulation, whose wrapper runs its plain version on CPU tensors."""
-    forced = params.solver.pallas_tcg
-    if forced is True or (forced is None and device.type == "cuda"):
-        return "kernel"
-    return "ell"
-
-
 def refine_kernel_operands(D, Dz, consts: RefineConstants, graph) -> tuple:
     """The positional operands of ``ops.rtr_kernel.rtr_refine_full`` for
     one round at the corrections ``D`` with neighbor slots ``Dz``."""
-    if consts.Rc is None:
+    if consts.Rc is None or consts.inc_mask_f is None:
         raise ValueError("the refine constants carry no kernel layouts: "
                          "build them with refine.recenter")
     return (graph.eidx_i, graph.eidx_j, graph.rot_t, graph.trn_t,
             consts.wk_t, consts.wt_t, consts.rho_rot_t, consts.rho_trn_t,
             consts.Rc, rtr_kernel.comp_major(D), rtr_kernel.comp_major(Dz),
             consts.g0_c, consts.Gref_c, consts.S0_c, consts.Lc,
-            graph.inc_slot, graph.inc_mask.float().contiguous(), graph.n)
+            graph.inc_slot, consts.inc_mask_f, graph.n)
 
 
 def _agent_refine(D, Dz, consts: RefineConstants, edges: EdgeSet, graph,
@@ -448,7 +441,9 @@ def refine_round(D, consts: RefineConstants, graph, meta,
     global ROUNDS
     ROUNDS += 1
     Dz = rbcd.neighbor_buffer(rbcd.public_table(D, graph), graph)
-    kernel = _formulation(params, D.device) == "kernel"
+    # B2's rule for a float32 RTR round: the refine round always is one.
+    kernel = rbcd._formulation(meta, params, graph, torch.float32, D.device,
+                               rtr=True) == "kernel"
     D_new, gn = _agent_refine(D, Dz, consts, graph.edges, graph, meta,
                               params, kernel)
     if active is not None:
@@ -632,7 +627,8 @@ def polish(Xg64: np.ndarray, graph, meta, params: AgentParams, meas,
 def solve_refine(Xg64: np.ndarray, graph, meta, params: AgentParams,
                  edges_global, f_opt: float, rel_gap: float = 1e-6,
                  rounds_per_cycle: int = 50, max_cycles: int = 12,
-                 weights=None, accel: bool = True):
+                 weights=None, accel: bool = True,
+                 on_verify: Callable[[np.ndarray], None] | None = None):
     """Drive re-centered refinement until the f64 global gap reaches
     ``rel_gap`` (or ``max_cycles`` recenters).  Returns
     ``(X64, gap, cycles, history)``.
@@ -645,7 +641,8 @@ def solve_refine(Xg64: np.ndarray, graph, meta, params: AgentParams,
     returned.  An accelerated cycle that worsens the verified gap (or goes
     non-finite) is reverted and refinement continues un-accelerated; when
     the last cycles contract too slowly to reach the target, it returns
-    early."""
+    early.  ``on_verify``, when given, receives the projected f64 iterate
+    of every finite verify pass, in the order of ``history``."""
     if weights is not None:
         graph = rbcd.with_weights(graph, weights)
     accel_on = accel
@@ -668,6 +665,8 @@ def solve_refine(Xg64: np.ndarray, graph, meta, params: AgentParams,
         f = global_cost(Xg64, edges_global)
         gap_now = f / f_opt - 1.0
         history.append((gap_now, time.perf_counter() - t0))
+        if on_verify is not None:
+            on_verify(Xg64)
         if best is not None and accel_on and \
                 (not np.isfinite(gap_now)
                  or gap_now > best[0] + 1e-12 * max(1.0, abs(best[0]))):

@@ -28,7 +28,7 @@ from dpgo_tpu.types import edge_set_from_measurements as jedge_set
 from dpgo_tpu.utils.partition import partition_contiguous as jpartition
 from dpgo_tpu.utils.synthetic import make_measurements
 from dpgo_tpu_torch import interop
-from dpgo_tpu_torch.config import AgentParams, SolverParams
+from dpgo_tpu_torch.config import AgentParams, ROptAlg, SolverParams
 from dpgo_tpu_torch.models import rbcd, refine
 from dpgo_tpu_torch.ops import quadratic
 from dpgo_tpu_torch.ops import rtr_kernel as rk
@@ -107,21 +107,32 @@ def test_recenter_matches_jax_bitwise(weighted):
     # the interop converter carries the JAX constants across unchanged.
     carried = interop.refine_consts_from_numpy(
         jax.tree.map(np.asarray, jr.consts), device="cpu")
-    for f in refine.RefineConstants._fields:
+    for f in jr.consts._fields:
         ours = getattr(tr.consts, f)
         assert ours.dtype == torch.float32 and ours.is_contiguous(), f
         assert np.array_equal(ours.numpy(), np.asarray(getattr(jr.consts,
                                                                 f))), f
         assert torch.equal(getattr(carried, f), ours), f
+    # The port's one extra field: the graph's incidence mask in float32.
+    assert set(refine.RefineConstants._fields) - set(jr.consts._fields) \
+        == {"inc_mask_f"}
+    assert torch.equal(tr.consts.inc_mask_f, h.graph.inc_mask.float())
 
 
 def test_recenter_ships_one_packed_buffer():
     h = _handoff()
     _, tr = _recentered(h)
-    # Every constant but Lc (derived from chol) is a view of one buffer.
+    # Every constant but Lc (derived from chol) and the incidence mask (the
+    # graph's) is a view of one buffer.
     bases = {getattr(tr.consts, f).untyped_storage().data_ptr()
-             for f in refine.RefineConstants._fields if f != "Lc"}
+             for f in refine.RefineConstants._fields
+             if f not in ("Lc", "inc_mask_f")}
     assert len(bases) == 1
+    # A float32 graph's mask is passed through, not copied per round.
+    assert h.graph.inc_mask.dtype == torch.float32
+    assert tr.consts.inc_mask_f is h.graph.inc_mask
+    ops = _kernel_operands(h, tr.consts, _d0(h))
+    assert ops["inc_mask"] is h.graph.inc_mask
 
 
 def test_retract_d_and_delta_cost_match_jax():
@@ -213,7 +224,7 @@ def test_refine_round_matches_jax(port_form, jax_form):
         d=3, r=5, num_robots=3, rel_change_tol=0.0, solver=SolverParams(
             grad_norm_tol=1e-12, max_inner_iters=10,
             pallas_tcg=port_form == "kernel"))
-    assert refine._formulation(params, torch.device("cpu")) == port_form
+    assert _refine_formulation(params, torch.device("cpu")) == port_form
     before = rk.REFINE_LAUNCHES
     D, gn = refine.refine_round(torch.as_tensor(_d0(h)), tr.consts, h.graph,
                                 h.meta, params)
@@ -247,10 +258,16 @@ def test_solve_refine_matches_jax(case):
         tw = dict(weights=torch.as_tensor(h.wA))
     jX, jgap, jcyc, jhist = jrefine.solve_refine(h.Xg, h.jgx, h.jm, h.jp, eg,
                                                  **kw, **jw)
+    verified = []
     X, gap, cyc, hist = refine.solve_refine(h.Xg, h.graph, h.meta, h.tp,
-                                            eg_np, **kw, **tw)
+                                            eg_np, **kw, **tw,
+                                            on_verify=verified.append)
     assert cyc == jcyc and len(hist) == len(jhist)
     f = 1.0 + np.array([g for g, _ in hist])  # f_opt = 1: gap = f - 1
+    # ``on_verify`` saw the iterate of every verify pass, in order.
+    assert len(verified) == len(hist)
+    np.testing.assert_allclose([refine.global_cost(V, eg_np)
+                                for V in verified], f, rtol=1e-15)
     np.testing.assert_allclose(f, 1.0 + np.array([g for g, _ in jhist]),
                                rtol=1e-9)
     # A float32 decision (an accepted step, a tCG iteration count) can go
@@ -319,15 +336,26 @@ def test_rtr_refine_full_on_cuda_tensor_without_cuda_raises():
         rk.rtr_refine_full(*(t.to("meta") for t in ops.values()), **kw)
 
 
+def _refine_formulation(params, device):
+    """The rule ``refine.refine_round`` applies: B2's, for an f32 RTR round."""
+    h = _handoff()
+    return rbcd._formulation(h.meta, params, h.graph, torch.float32, device,
+                             rtr=True)
+
+
 def test_refine_formulation_rule():
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
     default = AgentParams()
-    assert refine._formulation(default, cuda) == "kernel"
-    assert refine._formulation(default, cpu) == "ell"
+    assert _refine_formulation(default, cuda) == "kernel"
+    assert _refine_formulation(default, cpu) == "ell"
     off = AgentParams(solver=SolverParams(pallas_tcg=False))
-    assert refine._formulation(off, cuda) == "ell"
+    assert _refine_formulation(off, cuda) == "ell"
     forced = AgentParams(solver=SolverParams(pallas_tcg=True))
-    assert refine._formulation(forced, cpu) == "kernel"
+    assert _refine_formulation(forced, cpu) == "kernel"
+    # The descent's algorithm does not change the refine round: it is RTR.
+    rgd = AgentParams(solver=SolverParams(algorithm=ROptAlg.RGD))
+    assert _refine_formulation(rgd, cuda) == "kernel"
+    assert rbcd._formulation(None, rgd, None, torch.float32, cuda) == "ell"
 
 
 def test_with_weights_replaces_edge_weights():
