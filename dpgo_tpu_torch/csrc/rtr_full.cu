@@ -8,6 +8,11 @@
 //     gn0 < grad_tol, then at most max_rejections attempts of {truncated CG,
 //     24-sweep Newton-Schulz polar retraction, cost, accept when rho > 0.1
 //     and f did not rise, else radius / 4}.
+//   * _rtr_kernel (rtr_call) -> rtr_kernel below: B2's attempt loop alone,
+//     from a given Riemannian gradient g and curvature term S: f0 = cost(X),
+//     then at most max_rejections attempts from initial_radius, with no
+//     gradient sweep and no early exit (the kernel of the round ablation,
+//     experiments/measure_r3.py).  It reads B2's operands plus S and g.
 //   * _tcg_kernel (tcg_call) -> tcg_kernel below: the Steihaug-Toint
 //     truncated CG alone, from a given S and g.
 //   * _rtr_refine_full_kernel (rtr_refine_full_call) ->
@@ -759,6 +764,61 @@ __device__ Problem setup(const Args& g, unsigned char* smem, int a,
   return P;
 }
 
+struct Attempts {
+  int k_att;
+  bool accepted;
+  float f_best;
+  int iters;
+};
+
+// The attempt loop of B2 and B3 (pallas_tcg._rtr_kernel :635-655): from
+// k_att attempts already spent, at most max_rejections attempts of {tCG at
+// the radius, retraction into xp, cost; accept (xp copied into xo) when
+// rho > 0.1 and f did not rise, else radius / 4}.  xo holds X on entry.
+template <int R, int D>
+__device__ Attempts attempts(const Problem& P, const float* g,
+                             const TcgVecs& W, float* xp, float* xo, float f0,
+                             int k_att, float radius, int max_rejections,
+                             const Args& args) {
+  constexpr int RK = R * (D + 1);
+  const int n = P.n;
+  Attempts at{k_att, false, f0, 0};
+  while (at.k_att < max_rejections && !at.accepted) {
+    bool hit;
+    at.iters += tcg<R, D>(P, g, radius, args.max_iters, args.kappa,
+                          args.theta, W, &hit);
+    retract<R, D>(P, W.eta, xp);
+    const float f_prop = cost<R, D>(P, xp, P.Z);
+    float m2[2] = {0.f, 0.f};
+    for (int p = threadIdx.x; p < n; p += blockDim.x) {
+      float gv[RK], et[RK], he[RK];
+      load_pose<RK>(g, n, p, gv);
+      load_pose<RK>(W.eta, n, p, et);
+      load_pose<RK>(W.heta, n, p, he);
+      m2[0] += dot<RK>(gv, et);
+      m2[1] += dot<RK>(et, he);
+    }
+    block_sum<2>(m2, P.red);
+    const float mdec = -(m2[0] + 0.5f * m2[1]);
+    const float rho = (f0 - f_prop) / fmaxf(mdec, kEps);
+    const bool ok = (rho > 0.1f) && (f_prop <= f0);
+    if (ok) {
+      for (int p = threadIdx.x; p < n; p += blockDim.x) {
+        float x[RK];
+        load_pose<RK>(xp, n, p, x);
+        store_pose<RK>(xo, n, p, x);
+      }
+      at.f_best = f_prop;
+    } else {
+      radius = radius / 4.f;
+    }
+    ++at.k_att;
+    at.accepted = ok;
+    __syncthreads();
+  }
+  return at;
+}
+
 template <int R, int D>
 __global__ void __launch_bounds__(kThreads)
 rtr_full_kernel(Args args, float initial_radius, int max_rejections,
@@ -807,52 +867,51 @@ rtr_full_kernel(Args args, float initial_radius, int max_rejections,
   const float gn0 = sqrtf(gg[0]);
   const float f0 = cost<R, D>(P, P.X, P.Z);
 
-  int k_att = (gn0 < grad_tol) ? max_rejections : 0;
-  float radius = initial_radius;
-  float f_best = f0;
-  bool accepted = false;
-  int iters = 0;
-  while (k_att < max_rejections && !accepted) {
-    bool hit;
-    iters += tcg<R, D>(P, g, radius, args.max_iters, args.kappa, args.theta,
-                       W, &hit);
-    retract<R, D>(P, W.eta, xp);
-    const float f_prop = cost<R, D>(P, xp, P.Z);
-    float m2[2] = {0.f, 0.f};
-    for (int p = threadIdx.x; p < n; p += blockDim.x) {
-      float gv[RK], et[RK], he[RK];
-      load_pose<RK>(g, n, p, gv);
-      load_pose<RK>(W.eta, n, p, et);
-      load_pose<RK>(W.heta, n, p, he);
-      m2[0] += dot<RK>(gv, et);
-      m2[1] += dot<RK>(et, he);
-    }
-    block_sum<2>(m2, P.red);
-    const float mdec = -(m2[0] + 0.5f * m2[1]);
-    const float rho = (f0 - f_prop) / fmaxf(mdec, kEps);
-    const bool ok = (rho > 0.1f) && (f_prop <= f0);
-    if (ok) {
-      for (int p = threadIdx.x; p < n; p += blockDim.x) {
-        float x[RK];
-        load_pose<RK>(xp, n, p, x);
-        store_pose<RK>(xo, n, p, x);
-      }
-      f_best = f_prop;
-    } else {
-      radius = radius / 4.f;
-    }
-    ++k_att;
-    accepted = ok;
-    __syncthreads();
-  }
+  const Attempts at =
+      attempts<R, D>(P, g, W, xp, xo, f0, (gn0 < grad_tol) ? max_rejections : 0,
+                     initial_radius, max_rejections, args);
   if (threadIdx.x == 0) {
     float* st = stats + (size_t)a * 5;
-    st[0] = (float)k_att;
-    st[1] = accepted ? 1.f : 0.f;
+    st[0] = (float)at.k_att;
+    st[1] = at.accepted ? 1.f : 0.f;
     st[2] = f0;
-    st[3] = f_best;
+    st[3] = at.f_best;
     st[4] = gn0;
-    tcg_iters[a] = iters;
+    tcg_iters[a] = at.iters;
+  }
+}
+
+template <int R, int D>
+__global__ void __launch_bounds__(kThreads)
+rtr_kernel(Args args, const float* Sc, const float* gc, float initial_radius,
+           int max_rejections, float* X_out, float* stats, int* tcg_iters) {
+  constexpr int RK = R * (D + 1);
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int a = blockIdx.x;
+  float* v[kVecs];
+  Problem P = setup<R, D>(args, smem, a, v, kVecs);
+  const int n = P.n;
+  const size_t off = (size_t)a * RK * n;
+  P.S = Sc + (size_t)a * D * D * n;
+  const float* g = gc + off;
+  float* xp = v[7];
+  TcgVecs W{v[1], v[2], v[3], v[4], v[5], v[6]};
+  float* xo = X_out + off;
+  for (int p = threadIdx.x; p < n; p += blockDim.x) {
+    float x[RK];
+    load_pose<RK>(P.X, n, p, x);
+    store_pose<RK>(xo, n, p, x);
+  }
+  const float f0 = cost<R, D>(P, P.X, P.Z);
+  const Attempts at = attempts<R, D>(P, g, W, xp, xo, f0, 0, initial_radius,
+                                     max_rejections, args);
+  if (threadIdx.x == 0) {
+    float* st = stats + (size_t)a * 4;
+    st[0] = (float)at.k_att;
+    st[1] = at.accepted ? 1.f : 0.f;
+    st[2] = f0;
+    st[3] = at.f_best;
+    tcg_iters[a] = at.iters;
   }
 }
 
@@ -1070,6 +1129,18 @@ int launch_rtr_full(const Args& args, float initial_radius, int max_rejections,
 }
 
 template <int R, int D>
+int launch_rtr(const Args& args, const float* Sc, const float* gc,
+               float initial_radius, int max_rejections, float* X_out,
+               float* stats, int* tcg_iters, cudaStream_t stream) {
+  size_t smem;
+  const int err = prepare_launch(rtr_kernel<R, D>, args, R, D, &smem);
+  if (err != 0) return err;
+  rtr_kernel<R, D><<<args.A, kThreads, smem, stream>>>(
+      args, Sc, gc, initial_radius, max_rejections, X_out, stats, tcg_iters);
+  return (int)cudaGetLastError();
+}
+
+template <int R, int D>
 int launch_tcg(const Args& args, const float* Sc, const float* gc,
                const float* radius, float* eta, float* heta, float* stats,
                cudaStream_t stream) {
@@ -1186,6 +1257,39 @@ int dpgo_rtr_full_launch(int r, int d, int A, int n, int s, int Ep, int T,
                                        grad_tol, xo, st, it, cs);
   DPGO_DISPATCH(2, 2, launch_rtr_full)(g, initial_radius, max_rejections,
                                        grad_tol, xo, st, it, cs);
+  return kUnsupportedShape;
+}
+
+int dpgo_rtr_launch(int r, int d, int A, int n, int s, int Ep, int T,
+                    int e_max, int kinc, const void* idx_i, const void* idx_j,
+                    const void* rot, const void* trn, const void* wk,
+                    const void* wt, const void* X, const void* Z,
+                    const void* S, const void* L, const void* g,
+                    const void* inc_slot, const void* inc_mask,
+                    const void* n_local, void* X_out, void* stats,
+                    void* tcg_iters, void* ws, long long ws_stride,
+                    int max_iters, float kappa, float theta,
+                    float initial_radius, int max_rejections, void* stream) {
+  const Args a = make_args(r, d, A, n, s, Ep, T, e_max, kinc, idx_i, idx_j,
+                           rot, trn, wk, wt, nullptr, nullptr, X, Z, L,
+                           inc_slot, inc_mask, n_local, ws, ws_stride,
+                           max_iters, kappa, theta);
+  const float* sc = static_cast<const float*>(S);
+  const float* gc = static_cast<const float*>(g);
+  float* xo = static_cast<float*>(X_out);
+  float* st = static_cast<float*>(stats);
+  int* it = static_cast<int*>(tcg_iters);
+  cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  DPGO_DISPATCH(5, 3, launch_rtr)(a, sc, gc, initial_radius, max_rejections,
+                                  xo, st, it, cs);
+  DPGO_DISPATCH(4, 3, launch_rtr)(a, sc, gc, initial_radius, max_rejections,
+                                  xo, st, it, cs);
+  DPGO_DISPATCH(3, 3, launch_rtr)(a, sc, gc, initial_radius, max_rejections,
+                                  xo, st, it, cs);
+  DPGO_DISPATCH(3, 2, launch_rtr)(a, sc, gc, initial_radius, max_rejections,
+                                  xo, st, it, cs);
+  DPGO_DISPATCH(2, 2, launch_rtr)(a, sc, gc, initial_radius, max_rejections,
+                                  xo, st, it, cs);
   return kUnsupportedShape;
 }
 

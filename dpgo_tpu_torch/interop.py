@@ -88,31 +88,33 @@ def graph_from_numpy(arrays, dtype: torch.dtype | None = None,
 
 
 def state_from_numpy(arrays, dtype: torch.dtype | None = None,
-                     device="cuda") -> RBCDState:
-    """An ``RBCDState`` from the JAX package's.  The Nesterov, warm-start
-    and dense-Q fields are not ported and must be absent (None); the GNC
-    ``mu`` and the ASYNC keys are not carried."""
+                     device="cuda", seed: int = 0) -> RBCDState:
+    """An ``RBCDState`` from the JAX package's, with its Nesterov (``V``,
+    ``gamma``, ``alpha``), GNC (``mu``, ``X_init``) and factor fields.  The
+    dense-Q buffer is not ported and must be absent (None).  JAX's ASYNC
+    key chain does not carry over: the port's clocks draw from ``seed``
+    (``models.rbcd._async_fired``)."""
     device = resolve_device(device)
     a = _fields(arrays)
-    for key in ("V", "X_init", "Qbuf"):
-        if a.get(key) is not None:
-            raise NotImplementedError(
-                f"state field {key!r} belongs to a part of the solver that "
-                "is not ported yet (ROADMAP.md Queue A)")
+    if a.get("Qbuf") is not None:
+        raise NotImplementedError(
+            "state field 'Qbuf' belongs to the dense-Q formulation, which "
+            "is not ported yet (ROADMAP.md Queue A)")
     X = np.asarray(a["X"])
     if dtype is None:
         dtype = torch.float64 if X.dtype == np.float64 else torch.float32
 
     def f(x):
-        return torch.as_tensor(np.array(x, np.float64), dtype=dtype,
-                               device=device)
+        return None if x is None else torch.as_tensor(
+            np.array(x, np.float64), dtype=dtype, device=device)
 
-    chol = a.get("chol")
     return RBCDState(
         X=f(X), weights=f(a["weights"]), iteration=int(a["iteration"]),
         rel_change=f(a["rel_change"]),
         ready=torch.as_tensor(np.array(a["ready"], bool), device=device),
-        chol=None if chol is None else f(chol))
+        chol=f(a.get("chol")), V=f(a.get("V")), gamma=f(a.get("gamma")),
+        alpha=f(a.get("alpha")), mu=f(a.get("mu")),
+        X_init=f(a.get("X_init")), seed=seed)
 
 
 def refine_consts_from_numpy(arrays, device="cuda") -> RefineConstants:

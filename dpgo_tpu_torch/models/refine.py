@@ -109,7 +109,7 @@ def _np_edge_terms(Xbuf, ei, ej, R, t):
 
 
 def _np_egrad(Xbuf, edges_np, n_out):
-    """f64 numpy mirror of ``quadratic.egrad`` ([A] batched scatter)."""
+    """f64 numpy mirror of ``quadratic.egrad_ell`` ([A] batched scatter)."""
     ei, ej = edges_np["i"], edges_np["j"]
     rR, rt = _np_edge_terms(Xbuf, ei, ej, edges_np["R"], edges_np["t"])
     w = edges_np["mask"] * edges_np["weight"]

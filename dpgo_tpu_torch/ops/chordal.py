@@ -15,7 +15,7 @@ import torch
 
 from ..types import EdgeSet
 from ..utils.lie import project_to_rotation
-from .quadratic import scatter_add
+from .quadratic import ell_sum, incidence
 
 
 def _pin0(x: torch.Tensor) -> torch.Tensor:
@@ -47,6 +47,13 @@ def _cg(matvec, b, precond, maxiter: int, tol: float) -> torch.Tensor:
     return x
 
 
+def _adjoint_incidence(edges: EdgeSet, n: int):
+    """The incidence of the edge-to-pose adjoints: terms ``[j-side |
+    i-side]`` into the endpoints ``[edges.j | edges.i]``, built once per
+    stage."""
+    return incidence(n, torch.cat([edges.j, edges.i]))
+
+
 def chordal_rotations(edges: EdgeSet, n: int, maxiter: int = 2000,
                       tol: float = 1e-10) -> torch.Tensor:
     """Chordal rotation relaxation with R_0 = I pinned, projected to SO(d):
@@ -55,13 +62,15 @@ def chordal_rotations(edges: EdgeSet, n: int, maxiter: int = 2000,
     dtype, dev = edges.R.dtype, edges.R.device
     wk = edges.mask * edges.weight * edges.kappa
 
+    inc = _adjoint_incidence(edges, n)
+
     def residual_op(Rs):
         return Rs[edges.j] - Rs[edges.i] @ edges.R
 
     def residual_adjoint(res):
         wres = wk[:, None, None] * res
-        return scatter_add(n, edges.j, wres) + \
-            scatter_add(n, edges.i, -(wres @ edges.R.transpose(-1, -2)))
+        return ell_sum(torch.cat(
+            [wres, -(wres @ edges.R.transpose(-1, -2))]), *inc)
 
     def H(Rs):
         return _pin0(residual_adjoint(residual_op(_pin0(Rs))))
@@ -69,8 +78,7 @@ def chordal_rotations(edges: EdgeSet, n: int, maxiter: int = 2000,
     R_fixed = torch.zeros((n, d, d), dtype=dtype, device=dev)
     R_fixed[0] = torch.eye(d, dtype=dtype, device=dev)
     b = _pin0(-residual_adjoint(residual_op(R_fixed)))
-    deg = scatter_add(n, edges.i, wk) + scatter_add(n, edges.j, wk)
-    deg = torch.clamp(deg, min=1e-12)
+    deg = torch.clamp(ell_sum(torch.cat([wk, wk]), *inc), min=1e-12)
     sol = _cg(H, b, lambda Rs: _pin0(Rs / deg[:, None, None]), maxiter, tol)
     sol[0] = torch.eye(d, dtype=dtype, device=dev)
     return project_to_rotation(sol)
@@ -81,10 +89,11 @@ def recover_translations(edges: EdgeSet, Rs: torch.Tensor, n: int,
                          tol: float = 1e-10) -> torch.Tensor:
     """Least-squares translations given rotations, t_0 = 0: [n, d]."""
     wt = edges.mask * edges.weight * edges.tau
+    inc = _adjoint_incidence(edges, n)
 
     def residual_adjoint(res):
         wres = wt[:, None] * res
-        return scatter_add(n, edges.j, wres) + scatter_add(n, edges.i, -wres)
+        return ell_sum(torch.cat([wres, -wres]), *inc)
 
     def H(ts):
         ts = _pin0(ts)
@@ -92,8 +101,7 @@ def recover_translations(edges: EdgeSet, Rs: torch.Tensor, n: int,
 
     offs = (Rs[edges.i] @ edges.t[:, :, None])[..., 0]
     b = _pin0(residual_adjoint(offs))
-    deg = scatter_add(n, edges.i, wt) + scatter_add(n, edges.j, wt)
-    deg = torch.clamp(deg, min=1e-12)
+    deg = torch.clamp(ell_sum(torch.cat([wt, wt]), *inc), min=1e-12)
     return _cg(H, b, lambda ts: _pin0(ts / deg[:, None]), maxiter, tol)
 
 

@@ -6,6 +6,10 @@ Port of the TPU kernels ``dpgo_tpu/ops/pallas_tcg.py``:
 * ``rtr_full`` replaces ``_rtr_full_kernel`` / ``rtr_full_call`` — one
   launch solves every agent's local problem for one RBCD round (start-point
   gradient, truncated CG, retraction, cost and the accept/shrink loop);
+* ``rtr`` replaces ``_rtr_kernel`` / ``rtr_call`` — one launch is the
+  attempt loop of ``rtr_full`` for every agent from a precomputed gradient
+  ``g`` and curvature term ``S`` (no gradient sweep, no early exit): the
+  kernel of the round-ablation timing (``experiments.measure_r3``);
 * ``tcg`` replaces ``_tcg_kernel`` / ``tcg_call`` — the truncated CG alone;
 * ``rtr_refine_full`` replaces ``_rtr_refine_full_kernel`` /
   ``rtr_refine_full_call`` — one launch is the re-centered step of the
@@ -13,9 +17,9 @@ Port of the TPU kernels ``dpgo_tpu/ops/pallas_tcg.py``:
   ``D`` about a float64 host reference ``Rc``.
 
 Each wrapper runs the kernel for CUDA tensors and raises when it cannot; it
-takes its plain version (``rtr_full_reference`` / ``tcg_reference`` /
-``rtr_refine_full_reference``) only when the tensors it was given lie on
-the CPU.  The kernel is compiled with
+takes its plain version (``rtr_full_reference`` / ``rtr_reference`` /
+``tcg_reference`` / ``rtr_refine_full_reference``) only when the tensors it
+was given lie on the CPU.  The kernel is compiled with
 ``nvcc`` for ``sm_90a`` at first use, from the source in this package, into
 ``dpgo_tpu_torch/_build/``, and bound through ``ctypes``.
 
@@ -28,6 +32,9 @@ batched over agents with a leading ``A``:
   the first ``e_max`` positions hold the agent's edge rows;
 * poses component-major: ``Xc [A, r(d+1), n]``, ``Zc [A, r(d+1), s]``;
 * ``Lc [A, (d+1)^2, n]`` the block-Jacobi Cholesky factors;
+* ``rtr`` and ``tcg`` only: ``Sc [A, d*d, n]`` the curvature term
+  ``sym(Y^T G_Y)`` (component ``b*d + c``) and ``gc [A, r(d+1), n]`` the
+  Riemannian gradient;
 * ``inc_slot, inc_mask [A, n, K]`` the ELL incidence into ``[gi | gj]``;
 * ``n_local [A]`` int32: the agent's own pose count; padded poses past it
   are returned unchanged;
@@ -56,6 +63,8 @@ from .solver import _sel, refine_attempts, truncated_cg
 
 #: Launches of the ``rtr_full`` kernel (not of its plain version).
 LAUNCHES = 0
+#: Launches of the ``rtr`` kernel.
+RTR_LAUNCHES = 0
 #: Launches of the ``tcg`` kernel.
 TCG_LAUNCHES = 0
 #: Launches of the ``rtr_refine_full`` kernel.
@@ -76,6 +85,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 class RTRFullOut(NamedTuple):
     X: torch.Tensor          # [A, r(d+1), n] updated poses
     stats: torch.Tensor      # [A, 5] attempts, accepted, f0, f, gn0
+    tcg_iters: torch.Tensor  # [A] int32 tCG iterations over all attempts
+
+
+class RTROut(NamedTuple):
+    X: torch.Tensor          # [A, r(d+1), n] updated poses
+    stats: torch.Tensor      # [A, 4] attempts, accepted, f0, f
     tcg_iters: torch.Tensor  # [A] int32 tCG iterations over all attempts
 
 
@@ -200,38 +215,22 @@ def tcg_reference(idx_i, idx_j, rot, trn, wk, wt, Xc, Sc, Lc, gc, radius,
     return TCGOut(comp_major(res.eta), comp_major(res.heta), stats)
 
 
-def rtr_full_reference(idx_i, idx_j, rot, trn, wk, wt, Xc, Zc, Lc, inc_slot,
-                       inc_mask, n_local, *, r: int, d: int, e_max: int,
-                       max_iters: int, kappa: float, theta: float,
-                       initial_radius: float, max_rejections: int,
-                       grad_tol: float) -> RTRFullOut:
-    """Plain version of ``rtr_full``, computing in ``Xc.dtype``: the same
-    gradient, tCG, 24-sweep Newton-Schulz retraction and accept/shrink loop,
-    batched over agents (each agent's loops stop on their own)."""
-    dtype = Xc.dtype
-    k = d + 1
-    A, _, n = Xc.shape
-    s = Zc.shape[-1]
-    loc = _local(idx_i, idx_j, rot, trn, wk, wt, Lc, inc_slot, inc_mask,
-                 d=d, e_max=e_max, n=n, s=s, dtype=dtype)
-    X = comp_minor(Xc, r, k)
-    Z = comp_minor(Zc.to(dtype), r, k)
+def _attempts(loc: _Local, X, Z, g, S, f0, k_att, n_local, *,
+              max_iters: int, kappa: float, theta: float,
+              initial_radius: float, max_rejections: int):
+    """The attempt loop shared by ``rtr_full`` and ``rtr``: from ``k_att``
+    attempts already spent, {tCG at the radius, 24-sweep Newton-Schulz
+    retraction, cost; accept when rho > 0.1 and f did not rise, else
+    radius / 4}, batched over agents (each agent's loop stops on its own).
+    Returns (X, attempts, accepted, f, tCG iterations)."""
+    A, n = X.shape[0], X.shape[-3]
 
     def cost(V):
         return quadratic.cost(_buffer(V, Z, loc.n_buf), loc.edges)
 
-    G = quadratic.egrad_ell(_buffer(X, Z, loc.n_buf), loc.edges,
-                            loc.inc_slot, loc.inc_mask)
-    Y = X[..., :-1]
-    S = manifold.sym(Y.transpose(-1, -2) @ G[..., :-1])
-    g = manifold.tangent_project(X, G)
-    gn0 = manifold.norm(g)
-    f0 = cost(X)
     live = (torch.arange(n, device=X.device)[None, :]
             < n_local.to(X.device)[:, None])
-
-    k_att = torch.where(gn0 < grad_tol, float(max_rejections), 0.0)
-    radius = torch.full_like(gn0, initial_radius)
+    radius = torch.full_like(f0, initial_radius)
     X_best, f_best = X, f0
     accepted = torch.zeros(A, dtype=torch.bool, device=X.device)
     iters = torch.zeros(A, dtype=torch.int32, device=X.device)
@@ -257,9 +256,63 @@ def rtr_full_reference(idx_i, idx_j, rot, trn, wk, wt, Xc, Zc, Lc, inc_slot,
         k_att = torch.where(active, k_att + 1.0, k_att)
         iters = torch.where(active, iters + res.iters, iters)
         accepted = accepted | ok
-    stats = torch.stack([k_att.to(dtype), accepted.to(dtype), f0, f_best,
-                         gn0], dim=-1)
-    return RTRFullOut(comp_major(X_best), stats, iters)
+    return X_best, k_att, accepted, f_best, iters
+
+
+def rtr_full_reference(idx_i, idx_j, rot, trn, wk, wt, Xc, Zc, Lc, inc_slot,
+                       inc_mask, n_local, *, r: int, d: int, e_max: int,
+                       max_iters: int, kappa: float, theta: float,
+                       initial_radius: float, max_rejections: int,
+                       grad_tol: float) -> RTRFullOut:
+    """Plain version of ``rtr_full``, computing in ``Xc.dtype``: the
+    gradient, S and gn0 at ``X``, the early exit below ``grad_tol``, then
+    the attempts of ``rtr_reference``."""
+    dtype = Xc.dtype
+    k = d + 1
+    n = Xc.shape[-1]
+    loc = _local(idx_i, idx_j, rot, trn, wk, wt, Lc, inc_slot, inc_mask,
+                 d=d, e_max=e_max, n=n, s=Zc.shape[-1], dtype=dtype)
+    X = comp_minor(Xc, r, k)
+    Z = comp_minor(Zc.to(dtype), r, k)
+    G = quadratic.egrad_ell(_buffer(X, Z, loc.n_buf), loc.edges,
+                            loc.inc_slot, loc.inc_mask)
+    S = manifold.sym(X[..., :-1].transpose(-1, -2) @ G[..., :-1])
+    g = manifold.tangent_project(X, G)
+    gn0 = manifold.norm(g)
+    f0 = quadratic.cost(_buffer(X, Z, loc.n_buf), loc.edges)
+    k_att = torch.where(gn0 < grad_tol, float(max_rejections), 0.0)
+    X_out, k_att, accepted, f, iters = _attempts(
+        loc, X, Z, g, S, f0, k_att, n_local, max_iters=max_iters,
+        kappa=kappa, theta=theta, initial_radius=initial_radius,
+        max_rejections=max_rejections)
+    stats = torch.stack([k_att.to(dtype), accepted.to(dtype), f0, f, gn0],
+                        dim=-1)
+    return RTRFullOut(comp_major(X_out), stats, iters)
+
+
+def rtr_reference(idx_i, idx_j, rot, trn, wk, wt, Xc, Zc, Sc, Lc, gc,
+                  inc_slot, inc_mask, n_local, *, r: int, d: int, e_max: int,
+                  max_iters: int, kappa: float, theta: float,
+                  initial_radius: float, max_rejections: int) -> RTROut:
+    """Plain version of ``rtr``, computing in ``Xc.dtype``: the attempts of
+    ``rtr_full_reference`` from the given ``Sc`` and ``gc``, always (no
+    early exit)."""
+    dtype = Xc.dtype
+    k = d + 1
+    A, _, n = Xc.shape
+    loc = _local(idx_i, idx_j, rot, trn, wk, wt, Lc, inc_slot, inc_mask,
+                 d=d, e_max=e_max, n=n, s=Zc.shape[-1], dtype=dtype)
+    X = comp_minor(Xc, r, k)
+    Z = comp_minor(Zc.to(dtype), r, k)
+    S = Sc.to(dtype).reshape(A, d, d, n).permute(0, 3, 1, 2)
+    g = comp_minor(gc.to(dtype), r, k)
+    f0 = quadratic.cost(_buffer(X, Z, loc.n_buf), loc.edges)
+    X_out, k_att, accepted, f, iters = _attempts(
+        loc, X, Z, g, S, f0, torch.zeros_like(f0), n_local,
+        max_iters=max_iters, kappa=kappa, theta=theta,
+        initial_radius=initial_radius, max_rejections=max_rejections)
+    stats = torch.stack([k_att, accepted.to(dtype), f0, f], dim=-1)
+    return RTROut(comp_major(X_out), stats, iters)
 
 
 def rtr_refine_full_reference(idx_i, idx_j, rot, trn, wk, wt, rho_rot,
@@ -378,6 +431,9 @@ def load():
     lib.dpgo_rtr_full_launch.argtypes = (
         [I] * 9 + [P] * 16 + [LL, I, F, F, F, I, F, P])
     lib.dpgo_rtr_full_launch.restype = I
+    lib.dpgo_rtr_launch.argtypes = (
+        [I] * 9 + [P] * 18 + [LL, I, F, F, F, I, P])
+    lib.dpgo_rtr_launch.restype = I
     lib.dpgo_tcg_launch.argtypes = (
         [I] * 8 + [P] * 18 + [LL, I, F, F, P])
     lib.dpgo_tcg_launch.restype = I
@@ -389,7 +445,7 @@ def load():
 
 
 def _check(name: str, dev, tensors: dict, shapes: dict) -> None:
-    """Device, dtype, shape and contiguity checks shared by both wrappers;
+    """Device, dtype, shape and contiguity checks shared by the wrappers;
     the kernel's launcher checks the shape (r, d) itself."""
     for key, t in tensors.items():
         if t.device != dev:
@@ -479,6 +535,46 @@ def rtr_full(idx_i, idx_j, rot, trn, wk, wt, Xc, Zc, Lc, inc_slot, inc_mask,
     _raise_on("rtr_full", err, r, d)
     LAUNCHES += 1
     return RTRFullOut(X_out, stats, iters)
+
+
+def rtr(idx_i, idx_j, rot, trn, wk, wt, Xc, Zc, Sc, Lc, gc, inc_slot,
+        inc_mask, n_local, *, r: int, d: int, e_max: int, max_iters: int,
+        kappa: float, theta: float, initial_radius: float,
+        max_rejections: int) -> RTROut:
+    """The attempt loop for every agent from the given ``Sc`` and ``gc``
+    (see the module docstring for the layouts).  CUDA tensors launch the
+    kernel on the current stream, once for all agents; CPU tensors run
+    ``rtr_reference``."""
+    global RTR_LAUNCHES
+    A, _, n = Xc.shape
+    s, K = Zc.shape[-1], inc_slot.shape[-1]
+    tensors = dict(idx_i=idx_i, idx_j=idx_j, rot=rot, trn=trn, wk=wk, wt=wt,
+                   Xc=Xc, Zc=Zc, Sc=Sc, Lc=Lc, gc=gc, inc_slot=inc_slot,
+                   inc_mask=inc_mask, n_local=n_local)
+    _check("rtr", Xc.device, tensors, _shapes(idx_i, r, d, n, s, K, A))
+    kw = dict(r=r, d=d, e_max=e_max, max_iters=max_iters, kappa=kappa,
+              theta=theta, initial_radius=initial_radius,
+              max_rejections=max_rejections)
+    if Xc.device.type == "cpu":
+        return rtr_reference(*tensors.values(), **kw)
+    lib = load()
+    nt, T = idx_i.shape[1], idx_i.shape[-1]
+    dev = Xc.device
+    ws_floats = lib.dpgo_rtr_workspace_floats(r, d, n, e_max, 0)
+    ws = torch.empty((A, ws_floats), dtype=torch.float32, device=dev)
+    X_out = torch.empty_like(Xc)
+    stats = torch.empty((A, 4), dtype=torch.float32, device=dev)
+    iters = torch.empty((A,), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.dpgo_rtr_launch(
+        r, d, A, n, s, nt * T, T, e_max, K,
+        *(t.data_ptr() for t in (*tensors.values(), X_out, stats, iters,
+                                 ws)),
+        ws_floats, max_iters, kappa, theta, initial_radius, max_rejections,
+        stream)
+    _raise_on("rtr", err, r, d)
+    RTR_LAUNCHES += 1
+    return RTROut(X_out, stats, iters)
 
 
 def tcg(idx_i, idx_j, rot, trn, wk, wt, Xc, Sc, Lc, gc, radius, inc_slot,

@@ -1,7 +1,7 @@
 """The port's CUDA kernels on the card, against their plain PyTorch
-versions (``dpgo_tpu_torch.ops.rtr_kernel``), and the launch counts of the
-solve and of the refinement.  Every test needs a CUDA device and skips
-without one.
+versions (``dpgo_tpu_torch.ops.rtr_kernel``), the launch counts of the
+solve, of a GREEDY round and of the refinement, and fused segments free of
+host syncs.  Every test needs a CUDA device and skips without one.
 
 This file imports no JAX, so it also runs where only PyTorch is installed:
 
@@ -12,7 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from dpgo_tpu_torch.config import AgentParams, SolverParams
+from dpgo_tpu_torch.config import (AgentParams, RobustCostParams,
+                                   RobustCostType, Schedule, SolverParams)
 from dpgo_tpu_torch.models import rbcd, refine
 from dpgo_tpu_torch.ops import manifold, quadratic
 from dpgo_tpu_torch.ops import rtr_kernel as rk
@@ -36,7 +37,7 @@ def _round(card, d=3, r=5, n=60, A=4, num_lc=20):
     prob = rbcd.prepare_problem(meas, A, params, device=card)
     g, m, X = prob.graph, prob.meta, prob.X0
     Z = rbcd.neighbor_buffer(rbcd.public_table(X, g), g)
-    chol = rbcd.precond_chol(g.edges, m.n_max, m.s_max, params)
+    chol = rbcd.precond_chol(g.edges, g, params)
     return prob, params, X, Z, chol
 
 
@@ -54,6 +55,99 @@ def test_rtr_full_kernel_matches_plain_version(card, d, r):
     assert torch.equal(out.stats[:, :2], ref.stats[:, :2])
     torch.testing.assert_close(out.stats[:, 2:], ref.stats[:, 2:],
                                rtol=1e-4, atol=0)
+
+
+def _b3_args(prob, X, Z, chol):
+    g, _, S = rbcd.gradient_pass(X, prob.graph, prob.meta)
+    return rbcd.b3_operands(X, Z, g, S, prob.graph.edges, chol, prob.graph)
+
+
+def _b3_kw(params, meta):
+    kw = rbcd.kernel_options(params, meta)
+    kw.pop("grad_tol")
+    return kw
+
+
+def _assert_b3_matches(out, ref):
+    assert float((out.X - ref.X).abs().max()) <= 1e-4
+    assert torch.equal(out.stats[:, :2], ref.stats[:, :2])
+    torch.testing.assert_close(out.stats[:, 2:], ref.stats[:, 2:],
+                               rtol=1e-4, atol=0)
+
+
+@pytest.mark.parametrize("d,r", [(3, 5), (2, 3)])
+def test_rtr_kernel_matches_plain_version(card, d, r):
+    prob, params, X, Z, chol = _round(card, d=d, r=r)
+    args = _b3_args(prob, X, Z, chol)
+    kw = _b3_kw(params, prob.meta)
+    before = rk.RTR_LAUNCHES
+    out = rk.rtr(*args, **kw)
+    ref = rk.rtr_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert rk.RTR_LAUNCHES == before + 1
+    _assert_b3_matches(out, ref)
+
+
+def test_rtr_kernel_payload_too_large_for_shared_memory(card):
+    prob, params, X, Z, chol = _round(card, n=2000, A=1, num_lc=2000)
+    assert prob.meta.e_max * 64 > 232448
+    args = _b3_args(prob, X, Z, chol)
+    kw = _b3_kw(params, prob.meta)
+    out = rk.rtr(*args, **kw)
+    ref = rk.rtr_reference(*args, **kw)
+    torch.cuda.synchronize()
+    _assert_b3_matches(out, ref)
+
+
+def test_rtr_kernel_shape_without_instantiation_raises(card):
+    prob, params, X, Z, chol = _round(card, d=3, r=6, A=2, n=40, num_lc=10)
+    before = rk.RTR_LAUNCHES
+    with pytest.raises(ValueError, match="instantiated"):
+        rk.rtr(*_b3_args(prob, X, Z, chol), **_b3_kw(params, prob.meta))
+    assert rk.RTR_LAUNCHES == before
+
+
+def test_greedy_round_launches_once_at_one_agent(card):
+    prob, _, X, _, _ = _round(card)
+    params = AgentParams(d=3, r=5, num_robots=4, schedule=Schedule.GREEDY)
+    plain = AgentParams(d=3, r=5, num_robots=4, schedule=Schedule.GREEDY,
+                        solver=SolverParams(pallas_tcg=False))
+    g, m = prob.graph, prob.meta
+    state = rbcd.init_state(g, m, X, params)
+    before = rk.LAUNCHES
+    out = rbcd.rbcd_step(state, g, m, params)
+    ref = rbcd.rbcd_step(state, g, m, plain)
+    torch.cuda.synchronize()
+    assert rk.LAUNCHES == before + 1
+    changed = (out.X != X).any(dim=(1, 2, 3))
+    assert int(changed.sum()) == 1
+    assert torch.equal(changed, (ref.X != X).any(dim=(1, 2, 3)))
+    assert float((out.X - ref.X).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("params,flags", [
+    (AgentParams(d=3, r=5, num_robots=4, schedule=Schedule.GREEDY),
+     (False, False)),
+    (AgentParams(d=3, r=5, num_robots=4, schedule=Schedule.ASYNC),
+     (False, False)),
+    (AgentParams(d=3, r=5, num_robots=4, acceleration=True,
+                 restart_interval=3), (False, True)),
+    (AgentParams(d=3, r=5, num_robots=4, schedule=Schedule.COLORED,
+                 robust=RobustCostParams(cost_type=RobustCostType.GNC_TLS),
+                 robust_opt_warm_start=False), (True, False)),
+])
+def test_segment_has_no_host_sync(card, params, flags):
+    prob, _, X, _, _ = _round(card)
+    state = rbcd.init_state(prob.graph, prob.meta, X, params)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state = rbcd.rbcd_segment(state, prob.graph, 4, prob.meta, params,
+                                  *flags)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert state.iteration == 4
+    assert bool(torch.isfinite(state.X).all())
 
 
 def test_tcg_kernel_matches_plain_version(card):

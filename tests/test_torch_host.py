@@ -123,7 +123,8 @@ def test_port_imports_no_jax():
     (checked in a fresh interpreter: this one has imported both)."""
     code = ("import sys; import dpgo_tpu_torch, chip_smoke; "
             "import dpgo_tpu_torch.interop, dpgo_tpu_torch.models.rbcd, "
-            "dpgo_tpu_torch.models.refine; "
+            "dpgo_tpu_torch.models.refine, dpgo_tpu_torch.robust, "
+            "dpgo_tpu_torch.experiments.measure_r3; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'dpgo_tpu')); print(bad); "
             "sys.exit(1 if bad else 0)")

@@ -40,7 +40,7 @@ def prob():
     graph, meta = rbcd.build_graph(part, 5, torch.float64, device="cpu")
     X0 = rbcd.centralized_chordal_init(part, meta, graph, torch.float64)
     Z = rbcd.neighbor_buffer(rbcd.public_table(X0, graph), graph)
-    chol = rbcd.precond_chol(graph.edges, meta.n_max, meta.s_max,
+    chol = rbcd.precond_chol(graph.edges, graph,
                              AgentParams())
     return dict(meas=meas, graph=graph, meta=meta, X0=X0, Z=Z, chol=chol)
 
@@ -66,10 +66,11 @@ def test_quadratic_ops_match_jax(prob):
     V = torch.as_tensor(rng.standard_normal(X0.shape))
     n_buf = meta.n_max + meta.s_max
     cost = quadratic.cost(buf, g.edges)
-    eg = quadratic.egrad(buf, g.edges, n_out=meta.n_max)
+    eg = quadratic.egrad_ell(buf, g.edges, *quadratic.incidence(
+        meta.n_max, torch.cat([g.edges.i, g.edges.j], dim=-1)))
     eg_ell = quadratic.egrad_ell(buf, g.edges, g.inc_slot, g.inc_mask)
     hv_ell = quadratic.hessvec_ell(V, g.edges, g.inc_slot, g.inc_mask, n_buf)
-    blocks = quadratic.diag_blocks(g.edges, n_buf, n_out=meta.n_max)
+    blocks = quadratic.diag_blocks(g.edges, g.inc_slot, g.inc_mask)
     L = quadratic.precond_factors(blocks, 0.1)
     pv = quadratic.precond_apply(L, V)
     for a in range(meta.num_robots):
@@ -192,3 +193,32 @@ def test_chordal_initialization_matches_jax(prob):
     np.testing.assert_allclose(
         T.numpy(), jchordal.chordal_initialization(je, meas.num_poses),
         rtol=1e-8, atol=1e-10)
+
+
+@pytest.mark.parametrize("lead,N,E,tail", [((), 7, 30, ()),
+                                           ((3,), 11, 40, (5, 4)),
+                                           ((2,), 9, 4, (2,))])
+def test_scatter_add_is_index_add_in_a_fixed_order(lead, N, E, tail):
+    """The sum through the incidence equals ``index_add_`` to rounding
+    (rows without a term included), and two calls agree bit for bit."""
+    rng = np.random.default_rng(len(lead) + E)
+    idx = torch.as_tensor(rng.integers(0, N, lead + (E,)))
+    vals = torch.as_tensor(rng.standard_normal(lead + (E,) + tail))
+    inc = quadratic.incidence(N, idx)
+    out = quadratic.ell_sum(vals, *inc)
+    B = int(np.prod(lead))
+    off = (torch.arange(B).reshape(lead + (1,)) * N) if lead else 0
+    ref = torch.zeros((B * N,) + tail, dtype=vals.dtype).index_add_(
+        0, (idx + off).reshape(-1), vals.reshape((-1,) + tail))
+    np.testing.assert_allclose(out.numpy(), ref.reshape(out.shape).numpy(),
+                               rtol=1e-12, atol=0)
+    assert torch.equal(out, quadratic.ell_sum(vals, *inc))
+
+
+def test_chordal_and_factors_repeat_bitwise(prob):
+    g, meta, meas = prob["graph"], prob["meta"], prob["meas"]
+    e = edge_set_from_measurements(meas, torch.float64, device="cpu")
+    T = chordal.chordal_initialization(e, meas.num_poses)
+    assert torch.equal(T, chordal.chordal_initialization(e, meas.num_poses))
+    chol = rbcd.precond_chol(g.edges, g, AgentParams())
+    assert torch.equal(chol, prob["chol"])

@@ -120,19 +120,26 @@ def test_forced_kernel_that_cannot_run_raises():
         rbcd.rbcd_step(state, prob.graph, prob.meta, rgd)
 
 
-@pytest.mark.parametrize("params,kw", [
-    (AgentParams(schedule=Schedule.GREEDY), {}),
-    (AgentParams(schedule=Schedule.ASYNC), {}),
-    (AgentParams(schedule=Schedule.COLORED), {}),
-    (AgentParams(acceleration=True), {}),
-    (AgentParams(robust=RobustCostParams(
-        cost_type=RobustCostType.GNC_TLS)), {}),
-    (AgentParams(solver=SolverParams(dense_quadratic=True)), {}),
-    (AgentParams(), {"verdict_every": 4}),
-])
-def test_unported_paths_raise(params, kw):
+@pytest.mark.parametrize("entry", ["dense_quadratic", "verdict_every",
+                                   "robust_iterated", "odometry_init"])
+def test_unported_paths_raise(entry):
     prob = _port_problem(dtype=torch.float64)
-    prob = rbcd.PreparedProblem(prob.part, prob.graph, prob.meta, params,
-                                prob.dtype, prob.X0)
+    meas = prob.part.meas_global
+
+    def dispatch(params, **kw):
+        p = rbcd.PreparedProblem(prob.part, prob.graph, prob.meta, params,
+                                 prob.dtype, prob.X0)
+        return rbcd.dispatch_prepared(p, max_iters=2, **kw)
+
+    call = {
+        "dense_quadratic": lambda: dispatch(
+            AgentParams(solver=SolverParams(dense_quadratic=True))),
+        "verdict_every": lambda: dispatch(AgentParams(), verdict_every=4),
+        "robust_iterated": lambda: rbcd.solve_rbcd_robust_iterated(
+            meas, 3, AgentParams(robust=RobustCostParams(
+                cost_type=RobustCostType.GNC_TLS)), device="cpu"),
+        "odometry_init": lambda: rbcd.solve_rbcd(
+            meas, 3, max_iters=2, init="odometry", device="cpu"),
+    }[entry]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rbcd.dispatch_prepared(prob, max_iters=2, **kw)
+        call()

@@ -42,7 +42,7 @@ def _problem(seed, n, A, d, rank, num_lc, dtype=torch.float32):
     X0 = rbcd.centralized_chordal_init(part, meta, graph, dtype)
     Z = rbcd.neighbor_buffer(rbcd.public_table(X0, graph), graph)
     params = AgentParams(d=d, r=rank, num_robots=A)
-    chol = rbcd.precond_chol(graph.edges, meta.n_max, meta.s_max, params)
+    chol = rbcd.precond_chol(graph.edges, graph, params)
     ops = dict(zip(ORDER, rbcd.kernel_operands(X0, Z, graph.edges, chol,
                                                graph)))
     if dtype == torch.float64:  # plain-version inputs in the problem type
@@ -99,6 +99,71 @@ def test_rtr_full_reference_matches_pallas_kernel(d, rank, n, A, num_lc):
         assert ref.stats[a, 1].item() == st[1]  # accepted
         np.testing.assert_allclose(ref.stats[a, 2:].numpy(), st[2:],
                                    rtol=1e-5)
+
+
+B3_ORDER = ORDER[:8] + ("Sc", "Lc", "gc") + ORDER[9:]
+B3_KW = {k: v for k, v in RTR_KW.items() if k != "grad_tol"}
+
+
+def _b3_operands(graph, meta, X0, Z, chol):
+    g, _, S = rbcd.gradient_pass(X0, graph, meta)
+    return dict(zip(B3_ORDER, rbcd.b3_operands(X0, Z, g, S, graph.edges,
+                                               chol, graph)))
+
+
+@pytest.mark.parametrize("d,rank,n,A,num_lc", [(3, 5, 24, 4, 12),
+                                               (2, 3, 16, 2, 6)])
+def test_rtr_reference_matches_pallas_kernel(d, rank, n, A, num_lc):
+    """B3's plain version against ``pallas_tcg.rtr_call`` (interpreter
+    mode, per agent), fed g and S from ``rbcd.gradient_pass``."""
+    graph, meta, X0, Z, chol, _ = _problem(5, n=n, A=A, d=d, rank=rank,
+                                           num_lc=num_lc)
+    ops = _b3_operands(graph, meta, X0, Z, chol)
+    ref = rk.rtr_reference(*ops.values(), r=rank, d=d, e_max=meta.e_max,
+                           **B3_KW)
+    assert ref.stats.shape == (A, 4)
+    for a in range(A):
+        Xo, stats = ptcg.rtr_call(
+            *[_j(ops[k][a]) for k in B3_ORDER[:11]], r=rank, d=d,
+            interpret=True, **B3_KW)
+        np.testing.assert_allclose(ref.X[a].numpy(), Xo, atol=1e-5)
+        st = np.asarray(stats)[0]
+        assert ref.stats[a, 0].item() == st[0]  # attempts
+        assert ref.stats[a, 1].item() == st[1]  # accepted
+        np.testing.assert_allclose(ref.stats[a, 2:].numpy(), st[2:],
+                                   rtol=1e-5)
+
+
+def test_rtr_reference_after_gradient_pass_equals_rtr_full_reference():
+    """B3 fed the gradient pass at X takes B2's step at X (B2 with its
+    early exit off)."""
+    graph, meta, X0, Z, chol, ops = _problem(3, n=24, A=4, d=3, rank=5,
+                                             num_lc=12)
+    b3 = rk.rtr_reference(*_b3_operands(graph, meta, X0, Z, chol).values(),
+                          r=5, d=3, e_max=meta.e_max, **B3_KW)
+    b2 = rk.rtr_full_reference(*[ops[k] for k in ORDER], r=5, d=3,
+                               e_max=meta.e_max, **dict(RTR_KW, grad_tol=0))
+    np.testing.assert_allclose(b3.X.numpy(), b2.X.numpy(), atol=1e-6)
+    assert torch.equal(b3.stats[:, :2], b2.stats[:, :2])
+    assert torch.equal(b3.tcg_iters, b2.tcg_iters)
+    np.testing.assert_allclose(b3.stats[:, 2:].numpy(),
+                               b2.stats[:, 2:4].numpy(), rtol=1e-6)
+
+
+def test_rtr_wrapper_runs_plain_version_on_cpu_tensors():
+    graph, meta, X0, Z, chol, _ = _problem(5, n=16, A=2, d=2, rank=3,
+                                           num_lc=6)
+    args = list(_b3_operands(graph, meta, X0, Z, chol).values())
+    kw = dict(r=3, d=2, e_max=meta.e_max, **B3_KW)
+    before = rk.RTR_LAUNCHES
+    out = rk.rtr(*args, **kw)
+    ref = rk.rtr_reference(*args, **kw)
+    assert rk.RTR_LAUNCHES == before
+    assert torch.equal(out.X, ref.X) and torch.equal(out.stats, ref.stats)
+    with pytest.raises(ValueError, match="shape"):
+        rk.rtr(*args[:8], args[8][:1], *args[9:], **kw)
+    with pytest.raises(ValueError, match="shape"):
+        rk.rtr(*args, **dict(kw, r=7))
 
 
 def test_rtr_full_reference_f64_matches_jax_ell_update():
@@ -170,6 +235,11 @@ def test_cuda_tensor_without_cuda_raises():
         pytest.skip("a CUDA device is present: the kernel would launch")
     with pytest.raises((RuntimeError, AssertionError)):
         rk.rtr_full(*_kernel_args("cuda"), r=5, d=3, e_max=4, **RTR_KW)
+    with pytest.raises((RuntimeError, AssertionError)):
+        a = _kernel_args("cuda")
+        rk.rtr(*a[:8], torch.zeros((1, 9, 2), device="cuda"), a[8],
+               torch.zeros((1, 20, 2), device="cuda"), *a[9:], r=5, d=3,
+               e_max=4, **B3_KW)
     with pytest.raises(RuntimeError, match="CUDA"):
         rk.load()
     # A tensor on a device that is neither the CPU nor CUDA never falls
