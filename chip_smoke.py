@@ -26,9 +26,15 @@ synthetic stand-in for sphere2500 (2500 poses, 4948 edges, 8 robots, rank
   weights are held against the plain "ell" formulation's, and the run is
   continued for as many rounds again.
 
-Before the paths, ``determinism`` checks that the card's chordal init and
-preconditioner factors repeat bit for bit and that B2's 10-round check from
-the card's own start repeats.
+Before the paths: B2 and B3 against their plain versions at the chordal
+init and at the float32 floor (200 fused rounds), for all agents and for
+agent 0 alone; B2's 10 rounds against the "ell" formulation's, gated by
+that formulation's own divergence from starts moved by one ulp; and
+``determinism``: the card's chordal init and preconditioner factors
+repeat bit for bit, and B2's 10-round check from the card's own start
+repeats.  After the solve, B2 and B3 are timed on the cluster route and
+on the workspace route (``_cluster=0``) at both operand sets, and B2 at
+every cluster size the card can place (``cluster_sweep``).
 
 Each phase prints one JSON line; any failure raises.  The line before the
 last is the kernel table ``{"kernels": [...]}``; the last line is
@@ -42,6 +48,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -59,7 +66,6 @@ from dpgo_tpu_torch.config import (AgentParams, RobustCostParams,  # noqa: E402
                                    RobustCostType, Schedule, SolverParams)
 from dpgo_tpu_torch.experiments import measure_r3  # noqa: E402
 from dpgo_tpu_torch.models import rbcd, refine  # noqa: E402
-from dpgo_tpu_torch.ops import manifold, quadratic  # noqa: E402
 from dpgo_tpu_torch.ops import rtr_kernel as rk  # noqa: E402
 from dpgo_tpu_torch.utils import partition  # noqa: E402
 from dpgo_tpu_torch.utils.synthetic import make_measurements  # noqa: E402
@@ -72,7 +78,17 @@ MAX_ITERS, GRAD_TOL = 200, 0.1
 DESCENT_ROUNDS, REFINE_CYCLES, ROUNDS_PER_CYCLE = 300, 3, 50
 #: Parity bounds on the card (float32; summation order differs between
 #: the kernel and the plain version).
-X_ATOL, STAT_RTOL, TRAJ_ATOL = 1e-4, 1e-4, 5e-4
+X_ATOL, STAT_RTOL = 1e-4, 1e-4
+#: B2's 10 rounds against the "ell" formulation's from the host's start:
+#: at most TRAJ_SPREAD times the largest divergence of "ell" itself from
+#: the PERTURBED_STARTS starts moved by one ulp, and never above TRAJ_MAX.
+TRAJ_SPREAD, TRAJ_MAX = 2.0, 1e-3
+#: Fused JACOBI rounds from the chordal init to the float32 floor, where
+#: B2 rejects every attempt on most agents (B2's and B3's second operand
+#: set).  An accept decision there that differs from the plain version's
+#: must have moved f by at most FLOOR_DF_RTOL of f0 (float32 rounding of
+#: a sum of ~1e3 terms).
+FLOOR_ROUNDS, FLOOR_DF_RTOL = 200, 1e-5
 #: B4 parity: the correction's change relative to the step's own size, and
 #: the cost increments relative to their largest magnitude (both are small
 #: differences of float32 sums taken in another order).
@@ -128,6 +144,20 @@ def cuda_ms(fn, reps: int, inner: int = 1, warmup: int = 2) -> float:
         t1.synchronize()
         times.append(t0.elapsed_time(t1) / inner)
     return statistics.median(times)
+
+
+def ptxas_report(log: str) -> list:
+    """One line per compiled kernel: its name and (r, d), then what ptxas
+    said of its registers and spills."""
+    rows, name = [], None
+    for ln in log.splitlines():
+        m = re.search(r"\d([a-z][a-z_]*_kernel)ILi(\d+)ELi(\d+)E", ln)
+        if "Compiling entry function" in ln and m:
+            name = f"{m[1]}<{m[2]},{m[3]}>"
+            rows.append(name)
+        elif name and ("registers" in ln or "spill" in ln):
+            rows[-1] += " | " + ln.split(":", 1)[-1].strip()
+    return rows
 
 
 def profile_run(fn) -> dict:
@@ -291,43 +321,33 @@ def bound(nbytes: int, flops: int) -> tuple[float, str]:
 
 # ---------------------------------------------------------------------------
 
-def round_operands(prob, params):
-    """One round's kernel operands at the chordal init (the first round of
-    the main path), plus the tCG operands S and g at the same point."""
-    graph, meta, X = prob.graph, prob.meta, prob.X0
-    Z = rbcd.neighbor_buffer(rbcd.public_table(X, graph), graph)
-    chol = rbcd.precond_chol(graph.edges, graph, params)
-    args = rbcd.kernel_operands(X, Z, graph.edges, chol, graph)
-    ops = dict(zip(("idx_i", "idx_j", "rot", "trn", "wk", "wt", "Xc", "Zc",
-                    "Lc", "inc_slot", "inc_mask", "n_local"), args))
-    eg = quadratic.egrad_ell(torch.cat([X, Z], dim=1), graph.edges,
-                             graph.inc_slot, graph.inc_mask)
-    d = meta.d
-    S = manifold.sym(X[..., :d].transpose(-1, -2) @ eg[..., :d])
-    tcg_ops = dict((k, ops[k]) for k in ("idx_i", "idx_j", "rot", "trn",
-                                         "wk", "wt", "Xc"))
-    tcg_ops.update(
-        Sc=S.permute(0, 2, 3, 1).reshape(meta.num_robots, d * d, -1)
-        .contiguous(), Lc=ops["Lc"],
-        gc=rk.comp_major(manifold.rgrad(X, eg)),
-        radius=torch.ones(meta.num_robots, device=X.device),
-        inc_slot=ops["inc_slot"], inc_mask=ops["inc_mask"])
-    return ops, tcg_ops
+def tcg_operands(b3_ops: dict) -> dict:
+    """B1's operands at B3's point: its S and g, radius 1."""
+    tcg_ops = {k: b3_ops[k] for k in ("idx_i", "idx_j", "rot", "trn", "wk",
+                                      "wt", "Xc", "Sc", "Lc", "gc")}
+    tcg_ops.update(radius=torch.ones(b3_ops["Xc"].shape[0],
+                                     device=b3_ops["Xc"].device),
+                   inc_slot=b3_ops["inc_slot"], inc_mask=b3_ops["inc_mask"])
+    return tcg_ops
 
 
-def trajectory_gap(X0, graph, meta, params, plain, chol=None,
-                   rounds: int = 10) -> float:
-    """Max |ΔX| after ``rounds`` JACOBI rounds from ``X0`` through the
-    kernel (``params``) and through the "ell" formulation (``plain``);
-    ``chol`` replaces the preconditioner factors ``init_state`` makes."""
-    sk = rbcd.init_state(graph, meta, X0, params)
-    sp = rbcd.init_state(graph, meta, X0, plain)
+def rounds_from(X0, graph, meta, params, chol=None):
+    """X after 10 JACOBI rounds from ``X0`` in the formulation ``params``
+    picks; ``chol`` replaces the preconditioner factors ``init_state``
+    makes."""
+    st = rbcd.init_state(graph, meta, X0, params)
     if chol is not None:
-        sk, sp = sk._replace(chol=chol), sp._replace(chol=chol)
-    for _ in range(rounds):
-        sk = rbcd.rbcd_step(sk, graph, meta, params)
-        sp = rbcd.rbcd_step(sp, graph, meta, plain)
-    return float((sk.X - sp.X).abs().max())
+        st = st._replace(chol=chol)
+    for _ in range(10):
+        st = rbcd.rbcd_step(st, graph, meta, params)
+    return st.X
+
+
+def trajectory_gap(X0, graph, meta, params, plain) -> float:
+    """Max |ΔX| after 10 JACOBI rounds from ``X0`` through the kernel
+    (``params``) and through the "ell" formulation (``plain``)."""
+    return float((rounds_from(X0, graph, meta, params)
+                  - rounds_from(X0, graph, meta, plain)).abs().max())
 
 
 def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -502,50 +522,181 @@ def refine_phase(prob, meas, card: str, profile: bool) -> list:
             "bytes": nbytes, "flops": flops}, launches["rtr_full"]
 
 
+B2_ORDER = ("idx_i", "idx_j", "rot", "trn", "wk", "wt", "Xc", "Zc", "Lc",
+            "inc_slot", "inc_mask", "n_local")
 B3_ORDER = ("idx_i", "idx_j", "rot", "trn", "wk", "wt", "Xc", "Zc", "Sc",
             "Lc", "gc", "inc_slot", "inc_mask", "n_local")
 
 
-def b3_parity(prob, params, b2_ops: dict):
-    """B3 at the chordal init, fed the gradient pass's g and S: against its
-    plain version, and against one B2 launch at the same point (the same
-    step, on every agent B2 does not exit early).  Returns B3's operands,
-    options, output and max |ΔX| against the plain version."""
-    graph, meta, X = prob.graph, prob.meta, prob.X0
-    g, _, S = rbcd.gradient_pass(X, graph, meta)
+def operand_sets(prob, params, X) -> tuple[dict, dict]:
+    """B2's and B3's operands at ``X`` (B3 fed the gradient pass's g and
+    S), with the factors ``init_state`` makes."""
+    graph, meta = prob.graph, prob.meta
     Z = rbcd.neighbor_buffer(rbcd.public_table(X, graph), graph)
     chol = rbcd.precond_chol(graph.edges, graph, params)
-    ops = dict(zip(B3_ORDER, rbcd.b3_operands(X, Z, g, S, graph.edges, chol,
-                                              graph)))
-    kw = rbcd.kernel_options(params, meta)
-    grad_tol = kw.pop("grad_tol")
-    out = rk.rtr(*ops.values(), **kw)
-    ref = rk.rtr_reference(*ops.values(), **kw)
-    b2 = rk.rtr_full(*b2_ops.values(), **rbcd.kernel_options(params, meta))
+    g, _, S = rbcd.gradient_pass(X, graph, meta)
+    return (dict(zip(B2_ORDER, rbcd.kernel_operands(X, Z, graph.edges, chol,
+                                                    graph))),
+            dict(zip(B3_ORDER, rbcd.b3_operands(X, Z, g, S, graph.edges,
+                                                chol, graph))))
+
+
+def first_agent(ops: dict) -> dict:
+    """The operands of agent 0 alone: one cluster, as GREEDY launches."""
+    return {k: v[:1].contiguous() for k, v in ops.items()}
+
+
+def plan_of(ops: dict, kw: dict):
+    return rk.cluster_plan(ops["Xc"].shape[-1], kw["e_max"],
+                           ops["inc_slot"].shape[-1], kw["r"], kw["d"])
+
+
+def kernel_parity(fn, ref_fn, ops: dict, kw: dict, where: str,
+                  floor: bool = False):
+    """B2 (``fn = rk.rtr_full``) or B3 (``rk.rtr``) on its planned route
+    against its plain version on the same operands: max |ΔX| <= X_ATOL, no
+    flip of attempts or accepted, f0 / f (/ gn0) at STAT_RTOL.  tCG
+    iteration counts are reported, not gated.
+
+    ``floor``: at the float32 floor the accept test (rho > 0.1 and f not
+    rising) compares f(xp) and f(x) that differ by float32 rounding, so two
+    sum orders may decide an attempt differently, and gn0 is a norm of
+    cancelling terms.  There the gate is f0 at STAT_RTOL, X and f at the
+    strict bounds on every agent whose attempts and accepted agree, every
+    flip decided within FLOOR_DF_RTOL of f0, and gn0 no further from the
+    float64 plain version than twice the float32 plain version is; the
+    workspace route's flips on the same operands are reported beside.
+    Returns the row and the kernel's output."""
+    name = fn.__name__
+    out = fn(*ops.values(), **kw)
+    ref = ref_fn(*ops.values(), **kw)
     torch.cuda.synchronize()
     check(bool(torch.isfinite(out.X).all() and torch.isfinite(out.stats)
-               .all()), "rtr kernel returned non-finite values")
-    err_x = float((out.X - ref.X).abs().max())
-    flips = int((out.stats[:, :2] != ref.stats[:, :2]).any(1).sum())
-    err_stats = rel_err(out.stats[:, 2:], ref.stats[:, 2:])
-    moving = b2.stats[:, 4] >= grad_tol
-    err_b2 = float((out.X - b2.X)[moving].abs().max())
-    b2_flips = int((out.stats[moving, :2] != b2.stats[moving, :2]).any(1)
-                   .sum())
-    emit({"phase": "parity", "kernel": "rtr", "max_abs_dX": err_x,
-          "stat_flips": flips, "max_rel_d_f0_f": err_stats,
-          "attempts": out.stats[:, 0].tolist(),
-          "tcg_iters": out.tcg_iters.tolist()})
+               .all()), f"{name} kernel returned non-finite values")
+    plan = plan_of(ops, kw)
+    flips = (out.stats[:, :2] != ref.stats[:, :2]).any(1)
+    row = {"phase": "parity", "kernel": name, "operands": where,
+           "agents": ops["Xc"].shape[0], "cuda_route": plan.route,
+           "cluster": plan.C,
+           "max_abs_dX": float((out.X - ref.X).abs().max()),
+           "stat_flips": int(flips.sum()),
+           "tcg_iter_flips": int((out.tcg_iters != ref.tcg_iters).sum()),
+           "max_rel_d_stats": rel_err(out.stats[:, 2:], ref.stats[:, 2:]),
+           "attempts": out.stats[:, 0].tolist(),
+           "accepted": out.stats[:, 1].tolist(),
+           "plain_attempts": ref.stats[:, 0].tolist(),
+           "plain_accepted": ref.stats[:, 1].tolist(),
+           "tcg_iters": out.tcg_iters.tolist()}
+    if not floor:
+        emit(row)
+        check(row["max_abs_dX"] <= X_ATOL and row["stat_flips"] == 0
+              and row["max_rel_d_stats"] <= STAT_RTOL,
+              f"{name} kernel disagrees with its plain version ({where})")
+        return row, out
+    agree = ~flips
+    ws = fn(*ops.values(), _cluster=0, **kw)
+    f0, f0_ref = out.stats[:, 2], ref.stats[:, 2]
+    # A flipped agent: the side that accepted moved f by at most rounding.
+    df = torch.where(out.stats[:, 1] > 0, (out.stats[:, 3] - f0).abs(),
+                     (ref.stats[:, 3] - f0_ref).abs()) / f0_ref.abs()
+    row.update(
+        agents_agreeing=int(agree.sum()),
+        max_abs_dX_agreeing=float((out.X - ref.X)[agree].abs().max())
+        if bool(agree.any()) else 0.0,
+        max_rel_d_f_agreeing=rel_err(out.stats[agree, 3], ref.stats[agree, 3])
+        if bool(agree.any()) else 0.0,
+        max_rel_d_f0=rel_err(f0, f0_ref),
+        flipped_rel_df=df[flips].tolist(),
+        single_cta_stat_flips=int((ws.stats[:, :2] != ref.stats[:, :2])
+                                  .any(1).sum()))
+    ok = (row["max_rel_d_f0"] <= STAT_RTOL
+          and row["max_abs_dX_agreeing"] <= X_ATOL
+          and row["max_rel_d_f_agreeing"] <= STAT_RTOL
+          and all(x <= FLOOR_DF_RTOL for x in row["flipped_rel_df"]))
+    if name == "rtr_full":
+        ref64 = ref_fn(*(t.double() if t.is_floating_point() else t
+                         for t in ops.values()), **kw)
+        gn64 = ref64.stats[:, 4]
+        row.update(gn0_rel_err_vs_f64=rel_err(out.stats[:, 4].double(), gn64),
+                   plain_gn0_rel_err_vs_f64=rel_err(ref.stats[:, 4].double(),
+                                                    gn64))
+        ok = ok and (row["gn0_rel_err_vs_f64"]
+                     <= 2 * row["plain_gn0_rel_err_vs_f64"] + STAT_RTOL)
+    emit(row)
+    check(ok, f"{name} kernel disagrees with its plain version ({where})")
+    return row, out
+
+
+def b3_against_b2(b3_ops: dict, b3_kw: dict, b3_out, b2_ops: dict,
+                  kw: dict) -> None:
+    """B3 fed the gradient pass against one B2 launch at the same point:
+    the same step, on every agent B2 does not exit early."""
+    b2 = rk.rtr_full(*b2_ops.values(), **kw)
+    torch.cuda.synchronize()
+    moving = b2.stats[:, 4] >= kw["grad_tol"]
+    err_b2 = float((b3_out.X - b2.X)[moving].abs().max())
+    flips = int((b3_out.stats[moving, :2] != b2.stats[moving, :2]).any(1)
+                .sum())
     emit({"phase": "parity", "kernel": "rtr", "against": "rtr_full",
           "agents_compared": int(moving.sum()), "max_abs_dX": err_b2,
-          "stat_flips": b2_flips,
-          "max_rel_d_f0_f": rel_err(out.stats[moving, 2:4],
+          "stat_flips": flips,
+          "max_rel_d_f0_f": rel_err(b3_out.stats[moving, 2:4],
                                     b2.stats[moving, 2:4])})
-    check(err_x <= X_ATOL and flips == 0 and err_stats <= STAT_RTOL,
-          "rtr kernel disagrees with its plain version")
-    check(int(moving.sum()) > 0 and err_b2 <= X_ATOL and b2_flips == 0,
+    check(int(moving.sum()) > 0 and err_b2 <= X_ATOL and flips == 0,
           "rtr kernel fed the gradient pass disagrees with rtr_full")
-    return ops, kw, out, err_x
+
+
+def route_timing(fn, ops: dict, kw: dict, out) -> dict:
+    """ms per launch of ``fn`` on its planned route and on the workspace
+    route (``_cluster=0``, the single-CTA kernel), back to back in turns
+    (planned, workspace, workspace, planned), and per tCG iteration of the
+    agent that ran the most (``out``'s)."""
+    def run(cluster=None):
+        return cuda_ms(lambda: fn(*ops.values(), _cluster=cluster, **kw),
+                       reps=10, inner=10)
+    c1, w1, w2, c2 = run(), run(0), run(0), run()
+    ms, ms_ws = (c1 + c2) / 2, (w1 + w2) / 2
+    iters = max(int(out.tcg_iters.max()), 1)
+    plan = plan_of(ops, kw)
+    return {"ms": ms, "ms_single_cta": ms_ws, "ms_runs": [c1, c2],
+            "ms_single_cta_runs": [w1, w2], "speedup": ms_ws / ms,
+            "max_tcg_iters": iters, "ms_per_tcg_iter": ms / iters,
+            "ms_per_tcg_iter_single_cta": ms_ws / iters,
+            "attempts": out.stats[:, 0].tolist(), "cuda_route": plan.route,
+            "cluster": plan.C, "ctas": ops["Xc"].shape[0] * max(plan.C, 1),
+            "smem_bytes_per_cta": plan.smem_bytes}
+
+
+def route_columns(timing: dict) -> dict:
+    """A kernel-table row's route and times from ``route_timing`` at both
+    operand sets (``route`` stays the contract's "cuda"; ``cuda_route``
+    names the route the plan took)."""
+    init, floor = timing["chordal_init"], timing["float32_floor"]
+    return {"cuda_route": init["cuda_route"], "cluster": init["cluster"],
+            "ctas": init["ctas"], "ms": init["ms"], "ms_floor": floor["ms"],
+            "ms_single_cta": init["ms_single_cta"],
+            "ms_single_cta_floor": floor["ms_single_cta"]}
+
+
+def cluster_sweep(sets: dict, kw: dict) -> list:
+    """B2's ms per launch at each cluster size the card can place, at each
+    operand set of ``sets``."""
+    ops = sets["chordal_init"]
+    n, K = ops["Xc"].shape[-1], ops["inc_slot"].shape[-1]
+    rows = []
+    for C in rk.CLUSTER_SIZES:
+        shape = rk.cluster_shape(kw["r"], kw["d"], n, K, C)
+        held = (rk.cluster_capacity(kw["r"], kw["d"], n, K, C)
+                if rk._fits(shape) else 0)
+        row = {"C": C, "P": shape.P, "threads": shape.threads,
+               "smem_bytes": shape.smem_bytes, "max_active_clusters": held}
+        if held >= 1:
+            for where, o in sets.items():
+                row[f"ms_{where}"] = cuda_ms(
+                    lambda: rk.rtr_full(*o.values(), _cluster=C, **kw),
+                    reps=10, inner=10)
+        rows.append(row)
+    return rows
 
 
 def determinism(prob, params, plain, X0_host) -> None:
@@ -747,8 +898,7 @@ def main() -> int:
     rk.load()
     build_s = time.perf_counter() - t0
     emit({"phase": "build", "seconds": build_s, "library": lib_path.name,
-          "ptxas": [ln.strip() for ln in rk.BUILD_LOG.splitlines()
-                    if "registers" in ln or "spill" in ln]})
+          "ptxas": ptxas_report(rk.BUILD_LOG)})
     emit({"phase": "kernels", "kernels": [
         {"name": "rtr_full", "replaces": "pallas_tcg._rtr_full_kernel"},
         {"name": "tcg", "replaces": "pallas_tcg._tcg_kernel"},
@@ -763,24 +913,43 @@ def main() -> int:
     params = AgentParams(d=3, r=RANK, num_robots=ROBOTS)
     prob = rbcd.prepare_problem(meas, ROBOTS, params, device=dev)
     graph, meta = prob.graph, prob.meta
-    ops, tcg_ops = round_operands(prob, params)
     kw = rbcd.kernel_options(params, meta)
-    out = rk.rtr_full(*ops.values(), **kw)
-    ref = rk.rtr_full_reference(*ops.values(), **kw)
-    torch.cuda.synchronize()
-    err_x = float((out.X - ref.X).abs().max())
-    flips = int((out.stats[:, :2] != ref.stats[:, :2]).any(1).sum())
-    err_stats = rel_err(out.stats[:, 2:], ref.stats[:, 2:])
-    iter_flips = int((out.tcg_iters != ref.tcg_iters).sum())
-    emit({"phase": "parity", "kernel": "rtr_full", "max_abs_dX": err_x,
-          "stat_flips": flips, "tcg_iter_flips": iter_flips,
-          "max_rel_d_f0_f_gn0": err_stats,
-          "attempts": out.stats[:, 0].tolist(),
-          "tcg_iters": out.tcg_iters.tolist()})
-    check(bool(torch.isfinite(out.X).all() and torch.isfinite(out.stats)
-               .all()), "rtr_full kernel returned non-finite values")
-    check(err_x <= X_ATOL and flips == 0 and err_stats <= STAT_RTOL,
-          "rtr_full kernel disagrees with its plain version")
+    b3_kw = {k: v for k, v in kw.items() if k != "grad_tol"}
+    # B2 and B3 at two operand sets: the chordal init (the main path's
+    # first round) and the float32 floor.
+    floor = rbcd.rbcd_steps(rbcd.init_state(graph, meta, prob.X0, params),
+                            graph, FLOOR_ROUNDS, meta, params)
+    sets = {"chordal_init": operand_sets(prob, params, prob.X0),
+            "float32_floor": operand_sets(prob, params, floor.X)}
+    ops, b3_ops = sets["chordal_init"]
+    tcg_ops = tcg_operands(b3_ops)
+    plan = plan_of(ops, kw)
+    emit({"phase": "plan", "kernels": ["rtr_full", "rtr"],
+          "n_max": meta.n_max, "e_max": meta.e_max,
+          "kinc": ops["inc_slot"].shape[-1], **plan._asdict(),
+          "ctas": ROBOTS * max(plan.C, 1)})
+    check(plan.route == "cluster" and plan.C > 1,
+          "B2 and B3 do not take clusters of several CTAs at the slice shape")
+    errs, outs = {"rtr_full": 0.0, "rtr": 0.0}, {}
+    flips = {"rtr_full": 0, "rtr": 0}
+    for where, (o2, o3) in sets.items():
+        for tag, p2, p3 in ((where, o2, o3),
+                            (f"{where}, agent 0", first_agent(o2),
+                             first_agent(o3))):
+            floor_set = where == "float32_floor"
+            row2, out2 = kernel_parity(rk.rtr_full, rk.rtr_full_reference,
+                                       p2, kw, tag, floor_set)
+            row3, out3 = kernel_parity(rk.rtr, rk.rtr_reference, p3, b3_kw,
+                                       tag, floor_set)
+            # At the floor an agent whose accept decision flipped on
+            # rounding ends at another iterate; the error is the agreeing
+            # agents' and the flips are counted beside it.
+            for name, row in (("rtr_full", row2), ("rtr", row3)):
+                errs[name] = max(errs[name], row.get("max_abs_dX_agreeing",
+                                                     row["max_abs_dX"]))
+                flips[name] += row["stat_flips"]
+            outs[tag] = (out2, out3)
+    b3_against_b2(b3_ops, b3_kw, outs["chordal_init"][1], ops, kw)
 
     tkw = dict(r=meta.rank, d=meta.d, e_max=meta.e_max,
                max_iters=params.solver.max_inner_iters,
@@ -804,11 +973,12 @@ def main() -> int:
         check(e_eta <= X_ATOL and e_heta <= STAT_RTOL and tflips == 0,
               "tcg kernel disagrees with its plain version")
 
-    b3_ops, b3_kw, b3_out, b3_err = b3_parity(prob, params, ops)
-
     # 10 rounds through B2 against the "ell" formulation from the chordal
-    # init and preconditioner factors computed on the host, held to
-    # TRAJ_ATOL; then the card's own start (determinism).
+    # init and preconditioner factors computed on the host.  Two float32
+    # trajectories part on their own: the gate is the "ell" formulation's
+    # own divergence from starts moved by about one ulp (the kernel's gate
+    # is the single-launch parity above).  Then the card's own start
+    # (determinism).
     plain = AgentParams(d=3, r=RANK, num_robots=ROBOTS,
                         solver=SolverParams(pallas_tcg=False))
     host = rbcd.prepare_problem(meas, ROBOTS, params, dtype=torch.float32,
@@ -816,22 +986,28 @@ def main() -> int:
     X0_host = host.X0.to(dev)
     chol_host = rbcd.precond_chol(host.graph.edges, host.graph,
                                   params).to(dev)
-    traj = [trajectory_gap(X0_host, graph, meta, params, plain, chol_host)
-            for _ in range(2)]
-    # The same reading from starts moved by about one float32 ulp: its
-    # spread is the f32 trajectories' own divergence, so the single-launch
-    # parity checks above (X_ATOL) are the kernel's gate, not this one.
-    spread = []
+    ell = rounds_from(X0_host, graph, meta, plain, chol_host)
+    traj = [float((rounds_from(X0_host, graph, meta, params, chol_host)
+                   - ell).abs().max()) for _ in range(2)]
+    ell_spread, moved = [], []
     for seed in range(PERTURBED_STARTS):
         gen = torch.Generator(device=dev).manual_seed(seed)
         u = torch.randint(-1, 2, X0_host.shape, generator=gen, device=dev)
-        spread.append(trajectory_gap(X0_host * (1 + u * 2.0 ** -23), graph,
-                                     meta, params, plain, chol_host))
+        X0m = X0_host * (1 + u * 2.0 ** -23)
+        ell_m = rounds_from(X0m, graph, meta, plain, chol_host)
+        ell_spread.append(float((ell_m - ell).abs().max()))
+        moved.append(float((rounds_from(X0m, graph, meta, params, chol_host)
+                            - ell_m).abs().max()))
+    traj_limit = min(TRAJ_SPREAD * max(ell_spread), TRAJ_MAX)
     emit({"phase": "parity", "kernel": "rtr_full", "rounds": 10,
           "formulations": ["kernel", "ell"], "start": "host chordal init",
           "max_abs_dX": traj[0], "repeat_max_abs_dX": traj[1],
-          "ulp_perturbed_starts_max_abs_dX": spread})
-    check(max(traj) <= TRAJ_ATOL, "kernel trajectory leaves the plain one")
+          "ell_ulp_moved_starts_max_abs_dX": ell_spread,
+          "limit": traj_limit,
+          "kernel_vs_ell_from_moved_starts_max_abs_dX": moved})
+    check(max(traj) <= traj_limit,
+          "the kernel's 10 rounds leave the plain formulation's by more "
+          "than its own one-ulp divergence allows")
     determinism(prob, params, plain, X0_host)
 
     # --- the main path: a first dispatch in the process, then the counted
@@ -885,20 +1061,27 @@ def main() -> int:
     check(launches["rtr_full"] == res.iterations > 0,
           "the solve did not launch the kernel once per round")
 
-    # --- timing at the slice shape ---------------------------------------
-    out = rk.rtr_full(*ops.values(), **kw)
+    # --- timing at the slice shape: B2 on the cluster route and on the
+    # workspace route, at both operand sets, and at every cluster size ----
     rows = []
-    ms = cuda_ms(lambda: rk.rtr_full(*ops.values(), **kw), reps=20,
-                 inner=10)
+    b2_t = {where: route_timing(rk.rtr_full, o2, kw, outs[where][0])
+            for where, (o2, _) in sets.items()}
+    emit({"phase": "timing", "card": card, "kernel": "rtr_full", **b2_t})
+    emit({"phase": "cluster_sweep", "card": card, "kernel": "rtr_full",
+          "n_max": meta.n_max, "kinc": ops["inc_slot"].shape[-1],
+          "rows": cluster_sweep({w: o2 for w, (o2, _) in sets.items()},
+                                kw)})
     plain_ms = cuda_ms(lambda: rk.rtr_full_reference(*ops.values(), **kw),
                        reps=5, warmup=1)
-    nbytes, flops = rtr_full_work(ops, out, graph, meta)
+    nbytes, flops = rtr_full_work(ops, outs["chordal_init"][0], graph, meta)
     b_ms, b_by = bound(nbytes, flops)
     b2_row = {"name": "rtr_full", "route": "cuda",
-              "source": "dpgo_tpu_torch/csrc/rtr_full.cu",
+              "source": "dpgo_tpu_torch/csrc/rtr_cluster.cu",
               "replaces": "dpgo_tpu/ops/pallas_tcg.py:662",
               "launches_by_path": {"solve": launches["rtr_full"]},
-              "max_abs_err": err_x, "ms": ms, "plain_ms": plain_ms,
+              "max_abs_err": errs["rtr_full"],
+              "floor_accept_flips": flips["rtr_full"],
+              **route_columns(b2_t), "plain_ms": plain_ms,
               "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
               "bytes": nbytes, "flops": flops}
     rows.append(b2_row)
@@ -920,10 +1103,9 @@ def main() -> int:
                  "bytes": nbytes, "flops": flops})
     emit({"phase": "timing", "card": card, "agents": ROBOTS,
           "n_max": meta.n_max, "e_max": meta.e_max,
-          "rtr_full_ms": ms, "rtr_full_plain_ms": plain_ms,
-          "tcg_ms": t_ms, "tcg_plain_ms": t_plain,
-          "ctas": ROBOTS, "sms": torch.cuda.get_device_properties(0)
-          .multi_processor_count})
+          "rtr_full_plain_ms": plain_ms, "tcg_ms": t_ms,
+          "tcg_plain_ms": t_plain, "tcg_ctas": ROBOTS,
+          "sms": torch.cuda.get_device_properties(0).multi_processor_count})
 
     if profile:
         emit({"phase": "profile", "path": "solve", "card": card,
@@ -931,21 +1113,22 @@ def main() -> int:
 
     # --- the ablation: B3's path ------------------------------------------
     ab = ablate_phase(dev, card)
-    ms = cuda_ms(lambda: rk.rtr(*b3_ops.values(), **b3_kw), reps=20,
-                 inner=10)
+    b3_t = {where: route_timing(rk.rtr, o3, b3_kw, outs[where][1])
+            for where, (_, o3) in sets.items()}
     plain_ms = cuda_ms(lambda: rk.rtr_reference(*b3_ops.values(), **b3_kw),
                        reps=5, warmup=1)
-    nbytes, flops = rtr_work(b3_ops, b3_out, graph, meta)
+    nbytes, flops = rtr_work(b3_ops, outs["chordal_init"][1], graph, meta)
     b_ms, b_by = bound(nbytes, flops)
-    emit({"phase": "timing", "card": card, "kernel": "rtr", "ms": ms,
-          "plain_ms": plain_ms, "ctas": ROBOTS})
+    emit({"phase": "timing", "card": card, "kernel": "rtr", **b3_t,
+          "plain_ms": plain_ms})
     rows.append({"name": "rtr", "route": "cuda",
-                 "source": "dpgo_tpu_torch/csrc/rtr_full.cu",
+                 "source": "dpgo_tpu_torch/csrc/rtr_cluster.cu",
                  "replaces": "dpgo_tpu/ops/pallas_tcg.py:614",
                  "launches_by_path": {"ablate": ab["rtr"]},
-                 "max_abs_err": b3_err, "ms": ms, "plain_ms": plain_ms,
-                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-                 "bytes": nbytes, "flops": flops})
+                 "max_abs_err": errs["rtr"],
+                 "floor_accept_flips": flips["rtr"], **route_columns(b3_t),
+                 "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                 "library_ms": None, "bytes": nbytes, "flops": flops})
 
     # --- the rest of the round: every schedule, Nesterov, GNC --------------
     sched_b2 = schedules_phase(prob, dev, card)

@@ -1,0 +1,1213 @@
+// Fused single-step Riemannian trust-region solve of RBCD on Hopper
+// thread-block clusters: one cluster per agent.
+//
+// Replaces the TPU kernels of dpgo_tpu/ops/pallas_tcg.py:
+//   * _rtr_full_kernel (rtr_full_call) -> rtr_full_cluster_kernel below:
+//     one launch is the whole local solve of every agent for one RBCD
+//     round (start-point gradient, S = sym(Y^T G_Y), gn0, the early exit,
+//     then at most max_rejections attempts of {truncated CG, 24-sweep
+//     Newton-Schulz retraction, cost, accept or radius / 4}).
+//   * _rtr_kernel (rtr_call) -> rtr_cluster_kernel below: the attempt loop
+//     alone from a given S and Riemannian gradient g (no early exit).
+// The function is the one of rtr_full_kernel / rtr_kernel in rtr_full.cu,
+// which stay as the workspace route for agents too large for any cluster
+// (ops/rtr_kernel.cluster_plan picks the route from the shape before the
+// launch).  Kernels B1 (tcg) and B4 (rtr_refine_full) stay there too.
+//
+// What bounds it on this card: neither bytes (~2 MB per launch) nor
+// operations (~60 MFLOP): both bounds are under 1 us.  The time is the
+// length of the dependency chain of the tCG iterations, each a Hessian
+// sweep, two reductions over the agent and three updates of its vectors,
+// run by threads that have too few neighbours on their SM to hide their
+// latencies.
+//
+// What the design does about it:
+//   * Grid: A clusters of C CTAs (cluster dims (C, 1, 1), cudaLaunchKernelEx).
+//     CTA c of a cluster owns the poses [c P, (c + 1) P) of its agent,
+//     P = ceil(n_max / C), so the agent spreads over C SMs.
+//   * A group of R lanes owns one pose, one row of its r x (d+1) block
+//     each (32 / R poses per warp): every per-pose phase runs in one pass,
+//     each thread's chain is a row's, and a CTA has ~R times the warps of
+//     one thread per pose.  The rows meet only in the tangent projection
+//     (sym(Y^T W)) and the retraction (M^T M): sums of the d(d+1)/2
+//     entries of a symmetric d x d matrix over the group's lanes by
+//     shuffles, in a fixed order that every lane of the group shares.
+//   * State on chip: every loop vector (eta, Heta, r, z, delta, Hd, g, the
+//     proposal xp) and the operands read only (X, L, S) live in the owning
+//     CTA's shared memory for the whole launch; nothing of the tCG loop
+//     goes through device memory.  delta and z (read by the Hessian), X
+//     (by the start-point gradient) and xp (by the cost) of a pose another
+//     CTA owns are read through distributed shared memory.  Neighbor-slot
+//     poses Z are read from device memory (once per cost).
+//   * Edge payload: at launch start each CTA gathers the payload of its
+//     poses' ELL entries into shared memory in ELL order, [field][Kinc][P]
+//     (where the other endpoint lives, with flags; rot, trn, wk, wt), with
+//     cp.async, together with its poses' X, L (and S, g), then waits once.
+//   * Pose-centric sweeps: for the Hessian-vector product and the gradient
+//     each thread walks its pose's ELL entries in ELL order, computes its
+//     row of that endpoint's part of the edge from the payload and both
+//     endpoints' rows, and adds it in: no per-edge scratch rows, no
+//     barrier between an edge pass and a gather, no dependent incidence ->
+//     row loads, and the next entry's row is loaded while this one is
+//     added.  Each edge's arithmetic runs once per endpoint.
+//   * Cost: an ELL entry counts its edge when its pose is the edge's i
+//     endpoint, or its j endpoint while i is a neighbor slot, so each live
+//     edge counts once, in a fixed order (ops/rtr_kernel.cost_owner).
+//   * Reductions: warp butterfly; each warp stores its partial into every
+//     CTA of the cluster through distributed shared memory; cluster.sync();
+//     then every warp reads all the partials from its own shared memory (a
+//     lane each) and adds them by a second butterfly: every loop condition
+//     is the same in every thread of the cluster.  The partial slots are
+//     double-buffered, so one cluster barrier per reduction suffices.
+//   * Two cluster barriers per tCG iteration (Hd and four dots; the
+//     eta/Heta/r/z update and two dots): the next direction delta is
+//     double-buffered, and a Hessian sweep computes a remote pose's delta
+//     from the z and delta the last barriers published (see tcg), so the
+//     delta update needs no barrier of its own.
+//   * The block-Jacobi solves multiply by reciprocals of the factors'
+//     diagonals, taken once at setup.
+//   * No atomics and a fixed order for every sum: launches repeat bit for
+//     bit.  No tensor cores: the products are d x d and 1 x d per row.
+//   * A CTA never leaves while another may still read its shared memory:
+//     the kernels end with cluster.sync().
+//
+// Layout (matches rtr_full.cu and models/rbcd.build_graph):
+//   idx_i, idx_j  [A, nt, 1, T] int32 into the [n + s] pose buffer (n + s
+//                 is padding); rot [A, nt, D*D, T], trn [A, nt, D, T],
+//                 wk, wt [A, nt, 1, T] f32
+//   X [A, RK, n], Z [A, RK, s], L [A, K*K, n]; S [A, D*D, n] and
+//   g [A, RK, n] (rtr only); inc_slot / inc_mask [A, n, Kinc]: ELL
+//   incidence into [gi (E) | gj (E)]
+
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+// Threads per CTA (ops/rtr_kernel.MAX_CLUSTER_THREADS); values a
+// reduction slot holds.
+constexpr int kMaxThreads = 512;
+constexpr int kMaxSums = 4;
+constexpr int kPortableCluster = 8;
+constexpr int kMaxCluster = 16;  // the card's largest (non-portable) size
+constexpr unsigned kFull = 0xffffffffu;
+constexpr float kEps = 1e-30f;
+constexpr int kNsSweeps = 24;
+// Shared-memory vectors, each [P][vec_stride(RK)], a pose's rows in order.
+// delta alternates between two buffers (see tcg).
+enum Vec { kX, kXp, kDelta, kDeltaB, kG, kEta, kHeta, kR, kZv, kHd, kVecs };
+// An ELL entry's first payload word says where the other endpoint's values
+// are (a pose: the rank of its CTA and its slot there; a neighbor slot:
+// its index into Z; neither: zero) and carries three flags.
+constexpr int kIndexMask = (1 << 20) - 1;
+constexpr int kRankShift = 20;  // 4 bits: cluster ranks below 16
+constexpr int kPose = 1 << 24;
+constexpr int kSlot = 1 << 25;
+constexpr int kLive = 1 << 26;
+constexpr int kCostOwner = 1 << 27;
+constexpr int kSideJ = 1 << 28;  // the pose is the edge's j endpoint
+// Launcher errors: the card cannot place one cluster of this size; more
+// neighbor slots than a payload word can index.
+constexpr int kUnplaceable = -2;
+constexpr int kTooManySlots = -3;
+
+// Floats per pose in a shared vector: RK padded to whole float4s (a row
+// of K = 4 is one float4) and to an odd count of them, which spreads a
+// warp's poses over the banks.
+__host__ __device__ constexpr int vec_stride(int rk) {
+  return ((rk + 3) / 4) % 2 ? (rk + 3) / 4 * 4 : (rk + 3) / 4 * 4 + 4;
+}
+
+// Per-entry payload fields: the word, rot (D*D), trn (D), wk, wt.
+__host__ __device__ constexpr int payload_fields(int d) {
+  return d * d + d + 3;
+}
+
+struct ClusterShape {
+  int P, threads;
+  size_t smem;
+};
+
+// The one formula for the cluster kernels' shape (cluster_plan mirrors it):
+// 32 / r poses per warp; vectors, then L [K*K][P], S [D*D][P], the payload
+// [F][Kinc][P] and the double-buffered reduction slots [2][C * warps][4].
+ClusterShape cluster_shape(int r, int d, int n, int kinc, int C) {
+  const int P = (n + C - 1) / C;
+  const int per_warp = 32 / r;
+  const int threads = (P + per_warp - 1) / per_warp * 32;
+  const int k = d + 1;
+  const size_t floats = (size_t)kVecs * P * vec_stride(r * k) +
+                        (size_t)(k * k + d * d) * P +
+                        (size_t)payload_fields(d) * kinc * P +
+                        2 * (size_t)C * (threads / 32) * kMaxSums;
+  return {P, threads, floats * sizeof(float)};
+}
+
+struct ClusterArgs {
+  int n, s, Ep, T, E, kinc;
+  const int* idx_i;
+  const int* idx_j;
+  const float* rot;
+  const float* trn;
+  const float* wk;
+  const float* wt;
+  const float* X;
+  const float* Z;
+  const float* L;
+  const float* S;  // rtr only, else nullptr
+  const float* g;  // rtr only, else nullptr
+  const int* inc;
+  const float* incm;
+  const int* n_local;
+  int max_iters;
+  float kappa, theta;
+};
+
+// One thread's view of its agent: the cluster's shape, this thread's pose
+// slot and row, and the carved shared memory of its CTA.
+struct Ctx {
+  int n, s, kinc, n_act, P, C, rank, parity;
+  int pl;           // the pose's slot in this CTA
+  int row;          // this thread's row of the pose's block
+  int base;         // the lane of row 0 of the pose
+  bool own;         // this thread holds a row (slot < P, pose < n)
+  const float* Z;   // [RK, s] neighbor slots, device memory
+  float* vec;       // [kVecs][P][RKS]
+  float* L;         // [K*K][P]
+  float* S;         // [D*D][P]
+  float* pay;       // [F][Kinc][P]
+  float* red;       // [2][C * warps][kMaxSums]
+};
+
+template <int K>
+__device__ __forceinline__ void ld_row(const float* p, float (&v)[K]) {
+  if constexpr (K == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    v[0] = t.x;
+    v[1] = t.y;
+    v[2] = t.z;
+    v[3] = t.w;
+  } else {
+#pragma unroll
+    for (int q = 0; q < K; ++q) v[q] = p[q];
+  }
+}
+
+template <int K>
+__device__ __forceinline__ void st_row(float* p, const float (&v)[K]) {
+  if constexpr (K == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int q = 0; q < K; ++q) p[q] = v[q];
+  }
+}
+
+// Row `row` of pose slot pl of vector v in this CTA's shared memory.
+template <int R, int K>
+__device__ __forceinline__ float* row_at(const Ctx& cx, int v, int pl) {
+  return cx.vec + ((size_t)v * cx.P + pl) * vec_stride(R * K) + cx.row * K;
+}
+
+// This thread's row of vector v, zero where it holds none.
+template <int R, int K>
+__device__ __forceinline__ void ld_own(const Ctx& cx, int v, float (&x)[K]) {
+  if (cx.own) {
+    ld_row<K>(row_at<R, K>(cx, v, cx.pl), x);
+  } else {
+#pragma unroll
+    for (int q = 0; q < K; ++q) x[q] = 0.f;
+  }
+}
+
+template <int R, int K>
+__device__ __forceinline__ void st_own(const Ctx& cx, int v,
+                                       const float (&x)[K]) {
+  if (cx.own) st_row<K>(row_at<R, K>(cx, v, cx.pl), x);
+}
+
+// This thread's row of the other endpoint of the ELL entry with payload
+// word w: a pose's vector v from the shared memory of the CTA that owns it
+// (or, with prev >= 0, -v + beta prev: the next CG direction, which its
+// owner may not have stored yet), a neighbor slot from Z, else zero.
+template <int R, int K>
+__device__ __forceinline__ void ld_other(const Ctx& cx, int v, int w,
+                                         float (&x)[K], int prev,
+                                         float beta) {
+  const int at = w & kIndexMask;
+  if (w & kPose) {
+    const int rank = (w >> kRankShift) & 15;
+    auto at_owner = [&](int vec) {
+      float* p = row_at<R, K>(cx, vec, at);
+      return rank == cx.rank ? p : cg::this_cluster().map_shared_rank(p, rank);
+    };
+    if (prev < 0) {
+      ld_row<K>(at_owner(v), x);
+    } else {
+      float z[K];
+      ld_row<K>(at_owner(v), z);
+      ld_row<K>(at_owner(prev), x);
+#pragma unroll
+      for (int q = 0; q < K; ++q) x[q] = -z[q] + beta * x[q];
+    }
+  } else if (w & kSlot) {
+#pragma unroll
+    for (int q = 0; q < K; ++q) x[q] = cx.Z[(cx.row * K + q) * cx.s + at];
+  } else {
+#pragma unroll
+    for (int q = 0; q < K; ++q) x[q] = 0.f;
+  }
+}
+
+template <int K>
+__device__ __forceinline__ float dot(const float (&a)[K],
+                                     const float (&b)[K]) {
+  float s = 0.f;
+#pragma unroll
+  for (int q = 0; q < K; ++q) s += a[q] * b[q];
+  return s;
+}
+
+// Sums of N values over the R lanes of this thread's pose, rows in order:
+// every lane of the group ends with the same values.  All 32 lanes of the
+// warp must call it.
+template <int R, int N>
+__device__ __forceinline__ void group_sum(const Ctx& cx, float (&v)[N]) {
+  float s[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) s[i] = __shfl_sync(kFull, v[i], cx.base);
+#pragma unroll
+  for (int j = 1; j < R; ++j)
+#pragma unroll
+    for (int i = 0; i < N; ++i) s[i] += __shfl_sync(kFull, v[i], cx.base + j);
+#pragma unroll
+  for (int i = 0; i < N; ++i) v[i] = s[i];
+}
+
+// The D(D+1)/2 entries b <= c of a symmetric D x D matrix, summed over
+// the pose's rows, into the full row-major matrix.
+template <int R, int D>
+__device__ __forceinline__ void group_sym(const Ctx& cx,
+                                          float (&m)[D * (D + 1) / 2],
+                                          float (&sy)[D * D]) {
+  group_sum<R, D * (D + 1) / 2>(cx, m);
+  int i = 0;
+#pragma unroll
+  for (int b = 0; b < D; ++b)
+#pragma unroll
+    for (int c = b; c < D; ++c, ++i) {
+      sy[b * D + c] = m[i];
+      sy[c * D + b] = m[i];
+    }
+}
+
+// sym(Y^T W) of this thread's pose from its row of Y (x) and of W (w),
+// row-major [D][D]; all lanes of the warp call it.
+template <int R, int D>
+__device__ __forceinline__ void sym_ytw(const Ctx& cx, const float (&x)[D + 1],
+                                        const float (&w)[D + 1],
+                                        float (&sy)[D * D]) {
+  float m[D * (D + 1) / 2];
+  int i = 0;
+#pragma unroll
+  for (int b = 0; b < D; ++b)
+#pragma unroll
+    for (int c = b; c < D; ++c, ++i) m[i] = 0.5f * (x[b] * w[c] + x[c] * w[b]);
+  group_sym<R, D>(cx, m, sy);
+}
+
+// This thread's row of W_Y - Y sym(Y^T W_Y) given sym(Y^T W_Y).
+template <int D>
+__device__ __forceinline__ void sub_ysym(const float (&x)[D + 1],
+                                         const float (&sy)[D * D],
+                                         float (&w)[D + 1]) {
+#pragma unroll
+  for (int c = 0; c < D; ++c) {
+    float s = 0.f;
+#pragma unroll
+    for (int b = 0; b < D; ++b) s += x[b] * sy[b * D + c];
+    w[c] -= s;
+  }
+}
+
+// W <- P_Y(W): W_Y - Y sym(Y^T W_Y), translation unchanged.
+template <int R, int D>
+__device__ __forceinline__ void tangent_project(const Ctx& cx,
+                                                const float (&x)[D + 1],
+                                                float (&w)[D + 1]) {
+  float sy[D * D];
+  sym_ytw<R, D>(cx, x, w, sy);
+  sub_ysym<D>(x, sy, w);
+}
+
+// Tangent-projected block-Jacobi solve of this thread's row: the row solves
+// the (D+1)x(D+1) SPD block from its lower Cholesky factor (its diagonal
+// replaced by reciprocals at setup).
+template <int R, int D>
+__device__ __forceinline__ void precond(const Ctx& cx, const float (&x)[D + 1],
+                                        float (&v)[D + 1]) {
+  constexpr int K = D + 1;
+  float Lp[K * K];
+#pragma unroll
+  for (int i = 0; i < K * K; ++i)
+    Lp[i] = cx.own ? cx.L[i * cx.P + cx.pl] : (i % (K + 1) == 0 ? 1.f : 0.f);
+  float y[K];
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    float s = v[i];
+#pragma unroll
+    for (int q = 0; q < i; ++q) s -= Lp[i * K + q] * y[q];
+    y[i] = s * Lp[i * K + i];
+  }
+#pragma unroll
+  for (int i = K - 1; i >= 0; --i) {
+    float s = y[i];
+#pragma unroll
+    for (int q = i + 1; q < K; ++q) s -= Lp[q * K + i] * v[q];
+    v[i] = s * Lp[i * K + i];
+  }
+  tangent_project<R, D>(cx, x, v);
+}
+
+template <int D>
+__device__ __forceinline__ void matmul3(const float (&A)[D][D],
+                                        const float (&B)[D][D],
+                                        float (&C)[D][D]) {
+#pragma unroll
+  for (int b = 0; b < D; ++b)
+#pragma unroll
+    for (int c = 0; c < D; ++c) {
+      float s = 0.f;
+#pragma unroll
+      for (int e = 0; e < D; ++e) s += A[b][e] * B[e][c];
+      C[b][c] = s;
+    }
+}
+
+// This thread's row of R_X(V): the Newton-Schulz polar factor of
+// (Y + V_Y), translations added.  M^T M is summed over the pose's rows;
+// every lane of the group then runs the same sweeps.  All lanes of the
+// warp call it.
+template <int R, int D>
+__device__ void retract(const Ctx& cx, const float (&x)[D + 1],
+                        const float (&v)[D + 1], float (&o)[D + 1]) {
+  float M[D];
+#pragma unroll
+  for (int c = 0; c < D; ++c) M[c] = x[c] + v[c];
+  float m[D * (D + 1) / 2], MM[D * D];
+  int i = 0;
+#pragma unroll
+  for (int b = 0; b < D; ++b)
+#pragma unroll
+    for (int c = b; c < D; ++c, ++i) m[i] = M[b] * M[c];
+  group_sym<R, D>(cx, m, MM);
+  float Y[D][D], Zm[D][D], T[D][D], tmp[D][D];
+  float s = 0.f;
+#pragma unroll
+  for (int b = 0; b < D; ++b) s += MM[b * D + b];
+  s = fmaxf(s, 1e-37f);
+#pragma unroll
+  for (int b = 0; b < D; ++b)
+#pragma unroll
+    for (int c = 0; c < D; ++c) {
+      Y[b][c] = MM[b * D + c] / s;
+      Zm[b][c] = (b == c) ? 1.f : 0.f;
+    }
+  for (int it = 0; it < kNsSweeps; ++it) {
+    matmul3<D>(Zm, Y, tmp);
+#pragma unroll
+    for (int b = 0; b < D; ++b)
+#pragma unroll
+      for (int c = 0; c < D; ++c)
+        T[b][c] = 0.5f * (((b == c) ? 3.f : 0.f) - tmp[b][c]);
+    matmul3<D>(Y, T, tmp);
+    matmul3<D>(T, Zm, Y);  // Y holds the new Z for a moment
+#pragma unroll
+    for (int b = 0; b < D; ++b)
+#pragma unroll
+      for (int c = 0; c < D; ++c) {
+        Zm[b][c] = Y[b][c];
+        Y[b][c] = tmp[b][c];
+      }
+  }
+  const float inv = 1.f / sqrtf(s);
+#pragma unroll
+  for (int c = 0; c < D; ++c) {
+    float acc = 0.f;
+#pragma unroll
+    for (int b = 0; b < D; ++b) acc += M[b] * Zm[b][c];
+    o[c] = acc * inv;
+  }
+  o[D] = x[D] + v[D];
+}
+
+// Butterfly sums over the warp: every lane ends with the same values.
+template <int NV>
+__device__ __forceinline__ void warp_sum(float (&v)[NV]) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+    for (int i = 0; i < NV; ++i) v[i] += __shfl_xor_sync(kFull, v[i], o);
+  }
+}
+
+// Cluster-wide sums of NV values.  Every thread of the cluster returns the
+// same values: each warp's butterfly sum is stored, by lane q, into slot
+// (rank, warp) of CTA q's shared memory, so every CTA holds all the
+// partials of the cluster after the barrier; lane q of every warp then
+// adds the local slots q, q + 32, ... (rank-major) and a second butterfly
+// adds the lanes.  Every warp runs the same sums on the same operands in
+// the same order.  The slots alternate between two buffers, so a
+// reduction's slots are written only after every reader of the previous
+// reduction into them has passed a later barrier.
+template <int NV>
+__device__ __forceinline__ void cluster_sum(Ctx& cx, float (&v)[NV]) {
+  cg::cluster_group cl = cg::this_cluster();
+  warp_sum<NV>(v);
+  const int lane = threadIdx.x & 31;
+  const int nw = blockDim.x >> 5;
+  const int count = cx.C * nw;
+  float* slots = cx.red + cx.parity * count * kMaxSums;
+  if (lane < cx.C) {
+    float* dst = cl.map_shared_rank(slots, lane) +
+                 (cx.rank * nw + (threadIdx.x >> 5)) * kMaxSums;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) dst[i] = v[i];
+  }
+  cl.sync();
+#pragma unroll
+  for (int i = 0; i < NV; ++i) v[i] = 0.f;
+  for (int q = lane; q < count; q += 32) {
+#pragma unroll
+    for (int i = 0; i < NV; ++i) v[i] += slots[q * kMaxSums + i];
+  }
+  warp_sum<NV>(v);
+  cx.parity ^= 1;
+}
+
+// This thread's row of its pose summed over the pose's ELL entries, in
+// ELL order, at the point given by vector v (the agent's poses, or -v +
+// beta prev with prev >= 0; neighbor slots from cx.Z when with_z, else
+// zero, as in a Hessian sweep):
+//   GRAD: acc = the pose's endpoint rows of its edges' gradient (the
+//         formula of rtr_full.cu's grad_sweep);
+//   COST: *cost2 += sum over the entries that own their edge of
+//         wk |rR|^2 + wt |rt|^2 of this row.
+// Only threads that hold a row call it.
+template <int R, int D, bool GRAD, bool COST>
+__device__ void sweep(const Ctx& cx, int v, bool with_z,
+                      const float (&own)[D + 1], float (&acc)[D + 1],
+                      float* cost2, int prev = -1, float beta = 0.f) {
+  constexpr int K = D + 1;
+  constexpr int DD = D * D;
+  if (GRAD) {
+#pragma unroll
+    for (int q = 0; q < K; ++q) acc[q] = 0.f;
+  }
+  float f = 0.f;
+  const int stride = cx.kinc * cx.P;
+  const int* words = reinterpret_cast<const int*>(cx.pay);
+  // The entries this sweep adds, and the neighbor slots it reads (a
+  // Hessian sweep holds them at zero).
+  const int need = GRAD ? kLive : kCostOwner;
+  const int keep = with_z ? ~0 : ~kSlot;
+  // The next entry's other endpoint is loaded before this one is added,
+  // so a load's latency overlaps the arithmetic of the entry before it.
+  float ov[K], nx[K] = {};
+  int wn = words[cx.pl] & keep;
+  if (wn & need) ld_other<R, K>(cx, v, wn, nx, prev, beta);
+  for (int c = 0; c < cx.kinc; ++c) {
+    const int at = c * cx.P + cx.pl;
+    const int w = wn;
+#pragma unroll
+    for (int q = 0; q < K; ++q) ov[q] = nx[q];
+    wn = c + 1 < cx.kinc ? words[at + cx.P] & keep : 0;
+    if (wn & need) ld_other<R, K>(cx, v, wn, nx, prev, beta);
+    if (!(w & need)) continue;
+    const bool side_j = (w & kSideJ) != 0;
+    float Rm[DD], t[D];
+#pragma unroll
+    for (int k = 0; k < DD; ++k) Rm[k] = cx.pay[(1 + k) * stride + at];
+#pragma unroll
+    for (int k = 0; k < D; ++k) t[k] = cx.pay[(1 + DD + k) * stride + at];
+    const float wk = cx.pay[(1 + DD + D) * stride + at];
+    const float wt = cx.pay[(2 + DD + D) * stride + at];
+    float vi[K], vj[K];
+#pragma unroll
+    for (int q = 0; q < K; ++q) {
+      vi[q] = side_j ? ov[q] : own[q];
+      vj[q] = side_j ? own[q] : ov[q];
+    }
+    float rR[D];
+#pragma unroll
+    for (int cc = 0; cc < D; ++cc) {
+      float s = 0.f;
+#pragma unroll
+      for (int b = 0; b < D; ++b) s += vi[b] * Rm[b * D + cc];
+      rR[cc] = vj[cc] - s;
+    }
+    float s = 0.f;
+#pragma unroll
+    for (int b = 0; b < D; ++b) s += vi[b] * t[b];
+    const float rt = vj[D] - vi[D] - s;
+    if (GRAD) {
+      if (side_j) {
+#pragma unroll
+        for (int cc = 0; cc < D; ++cc) acc[cc] += wk * rR[cc];
+        acc[D] += wt * rt;
+      } else {
+#pragma unroll
+        for (int cc = 0; cc < D; ++cc) {
+          float u = 0.f;
+#pragma unroll
+          for (int b = 0; b < D; ++b) u += rR[b] * Rm[cc * D + b];
+          acc[cc] += -wk * u - wt * rt * t[cc];
+        }
+        acc[D] += -wt * rt;
+      }
+    }
+    if (COST && (w & kCostOwner)) {
+      float sR = 0.f;
+#pragma unroll
+      for (int cc = 0; cc < D; ++cc) sR += rR[cc] * rR[cc];
+      f += wk * sR + wt * (rt * rt);
+    }
+  }
+  if (COST) *cost2 += f;
+}
+
+// No "memory" clobber: the copies only write shared memory that nothing
+// reads before cp_async_wait_all (which has one), so the loads that feed
+// later copies may start ahead of earlier ones.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Carve this CTA's shared memory, gather its poses' operands and the
+// payload of their ELL entries with cp.async, wait, and make everything
+// visible to the cluster.
+template <int R, int D>
+__device__ Ctx setup(const ClusterArgs& g, float* smem, int a) {
+  constexpr int K = D + 1;
+  constexpr int RK = R * K;
+  constexpr int DD = D * D;
+  constexpr int KK = K * K;
+  constexpr int kPerWarp = 32 / R;
+  cg::cluster_group cl = cg::this_cluster();
+  Ctx cx;
+  cx.n = g.n;
+  cx.s = g.s;
+  cx.kinc = g.kinc;
+  cx.n_act = g.n_local[a];
+  cx.C = (int)cl.num_blocks();
+  cx.rank = (int)cl.block_rank();
+  cx.P = (g.n + cx.C - 1) / cx.C;
+  cx.parity = 0;
+  const int lane = threadIdx.x & 31;
+  const int group = lane / R;
+  cx.row = lane - group * R;
+  cx.base = group * R;
+  cx.pl = (threadIdx.x >> 5) * kPerWarp + group;
+  const int c0 = cx.rank * cx.P;
+  const int p = c0 + cx.pl;
+  cx.own = group < kPerWarp && cx.pl < cx.P && p < g.n;
+  cx.Z = g.Z + (size_t)a * RK * g.s;
+  cx.vec = smem;
+  cx.L = cx.vec + (size_t)kVecs * cx.P * vec_stride(RK);
+  cx.S = cx.L + (size_t)KK * cx.P;
+  cx.pay = cx.S + (size_t)DD * cx.P;
+  cx.red = cx.pay + (size_t)payload_fields(D) * g.kinc * cx.P;  // [2][C nw][4]
+
+  if (cx.own) {
+    float* x = row_at<R, K>(cx, kX, cx.pl);
+    const size_t comp = (size_t)a * RK + cx.row * K;
+#pragma unroll
+    for (int q = 0; q < K; ++q) cp_async4(x + q, g.X + (comp + q) * g.n + p);
+    for (int i = cx.row; i < KK; i += R)
+      cp_async4(cx.L + i * cx.P + cx.pl, g.L + ((size_t)a * KK + i) * g.n + p);
+    if (g.S != nullptr) {
+      for (int i = cx.row; i < DD; i += R)
+        cp_async4(cx.S + i * cx.P + cx.pl,
+                  g.S + ((size_t)a * DD + i) * g.n + p);
+      float* gv = row_at<R, K>(cx, kG, cx.pl);
+#pragma unroll
+      for (int q = 0; q < K; ++q)
+        cp_async4(gv + q, g.g + (comp + q) * g.n + p);
+    }
+  }
+  const int nt = g.Ep / g.T;
+  const int stride = g.kinc * cx.P;
+  int* words = reinterpret_cast<int*>(cx.pay);
+  // The incidence and index loads do not depend on the branch (padded
+  // entries read slot 0 of a real pose), so unrolled iterations start them
+  // together.
+#pragma unroll 4
+  for (int t = threadIdx.x; t < stride; t += blockDim.x) {
+    const int c = t / cx.P;
+    const int pe = c0 + t - c * cx.P;
+    const size_t ie = ((size_t)a * g.n + min(pe, g.n - 1)) * g.kinc + c;
+    const float m = g.incm[ie];
+    const int sl = g.inc[ie];
+    const bool side_j = sl >= g.E;
+    const int e = side_j ? sl - g.E : sl;
+    const size_t ge = (size_t)a * g.Ep + e;
+    const int ii = g.idx_i[ge];
+    const int other = side_j ? ii : g.idx_j[ge];
+    int w = 0;
+    if (pe < g.n && m != 0.f) {
+      w = kLive | (side_j ? kSideJ : 0) |
+          ((!side_j || ii >= g.n) ? kCostOwner : 0);
+      if (other < g.n) {
+        const int rank = other / cx.P;
+        w |= kPose | (rank << kRankShift) | (other - rank * cx.P);
+      } else if (other < g.n + g.s) {
+        w |= kSlot | (other - g.n);
+      }
+      const int tl = e / g.T;
+      const int ln = e - tl * g.T;
+      const size_t tile = (size_t)a * nt + tl;
+#pragma unroll
+      for (int k = 0; k < DD; ++k)
+        cp_async4(cx.pay + (1 + k) * stride + t,
+                  g.rot + (tile * DD + k) * g.T + ln);
+#pragma unroll
+      for (int k = 0; k < D; ++k)
+        cp_async4(cx.pay + (1 + DD + k) * stride + t,
+                  g.trn + (tile * D + k) * g.T + ln);
+      cp_async4(cx.pay + (1 + DD + D) * stride + t, g.wk + ge);
+      cp_async4(cx.pay + (2 + DD + D) * stride + t, g.wt + ge);
+    }
+    words[t] = w;
+  }
+  cp_async_wait_all();
+  __syncthreads();  // every thread's copies of L have landed
+  if (cx.own && cx.row == 0) {
+#pragma unroll
+    for (int i = 0; i < K; ++i)
+      cx.L[i * (K + 1) * cx.P + cx.pl] = 1.f / cx.L[i * (K + 1) * cx.P + cx.pl];
+  }
+  cl.sync();
+  return cx;
+}
+
+// Steihaug-Toint truncated CG (pallas_tcg._build_math.tcg) on this
+// thread's row of the cluster's agent, from g in kG.  Returns the
+// iteration count; eta and Heta are left in kEta and kHeta.  Every thread
+// of the cluster calls it.
+//
+// Two cluster barriers per iteration, one per reduction.  The direction
+// delta_{k+1} = -z_{k+1} + beta_k delta_k is stored by each owner after
+// the second reduction into the buffer that held delta_{k-1}, with no
+// barrier before the next Hessian sweep; that sweep computes a remote
+// pose's delta_{k+1} from its z_{k+1} and delta_k, which the barriers of
+// iteration k published, by the owner's own expression.
+template <int R, int D>
+__device__ int tcg(Ctx& cx, float radius, int max_iters, float kappa,
+                   float theta) {
+  constexpr int K = D + 1;
+  float s2[2] = {0.f, 0.f};
+  {
+    float x[K], v[K], zz[K];
+    const float zero[K] = {};
+    ld_own<R, K>(cx, kX, x);
+    ld_own<R, K>(cx, kG, v);
+    st_own<R, K>(cx, kR, v);
+#pragma unroll
+    for (int q = 0; q < K; ++q) zz[q] = v[q];
+    precond<R, D>(cx, x, zz);
+    st_own<R, K>(cx, kZv, zz);
+    s2[0] = dot<K>(v, zz);
+    s2[1] = dot<K>(v, v);
+#pragma unroll
+    for (int q = 0; q < K; ++q) zz[q] = -zz[q];
+    st_own<R, K>(cx, kDelta, zz);
+    st_own<R, K>(cx, kEta, zero);
+    st_own<R, K>(cx, kHeta, zero);
+  }
+  cluster_sum<2>(cx, s2);  // also publishes delta
+  float rz = s2[0];
+  const float r0n = sqrtf(s2[1]);
+  float r0n_th;
+  if (theta == 1.f) {
+    r0n_th = r0n;
+  } else if (theta == 0.f) {
+    r0n_th = 1.f;
+  } else {
+    r0n_th = expf(theta * logf(fmaxf(r0n, kEps)));
+  }
+  const float target = r0n * fminf(kappa, r0n_th);
+  const float rad2 = radius * radius;
+
+  int k = 0;
+  bool done = rz <= 0.f;
+  int cur = kDelta, prev = kDeltaB;  // this iteration's delta, the last one's
+  bool fresh = true;                 // remote poses' delta stored in cur
+  float beta = 0.f;
+  while (k < max_iters && !done) {
+    // Hd = P_X(EucHess[delta] - [delta_Y S | 0]) and the four dots.
+    float s4[4];
+    {
+      float x[K], dl[K], h[K] = {}, et[K];
+      ld_own<R, K>(cx, kX, x);
+      ld_own<R, K>(cx, cur, dl);
+      if (cx.own) {
+        if (fresh) {
+          sweep<R, D, true, false>(cx, cur, false, dl, h, nullptr);
+        } else {
+          sweep<R, D, true, false>(cx, kZv, false, dl, h, nullptr, prev,
+                                   beta);
+        }
+#pragma unroll
+        for (int c = 0; c < D; ++c) {
+          float s = 0.f;
+#pragma unroll
+          for (int b = 0; b < D; ++b)
+            s += dl[b] * cx.S[(b * D + c) * cx.P + cx.pl];
+          h[c] -= s;
+        }
+      }
+      tangent_project<R, D>(cx, x, h);
+      st_own<R, K>(cx, kHd, h);
+      ld_own<R, K>(cx, kEta, et);
+      s4[0] = dot<K>(dl, h);
+      s4[1] = dot<K>(et, et);
+      s4[2] = dot<K>(et, dl);
+      s4[3] = dot<K>(dl, dl);
+    }
+    cluster_sum<4>(cx, s4);
+    const float d_hd = s4[0], e_e = s4[1], e_d = s4[2], d_d = s4[3];
+    const float alpha = rz / (fabsf(d_hd) < kEps ? kEps : d_hd);
+    const float e_e_next = e_e + 2.f * alpha * e_d + alpha * alpha * d_d;
+    const bool crossing = (d_hd <= 0.f) || (e_e_next >= rad2);
+    const float disc = fmaxf(e_d * e_d + d_d * (rad2 - e_e), 0.f);
+    const float tau = (-e_d + sqrtf(disc)) / (d_d < kEps ? kEps : d_d);
+    const float step = crossing ? tau : alpha;
+
+    // eta += step delta, Heta += step Hd, r += alpha Hd, z = M^-1 r.
+    {
+      float x[K], dl[K], h[K], v[K], zz[K];
+      ld_own<R, K>(cx, kX, x);
+      ld_own<R, K>(cx, cur, dl);
+      ld_own<R, K>(cx, kHd, h);
+      ld_own<R, K>(cx, kEta, v);
+#pragma unroll
+      for (int q = 0; q < K; ++q) v[q] += step * dl[q];
+      st_own<R, K>(cx, kEta, v);
+      ld_own<R, K>(cx, kHeta, v);
+#pragma unroll
+      for (int q = 0; q < K; ++q) v[q] += step * h[q];
+      st_own<R, K>(cx, kHeta, v);
+      ld_own<R, K>(cx, kR, v);
+#pragma unroll
+      for (int q = 0; q < K; ++q) {
+        v[q] += alpha * h[q];
+        zz[q] = v[q];
+      }
+      st_own<R, K>(cx, kR, v);
+      precond<R, D>(cx, x, zz);
+      st_own<R, K>(cx, kZv, zz);
+      s2[0] = dot<K>(v, zz);
+      s2[1] = dot<K>(v, v);
+    }
+    cluster_sum<2>(cx, s2);
+    const float rz_in = s2[0];
+    const bool converged = sqrtf(s2[1]) <= target;
+    beta = rz_in / (fabsf(rz) < kEps ? kEps : rz);
+    rz = rz_in;
+    ++k;
+    done = crossing || converged;
+    if (!done && k < max_iters) {
+      if (cx.own) {
+        float dl[K], zz[K];
+        ld_own<R, K>(cx, cur, dl);
+        ld_own<R, K>(cx, kZv, zz);
+#pragma unroll
+        for (int q = 0; q < K; ++q) dl[q] = -zz[q] + beta * dl[q];
+        st_own<R, K>(cx, prev, dl);
+      }
+      const int t = cur;
+      cur = prev;
+      prev = t;
+      fresh = false;
+    }
+  }
+  return k;
+}
+
+struct Attempts {
+  int k_att;
+  bool accepted;
+  float f_best;
+  int iters;
+};
+
+// The attempt loop of B2 and B3 (pallas_tcg._rtr_kernel :635-655): from
+// k_att attempts already spent, at most max_rejections attempts of {tCG at
+// the radius, retraction into xp, cost; accept (xp written to xo) when
+// rho > 0.1 and f did not rise, else radius / 4}.  xo holds X on entry.
+// Poses at or past the agent's own count (padding) are left untouched.
+template <int R, int D>
+__device__ Attempts attempts(Ctx& cx, const ClusterArgs& args, float* xo,
+                             float f0, int k_att, float radius,
+                             int max_rejections) {
+  constexpr int K = D + 1;
+  const int p = cx.rank * cx.P + cx.pl;
+  Attempts at{k_att, false, f0, 0};
+  while (at.k_att < max_rejections && !at.accepted) {
+    at.iters += tcg<R, D>(cx, radius, args.max_iters, args.kappa, args.theta);
+    {
+      float x[K], et[K], xp[K];
+      ld_own<R, K>(cx, kX, x);
+      ld_own<R, K>(cx, kEta, et);
+      retract<R, D>(cx, x, et, xp);
+      if (p < cx.n_act) {
+        st_own<R, K>(cx, kXp, xp);
+      } else {
+        st_own<R, K>(cx, kXp, x);
+      }
+    }
+    cg::this_cluster().sync();  // the cost reads xp across CTAs
+    float s3[3] = {0.f, 0.f, 0.f};
+    if (cx.own) {
+      float xp[K], unused[K], gv[K], et[K], he[K];
+      ld_own<R, K>(cx, kXp, xp);
+      sweep<R, D, false, true>(cx, kXp, true, xp, unused, &s3[0]);
+      ld_own<R, K>(cx, kG, gv);
+      ld_own<R, K>(cx, kEta, et);
+      ld_own<R, K>(cx, kHeta, he);
+      s3[1] = dot<K>(gv, et);
+      s3[2] = dot<K>(et, he);
+    }
+    cluster_sum<3>(cx, s3);
+    const float f_prop = 0.5f * s3[0];
+    const float mdec = -(s3[1] + 0.5f * s3[2]);
+    const float rho = (f0 - f_prop) / fmaxf(mdec, kEps);
+    const bool ok = (rho > 0.1f) && (f_prop <= f0);
+    if (ok) {
+      if (cx.own) {
+        float xp[K];
+        ld_own<R, K>(cx, kXp, xp);
+#pragma unroll
+        for (int q = 0; q < K; ++q) xo[(cx.row * K + q) * cx.n + p] = xp[q];
+      }
+      at.f_best = f_prop;
+    } else {
+      radius = radius / 4.f;
+    }
+    ++at.k_att;
+    at.accepted = ok;
+  }
+  return at;
+}
+
+template <int R, int D>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+rtr_full_cluster_kernel(ClusterArgs args, float initial_radius,
+                        int max_rejections, float grad_tol, float* X_out,
+                        float* stats, int* tcg_iters) {
+  constexpr int K = D + 1;
+  constexpr int RK = R * K;
+  extern __shared__ __align__(16) float smem[];
+  const int a = blockIdx.x / cg::this_cluster().num_blocks();
+  Ctx cx = setup<R, D>(args, smem, a);
+  float* xo = X_out + (size_t)a * RK * cx.n;
+
+  // Start point: G = egrad([X | Z]), S = sym(Y^T G_Y), g = P_X(G), f0.
+  float s2[2] = {0.f, 0.f};
+  {
+    const int p = cx.rank * cx.P + cx.pl;
+    float x[K], G[K] = {};
+    ld_own<R, K>(cx, kX, x);
+    if (cx.own) {
+      sweep<R, D, true, true>(cx, kX, true, x, G, &s2[1]);
+#pragma unroll
+      for (int q = 0; q < K; ++q) xo[(cx.row * K + q) * cx.n + p] = x[q];
+    }
+    float sy[D * D];
+    sym_ytw<R, D>(cx, x, G, sy);
+    if (cx.own && cx.row == 0) {
+#pragma unroll
+      for (int i = 0; i < D * D; ++i) cx.S[i * cx.P + cx.pl] = sy[i];
+    }
+    sub_ysym<D>(x, sy, G);
+    st_own<R, K>(cx, kG, G);
+    s2[0] = dot<K>(G, G);
+  }
+  cluster_sum<2>(cx, s2);
+  const float gn0 = sqrtf(s2[0]);
+  const float f0 = 0.5f * s2[1];
+
+  const Attempts at =
+      attempts<R, D>(cx, args, xo, f0, (gn0 < grad_tol) ? max_rejections : 0,
+                     initial_radius, max_rejections);
+  if (cx.rank == 0 && threadIdx.x == 0) {
+    float* st = stats + (size_t)a * 5;
+    st[0] = (float)at.k_att;
+    st[1] = at.accepted ? 1.f : 0.f;
+    st[2] = f0;
+    st[3] = at.f_best;
+    st[4] = gn0;
+    tcg_iters[a] = at.iters;
+  }
+  cg::this_cluster().sync();  // no CTA leaves while its partials are read
+}
+
+template <int R, int D>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+rtr_cluster_kernel(ClusterArgs args, float initial_radius,
+                   int max_rejections, float* X_out, float* stats,
+                   int* tcg_iters) {
+  constexpr int K = D + 1;
+  constexpr int RK = R * K;
+  extern __shared__ __align__(16) float smem[];
+  const int a = blockIdx.x / cg::this_cluster().num_blocks();
+  Ctx cx = setup<R, D>(args, smem, a);
+  float* xo = X_out + (size_t)a * RK * cx.n;
+  float s1[1] = {0.f};
+  if (cx.own) {
+    const int p = cx.rank * cx.P + cx.pl;
+    float x[K], unused[K];
+    ld_own<R, K>(cx, kX, x);
+    sweep<R, D, false, true>(cx, kX, true, x, unused, &s1[0]);
+#pragma unroll
+    for (int q = 0; q < K; ++q) xo[(cx.row * K + q) * cx.n + p] = x[q];
+  }
+  cluster_sum<1>(cx, s1);
+  const float f0 = 0.5f * s1[0];
+  const Attempts at = attempts<R, D>(cx, args, xo, f0, 0, initial_radius,
+                                     max_rejections);
+  if (cx.rank == 0 && threadIdx.x == 0) {
+    float* st = stats + (size_t)a * 4;
+    st[0] = (float)at.k_att;
+    st[1] = at.accepted ? 1.f : 0.f;
+    st[2] = f0;
+    st[3] = at.f_best;
+    tcg_iters[a] = at.iters;
+  }
+  cg::this_cluster().sync();  // no CTA leaves while its partials are read
+}
+
+// Launch configuration of A clusters of C CTAs.  A non-portable size (C >
+// 8) is allowed only where the card can place one such cluster.
+template <typename... KArgs>
+int cluster_config(void (*kern)(KArgs...), int A, int C,
+                   const ClusterShape& sh, cudaStream_t stream,
+                   cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sh.smem);
+  if (err != cudaSuccess) return (int)err;
+  if (C > kPortableCluster) {
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return (int)err;
+  }
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = C;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(A * C);
+  cfg->blockDim = dim3(sh.threads);
+  cfg->dynamicSmemBytes = sh.smem;
+  cfg->stream = stream;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return 0;
+}
+
+template <typename... KArgs>
+int max_clusters(void (*kern)(KArgs...), int C, const ClusterShape& sh,
+                 int* count) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  const int err = cluster_config(kern, 1, C, sh, nullptr, &cfg, &attr);
+  if (err != 0) return err;
+  return (int)cudaOccupancyMaxActiveClusters(
+      count, reinterpret_cast<const void*>(kern), &cfg);
+}
+
+template <typename... KArgs, typename... Args>
+int launch_cluster(void (*kern)(KArgs...), int A, int C,
+                   const ClusterShape& sh, cudaStream_t stream,
+                   Args... args) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  if (C > kMaxCluster) return kUnplaceable;
+  int err = cluster_config(kern, A, C, sh, stream, &cfg, &attr);
+  if (err != 0) return err;
+  if (C > kPortableCluster) {
+    int count = 0;
+    err = (int)cudaOccupancyMaxActiveClusters(
+        &count, reinterpret_cast<const void*>(kern), &cfg);
+    if (err != 0) return err;
+    if (count < 1) return kUnplaceable;
+  }
+  err = (int)cudaLaunchKernelEx(&cfg, kern, args...);
+  if (err != 0) return err;
+  return (int)cudaGetLastError();
+}
+
+template <int R, int D>
+int launch_rtr_full(const ClusterArgs& g, int A, int C, float initial_radius,
+                    int max_rejections, float grad_tol, float* X_out,
+                    float* stats, int* tcg_iters, cudaStream_t stream) {
+  if (g.s > kIndexMask + 1) return kTooManySlots;
+  const ClusterShape sh = cluster_shape(R, D, g.n, g.kinc, C);
+  return launch_cluster(rtr_full_cluster_kernel<R, D>, A, C, sh, stream, g,
+                        initial_radius, max_rejections, grad_tol, X_out,
+                        stats, tcg_iters);
+}
+
+template <int R, int D>
+int launch_rtr(const ClusterArgs& g, int A, int C, float initial_radius,
+               int max_rejections, float* X_out, float* stats,
+               int* tcg_iters, cudaStream_t stream) {
+  if (g.s > kIndexMask + 1) return kTooManySlots;
+  const ClusterShape sh = cluster_shape(R, D, g.n, g.kinc, C);
+  return launch_cluster(rtr_cluster_kernel<R, D>, A, C, sh, stream, g,
+                        initial_radius, max_rejections, X_out, stats,
+                        tcg_iters);
+}
+
+template <int R, int D>
+int query_clusters(int n, int kinc, int C, int* count) {
+  const ClusterShape sh = cluster_shape(R, D, n, kinc, C);
+  return max_clusters(rtr_full_cluster_kernel<R, D>, C, sh, count);
+}
+
+ClusterArgs make_args(int n, int s, int Ep, int T, int E, int kinc,
+                      const void* idx_i, const void* idx_j, const void* rot,
+                      const void* trn, const void* wk, const void* wt,
+                      const void* X, const void* Z, const void* S,
+                      const void* L, const void* g, const void* inc_slot,
+                      const void* inc_mask, const void* n_local,
+                      int max_iters, float kappa, float theta) {
+  ClusterArgs a;
+  a.n = n;
+  a.s = s;
+  a.Ep = Ep;
+  a.T = T;
+  a.E = E;
+  a.kinc = kinc;
+  a.idx_i = static_cast<const int*>(idx_i);
+  a.idx_j = static_cast<const int*>(idx_j);
+  a.rot = static_cast<const float*>(rot);
+  a.trn = static_cast<const float*>(trn);
+  a.wk = static_cast<const float*>(wk);
+  a.wt = static_cast<const float*>(wt);
+  a.X = static_cast<const float*>(X);
+  a.Z = static_cast<const float*>(Z);
+  a.L = static_cast<const float*>(L);
+  a.S = static_cast<const float*>(S);
+  a.g = static_cast<const float*>(g);
+  a.inc = static_cast<const int*>(inc_slot);
+  a.incm = static_cast<const float*>(inc_mask);
+  a.n_local = static_cast<const int*>(n_local);
+  a.max_iters = max_iters;
+  a.kappa = kappa;
+  a.theta = theta;
+  return a;
+}
+
+constexpr int kUnsupportedShape = -1;
+
+}  // namespace
+
+#define DPGO_DISPATCH(R_, D_, CALL) \
+  if (r == R_ && d == D_) return CALL<R_, D_>
+
+extern "C" {
+
+// Shared-memory bytes of one CTA of the cluster kernels for an agent of
+// n_max poses and Kinc incidence entries per pose split over C CTAs.
+long long dpgo_rtr_cluster_smem_bytes(int r, int d, int n_max, int kinc,
+                                      int C) {
+  return (long long)cluster_shape(r, d, n_max, kinc, C).smem;
+}
+
+// How many clusters of C CTAs of the B2 cluster kernel (B3's has the same
+// shape) the card can hold at once (cudaOccupancyMaxActiveClusters) into
+// *count; returns a cudaError_t, or -1 for an (r, d) without instantiation.
+int dpgo_rtr_cluster_max_clusters(int r, int d, int n_max, int kinc, int C,
+                                  void* count) {
+  int* c = static_cast<int*>(count);
+  DPGO_DISPATCH(5, 3, query_clusters)(n_max, kinc, C, c);
+  DPGO_DISPATCH(4, 3, query_clusters)(n_max, kinc, C, c);
+  DPGO_DISPATCH(3, 3, query_clusters)(n_max, kinc, C, c);
+  DPGO_DISPATCH(3, 2, query_clusters)(n_max, kinc, C, c);
+  DPGO_DISPATCH(2, 2, query_clusters)(n_max, kinc, C, c);
+  return kUnsupportedShape;
+}
+
+int dpgo_rtr_full_cluster_launch(
+    int r, int d, int C, int A, int n, int s, int Ep, int T, int e_max,
+    int kinc, const void* idx_i, const void* idx_j, const void* rot,
+    const void* trn, const void* wk, const void* wt, const void* X,
+    const void* Z, const void* L, const void* inc_slot, const void* inc_mask,
+    const void* n_local, void* X_out, void* stats, void* tcg_iters,
+    int max_iters, float kappa, float theta, float initial_radius,
+    int max_rejections, float grad_tol, void* stream) {
+  const ClusterArgs g = make_args(n, s, Ep, T, e_max, kinc, idx_i, idx_j,
+                                  rot, trn, wk, wt, X, Z, nullptr, L, nullptr,
+                                  inc_slot, inc_mask, n_local, max_iters,
+                                  kappa, theta);
+  float* xo = static_cast<float*>(X_out);
+  float* st = static_cast<float*>(stats);
+  int* it = static_cast<int*>(tcg_iters);
+  cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  DPGO_DISPATCH(5, 3, launch_rtr_full)(g, A, C, initial_radius,
+                                       max_rejections, grad_tol, xo, st, it,
+                                       cs);
+  DPGO_DISPATCH(4, 3, launch_rtr_full)(g, A, C, initial_radius,
+                                       max_rejections, grad_tol, xo, st, it,
+                                       cs);
+  DPGO_DISPATCH(3, 3, launch_rtr_full)(g, A, C, initial_radius,
+                                       max_rejections, grad_tol, xo, st, it,
+                                       cs);
+  DPGO_DISPATCH(3, 2, launch_rtr_full)(g, A, C, initial_radius,
+                                       max_rejections, grad_tol, xo, st, it,
+                                       cs);
+  DPGO_DISPATCH(2, 2, launch_rtr_full)(g, A, C, initial_radius,
+                                       max_rejections, grad_tol, xo, st, it,
+                                       cs);
+  return kUnsupportedShape;
+}
+
+int dpgo_rtr_cluster_launch(
+    int r, int d, int C, int A, int n, int s, int Ep, int T, int e_max,
+    int kinc, const void* idx_i, const void* idx_j, const void* rot,
+    const void* trn, const void* wk, const void* wt, const void* X,
+    const void* Z, const void* S, const void* L, const void* g,
+    const void* inc_slot, const void* inc_mask, const void* n_local,
+    void* X_out, void* stats, void* tcg_iters, int max_iters, float kappa,
+    float theta, float initial_radius, int max_rejections, void* stream) {
+  const ClusterArgs a = make_args(n, s, Ep, T, e_max, kinc, idx_i, idx_j,
+                                  rot, trn, wk, wt, X, Z, S, L, g, inc_slot,
+                                  inc_mask, n_local, max_iters, kappa, theta);
+  float* xo = static_cast<float*>(X_out);
+  float* st = static_cast<float*>(stats);
+  int* it = static_cast<int*>(tcg_iters);
+  cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  DPGO_DISPATCH(5, 3, launch_rtr)(a, A, C, initial_radius, max_rejections,
+                                  xo, st, it, cs);
+  DPGO_DISPATCH(4, 3, launch_rtr)(a, A, C, initial_radius, max_rejections,
+                                  xo, st, it, cs);
+  DPGO_DISPATCH(3, 3, launch_rtr)(a, A, C, initial_radius, max_rejections,
+                                  xo, st, it, cs);
+  DPGO_DISPATCH(3, 2, launch_rtr)(a, A, C, initial_radius, max_rejections,
+                                  xo, st, it, cs);
+  DPGO_DISPATCH(2, 2, launch_rtr)(a, A, C, initial_radius, max_rejections,
+                                  xo, st, it, cs);
+  return kUnsupportedShape;
+}
+
+}  // extern "C"

@@ -1,5 +1,6 @@
-"""The fused local RTR step of RBCD: the hand-written CUDA kernel
-(``csrc/rtr_full.cu``) and its plain PyTorch version.
+"""The fused local RTR step of RBCD: the hand-written CUDA kernels
+(``csrc/rtr_cluster.cu``, ``csrc/rtr_full.cu``) and their plain PyTorch
+versions.
 
 Port of the TPU kernels ``dpgo_tpu/ops/pallas_tcg.py``:
 
@@ -19,9 +20,18 @@ Port of the TPU kernels ``dpgo_tpu/ops/pallas_tcg.py``:
 Each wrapper runs the kernel for CUDA tensors and raises when it cannot; it
 takes its plain version (``rtr_full_reference`` / ``rtr_reference`` /
 ``tcg_reference`` / ``rtr_refine_full_reference``) only when the tensors it
-was given lie on the CPU.  The kernel is compiled with
-``nvcc`` for ``sm_90a`` at first use, from the source in this package, into
+was given lie on the CPU.  The kernels are compiled with ``nvcc`` for
+``sm_90a`` at first use, from every ``csrc/*.cu`` of this package (one
+``nvcc`` per source, all at once), into one library in
 ``dpgo_tpu_torch/_build/``, and bound through ``ctypes``.
+
+``rtr_full`` and ``rtr`` have two routes, chosen from the shape before the
+launch by ``cluster_plan``: the **cluster** route (``rtr_cluster.cu``: one
+thread-block cluster of C CTAs per agent, its loop vectors and edge payload
+in the cluster's shared memory) for every agent that fits a cluster, and
+the **workspace** route (``rtr_full.cu``: one CTA per agent, loop vectors in
+a per-agent device-memory workspace) above that.  A cluster the card
+refuses or cannot place raises; nothing retries another route.
 
 Inputs use the JAX package's tile-major layout (``models.rbcd.build_graph``),
 batched over agents with a leading ``A``:
@@ -76,10 +86,31 @@ NS_SWEEPS = 24
 _UNSUPPORTED_SHAPE = -1
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "rtr_full.cu"
+SOURCES = tuple(sorted((_PKG / "csrc").glob("*.cu")))
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+#: The cluster launcher's own error codes: the card cannot place one
+#: cluster of the size asked for; more neighbor slots than its edge payload
+#: can index (2**20).
+_UNPLACEABLE, _TOO_MANY_SLOTS = -2, -3
+
+#: Cluster sizes the plan picks from.  Above 8 a size is non-portable: the
+#: launcher allows it only where the card can place one such cluster.
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
+#: The plan spreads an agent over more CTAs until each has at most this
+#: many warps: the kernel's time per tCG iteration is each warp's chain,
+#: and warps that share an SM's four schedulers stretch it (PERF.md §6,
+#: the cluster sweep).
+SPREAD_WARPS = 8
+#: Shared memory one CTA can use on sm_90.
+MAX_SMEM_BYTES = 232448
+#: Threads per CTA the cluster kernels are compiled for (r lanes per pose,
+#: 32 // r poses per warp).
+MAX_CLUSTER_THREADS = 512
+#: Loop vectors of the cluster kernels held in shared memory (delta twice)
+#: — ``rtr_cluster.cu``.
+_CLUSTER_VECS = 10
 
 
 class RTRFullOut(NamedTuple):
@@ -104,6 +135,114 @@ class TCGOut(NamedTuple):
     eta: torch.Tensor    # [A, r(d+1), n]
     heta: torch.Tensor   # [A, r(d+1), n]
     stats: torch.Tensor  # [A, 2] iterations, hit boundary
+
+
+class ClusterPlan(NamedTuple):
+    route: str       # "cluster" or "workspace"
+    C: int           # CTAs per agent (0 on the workspace route)
+    P: int           # poses per CTA
+    threads: int     # threads per CTA
+    smem_bytes: int  # shared memory per CTA
+
+
+# ---------------------------------------------------------------------------
+# Route plan of rtr_full and rtr
+# ---------------------------------------------------------------------------
+
+def _vec_stride(rk: int) -> int:
+    """Floats per pose of a shared vector of the cluster kernels: ``rk``
+    padded to whole float4s, and to an odd count of them."""
+    s = -(-rk // 4)
+    return 4 * (s if s % 2 else s + 1)
+
+
+def cluster_shape(r: int, d: int, n_max: int, kinc: int,
+                  C: int) -> ClusterPlan:
+    """The cluster kernels' shape for ``C`` CTAs per agent (the formula of
+    ``dpgo_rtr_cluster_smem_bytes``): P = ceil(n_max / C) poses in each
+    CTA, r lanes per pose (one row of its block each) and 32 // r poses per
+    warp; its shared memory holds 10 loop vectors ``[P, vec_stride]``, the
+    factors L and curvature S, the edge payload of its poses' ELL entries
+    ``[d*d + d + 3, Kinc, P]`` and the reduction slots (two buffers of 4
+    floats for each warp of the cluster)."""
+    P = -(-n_max // C)
+    k = d + 1
+    threads = -(-P // (32 // r)) * 32
+    floats = (_CLUSTER_VECS * P * _vec_stride(r * k) + (k * k + d * d) * P
+              + (d * d + d + 3) * kinc * P + 2 * C * (threads // 32) * 4)
+    return ClusterPlan("cluster", C, P, threads, 4 * floats)
+
+
+def _fits(plan: ClusterPlan) -> bool:
+    return (plan.threads <= MAX_CLUSTER_THREADS
+            and plan.smem_bytes <= MAX_SMEM_BYTES)
+
+
+def cluster_plan(n_max: int, e_max: int, kinc: int, r: int,
+                 d: int) -> ClusterPlan:
+    """The route of ``rtr_full`` and ``rtr`` for agents of ``n_max`` poses,
+    ``e_max`` edges and ``kinc`` incidence entries per pose.  The cluster
+    route when some C of ``CLUSTER_SIZES`` fits the card (at most
+    ``MAX_CLUSTER_THREADS`` threads and ``MAX_SMEM_BYTES`` of shared
+    memory per CTA): of the portable sizes (up to 8) that fit, the
+    smallest with at most ``SPREAD_WARPS`` warps per CTA, else the largest;
+    16 only when no portable size fits.  Else the workspace route (one CTA
+    of 256 threads per agent; its shared memory holds the edge payload
+    when that fits)."""
+    fitting = [plan for plan in (cluster_shape(r, d, n_max, kinc, C)
+                                 for C in CLUSTER_SIZES) if _fits(plan)]
+    if not fitting:
+        return _workspace_plan(n_max, e_max, d)
+    portable = [plan for plan in fitting if plan.C <= 8] or fitting
+    spread = [plan for plan in portable
+              if plan.threads <= 32 * SPREAD_WARPS]
+    return spread[0] if spread else portable[-1]
+
+
+def _workspace_plan(n_max: int, e_max: int, d: int) -> ClusterPlan:
+    """``rtr_full.cu``'s shape: reduction slots, plus the edge payload when
+    it fits in shared memory (``payload_fits_smem``)."""
+    red = 4 * 8 * 4
+    payload = 4 * e_max * (d * d + d + 4)
+    return ClusterPlan("workspace", 0, n_max, 256,
+                       red + (payload if red + payload <= MAX_SMEM_BYTES
+                              else 0))
+
+
+def _route(cluster: int | None, n_max: int, e_max: int, kinc: int, r: int,
+           d: int) -> ClusterPlan:
+    """``cluster_plan``, or the route a test or ``chip_smoke.py`` forces:
+    ``0`` the workspace route, ``C > 0`` a cluster of C CTAs (raises when
+    one CTA of it cannot fit the card)."""
+    if cluster is None:
+        return cluster_plan(n_max, e_max, kinc, r, d)
+    if cluster == 0:
+        return _workspace_plan(n_max, e_max, d)
+    if cluster < 0:
+        raise ValueError(f"cluster size {cluster} is negative")
+    plan = cluster_shape(r, d, n_max, kinc, cluster)
+    if not _fits(plan):
+        raise ValueError(
+            f"a cluster of {cluster} CTAs cannot hold an agent of {n_max} "
+            f"poses: {plan.threads} threads and {plan.smem_bytes} B of "
+            f"shared memory per CTA (at most {MAX_CLUSTER_THREADS} and "
+            f"{MAX_SMEM_BYTES})")
+    return plan
+
+
+def cost_owner(idx_i: torch.Tensor, inc_slot: torch.Tensor,
+               inc_mask: torch.Tensor, n: int, e_max: int) -> torch.Tensor:
+    """Which ELL entries count their edge in the cluster kernels' cost: the
+    entry of incidence slot s at pose p counts when p is the edge's i
+    endpoint (s < e_max), or its j endpoint while the i endpoint is a
+    neighbor slot (index >= n).  Each live edge then counts exactly once,
+    at a local endpoint.  ``idx_i [A, e_max]`` (the graph's ``edges.i``),
+    ``inc_slot, inc_mask [A, n, K]``; returns a bool mask ``[A, n, K]``."""
+    side_j = inc_slot >= e_max
+    e = torch.where(side_j, inc_slot - e_max, inc_slot).long()
+    A = e.shape[0]
+    ii = torch.gather(idx_i.long(), 1, e.reshape(A, -1)).reshape(e.shape)
+    return inc_mask.bool() & (~side_j | (ii >= n))
 
 
 # ---------------------------------------------------------------------------
@@ -387,29 +526,50 @@ def _nvcc() -> str:
     if nvcc is None and (toolkit / "bin" / "nvcc").exists():
         nvcc = str(toolkit / "bin" / "nvcc")
     if nvcc is None:
-        raise RuntimeError("nvcc not found: the rtr_full kernel is built "
-                           "from csrc/rtr_full.cu at first use")
+        raise RuntimeError("nvcc not found: the kernels are built from "
+                           "csrc/*.cu at first use")
     return nvcc
 
 
 def build() -> Path:
-    """Compile ``csrc/rtr_full.cu`` (if this source has not been built yet)
-    and return the shared library's path.  Sets ``BUILD_LOG`` to nvcc's
-    output (ptxas register and spill report)."""
+    """Compile every ``csrc/*.cu`` (one ``nvcc`` per source, all started
+    together) and link them into one shared library, unless these sources
+    were built already; return the library's path.  Sets ``BUILD_LOG`` to
+    nvcc's output (the ptxas register and spill report)."""
     global BUILD_LOG
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"librtr_full_{tag}.so"
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in SOURCES:
+        digest.update(src.name.encode() + b"\0" + src.read_bytes())
+    tag = digest.hexdigest()[:16]
+    lib = BUILD_DIR / f"libdpgo_kernels_{tag}.so"
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(lib.name + f".{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                           str(SOURCE)], capture_output=True, text=True)
-    BUILD_LOG = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed to build {SOURCE.name}:\n"
+    nvcc, pid = _nvcc(), os.getpid()
+    objs = [BUILD_DIR / f"{src.stem}_{tag}.{pid}.o" for src in SOURCES]
+    logs = [o.with_suffix(".log") for o in objs]
+    procs = []
+    for src, obj, log in zip(SOURCES, objs, logs):
+        with open(log, "w") as out:
+            procs.append(subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=out, stderr=subprocess.STDOUT))
+    codes = [proc.wait() for proc in procs]
+    BUILD_LOG = "".join(log.read_text() for log in logs)
+    for log in logs:
+        log.unlink()
+    failed = [src.name for src, code in zip(SOURCES, codes) if code != 0]
+    if failed:
+        raise RuntimeError(f"nvcc failed to build {', '.join(failed)}:\n"
                            f"{BUILD_LOG}")
+    tmp = lib.with_name(lib.name + f".{pid}.tmp")
+    proc = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                           *map(str, objs)], capture_output=True, text=True)
+    BUILD_LOG += proc.stdout + proc.stderr
+    for obj in objs:
+        obj.unlink()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed to link {lib.name}:\n{BUILD_LOG}")
     os.replace(tmp, lib)
     return lib
 
@@ -421,7 +581,7 @@ def load():
     if _lib is not None:
         return _lib
     if not torch.cuda.is_available():
-        raise RuntimeError("the rtr_full kernel needs a CUDA device and "
+        raise RuntimeError("the port's kernels need a CUDA device and "
                            "none is available")
     lib = ctypes.CDLL(str(build()))
     P, I, F, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
@@ -440,8 +600,29 @@ def load():
     lib.dpgo_rtr_refine_full_launch.argtypes = (
         [I] * 9 + [P] * 22 + [LL, I, F, F, F, I, F, P])
     lib.dpgo_rtr_refine_full_launch.restype = I
+    lib.dpgo_rtr_cluster_smem_bytes.argtypes = [I] * 5
+    lib.dpgo_rtr_cluster_smem_bytes.restype = LL
+    lib.dpgo_rtr_cluster_max_clusters.argtypes = [I] * 5 + [P]
+    lib.dpgo_rtr_cluster_max_clusters.restype = I
+    lib.dpgo_rtr_full_cluster_launch.argtypes = (
+        [I] * 10 + [P] * 15 + [I, F, F, F, I, F, P])
+    lib.dpgo_rtr_full_cluster_launch.restype = I
+    lib.dpgo_rtr_cluster_launch.argtypes = (
+        [I] * 10 + [P] * 17 + [I, F, F, F, I, P])
+    lib.dpgo_rtr_cluster_launch.restype = I
     _lib = lib
     return lib
+
+
+def cluster_capacity(r: int, d: int, n_max: int, kinc: int, C: int) -> int:
+    """How many clusters of ``C`` CTAs of the cluster kernels the card can
+    hold at once for agents of this shape (``cudaOccupancyMaxActiveClusters``
+    of B2's; B3's has the same shape); 0 when it cannot place one."""
+    count = ctypes.c_int(0)
+    err = load().dpgo_rtr_cluster_max_clusters(r, d, n_max, kinc, C,
+                                               ctypes.byref(count))
+    _raise_on("cluster_capacity", err, r, d)
+    return count.value
 
 
 def _check(name: str, dev, tensors: dict, shapes: dict) -> None:
@@ -471,12 +652,18 @@ def _check(name: str, dev, tensors: dict, shapes: dict) -> None:
                                "the CPU")
 
 
-def _raise_on(name: str, err: int, r: int, d: int) -> None:
+def _raise_on(name: str, err: int, r: int, d: int, C: int = 0) -> None:
     """Turn a launcher's non-zero return into an exception."""
     if err == _UNSUPPORTED_SHAPE:
         raise ValueError(f"{name}: (r, d) = {(r, d)} is not a shape the "
                          "kernel is instantiated for (DPGO_DISPATCH in "
-                         f"{SOURCE.name})")
+                         "csrc/*.cu)")
+    if err == _UNPLACEABLE:
+        raise RuntimeError(f"{name}: the card cannot place a cluster of "
+                           f"{C} CTAs of this shape")
+    if err == _TOO_MANY_SLOTS:
+        raise ValueError(f"{name}: more than 2**20 neighbor slots per agent "
+                         "on the cluster route")
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed (cudaError_t "
                            f"{err})")
@@ -499,10 +686,14 @@ def _shapes(idx_i, r, d, n, s, K, A):
 def rtr_full(idx_i, idx_j, rot, trn, wk, wt, Xc, Zc, Lc, inc_slot, inc_mask,
              n_local, *, r: int, d: int, e_max: int, max_iters: int,
              kappa: float, theta: float, initial_radius: float,
-             max_rejections: int, grad_tol: float) -> RTRFullOut:
+             max_rejections: int, grad_tol: float,
+             _cluster: int | None = None) -> RTRFullOut:
     """One local RTR step for every agent (see the module docstring for the
-    layouts).  CUDA tensors launch the kernel on the current stream, once
-    for all agents; CPU tensors run ``rtr_full_reference``."""
+    layouts).  CUDA tensors launch the kernel of the route ``cluster_plan``
+    picks on the current stream, once for all agents; CPU tensors run
+    ``rtr_full_reference``.  ``_cluster`` forces a route, for the card
+    tests and ``chip_smoke.py`` only: ``0`` the workspace route, ``C`` a
+    cluster of C CTAs."""
     global LAUNCHES
     A, _, n = Xc.shape
     s, K = Zc.shape[-1], inc_slot.shape[-1]
@@ -510,6 +701,7 @@ def rtr_full(idx_i, idx_j, rot, trn, wk, wt, Xc, Zc, Lc, inc_slot, inc_mask,
                    Xc=Xc, Zc=Zc, Lc=Lc, inc_slot=inc_slot,
                    inc_mask=inc_mask, n_local=n_local)
     _check("rtr_full", Xc.device, tensors, _shapes(idx_i, r, d, n, s, K, A))
+    plan = _route(_cluster, n, e_max, K, r, d)
     kw = dict(r=r, d=d, e_max=e_max, max_iters=max_iters, kappa=kappa,
               theta=theta, initial_radius=initial_radius,
               max_rejections=max_rejections, grad_tol=grad_tol)
@@ -519,20 +711,25 @@ def rtr_full(idx_i, idx_j, rot, trn, wk, wt, Xc, Zc, Lc, inc_slot, inc_mask,
     lib = load()
     nt, T = idx_i.shape[1], idx_i.shape[-1]
     dev = Xc.device
-    ws_floats = lib.dpgo_rtr_workspace_floats(r, d, n, e_max, 0)
-    ws = torch.empty((A, ws_floats), dtype=torch.float32, device=dev)
     X_out = torch.empty_like(Xc)
     stats = torch.empty((A, 5), dtype=torch.float32, device=dev)
     iters = torch.empty((A,), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.dpgo_rtr_full_launch(
-        r, d, A, n, s, nt * T, T, e_max, K,
-        *(t.data_ptr() for t in (idx_i, idx_j, rot, trn, wk, wt, Xc, Zc,
-                                 Lc, inc_slot, inc_mask, n_local, X_out,
-                                 stats, iters, ws)),
-        ws_floats, max_iters, kappa, theta, initial_radius, max_rejections,
-        grad_tol, stream)
-    _raise_on("rtr_full", err, r, d)
+    ptrs = [t.data_ptr() for t in (idx_i, idx_j, rot, trn, wk, wt, Xc, Zc,
+                                   Lc, inc_slot, inc_mask, n_local, X_out,
+                                   stats, iters)]
+    if plan.route == "cluster":
+        err = lib.dpgo_rtr_full_cluster_launch(
+            r, d, plan.C, A, n, s, nt * T, T, e_max, K, *ptrs, max_iters,
+            kappa, theta, initial_radius, max_rejections, grad_tol, stream)
+    else:
+        ws_floats = lib.dpgo_rtr_workspace_floats(r, d, n, e_max, 0)
+        ws = torch.empty((A, ws_floats), dtype=torch.float32, device=dev)
+        err = lib.dpgo_rtr_full_launch(
+            r, d, A, n, s, nt * T, T, e_max, K, *ptrs, ws.data_ptr(),
+            ws_floats, max_iters, kappa, theta, initial_radius,
+            max_rejections, grad_tol, stream)
+    _raise_on("rtr_full", err, r, d, plan.C)
     LAUNCHES += 1
     return RTRFullOut(X_out, stats, iters)
 
@@ -540,11 +737,12 @@ def rtr_full(idx_i, idx_j, rot, trn, wk, wt, Xc, Zc, Lc, inc_slot, inc_mask,
 def rtr(idx_i, idx_j, rot, trn, wk, wt, Xc, Zc, Sc, Lc, gc, inc_slot,
         inc_mask, n_local, *, r: int, d: int, e_max: int, max_iters: int,
         kappa: float, theta: float, initial_radius: float,
-        max_rejections: int) -> RTROut:
+        max_rejections: int, _cluster: int | None = None) -> RTROut:
     """The attempt loop for every agent from the given ``Sc`` and ``gc``
     (see the module docstring for the layouts).  CUDA tensors launch the
-    kernel on the current stream, once for all agents; CPU tensors run
-    ``rtr_reference``."""
+    kernel of the route ``cluster_plan`` picks on the current stream, once
+    for all agents; CPU tensors run ``rtr_reference``.  ``_cluster`` as in
+    ``rtr_full``."""
     global RTR_LAUNCHES
     A, _, n = Xc.shape
     s, K = Zc.shape[-1], inc_slot.shape[-1]
@@ -552,6 +750,7 @@ def rtr(idx_i, idx_j, rot, trn, wk, wt, Xc, Zc, Sc, Lc, gc, inc_slot,
                    Xc=Xc, Zc=Zc, Sc=Sc, Lc=Lc, gc=gc, inc_slot=inc_slot,
                    inc_mask=inc_mask, n_local=n_local)
     _check("rtr", Xc.device, tensors, _shapes(idx_i, r, d, n, s, K, A))
+    plan = _route(_cluster, n, e_max, K, r, d)
     kw = dict(r=r, d=d, e_max=e_max, max_iters=max_iters, kappa=kappa,
               theta=theta, initial_radius=initial_radius,
               max_rejections=max_rejections)
@@ -560,19 +759,23 @@ def rtr(idx_i, idx_j, rot, trn, wk, wt, Xc, Zc, Sc, Lc, gc, inc_slot,
     lib = load()
     nt, T = idx_i.shape[1], idx_i.shape[-1]
     dev = Xc.device
-    ws_floats = lib.dpgo_rtr_workspace_floats(r, d, n, e_max, 0)
-    ws = torch.empty((A, ws_floats), dtype=torch.float32, device=dev)
     X_out = torch.empty_like(Xc)
     stats = torch.empty((A, 4), dtype=torch.float32, device=dev)
     iters = torch.empty((A,), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.dpgo_rtr_launch(
-        r, d, A, n, s, nt * T, T, e_max, K,
-        *(t.data_ptr() for t in (*tensors.values(), X_out, stats, iters,
-                                 ws)),
-        ws_floats, max_iters, kappa, theta, initial_radius, max_rejections,
-        stream)
-    _raise_on("rtr", err, r, d)
+    ptrs = [t.data_ptr() for t in (*tensors.values(), X_out, stats, iters)]
+    if plan.route == "cluster":
+        err = lib.dpgo_rtr_cluster_launch(
+            r, d, plan.C, A, n, s, nt * T, T, e_max, K, *ptrs, max_iters,
+            kappa, theta, initial_radius, max_rejections, stream)
+    else:
+        ws_floats = lib.dpgo_rtr_workspace_floats(r, d, n, e_max, 0)
+        ws = torch.empty((A, ws_floats), dtype=torch.float32, device=dev)
+        err = lib.dpgo_rtr_launch(
+            r, d, A, n, s, nt * T, T, e_max, K, *ptrs, ws.data_ptr(),
+            ws_floats, max_iters, kappa, theta, initial_radius,
+            max_rejections, stream)
+    _raise_on("rtr", err, r, d, plan.C)
     RTR_LAUNCHES += 1
     return RTROut(X_out, stats, iters)
 

@@ -89,11 +89,13 @@ def test_rtr_kernel_matches_plain_version(card, d, r):
 
 
 def test_rtr_kernel_payload_too_large_for_shared_memory(card):
+    # The workspace route (one CTA per agent) with its payload in device
+    # memory.
     prob, params, X, Z, chol = _round(card, n=2000, A=1, num_lc=2000)
     assert prob.meta.e_max * 64 > 232448
     args = _b3_args(prob, X, Z, chol)
     kw = _b3_kw(params, prob.meta)
-    out = rk.rtr(*args, **kw)
+    out = rk.rtr(*args, _cluster=0, **kw)
     ref = rk.rtr_reference(*args, **kw)
     torch.cuda.synchronize()
     _assert_b3_matches(out, ref)
@@ -187,13 +189,14 @@ def test_solve_launches_kernel_once_per_round(card):
 
 
 def test_edge_payload_too_large_for_shared_memory(card):
-    # One agent with ~4000 edges: the payload (64 B an edge at d = 3) does
-    # not fit in one block's 227 KB and lives in the global workspace.
+    # One agent with ~4000 edges on the workspace route: the payload (64 B
+    # an edge at d = 3) does not fit in one block's 227 KB and lives in the
+    # global workspace.
     prob, params, X, Z, chol = _round(card, n=2000, A=1, num_lc=2000)
     assert prob.meta.e_max * 64 > 232448
     args = rbcd.kernel_operands(X, Z, prob.graph.edges, chol, prob.graph)
     kw = rbcd.kernel_options(params, prob.meta)
-    out = rk.rtr_full(*args, **kw)
+    out = rk.rtr_full(*args, _cluster=0, **kw)
     ref = rk.rtr_full_reference(*args, **kw)
     torch.cuda.synchronize()
     assert float((out.X - ref.X).abs().max()) <= 1e-4
@@ -291,3 +294,101 @@ def test_refine_shape_without_kernel_raises_on_card(card):
         refine.refine_round(torch.zeros_like(ref.consts.R), ref.consts,
                             prob.graph, prob.meta, params)
     assert rk.REFINE_LAUNCHES == before
+
+
+# ---------------------------------------------------------------------------
+# The cluster route of B2 and B3 (csrc/rtr_cluster.cu)
+# ---------------------------------------------------------------------------
+
+def _cluster_operands(card, d, r, A):
+    """B2's and B3's operands at the chordal init of agents of ~300 poses
+    (more than one CTA holds, so that C > 1 is reached), and the keyword
+    options."""
+    prob, params, X, Z, chol = _round(card, d=d, r=r, n=300 * A, A=A,
+                                      num_lc=100 * A)
+    b2 = rbcd.kernel_operands(X, Z, prob.graph.edges, chol, prob.graph)
+    return (prob, b2, rbcd.kernel_options(params, prob.meta),
+            _b3_args(prob, X, Z, chol), _b3_kw(params, prob.meta))
+
+
+def _placeable(prob, b2, r, d):
+    """Every cluster size the card can place for this shape."""
+    n, K = prob.meta.n_max, b2[9].shape[-1]
+    return [C for C in rk.CLUSTER_SIZES
+            if rk._fits(rk.cluster_shape(r, d, n, K, C))
+            and rk.cluster_capacity(r, d, n, K, C) >= 1]
+
+
+def _assert_b2_matches(out, ref):
+    assert bool(torch.isfinite(out.X).all())
+    assert float((out.X - ref.X).abs().max()) <= 1e-4
+    assert torch.equal(out.stats[:, :2], ref.stats[:, :2])
+    torch.testing.assert_close(out.stats[:, 2:], ref.stats[:, 2:],
+                               rtol=1e-4, atol=0)
+
+
+@pytest.mark.parametrize("A", [3, 1])
+@pytest.mark.parametrize("d,r", [(3, 5), (2, 3)])
+def test_cluster_route_matches_plain_versions_at_every_size(card, d, r, A):
+    prob, b2, kw, b3, b3_kw = _cluster_operands(card, d, r, A)
+    plan = rk.cluster_plan(prob.meta.n_max, prob.meta.e_max,
+                           b2[9].shape[-1], r, d)
+    assert plan.route == "cluster" and plan.C > 1
+    sizes = _placeable(prob, b2, r, d)
+    assert plan.C in sizes
+    ref2 = rk.rtr_full_reference(*b2, **kw)
+    ref3 = rk.rtr_reference(*b3, **b3_kw)
+    for C in sizes:
+        before = (rk.LAUNCHES, rk.RTR_LAUNCHES)
+        out2 = rk.rtr_full(*b2, _cluster=C, **kw)
+        out3 = rk.rtr(*b3, _cluster=C, **b3_kw)
+        torch.cuda.synchronize()
+        assert (rk.LAUNCHES, rk.RTR_LAUNCHES) == (before[0] + 1,
+                                                  before[1] + 1)
+        _assert_b2_matches(out2, ref2)
+        _assert_b3_matches(out3, ref3)
+
+
+def test_agent_above_the_cluster_limit_takes_the_workspace_route(card):
+    # 4200 poses in one agent: at C = 16 a CTA would hold 263 poses, 1408
+    # threads at 5 lanes a pose, more than the kernel's 512.
+    prob, params, X, Z, chol = _round(card, n=4200, A=1, num_lc=1000)
+    b2 = rbcd.kernel_operands(X, Z, prob.graph.edges, chol, prob.graph)
+    kw = rbcd.kernel_options(params, prob.meta)
+    assert rk.cluster_plan(prob.meta.n_max, prob.meta.e_max,
+                           b2[9].shape[-1], 5, 3).route == "workspace"
+    _assert_b2_matches(rk.rtr_full(*b2, **kw),
+                       rk.rtr_full_reference(*b2, **kw))
+    b3 = _b3_args(prob, X, Z, chol)
+    b3_kw = _b3_kw(params, prob.meta)
+    _assert_b3_matches(rk.rtr(*b3, **b3_kw), rk.rtr_reference(*b3, **b3_kw))
+
+
+def test_cluster_that_cannot_be_placed_raises(card):
+    prob, b2, kw, b3, b3_kw = _cluster_operands(card, 3, 5, 2)
+    before = (rk.LAUNCHES, rk.RTR_LAUNCHES)
+    with pytest.raises(RuntimeError, match="cluster"):
+        rk.rtr_full(*b2, _cluster=32, **kw)
+    with pytest.raises(RuntimeError, match="cluster"):
+        rk.rtr(*b3, _cluster=32, **b3_kw)
+    assert (rk.LAUNCHES, rk.RTR_LAUNCHES) == before
+
+
+@pytest.mark.parametrize("d,r,n_max,kinc", [(3, 5, 316, 11), (3, 5, 2000, 9),
+                                            (2, 3, 350, 7), (3, 4, 40, 3),
+                                            (2, 2, 600, 12), (3, 3, 257, 5)])
+def test_cluster_smem_bytes_match_the_plan(card, d, r, n_max, kinc):
+    lib = rk.load()
+    for C in rk.CLUSTER_SIZES:
+        assert lib.dpgo_rtr_cluster_smem_bytes(r, d, n_max, kinc, C) == \
+            rk.cluster_shape(r, d, n_max, kinc, C).smem_bytes
+
+
+def test_cluster_route_repeats_bit_for_bit(card):
+    prob, b2, kw, b3, b3_kw = _cluster_operands(card, 3, 5, 2)
+    for fn, args, k in ((rk.rtr_full, b2, kw), (rk.rtr, b3, b3_kw)):
+        first, second = fn(*args, **k), fn(*args, **k)
+        torch.cuda.synchronize()
+        assert torch.equal(first.X, second.X)
+        assert torch.equal(first.stats, second.stats)
+        assert torch.equal(first.tcg_iters, second.tcg_iters)
