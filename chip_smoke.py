@@ -32,16 +32,20 @@ agent 0 alone; B2's 10 rounds against the "ell" formulation's, gated by
 that formulation's own divergence from starts moved by one ulp; and
 ``determinism``: the card's chordal init and preconditioner factors
 repeat bit for bit, and B2's 10-round check from the card's own start
-repeats.  After the solve, B2 and B3 are timed on the cluster route and
-on the workspace route (``_cluster=0``) at both operand sets, and B2 at
-every cluster size the card can place (``cluster_sweep``).
+repeats; B1 against its plain version at three radii on both routes.
+After the solve, B2 and B3 are timed on the cluster route and on the
+workspace route (``_cluster=0``) at both operand sets, B1 on both routes,
+and B2 at every cluster size the card can place (``cluster_sweep``); in
+the refine phase B4 is held against its plain version on both routes and
+timed on both and at every cluster size.  The ``plan`` line gives the
+route of all four kernels at the slice shape.
 
 Each phase prints one JSON line; any failure raises.  The line before the
 last is the kernel table ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  ``--profile`` traces the first
 dispatch, one more solve and one more refine cycle with ``torch.profiler``
 (device busy share, the kernels by device time, the host ops by host
-time).
+time; per refine round for the cycle).
 """
 
 from __future__ import annotations
@@ -365,9 +369,11 @@ def refine_operands(D, consts, graph) -> dict:
                     refine.refine_kernel_operands(D, Dz, consts, graph)))
 
 
-def refine_parity(ops: dict, kw: dict) -> tuple[dict, object]:
-    """B4 against its plain version on one refine round's operands."""
-    out = rk.rtr_refine_full(*ops.values(), **kw)
+def refine_parity(ops: dict, kw: dict,
+                  cluster: int | None = None) -> tuple[dict, object]:
+    """B4 on its planned route (``cluster=None``) or a forced one against
+    its plain version on one refine round's operands."""
+    out = rk.rtr_refine_full(*ops.values(), _cluster=cluster, **kw)
     ref = rk.rtr_refine_full_reference(*ops.values(), **kw)
     torch.cuda.synchronize()
     check(bool(torch.isfinite(out.D).all() and torch.isfinite(out.stats)
@@ -375,7 +381,9 @@ def refine_parity(ops: dict, kw: dict) -> tuple[dict, object]:
     step = float((ref.D - ops["Dc"]).abs().max())
     err_d = float((out.D - ref.D).abs().max())
     df = ref.stats[:, 2:4]
-    row = {"max_abs_dD": err_d, "max_abs_step": step,
+    route = plan_of(ops, kw, "rtr_refine_full", cluster)
+    row = {"cuda_route": route.route, "cluster": route.C,
+           "max_abs_dD": err_d, "max_abs_step": step,
            "rel_dD": err_d / max(step, 1e-30),
            "stat_flips": int((out.stats[:, :2] != ref.stats[:, :2]).any(1)
                              .sum()),
@@ -387,7 +395,8 @@ def refine_parity(ops: dict, kw: dict) -> tuple[dict, object]:
     check(row["stat_flips"] == 0 and row["rel_dD"] <= D_STEP_RTOL
           and row["rel_d_df0_df"] <= DF_RTOL
           and row["rel_d_gn0"] <= STAT_RTOL,
-          "rtr_refine_full kernel disagrees with its plain version")
+          f"rtr_refine_full kernel disagrees with its plain version "
+          f"({route.route} route)")
     return row, out
 
 
@@ -469,11 +478,19 @@ def refine_phase(prob, meas, card: str, profile: bool) -> list:
     D0 = torch.zeros_like(ref.consts.R)
     D = refine.refine_rounds(D0, ref.consts, graph, meta, rparams, 3)
     ops = refine_operands(D, ref.consts, graph)
+    # Both routes at 8 agents: the plan's (a cluster per agent) and the
+    # workspace route on the same operands.
     row, out = refine_parity(ops, kw)
     emit({"phase": "parity", "kernel": "rtr_refine_full", "agents": ROBOTS,
           **row})
+    check(row["cuda_route"] == "cluster" and row["cluster"] > 1,
+          "B4 does not take clusters of several CTAs at the slice shape")
     err_d = row["max_abs_dD"]
+    row_ws, _ = refine_parity(ops, kw, cluster=0)
+    emit({"phase": "parity", "kernel": "rtr_refine_full", "agents": ROBOTS,
+          **row_ws})
 
+    # One agent of 2500 poses: no cluster holds it (the workspace route).
     part1 = partition.partition_contiguous(meas, 1)
     g1, m1 = rbcd.build_graph(part1, RANK, torch.float32, dev)
     ref1 = refine.recenter(Xg64, g1, m1, rparams, edges64)
@@ -481,6 +498,8 @@ def refine_phase(prob, meas, card: str, profile: bool) -> list:
     row1, _ = refine_parity(ops1, rbcd.kernel_options(rparams, m1))
     emit({"phase": "parity", "kernel": "rtr_refine_full", "agents": 1,
           "e_max": m1.e_max, "payload_bytes": m1.e_max * 144, **row1})
+    check(row1["cuda_route"] == "workspace",
+          "one agent of the whole problem left the workspace route")
 
     plain = dataclasses.replace(rparams, solver=dataclasses.replace(
         rparams.solver, pallas_tcg=False))
@@ -496,30 +515,38 @@ def refine_phase(prob, meas, card: str, profile: bool) -> list:
     check(traj <= D_TRAJ_RTOL * scale,
           "the refine kernel's rounds leave the plain formulation's")
 
-    # --- timing at the slice shape -----------------------------------------
-    ms = cuda_ms(lambda: rk.rtr_refine_full(*ops.values(), **kw), reps=20,
-                 inner=10)
+    # --- timing at the slice shape: both routes, every cluster size ------
+    b4_t = route_timing(rk.rtr_refine_full, ops, kw, out)
     plain_ms = cuda_ms(
         lambda: rk.rtr_refine_full_reference(*ops.values(), **kw), reps=5,
         warmup=1)
     nbytes, flops = rtr_refine_full_work(ops, out, graph, meta)
     b_ms, b_by = bound(nbytes, flops)
     emit({"phase": "timing", "card": card, "kernel": "rtr_refine_full",
-          "ms": ms, "plain_ms": plain_ms, "ctas": ROBOTS})
+          **b4_t, "plain_ms": plain_ms})
+    emit({"phase": "cluster_sweep", "card": card, "kernel": "rtr_refine_full",
+          "n_max": meta.n_max, "kinc": ops["inc_slot"].shape[-1],
+          "rows": cluster_sweep(rk.rtr_refine_full, {"refine_round": ops},
+                                kw)})
     if profile:
         def cycle():
             refine.refine_rounds_accel(D0, ref.consts, graph, meta, rparams,
                                        ROUNDS_PER_CYCLE)
             return ROUNDS_PER_CYCLE
-        emit({"phase": "profile", "path": "refine", "card": card,
-              **profile_run(cycle)})
+        prof = profile_run(cycle)
+        emit({"phase": "profile", "path": "refine", "card": card, **prof,
+              "wall_ms_per_refine_round": 1e3 * prof["wall_s"]
+              / ROUNDS_PER_CYCLE,
+              "device_busy_ms_per_refine_round": 1e3 * prof["device_busy_s"]
+              / ROUNDS_PER_CYCLE})
     return {"name": "rtr_refine_full", "route": "cuda",
-            "source": "dpgo_tpu_torch/csrc/rtr_full.cu",
+            "source": "dpgo_tpu_torch/csrc/rtr_cluster.cu",
             "replaces": "dpgo_tpu/ops/pallas_tcg.py:715",
             "launches_by_path": {"refine": launches["rtr_refine_full"]},
-            "max_abs_err": err_d, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "bytes": nbytes, "flops": flops}, launches["rtr_full"]
+            "max_abs_err": err_d, **one_set_columns(b4_t),
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "bytes": nbytes, "flops": flops}, \
+        launches["rtr_full"]
 
 
 B2_ORDER = ("idx_i", "idx_j", "rot", "trn", "wk", "wt", "Xc", "Zc", "Lc",
@@ -546,9 +573,12 @@ def first_agent(ops: dict) -> dict:
     return {k: v[:1].contiguous() for k, v in ops.items()}
 
 
-def plan_of(ops: dict, kw: dict):
-    return rk.cluster_plan(ops["Xc"].shape[-1], kw["e_max"],
-                           ops["inc_slot"].shape[-1], kw["r"], kw["d"])
+def plan_of(ops: dict, kw: dict, kernel: str = "rtr_full",
+            cluster: int | None = None):
+    """The route ``kernel`` takes on ``ops``: the plan's, or the one
+    ``cluster`` forces (as the wrappers' ``_cluster``)."""
+    _, n, K = ops["inc_slot"].shape
+    return rk._route(cluster, n, kw["e_max"], K, kw["r"], kw["d"], kernel)
 
 
 def kernel_parity(fn, ref_fn, ops: dict, kw: dict, where: str,
@@ -646,6 +676,12 @@ def b3_against_b2(b3_ops: dict, b3_kw: dict, b3_out, b2_ops: dict,
           "rtr kernel fed the gradient pass disagrees with rtr_full")
 
 
+def tcg_iters_of(out) -> torch.Tensor:
+    """tCG iterations per agent of a kernel's output (B1 reports them in
+    its stats)."""
+    return out.tcg_iters if hasattr(out, "tcg_iters") else out.stats[:, 0]
+
+
 def route_timing(fn, ops: dict, kw: dict, out) -> dict:
     """ms per launch of ``fn`` on its planned route and on the workspace
     route (``_cluster=0``, the single-CTA kernel), back to back in turns
@@ -656,15 +692,28 @@ def route_timing(fn, ops: dict, kw: dict, out) -> dict:
                        reps=10, inner=10)
     c1, w1, w2, c2 = run(), run(0), run(0), run()
     ms, ms_ws = (c1 + c2) / 2, (w1 + w2) / 2
-    iters = max(int(out.tcg_iters.max()), 1)
-    plan = plan_of(ops, kw)
-    return {"ms": ms, "ms_single_cta": ms_ws, "ms_runs": [c1, c2],
-            "ms_single_cta_runs": [w1, w2], "speedup": ms_ws / ms,
-            "max_tcg_iters": iters, "ms_per_tcg_iter": ms / iters,
-            "ms_per_tcg_iter_single_cta": ms_ws / iters,
-            "attempts": out.stats[:, 0].tolist(), "cuda_route": plan.route,
-            "cluster": plan.C, "ctas": ops["Xc"].shape[0] * max(plan.C, 1),
-            "smem_bytes_per_cta": plan.smem_bytes}
+    iters = max(int(tcg_iters_of(out).max()), 1)
+    plan = plan_of(ops, kw, fn.__name__)
+    row = {"ms": ms, "ms_single_cta": ms_ws, "ms_runs": [c1, c2],
+           "ms_single_cta_runs": [w1, w2], "speedup": ms_ws / ms,
+           "max_tcg_iters": iters, "ms_per_tcg_iter": ms / iters,
+           "ms_per_tcg_iter_single_cta": ms_ws / iters,
+           "cuda_route": plan.route, "cluster": plan.C,
+           "ctas": ops["inc_slot"].shape[0] * max(plan.C, 1),
+           "smem_bytes_per_cta": plan.smem_bytes}
+    if hasattr(out, "tcg_iters"):
+        row["attempts"] = out.stats[:, 0].tolist()
+    return row
+
+
+def one_set_columns(t: dict) -> dict:
+    """A kernel-table row's route and times from one ``route_timing``."""
+    return {"cuda_route": t["cuda_route"], "cluster": t["cluster"],
+            "ctas": t["ctas"], "ms": t["ms"],
+            "ms_single_cta": t["ms_single_cta"], "speedup": t["speedup"],
+            "us_per_tcg_iter": 1e3 * t["ms_per_tcg_iter"],
+            "us_per_tcg_iter_single_cta":
+            1e3 * t["ms_per_tcg_iter_single_cta"]}
 
 
 def route_columns(timing: dict) -> dict:
@@ -672,28 +721,27 @@ def route_columns(timing: dict) -> dict:
     operand sets (``route`` stays the contract's "cuda"; ``cuda_route``
     names the route the plan took)."""
     init, floor = timing["chordal_init"], timing["float32_floor"]
-    return {"cuda_route": init["cuda_route"], "cluster": init["cluster"],
-            "ctas": init["ctas"], "ms": init["ms"], "ms_floor": floor["ms"],
-            "ms_single_cta": init["ms_single_cta"],
-            "ms_single_cta_floor": floor["ms_single_cta"]}
+    return {**one_set_columns(init), "ms_floor": floor["ms"],
+            "ms_single_cta_floor": floor["ms_single_cta"],
+            "us_per_tcg_iter_floor": 1e3 * floor["ms_per_tcg_iter"]}
 
 
-def cluster_sweep(sets: dict, kw: dict) -> list:
-    """B2's ms per launch at each cluster size the card can place, at each
-    operand set of ``sets``."""
-    ops = sets["chordal_init"]
-    n, K = ops["Xc"].shape[-1], ops["inc_slot"].shape[-1]
+def cluster_sweep(fn, sets: dict, kw: dict) -> list:
+    """``fn``'s (B2's or B4's) ms per launch at each cluster size the card
+    can place, at each operand set of ``sets``."""
+    kernel = fn.__name__
+    _, n, K = next(iter(sets.values()))["inc_slot"].shape
     rows = []
     for C in rk.CLUSTER_SIZES:
-        shape = rk.cluster_shape(kw["r"], kw["d"], n, K, C)
-        held = (rk.cluster_capacity(kw["r"], kw["d"], n, K, C)
+        shape = rk.cluster_shape(kw["r"], kw["d"], n, K, C, kernel)
+        held = (rk.cluster_capacity(kw["r"], kw["d"], n, K, C, kernel)
                 if rk._fits(shape) else 0)
         row = {"C": C, "P": shape.P, "threads": shape.threads,
                "smem_bytes": shape.smem_bytes, "max_active_clusters": held}
         if held >= 1:
             for where, o in sets.items():
                 row[f"ms_{where}"] = cuda_ms(
-                    lambda: rk.rtr_full(*o.values(), _cluster=C, **kw),
+                    lambda: fn(*o.values(), _cluster=C, **kw),
                     reps=10, inner=10)
         rows.append(row)
     return rows
@@ -923,13 +971,14 @@ def main() -> int:
             "float32_floor": operand_sets(prob, params, floor.X)}
     ops, b3_ops = sets["chordal_init"]
     tcg_ops = tcg_operands(b3_ops)
-    plan = plan_of(ops, kw)
-    emit({"phase": "plan", "kernels": ["rtr_full", "rtr"],
-          "n_max": meta.n_max, "e_max": meta.e_max,
-          "kinc": ops["inc_slot"].shape[-1], **plan._asdict(),
-          "ctas": ROBOTS * max(plan.C, 1)})
-    check(plan.route == "cluster" and plan.C > 1,
-          "B2 and B3 do not take clusters of several CTAs at the slice shape")
+    plans = {k: plan_of(ops, kw, k) for k in rk.KERNELS}
+    emit({"phase": "plan", "n_max": meta.n_max, "e_max": meta.e_max,
+          "kinc": ops["inc_slot"].shape[-1],
+          "kernels": {k: {**p._asdict(), "ctas": ROBOTS * max(p.C, 1)}
+                      for k, p in plans.items()}})
+    check(all(p.route == "cluster" and p.C > 1 for p in plans.values()),
+          "a kernel does not take clusters of several CTAs at the slice "
+          "shape")
     errs, outs = {"rtr_full": 0.0, "rtr": 0.0}, {}
     flips = {"rtr_full": 0, "rtr": 0}
     for where, (o2, o3) in sets.items():
@@ -957,21 +1006,28 @@ def main() -> int:
     tcg_err = 0.0
     for radius in (0.05, 1.0, 100.0):
         tcg_ops["radius"] = torch.full((ROBOTS,), radius, device=dev)
-        tout = rk.tcg(*tcg_ops.values(), **tkw)
         tref = rk.tcg_reference(*tcg_ops.values(), **tkw)
-        torch.cuda.synchronize()
-        e_eta = float((tout.eta - tref.eta).abs().max())
-        # Heta carries the Hessian's scale (edge precisions summed over a
-        # pose's degree): its float32 summation-order error is relative.
-        e_heta = float((tout.heta - tref.heta).abs().max()
-                       / tref.heta.abs().max().clamp(min=1e-30))
-        tflips = int((tout.stats != tref.stats).any(1).sum())
-        tcg_err = max(tcg_err, e_eta)
-        emit({"phase": "parity", "kernel": "tcg", "radius": radius,
-              "max_abs_d_eta": e_eta, "max_rel_d_heta": e_heta,
-              "stat_flips": tflips, "iters": tout.stats[:, 0].tolist()})
-        check(e_eta <= X_ATOL and e_heta <= STAT_RTOL and tflips == 0,
-              "tcg kernel disagrees with its plain version")
+        # The planned (cluster) route, then the workspace route.
+        for cluster in (None, 0):
+            tout = rk.tcg(*tcg_ops.values(), _cluster=cluster, **tkw)
+            torch.cuda.synchronize()
+            e_eta = float((tout.eta - tref.eta).abs().max())
+            # Heta carries the Hessian's scale (edge precisions summed over
+            # a pose's degree): its float32 summation-order error is
+            # relative.
+            e_heta = float((tout.heta - tref.heta).abs().max()
+                           / tref.heta.abs().max().clamp(min=1e-30))
+            tflips = int((tout.stats != tref.stats).any(1).sum())
+            route = plan_of(tcg_ops, tkw, "tcg", cluster)
+            if cluster is None:
+                tcg_err = max(tcg_err, e_eta)
+            emit({"phase": "parity", "kernel": "tcg", "radius": radius,
+                  "cuda_route": route.route, "cluster": route.C,
+                  "max_abs_d_eta": e_eta, "max_rel_d_heta": e_heta,
+                  "stat_flips": tflips, "iters": tout.stats[:, 0].tolist()})
+            check(e_eta <= X_ATOL and e_heta <= STAT_RTOL and tflips == 0,
+                  f"tcg kernel disagrees with its plain version "
+                  f"({route.route} route)")
 
     # 10 rounds through B2 against the "ell" formulation from the chordal
     # init and preconditioner factors computed on the host.  Two float32
@@ -1069,7 +1125,8 @@ def main() -> int:
     emit({"phase": "timing", "card": card, "kernel": "rtr_full", **b2_t})
     emit({"phase": "cluster_sweep", "card": card, "kernel": "rtr_full",
           "n_max": meta.n_max, "kinc": ops["inc_slot"].shape[-1],
-          "rows": cluster_sweep({w: o2 for w, (o2, _) in sets.items()},
+          "rows": cluster_sweep(rk.rtr_full,
+                                {w: o2 for w, (o2, _) in sets.items()},
                                 kw)})
     plain_ms = cuda_ms(lambda: rk.rtr_full_reference(*ops.values(), **kw),
                        reps=5, warmup=1)
@@ -1087,24 +1144,24 @@ def main() -> int:
     rows.append(b2_row)
     tcg_ops["radius"] = torch.ones(ROBOTS, device=dev)
     tout = rk.tcg(*tcg_ops.values(), **tkw)
-    t_ms = cuda_ms(lambda: rk.tcg(*tcg_ops.values(), **tkw), reps=20,
-                   inner=10)
+    b1_t = route_timing(rk.tcg, tcg_ops, tkw, tout)
     t_plain = cuda_ms(lambda: rk.tcg_reference(*tcg_ops.values(), **tkw),
                       reps=5, warmup=1)
     nbytes, flops = tcg_work(tcg_ops, tout, graph, meta)
     b_ms, b_by = bound(nbytes, flops)
     rows.append({"name": "tcg", "route": "cuda",
-                 "source": "dpgo_tpu_torch/csrc/rtr_full.cu",
+                 "source": "dpgo_tpu_torch/csrc/rtr_cluster.cu",
                  "replaces": "dpgo_tpu/ops/pallas_tcg.py:599",
                  "launches_by_path": {"solve": launches["tcg"]},
-                 "max_abs_err": tcg_err,
-                 "ms": t_ms, "plain_ms": t_plain, "bound_ms": b_ms,
+                 "max_abs_err": tcg_err, **one_set_columns(b1_t),
+                 "plain_ms": t_plain, "bound_ms": b_ms,
                  "bound_by": b_by, "library_ms": None,
                  "bytes": nbytes, "flops": flops})
+    emit({"phase": "timing", "card": card, "kernel": "tcg", "radius": 1.0,
+          **b1_t, "plain_ms": t_plain})
     emit({"phase": "timing", "card": card, "agents": ROBOTS,
           "n_max": meta.n_max, "e_max": meta.e_max,
-          "rtr_full_plain_ms": plain_ms, "tcg_ms": t_ms,
-          "tcg_plain_ms": t_plain, "tcg_ctas": ROBOTS,
+          "rtr_full_plain_ms": plain_ms,
           "sms": torch.cuda.get_device_properties(0).multi_processor_count})
 
     if profile:

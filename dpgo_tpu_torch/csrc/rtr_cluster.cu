@@ -9,10 +9,22 @@
 //     Newton-Schulz retraction, cost, accept or radius / 4}).
 //   * _rtr_kernel (rtr_call) -> rtr_cluster_kernel below: the attempt loop
 //     alone from a given S and Riemannian gradient g (no early exit).
-// The function is the one of rtr_full_kernel / rtr_kernel in rtr_full.cu,
-// which stay as the workspace route for agents too large for any cluster
+//   * _tcg_kernel (tcg_call) -> tcg_cluster_kernel below: the truncated CG
+//     alone from a given S, g and radius per agent.
+//   * _rtr_refine_full_kernel (rtr_refine_full_call) ->
+//     rtr_refine_full_cluster_kernel below: the re-centered step of the
+//     terminal refinement on the correction D about an f64 host reference
+//     Rc (expansion point Y = Rc + D): the increment gradient dG at
+//     [D | Dz], S = S0 + sym(D_Y^T Gref_Y + Y_Y^T dG_Y), g = g0 + dG with
+//     g_Y -= Rc_Y S1 + D_Y S, the radius min(r0, 10 |precond(g)|), then
+//     the attempts with the cost increment against the reference residuals
+//     rho and the four-term polar-correction retraction.
+// The functions are those of rtr_full.cu's kernels, which stay as the
+// workspace route for agents too large for any cluster
 // (ops/rtr_kernel.cluster_plan picks the route from the shape before the
-// launch).  Kernels B1 (tcg) and B4 (rtr_refine_full) stay there too.
+// launch).  The four kernels share one core: setup, sweep, tcg,
+// cluster_sum and attempts (whose mode picks the plain step or the refine
+// step's retraction and cost).
 //
 // What bounds it on this card: neither bytes (~2 MB per launch) nor
 // operations (~60 MFLOP): both bounds are under 1 us.  The time is the
@@ -52,7 +64,10 @@
 //     added.  Each edge's arithmetic runs once per endpoint.
 //   * Cost: an ELL entry counts its edge when its pose is the edge's i
 //     endpoint, or its j endpoint while i is a neighbor slot, so each live
-//     edge counts once, in a fixed order (ops/rtr_kernel.cost_owner).
+//     edge counts once, in a fixed order (ops/rtr_kernel.cost_owner).  The
+//     refine kernel's payload adds, at the cost-owner entries, the edge's
+//     reference residuals (rho_rot rows, then rho_trn), r (d+1) fields:
+//     each thread reads the d + 1 of its own row.
 //   * Reductions: warp butterfly; each warp stores its partial into every
 //     CTA of the cluster through distributed shared memory; cluster.sync();
 //     then every warp reads all the partials from its own shared memory (a
@@ -76,8 +91,10 @@
 //                 is padding); rot [A, nt, D*D, T], trn [A, nt, D, T],
 //                 wk, wt [A, nt, 1, T] f32
 //   X [A, RK, n], Z [A, RK, s], L [A, K*K, n]; S [A, D*D, n] and
-//   g [A, RK, n] (rtr only); inc_slot / inc_mask [A, n, Kinc]: ELL
-//   incidence into [gi (E) | gj (E)]
+//   g [A, RK, n] (rtr, tcg; S0 and g0 in refine); inc_slot / inc_mask
+//   [A, n, Kinc]: ELL incidence into [gi (E) | gj (E)]
+//   refine: X is D and Z is Dz; Rc, Gref [A, RK, n]; rho_rot
+//   [A, nt, R*D, T] (component a*D + c), rho_trn [A, nt, R, T]
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -97,8 +114,12 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr float kEps = 1e-30f;
 constexpr int kNsSweeps = 24;
 // Shared-memory vectors, each [P][vec_stride(RK)], a pose's rows in order.
-// delta alternates between two buffers (see tcg).
-enum Vec { kX, kXp, kDelta, kDeltaB, kG, kEta, kHeta, kR, kZv, kHd, kVecs };
+// delta alternates between two buffers (see tcg).  The refine kernel adds
+// the correction D and the reference Rc; its kX holds Y = Rc + D.
+enum Vec {
+  kX, kXp, kDelta, kDeltaB, kG, kEta, kHeta, kR, kZv, kHd, kVecs,
+  kD = kVecs, kRc, kRefineVecs
+};
 // An ELL entry's first payload word says where the other endpoint's values
 // are (a pose: the rank of its CTA and its slot there; a neighbor slot:
 // its index into Z; neither: zero) and carries three flags.
@@ -110,9 +131,11 @@ constexpr int kLive = 1 << 26;
 constexpr int kCostOwner = 1 << 27;
 constexpr int kSideJ = 1 << 28;  // the pose is the edge's j endpoint
 // Launcher errors: the card cannot place one cluster of this size; more
-// neighbor slots than a payload word can index.
+// neighbor slots than a payload word can index; a kernel number that is not
+// one of Kernel.
 constexpr int kUnplaceable = -2;
 constexpr int kTooManySlots = -3;
+constexpr int kUnknownKernel = -4;
 
 // Floats per pose in a shared vector: RK padded to whole float4s (a row
 // of K = 4 is one float4) and to an odd count of them, which spreads a
@@ -121,10 +144,18 @@ __host__ __device__ constexpr int vec_stride(int rk) {
   return ((rk + 3) / 4) % 2 ? (rk + 3) / 4 * 4 : (rk + 3) / 4 * 4 + 4;
 }
 
-// Per-entry payload fields: the word, rot (D*D), trn (D), wk, wt.
+// Per-entry payload fields: the word, rot (D*D), trn (D), wk, wt; the
+// refine kernel's reference residuals follow (refine_fields).
 __host__ __device__ constexpr int payload_fields(int d) {
   return d * d + d + 3;
 }
+
+__host__ __device__ constexpr int refine_fields(int r, int d) {
+  return r * (d + 1);
+}
+
+// The kernels, as the launchers and the host plan number them.
+enum Kernel { kRtrFull = 0, kRtr = 1, kTcg = 2, kRefine = 3 };
 
 struct ClusterShape {
   int P, threads;
@@ -134,14 +165,18 @@ struct ClusterShape {
 // The one formula for the cluster kernels' shape (cluster_plan mirrors it):
 // 32 / r poses per warp; vectors, then L [K*K][P], S [D*D][P], the payload
 // [F][Kinc][P] and the double-buffered reduction slots [2][C * warps][4].
-ClusterShape cluster_shape(int r, int d, int n, int kinc, int C) {
+// B1-B3 share it; B4 adds two vectors (D, Rc) and the rho fields.
+ClusterShape cluster_shape(int r, int d, int n, int kinc, int C,
+                           bool refine) {
   const int P = (n + C - 1) / C;
   const int per_warp = 32 / r;
   const int threads = (P + per_warp - 1) / per_warp * 32;
   const int k = d + 1;
-  const size_t floats = (size_t)kVecs * P * vec_stride(r * k) +
+  const int vecs = refine ? kRefineVecs : kVecs;
+  const int fields = payload_fields(d) + (refine ? refine_fields(r, d) : 0);
+  const size_t floats = (size_t)vecs * P * vec_stride(r * k) +
                         (size_t)(k * k + d * d) * P +
-                        (size_t)payload_fields(d) * kinc * P +
+                        (size_t)fields * kinc * P +
                         2 * (size_t)C * (threads / 32) * kMaxSums;
   return {P, threads, floats * sizeof(float)};
 }
@@ -157,8 +192,12 @@ struct ClusterArgs {
   const float* X;
   const float* Z;
   const float* L;
-  const float* S;  // rtr only, else nullptr
-  const float* g;  // rtr only, else nullptr
+  const float* S;  // rtr, tcg; S0 in refine; else nullptr
+  const float* g;  // rtr, tcg; g0 in refine; else nullptr
+  const float* Rc;       // refine only, else nullptr
+  const float* Gref;     // refine only
+  const float* rho_rot;  // refine only
+  const float* rho_trn;  // refine only
   const int* inc;
   const float* incm;
   const int* n_local;
@@ -444,6 +483,48 @@ __device__ void retract(const Ctx& cx, const float (&x)[D + 1],
   o[D] = x[D] + v[D];
 }
 
+// This thread's row of the refine step's D_new, with Rc + D_new =
+// polar(Rc + D + V), from the small quantities only
+// (pallas_tcg._build_math.retract_refine): U = D + V, E = Rc^T U + U^T Rc
+// + U^T U (symmetric as it stands; Rc^T Rc = I, projected in float64 on
+// the host) summed over the pose's rows, C = -E/2 + 3/8 E^2 - 5/16 E^3 +
+// 35/128 E^4 ~ (I + E)^(-1/2) - I, D_new_Y = U_Y + (Rc_Y + U_Y) C,
+// D_new_t = U_t.  All lanes of the warp call it.
+template <int R, int D>
+__device__ void retract_refine(const Ctx& cx, const float (&rc)[D + 1],
+                               const float (&dd)[D + 1],
+                               const float (&v)[D + 1], float (&o)[D + 1]) {
+  float u[D + 1];
+#pragma unroll
+  for (int q = 0; q <= D; ++q) u[q] = dd[q] + v[q];
+  float m[D * (D + 1) / 2], Ef[D * D];
+  int i = 0;
+#pragma unroll
+  for (int b = 0; b < D; ++b)
+#pragma unroll
+    for (int c = b; c < D; ++c, ++i)
+      m[i] = rc[b] * u[c] + u[b] * rc[c] + u[b] * u[c];
+  group_sym<R, D>(cx, m, Ef);
+  float E[D][D], E2[D][D], E3[D][D], E4[D][D];
+#pragma unroll
+  for (int b = 0; b < D; ++b)
+#pragma unroll
+    for (int c = 0; c < D; ++c) E[b][c] = Ef[b * D + c];
+  matmul3<D>(E, E, E2);
+  matmul3<D>(E2, E, E3);
+  matmul3<D>(E2, E2, E4);
+#pragma unroll
+  for (int c = 0; c < D; ++c) {
+    float s = 0.f;
+#pragma unroll
+    for (int b = 0; b < D; ++b)
+      s += (rc[b] + u[b]) * (-0.5f * E[b][c] + 0.375f * E2[b][c] -
+                             0.3125f * E3[b][c] + 0.2734375f * E4[b][c]);
+    o[c] = u[c] + s;
+  }
+  o[D] = u[D];
+}
+
 // Butterfly sums over the warp: every lane ends with the same values.
 template <int NV>
 __device__ __forceinline__ void warp_sum(float (&v)[NV]) {
@@ -495,9 +576,12 @@ __device__ __forceinline__ void cluster_sum(Ctx& cx, float (&v)[NV]) {
 //   GRAD: acc = the pose's endpoint rows of its edges' gradient (the
 //         formula of rtr_full.cu's grad_sweep);
 //   COST: *cost2 += sum over the entries that own their edge of
-//         wk |rR|^2 + wt |rt|^2 of this row.
+//         wk |rR|^2 + wt |rt|^2 of this row (twice the cost), or with
+//         REFINE wk (<rhoR, rR> + |rR|^2 / 2) + wt (rhot rt + rt^2 / 2)
+//         against the row's reference residuals (the cost increment,
+//         rtr_full.cu's refine_cost).
 // Only threads that hold a row call it.
-template <int R, int D, bool GRAD, bool COST>
+template <int R, int D, bool GRAD, bool COST, bool REFINE = false>
 __device__ void sweep(const Ctx& cx, int v, bool with_z,
                       const float (&own)[D + 1], float (&acc)[D + 1],
                       float* cost2, int prev = -1, float beta = 0.f) {
@@ -573,7 +657,18 @@ __device__ void sweep(const Ctx& cx, int v, bool with_z,
       float sR = 0.f;
 #pragma unroll
       for (int cc = 0; cc < D; ++cc) sR += rR[cc] * rR[cc];
-      f += wk * sR + wt * (rt * rt);
+      if (REFINE) {
+        const int rho = payload_fields(D) + cx.row * D;
+        float cR = 0.f;
+#pragma unroll
+        for (int cc = 0; cc < D; ++cc)
+          cR += cx.pay[(rho + cc) * stride + at] * rR[cc];
+        const float ct =
+            cx.pay[(payload_fields(D) + R * D + cx.row) * stride + at] * rt;
+        f += wk * cR + wt * ct + 0.5f * (wk * sR + wt * (rt * rt));
+      } else {
+        f += wk * sR + wt * (rt * rt);
+      }
     }
   }
   if (COST) *cost2 += f;
@@ -594,14 +689,17 @@ __device__ __forceinline__ void cp_async_wait_all() {
 
 // Carve this CTA's shared memory, gather its poses' operands and the
 // payload of their ELL entries with cp.async, wait, and make everything
-// visible to the cluster.
-template <int R, int D>
+// visible to the cluster.  REFINE: X (the correction D) lands in kD, Rc in
+// kRc, and the cost-owner entries carry the reference residuals.
+template <int R, int D, bool REFINE>
 __device__ Ctx setup(const ClusterArgs& g, float* smem, int a) {
   constexpr int K = D + 1;
   constexpr int RK = R * K;
   constexpr int DD = D * D;
   constexpr int KK = K * K;
   constexpr int kPerWarp = 32 / R;
+  constexpr int F0 = payload_fields(D);
+  constexpr int F = F0 + (REFINE ? refine_fields(R, D) : 0);
   cg::cluster_group cl = cg::this_cluster();
   Ctx cx;
   cx.n = g.n;
@@ -622,16 +720,23 @@ __device__ Ctx setup(const ClusterArgs& g, float* smem, int a) {
   cx.own = group < kPerWarp && cx.pl < cx.P && p < g.n;
   cx.Z = g.Z + (size_t)a * RK * g.s;
   cx.vec = smem;
-  cx.L = cx.vec + (size_t)kVecs * cx.P * vec_stride(RK);
+  cx.L = cx.vec + (size_t)(REFINE ? kRefineVecs : kVecs) * cx.P *
+                      vec_stride(RK);
   cx.S = cx.L + (size_t)KK * cx.P;
   cx.pay = cx.S + (size_t)DD * cx.P;
-  cx.red = cx.pay + (size_t)payload_fields(D) * g.kinc * cx.P;  // [2][C nw][4]
+  cx.red = cx.pay + (size_t)F * g.kinc * cx.P;  // [2][C nw][4]
 
   if (cx.own) {
-    float* x = row_at<R, K>(cx, kX, cx.pl);
+    float* x = row_at<R, K>(cx, REFINE ? kD : kX, cx.pl);
     const size_t comp = (size_t)a * RK + cx.row * K;
 #pragma unroll
     for (int q = 0; q < K; ++q) cp_async4(x + q, g.X + (comp + q) * g.n + p);
+    if (REFINE) {
+      float* rc = row_at<R, K>(cx, kRc, cx.pl);
+#pragma unroll
+      for (int q = 0; q < K; ++q)
+        cp_async4(rc + q, g.Rc + (comp + q) * g.n + p);
+    }
     for (int i = cx.row; i < KK; i += R)
       cp_async4(cx.L + i * cx.P + cx.pl, g.L + ((size_t)a * KK + i) * g.n + p);
     if (g.S != nullptr) {
@@ -685,6 +790,16 @@ __device__ Ctx setup(const ClusterArgs& g, float* smem, int a) {
                   g.trn + (tile * D + k) * g.T + ln);
       cp_async4(cx.pay + (1 + DD + D) * stride + t, g.wk + ge);
       cp_async4(cx.pay + (2 + DD + D) * stride + t, g.wt + ge);
+      if (REFINE && (w & kCostOwner)) {
+#pragma unroll
+        for (int k = 0; k < R * D; ++k)
+          cp_async4(cx.pay + (F0 + k) * stride + t,
+                    g.rho_rot + (tile * (R * D) + k) * g.T + ln);
+#pragma unroll
+        for (int k = 0; k < R; ++k)
+          cp_async4(cx.pay + (F0 + R * D + k) * stride + t,
+                    g.rho_trn + (tile * R + k) * g.T + ln);
+      }
     }
     words[t] = w;
   }
@@ -701,8 +816,9 @@ __device__ Ctx setup(const ClusterArgs& g, float* smem, int a) {
 
 // Steihaug-Toint truncated CG (pallas_tcg._build_math.tcg) on this
 // thread's row of the cluster's agent, from g in kG.  Returns the
-// iteration count; eta and Heta are left in kEta and kHeta.  Every thread
-// of the cluster calls it.
+// iteration count and sets *hit when the trust-region boundary or
+// negative curvature stopped it; eta and Heta are left in kEta and kHeta.
+// Every thread of the cluster calls it.
 //
 // Two cluster barriers per iteration, one per reduction.  The direction
 // delta_{k+1} = -z_{k+1} + beta_k delta_k is stored by each owner after
@@ -712,7 +828,7 @@ __device__ Ctx setup(const ClusterArgs& g, float* smem, int a) {
 // iteration k published, by the owner's own expression.
 template <int R, int D>
 __device__ int tcg(Ctx& cx, float radius, int max_iters, float kappa,
-                   float theta) {
+                   float theta, bool* hit) {
   constexpr int K = D + 1;
   float s2[2] = {0.f, 0.f};
   {
@@ -749,6 +865,7 @@ __device__ int tcg(Ctx& cx, float radius, int max_iters, float kappa,
 
   int k = 0;
   bool done = rz <= 0.f;
+  *hit = false;
   int cur = kDelta, prev = kDeltaB;  // this iteration's delta, the last one's
   bool fresh = true;                 // remote poses' delta stored in cur
   float beta = 0.f;
@@ -825,6 +942,7 @@ __device__ int tcg(Ctx& cx, float radius, int max_iters, float kappa,
     rz = rz_in;
     ++k;
     done = crossing || converged;
+    *hit = *hit || crossing;
     if (!done && k < max_iters) {
       if (cx.own) {
         float dl[K], zz[K];
@@ -850,25 +968,36 @@ struct Attempts {
   int iters;
 };
 
-// The attempt loop of B2 and B3 (pallas_tcg._rtr_kernel :635-655): from
-// k_att attempts already spent, at most max_rejections attempts of {tCG at
-// the radius, retraction into xp, cost; accept (xp written to xo) when
-// rho > 0.1 and f did not rise, else radius / 4}.  xo holds X on entry.
-// Poses at or past the agent's own count (padding) are left untouched.
-template <int R, int D>
+// The attempt loop (pallas_tcg._rtr_kernel :635-655): from k_att attempts
+// already spent, at most max_rejections attempts of {tCG at the radius,
+// retraction into xp, cost; accept (xp written to xo) when rho > 0.1 and
+// f did not rise, else radius / 4}.  xo holds the variable on entry: X
+// (B2, B3), or with REFINE the correction D, retracted by retract_refine
+// and costed by the increment against rho (B4).  Poses at or past the
+// agent's own count (padding) are left untouched.
+template <int R, int D, bool REFINE>
 __device__ Attempts attempts(Ctx& cx, const ClusterArgs& args, float* xo,
                              float f0, int k_att, float radius,
                              int max_rejections) {
   constexpr int K = D + 1;
+  constexpr int kVar = REFINE ? kD : kX;
   const int p = cx.rank * cx.P + cx.pl;
   Attempts at{k_att, false, f0, 0};
   while (at.k_att < max_rejections && !at.accepted) {
-    at.iters += tcg<R, D>(cx, radius, args.max_iters, args.kappa, args.theta);
+    bool hit;
+    at.iters += tcg<R, D>(cx, radius, args.max_iters, args.kappa, args.theta,
+                          &hit);
     {
       float x[K], et[K], xp[K];
-      ld_own<R, K>(cx, kX, x);
+      ld_own<R, K>(cx, kVar, x);
       ld_own<R, K>(cx, kEta, et);
-      retract<R, D>(cx, x, et, xp);
+      if constexpr (REFINE) {
+        float rc[K];
+        ld_own<R, K>(cx, kRc, rc);
+        retract_refine<R, D>(cx, rc, x, et, xp);
+      } else {
+        retract<R, D>(cx, x, et, xp);
+      }
       if (p < cx.n_act) {
         st_own<R, K>(cx, kXp, xp);
       } else {
@@ -880,7 +1009,7 @@ __device__ Attempts attempts(Ctx& cx, const ClusterArgs& args, float* xo,
     if (cx.own) {
       float xp[K], unused[K], gv[K], et[K], he[K];
       ld_own<R, K>(cx, kXp, xp);
-      sweep<R, D, false, true>(cx, kXp, true, xp, unused, &s3[0]);
+      sweep<R, D, false, true, REFINE>(cx, kXp, true, xp, unused, &s3[0]);
       ld_own<R, K>(cx, kG, gv);
       ld_own<R, K>(cx, kEta, et);
       ld_own<R, K>(cx, kHeta, he);
@@ -888,7 +1017,9 @@ __device__ Attempts attempts(Ctx& cx, const ClusterArgs& args, float* xo,
       s3[2] = dot<K>(et, he);
     }
     cluster_sum<3>(cx, s3);
-    const float f_prop = 0.5f * s3[0];
+    // The plain sweep sums twice the cost; the increment's terms carry
+    // their own halves.
+    const float f_prop = (REFINE ? 1.f : 0.5f) * s3[0];
     const float mdec = -(s3[1] + 0.5f * s3[2]);
     const float rho = (f0 - f_prop) / fmaxf(mdec, kEps);
     const bool ok = (rho > 0.1f) && (f_prop <= f0);
@@ -918,7 +1049,7 @@ rtr_full_cluster_kernel(ClusterArgs args, float initial_radius,
   constexpr int RK = R * K;
   extern __shared__ __align__(16) float smem[];
   const int a = blockIdx.x / cg::this_cluster().num_blocks();
-  Ctx cx = setup<R, D>(args, smem, a);
+  Ctx cx = setup<R, D, false>(args, smem, a);
   float* xo = X_out + (size_t)a * RK * cx.n;
 
   // Start point: G = egrad([X | Z]), S = sym(Y^T G_Y), g = P_X(G), f0.
@@ -946,9 +1077,9 @@ rtr_full_cluster_kernel(ClusterArgs args, float initial_radius,
   const float gn0 = sqrtf(s2[0]);
   const float f0 = 0.5f * s2[1];
 
-  const Attempts at =
-      attempts<R, D>(cx, args, xo, f0, (gn0 < grad_tol) ? max_rejections : 0,
-                     initial_radius, max_rejections);
+  const Attempts at = attempts<R, D, false>(
+      cx, args, xo, f0, (gn0 < grad_tol) ? max_rejections : 0,
+      initial_radius, max_rejections);
   if (cx.rank == 0 && threadIdx.x == 0) {
     float* st = stats + (size_t)a * 5;
     st[0] = (float)at.k_att;
@@ -970,7 +1101,7 @@ rtr_cluster_kernel(ClusterArgs args, float initial_radius,
   constexpr int RK = R * K;
   extern __shared__ __align__(16) float smem[];
   const int a = blockIdx.x / cg::this_cluster().num_blocks();
-  Ctx cx = setup<R, D>(args, smem, a);
+  Ctx cx = setup<R, D, false>(args, smem, a);
   float* xo = X_out + (size_t)a * RK * cx.n;
   float s1[1] = {0.f};
   if (cx.own) {
@@ -983,14 +1114,137 @@ rtr_cluster_kernel(ClusterArgs args, float initial_radius,
   }
   cluster_sum<1>(cx, s1);
   const float f0 = 0.5f * s1[0];
-  const Attempts at = attempts<R, D>(cx, args, xo, f0, 0, initial_radius,
-                                     max_rejections);
+  const Attempts at = attempts<R, D, false>(cx, args, xo, f0, 0,
+                                            initial_radius, max_rejections);
   if (cx.rank == 0 && threadIdx.x == 0) {
     float* st = stats + (size_t)a * 4;
     st[0] = (float)at.k_att;
     st[1] = at.accepted ? 1.f : 0.f;
     st[2] = f0;
     st[3] = at.f_best;
+    tcg_iters[a] = at.iters;
+  }
+  cg::this_cluster().sync();  // no CTA leaves while its partials are read
+}
+
+template <int R, int D>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+tcg_cluster_kernel(ClusterArgs args, const float* radius, float* eta_out,
+                   float* heta_out, float* stats) {
+  constexpr int K = D + 1;
+  constexpr int RK = R * K;
+  extern __shared__ __align__(16) float smem[];
+  const int a = blockIdx.x / cg::this_cluster().num_blocks();
+  Ctx cx = setup<R, D, false>(args, smem, a);
+  bool hit;
+  const int k = tcg<R, D>(cx, radius[a], args.max_iters, args.kappa,
+                          args.theta, &hit);
+  if (cx.own) {
+    const int p = cx.rank * cx.P + cx.pl;
+    const size_t comp = (size_t)a * RK + cx.row * K;
+    float et[K], he[K];
+    ld_own<R, K>(cx, kEta, et);
+    ld_own<R, K>(cx, kHeta, he);
+#pragma unroll
+    for (int q = 0; q < K; ++q) {
+      eta_out[(comp + q) * cx.n + p] = et[q];
+      heta_out[(comp + q) * cx.n + p] = he[q];
+    }
+  }
+  if (cx.rank == 0 && threadIdx.x == 0) {
+    stats[(size_t)a * 2] = (float)k;
+    stats[(size_t)a * 2 + 1] = hit ? 1.f : 0.f;
+  }
+  cg::this_cluster().sync();  // no CTA leaves while its partials are read
+}
+
+// args.X is the correction D, args.Z its neighbor slots Dz, args.S and
+// args.g the constants S0 and g0.
+template <int R, int D>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+rtr_refine_full_cluster_kernel(ClusterArgs args, float initial_radius,
+                               int max_rejections, float grad_tol,
+                               float* D_out, float* stats, int* tcg_iters) {
+  constexpr int K = D + 1;
+  constexpr int RK = R * K;
+  constexpr int DD = D * D;
+  extern __shared__ __align__(16) float smem[];
+  const int a = blockIdx.x / cg::this_cluster().num_blocks();
+  Ctx cx = setup<R, D, true>(args, smem, a);
+  float* xo = D_out + (size_t)a * RK * cx.n;
+
+  // dG = egrad([D | Dz]) (the residual map is affine with this linear
+  // part) and the cost increment at D in one sweep; then Y = Rc + D into
+  // kX (the tangent projections, curvature and preconditioner are taken
+  // there), S = S0 + S1 and the re-centered gradient g into kG, |g|^2 and
+  // |precond(g)|^2.
+  float s3[3] = {0.f, 0.f, 0.f};
+  {
+    const int p = cx.rank * cx.P + cx.pl;
+    float dd[K], rc[K], y[K], G[K] = {}, gr[K] = {}, gv[K];
+    ld_own<R, K>(cx, kD, dd);
+    ld_own<R, K>(cx, kRc, rc);
+    ld_own<R, K>(cx, kG, gv);  // g0
+#pragma unroll
+    for (int q = 0; q < K; ++q) y[q] = rc[q] + dd[q];
+    st_own<R, K>(cx, kX, y);
+    if (cx.own) {
+      sweep<R, D, true, true, true>(cx, kD, true, dd, G, &s3[2]);
+      const size_t comp = (size_t)a * RK + cx.row * K;
+#pragma unroll
+      for (int q = 0; q < K; ++q) {
+        gr[q] = args.Gref[(comp + q) * cx.n + p];
+        xo[(cx.row * K + q) * cx.n + p] = dd[q];
+      }
+    }
+    // S1 = sym(D_Y^T Gref_Y + Y_Y^T dG_Y) over the pose's rows.
+    float m[D * (D + 1) / 2], S1[DD], St[DD];
+    int i = 0;
+#pragma unroll
+    for (int b = 0; b < D; ++b)
+#pragma unroll
+      for (int c = b; c < D; ++c, ++i)
+        m[i] = 0.5f * (dd[b] * gr[c] + dd[c] * gr[b] + y[b] * G[c] +
+                       y[c] * G[b]);
+    group_sym<R, D>(cx, m, S1);
+#pragma unroll
+    for (int j = 0; j < DD; ++j)
+      St[j] = (cx.own ? cx.S[j * cx.P + cx.pl] : 0.f) + S1[j];
+    __syncwarp();  // every row has read S0 before row 0 overwrites it
+    if (cx.own && cx.row == 0) {
+#pragma unroll
+      for (int j = 0; j < DD; ++j) cx.S[j * cx.P + cx.pl] = St[j];
+    }
+#pragma unroll
+    for (int c = 0; c < D; ++c) {
+      float s = 0.f;
+#pragma unroll
+      for (int b = 0; b < D; ++b)
+        s += rc[b] * S1[b * D + c] + dd[b] * St[b * D + c];
+      gv[c] = gv[c] + G[c] - s;
+    }
+    gv[D] = gv[D] + G[D];
+    st_own<R, K>(cx, kG, gv);
+    s3[0] = dot<K>(gv, gv);
+    precond<R, D>(cx, y, gv);
+    s3[1] = dot<K>(gv, gv);
+  }
+  cluster_sum<3>(cx, s3);  // also publishes S to the pose's rows
+  const float gn0 = sqrtf(s3[0]);
+  // The initial radius at the preconditioned-gradient (Cauchy) scale.
+  const float radius = fminf(initial_radius, 10.f * sqrtf(s3[1]));
+  const float f0 = s3[2];
+
+  const Attempts at = attempts<R, D, true>(
+      cx, args, xo, f0, (gn0 < grad_tol) ? max_rejections : 0, radius,
+      max_rejections);
+  if (cx.rank == 0 && threadIdx.x == 0) {
+    float* st = stats + (size_t)a * 5;
+    st[0] = (float)at.k_att;
+    st[1] = at.accepted ? 1.f : 0.f;
+    st[2] = f0;
+    st[3] = at.f_best;
+    st[4] = gn0;
     tcg_iters[a] = at.iters;
   }
   cg::this_cluster().sync();  // no CTA leaves while its partials are read
@@ -1061,7 +1315,7 @@ int launch_rtr_full(const ClusterArgs& g, int A, int C, float initial_radius,
                     int max_rejections, float grad_tol, float* X_out,
                     float* stats, int* tcg_iters, cudaStream_t stream) {
   if (g.s > kIndexMask + 1) return kTooManySlots;
-  const ClusterShape sh = cluster_shape(R, D, g.n, g.kinc, C);
+  const ClusterShape sh = cluster_shape(R, D, g.n, g.kinc, C, false);
   return launch_cluster(rtr_full_cluster_kernel<R, D>, A, C, sh, stream, g,
                         initial_radius, max_rejections, grad_tol, X_out,
                         stats, tcg_iters);
@@ -1072,16 +1326,46 @@ int launch_rtr(const ClusterArgs& g, int A, int C, float initial_radius,
                int max_rejections, float* X_out, float* stats,
                int* tcg_iters, cudaStream_t stream) {
   if (g.s > kIndexMask + 1) return kTooManySlots;
-  const ClusterShape sh = cluster_shape(R, D, g.n, g.kinc, C);
+  const ClusterShape sh = cluster_shape(R, D, g.n, g.kinc, C, false);
   return launch_cluster(rtr_cluster_kernel<R, D>, A, C, sh, stream, g,
                         initial_radius, max_rejections, X_out, stats,
                         tcg_iters);
 }
 
 template <int R, int D>
-int query_clusters(int n, int kinc, int C, int* count) {
-  const ClusterShape sh = cluster_shape(R, D, n, kinc, C);
-  return max_clusters(rtr_full_cluster_kernel<R, D>, C, sh, count);
+int launch_tcg(const ClusterArgs& g, int A, int C, const float* radius,
+               float* eta, float* heta, float* stats, cudaStream_t stream) {
+  const ClusterShape sh = cluster_shape(R, D, g.n, g.kinc, C, false);
+  return launch_cluster(tcg_cluster_kernel<R, D>, A, C, sh, stream, g,
+                        radius, eta, heta, stats);
+}
+
+template <int R, int D>
+int launch_refine(const ClusterArgs& g, int A, int C, float initial_radius,
+                  int max_rejections, float grad_tol, float* D_out,
+                  float* stats, int* tcg_iters, cudaStream_t stream) {
+  if (g.s > kIndexMask + 1) return kTooManySlots;
+  const ClusterShape sh = cluster_shape(R, D, g.n, g.kinc, C, true);
+  return launch_cluster(rtr_refine_full_cluster_kernel<R, D>, A, C, sh,
+                        stream, g, initial_radius, max_rejections, grad_tol,
+                        D_out, stats, tcg_iters);
+}
+
+template <int R, int D>
+int query_clusters(int kernel, int n, int kinc, int C, int* count) {
+  const ClusterShape sh = cluster_shape(R, D, n, kinc, C, kernel == kRefine);
+  switch (kernel) {
+    case kRtrFull:
+      return max_clusters(rtr_full_cluster_kernel<R, D>, C, sh, count);
+    case kRtr:
+      return max_clusters(rtr_cluster_kernel<R, D>, C, sh, count);
+    case kTcg:
+      return max_clusters(tcg_cluster_kernel<R, D>, C, sh, count);
+    case kRefine:
+      return max_clusters(rtr_refine_full_cluster_kernel<R, D>, C, sh,
+                          count);
+  }
+  return kUnknownKernel;
 }
 
 ClusterArgs make_args(int n, int s, int Ep, int T, int E, int kinc,
@@ -1091,7 +1375,7 @@ ClusterArgs make_args(int n, int s, int Ep, int T, int E, int kinc,
                       const void* L, const void* g, const void* inc_slot,
                       const void* inc_mask, const void* n_local,
                       int max_iters, float kappa, float theta) {
-  ClusterArgs a;
+  ClusterArgs a{};
   a.n = n;
   a.s = s;
   a.Ep = Ep;
@@ -1127,24 +1411,27 @@ constexpr int kUnsupportedShape = -1;
 
 extern "C" {
 
-// Shared-memory bytes of one CTA of the cluster kernels for an agent of
-// n_max poses and Kinc incidence entries per pose split over C CTAs.
+// Shared-memory bytes of one CTA of cluster kernel `kernel` (Kernel) for
+// an agent of n_max poses and Kinc incidence entries per pose split over C
+// CTAs.
 long long dpgo_rtr_cluster_smem_bytes(int r, int d, int n_max, int kinc,
-                                      int C) {
-  return (long long)cluster_shape(r, d, n_max, kinc, C).smem;
+                                      int C, int kernel) {
+  return (long long)cluster_shape(r, d, n_max, kinc, C, kernel == kRefine)
+      .smem;
 }
 
-// How many clusters of C CTAs of the B2 cluster kernel (B3's has the same
-// shape) the card can hold at once (cudaOccupancyMaxActiveClusters) into
-// *count; returns a cudaError_t, or -1 for an (r, d) without instantiation.
+// How many clusters of C CTAs of cluster kernel `kernel` the card can hold
+// at once (cudaOccupancyMaxActiveClusters) into *count; returns a
+// cudaError_t, -1 for an (r, d) without instantiation, -4 for an unknown
+// kernel.
 int dpgo_rtr_cluster_max_clusters(int r, int d, int n_max, int kinc, int C,
-                                  void* count) {
+                                  int kernel, void* count) {
   int* c = static_cast<int*>(count);
-  DPGO_DISPATCH(5, 3, query_clusters)(n_max, kinc, C, c);
-  DPGO_DISPATCH(4, 3, query_clusters)(n_max, kinc, C, c);
-  DPGO_DISPATCH(3, 3, query_clusters)(n_max, kinc, C, c);
-  DPGO_DISPATCH(3, 2, query_clusters)(n_max, kinc, C, c);
-  DPGO_DISPATCH(2, 2, query_clusters)(n_max, kinc, C, c);
+  DPGO_DISPATCH(5, 3, query_clusters)(kernel, n_max, kinc, C, c);
+  DPGO_DISPATCH(4, 3, query_clusters)(kernel, n_max, kinc, C, c);
+  DPGO_DISPATCH(3, 3, query_clusters)(kernel, n_max, kinc, C, c);
+  DPGO_DISPATCH(3, 2, query_clusters)(kernel, n_max, kinc, C, c);
+  DPGO_DISPATCH(2, 2, query_clusters)(kernel, n_max, kinc, C, c);
   return kUnsupportedShape;
 }
 
@@ -1207,6 +1494,69 @@ int dpgo_rtr_cluster_launch(
                                   xo, st, it, cs);
   DPGO_DISPATCH(2, 2, launch_rtr)(a, A, C, initial_radius, max_rejections,
                                   xo, st, it, cs);
+  return kUnsupportedShape;
+}
+
+int dpgo_tcg_cluster_launch(
+    int r, int d, int C, int A, int n, int Ep, int T, int e_max, int kinc,
+    const void* idx_i, const void* idx_j, const void* rot, const void* trn,
+    const void* wk, const void* wt, const void* X, const void* S,
+    const void* L, const void* g, const void* radius, const void* inc_slot,
+    const void* inc_mask, const void* n_local, void* eta, void* heta,
+    void* stats, int max_iters, float kappa, float theta, void* stream) {
+  // The tCG sweeps are Hessian sweeps only: no neighbor slots are read.
+  const ClusterArgs a = make_args(n, 0, Ep, T, e_max, kinc, idx_i, idx_j,
+                                  rot, trn, wk, wt, X, X, S, L, g, inc_slot,
+                                  inc_mask, n_local, max_iters, kappa, theta);
+  const float* rd = static_cast<const float*>(radius);
+  float* e = static_cast<float*>(eta);
+  float* h = static_cast<float*>(heta);
+  float* st = static_cast<float*>(stats);
+  cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  DPGO_DISPATCH(5, 3, launch_tcg)(a, A, C, rd, e, h, st, cs);
+  DPGO_DISPATCH(4, 3, launch_tcg)(a, A, C, rd, e, h, st, cs);
+  DPGO_DISPATCH(3, 3, launch_tcg)(a, A, C, rd, e, h, st, cs);
+  DPGO_DISPATCH(3, 2, launch_tcg)(a, A, C, rd, e, h, st, cs);
+  DPGO_DISPATCH(2, 2, launch_tcg)(a, A, C, rd, e, h, st, cs);
+  return kUnsupportedShape;
+}
+
+int dpgo_rtr_refine_full_cluster_launch(
+    int r, int d, int C, int A, int n, int s, int Ep, int T, int e_max,
+    int kinc, const void* idx_i, const void* idx_j, const void* rot,
+    const void* trn, const void* wk, const void* wt, const void* rho_rot,
+    const void* rho_trn, const void* Rc, const void* D, const void* Dz,
+    const void* g0, const void* Gref, const void* S0, const void* L,
+    const void* inc_slot, const void* inc_mask, const void* n_local,
+    void* D_out, void* stats, void* tcg_iters, int max_iters, float kappa,
+    float theta, float initial_radius, int max_rejections, float grad_tol,
+    void* stream) {
+  ClusterArgs a = make_args(n, s, Ep, T, e_max, kinc, idx_i, idx_j, rot, trn,
+                            wk, wt, D, Dz, S0, L, g0, inc_slot, inc_mask,
+                            n_local, max_iters, kappa, theta);
+  a.Rc = static_cast<const float*>(Rc);
+  a.Gref = static_cast<const float*>(Gref);
+  a.rho_rot = static_cast<const float*>(rho_rot);
+  a.rho_trn = static_cast<const float*>(rho_trn);
+  float* dout = static_cast<float*>(D_out);
+  float* st = static_cast<float*>(stats);
+  int* it = static_cast<int*>(tcg_iters);
+  cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  DPGO_DISPATCH(5, 3, launch_refine)(a, A, C, initial_radius,
+                                     max_rejections, grad_tol, dout, st, it,
+                                     cs);
+  DPGO_DISPATCH(4, 3, launch_refine)(a, A, C, initial_radius,
+                                     max_rejections, grad_tol, dout, st, it,
+                                     cs);
+  DPGO_DISPATCH(3, 3, launch_refine)(a, A, C, initial_radius,
+                                     max_rejections, grad_tol, dout, st, it,
+                                     cs);
+  DPGO_DISPATCH(3, 2, launch_refine)(a, A, C, initial_radius,
+                                     max_rejections, grad_tol, dout, st, it,
+                                     cs);
+  DPGO_DISPATCH(2, 2, launch_refine)(a, A, C, initial_radius,
+                                     max_rejections, grad_tol, dout, st, it,
+                                     cs);
   return kUnsupportedShape;
 }
 

@@ -1,4 +1,8 @@
-// Fused single-step Riemannian trust-region solve of RBCD, for Hopper.
+// Fused single-step Riemannian trust-region solve of RBCD, for Hopper: the
+// workspace route of kernels B1-B4, one CTA per agent, for agents too
+// large for any thread-block cluster.  Every agent that fits a cluster
+// runs rtr_cluster.cu's kernels instead (ops/rtr_kernel.cluster_plan picks
+// the route from the shape before the launch).
 //
 // Replaces the TPU kernels of dpgo_tpu/ops/pallas_tcg.py:
 //   * _rtr_full_kernel (rtr_full_call) -> rtr_full_kernel below: one launch
@@ -50,7 +54,7 @@
 // every loop condition is block-uniform.  The per-pose math (tangent
 // projection, the (d+1)x(d+1) preconditioner solves, the Newton-Schulz
 // sweeps) is unrolled over the template parameters (R, D).  Spreading one
-// agent over several CTAs, to occupy more SMs, is left for later work.
+// agent over several CTAs is what rtr_cluster.cu does.
 //
 // The refine kernel is bound the same way: its payload adds r*d + r floats
 // of reference residuals per edge (144 B an edge at r = 5, d = 3 instead of

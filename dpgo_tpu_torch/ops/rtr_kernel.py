@@ -25,7 +25,7 @@ was given lie on the CPU.  The kernels are compiled with ``nvcc`` for
 ``nvcc`` per source, all at once), into one library in
 ``dpgo_tpu_torch/_build/``, and bound through ``ctypes``.
 
-``rtr_full`` and ``rtr`` have two routes, chosen from the shape before the
+Each of the four kernels has two routes, chosen from the shape before the
 launch by ``cluster_plan``: the **cluster** route (``rtr_cluster.cu``: one
 thread-block cluster of C CTAs per agent, its loop vectors and edge payload
 in the cluster's shared memory) for every agent that fits a cluster, and
@@ -109,8 +109,11 @@ MAX_SMEM_BYTES = 232448
 #: 32 // r poses per warp).
 MAX_CLUSTER_THREADS = 512
 #: Loop vectors of the cluster kernels held in shared memory (delta twice)
-#: — ``rtr_cluster.cu``.
+#: — ``rtr_cluster.cu``; ``rtr_refine_full`` adds D and Rc.
 _CLUSTER_VECS = 10
+#: The kernels, by wrapper name, as the C launchers number them
+#: (``Kernel`` in ``rtr_cluster.cu``).
+KERNELS = {"rtr_full": 0, "rtr": 1, "tcg": 2, "rtr_refine_full": 3}
 
 
 class RTRFullOut(NamedTuple):
@@ -146,7 +149,7 @@ class ClusterPlan(NamedTuple):
 
 
 # ---------------------------------------------------------------------------
-# Route plan of rtr_full and rtr
+# Route plan of rtr_full, rtr, tcg and rtr_refine_full
 # ---------------------------------------------------------------------------
 
 def _vec_stride(rk: int) -> int:
@@ -156,20 +159,34 @@ def _vec_stride(rk: int) -> int:
     return 4 * (s if s % 2 else s + 1)
 
 
-def cluster_shape(r: int, d: int, n_max: int, kinc: int,
-                  C: int) -> ClusterPlan:
-    """The cluster kernels' shape for ``C`` CTAs per agent (the formula of
-    ``dpgo_rtr_cluster_smem_bytes``): P = ceil(n_max / C) poses in each
-    CTA, r lanes per pose (one row of its block each) and 32 // r poses per
-    warp; its shared memory holds 10 loop vectors ``[P, vec_stride]``, the
-    factors L and curvature S, the edge payload of its poses' ELL entries
-    ``[d*d + d + 3, Kinc, P]`` and the reduction slots (two buffers of 4
-    floats for each warp of the cluster)."""
+def _kernel_id(kernel: str) -> int:
+    if kernel not in KERNELS:
+        raise ValueError(f"unknown kernel {kernel!r}: one of {list(KERNELS)}")
+    return KERNELS[kernel]
+
+
+def cluster_shape(r: int, d: int, n_max: int, kinc: int, C: int,
+                  kernel: str = "rtr_full") -> ClusterPlan:
+    """The shape of cluster kernel ``kernel`` for ``C`` CTAs per agent (the
+    formula of ``dpgo_rtr_cluster_smem_bytes``): P = ceil(n_max / C) poses
+    in each CTA, r lanes per pose (one row of its block each) and 32 // r
+    poses per warp; its shared memory holds the loop vectors ``[P,
+    vec_stride]``, the factors L and curvature S, the edge payload of its
+    poses' ELL entries ``[fields, Kinc, P]`` and the reduction slots (two
+    buffers of 4 floats for each warp of the cluster).  ``rtr_full``,
+    ``rtr`` and ``tcg`` share one shape: 10 vectors and ``d*d + d + 3``
+    payload fields.  ``rtr_refine_full`` adds two vectors (the correction D
+    and the reference Rc) and, in the payload, the edge's reference
+    residuals ``rho_rot`` and ``rho_trn``: ``r (d + 1)`` fields, filled at
+    the entries that own their edge's cost (``cost_owner``)."""
+    refine = _kernel_id(kernel) == KERNELS["rtr_refine_full"]
     P = -(-n_max // C)
     k = d + 1
     threads = -(-P // (32 // r)) * 32
-    floats = (_CLUSTER_VECS * P * _vec_stride(r * k) + (k * k + d * d) * P
-              + (d * d + d + 3) * kinc * P + 2 * C * (threads // 32) * 4)
+    vecs = _CLUSTER_VECS + (2 if refine else 0)
+    fields = d * d + d + 3 + (r * k if refine else 0)
+    floats = (vecs * P * _vec_stride(r * k) + (k * k + d * d) * P
+              + fields * kinc * P + 2 * C * (threads // 32) * 4)
     return ClusterPlan("cluster", C, P, threads, 4 * floats)
 
 
@@ -178,49 +195,53 @@ def _fits(plan: ClusterPlan) -> bool:
             and plan.smem_bytes <= MAX_SMEM_BYTES)
 
 
-def cluster_plan(n_max: int, e_max: int, kinc: int, r: int,
-                 d: int) -> ClusterPlan:
-    """The route of ``rtr_full`` and ``rtr`` for agents of ``n_max`` poses,
-    ``e_max`` edges and ``kinc`` incidence entries per pose.  The cluster
-    route when some C of ``CLUSTER_SIZES`` fits the card (at most
-    ``MAX_CLUSTER_THREADS`` threads and ``MAX_SMEM_BYTES`` of shared
-    memory per CTA): of the portable sizes (up to 8) that fit, the
-    smallest with at most ``SPREAD_WARPS`` warps per CTA, else the largest;
-    16 only when no portable size fits.  Else the workspace route (one CTA
-    of 256 threads per agent; its shared memory holds the edge payload
-    when that fits)."""
-    fitting = [plan for plan in (cluster_shape(r, d, n_max, kinc, C)
+def cluster_plan(n_max: int, e_max: int, kinc: int, r: int, d: int,
+                 kernel: str = "rtr_full") -> ClusterPlan:
+    """The route of ``kernel`` (``rtr_full``, ``rtr``, ``tcg`` or
+    ``rtr_refine_full``) for agents of ``n_max`` poses, ``e_max`` edges and
+    ``kinc`` incidence entries per pose.  The cluster route when some C of
+    ``CLUSTER_SIZES`` fits the card (at most ``MAX_CLUSTER_THREADS``
+    threads and ``MAX_SMEM_BYTES`` of shared memory per CTA, by
+    ``cluster_shape`` of this kernel): of the portable sizes (up to 8) that
+    fit, the smallest with at most ``SPREAD_WARPS`` warps per CTA, else the
+    largest; 16 only when no portable size fits.  Else the workspace route
+    (one CTA of 256 threads per agent; its shared memory holds the edge
+    payload when that fits)."""
+    fitting = [plan for plan in (cluster_shape(r, d, n_max, kinc, C, kernel)
                                  for C in CLUSTER_SIZES) if _fits(plan)]
     if not fitting:
-        return _workspace_plan(n_max, e_max, d)
+        return _workspace_plan(n_max, e_max, r, d, kernel)
     portable = [plan for plan in fitting if plan.C <= 8] or fitting
     spread = [plan for plan in portable
               if plan.threads <= 32 * SPREAD_WARPS]
     return spread[0] if spread else portable[-1]
 
 
-def _workspace_plan(n_max: int, e_max: int, d: int) -> ClusterPlan:
+def _workspace_plan(n_max: int, e_max: int, r: int, d: int,
+                    kernel: str) -> ClusterPlan:
     """``rtr_full.cu``'s shape: reduction slots, plus the edge payload when
-    it fits in shared memory (``payload_fits_smem``)."""
+    it fits in shared memory (``payload_fits_smem``; ``rtr_refine_full``'s
+    carries the reference residuals too)."""
+    refine = _kernel_id(kernel) == KERNELS["rtr_refine_full"]
     red = 4 * 8 * 4
-    payload = 4 * e_max * (d * d + d + 4)
+    payload = 4 * e_max * (d * d + d + 4 + (r * d + r if refine else 0))
     return ClusterPlan("workspace", 0, n_max, 256,
                        red + (payload if red + payload <= MAX_SMEM_BYTES
                               else 0))
 
 
 def _route(cluster: int | None, n_max: int, e_max: int, kinc: int, r: int,
-           d: int) -> ClusterPlan:
+           d: int, kernel: str) -> ClusterPlan:
     """``cluster_plan``, or the route a test or ``chip_smoke.py`` forces:
     ``0`` the workspace route, ``C > 0`` a cluster of C CTAs (raises when
     one CTA of it cannot fit the card)."""
     if cluster is None:
-        return cluster_plan(n_max, e_max, kinc, r, d)
+        return cluster_plan(n_max, e_max, kinc, r, d, kernel)
     if cluster == 0:
-        return _workspace_plan(n_max, e_max, d)
+        return _workspace_plan(n_max, e_max, r, d, kernel)
     if cluster < 0:
         raise ValueError(f"cluster size {cluster} is negative")
-    plan = cluster_shape(r, d, n_max, kinc, cluster)
+    plan = cluster_shape(r, d, n_max, kinc, cluster, kernel)
     if not _fits(plan):
         raise ValueError(
             f"a cluster of {cluster} CTAs cannot hold an agent of {n_max} "
@@ -600,9 +621,9 @@ def load():
     lib.dpgo_rtr_refine_full_launch.argtypes = (
         [I] * 9 + [P] * 22 + [LL, I, F, F, F, I, F, P])
     lib.dpgo_rtr_refine_full_launch.restype = I
-    lib.dpgo_rtr_cluster_smem_bytes.argtypes = [I] * 5
+    lib.dpgo_rtr_cluster_smem_bytes.argtypes = [I] * 6
     lib.dpgo_rtr_cluster_smem_bytes.restype = LL
-    lib.dpgo_rtr_cluster_max_clusters.argtypes = [I] * 5 + [P]
+    lib.dpgo_rtr_cluster_max_clusters.argtypes = [I] * 6 + [P]
     lib.dpgo_rtr_cluster_max_clusters.restype = I
     lib.dpgo_rtr_full_cluster_launch.argtypes = (
         [I] * 10 + [P] * 15 + [I, F, F, F, I, F, P])
@@ -610,16 +631,24 @@ def load():
     lib.dpgo_rtr_cluster_launch.argtypes = (
         [I] * 10 + [P] * 17 + [I, F, F, F, I, P])
     lib.dpgo_rtr_cluster_launch.restype = I
+    lib.dpgo_tcg_cluster_launch.argtypes = (
+        [I] * 9 + [P] * 17 + [I, F, F, P])
+    lib.dpgo_tcg_cluster_launch.restype = I
+    lib.dpgo_rtr_refine_full_cluster_launch.argtypes = (
+        [I] * 10 + [P] * 21 + [I, F, F, F, I, F, P])
+    lib.dpgo_rtr_refine_full_cluster_launch.restype = I
     _lib = lib
     return lib
 
 
-def cluster_capacity(r: int, d: int, n_max: int, kinc: int, C: int) -> int:
-    """How many clusters of ``C`` CTAs of the cluster kernels the card can
-    hold at once for agents of this shape (``cudaOccupancyMaxActiveClusters``
-    of B2's; B3's has the same shape); 0 when it cannot place one."""
+def cluster_capacity(r: int, d: int, n_max: int, kinc: int, C: int,
+                     kernel: str = "rtr_full") -> int:
+    """How many clusters of ``C`` CTAs of cluster kernel ``kernel`` the card
+    can hold at once for agents of this shape
+    (``cudaOccupancyMaxActiveClusters``); 0 when it cannot place one."""
     count = ctypes.c_int(0)
     err = load().dpgo_rtr_cluster_max_clusters(r, d, n_max, kinc, C,
+                                               _kernel_id(kernel),
                                                ctypes.byref(count))
     _raise_on("cluster_capacity", err, r, d)
     return count.value
@@ -701,7 +730,7 @@ def rtr_full(idx_i, idx_j, rot, trn, wk, wt, Xc, Zc, Lc, inc_slot, inc_mask,
                    Xc=Xc, Zc=Zc, Lc=Lc, inc_slot=inc_slot,
                    inc_mask=inc_mask, n_local=n_local)
     _check("rtr_full", Xc.device, tensors, _shapes(idx_i, r, d, n, s, K, A))
-    plan = _route(_cluster, n, e_max, K, r, d)
+    plan = _route(_cluster, n, e_max, K, r, d, "rtr_full")
     kw = dict(r=r, d=d, e_max=e_max, max_iters=max_iters, kappa=kappa,
               theta=theta, initial_radius=initial_radius,
               max_rejections=max_rejections, grad_tol=grad_tol)
@@ -750,7 +779,7 @@ def rtr(idx_i, idx_j, rot, trn, wk, wt, Xc, Zc, Sc, Lc, gc, inc_slot,
                    Xc=Xc, Zc=Zc, Sc=Sc, Lc=Lc, gc=gc, inc_slot=inc_slot,
                    inc_mask=inc_mask, n_local=n_local)
     _check("rtr", Xc.device, tensors, _shapes(idx_i, r, d, n, s, K, A))
-    plan = _route(_cluster, n, e_max, K, r, d)
+    plan = _route(_cluster, n, e_max, K, r, d, "rtr")
     kw = dict(r=r, d=d, e_max=e_max, max_iters=max_iters, kappa=kappa,
               theta=theta, initial_radius=initial_radius,
               max_rejections=max_rejections)
@@ -782,10 +811,12 @@ def rtr(idx_i, idx_j, rot, trn, wk, wt, Xc, Zc, Sc, Lc, gc, inc_slot,
 
 def tcg(idx_i, idx_j, rot, trn, wk, wt, Xc, Sc, Lc, gc, radius, inc_slot,
         inc_mask, *, r: int, d: int, e_max: int, max_iters: int,
-        kappa: float, theta: float) -> TCGOut:
+        kappa: float, theta: float, _cluster: int | None = None) -> TCGOut:
     """Truncated CG for every agent from ``Sc`` and ``gc`` at per-agent
-    ``radius [A]``.  CUDA tensors launch the kernel; CPU tensors run
-    ``tcg_reference``."""
+    ``radius [A]``, every pose live.  CUDA tensors launch the kernel of the
+    route ``cluster_plan`` picks on the current stream, once for all
+    agents; CPU tensors run ``tcg_reference``.  ``_cluster`` as in
+    ``rtr_full``."""
     global TCG_LAUNCHES
     A, _, n = Xc.shape
     K = inc_slot.shape[-1]
@@ -793,28 +824,32 @@ def tcg(idx_i, idx_j, rot, trn, wk, wt, Xc, Sc, Lc, gc, radius, inc_slot,
                    Xc=Xc, Sc=Sc, Lc=Lc, gc=gc, radius=radius,
                    inc_slot=inc_slot, inc_mask=inc_mask)
     _check("tcg", Xc.device, tensors, _shapes(idx_i, r, d, n, 0, K, A))
+    plan = _route(_cluster, n, e_max, K, r, d, "tcg")
     kw = dict(r=r, d=d, e_max=e_max, max_iters=max_iters, kappa=kappa,
               theta=theta)
     if Xc.device.type == "cpu":
-        return tcg_reference(idx_i, idx_j, rot, trn, wk, wt, Xc, Sc, Lc, gc,
-                             radius, inc_slot, inc_mask, **kw)
+        return tcg_reference(*tensors.values(), **kw)
     lib = load()
     nt, T = idx_i.shape[1], idx_i.shape[-1]
     dev = Xc.device
-    ws_floats = lib.dpgo_rtr_workspace_floats(r, d, n, e_max, 0)
-    ws = torch.empty((A, ws_floats), dtype=torch.float32, device=dev)
     n_local = torch.full((A,), n, dtype=torch.int32, device=dev)
     eta = torch.empty_like(Xc)
     heta = torch.empty_like(Xc)
     stats = torch.empty((A, 2), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.dpgo_tcg_launch(
-        r, d, A, n, nt * T, T, e_max, K,
-        *(t.data_ptr() for t in (idx_i, idx_j, rot, trn, wk, wt, Xc, Sc,
-                                 Lc, gc, radius, inc_slot, inc_mask, n_local,
-                                 eta, heta, stats, ws)),
-        ws_floats, max_iters, kappa, theta, stream)
-    _raise_on("tcg", err, r, d)
+    ptrs = [t.data_ptr() for t in (*tensors.values(), n_local, eta, heta,
+                                   stats)]
+    if plan.route == "cluster":
+        err = lib.dpgo_tcg_cluster_launch(
+            r, d, plan.C, A, n, nt * T, T, e_max, K, *ptrs, max_iters, kappa,
+            theta, stream)
+    else:
+        ws_floats = lib.dpgo_rtr_workspace_floats(r, d, n, e_max, 0)
+        ws = torch.empty((A, ws_floats), dtype=torch.float32, device=dev)
+        err = lib.dpgo_tcg_launch(
+            r, d, A, n, nt * T, T, e_max, K, *ptrs, ws.data_ptr(), ws_floats,
+            max_iters, kappa, theta, stream)
+    _raise_on("tcg", err, r, d, plan.C)
     TCG_LAUNCHES += 1
     return TCGOut(eta, heta, stats)
 
@@ -823,11 +858,13 @@ def rtr_refine_full(idx_i, idx_j, rot, trn, wk, wt, rho_rot, rho_trn, Rc,
                     Dc, Dzc, g0c, Grefc, S0c, Lc, inc_slot, inc_mask,
                     n_local, *, r: int, d: int, e_max: int, max_iters: int,
                     kappa: float, theta: float, initial_radius: float,
-                    max_rejections: int, grad_tol: float) -> RTRRefineOut:
+                    max_rejections: int, grad_tol: float,
+                    _cluster: int | None = None) -> RTRRefineOut:
     """One re-centered RTR step on the corrections ``Dc`` for every agent
     (see the module docstring for the layouts).  CUDA tensors launch the
-    kernel on the current stream, once for all agents; CPU tensors run
-    ``rtr_refine_full_reference``."""
+    kernel of the route ``cluster_plan`` picks on the current stream, once
+    for all agents; CPU tensors run ``rtr_refine_full_reference``.
+    ``_cluster`` as in ``rtr_full``."""
     global REFINE_LAUNCHES
     A, _, n = Dc.shape
     s, K = Dzc.shape[-1], inc_slot.shape[-1]
@@ -837,6 +874,7 @@ def rtr_refine_full(idx_i, idx_j, rot, trn, wk, wt, rho_rot, rho_trn, Rc,
                    inc_mask=inc_mask, n_local=n_local)
     _check("rtr_refine_full", Dc.device, tensors,
            _shapes(idx_i, r, d, n, s, K, A))
+    plan = _route(_cluster, n, e_max, K, r, d, "rtr_refine_full")
     kw = dict(r=r, d=d, e_max=e_max, max_iters=max_iters, kappa=kappa,
               theta=theta, initial_radius=initial_radius,
               max_rejections=max_rejections, grad_tol=grad_tol)
@@ -845,18 +883,22 @@ def rtr_refine_full(idx_i, idx_j, rot, trn, wk, wt, rho_rot, rho_trn, Rc,
     lib = load()
     nt, T = idx_i.shape[1], idx_i.shape[-1]
     dev = Dc.device
-    ws_floats = lib.dpgo_rtr_workspace_floats(r, d, n, e_max, 1)
-    ws = torch.empty((A, ws_floats), dtype=torch.float32, device=dev)
     D_out = torch.empty_like(Dc)
     stats = torch.empty((A, 5), dtype=torch.float32, device=dev)
     iters = torch.empty((A,), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.dpgo_rtr_refine_full_launch(
-        r, d, A, n, s, nt * T, T, e_max, K,
-        *(t.data_ptr() for t in (*tensors.values(), D_out, stats, iters,
-                                 ws)),
-        ws_floats, max_iters, kappa, theta, initial_radius, max_rejections,
-        grad_tol, stream)
-    _raise_on("rtr_refine_full", err, r, d)
+    ptrs = [t.data_ptr() for t in (*tensors.values(), D_out, stats, iters)]
+    if plan.route == "cluster":
+        err = lib.dpgo_rtr_refine_full_cluster_launch(
+            r, d, plan.C, A, n, s, nt * T, T, e_max, K, *ptrs, max_iters,
+            kappa, theta, initial_radius, max_rejections, grad_tol, stream)
+    else:
+        ws_floats = lib.dpgo_rtr_workspace_floats(r, d, n, e_max, 1)
+        ws = torch.empty((A, ws_floats), dtype=torch.float32, device=dev)
+        err = lib.dpgo_rtr_refine_full_launch(
+            r, d, A, n, s, nt * T, T, e_max, K, *ptrs, ws.data_ptr(),
+            ws_floats, max_iters, kappa, theta, initial_radius,
+            max_rejections, grad_tol, stream)
+    _raise_on("rtr_refine_full", err, r, d, plan.C)
     REFINE_LAUNCHES += 1
     return RTRRefineOut(D_out, stats, iters)

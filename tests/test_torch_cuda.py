@@ -269,13 +269,13 @@ def test_rtr_refine_full_kernel_matches_plain_version(card, d, r):
 
 
 def test_refine_payload_too_large_for_shared_memory(card):
-    # One agent with ~2000 edges: the refine payload (144 B an edge at
-    # d = 3, r = 5) does not fit in one block's 227 KB.
+    # One agent with ~2000 edges on the workspace route: the refine payload
+    # (144 B an edge at d = 3, r = 5) does not fit in one block's 227 KB.
     prob, params, ref, ops = _refine_operands(card, n=1000, A=1,
                                               num_lc=1000, rounds=3)
     assert prob.meta.e_max * 144 > 232448
     kw = rbcd.kernel_options(params, prob.meta)
-    out = rk.rtr_refine_full(*ops, **kw)
+    out = rk.rtr_refine_full(*ops, _cluster=0, **kw)
     plain = rk.rtr_refine_full_reference(*ops, **kw)
     torch.cuda.synchronize()
     _assert_refine_matches(out, plain, ops[9])
@@ -378,10 +378,13 @@ def test_cluster_that_cannot_be_placed_raises(card):
                                             (2, 3, 350, 7), (3, 4, 40, 3),
                                             (2, 2, 600, 12), (3, 3, 257, 5)])
 def test_cluster_smem_bytes_match_the_plan(card, d, r, n_max, kinc):
+    # Every kernel's launcher carves the bytes its cluster_shape states.
     lib = rk.load()
-    for C in rk.CLUSTER_SIZES:
-        assert lib.dpgo_rtr_cluster_smem_bytes(r, d, n_max, kinc, C) == \
-            rk.cluster_shape(r, d, n_max, kinc, C).smem_bytes
+    for kernel, kid in rk.KERNELS.items():
+        for C in rk.CLUSTER_SIZES:
+            assert lib.dpgo_rtr_cluster_smem_bytes(r, d, n_max, kinc, C,
+                                                   kid) == \
+                rk.cluster_shape(r, d, n_max, kinc, C, kernel).smem_bytes
 
 
 def test_cluster_route_repeats_bit_for_bit(card):
@@ -392,3 +395,143 @@ def test_cluster_route_repeats_bit_for_bit(card):
         assert torch.equal(first.X, second.X)
         assert torch.equal(first.stats, second.stats)
         assert torch.equal(first.tcg_iters, second.tcg_iters)
+
+
+# ---------------------------------------------------------------------------
+# The cluster route of B1 and B4 (csrc/rtr_cluster.cu)
+# ---------------------------------------------------------------------------
+
+def _tcg_args(b3, radius):
+    """B1's operands from B3's (its S and g) at per-agent ``radius``."""
+    rad = torch.full((b3[6].shape[0],), radius, device=b3[6].device)
+    return (*b3[:7], b3[8], b3[9], b3[10], rad, b3[11], b3[12])
+
+
+def _tcg_kw(b3_kw):
+    return {k: b3_kw[k] for k in ("r", "d", "e_max", "max_iters", "kappa",
+                                  "theta")}
+
+
+def _assert_tcg_matches(out, ref):
+    # chip_smoke.py's tcg gates: |d eta| and |d Heta| / max |Heta| at 1e-4,
+    # no flip of (iterations, hit).
+    assert bool(torch.isfinite(out.eta).all() and torch.isfinite(out.heta)
+                .all())
+    assert float((out.eta - ref.eta).abs().max()) <= 1e-4
+    assert float((out.heta - ref.heta).abs().max()) <= 1e-4 * float(
+        ref.heta.abs().max())
+    assert torch.equal(out.stats, ref.stats)
+
+
+def _assert_refine_gates(out, ref, D_in):
+    # chip_smoke.refine_parity's gates: the correction within 1e-3 of the
+    # step's own size, no flip of attempts or accepted, df0 and df within
+    # 1e-3 of their largest magnitude, gn0 at rtol 1e-4.
+    assert bool(torch.isfinite(out.D).all() and torch.isfinite(out.stats)
+                .all())
+    step = float((ref.D - D_in).abs().max())
+    assert float((out.D - ref.D).abs().max()) <= 1e-3 * max(step, 1e-30)
+    assert torch.equal(out.stats[:, :2], ref.stats[:, :2])
+    df = ref.stats[:, 2:4]
+    assert float((out.stats[:, 2:4] - df).abs().max()) <= 1e-3 * float(
+        df.abs().max())
+    torch.testing.assert_close(out.stats[:, 4], ref.stats[:, 4], rtol=1e-4,
+                               atol=0)
+
+
+def _placeable_for(kernel, n, K, r, d):
+    return [C for C in rk.CLUSTER_SIZES
+            if rk._fits(rk.cluster_shape(r, d, n, K, C, kernel))
+            and rk.cluster_capacity(r, d, n, K, C, kernel) >= 1]
+
+
+@pytest.mark.parametrize("A", [3, 1])
+@pytest.mark.parametrize("d,r", [(3, 5), (2, 3)])
+def test_tcg_cluster_route_matches_plain_version_at_every_size(card, d, r,
+                                                               A):
+    prob, b2, kw, b3, b3_kw = _cluster_operands(card, d, r, A)
+    tkw = _tcg_kw(b3_kw)
+    n, K = prob.meta.n_max, b2[9].shape[-1]
+    plan = rk.cluster_plan(n, prob.meta.e_max, K, r, d, "tcg")
+    assert plan.route == "cluster" and plan.C > 1
+    sizes = _placeable_for("tcg", n, K, r, d)
+    assert plan.C in sizes
+    for radius in (0.05, 1.0, 100.0):
+        args = _tcg_args(b3, radius)
+        ref = rk.tcg_reference(*args, **tkw)
+        for C in sizes:
+            before = rk.TCG_LAUNCHES
+            out = rk.tcg(*args, _cluster=C, **tkw)
+            torch.cuda.synchronize()
+            assert rk.TCG_LAUNCHES == before + 1
+            _assert_tcg_matches(out, ref)
+
+
+def _refine_cluster_operands(card, d, r, A):
+    """B4's operands on agents of ~300 poses (C > 1) and its options."""
+    prob, params, _, ops = _refine_operands(card, d=d, r=r, n=300 * A, A=A,
+                                            num_lc=100 * A, rounds=5)
+    return prob, ops, rbcd.kernel_options(params, prob.meta)
+
+
+@pytest.mark.parametrize("A", [3, 1])
+@pytest.mark.parametrize("d,r", [(3, 5), (2, 3)])
+def test_refine_cluster_route_matches_plain_version_at_every_size(card, d, r,
+                                                                  A):
+    prob, ops, kw = _refine_cluster_operands(card, d, r, A)
+    n, K = prob.meta.n_max, ops[15].shape[-1]
+    plan = rk.cluster_plan(n, prob.meta.e_max, K, r, d, "rtr_refine_full")
+    assert plan.route == "cluster" and plan.C > 1
+    sizes = _placeable_for("rtr_refine_full", n, K, r, d)
+    assert plan.C in sizes
+    ref = rk.rtr_refine_full_reference(*ops, **kw)
+    for C in sizes:
+        before = rk.REFINE_LAUNCHES
+        out = rk.rtr_refine_full(*ops, _cluster=C, **kw)
+        torch.cuda.synchronize()
+        assert rk.REFINE_LAUNCHES == before + 1
+        _assert_refine_gates(out, ref, ops[9])
+
+
+def test_b1_b4_above_the_cluster_limit_take_the_workspace_route(card):
+    # 4200 poses in one agent: no cluster holds it (see the B2 case above).
+    prob, params, X, Z, chol = _round(card, n=4200, A=1, num_lc=1000)
+    b3 = _b3_args(prob, X, Z, chol)
+    tkw = _tcg_kw(_b3_kw(params, prob.meta))
+    n, K = prob.meta.n_max, b3[11].shape[-1]
+    assert rk.cluster_plan(n, prob.meta.e_max, K, 5, 3, "tcg").route == \
+        "workspace"
+    args = _tcg_args(b3, 1.0)
+    _assert_tcg_matches(rk.tcg(*args, **tkw), rk.tcg_reference(*args, **tkw))
+    prob, params, _, ops = _refine_operands(card, n=4200, A=1, num_lc=1000,
+                                            rounds=3)
+    kw = rbcd.kernel_options(params, prob.meta)
+    assert rk.cluster_plan(prob.meta.n_max, prob.meta.e_max,
+                           ops[15].shape[-1], 5, 3,
+                           "rtr_refine_full").route == "workspace"
+    _assert_refine_gates(rk.rtr_refine_full(*ops, **kw),
+                         rk.rtr_refine_full_reference(*ops, **kw), ops[9])
+
+
+def test_b1_b4_cluster_that_cannot_be_placed_raises(card):
+    prob, b2, kw, b3, b3_kw = _cluster_operands(card, 3, 5, 2)
+    _, ops, rkw = _refine_cluster_operands(card, 3, 5, 2)
+    before = (rk.TCG_LAUNCHES, rk.REFINE_LAUNCHES)
+    with pytest.raises(RuntimeError, match="cluster"):
+        rk.tcg(*_tcg_args(b3, 1.0), _cluster=32, **_tcg_kw(b3_kw))
+    with pytest.raises(RuntimeError, match="cluster"):
+        rk.rtr_refine_full(*ops, _cluster=32, **rkw)
+    assert (rk.TCG_LAUNCHES, rk.REFINE_LAUNCHES) == before
+
+
+def test_b1_b4_cluster_route_repeats_bit_for_bit(card):
+    prob, b2, kw, b3, b3_kw = _cluster_operands(card, 3, 5, 2)
+    args, tkw = _tcg_args(b3, 1.0), _tcg_kw(b3_kw)
+    first, second = rk.tcg(*args, **tkw), rk.tcg(*args, **tkw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    _, ops, rkw = _refine_cluster_operands(card, 3, 5, 2)
+    first, second = (rk.rtr_refine_full(*ops, **rkw),
+                     rk.rtr_refine_full(*ops, **rkw))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
