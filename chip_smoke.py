@@ -24,7 +24,23 @@ synthetic stand-in for sphere2500 (2500 poses, 4948 edges, 8 robots, rank
   loop-closure outliers), kernel B2 once per round; one segment of each
   runs under ``torch.cuda.set_sync_debug_mode("error")``; GNC's final
   weights are held against the plain "ell" formulation's, and the run is
-  continued for as many rounds again.
+  continued for as many rounds again;
+* ``verdict`` — the device-resident verdict loop (``run_rbcd`` with
+  ``verdict_every``): the ``solve`` configuration with K = 8 against the
+  per-eval run, bit for bit; one K-round window of segments and verdict
+  steps under the sync-error debug mode, and the word's pinned copy read
+  while the stream is still busy; the production arm (2048 rounds,
+  K = eval_every = 512, no tolerance that stops it), warm then counted,
+  with its host syncs per 100 rounds counted through ``rbcd._host_fetch``;
+* ``odometry_init`` — the card's lifted odometry init against the host's
+  float64 one, and ``solve_rbcd(init="odometry", verdict_every=8)``;
+* ``robust_iterated`` — ``solve_rbcd_robust_iterated`` (2 passes, chordal
+  init, K = 50) on the GNC stand-in, with the GNC row's gates and the
+  plain "ell" formulation's ``kept`` mask beside the kernel's.
+
+Every launch gate is exact: the rounds each run enqueued, the per-eval
+loop's discarded speculative segment and the verdict loop's polish and
+speculative windows included (``rbcd.rounds_enqueued``).
 
 Before the paths: B2 and B3 against their plain versions at the chordal
 init and at the float32 floor (200 fused rounds), for all agents and for
@@ -72,7 +88,8 @@ from dpgo_tpu_torch.experiments import measure_r3  # noqa: E402
 from dpgo_tpu_torch.models import rbcd, refine  # noqa: E402
 from dpgo_tpu_torch.ops import rtr_kernel as rk  # noqa: E402
 from dpgo_tpu_torch.utils import partition  # noqa: E402
-from dpgo_tpu_torch.utils.synthetic import make_measurements  # noqa: E402
+from dpgo_tpu_torch.utils.synthetic import (  # noqa: E402
+    make_measurements, rejection_scores)
 
 #: The main path's problem: bench.py's synthetic sphere2500 stand-in.
 N_POSES, NUM_LC, ROBOTS, RANK = 2500, 2449, 8, 5
@@ -109,6 +126,18 @@ GNC_INLIER_REJECT_MAX, GNC_ELL_FLIP_MAX = 0.2, 0.01
 PERTURBED_STARTS = 4
 #: Rounds of the ablation's timed loops (the JAX script's N).
 ABLATE_ROUNDS = 200
+#: The verdict loop: K of the parity run against the per-eval ``solve``
+#: run; the production arm of bench.py (rounds, K = eval_every); K of the
+#: odometry-init solve and of each iterated-GNC pass.
+VERDICT_K, PROD_ROUNDS, PROD_K = 8, 2048, 512
+ODO_K, ITER_PASSES, ITER_K = 8, 2, 50
+#: The odometry init on the card against the host's float64 one, relative
+#: to the largest lifted translation entry (float32 compositions over a
+#: 2500-pose chain).
+ODO_RTOL = 1e-4
+#: GPU cycles the card spins (``torch.cuda._sleep``) after the word's copy
+#: starts, so a fetch that waited on the stream would be seen waiting.
+SPIN_CYCLES = 200_000_000
 #: Published H100 SXM peaks (dense FP32 outside the tensor cores; HBM3).
 PEAK_FP32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
 
@@ -828,6 +857,9 @@ def gnc_check(p, params, res) -> tuple[dict, int]:
     rk.LAUNCHES = 0
     more = rbcd.dispatch_prepared(p, state=res.state, **run)
     launches = rk.LAUNCHES
+    enqueued = rbcd.rounds_enqueued(more.iterations, params=params,
+                                    max_iters=SCHED_MAX_ITERS,
+                                    eval_every=SCHED_EVAL_EVERY)
     flips = int(((ell.weights < 0.5) != (res.weights < 0.5)).sum())
     return {"outliers": SCHED_OUTLIERS,
             "inliers": len(res.weights) - SCHED_OUTLIERS,
@@ -848,16 +880,27 @@ def gnc_check(p, params, res) -> tuple[dict, int]:
                           "cost_final": more.cost_history[-1],
                           "grad_norm_final": more.grad_norm_history[-1],
                           "launches": launches,
+                          "rounds_enqueued": enqueued,
                           **below_half(more.weights)}}, launches
+
+
+def gnc_standin():
+    """The stand-in with ``SCHED_OUTLIERS`` gross loop-closure outliers,
+    appended last."""
+    return make_measurements(np.random.default_rng(0), n=N_POSES, d=3,
+                             num_lc=NUM_LC, rot_noise=0.01, trans_noise=0.01,
+                             outlier_lc=SCHED_OUTLIERS)[0]
+
+
+def gnc_params() -> AgentParams:
+    return AgentParams(d=3, r=RANK, num_robots=ROBOTS,
+                       **dict(schedule_configs())["COLORED+GNC_TLS"])
 
 
 def schedules_phase(prob, dev, card: str) -> int:
     """``dispatch_prepared`` with each schedule, counted, and one segment of
     each under the sync-error debug mode.  Returns the B2 launches."""
-    meas_out = make_measurements(np.random.default_rng(0), n=N_POSES, d=3,
-                                 num_lc=NUM_LC, rot_noise=0.01,
-                                 trans_noise=0.01,
-                                 outlier_lc=SCHED_OUTLIERS)[0]
+    meas_out = gnc_standin()
     prob_out = rbcd.prepare_problem(meas_out, ROBOTS, prob.params,
                                     device=dev)
     total = 0
@@ -874,6 +917,9 @@ def schedules_phase(prob, dev, card: str) -> int:
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         launches = rk.LAUNCHES
+        enqueued = rbcd.rounds_enqueued(res.iterations, params=params,
+                                        max_iters=SCHED_MAX_ITERS,
+                                        eval_every=SCHED_EVAL_EVERY)
         costs = res.cost_history
         row = {"phase": "schedules", "schedule": name, "card": card,
                "poses": p.part.meas_global.num_poses,
@@ -883,7 +929,8 @@ def schedules_phase(prob, dev, card: str) -> int:
                "cost_final": costs[-1],
                "grad_norm_final": res.grad_norm_history[-1],
                "solve_s": t1 - t0, "rounds_per_s": res.iterations / (t1 - t0),
-               "launches": {"rtr_full": launches}}
+               "launches": {"rtr_full": launches},
+               "rounds_enqueued": enqueued}
         if robust_on:
             gnc, more_launches = gnc_check(p, params, res)
             row.update(gnc)
@@ -907,8 +954,8 @@ def schedules_phase(prob, dev, card: str) -> int:
                    and np.isfinite(res.grad_norm_history).all()
                    and torch.isfinite(seg.X).all()),
               f"{name}: non-finite cost, gradient norm or iterate")
-        check(launches == res.iterations > 0,
-              f"{name}: B2 did not launch once per round")
+        check(launches == enqueued and res.iterations > 0,
+              f"{name}: B2 did not launch once per enqueued round")
         check(seg.iteration == SCHED_EVAL_EVERY, f"{name}: segment length")
         if robust_on:
             check(row["outliers_below_half"] >= 0.9 * SCHED_OUTLIERS,
@@ -921,12 +968,271 @@ def schedules_phase(prob, dev, card: str) -> int:
                   f"{name}: the kernel's weights leave the plain ones")
             cont = row["continued"]
             check(bool(np.isfinite(cont["cost_final"]))
-                  and cont["launches"] == cont["iterations"] > 0,
+                  and cont["launches"] == cont["rounds_enqueued"]
+                  and cont["iterations"] > 0,
                   f"{name}: the continued run is malformed")
         else:
             check(costs[-1] <= costs[0], f"{name}: the cost rose")
         total += launches
     return total
+
+
+def verdict_parity(prob, ref, card: str) -> tuple[dict, int]:
+    """The ``solve`` configuration through the verdict loop (K =
+    ``VERDICT_K``) against the per-eval run ``ref``, counted."""
+    rk.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = rbcd.dispatch_prepared(prob, max_iters=MAX_ITERS,
+                                 grad_norm_tol=GRAD_TOL,
+                                 verdict_every=VERDICT_K)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    launches = rk.LAUNCHES
+    enqueued = rbcd.rounds_enqueued(res.iterations, max_iters=MAX_ITERS,
+                                    eval_every=1, verdict_every=VERDICT_K)
+    same = {"iterations": res.iterations == ref.iterations,
+            "terminated_by": res.terminated_by == ref.terminated_by,
+            "cost_history": res.cost_history == ref.cost_history,
+            "grad_norm_history":
+            res.grad_norm_history == ref.grad_norm_history}
+    row = {"phase": "verdict", "check": "parity", "card": card,
+           "verdict_every": VERDICT_K, "iterations": res.iterations,
+           "terminated_by": res.terminated_by,
+           "per_eval_iterations": ref.iterations, "bitwise_equal": same,
+           "solve_s": t1 - t0, "rounds_per_s": res.iterations / (t1 - t0),
+           "launches": {"rtr_full": launches},
+           "rounds_enqueued": enqueued}
+    emit(row)
+    check(all(same.values()),
+          "the verdict loop's run differs from the per-eval loop's")
+    check(launches == enqueued and res.iterations > 0,
+          "the verdict loop did not launch B2 once per enqueued round")
+    check(res.T.shape == (N_POSES, 3, 4) and bool(torch.isfinite(res.T)
+                                                   .all()),
+          "the verdict loop's trajectory is malformed")
+    return row, launches
+
+
+def verdict_window(prob, params, dev, card: str) -> dict:
+    """One K-round window of the verdict loop (segments and verdict steps)
+    and the start of the word's copy, with every host sync an error; then
+    the word is read while the card spins on work enqueued after the copy,
+    which a fetch that drained the stream would have waited for."""
+    graph, meta, part = prob.graph, prob.meta, prob.part
+    edges_g = rbcd.edge_set_from_measurements(part.meas_global,
+                                              dtype=torch.float32,
+                                              device=dev)
+    step = rbcd.make_verdict_program(
+        graph, edges_g, part.meas_global.num_poses, len(part.meas_global),
+        False, grad_norm_tol=GRAD_TOL)
+    vs = rbcd.init_verdict_state(VERDICT_K, ROBOTS, torch.float32, False,
+                                 device=dev)
+    st = rbcd.init_state(graph, meta, prob.X0, params)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(VERDICT_K):
+            st = rbcd.rbcd_segment(st, graph, 1, meta, params)
+            vs = step(st.X, st.weights, st.ready, st.mu, st.rel_change,
+                      st.iteration, vs)
+        copy = rbcd._start_fetch(vs.word)
+        torch.cuda._sleep(SPIN_CYCLES)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    t0 = time.perf_counter()
+    word = int(rbcd._host_fetch(copy))
+    fetch_s = time.perf_counter() - t0
+    busy = not torch.cuda.current_stream().query()
+    torch.cuda.synchronize()
+    drain_s = time.perf_counter() - t0
+    row = {"phase": "verdict", "check": "sync_free_window", "card": card,
+           "rounds": st.iteration, "evals": int(vs.eval_idx),
+           "word": rbcd.unpack_verdict(word),
+           "word_matches_device": word == int(vs.word),
+           "fetch_s": fetch_s, "stream_busy_after_fetch": busy,
+           "spin_drain_s": drain_s}
+    emit(row)
+    check(st.iteration == VERDICT_K and row["evals"] == VERDICT_K,
+          "the verdict window is malformed")
+    check(row["word_matches_device"], "the word's pinned copy is wrong")
+    check(busy, "the word fetch waited on the stream, not on its copy")
+    return row
+
+
+def production_arm(prob, params, card: str, profile: bool) -> tuple[dict,
+                                                                    int]:
+    """bench.py's production arm: ``PROD_ROUNDS`` rounds of the verdict
+    loop with K = eval_every = ``PROD_K``, one warm run then a counted
+    one; host syncs counted through ``_host_fetch``, the terminal epilogue
+    excluded as bench.py excludes it.  The tolerances never stop it, as
+    bench.py intends: the relative-change tolerance is negative, because
+    at the float32 floor every agent rejects every attempt, its change is
+    exactly 0, and a tolerance of 0 stops the run by consensus."""
+    pp = dataclasses.replace(prob, params=dataclasses.replace(
+        params, rel_change_tol=-1.0))
+
+    def drive():
+        return rbcd.dispatch_prepared(pp, max_iters=PROD_ROUNDS,
+                                      grad_norm_tol=0.0, eval_every=PROD_K,
+                                      verdict_every=PROD_K)
+    drive()
+    fetches = [0]
+    orig = rbcd._host_fetch
+
+    def counting(x):
+        fetches[0] += 1
+        return orig(x)
+
+    rk.LAUNCHES = 0
+    rbcd._host_fetch = counting
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = drive()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        rbcd._host_fetch = orig
+    launches = rk.LAUNCHES
+    enqueued = rbcd.rounds_enqueued(res.iterations, max_iters=PROD_ROUNDS,
+                                    eval_every=PROD_K, verdict_every=PROD_K)
+    syncs = 100.0 * (fetches[0] - 1) / res.iterations
+    row = {"phase": "verdict", "check": "production_arm", "card": card,
+           "rounds": res.iterations, "rounds_enqueued": enqueued,
+           "verdict_every": PROD_K, "eval_every": PROD_K,
+           "terminated_by": res.terminated_by, "solve_s": dt,
+           "rounds_per_s": enqueued / dt, "ms_per_round": 1e3 * dt / enqueued,
+           "host_fetches": fetches[0],
+           "host_syncs_per_100_rounds": syncs,
+           "cost_history": res.cost_history,
+           "launches": {"rtr_full": launches}}
+    if profile:
+        prof = profile_run(lambda: drive().iterations)
+        row["profile"] = {k: prof[k] for k in (
+            "wall_s", "device_busy_s", "device_busy_share", "top")}
+    emit(row)
+    check(res.iterations == PROD_ROUNDS and res.terminated_by == "max_iters",
+          "the production arm did not run its rounds")
+    check(syncs == 100.0 / PROD_K,
+          "the production arm did not read one word per K rounds")
+    check(launches == enqueued,
+          "the production arm did not launch B2 once per enqueued round")
+    check(bool(np.isfinite(res.cost_history).all()),
+          "non-finite cost in the production arm")
+    return row, launches
+
+
+def odometry_phase(prob, meas, params, dev, card: str) -> int:
+    """The card's lifted odometry init against the host's float64 one, and
+    a verdict-loop solve from it.  Returns the solve's B2 launches."""
+    X0 = rbcd.centralized_odometry_init(prob.part, prob.meta, prob.graph,
+                                        torch.float32)
+    host = rbcd.prepare_problem(meas, ROBOTS, params, dtype=torch.float64,
+                                device="cpu", init="odometry")
+    err = float((X0.double().cpu() - host.X0).abs().max())
+    scale = float(host.X0[..., -1].abs().max())
+    rk.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = rbcd.solve_rbcd(meas, ROBOTS, params, max_iters=MAX_ITERS,
+                          grad_norm_tol=GRAD_TOL, init="odometry",
+                          verdict_every=ODO_K, dtype=torch.float32,
+                          device=dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    launches = rk.LAUNCHES
+    enqueued = rbcd.rounds_enqueued(res.iterations, max_iters=MAX_ITERS,
+                                    eval_every=1, verdict_every=ODO_K)
+    costs = res.cost_history
+    emit({"phase": "odometry_init", "card": card,
+          "max_abs_dX0_card_vs_host_f64": err, "max_abs_translation": scale,
+          "limit": ODO_RTOL * scale, "verdict_every": ODO_K,
+          "iterations": res.iterations, "terminated_by": res.terminated_by,
+          "cost_first": costs[0], "cost_final": costs[-1],
+          "grad_norm_final": res.grad_norm_history[-1], "solve_s": t1 - t0,
+          "launches": {"rtr_full": launches}, "rounds_enqueued": enqueued})
+    check(err <= ODO_RTOL * scale,
+          "the card's odometry init leaves the host's float64 one")
+    check(bool(np.isfinite(costs).all()) and costs[-1] < costs[0],
+          "the solve from the odometry init did not lower the cost")
+    check(launches == enqueued and res.iterations > 0,
+          "the odometry-init solve did not launch B2 once per round")
+    return launches
+
+
+def robust_iterated_phase(dev, card: str) -> int:
+    """``solve_rbcd_robust_iterated`` on the GNC stand-in through the
+    kernel and through the plain "ell" formulation, with the per-pass
+    round counts (recorded at ``rbcd.solve_rbcd``).  Returns the kernel
+    run's B2 launches."""
+    meas = gnc_standin()
+    params = gnc_params()
+    plain = dataclasses.replace(params, solver=dataclasses.replace(
+        params.solver, pallas_tcg=False))
+    kw = dict(passes=ITER_PASSES, init="chordal", max_iters=SCHED_MAX_ITERS,
+              eval_every=SCHED_EVAL_EVERY, verdict_every=ITER_K,
+              grad_norm_tol=GRAD_TOL, dtype=torch.float32, device=dev)
+    passes = []
+    orig = rbcd.solve_rbcd
+
+    def recording(*a, **k):
+        r = orig(*a, **k)
+        passes.append({"iterations": r.iterations,
+                       "terminated_by": r.terminated_by})
+        return r
+
+    rbcd.solve_rbcd = recording
+    try:
+        rk.LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, w, kept = rbcd.solve_rbcd_robust_iterated(meas, ROBOTS, params,
+                                                       **kw)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        launches = rk.LAUNCHES
+        kernel_passes = list(passes)
+        passes.clear()
+        _, w_ell, kept_ell = rbcd.solve_rbcd_robust_iterated(
+            meas, ROBOTS, plain, **kw)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    finally:
+        rbcd.solve_rbcd = orig
+    enqueued = sum(rbcd.rounds_enqueued(
+        p["iterations"], max_iters=SCHED_MAX_ITERS,
+        eval_every=SCHED_EVAL_EVERY, verdict_every=ITER_K)
+        for p in kernel_passes)
+    outlier_idx = np.arange(len(meas) - SCHED_OUTLIERS, len(meas))
+    prec, rec, n_rej = rejection_scores(w, meas, outlier_idx)
+    row = {"phase": "robust_iterated", "card": card,
+           "measurements": len(meas), "outliers": SCHED_OUTLIERS,
+           "passes": kernel_passes, "iterations": res.iterations,
+           "verdict_every": ITER_K, "solve_s": t1 - t0,
+           "precision": prec, "recall": rec, "rejected": n_rej,
+           "kept": int(kept.sum()),
+           "outliers_below_half": int((w[-SCHED_OUTLIERS:] < 0.5).sum()),
+           "inliers_below_half": int((w[:-SCHED_OUTLIERS] < 0.5).sum()),
+           "ell": {"passes": passes, "solve_s": t2 - t1,
+                   "kept": int(kept_ell.sum()),
+                   "kept_flips": int((kept != kept_ell).sum()),
+                   "precision_recall": rejection_scores(
+                       w_ell, meas, outlier_idx)[:2]},
+           "launches": {"rtr_full": launches}, "rounds_enqueued": enqueued}
+    emit(row)
+    check(bool(np.isfinite(w).all()) and res.iterations > 0,
+          "the iterated solve is malformed")
+    check(row["outliers_below_half"] >= 0.9 * SCHED_OUTLIERS,
+          "iterated GNC kept injected outliers")
+    check(row["inliers_below_half"]
+          <= GNC_INLIER_REJECT_MAX * (len(meas) - SCHED_OUTLIERS),
+          "iterated GNC rejected too many inliers")
+    check(row["ell"]["kept_flips"] <= GNC_ELL_FLIP_MAX * len(meas),
+          "the kernel's kept mask leaves the plain formulation's")
+    check(launches == enqueued,
+          "the iterated solve did not launch B2 once per enqueued round")
+    return launches
 
 
 def main() -> int:
@@ -1096,6 +1402,8 @@ def main() -> int:
     torch.cuda.synchronize()
     t3 = time.perf_counter()
     launches = {"rtr_full": rk.LAUNCHES, "tcg": rk.TCG_LAUNCHES}
+    enqueued = rbcd.rounds_enqueued(res.iterations, params=params,
+                                    max_iters=MAX_ITERS, eval_every=1)
     costs = res.cost_history
     emit({"phase": "solve", "poses": N_POSES, "edges": len(meas),
           "robots": ROBOTS, "rank": RANK, "dtype": "float32",
@@ -1105,7 +1413,7 @@ def main() -> int:
           "setup_s": t1 - t0, "first_solve_s": first_s,
           "first_traced": profile, "solve_s": t3 - t2,
           "rounds_per_s": res.iterations / (t3 - t2),
-          "launches": launches})
+          "launches": launches, "rounds_enqueued": enqueued})
     check(res.T.shape == (N_POSES, 3, 4) and bool(torch.isfinite(res.T)
                                                    .all()),
           "the rounded trajectory is malformed")
@@ -1114,8 +1422,8 @@ def main() -> int:
           "non-finite cost or gradient norm")
     check(costs[-1] <= costs[0] and costs[-1] <= costs[-2] * (1 + 1e-6),
           "cost rose at the end")
-    check(launches["rtr_full"] == res.iterations > 0,
-          "the solve did not launch the kernel once per round")
+    check(launches["rtr_full"] == enqueued and res.iterations > 0,
+          "the solve did not launch the kernel once per enqueued round")
 
     # --- timing at the slice shape: B2 on the cluster route and on the
     # workspace route, at both operand sets, and at every cluster size ----
@@ -1168,6 +1476,12 @@ def main() -> int:
         emit({"phase": "profile", "path": "solve", "card": card,
               **profile_run(solve)})
 
+    # --- the verdict loop: parity with the per-eval run above, a sync-free
+    # window, the production arm ---------------------------------------------
+    _, verdict_b2 = verdict_parity(prob, res, card)
+    verdict_window(prob, params, dev, card)
+    _, prod_b2 = production_arm(prob, params, card, profile)
+
     # --- the ablation: B3's path ------------------------------------------
     ab = ablate_phase(dev, card)
     b3_t = {where: route_timing(rk.rtr, o3, b3_kw, outs[where][1])
@@ -1189,11 +1503,15 @@ def main() -> int:
 
     # --- the rest of the round: every schedule, Nesterov, GNC --------------
     sched_b2 = schedules_phase(prob, dev, card)
+    odo_b2 = odometry_phase(prob, meas, params, dev, card)
+    iter_b2 = robust_iterated_phase(dev, card)
 
     b4_row, descent_b2 = refine_phase(prob, meas, card, profile)
     rows.append(b4_row)
-    b2_row["launches_by_path"].update(ablate=ab["rtr_full"],
-                                      schedules=sched_b2, refine=descent_b2)
+    b2_row["launches_by_path"].update(
+        ablate=ab["rtr_full"], schedules=sched_b2, refine=descent_b2,
+        verdict=verdict_b2 + prod_b2, odometry_init=odo_b2,
+        robust_iterated=iter_b2)
     for row in rows:
         row["launches"] = sum(row["launches_by_path"].values())
     rows.sort(key=lambda r: r["replaces"])

@@ -34,11 +34,11 @@ class RobustCostType(enum.Enum):
 class Schedule(enum.Enum):
     """Block-update schedule for distributed RBCD.
 
-    JACOBI updates every agent each round.  GREEDY (one agent per round by
-    largest block gradient norm), ASYNC (independent Bernoulli clocks) and
-    COLORED (one color class of the agent coloring per round) are defined
-    so configurations stay interchangeable with the JAX package; the port's
-    round raises ``NotImplementedError`` for them until they are ported.
+    JACOBI updates every agent each round; GREEDY one agent per round, the
+    one with the largest block gradient norm; ASYNC the agents whose
+    independent Bernoulli clocks fire; COLORED one color class of the
+    agent coloring per round.  The port runs all four
+    (``models.rbcd._rbcd_round``).
     """
 
     GREEDY = "greedy"

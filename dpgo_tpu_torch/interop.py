@@ -3,7 +3,8 @@
 DPGO has no model weights: its parameters are the problem (the per-agent
 graph) and the solver state.  ``graph_from_numpy``, ``state_from_numpy``
 and ``refine_consts_from_numpy`` turn the JAX package's
-``MultiAgentGraph`` / ``RBCDState`` / ``refine.RefineConstants`` — given
+``MultiAgentGraph`` / ``RBCDState`` / ``refine.RefineConstants`` (and
+``verdict_state_from_numpy`` its ``VerdictState``) — given
 as mappings or NamedTuples whose leaves are numpy arrays, e.g.
 ``jax.tree.map(np.asarray, graph)`` — into this package's, so both
 packages can be fed identical inputs.  The refinement's float64 host
@@ -18,7 +19,7 @@ import numpy as np
 import torch
 
 from .device import resolve_device
-from .models.rbcd import GraphMeta, MultiAgentGraph, RBCDState
+from .models.rbcd import GraphMeta, MultiAgentGraph, RBCDState, VerdictState
 from .models.refine import RefineConstants
 from .types import EdgeSet
 
@@ -128,3 +129,27 @@ def refine_consts_from_numpy(arrays, device="cuda") -> RefineConstants:
         k: None if a.get(k) is None else torch.as_tensor(
             np.array(a[k], np.float32), device=device)
         for k in RefineConstants._fields})
+
+
+def verdict_state_from_numpy(arrays, dtype: torch.dtype | None = None,
+                             device="cuda") -> VerdictState:
+    """A ``VerdictState`` from the JAX package's: the counters and word as
+    int32, the stall latch as bool, the costs and the history in ``dtype``
+    (default: the history's type)."""
+    device = resolve_device(device)
+    a = _fields(arrays)
+    if dtype is None:
+        dtype = torch.float64 if np.asarray(a["hist"]).dtype == np.float64 \
+            else torch.float32
+    ints = ("word", "eval_idx", "term_eval", "term_it", "stage", "stall_len")
+    out = {}
+    for k in VerdictState._fields:
+        x = np.array(a[k])
+        if k in ints:
+            out[k] = torch.as_tensor(x.astype(np.int32), device=device)
+        elif k == "stall_fired":
+            out[k] = torch.as_tensor(x.astype(bool), device=device)
+        else:
+            out[k] = torch.as_tensor(x.astype(np.float64), dtype=dtype,
+                                     device=device)
+    return VerdictState(**out)

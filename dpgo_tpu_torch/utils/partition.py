@@ -58,3 +58,15 @@ def partition_contiguous(meas: Measurements, num_robots: int) -> Partition:
                                 r2=robot_of[g2], p2=local_of[g2])
     return Partition(num_robots=num_robots, meas=local, n=n,
                      global_index=global_index, meas_global=meas)
+
+
+def gather_poses_to_global(X, part: Partition) -> np.ndarray:
+    """Per-agent pose array ``[A, n_max, ...]`` -> global ``[N, ...]``
+    (numpy) through the partition's index table alone.  The pose layout
+    depends only on ``num_poses``, so a filtered problem's iterate gathers
+    with the full measurement set's partition."""
+    X = np.asarray(X)
+    out = np.zeros((int(part.meas_global.num_poses),) + X.shape[2:], X.dtype)
+    valid = part.global_index >= 0
+    out[part.global_index[valid]] = X[valid]
+    return out

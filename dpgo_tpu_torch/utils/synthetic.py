@@ -1,11 +1,12 @@
 """Synthetic pose graphs (numpy), the port's copy of
-``dpgo_tpu.utils.synthetic.make_measurements``: for the same
-``np.random.default_rng`` state both packages draw the same stream and
-return bit-identical measurements."""
+``dpgo_tpu.utils.synthetic``: ``make_measurements``, the loop-closure
+corruption protocols (independent and correlated) and the rejection
+scores.  For the same ``np.random.default_rng`` state both packages draw
+the same stream and return bit-identical measurements."""
 
 import numpy as np
 
-from ..types import Measurements
+from ..types import Measurements, loop_closure_mask
 from . import lie
 
 
@@ -90,3 +91,184 @@ def make_measurements(rng, n, d=3, num_lc=5, rot_noise=0.0, trans_noise=0.0,
     )
     return meas, (Rs, ts)
 
+
+def corrupt_loop_closures(meas: Measurements, fraction: float, rng=None,
+                          seed: int = 0):
+    """Replace a random ``fraction`` of the loop closures with gross
+    outliers (the GNC-paper corruption protocol).
+
+    The reference's GNC machinery (``src/DPGO_robust.cpp:23-103``,
+    ``src/PGOAgent.cpp:1181-1245``) exists to survive corrupted loop
+    closures, but its repo ships no corrupted datasets or injection
+    protocol — this is the standard one used by the robust-PGO
+    literature: keep odometry trusted, pick round(fraction * num_lc)
+    loop closures uniformly at random, and overwrite each with a
+    uniformly random rotation and a random translation at the scale of
+    the trajectory's own extent (so the outliers are gross but not
+    astronomically out of distribution; precisions are kept, as the
+    corrupted edge still CLAIMS the dataset noise model).
+
+    ``meas`` must be globally indexed (as from ``read_g2o``).  Returns
+    ``(corrupted, outlier_idx)`` where ``outlier_idx`` are the global
+    measurement indices that were overwritten — the ground truth for
+    precision/recall scoring of GNC edge rejection.
+    """
+    rng = rng or np.random.default_rng(seed)
+    d = meas.d
+    lc_idx = np.flatnonzero(loop_closure_mask(meas))
+    k = int(round(fraction * lc_idx.size))
+    outlier_idx = np.sort(rng.choice(lc_idx, size=k, replace=False))
+
+    out = meas.select(np.arange(len(meas)))  # fancy indexing copies every field
+    out.weight = np.ones(len(meas))
+    if k:
+        out.R[outlier_idx] = _project_rotations_np(
+            rng.standard_normal((k, d, d)))
+        # Translation scale from the data itself: outlier norms uniform in
+        # [0, 2 * the 95th-percentile measured translation norm].
+        scale = 2.0 * float(np.percentile(np.linalg.norm(meas.t, axis=1), 95))
+        dirs = rng.standard_normal((k, d))
+        dirs /= np.maximum(np.linalg.norm(dirs, axis=1, keepdims=True), 1e-12)
+        out.t[outlier_idx] = dirs * rng.uniform(0.0, scale, (k, 1))
+    return out, outlier_idx
+
+
+def integrate_odometry_np(meas: Measurements):
+    """Dead-reckoned world poses from the odometry chain (global indexing):
+    ``X_{p+1} = X_p * meas_{p->p+1}``.  The pose estimates a front-end
+    would hold — and therefore the frame in which perceptually-aliased
+    loop closures are self-consistent."""
+    d = meas.d
+    n = meas.num_poses
+    Rs = np.zeros((n, d, d))
+    ts = np.zeros((n, d))
+    Rs[0] = np.eye(d)
+    odo = {}
+    same = meas.r1 == meas.r2
+    for k in np.flatnonzero(same & (meas.p2 == meas.p1 + 1)):
+        odo[int(meas.p1[k])] = k
+    for p in range(n - 1):
+        k = odo.get(p)
+        if k is None:  # gap in the chain: restart at identity (rare)
+            Rs[p + 1] = np.eye(d)
+            ts[p + 1] = ts[p]
+            continue
+        Rs[p + 1] = Rs[p] @ meas.R[k]
+        ts[p + 1] = ts[p] + Rs[p] @ meas.t[k]
+    return Rs, ts
+
+
+def corrupt_loop_closures_correlated(
+    meas: Measurements, fraction: float, clusters: int | None = None,
+    rng=None, seed: int = 0, rot_noise: float = 0.005,
+    trans_noise: float = 0.01, min_separation_frac: float = 0.1,
+):
+    """Perceptual-aliasing corruption: clusters of MUTUALLY CONSISTENT
+    false loop closures (the hard case).
+
+    ``corrupt_loop_closures`` injects independent uniform-random gross
+    edges — the regime GNC-TLS provably crushes (measured recall 1.000 at
+    every level).  The failure mode that actually breaks single-anneal
+    GNC in the robust-SLAM literature is CORRELATED: a front-end that
+    aliases two similar-looking places emits a whole cluster of loop
+    closures, all consistent with ONE wrong relative transform between
+    two trajectory segments.  Inside the cluster the edges corroborate
+    each other, so per-edge residual tests can lock onto the wrong mode.
+
+    Protocol: round(fraction * num_lc) false edges split into
+    ``clusters`` groups (default: ~15 edges each).  Each group picks two
+    well-separated same-length segments [a, a+m) and [b, b+m) of the
+    dead-reckoned trajectory (``integrate_odometry_np``), draws one
+    gross transform ``T`` (uniform random rotation, translation at the
+    trajectory scale), and overwrites m existing loop closures with
+    edges (a+i) -> (b+i) whose measurements are exactly consistent with
+    "segment B sits at T relative to segment A" plus small i.i.d. noise
+    — i.e. ``R_meas = R_a^T (R_T R_b)``, ``t_meas = R_a^T (R_T t_b +
+    t_T - t_a)`` in the dead-reckoned frame.  Precisions are kept
+    (the false edges claim the dataset's own noise model).
+
+    Returns ``(corrupted, outlier_idx)`` like ``corrupt_loop_closures``.
+    Reference machinery under test: ``src/DPGO_robust.cpp:23-103``,
+    ``src/PGOAgent.cpp:1181-1245``.
+    """
+    rng = rng or np.random.default_rng(seed)
+    d = meas.d
+    n = meas.num_poses
+    lc_idx = np.flatnonzero(loop_closure_mask(meas))
+    k_total = int(round(fraction * lc_idx.size))
+    if clusters is None:
+        clusters = max(1, k_total // 15)
+    clusters = min(clusters, max(1, k_total))
+    outlier_idx = np.sort(rng.choice(lc_idx, size=k_total, replace=False))
+
+    Rs, ts = integrate_odometry_np(meas)
+    extent = 2.0 * float(np.percentile(np.linalg.norm(meas.t, axis=1), 95))
+    min_sep = int(min_separation_frac * n)
+
+    out = meas.select(np.arange(len(meas)))
+    out.weight = np.ones(len(meas))
+    sizes = np.full(clusters, k_total // clusters)
+    sizes[: k_total - sizes.sum()] += 1
+    pos = 0
+    for c in range(clusters):
+        m = int(sizes[c])
+        if m == 0:
+            continue
+        for _ in range(200):  # rejection-sample well-separated segments
+            a = int(rng.integers(0, n - m))
+            b = int(rng.integers(0, n - m))
+            if abs(a - b) >= max(min_sep, m):
+                break
+        else:
+            # Unsatisfiable geometry (cluster size ~ graph size): falling
+            # through would silently create overlapping or self-loop
+            # segments, breaking the two-distinct-places invariant the
+            # aliasing protocol models.
+            raise ValueError(
+                f"cannot place two disjoint segments of {m} poses "
+                f">= {max(min_sep, m)} apart in a {n}-pose graph; "
+                "reduce fraction or increase clusters")
+        R_T = random_rotation(rng, d)
+        t_T = rng.standard_normal(d)
+        t_T *= rng.uniform(0.3, 1.0) * extent / max(np.linalg.norm(t_T),
+                                                    1e-12)
+        rows = outlier_idx[pos:pos + m]
+        pos += m
+        for i, row in enumerate(rows):
+            ia, ib = a + i, b + i
+            Rb = R_T @ Rs[ib]
+            tb = R_T @ ts[ib] + t_T
+            Rm = Rs[ia].T @ Rb
+            tm = Rs[ia].T @ (tb - ts[ia])
+            # Small in-cluster noise so edges corroborate, not duplicate.
+            Rm = _project_rotations_np(
+                (Rm + rot_noise * rng.standard_normal((d, d)))[None])[0]
+            tm = tm + trans_noise * rng.standard_normal(d)
+            out.p1[row], out.p2[row] = ia, ib  # r1/r2 stay 0 (global ids)
+            out.R[row] = Rm
+            out.t[row] = tm
+            out.is_known_inlier[row] = False  # aliasing is never "known"
+    return out, outlier_idx
+
+
+def rejection_scores(weights: np.ndarray, meas: Measurements,
+                     outlier_idx: np.ndarray, thresh: float = 0.5):
+    """Precision/recall of GNC edge rejection against injected ground truth.
+
+    ``weights`` are final per-measurement GNC weights ([M], as in
+    ``RBCDResult.weights``); an edge is *rejected* when its weight falls
+    below ``thresh``.  ALL edges count, not just the global loop-closure
+    mask: interior odometry keeps weight 1 by construction, but
+    globally-consecutive edges that span a robot boundary are shared
+    edges the solver CAN reweight (``types.loop_closure_mask`` note) —
+    a false rejection there must count against precision.
+    Returns ``(precision, recall, n_rejected)``.
+    """
+    rejected = np.asarray(weights) < thresh
+    truth = np.zeros(len(meas), bool)
+    truth[outlier_idx] = True
+    tp = int(np.sum(rejected & truth))
+    n_rej = int(np.sum(rejected))
+    precision = tp / n_rej if n_rej else 1.0
+    recall = tp / truth.sum() if truth.any() else 1.0
+    return precision, recall, n_rej

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card, against their plain PyTorch
 versions (``dpgo_tpu_torch.ops.rtr_kernel``), the launch counts of the
-solve, of a GREEDY round and of the refinement, and fused segments free of
-host syncs.  Every test needs a CUDA device and skips without one.
+solve, of a GREEDY round and of the refinement, fused segments and verdict
+windows free of host syncs, and the verdict loop against the per-eval loop.
+Every test needs a CUDA device and skips without one.
 
 This file imports no JAX, so it also runs where only PyTorch is installed:
 
@@ -152,6 +153,79 @@ def test_segment_has_no_host_sync(card, params, flags):
     assert bool(torch.isfinite(state.X).all())
 
 
+def _verdict_setup(card, K=4):
+    prob, params, X, _, _ = _round(card)
+    part = prob.part
+    edges_g = rbcd.edge_set_from_measurements(part.meas_global,
+                                              dtype=torch.float32,
+                                              device=card)
+    step = rbcd.make_verdict_program(
+        prob.graph, edges_g, part.meas_global.num_poses,
+        len(part.meas_global), False, grad_norm_tol=0.0)
+    vs = rbcd.init_verdict_state(K, 4, torch.float32, False, device=card)
+    return prob, params, step, vs, rbcd.init_state(prob.graph, prob.meta, X,
+                                                   params)
+
+
+def test_verdict_window_has_no_host_sync(card):
+    """K rounds of segments and verdict steps, and the start of the word's
+    copy to the host, with every host sync an error."""
+    K = 4
+    prob, params, step, vs, state = _verdict_setup(card, K)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(K):
+            state = rbcd.rbcd_segment(state, prob.graph, 1, prob.meta,
+                                      params)
+            vs = step(state.X, state.weights, state.ready, state.mu,
+                      state.rel_change, state.iteration, vs)
+        copy = rbcd._start_fetch(vs.word)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int(rbcd._host_fetch(copy)) == int(vs.word)
+    assert int(vs.eval_idx) == K
+    assert bool(torch.isfinite(vs.hist).all())
+
+
+def test_word_fetch_waits_on_its_copy_not_the_stream(card):
+    """The pinned copy's event, not the stream: the fetch returns the
+    pre-speculation word while work enqueued after the copy still runs."""
+    prob, params, step, vs, state = _verdict_setup(card)
+    vs = step(state.X, state.weights, state.ready, state.mu,
+              state.rel_change, state.iteration, vs)
+    torch.cuda.synchronize()
+    expect = int(vs.word)
+    copy = rbcd._start_fetch(vs.word)
+    torch.cuda._sleep(200_000_000)
+    spec = rbcd.rbcd_segment(state, prob.graph, 1, prob.meta, params)
+    spec_vs = step(spec.X, spec.weights, spec.ready, spec.mu,
+                   spec.rel_change, spec.iteration, vs)
+    word = int(rbcd._host_fetch(copy))
+    busy = not torch.cuda.current_stream().query()
+    torch.cuda.synchronize()
+    assert word == expect
+    assert busy
+    assert int(spec_vs.eval_idx) == 2
+
+
+def test_verdict_loop_matches_per_eval_loop_bitwise(card):
+    meas = make_measurements(np.random.default_rng(3), n=200, d=3,
+                             num_lc=60, rot_noise=0.02,
+                             trans_noise=0.02)[0]
+    params = AgentParams(d=3, r=5, num_robots=4, rel_change_tol=0.0)
+    kw = dict(max_iters=60, grad_norm_tol=0.05, eval_every=2)
+    a = rbcd.solve_rbcd(meas, 4, params, **kw)
+    before = rk.LAUNCHES
+    b = rbcd.solve_rbcd(meas, 4, params, verdict_every=8, **kw)
+    launches = rk.LAUNCHES - before
+    assert a.cost_history == b.cost_history
+    assert a.grad_norm_history == b.grad_norm_history
+    assert (a.iterations, a.terminated_by) == (b.iterations, b.terminated_by)
+    assert launches == rbcd.rounds_enqueued(b.iterations, max_iters=60,
+                                            eval_every=2, verdict_every=8)
+
+
 def test_tcg_kernel_matches_plain_version(card):
     prob, params, X, Z, chol = _round(card)
     g, m = prob.graph, prob.meta
@@ -180,7 +254,10 @@ def test_solve_launches_kernel_once_per_round(card):
                              trans_noise=0.02)[0]
     before = rk.LAUNCHES
     res = rbcd.solve_rbcd(meas, 4, max_iters=30, grad_norm_tol=0.1)
-    assert rk.LAUNCHES - before == res.iterations > 0
+    # One launch per round, the discarded speculative segment included.
+    assert rk.LAUNCHES - before == rbcd.rounds_enqueued(
+        res.iterations, max_iters=30, eval_every=1)
+    assert res.iterations > 0
     plain = AgentParams(d=3, r=5, num_robots=4,
                         solver=SolverParams(pallas_tcg=False))
     ref = rbcd.solve_rbcd(meas, 4, plain, max_iters=res.iterations,

@@ -124,7 +124,9 @@ def test_port_imports_no_jax():
     code = ("import sys; import dpgo_tpu_torch, chip_smoke; "
             "import dpgo_tpu_torch.interop, dpgo_tpu_torch.models.rbcd, "
             "dpgo_tpu_torch.models.refine, dpgo_tpu_torch.robust, "
-            "dpgo_tpu_torch.experiments.measure_r3; "
+            "dpgo_tpu_torch.experiments.measure_r3, dpgo_tpu_torch.obs, "
+            "dpgo_tpu_torch.obs.health, dpgo_tpu_torch.ops.chordal, "
+            "dpgo_tpu_torch.utils.partition, dpgo_tpu_torch.utils.synthetic; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'dpgo_tpu')); print(bad); "
             "sys.exit(1 if bad else 0)")

@@ -123,23 +123,29 @@ def test_forced_kernel_that_cannot_run_raises():
 @pytest.mark.parametrize("entry", ["dense_quadratic", "verdict_every",
                                    "robust_iterated", "odometry_init"])
 def test_unported_paths_raise(entry):
+    """Each id names an entry point; each reaches a part that is still to
+    port, and the raise names its ROADMAP item: dense Q (A4.5), the
+    verdict loop's epilogue with a certificate (A5.1), and the
+    distributed init behind the iterated and the plain solve (A6)."""
     prob = _port_problem(dtype=torch.float64)
     meas = prob.part.meas_global
+    gnc = AgentParams(robust=RobustCostParams(
+        cost_type=RobustCostType.GNC_TLS))
 
     def dispatch(params, **kw):
         p = rbcd.PreparedProblem(prob.part, prob.graph, prob.meta, params,
                                  prob.dtype, prob.X0)
         return rbcd.dispatch_prepared(p, max_iters=2, **kw)
 
-    call = {
-        "dense_quadratic": lambda: dispatch(
-            AgentParams(solver=SolverParams(dense_quadratic=True))),
-        "verdict_every": lambda: dispatch(AgentParams(), verdict_every=4),
-        "robust_iterated": lambda: rbcd.solve_rbcd_robust_iterated(
-            meas, 3, AgentParams(robust=RobustCostParams(
-                cost_type=RobustCostType.GNC_TLS)), device="cpu"),
-        "odometry_init": lambda: rbcd.solve_rbcd(
-            meas, 3, max_iters=2, init="odometry", device="cpu"),
+    call, item = {
+        "dense_quadratic": (lambda: dispatch(
+            AgentParams(solver=SolverParams(dense_quadratic=True))), "A4.5"),
+        "verdict_every": (lambda: dispatch(
+            AgentParams(certify_mode="device"), verdict_every=2), "A5.1"),
+        "robust_iterated": (lambda: rbcd.solve_rbcd_robust_iterated(
+            meas, 3, gnc, init="distributed", device="cpu"), "A6"),
+        "odometry_init": (lambda: rbcd.solve_rbcd(
+            meas, 3, max_iters=2, init="distributed", device="cpu"), "A6"),
     }[entry]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match=f"{item} in ROADMAP"):
         call()
