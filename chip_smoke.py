@@ -36,7 +36,26 @@ synthetic stand-in for sphere2500 (2500 poses, 4948 edges, 8 robots, rank
   float64 one, and ``solve_rbcd(init="odometry", verdict_every=8)``;
 * ``robust_iterated`` — ``solve_rbcd_robust_iterated`` (2 passes, chordal
   init, K = 50) on the GNC stand-in, with the GNC row's gates and the
-  plain "ell" formulation's ``kept`` mask beside the kernel's.
+  plain "ell" formulation's ``kept`` mask beside the kernel's;
+* ``certify`` — (a) bench_convergence.py's f* protocol in float64 on the
+  card (``local_pgo.solve_local`` at rank 5 to gradient norm 1e-9, then
+  ``certify.certify_solution``) and the deflated device payload on the
+  same iterate, each eigensolve held against ``torch.linalg.eigvalsh`` of
+  the assembled S on the card (an oracle only) and reported, the host
+  float64 eigensolve (``certify.lambda_min_f64_shift_invert``) gated
+  against it and every verdict gated for soundness against that; (b) the slice's main path, ``solve`` with
+  ``certify_mode="device"`` through the verdict loop (K = 8), kernel B2
+  once per round and the certificate payload in the one terminal fetch
+  (fetches = words + 1), the certified epilogue run again under the
+  sync-error debug mode and timed, a 20-iteration payload traced with
+  ``torch.profiler`` and the small eigensolves timed, its verdict
+  checked for soundness
+  against the host float64 eigensolve on the fetched iterate, and one
+  ``certify_mode="host"`` run through the per-eval loop; (c)
+  ``certify.solve_staircase`` in float64 on the stand-in from rank 4,
+  its verdict held for soundness against the host float64 eigensolve,
+  and the staircase's loop from the wound critical point of
+  ``make_stitched_winding`` (fails at rank 2, escapes, certifies).
 
 Every launch gate is exact: the rounds each run enqueued, the per-eval
 loop's discarded speculative segment and the verdict loop's polish and
@@ -85,11 +104,14 @@ from dpgo_tpu_torch import robust  # noqa: E402
 from dpgo_tpu_torch.config import (AgentParams, RobustCostParams,  # noqa: E402
                                    RobustCostType, Schedule, SolverParams)
 from dpgo_tpu_torch.experiments import measure_r3  # noqa: E402
-from dpgo_tpu_torch.models import rbcd, refine  # noqa: E402
+from dpgo_tpu_torch.models import (certify, local_pgo, rbcd,  # noqa: E402
+                                   refine)
+from dpgo_tpu_torch.ops import quadratic, solver  # noqa: E402
 from dpgo_tpu_torch.ops import rtr_kernel as rk  # noqa: E402
 from dpgo_tpu_torch.utils import partition  # noqa: E402
+from dpgo_tpu_torch.types import edge_set_from_measurements  # noqa: E402
 from dpgo_tpu_torch.utils.synthetic import (  # noqa: E402
-    make_measurements, rejection_scores)
+    make_measurements, make_stitched_winding, rejection_scores)
 
 #: The main path's problem: bench.py's synthetic sphere2500 stand-in.
 N_POSES, NUM_LC, ROBOTS, RANK = 2500, 2449, 8, 5
@@ -138,6 +160,14 @@ ODO_RTOL = 1e-4
 #: GPU cycles the card spins (``torch.cuda._sleep``) after the word's copy
 #: starts, so a fetch that waited on the stream would be seen waiting.
 SPIN_CYCLES = 200_000_000
+#: The certify phase: bench_convergence.py's f* solve (rank, gradient
+#: tolerance, iteration cap; float64); K of the certified solve; the
+#: agreement of an eigenvalue with the dense oracle's, relative to
+#: max(1, |lambda|); the staircase's lowest rank on
+#: the stand-in, its top rank, and the wound instance (cycles, length).
+CERT_RANK, CERT_GTOL, CERT_MAX_ITERS, CERT_K = 5, 1e-9, 1000, 8
+CERT_LAM_TOL = 1e-6
+STAIR_R_MIN, STAIR_R_MAX, WIND_CYCLES, WIND_LEN = 4, 6, 8, 16
 #: Published H100 SXM peaks (dense FP32 outside the tensor cores; HBM3).
 PEAK_FP32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
 
@@ -217,6 +247,7 @@ def profile_run(fn) -> dict:
             "device_busy_s": device_us / 1e6,
             "device_busy_share": device_us / 1e6 / wall,
             "device_kernels": len(rows),
+            "device_kernel_calls": sum(r[2] for r in rows),
             "top": [{"name": k[:60], "device_ms": t / 1e3, "calls": c}
                     for k, t, c in rows[:8]],
             "top_host": [{"name": k[:60], "host_ms": t / 1e3, "calls": c}
@@ -1235,6 +1266,422 @@ def robust_iterated_phase(dev, card: str) -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The certify phase
+# ---------------------------------------------------------------------------
+
+def dense_spectrum(X64: np.ndarray, edges, dev, k: int) -> list[float]:
+    """The oracle (a check only, never the path): the ``k`` smallest
+    eigenvalues of the assembled S (``certify.sparse_certificate``,
+    float64), ascending, by ``torch.linalg.eigvalsh`` on the card."""
+    S = certify.sparse_certificate(X64, edges).tocsr()
+    St = torch.sparse_csr_tensor(
+        torch.as_tensor(S.indptr, dtype=torch.int64),
+        torch.as_tensor(S.indices, dtype=torch.int64),
+        torch.as_tensor(S.data), size=S.shape).to(dev).to_dense()
+    lam = torch.linalg.eigvalsh(St)[:k].cpu().tolist()
+    del St
+    torch.cuda.empty_cache()
+    return lam
+
+
+def kept_gauge_directions(X64: np.ndarray) -> int:
+    """How many left-singular directions of X's rows the deflated payload
+    keeps (``sv > max(sv) sqrt(eps)``, ``device_certificate_payload``),
+    by numpy's SVD."""
+    n, r, dh = X64.shape
+    sv = np.linalg.svd(X64.transpose(1, 0, 2).reshape(r, n * dh),
+                       compute_uv=False)
+    return int(np.sum(sv > sv.max() * np.sqrt(np.finfo(np.float64).eps)))
+
+
+def host_lambda_min(X64: np.ndarray, edges, tol: float,
+                    warm) -> tuple[float, float]:
+    """The host float64 tier on ``X64``: ``certify.
+    lambda_min_f64_shift_invert`` (scipy; the route ``lambda_min_f64``
+    takes from 50k dimensions — at the stand-in's 10,000 its plain LOBPCG
+    does not converge), warm-started from the card's direction:
+    (lambda_min, residual)."""
+    lam, _, resid = certify.lambda_min_f64_shift_invert(
+        X64, edges, tol, warm=None if warm is None else np.asarray(warm))
+    return lam, resid
+
+
+def lam_agrees(a: float, b: float) -> bool:
+    return abs(a - b) <= CERT_LAM_TOL * max(1.0, abs(b))
+
+
+def rtr_host_reads(edges, n: int, dev, iters: int = 10) -> dict:
+    """Host reads of ``solver.rtr_solve`` per outer iteration on the card:
+    ``iters`` iterations from the lifted chordal init with every
+    synchronizing operation a warning (counted), the tCG iterations each
+    took recorded on the device and read afterwards."""
+    import warnings
+
+    from dpgo_tpu_torch.utils.lie import lifting_matrix
+
+    problem = local_pgo.make_problem(edges, n)
+    X0 = local_pgo.lift(local_pgo.initial_poses(edges, n, "chordal"),
+                        lifting_matrix(CERT_RANK, 3, edges.R.dtype, dev))
+    params = SolverParams(initial_radius=1e1, max_inner_iters=50)
+    tcg_iters = []
+    orig = solver.truncated_cg
+
+    def recording(*a, **k):
+        out = orig(*a, **k)
+        tcg_iters.append(out.iters)
+        return out
+
+    solver.truncated_cg = recording
+    torch.cuda.synchronize()
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                solver.rtr_solve(problem, X0, params, max_iters=iters,
+                                 grad_norm_tol=0.0)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+    finally:
+        solver.truncated_cg = orig
+    reads = sum("synchronizing" in str(w.message) for w in seen)
+    tcg = sum(int(t) for t in tcg_iters)
+    return {"outer_iterations": iters, "host_reads": reads,
+            "host_reads_per_outer_iteration": reads / iters,
+            "tcg_iterations_per_outer_iteration": tcg / iters,
+            "reads_predicted": 2 * iters + tcg}
+
+
+def certificate_profile(Xg, edges, inc, card: str) -> dict:
+    """Where the certificate stage's time goes: a payload with 20 LOBPCG
+    iterations traced by ``torch.profiler`` (device busy share, kernel
+    launches), and the small eigensolves of LOBPCG timed alone."""
+    from dpgo_tpu_torch.ops import smallmat
+
+    iters = 20
+    prof = profile_run(lambda: certify.device_certificate_payload(
+        Xg, edges, 0, lobpcg_iters=iters, inc=inc) and iters)
+    g = torch.Generator(device=Xg.device).manual_seed(0)
+    eigh_ms = {}
+    for n in (4, 12):
+        B = torch.randn(n, n, generator=g, device=Xg.device,
+                        dtype=Xg.dtype)
+        eigh_ms[f"{n}x{n}"] = cuda_ms(
+            lambda: smallmat.eigh_small(B + B.T), reps=5)
+    row = {"phase": "certify", "check": "profile", "card": card,
+           "dtype": str(Xg.dtype), "lobpcg_iters": iters,
+           "wall_s": prof["wall_s"], "device_busy_s": prof["device_busy_s"],
+           "device_busy_share": prof["device_busy_share"],
+           "kernel_calls": prof["device_kernel_calls"],
+           "top_host": prof["top_host"][:4], "eigh_small_ms": eigh_ms}
+    emit(row)
+    return row
+
+
+def certify_fstar(meas, dev, card: str) -> dict:
+    """(a) bench_convergence.py's f* protocol on the card in float64:
+    ``solve_local`` then ``certify_solution`` (the JAX package's
+    non-deflated LOBPCG); beside it the gauge-deflated device payload on
+    the same iterate.  Each eigensolve is held against the dense oracle's
+    spectrum: ``certify_solution``'s lambda_min against its smallest
+    eigenvalue, the deflated solve's unclamped Ritz value against the
+    first eigenvalue past the kept gauge directions.  The gates are the
+    host float64 eigensolve's agreement with the oracle and the soundness
+    of every verdict against it; the two LOBPCG agreements are reported
+    (``lobpcg_agreement_met``), not gated: at 10,000 dimensions the
+    reference's 300 LOBPCG iterations stop short of them (PERF.md)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = local_pgo.solve_local(meas, rank=CERT_RANK,
+                                grad_norm_tol=CERT_GTOL,
+                                max_iters=CERT_MAX_ITERS, device=dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    e64 = edge_set_from_measurements(meas, dtype=torch.float64, device=dev)
+    cert = certify.certify_solution(res.X, e64)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    pay = certify.device_certificate_payload(res.X, e64, 0)
+    dcert = certify.decide_device_certificate(
+        pay, 1e-5, float(torch.finfo(torch.float64).eps))
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    e_host = edge_set_from_measurements(meas, dtype=torch.float64,
+                                        device="cpu")
+    X64 = res.X.cpu().numpy()
+    lam_host, resid = host_lambda_min(X64, e_host, dcert.tol,
+                                      dcert.direction.cpu().numpy())
+    t4 = time.perf_counter()
+    keep = kept_gauge_directions(X64)
+    spec = dense_spectrum(X64, e_host, dev, keep + 2)
+    # The deflated solve's Ritz value sigma - theta[0], unclamped: its
+    # direction lies in the range of the projector, so it equals the
+    # direction's Rayleigh quotient on S, the payload's ``rq``.
+    defl = float(pay["rq"])
+    agrees = {"certify_solution": lam_agrees(cert.lambda_min, spec[0]),
+              "deflated": lam_agrees(defl, spec[keep]),
+              "host_f64": lam_agrees(lam_host, spec[0])}
+    tol = cert.tol
+    host_certified = lam_host >= -tol
+    reads = rtr_host_reads(e64, meas.num_poses, dev)
+    row = {"phase": "certify", "check": "fstar", "card": card,
+           "dtype": "float64", "rank": CERT_RANK, "iterations": res.iters,
+           "f_star": res.cost, "grad_norm": res.grad_norm,
+           "lambda_min": cert.lambda_min, "certified": cert.certified,
+           "decidable": cert.decidable, "tol": tol,
+           "sigma": cert.sigma, "stationarity_gap": cert.stationarity_gap,
+           "deflated": {"verdict": certify.CERT_STATUS[dcert.device_verdict],
+                        "lam": dcert.lambda_min, "ritz_unclamped": defl,
+                        "defl_resid": float(pay["defl_resid"]),
+                        "kept_gauge_directions": keep},
+           "lambda_min_host_f64": lam_host, "host_f64_resid": resid,
+           "host_f64_certified": host_certified, "dense_spectrum": spec,
+           "agrees": agrees, "lobpcg_agreement_met":
+           agrees["certify_solution"] and agrees["deflated"],
+           "solve_s": t1 - t0, "certify_s": t2 - t1, "deflated_s": t3 - t2,
+           "host_f64_s": t4 - t3, "rtr_solve_host_reads": reads}
+    emit(row)
+    check(agrees["host_f64"], "the host float64 eigensolve disagrees with "
+          "the dense oracle")
+    check(host_certified, "f* at rank 5 is not certified by the host "
+          "float64 eigensolve")
+    check(not cert.certified or host_certified,
+          "certify_solution certified, but lambda_min_f64 < -tol")
+    check(dcert.device_verdict != certify.CERT_ACCEPT or host_certified,
+          "the deflated payload accepted, but lambda_min_f64 < -tol")
+    check(dcert.device_verdict != certify.CERT_FAIL or not host_certified,
+          "the deflated payload failed, but lambda_min_f64 >= -tol")
+    # Rayleigh quotients of S: never below its smallest eigenvalue.
+    lo = spec[0] - CERT_LAM_TOL * max(1.0, abs(spec[0]))
+    check(cert.lambda_min >= lo and defl >= lo,
+          "an eigensolve of the card went below the dense oracle's minimum")
+    return row
+
+
+def certify_main_path(meas, params, dev, card: str) -> tuple[dict, int]:
+    """(b) The slice's main path: the certified solve through the verdict
+    loop, counted; the certified epilogue under the sync-error mode and
+    timed; the verdict's soundness against the host float64 eigensolve;
+    one ``certify_mode="host"`` run.  Returns the B2 launches."""
+    cparams = dataclasses.replace(params, certify_mode="device")
+    prob = rbcd.prepare_problem(meas, ROBOTS, cparams, device=dev)
+    fetches = [0]
+    orig = rbcd._host_fetch
+
+    def counting(x):
+        fetches[0] += 1
+        return orig(x)
+
+    rk.LAUNCHES = 0
+    rbcd._host_fetch = counting
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = rbcd.dispatch_prepared(prob, max_iters=MAX_ITERS,
+                                     grad_norm_tol=GRAD_TOL,
+                                     verdict_every=CERT_K)
+        torch.cuda.synchronize()
+        solve_s = time.perf_counter() - t0
+    finally:
+        rbcd._host_fetch = orig
+    launches = rk.LAUNCHES
+    enqueued = rbcd.rounds_enqueued(res.iterations, max_iters=MAX_ITERS,
+                                    eval_every=1, verdict_every=CERT_K)
+    it_pre = min(-(-res.iterations // CERT_K) * CERT_K, MAX_ITERS)
+    words = -(-it_pre // CERT_K)
+    cert = res.certificate
+
+    # The certified epilogue again, every host sync an error, timed
+    # between CUDA events; and the epilogue without the certificate.
+    part, graph, meta = prob.part, prob.graph, prob.meta
+    n, m = part.meas_global.num_poses, len(part.meas_global)
+    edges_g = edge_set_from_measurements(part.meas_global,
+                                         dtype=prob.dtype, device=dev)
+    epi = rbcd.make_terminal_epilogue(graph, edges_g, n, m, meta,
+                                      certify_mode="device")
+    epi_off = rbcd.make_terminal_epilogue(graph, edges_g, n, m, meta)
+    Xa, w = res.state.X, res.state.weights
+    off_ms = cuda_ms(lambda: epi_off(Xa, w, {}), reps=3, warmup=1)
+    fin_off = epi_off(Xa, w, {})
+    eg = edges_g._replace(weight=fin_off["w_glob"])
+    certificate_profile(rbcd.gather_to_global(Xa, graph, n), eg,
+                        quadratic.edge_incidence(eg, n), card)
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t1 = time.perf_counter()
+        ev[0].record()
+        fin = epi(Xa, w, {})
+        ev[1].record()
+        enqueue_s = time.perf_counter() - t1
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    ev[1].synchronize()
+    epi_ms = ev[0].elapsed_time(ev[1])
+    wall_s = time.perf_counter() - t1
+    pay = {k: (float(v) if v.dim() == 0 else None)
+           for k, v in fin["cert"].items()}
+
+    # Soundness against the host float64 eigensolve on the iterate.
+    X64 = fin["Xg"].double().cpu().numpy()
+    e_host = edge_set_from_measurements(part.meas_global,
+                                        dtype=torch.float64, device="cpu")
+    e_host = e_host._replace(weight=res.weights.double().cpu())
+    tol = cert.tol
+    lam64, resid = host_lambda_min(X64, e_host, tol,
+                                   fin["cert"]["direction"].double().cpu())
+    lam_dense = dense_spectrum(X64, e_host, dev, 1)[0]
+    verdict = certify.CERT_STATUS[cert.device_verdict]
+    row = {"phase": "certify", "check": "main_path", "card": card,
+           "dtype": str(prob.dtype), "verdict_every": CERT_K,
+           "iterations": res.iterations, "terminated_by": res.terminated_by,
+           "rounds_enqueued": enqueued, "launches": {"rtr_full": launches},
+           "host_fetches": fetches[0], "verdict_words": words,
+           "verdict": verdict, "certified": cert.certified,
+           "decidable": cert.decidable, "lam": cert.lambda_min,
+           "sigma": cert.sigma, "defl_resid": pay["defl_resid"],
+           "rq": pay["rq"], "tol": tol, "wscale": cert.weight_scale,
+           "stationarity_gap": cert.stationarity_gap,
+           "lambda_min_f64_fallback": cert.lambda_min_f64,
+           "lambda_min_host_f64": lam64, "host_f64_resid": resid,
+           "lambda_min_dense": lam_dense,
+           "epilogue_certified_ms": epi_ms,
+           "epilogue_off_ms": off_ms,
+           "certificate_stage_ms": epi_ms - off_ms,
+           "epilogue_enqueue_s": enqueue_s, "epilogue_wall_s": wall_s,
+           "sync_free_epilogue": True, "solve_s": solve_s,
+           "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+    emit(row)
+    check(launches == enqueued and res.iterations > 0,
+          "the certified solve did not launch B2 once per enqueued round")
+    check(fetches[0] == words + 1,
+          "the certificate did not ride the one terminal fetch")
+    check(pay["lam_min"] == cert.lambda_min and pay["sigma"] == cert.sigma,
+          "the certified epilogue does not repeat the driver's payload")
+    if cert.device_verdict == certify.CERT_ACCEPT:
+        check(lam64 >= -tol, "ACCEPT, but lambda_min_f64 < -tol")
+    elif cert.device_verdict == certify.CERT_FAIL:
+        check(lam64 < -tol or pay["rq"] < -tol,
+              "FAIL, but neither lambda_min_f64 nor the RQ is below -tol")
+    else:
+        check(cert.device_verdict == certify.CERT_REFUSE
+              and cert.lambda_min_f64 is not None,
+              "a REFUSE did not end in the host decision")
+        if cert.certified:
+            check(lam64 >= -tol, "the host decision certified, but "
+                  "lambda_min_f64 < -tol")
+
+    # The post-hoc host mode once, through the per-eval loop.
+    hparams = dataclasses.replace(params, certify_mode="host")
+    hprob = dataclasses.replace(prob, params=hparams)
+    rk.LAUNCHES = 0
+    t2 = time.perf_counter()
+    hres = rbcd.dispatch_prepared(hprob, max_iters=MAX_ITERS,
+                                  grad_norm_tol=GRAD_TOL)
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t2
+    h_launches = rk.LAUNCHES
+    h_enqueued = rbcd.rounds_enqueued(hres.iterations, params=hparams,
+                                      max_iters=MAX_ITERS, eval_every=1)
+    hc = hres.certificate
+    emit({"phase": "certify", "check": "host_mode", "card": card,
+          "iterations": hres.iterations, "launches": {"rtr_full":
+                                                      h_launches},
+          "rounds_enqueued": h_enqueued, "certified": hc.certified,
+          "decidable": hc.decidable, "lambda_min": hc.lambda_min,
+          "lambda_min_f64": hc.lambda_min_f64, "tol": hc.tol,
+          "sigma": hc.sigma, "device_verdict":
+          certify.CERT_STATUS[hc.device_verdict], "solve_s": host_s})
+    check(h_launches == h_enqueued,
+          "the host-mode solve did not launch B2 once per enqueued round")
+    check(hc.device_verdict == certify.CERT_NONE,
+          "the host mode ran a device eigensolve")
+    check(bool(torch.isfinite(hres.T).all()),
+          "the host-mode trajectory is malformed")
+    return row, launches + h_launches
+
+
+def staircase_from(meas, X, r_max: int, dev) -> tuple[list, object]:
+    """``solve_staircase``'s loop from a given iterate ``X`` (float64):
+    solve at the rank of X, certify, escape to the next rank on failure.
+    Returns the rank history and the last certificate."""
+    edges = edge_set_from_measurements(meas, dtype=torch.float64,
+                                       device=dev)
+    params = SolverParams(initial_radius=1e1, max_inner_iters=50)
+    problem = local_pgo.make_problem(edges, meas.num_poses,
+                                     params.precond_shift)
+    X = torch.as_tensor(X, dtype=torch.float64).to(dev)
+    history = []
+    for r in range(X.shape[1], r_max + 1):
+        out = solver.rtr_solve(problem, X, params, max_iters=300,
+                               grad_norm_tol=1e-6)
+        X = out.X
+        cert = certify.certify_solution(X, edges, seed=r)
+        history.append((r, float(out.f), cert.lambda_min))
+        if cert.certified or r == r_max:
+            return history, cert
+        X = certify.escape_rank(X, cert.direction, edges)
+    raise AssertionError("unreachable")
+
+
+def certify_staircase(meas, dev, card: str) -> dict:
+    """(c) The staircase in float64 on the card: ``solve_staircase`` on
+    the stand-in from rank ``STAIR_R_MIN``, its verdict held for soundness
+    against the host float64 eigensolve; and the staircase's loop from the
+    wound critical point of ``make_stitched_winding`` (fails at rank 2,
+    escapes, certifies)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = certify.solve_staircase(meas, r_min=STAIR_R_MIN, r_max=STAIR_R_MAX,
+                                 device=dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    e_host = edge_set_from_measurements(meas, dtype=torch.float64,
+                                        device="cpu")
+    lam64, _ = host_lambda_min(st.X.cpu().numpy(), e_host,
+                               st.certificate.tol,
+                               st.certificate.direction.cpu().numpy())
+    t2 = time.perf_counter()
+    wmeas, Xw = make_stitched_winding(WIND_CYCLES, WIND_LEN)
+    w_hist, w_cert = staircase_from(wmeas, Xw, STAIR_R_MAX, dev)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    row = {"phase": "certify", "check": "staircase", "card": card,
+           "dtype": "float64",
+           "standin": {"history": st.history, "rank": st.rank,
+                       "certified": st.certificate.certified,
+                       "lambda_min_host_f64": lam64,
+                       "seconds": t1 - t0, "host_f64_s": t2 - t1},
+           "winding": {"poses": wmeas.num_poses, "edges": len(wmeas),
+                       "history": w_hist, "rank": w_hist[-1][0],
+                       "certified": w_cert.certified,
+                       "seconds": t3 - t2}}
+    emit(row)
+    check(not st.certificate.certified
+          or lam64 >= -st.certificate.tol, "the stand-in's staircase "
+          "certified, but lambda_min_f64 < -tol")
+    check(len(w_hist) >= 2 and w_hist[0][0] == 2
+          and w_hist[0][2] < -w_cert.tol,
+          "the wound instance did not fail at rank 2")
+    check(w_cert.certified and w_hist[-1][0] >= 3
+          and w_hist[-1][1] < 1e-3 * w_hist[0][1],
+          "the wound instance did not certify after escaping")
+    return row
+
+
+def certify_phase(meas, params, dev, card: str) -> int:
+    """The three parts of the certify phase; returns (b)'s B2 launches."""
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "float32 matmuls run in TF32: an f32 certificate would be "
+          "unsound")
+    certify_fstar(meas, dev, card)
+    _, launches = certify_main_path(meas, params, dev, card)
+    certify_staircase(meas, dev, card)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -1508,10 +1955,11 @@ def main() -> int:
 
     b4_row, descent_b2 = refine_phase(prob, meas, card, profile)
     rows.append(b4_row)
+    cert_b2 = certify_phase(meas, params, dev, card)
     b2_row["launches_by_path"].update(
         ablate=ab["rtr_full"], schedules=sched_b2, refine=descent_b2,
         verdict=verdict_b2 + prod_b2, odometry_init=odo_b2,
-        robust_iterated=iter_b2)
+        robust_iterated=iter_b2, certify=cert_b2)
     for row in rows:
         row["launches"] = sum(row["launches_by_path"].values())
     rows.sort(key=lambda r: r["replaces"])

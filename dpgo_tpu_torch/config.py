@@ -123,7 +123,8 @@ class AgentParams:
     max_num_iters: int = 500
     rel_change_tol: float = 5e-3
     status_fetch_every: int = 1
-    # Terminal certification: "off" only in the port so far.
+    # Terminal certification: "off", "device" (the payload rides the
+    # terminal fetch) or "host" (post-hoc certify_solution).
     certify_mode: str = "off"
     certify_eta: float = 1e-5
     schedule: Schedule = Schedule.JACOBI

@@ -8,7 +8,12 @@ and ``refine_consts_from_numpy`` turn the JAX package's
 as mappings or NamedTuples whose leaves are numpy arrays, e.g.
 ``jax.tree.map(np.asarray, graph)`` — into this package's, so both
 packages can be fed identical inputs.  The refinement's float64 host
-iterate (``RefineRef.Xg``) is numpy in both.  This module imports no JAX.
+iterate (``RefineRef.Xg``) is numpy in both.  For the certificate,
+``payload_to_numpy`` and ``certificate_to_numpy`` bring either package's
+payload dict or ``CertificateResult`` to numpy, and ``fixed_probe_draws``
+makes a replacement for ``certify._probe_draws`` that returns given draws
+(e.g. JAX's ``PRNGKey(seed)`` / ``fold_in(key, 1)`` normals).  This module
+imports no JAX.
 """
 
 from __future__ import annotations
@@ -153,3 +158,43 @@ def verdict_state_from_numpy(arrays, dtype: torch.dtype | None = None,
             out[k] = torch.as_tensor(x.astype(np.float64), dtype=dtype,
                                      device=device)
     return VerdictState(**out)
+
+
+def payload_to_numpy(payload: dict) -> dict:
+    """A device certificate payload (either package's) as numpy: 0-dim
+    entries become floats, the direction an array."""
+    out = {}
+    for k, v in payload.items():
+        a = v.detach().cpu().numpy() if isinstance(v, torch.Tensor) \
+            else np.asarray(v)
+        out[k] = float(a) if a.ndim == 0 else a
+    return out
+
+
+def certificate_to_numpy(cert) -> dict:
+    """A ``CertificateResult`` (either package's) as a dict of plain
+    values, the direction as a numpy array."""
+    out = _fields(cert)
+    d = out["direction"]
+    out["direction"] = d.detach().cpu().numpy() \
+        if isinstance(d, torch.Tensor) else np.asarray(d)
+    return out
+
+
+def fixed_probe_draws(draws: dict):
+    """A stand-in for ``certify._probe_draws`` that returns the given
+    draws: ``draws[seed] = (v0 [n, 1, d+1], V0 [n (d+1), k])`` as arrays,
+    cast to the requested dtype and device."""
+    def probe_draws(seed, n, dh, num_probe, dtype, device):
+        v0, V0 = draws[int(seed)]
+        v0 = torch.as_tensor(np.array(v0, np.float64), dtype=dtype,
+                             device=device)
+        V0 = torch.as_tensor(np.array(V0, np.float64), dtype=dtype,
+                             device=device)
+        if v0.shape != (n, 1, dh) or V0.shape != (n * dh, num_probe):
+            raise ValueError(
+                f"draws for seed {seed} have shapes {tuple(v0.shape)}, "
+                f"{tuple(V0.shape)}; expected {(n, 1, dh)}, "
+                f"{(n * dh, num_probe)}")
+        return v0, V0
+    return probe_draws

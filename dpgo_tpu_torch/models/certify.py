@@ -1,0 +1,761 @@
+"""Solution certification and the Riemannian staircase (port of
+``dpgo_tpu.models.certify``).
+
+* **Dual certificate.**  A first-order critical point ``X`` of the rank-r
+  relaxation yields block-diagonal dual multipliers
+  ``Lambda_i = sym(Y_i^T (XQ)_i)`` on the rotation blocks (translations are
+  unconstrained, their multiplier is zero).  ``X`` is a global optimum of
+  the underlying SDP — and the rounded trajectory certifiably optimal —
+  iff ``S = Q - Lambda`` is positive semidefinite (SE-Sync / T-RO 2021
+  Prop. "exactness").  ``S`` always annihilates the global-translation
+  gauge directions, so the test is ``lambda_min(S) >= -eta``.
+* **Minimum eigenvalue.**  ``S`` is only ever applied as an operator: the
+  edge-list connection-Laplacian map of ``ops.quadratic`` (summed through
+  the edges' incidence, an order fixed by the indices) minus a per-pose
+  block multiply.  ``lambda_min`` comes from LOBPCG (``ops.lobpcg``) on the
+  spectrally shifted operator ``sigma I - S`` (sigma from a short power
+  iteration), with no host sync on a CUDA device.
+* **Host f64 tier.**  The REFUSE-band fallback, the sparse assembly of S
+  and the shift-invert route are numpy/scipy, as in the JAX package.
+* **Staircase.**  If ``lambda_min < -eta``, the eigenvector ``v`` is a
+  second-order descent direction after lifting to rank r+1
+  (``X+ = [[X], [alpha v^T]]``); re-solving and re-certifying ascends the
+  rank staircase until certification or ``r_max`` (SE-Sync Algorithm 1
+  adapted to the lifted SE(d) manifold).
+
+Not ported: telemetry (ROADMAP A10).  ``certify_solution`` and
+``decide_device_certificate`` behave as the JAX package's do with no
+telemetry run — no gauges, no ``_tally_cert`` counters, no health monitor.
+
+One deliberate deviation: the probe draws (the power iteration's ``v0``
+and LOBPCG's ``V0``) come from a ``torch.Generator`` seeded from the
+certificate's seed, through the one seam ``_probe_draws``, where JAX draws
+from ``PRNGKey(seed)`` and ``fold_in(key, 1)`` — the same distribution,
+another stream.  Parity tests replace the seam with JAX's draws.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+from ..config import SolverParams
+from ..device import resolve_device
+from ..ops import manifold, quadratic, solver
+from ..ops.lobpcg import lobpcg_standard
+from ..ops.smallmat import svd_thin
+from ..types import EdgeSet, Measurements, edge_set_from_measurements
+from ..utils.lie import lifting_matrix
+from .local_pgo import initial_poses, lift, make_problem, round_solution
+
+
+# ---------------------------------------------------------------------------
+# Dual certificate operator
+# ---------------------------------------------------------------------------
+
+# Latched verdict codes of the DEVICE certificate stage (the f32
+# eigensolve fused into the solve's terminal epilogue).  The f32-vs-f64
+# disagreement band is an explicit verdict — CERT_REFUSE — not a silent
+# recheck: a REFUSE hands the decision to the host sparse/f64 path, and
+# no solve is ever certified by f32 alone inside the band.
+CERT_NONE = 0      # certify_mode off / certificate not evaluated
+CERT_ACCEPT = 1    # f32 verdict decisive and PSD within tolerance
+CERT_REFUSE = 2    # disagreement band: host f64 must decide
+CERT_FAIL = 3      # decisively negative (sound without f64)
+
+CERT_STATUS = {CERT_NONE: "none", CERT_ACCEPT: "accept",
+               CERT_REFUSE: "refuse", CERT_FAIL: "fail"}
+
+
+def _np(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def dual_blocks(X: torch.Tensor, edges: EdgeSet, inc=None) -> torch.Tensor:
+    """Block-diagonal dual multipliers Lambda [n, d, d] at a critical point:
+    ``Lambda_i = sym(Y_i^T G_i)`` with ``G = X Q`` (the Euclidean gradient)
+    restricted to the rotation columns.  ``inc`` is the edges' incidence
+    (``quadratic.edge_incidence``), built when not given."""
+    G = quadratic.egrad(X, edges, inc=inc)
+    return manifold.sym(X[..., :-1].transpose(-1, -2) @ G[..., :-1])
+
+
+def certificate_matvec(V: torch.Tensor, edges: EdgeSet, lam: torch.Tensor,
+                       inc=None) -> torch.Tensor:
+    """Apply ``S = Q - Lambda`` to ``V [n, k, d+1]`` (k probe vectors):
+    ``Q V`` is the edge-list gradient map (linear in its argument),
+    ``Lambda V`` multiplies each pose's rotation columns by ``Lambda_i``."""
+    QV = quadratic.egrad(V, edges, inc=inc)
+    LV = torch.cat([V[..., :-1] @ lam, torch.zeros_like(V[..., -1:])],
+                   dim=-1)
+    return QV - LV
+
+
+@dataclasses.dataclass
+class CertificateResult:
+    certified: bool
+    lambda_min: float           # minimum eigenvalue of S
+    direction: torch.Tensor     # [n, d+1] eigenvector of lambda_min
+    stationarity_gap: float     # ||X S|| — sanity check, ~0 at criticality
+    sigma: float                # spectral shift used
+    # The PSD tolerance applied, the measurement-weight scale it derives
+    # from, whether the eigensolve's own dtype error could decide at that
+    # tolerance, and the host-f64 lambda_min when a verification ran.
+    tol: float = float("nan")
+    weight_scale: float = float("nan")
+    decidable: bool = True
+    lambda_min_f64: float | None = None
+    # Device-epilogue verdict (CERT_* code) when the certificate rode the
+    # fused terminal fetch; CERT_NONE for the post-hoc paths.
+    device_verdict: int = CERT_NONE
+
+
+def weight_scale(edges: EdgeSet) -> float:
+    """Per-edge curvature scale of the problem: the median weighted
+    concentration over valid edges (rotation and translation channels),
+    floored at 1 — the yardstick of the PSD tolerance ``eta * scale``."""
+    mask = _np(edges.mask).astype(np.float64)
+    m = mask > 0
+    w = _np(edges.weight).astype(np.float64)[m] * mask[m]
+    k = _np(edges.kappa).astype(np.float64)[m]
+    t = _np(edges.tau).astype(np.float64)[m]
+    if k.size == 0:
+        return 1.0
+    return float(max(np.median(w * k), np.median(w * t), 1.0))
+
+
+def _masked_median(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """Median of ``x[m]`` as ``numpy.median`` takes it (the mean of the two
+    middle values for an even count), NaN for an empty selection; sort and
+    gather on the device, no host read.  (``torch.nanmedian`` would take
+    the lower middle value.)"""
+    vals, _ = torch.sort(torch.where(m, x, math.inf))
+    c = torch.sum(m)
+    hi = torch.clamp(c // 2, max=x.shape[-1] - 1)
+    lo = torch.clamp((c - 1) // 2, min=0)
+    mid = torch.gather(vals, -1, torch.stack([lo, hi]))
+    return torch.where(c > 0, 0.5 * (mid[0] + mid[1]), math.nan)
+
+
+def weight_scale_device(edges: EdgeSet) -> torch.Tensor:
+    """Device twin of ``weight_scale`` (0-dim tensor), so it can ride the
+    fused terminal epilogue; an all-masked edge set gives the same 1.0."""
+    m = edges.mask > 0
+    w = edges.weight * edges.mask
+    med_k = _masked_median(w * edges.kappa, m)
+    med_t = _masked_median(w * edges.tau, m)
+    scale = torch.clamp(torch.maximum(med_k, med_t), min=1.0)
+    return torch.where(torch.isnan(scale), 1.0, scale)
+
+
+def _probe_draws(seed: int, n: int, dh: int, num_probe: int, dtype,
+                 device) -> tuple[torch.Tensor, torch.Tensor]:
+    """THE seam of the certificate's random draws: the power iteration's
+    start ``v0 [n, 1, d+1]`` and LOBPCG's initial block ``V0 [n (d+1),
+    num_probe]``, standard normal, from a ``torch.Generator`` on
+    ``device`` seeded with ``seed``.  Tests replace it to feed both
+    packages the same draws."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed))
+    v0 = torch.randn((n, 1, dh), generator=gen, dtype=dtype, device=device)
+    V0 = torch.randn((n * dh, num_probe), generator=gen, dtype=dtype,
+                     device=device)
+    return v0, V0
+
+
+def _clamp_probes(num_probe: int, dim: int) -> int:
+    """LOBPCG needs 5 k < dim: tiny problems certify with fewer probes."""
+    return max(1, min(num_probe, (dim - 1) // 5))
+
+
+def _operators(X: torch.Tensor, edges: EdgeSet, inc):
+    """(lam, S on [n, k, d+1], S on flat [n (d+1), k]) at ``X``."""
+    n, _, dh = X.shape
+    dim = n * dh
+    lam = dual_blocks(X, edges, inc)
+
+    def S(V):
+        return certificate_matvec(V, edges, lam, inc)
+
+    def S_flat(Vf):
+        k = Vf.shape[1]
+        V = Vf.T.reshape(k, n, dh).permute(1, 0, 2)
+        return S(V).permute(1, 0, 2).reshape(k, dim).T
+
+    return lam, S, S_flat
+
+
+def _spectral_shift(S, v0: torch.Tensor, power_iters: int) -> torch.Tensor:
+    """sigma slightly above max(|lambda|_max, 0): a power iteration on the
+    symmetric S from ``v0``, its Rayleigh quotient times 1.1, + 1e-3."""
+    v = v0 / torch.linalg.vector_norm(v0)
+    for _ in range(power_iters):
+        w = S(v)
+        v = w / torch.clamp(torch.linalg.vector_norm(w), min=1e-30)
+    return 1.1 * torch.abs(torch.sum(v * S(v))) + 1e-3
+
+
+def _min_eig(X: torch.Tensor, edges: EdgeSet, seed: int = 0,
+             num_probe: int = 4, power_iters: int = 30,
+             lobpcg_iters: int = 300, inc=None):
+    """(lam_min, direction [n, d+1], ||X S||, sigma): LOBPCG on
+    ``sigma I - S`` (its largest eigenvalue is ``sigma - lambda_min``)."""
+    n, _, dh = X.shape
+    if inc is None:
+        inc = quadratic.edge_incidence(edges, n)
+    lam, S, _ = _operators(X, edges, inc)
+    v0, V0 = _probe_draws(seed, n, dh, num_probe, X.dtype, X.device)
+    sigma = _spectral_shift(S, v0, power_iters)
+
+    def A_flat(Vf):
+        k = Vf.shape[1]
+        V = Vf.T.reshape(k, n, dh).permute(1, 0, 2)
+        W = sigma * V - S(V)
+        return W.permute(1, 0, 2).reshape(k, n * dh).T
+
+    theta, U, _ = lobpcg_standard(A_flat, V0, m=lobpcg_iters)
+    XS = certificate_matvec(X, edges, lam, inc)
+    return (sigma - theta[0], U[:, 0].reshape(n, dh),
+            torch.sqrt(torch.sum(XS * XS)), sigma)
+
+
+def certify_solution(X: torch.Tensor, edges: EdgeSet, eta: float = 1e-5,
+                     seed: int = 0, num_probe: int = 4,
+                     lobpcg_iters: int = 300,
+                     f64_verify: str = "auto") -> CertificateResult:
+    """Certify a first-order critical point of the rank-r relaxation.
+
+    ``certified`` means ``lambda_min(S) >= -tol`` with ``tol = eta *
+    weight_scale(edges)``.  The eigensolve runs in ``X.dtype`` on ``X``'s
+    device; when its error (``10 eps sigma``) cannot resolve ``tol``, the
+    verdict is not trusted: with ``f64_verify="auto"`` the minimum
+    eigenvalue is recomputed on the host in float64 (``lambda_min_f64``,
+    warm-started from the eigenvector) and that value decides; with
+    ``"never"`` the result reports ``decidable=False``."""
+    dim = X.shape[0] * X.shape[2]
+    num_probe = _clamp_probes(num_probe, dim)
+    lam_min, vec, stat, sigma = _min_eig(X, edges, seed,
+                                         num_probe=num_probe,
+                                         lobpcg_iters=lobpcg_iters)
+    lam_min_f = float(lam_min)
+    sigma_f = float(sigma)
+    wscale = weight_scale(edges)
+    tol = eta * wscale
+    f64_solve = host_f64_solve(X, edges, tol, warm=vec) \
+        if f64_verify == "auto" else None
+    certified, decidable, _, lam_f64, vec64 = decide_certificate(
+        lam_min_f, sigma_f, tol, float(torch.finfo(X.dtype).eps), f64_solve)
+    if vec64 is not None:
+        vec = torch.as_tensor(vec64, dtype=X.dtype, device=X.device)
+    return CertificateResult(
+        certified=certified, lambda_min=lam_min_f, direction=vec,
+        stationarity_gap=float(stat), sigma=sigma_f, tol=tol,
+        weight_scale=wscale, decidable=decidable, lambda_min_f64=lam_f64)
+
+
+def decide_certificate(lam_eig: float, sigma: float, tol: float,
+                       dtype_eps: float, f64_solve=None):
+    """The post-eigensolve certificate decision (the JAX package's, shared
+    there with the sharded certificate).  The eigensolve's error is ~10
+    ulps of the shifted operator; when that cannot resolve ``tol`` the
+    dtype verdict is not trusted — a decisively negative value (by 50x the
+    error band) is a sound FAIL, else the caller's ``f64_solve(tol_f64) ->
+    (lam_f64, vec64_or_None, resid)`` decides (``f64_recheck``).
+
+    Returns ``(certified, decidable, lam_used, lam_f64, vec64)``."""
+    err_est = 10.0 * dtype_eps * sigma
+    decidable = err_est <= 0.5 * tol
+    lam_f64 = vec64 = None
+    if not decidable and lam_eig + 50.0 * err_est < -tol:
+        # Decisively negative: FAIL without the f64 verification (can only
+        # under-certify, never over-certify).
+        return False, True, lam_eig, None, None
+    if not decidable and f64_solve is not None:
+        certified, decidable, lam_f64, vec64 = f64_recheck(f64_solve, tol)
+        return certified, decidable, lam_f64, lam_f64, vec64
+    lam_used = lam_eig
+    return (bool(decidable and lam_used >= -tol), bool(decidable),
+            lam_used, lam_f64, vec64)
+
+
+def f64_recheck(f64_solve, tol: float):
+    """REFUSE-band fallback: the host f64 eigensolve decides, two-sided on
+    its eigenpair residual: ``lam_f64 + resid < -tol`` is a sound FAIL,
+    ``lam_f64 - resid >= -tol`` a PASS, anything between refused.
+
+    Returns ``(certified, decidable, lam_f64, vec64)``."""
+    lam_f64, vec64, resid = f64_solve(0.25 * tol)
+    certified = lam_f64 - resid >= -tol
+    decidable = certified or (lam_f64 + resid < -tol)
+    return bool(certified), bool(decidable), lam_f64, vec64
+
+
+# ---------------------------------------------------------------------------
+# Device-resident certificate (fused terminal epilogue)
+# ---------------------------------------------------------------------------
+
+def device_certificate_payload(X: torch.Tensor, edges: EdgeSet,
+                               seed: int = 0, num_probe: int = 4,
+                               power_iters: int = 30,
+                               lobpcg_iters: int = 300, inc=None) -> dict:
+    """Everything the host needs to decide the certificate, as tensor ops
+    with no host sync, so it can ride the solve's one terminal fetch.
+
+    The eigensolve is gauge-deflated: the significant left-singular
+    directions ``Yc`` of X's rows (``sv > max(sv) sqrt(eps)``; one-sided
+    Jacobi, ``ops.smallmat.svd_thin``) span near-zero eigenvalues of S at a
+    stationary point, so LOBPCG runs on ``P (sigma I - S) P`` with ``P = I
+    - Yc Yc^T`` and the full-space minimum is ``min(lambda_complement,
+    0)``.  The payload carries the two soundness probes of
+    ``decide_device_certificate``: ``defl_resid`` (max column norm of ``S
+    Yc`` over the kept directions — a PASS needs the deflation basis
+    near-kernel) and ``rq`` (the Rayleigh quotient of the returned unit
+    direction on S, an upper bound of lambda_min for any vector).  ``inc``
+    is the edges' incidence (``quadratic.edge_incidence``); build it once
+    outside, as building it reads the indices on the host."""
+    n, r, dh = X.shape
+    dtype = X.dtype
+    dim = n * dh
+    num_probe = _clamp_probes(num_probe, dim)
+    if inc is None:
+        inc = quadratic.edge_incidence(edges, n)
+    lam, S, S_flat = _operators(X, edges, inc)
+    v0, V0 = _probe_draws(seed, n, dh, num_probe, dtype, X.device)
+    sigma = _spectral_shift(S, v0, power_iters)
+
+    Yf = X.permute(1, 0, 2).reshape(r, dim).T             # [dim, r]
+    U_g, sv, _ = svd_thin(Yf)
+    keep = (sv > torch.max(sv) * math.sqrt(torch.finfo(dtype).eps)
+            ).to(dtype)
+    Yc = U_g * keep[None, :]
+    defl_resid = torch.max(torch.linalg.vector_norm(S_flat(U_g), dim=0)
+                           * keep)
+
+    def project(Vf):
+        return Vf - Yc @ (Yc.T @ Vf)
+
+    def A_flat(Vf):  # P (sigma I - S) P
+        Pv = project(Vf)
+        return project(sigma * Pv - S_flat(Pv))
+
+    theta, U, _ = lobpcg_standard(A_flat, project(V0), m=lobpcg_iters)
+    lam_min = torch.clamp(sigma - theta[0], max=0.0)
+    vec_f = U[:, 0]
+    vec_f = vec_f / torch.clamp(torch.linalg.vector_norm(vec_f), min=1e-30)
+    rq = torch.sum(vec_f * S_flat(vec_f[:, None])[:, 0])
+    XS = certificate_matvec(X, edges, lam, inc)
+    return {
+        "lam_min": lam_min,
+        "sigma": sigma,
+        "stat": torch.sqrt(torch.sum(XS * XS)),
+        "wscale": weight_scale_device(edges),
+        "defl_resid": defl_resid,
+        "rq": rq,
+        "direction": vec_f.reshape(n, dh),
+    }
+
+
+def decide_device_certificate(payload: dict, eta: float, dtype_eps: float,
+                              f64_solve=None,
+                              source: str = "device_epilogue",
+                              ) -> CertificateResult:
+    """Host decision on an already-fetched device certificate payload,
+    ``decide_certificate``'s ladder with the deflation bound gating only
+    the ACCEPT side:
+
+    * decidable and lam >= -tol and ``defl_resid <= 0.1 tol`` -> ACCEPT;
+    * decidable and lam < -tol -> FAIL;
+    * lam or rq below ``-tol`` by 50x the error band -> FAIL (sound);
+    * else REFUSE, and ``f64_solve`` (when given) decides through
+      ``f64_recheck`` — never the f32 value.
+
+    ``source`` names the caller, as in the JAX package (whose telemetry
+    reads it)."""
+    del source
+    lam = float(payload["lam_min"])
+    sigma = float(payload["sigma"])
+    rq = float(payload["rq"])
+    wscale = float(payload["wscale"])
+    defl_resid = float(payload["defl_resid"])
+    stat = float(payload["stat"])
+    direction = payload["direction"]
+    tol = eta * wscale
+    err_est = 10.0 * dtype_eps * sigma
+    defl_ok = defl_resid <= 0.1 * tol
+    decidable = err_est <= 0.5 * tol
+
+    verdict = CERT_REFUSE
+    certified = False
+    lam_f64 = None
+    if decidable and lam < -tol:
+        verdict, decidable = CERT_FAIL, True
+    elif decidable and defl_ok and lam >= -tol:
+        verdict, certified = CERT_ACCEPT, True
+    elif min(lam, rq) + 50.0 * err_est < -tol:
+        verdict, decidable = CERT_FAIL, True
+    elif f64_solve is not None:
+        certified, decidable, lam_f64, vec64 = f64_recheck(f64_solve, tol)
+        if vec64 is not None:
+            direction = torch.as_tensor(vec64, dtype=direction.dtype)
+    else:
+        decidable = False
+    return CertificateResult(
+        certified=bool(certified), lambda_min=lam, direction=direction,
+        stationarity_gap=stat, sigma=sigma, tol=tol, weight_scale=wscale,
+        decidable=bool(decidable), lambda_min_f64=lam_f64,
+        device_verdict=verdict)
+
+
+# ---------------------------------------------------------------------------
+# Host f64 tier (numpy / scipy)
+# ---------------------------------------------------------------------------
+
+def host_f64_solve(X, edges: EdgeSet, tol_cert: float, warm=None):
+    """``f64_solve(t) -> (lam, vec, resid)`` over ``lambda_min_f64`` — the
+    REFUSE fallback of the post-hoc and the device-epilogue paths.  The
+    arrays come to the host only when it is called."""
+    def f64_solve(t):
+        return lambda_min_f64(
+            _np(X).astype(np.float64), edges,
+            warm=None if warm is None else _np(warm).astype(np.float64),
+            tol=t, tol_cert=tol_cert)
+    return f64_solve
+
+
+def sparse_certificate(X64, edges: EdgeSet):
+    """The certificate operator ``S = Q - Lambda`` as a scipy CSR matrix
+    over the ``[n (d+1)]`` column space (f64, host), assembled edge by
+    edge: with ``rR = Y_j - Y_i R`` and ``rt = p_j - p_i - Y_i t`` each
+    edge contributes the pose blocks
+
+      H_jj = diag(wk I_d, wt)
+      H_ii = [[wk I_d + wt t t^T, wt t], [wt t^T, wt]]
+      H_ij = [[-wk R, -wt t], [0, -wt]]          (H_ji = H_ij^T)
+
+    and ``Lambda_i = sym(Y_i^T G_i)`` is subtracted on the rotation
+    coordinates (the shift-invert route's explicit matrix)."""
+    from scipy import sparse
+
+    X64 = _np(X64).astype(np.float64)
+    n, r, dh = X64.shape
+    d = dh - 1
+    i = _np(edges.i)
+    j = _np(edges.j)
+    R = _np(edges.R).astype(np.float64)
+    t = _np(edges.t).astype(np.float64)
+    w = _np(edges.weight).astype(np.float64) \
+        * _np(edges.mask).astype(np.float64)
+    wk = w * _np(edges.kappa).astype(np.float64)
+    wt = w * _np(edges.tau).astype(np.float64)
+    m = i.shape[0]
+    valid = w != 0.0
+
+    Hjj = np.zeros((m, dh, dh))
+    Hii = np.zeros((m, dh, dh))
+    Hij = np.zeros((m, dh, dh))
+    eye = np.eye(d)
+    Hjj[:, :d, :d] = wk[:, None, None] * eye
+    Hjj[:, d, d] = wt
+    Hii[:, :d, :d] = wk[:, None, None] * eye \
+        + wt[:, None, None] * t[:, :, None] * t[:, None, :]
+    Hii[:, :d, d] = wt[:, None] * t
+    Hii[:, d, :d] = wt[:, None] * t
+    Hii[:, d, d] = wt
+    Hij[:, :d, :d] = -wk[:, None, None] * R
+    Hij[:, :d, d] = -wt[:, None] * t
+    Hij[:, d, d] = -wt
+
+    def coo(blocks, rows_of, cols_of):
+        rr = (rows_of[:, None] * dh + np.arange(dh))[:, :, None]
+        cc = (cols_of[:, None] * dh + np.arange(dh))[:, None, :]
+        rr = np.broadcast_to(rr, (m, dh, dh))
+        cc = np.broadcast_to(cc, (m, dh, dh))
+        v = np.where(valid[:, None, None], blocks, 0.0)
+        return rr.ravel(), cc.ravel(), v.ravel()
+
+    parts = [coo(Hii, i, i), coo(Hjj, j, j), coo(Hij, i, j),
+             coo(np.swapaxes(Hij, -1, -2), j, i)]
+    rows = np.concatenate([p[0] for p in parts])
+    cols = np.concatenate([p[1] for p in parts])
+    vals = np.concatenate([p[2] for p in parts])
+    Q = sparse.coo_matrix((vals, (rows, cols)),
+                          shape=(n * dh, n * dh)).tocsr()
+
+    # Lambda from the assembled Q: G = X Q per probe row.
+    Xf = X64.transpose(1, 0, 2).reshape(r, n * dh)
+    G = (Q @ Xf.T).T.reshape(r, n, dh).transpose(1, 0, 2)
+    lam = np.einsum("nra,nrb->nab", X64[..., :d], G[..., :d])
+    lam = 0.5 * (lam + np.swapaxes(lam, -1, -2))
+    lr = np.broadcast_to(np.arange(n)[:, None, None] * dh
+                         + np.arange(d)[None, :, None], (n, d, d))
+    lc = np.broadcast_to(np.arange(n)[:, None, None] * dh
+                         + np.arange(d)[None, None, :], (n, d, d))
+    L = sparse.coo_matrix((lam.ravel(), (lr.ravel(), lc.ravel())),
+                          shape=(n * dh, n * dh)).tocsr()
+    return Q - L
+
+
+def lambda_min_f64_shift_invert(X64, edges: EdgeSet, tol_cert: float,
+                                k: int = 12, maxiter: int = 2000,
+                                warm=None):
+    """Minimum eigenvalue of S near the certification threshold on the
+    explicit sparse operator, in passes: the ``warm`` vector's Rayleigh
+    quotient (a sound FAIL when below ``-tol_cert``); smallest-algebraic
+    Lanczos (any Ritz value below ``-tol_cert`` is a sound FAIL by its
+    explicit RQ); gauge-deflated scipy LOBPCG (a PASS only when the
+    deflation basis is near-kernel); shift-invert Lanczos at ``-tol_cert``
+    unless the graph is a large expander (LU fill guard), which then
+    refuses.  Returns ``(lam_min, eigenvector [n, d+1] or None, resid)``,
+    resid 0 for an RQ veto."""
+    from scipy.sparse.linalg import ArpackNoConvergence, eigsh
+    from scipy.sparse.linalg import lobpcg as _lobpcg
+
+    X64 = _np(X64).astype(np.float64)
+    n, r, dh = X64.shape
+    S = sparse_certificate(X64, edges)
+
+    def pair(vals, vecs):
+        idx = int(np.argmin(vals))
+        lam, v = float(vals[idx]), vecs[:, idx]
+        v = v / max(np.linalg.norm(v), 1e-300)
+        resid = float(np.linalg.norm(S @ v - lam * v))
+        return lam, v, resid
+
+    def rq_veto(v):
+        v = np.asarray(v, np.float64).reshape(-1)
+        nv = np.linalg.norm(v)
+        if not np.isfinite(nv) or nv < 1e-300:
+            return None
+        v = v / nv
+        return float(v @ (S @ v)), v
+
+    if warm is not None:
+        r_w = rq_veto(warm)
+        if r_w is not None and r_w[0] < -tol_cert:
+            return r_w[0], r_w[1].reshape(n, dh), 0.0
+
+    # Pass 1 — smallest-algebraic Lanczos.
+    try:
+        vals, vecs = eigsh(S, k=4, which="SA", maxiter=60, tol=1e-7)
+        lam_sa, v_sa, r_sa = pair(vals, vecs)
+    except ArpackNoConvergence as e:
+        lam_sa = v_sa = r_sa = None
+        if getattr(e, "eigenvalues", None) is not None \
+                and len(e.eigenvalues):
+            lam_sa, v_sa, r_sa = pair(e.eigenvalues, e.eigenvectors)
+    if lam_sa is not None and lam_sa < -tol_cert:
+        r_sa_rq = rq_veto(v_sa)
+        if r_sa_rq is not None and r_sa_rq[0] < -tol_cert:
+            return r_sa_rq[0], r_sa_rq[1].reshape(n, dh), 0.0
+
+    # Pass 2 — gauge-deflated LOBPCG on the sparse operator.
+    Yc = np.stack([X64[:, a, :].reshape(n * dh) for a in range(r)], axis=1)
+    Yc, _ = np.linalg.qr(Yc)
+    rng = np.random.default_rng(0)
+    V0 = rng.standard_normal((n * dh, 4))
+    if warm is not None:
+        w = np.asarray(warm, np.float64).reshape(n * dh)
+        if np.isfinite(w).all() and np.linalg.norm(w) > 1e-300:
+            V0[:, 0] = w
+    SYc = S @ Yc
+    defl_ok = float(np.linalg.norm(SYc, axis=0).max()) <= 0.1 * tol_cert
+    try:
+        vals_l, vecs_l = _lobpcg(S, V0, Y=Yc, largest=False,
+                                 maxiter=300, tol=min(1e-8, 0.1 * tol_cert),
+                                 verbosityLevel=0)
+        lam_l, v_l, r_l = pair(vals_l, vecs_l)
+        rq_l = float(v_l @ (S @ v_l))
+        lam_l_full = min(lam_l, 0.0)
+        if rq_l < -tol_cert:
+            return rq_l, v_l.reshape(n, dh), 0.0
+        if defl_ok and lam_l_full - r_l >= -tol_cert:
+            return lam_l_full, v_l.reshape(n, dh), r_l
+    except (np.linalg.LinAlgError, ValueError) as e:
+        import warnings
+        warnings.warn(
+            f"gauge-deflated LOBPCG pass failed with {type(e).__name__}: "
+            f"{e}; falling through to shift-invert", RuntimeWarning)
+
+    # Pass 3 — shift-invert at the threshold, behind the LU fill guard.
+    i_np = _np(edges.i)
+    j_np = _np(edges.j)
+    msk = _np(edges.mask) > 0
+    span = np.abs(i_np[msk] - j_np[msk])
+    long_frac = float(np.mean(span > max(64, n // 100))) if span.size \
+        else 0.0
+    if n * dh > 100_000 and long_frac > 0.05:
+        if lam_sa is not None:
+            return lam_sa, v_sa.reshape(n, dh), r_sa
+        big = float(np.abs(S).sum(axis=1).max())
+        return 0.0, None, big
+    try:
+        vals, vecs = eigsh(S, k=k, sigma=-tol_cert, which="LM",
+                           maxiter=maxiter, tol=1e-10)
+    except ArpackNoConvergence as e:
+        vals, vecs = e.eigenvalues, e.eigenvectors
+        if vals is None or not len(vals):
+            vals, vecs = None, None
+    except RuntimeError:
+        vals = vecs = None
+    if vals is None:
+        if lam_sa is not None:
+            return lam_sa, v_sa.reshape(n, dh), r_sa
+        big = float(np.abs(S).sum(axis=1).max())  # >= spectral radius
+        return 0.0, None, big
+    lam, v, resid = pair(vals, vecs)
+    if lam_sa is not None and lam_sa + r_sa < lam - resid:
+        # The SA interval proves an eigenvalue below everything the
+        # window saw: report the more pessimistic SA pair.
+        return lam_sa, v_sa.reshape(n, dh), r_sa
+    return lam, v.reshape(n, dh), resid
+
+
+def lambda_min_f64(X64, edges: EdgeSet, warm=None, num_probe: int = 4,
+                   maxiter: int = 4000, tol: float | None = None,
+                   deflate: bool = False, tol_cert: float | None = None):
+    """Host float64 minimum eigenvalue of the certificate operator S: scipy
+    LOBPCG on the numpy edge-gradient map (``refine._np_egrad``),
+    warm-started from ``warm``; problems of 50k dimensions and more with a
+    ``tol_cert`` take the shift-invert route.  Returns ``(lambda_min,
+    eigenvector [n, d+1], resid)`` — ``resid = ||S v - lambda v||`` is
+    load-bearing: callers refuse unless it resolves their tolerance."""
+    from scipy.sparse.linalg import LinearOperator, lobpcg
+
+    from .refine import _np_egrad, _np_sym, np_edges_batched
+
+    X64 = _np(X64).astype(np.float64)
+    n, r, dh = X64.shape
+    d = dh - 1
+    if tol_cert is not None and n * dh >= 50_000:
+        return lambda_min_f64_shift_invert(X64, edges, tol_cert, warm=warm)
+    e64 = np_edges_batched(edges)
+
+    G, _, _, _ = _np_egrad(X64[None], e64, n)
+    lam = _np_sym(np.swapaxes(X64[..., :d], -1, -2) @ G[0][..., :d])
+
+    def S_apply(Vf):
+        # Vf [n*dh, k] -> S V; probes ride the r axis of the egrad map.
+        k = Vf.shape[1]
+        V = Vf.T.reshape(k, n, dh).transpose(1, 0, 2)      # [n, k, dh]
+        QV, _, _, _ = _np_egrad(V[None], e64, n)
+        QV = QV[0]
+        LV = np.einsum("nka,nab->nkb", V[..., :d], lam)
+        SV = QV.copy()
+        SV[..., :d] -= LV
+        return SV.transpose(1, 0, 2).reshape(k, n * dh).T
+
+    op = LinearOperator((n * dh, n * dh), matvec=lambda v: S_apply(
+        v.reshape(-1, 1)).ravel(), matmat=S_apply, dtype=np.float64)
+
+    rng = np.random.default_rng(0)
+    V0 = rng.standard_normal((n * dh, num_probe))
+    if warm is not None:
+        V0[:, 0] = np.asarray(warm, np.float64).reshape(n * dh)
+    # Deflation of the gauge kernel (opt-in: scipy's constrained LOBPCG is
+    # unstable at small dims, and the large-scale route is shift-invert).
+    if deflate:
+        Yc = np.stack([X64[:, a, :].reshape(n * dh) for a in range(r)],
+                      axis=1)
+        Yc, _ = np.linalg.qr(Yc)
+        vals, vecs = lobpcg(op, V0, Y=Yc, largest=False, maxiter=maxiter,
+                            tol=tol, verbosityLevel=0)
+    else:
+        vals, vecs = lobpcg(op, V0, largest=False, maxiter=maxiter,
+                            tol=tol, verbosityLevel=0)
+    i = int(np.argmin(vals))
+    lam_min, v = float(vals[i]), vecs[:, i]
+    v = v / max(np.linalg.norm(v), 1e-300)
+    resid = float(np.linalg.norm(S_apply(v.reshape(-1, 1)).ravel()
+                                 - lam_min * v))
+    if deflate:
+        lam_min = min(lam_min, 0.0)
+    return lam_min, v.reshape(n, dh), resid
+
+
+# ---------------------------------------------------------------------------
+# Riemannian staircase
+# ---------------------------------------------------------------------------
+
+def escape_rank(X: torch.Tensor, direction: torch.Tensor, edges: EdgeSet,
+                alpha0: float = 1e-2, max_halvings: int = 20,
+                inc=None) -> torch.Tensor:
+    """Lift ``X`` to rank r+1 along the negative-curvature direction:
+    ``X+ = [[X], [alpha v^T]]`` projected to the rank-(r+1) manifold,
+    alpha halved until the cost drops (at most ``max_halvings`` tries;
+    with none found the new row is zero)."""
+    f0 = quadratic.cost(X, edges)
+
+    def lifted(alpha):
+        row = alpha * direction[:, None, :].to(X.dtype)
+        return manifold.project(torch.cat([X, row], dim=1))
+
+    alpha = alpha0
+    for _ in range(max_halvings):
+        if bool(quadratic.cost(lifted(alpha), edges) < f0):
+            return lifted(alpha)
+        alpha *= 0.5
+    return lifted(0.0)
+
+
+@dataclasses.dataclass
+class StaircaseResult:
+    T: torch.Tensor             # [n, d, d+1] rounded trajectory
+    X: torch.Tensor             # [n, r_final, d+1]
+    cost: float
+    rank: int                   # rank at which the staircase stopped
+    certificate: CertificateResult
+    history: list               # [(rank, cost, lambda_min)]
+
+
+def solve_staircase(meas: Measurements, r_min: int | None = None,
+                    r_max: int = 10, params: SolverParams | None = None,
+                    max_iters: int = 300, grad_norm_tol: float = 1e-6,
+                    eta: float = 1e-5, init: str = "chordal",
+                    dtype=torch.float64, verbose: bool = False,
+                    device="cuda") -> StaircaseResult:
+    """Certifiably correct centralized PGO: solve the rank-r relaxation,
+    certify, and climb the staircase r -> r+1 on failure (SE-Sync
+    Algorithm 1 on the lifted SE(d) manifold)."""
+    dev = resolve_device(device)
+    d = meas.d
+    n = meas.num_poses
+    r_min = d + 1 if r_min is None else r_min
+    params = params or SolverParams(initial_radius=1e1, max_inner_iters=50)
+    edges = edge_set_from_measurements(meas, dtype=dtype, device=dev)
+    X = lift(initial_poses(edges, n, init),
+             lifting_matrix(r_min, d, dtype, dev))
+
+    history = []
+    problem = make_problem(edges, n, params.precond_shift)
+    for r in range(r_min, r_max + 1):
+        out = solver.rtr_solve(problem, X, params, max_iters=max_iters,
+                               grad_norm_tol=grad_norm_tol)
+        X = out.X
+        cert = certify_solution(X, edges, eta=eta, seed=r)
+        history.append((r, float(out.f), cert.lambda_min))
+        if verbose:
+            print(f"[staircase] rank {r}: cost {float(out.f):.6f}, "
+                  f"lambda_min {cert.lambda_min:.3e}, "
+                  f"certified={cert.certified}")
+        if cert.certified or r == r_max:
+            T = round_solution(X, _recover_rounding_basis(X, d))
+            return StaircaseResult(T=T, X=X, cost=float(out.f), rank=r,
+                                   certificate=cert, history=history)
+        X = escape_rank(X, cert.direction, edges)
+    raise AssertionError("unreachable")
+
+
+def _recover_rounding_basis(X: torch.Tensor, d: int) -> torch.Tensor:
+    """Rank-r -> SE(d) rounding basis: the dominant d left singular
+    directions of the stacked rotation factor ``Y [r, n d]`` (SE-Sync's
+    rounding) — here the right singular vectors of ``Y^T`` by
+    ``svd_thin``."""
+    n, r, dh = X.shape
+    Y = X[..., :d].permute(1, 0, 2).reshape(r, n * d)
+    _, _, V = svd_thin(Y.T)
+    return V[:, :d]

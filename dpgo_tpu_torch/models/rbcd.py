@@ -14,10 +14,11 @@ acceleration with restarts, GNC and the other robust costs — its fused
 stepping (``rbcd_steps``, ``rbcd_segment``, with no host sync inside a
 segment), both drivers of ``run_rbcd`` (the per-eval loop and the
 device-resident verdict loop, each with its depth-1 speculation), the
-terminal epilogue without a certificate, the chordal and odometry inits
-and ``solve_rbcd_robust_iterated``.  Certification, the distributed init
-and the dense-Q formulation raise ``NotImplementedError`` naming the
-ROADMAP item that ports them (A5.1, A6, A4.5).
+terminal epilogue with the device or host certificate
+(``certify_mode``), the chordal and odometry inits and
+``solve_rbcd_robust_iterated``.  The distributed init and the dense-Q
+formulation raise ``NotImplementedError`` naming the ROADMAP item that
+ports them (A6, A4.5).
 
 One deliberate deviation: ASYNC's Bernoulli clocks draw from a
 ``torch.Generator`` seeded from ``(seed, iteration)`` (``_async_fired``),
@@ -36,14 +37,14 @@ from .. import robust
 from ..config import AgentParams, ROptAlg, RobustCostType, Schedule
 from ..device import default_dtype, resolve_device
 from ..obs.health import HealthConfig
-from ..ops import chordal, manifold, quadratic, rtr_kernel, solver
+from ..ops import manifold, quadratic, rtr_kernel, solver
 from ..types import (EdgeSet, Measurements, edge_set_from_measurements,
                      loop_closure_mask)
 from ..utils.graph_plan import color_agents, plan_python
 from ..utils.lie import lifting_matrix as _lifting_matrix
 from ..utils.partition import (Partition, gather_poses_to_global,
                                partition_contiguous)
-from .local_pgo import lift, round_solution
+from .local_pgo import initial_poses, lift, round_solution
 
 #: Edge-tile width of the tile-major edge layout (the JAX package's
 #: ``pallas_tcg.TILE``); halved for pose buffers above 1024 slots.
@@ -476,8 +477,6 @@ def _rbcd_round(state: RBCDState, graph: MultiAgentGraph, meta: GraphMeta,
     collapse of the auxiliary sequences (``restartNesterovAcceleration``,
     ``PGOAgent.cpp:1040-1052``).  Nothing here reads a device value on the
     host."""
-    if params.certify_mode != "off":
-        raise _not_ported(f"certify_mode={params.certify_mode!r}", "A5.1")
     if params.acceleration and state.V is None:
         raise ValueError(
             "params.acceleration is set but the state has no V sequence — "
@@ -682,15 +681,9 @@ def lifting_matrix(meta: GraphMeta, dtype=torch.float64,
 def lifted_init(edges_g: EdgeSet, graph: MultiAgentGraph, meta: GraphMeta,
                 n_total: int, init: str = "chordal") -> torch.Tensor:
     """Centralized lifted init on a global edge set, scattered to agents:
-    ``"chordal"`` (``chordal.chordal_initialization``) or ``"odometry"``
-    (``chordal.odometry_from_edges``), on the edges' device and dtype."""
-    if init == "chordal":
-        fn = chordal.chordal_initialization
-    elif init == "odometry":
-        fn = chordal.odometry_from_edges
-    else:
-        raise ValueError(f"unknown centralized init policy {init!r}")
-    T0 = fn(edges_g, n_total)
+    ``"chordal"`` or ``"odometry"`` (``local_pgo.initial_poses``), on the
+    edges' device and dtype."""
+    T0 = initial_poses(edges_g, n_total, init)
     X0g = lift(T0, lifting_matrix(meta, T0.dtype, T0.device))
     return scatter_to_agents(X0g, graph)
 
@@ -758,7 +751,9 @@ class RBCDResult:
     terminated_by: str
     weights: torch.Tensor | None = None  # [M] per-measurement weights
     state: RBCDState | None = None
-    certificate: object = None  # terminal certification (A5.1)
+    # Terminal certification (certify.CertificateResult) when
+    # params.certify_mode is "device" or "host", else None.
+    certificate: object = None
 
 
 def global_weights(weights: torch.Tensor, graph: MultiAgentGraph,
@@ -1003,7 +998,7 @@ def _central_metrics_body(graph: MultiAgentGraph, edges_g: EdgeSet,
     consensus; with ``telemetry``, + GNC mu, the inlier fraction, the mean
     weight of the updatable loop closures and the per-agent relative
     change.  The incidence is built here, once per solve."""
-    inc_g = quadratic.incidence(n_total, torch.cat([edges_g.i, edges_g.j]))
+    inc_g = quadratic.edge_incidence(edges_g, n_total)
 
     def central_metrics(Xa, weights, ready, mu, rel_change):
         Xg = gather_to_global(Xa, graph, n_total)
@@ -1126,24 +1121,71 @@ def make_verdict_program(graph: MultiAgentGraph, edges_g: EdgeSet,
 
 def make_terminal_epilogue(graph: MultiAgentGraph, edges_g: EdgeSet,
                            n_total: int, num_meas: int, meta: GraphMeta, *,
-                           certify_mode: str = "off"):
+                           certify_mode: str = "off",
+                           certify_seed: int = 0):
     """The terminal program of a solve: gather, rounding and anchoring
-    (``round_global``) and the weight collapse.  ``epilogue(Xa, weights,
-    extras)`` returns ``{"T", "w_glob", **extras}``; the verdict loop rides
-    its history and latched indices in ``extras``, so its whole epilogue is
-    one ``_host_fetch``.  Certificate modes are not ported yet."""
-    if certify_mode != "off":
-        raise _not_ported(f"certify_mode={certify_mode!r}", "A5.1")
-    del edges_g  # the certificate modes' operand
+    (``round_global``), the weight collapse, and — with
+    ``certify_mode="device"`` — the gauge-deflated device certificate
+    eigensolve (``certify.device_certificate_payload``) on the gathered
+    global iterate with the collapsed weights, all as tensor ops with no
+    host sync.  ``epilogue(Xa, weights, extras)`` returns ``{"T",
+    "w_glob", **extras}``, plus ``Xg`` (the certificate operand, and the
+    host f64 REFUSE fallback's input) for ``"device"``/``"host"`` and
+    ``cert`` (the payload) for ``"device"``; the verdict loop rides its
+    history and latched indices in ``extras``, so the driver's whole
+    epilogue is one ``_host_fetch``.  The host decision on the fetched
+    dict is ``_epilogue_certificate``.  The lifting matrix and the global
+    edges' incidence are built here, once, so the program itself copies
+    nothing to the device."""
+    if certify_mode not in ("off", "device", "host"):
+        raise ValueError(f"unknown certify_mode {certify_mode!r}")
+    device_cert = certify_mode == "device"
+    want_xg = certify_mode in ("device", "host")
+    ylift = lifting_matrix(meta, edges_g.R.dtype, edges_g.R.device)
+    if device_cert:
+        from . import certify as certify_mod
+
+        inc_g = quadratic.edge_incidence(edges_g, n_total)
 
     def epilogue(Xa, weights, extras: dict) -> dict:
         Xg = gather_to_global(Xa, graph, n_total)
-        return {"T": round_global(Xg, lifting_matrix(meta, Xg.dtype,
-                                                     Xg.device)),
-                "w_glob": global_weights(weights, graph, num_meas),
-                **extras}
+        w_glob = global_weights(weights, graph, num_meas)
+        out = {"T": round_global(Xg, ylift.to(Xg.dtype)), "w_glob": w_glob,
+               **extras}
+        if want_xg:
+            out["Xg"] = Xg
+        if device_cert:
+            out["cert"] = certify_mod.device_certificate_payload(
+                Xg, edges_g._replace(weight=w_glob), certify_seed,
+                inc=inc_g)
+        return out
 
     return epilogue
+
+
+def _epilogue_certificate(fin: dict, edges_g: EdgeSet, params, dtype):
+    """Host decision on a fetched epilogue dict: the ``CertificateResult``
+    of ``RBCDResult.certificate``.  ``certify_mode="device"``: decide the
+    fetched payload (``certify.decide_device_certificate``); the host f64
+    path runs only on a REFUSE, fed from the fetched ``Xg``/``w_glob``.
+    ``"host"``: the post-hoc ``certify_solution`` on the solve's device,
+    kept for parity runs."""
+    from . import certify as certify_mod
+
+    certify_mode = getattr(params, "certify_mode", "off")
+    eta = float(getattr(params, "certify_eta", 1e-5))
+    if certify_mode == "host":
+        dev = edges_g.weight.device
+        eg = edges_g._replace(weight=fin["w_glob"].to(dev))
+        return certify_mod.certify_solution(fin["Xg"].to(dev), eg, eta=eta)
+    pay = fin["cert"]
+    tol = eta * float(pay["wscale"])
+    # Read by the host f64 fallback only (a REFUSE): the fetched weights.
+    eg = edges_g._replace(weight=fin["w_glob"])
+    f64_solve = certify_mod.host_f64_solve(fin["Xg"], eg, tol,
+                                           warm=pay["direction"])
+    return certify_mod.decide_device_certificate(
+        pay, eta, float(torch.finfo(dtype).eps), f64_solve=f64_solve)
 
 
 def run_rbcd(state: RBCDState, graph: MultiAgentGraph, meta: GraphMeta,
@@ -1212,7 +1254,8 @@ def run_rbcd(state: RBCDState, graph: MultiAgentGraph, meta: GraphMeta,
             edges_g=edges_g, n_total=n_total, num_meas=num_meas,
             bounds=bounds, robust_on=robust_on, epilogue=epilogue,
             metrics_body=central_metrics, start_iteration=start_iteration,
-            start_nwu=start_num_weight_updates, boundary_cb=boundary_cb)
+            start_nwu=start_num_weight_updates, boundary_cb=boundary_cb,
+            certify_mode=certify_mode)
 
     cost_hist, gn_hist = [], []
     terminated_by = "max_iters"
@@ -1249,17 +1292,25 @@ def run_rbcd(state: RBCDState, graph: MultiAgentGraph, meta: GraphMeta,
             break
 
     fin = epilogue(state.X, state.weights, {})
+    certificate = None
+    if certify_mode != "off":
+        # The one terminal read: the trajectory, the weights, Xg and the
+        # certificate payload in one fetch (the REFUSE fallback's inputs
+        # included); with certification off the results stay on the
+        # device.
+        fin = _host_fetch(fin)
+        certificate = _epilogue_certificate(fin, edges_g, params, dtype)
     return RBCDResult(T=fin["T"], X=state.X, cost_history=cost_hist,
                       grad_norm_history=gn_hist, iterations=it,
                       terminated_by=terminated_by, weights=fin["w_glob"],
-                      state=state)
+                      state=state, certificate=certificate)
 
 
 def _run_verdict_loop(state, graph, meta, segment, *, max_iters,
                       grad_norm_tol, eval_every, verdict_every, dtype,
                       params, edges_g, n_total, num_meas, bounds, robust_on,
                       epilogue, metrics_body=None, start_iteration=0,
-                      start_nwu=0, boundary_cb=None):
+                      start_nwu=0, boundary_cb=None, certify_mode="off"):
     """Body of ``run_rbcd``'s device-resident mode, telemetry off.
 
     Per verdict boundary (every K rounds): the segments and the verdict
@@ -1340,12 +1391,18 @@ def _run_verdict_loop(state, graph, meta, segment, *, max_iters,
         n_pre = n_evals
 
     hist = fin["hist"]
+    # The certificate payload crossed in the terminal fetch above; what
+    # remains is host math (the decision ladder), which reads the device
+    # again only on a REFUSE.
+    certificate = _epilogue_certificate(fin, edges_g, params, dtype) \
+        if certify_mode != "off" else None
     return RBCDResult(T=fin["T"], X=state.X,
                       cost_history=[float(hist[r, 0]) for r in range(n_keep)],
                       grad_norm_history=[float(hist[r, 1])
                                          for r in range(n_keep)],
                       iterations=it_final, terminated_by=terminated_by,
-                      weights=fin["w_glob"], state=state)
+                      weights=fin["w_glob"], state=state,
+                      certificate=certificate)
 
 
 @dataclasses.dataclass(frozen=True)

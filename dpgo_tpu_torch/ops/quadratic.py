@@ -138,7 +138,38 @@ def egrad_ell(Xbuf: torch.Tensor, edges: EdgeSet, inc_slot: torch.Tensor,
     return ell_sum(torch.cat([gi, gj], dim=-3), inc_slot, inc_mask)
 
 
+def edge_incidence(edges: EdgeSet, n_out: int):
+    """The ``[i-side | j-side]`` incidence of ``edges`` into rows
+    ``[0, n_out)`` that ``egrad_ell``, ``egrad`` and ``diag_blocks`` sum
+    through (one host copy of the indices; build it once per edge set)."""
+    return incidence(n_out, torch.cat([edges.i, edges.j], dim=-1))
+
+
+def egrad(Xbuf: torch.Tensor, edges: EdgeSet, n_out: int | None = None,
+          inc=None) -> torch.Tensor:
+    """Euclidean gradient d f / d Xbuf of the first ``n_out`` slots (all by
+    default): the global edge-list map of the JAX package's ``egrad``,
+    summed through the incidence ``inc`` (``edge_incidence(edges,
+    n_out)``, built here when not given) — an order fixed by the indices,
+    not ``index_add_``.  Linear in ``Xbuf``, so probes ride the r axis
+    (``V [N, k, d+1]``)."""
+    if inc is None:
+        inc = edge_incidence(edges, Xbuf.shape[-3] if n_out is None
+                             else n_out)
+    return egrad_ell(Xbuf, edges, *inc)
+
+
+def hessvec(Vlocal: torch.Tensor, edges: EdgeSet, n_buf: int,
+            inc=None) -> torch.Tensor:
+    """``(V Q)`` restricted to the local poses: ``Vlocal [n_local, r, k]``
+    zero-padded to the buffer so neighbor poses act as constants
+    (``inc`` as in ``egrad``, into ``n_local`` rows)."""
+    return egrad(_pad_to(Vlocal, n_buf), edges, Vlocal.shape[-3], inc)
+
+
 def _pad_to(V: torch.Tensor, n_buf: int) -> torch.Tensor:
+    if V.shape[-3] == n_buf:
+        return V
     pad = torch.zeros(V.shape[:-3] + (n_buf - V.shape[-3],) + V.shape[-2:],
                       dtype=V.dtype, device=V.device)
     return torch.cat([V, pad], dim=-3)

@@ -1,5 +1,5 @@
-"""Riemannian trust-region step with Steihaug truncated CG, batched over
-agents (port of ``dpgo_tpu.ops.solver``).
+"""Riemannian trust-region (RTR) with Steihaug truncated CG, and RGD
+(port of ``dpgo_tpu.ops.solver``).
 
 The JAX package vmaps a ``lax.while_loop`` over agents; here the agent axis
 is a leading batch dimension and each loop runs in Python until no batch
@@ -8,6 +8,11 @@ vmapped loop produces.  With no batch dimension the loops are the plain
 single-problem ones.  This is the plain ("ell") formulation of the local
 solve and the reference for the arithmetic of the CUDA kernel
 (``ops.rtr_kernel``).
+
+The centralized solvers (``rtr_solve``, ``rgd_linesearch``) are Python
+loops over device tensors too: each loop test is one host read, so an
+``rtr_solve`` outer iteration reads the host once for its stop test and
+once per truncated-CG iteration plus one (the tCG's own loop tests).
 """
 
 from __future__ import annotations
@@ -30,6 +35,10 @@ class Problem(NamedTuple):
     precond: Callable
 
 
+def identity_precond(X, V):
+    return V
+
+
 class TCGResult(NamedTuple):
     eta: torch.Tensor
     heta: torch.Tensor
@@ -48,7 +57,7 @@ def truncated_cg(X, grad, hvp, precond, radius, max_iters: int,
     """Preconditioned Steihaug-Toint truncated CG on the tangent space at X:
     ``min <grad, eta> + 0.5 <eta, H eta>`` s.t. ``||eta|| <= radius``."""
     dtype = grad.dtype
-    eps = torch.tensor(1e-30, dtype=dtype, device=grad.device)
+    eps = torch.full((), 1e-30, dtype=dtype, device=grad.device)
     radius = torch.as_tensor(radius, dtype=dtype, device=grad.device)
 
     r = grad
@@ -112,7 +121,7 @@ class RTRState(NamedTuple):
 
 def _rtr_attempt(problem: Problem, X, fX, g, eg, radius, params: SolverParams):
     """One tCG solve + acceptance test at ``radius``; returns
-    (X_new, f_new, accepted)."""
+    (X_new, f_new, accepted, hit_boundary, rho)."""
     hvp = lambda V: manifold.ehess_to_rhess(  # noqa: E731
         X, eg, problem.ehess(X, V), V)
     pre = lambda V: manifold.tangent_project(  # noqa: E731
@@ -125,7 +134,49 @@ def _rtr_attempt(problem: Problem, X, fX, g, eg, radius, params: SolverParams):
              + 0.5 * manifold.inner(res.eta, res.heta))
     rho = (fX - f_prop) / torch.clamp(mdec, min=1e-30)
     accept = (rho > 0.1) & (f_prop <= fX)
-    return _sel(accept, X_prop, X), torch.where(accept, f_prop, fX), accept
+    return (_sel(accept, X_prop, X), torch.where(accept, f_prop, fX), accept,
+            res.hit_boundary, rho)
+
+
+def rtr_solve(problem: Problem, X0: torch.Tensor, params: SolverParams,
+              max_iters: int | None = None,
+              grad_norm_tol: float | None = None) -> RTRState:
+    """Full RTR loop (centralized solves; reference ``trustRegion`` with
+    Max_Iteration > 1, ``QuadraticOptimizer.cpp:61-116``): the radius
+    shrinks x0.25 when rho < 0.25 and grows x2, up to 5x the initial
+    radius, when rho > 0.75 at the boundary; the loop stops at the
+    gradient-norm tolerance or after ``max_iters`` iterations.  The
+    Euclidean gradient of each iterate is evaluated once."""
+    max_iters = params.max_outer_iters if max_iters is None else max_iters
+    gtol = params.grad_norm_tol if grad_norm_tol is None else grad_norm_tol
+    max_radius = 5.0 * params.initial_radius  # QuadraticOptimizer.cpp:81
+    X = X0
+    f = problem.cost(X0)
+    eg = problem.egrad(X0)
+    g = manifold.rgrad(X0, eg)
+    gn0 = manifold.norm(g)
+    gn = gn0
+    radius = torch.full_like(gn0, params.initial_radius)
+    accepted = torch.zeros(gn0.shape, dtype=torch.bool, device=gn0.device)
+    done = gn0 < gtol
+    iters = 0
+    while iters < max_iters and not bool(done):
+        X, f, accepted, hit, rho = _rtr_attempt(problem, X, f, g, eg,
+                                                radius, params)
+        radius = torch.where(
+            rho < 0.25, radius * 0.25,
+            torch.where((rho > 0.75) & hit,
+                        torch.clamp(2.0 * radius, max=max_radius), radius))
+        eg = problem.egrad(X)
+        g = manifold.rgrad(X, eg)
+        gn = manifold.norm(g)
+        done = gn < gtol
+        iters += 1
+    return RTRState(X=X, radius=radius, f=f, grad_norm=gn,
+                    grad_norm_init=gn0,
+                    iters=torch.full((), iters, dtype=torch.int32,
+                                     device=gn0.device),
+                    accepted=accepted, done=done)
 
 
 def rtr_single_step(problem: Problem, X0: torch.Tensor, params: SolverParams,
@@ -147,7 +198,8 @@ def rtr_single_step(problem: Problem, X0: torch.Tensor, params: SolverParams,
         active = (iters < params.max_rejections) & ~done
         if not bool(active.any()):
             break
-        X_new, f_new, acc = _rtr_attempt(problem, X, f, g, eg, radius, params)
+        X_new, f_new, acc, _, _ = _rtr_attempt(problem, X, f, g, eg, radius,
+                                               params)
         X = _sel(active, X_new, X)
         f = _sel(active, f_new, f)
         radius = _sel(active, torch.where(acc, radius, radius / 4.0), radius)
@@ -160,6 +212,48 @@ def rtr_single_step(problem: Problem, X0: torch.Tensor, params: SolverParams,
     return RTRState(X=X, radius=radius, f=f, grad_norm=gn,
                     grad_norm_init=gn0, iters=iters, accepted=accepted,
                     done=done)
+
+
+def rgd_step(problem: Problem, X0: torch.Tensor,
+             stepsize: float) -> torch.Tensor:
+    """One fixed-step Riemannian gradient descent step (reference
+    ``gradientDescent``, ``QuadraticOptimizer.cpp:124-149``: project, scale
+    by -stepsize, retract; preconditioning deliberately off)."""
+    g = manifold.rgrad(X0, problem.egrad(X0))
+    return manifold.retract(X0, -stepsize * g)
+
+
+def rgd_linesearch(problem: Problem, X0: torch.Tensor, max_iters: int = 10,
+                   grad_norm_tol: float = 1e-2, initial_step: float = 1.0,
+                   backtrack: float = 0.5, armijo: float = 1e-4,
+                   max_backtracks: int = 25) -> torch.Tensor:
+    """Armijo line-search Riemannian steepest descent (ROPTLIB's RSD as
+    used by ``gradientDescentLS``, ``QuadraticOptimizer.cpp:151-172``):
+    the step backtracks from ``initial_step`` until the Armijo condition
+    holds (at most ``max_backtracks`` tries), and a step that raises the
+    cost is not taken."""
+    X = X0
+    f = problem.cost(X0)
+    g = manifold.rgrad(X0, problem.egrad(X0))
+    gn = manifold.norm(g)
+    k = 0
+    while k < max_iters and bool(gn >= grad_norm_tol):
+        gsq = manifold.inner(g, g)
+        step = torch.full_like(f, initial_step)
+        for _ in range(max_backtracks):
+            f_try = problem.cost(manifold.retract(X, -step * g))
+            if bool(f_try <= f - armijo * step * gsq):
+                break
+            step = step * backtrack
+        X_new = manifold.retract(X, -step * g)
+        f_new = problem.cost(X_new)
+        keep = f_new <= f
+        X = torch.where(keep, X_new, X)
+        f = torch.where(keep, f_new, f)
+        g = manifold.rgrad(X, problem.egrad(X))
+        gn = manifold.norm(g)
+        k += 1
+    return X
 
 
 class RefineStep(NamedTuple):

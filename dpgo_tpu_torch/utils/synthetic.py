@@ -1,7 +1,7 @@
 """Synthetic pose graphs (numpy), the port's copy of
 ``dpgo_tpu.utils.synthetic``: ``make_measurements``, the loop-closure
-corruption protocols (independent and correlated) and the rejection
-scores.  For the same ``np.random.default_rng`` state both packages draw
+corruption protocols (independent and correlated), the stitched-winding
+saddle of the certificate tests and the rejection scores.  For the same ``np.random.default_rng`` state both packages draw
 the same stream and return bit-identical measurements."""
 
 import numpy as np
@@ -249,6 +249,58 @@ def corrupt_loop_closures_correlated(
             out.t[row] = tm
             out.is_known_inlier[row] = False  # aliasing is never "known"
     return out, outlier_idx
+
+
+def make_stitched_winding(n_cycles: int, cycle_len: int,
+                          kappa: float = 10.0, tau: float = 1.0,
+                          bridge_kappa: float = 10.0, windings: int = 2):
+    """An SE(2) dataset with a certifiably suboptimal rank-2 critical
+    point, and that point as an iterate.
+
+    ``n_cycles`` identity-measurement cycles of length ``cycle_len`` (the
+    global optimum is all-identity at cost 0, but the winding
+    configuration ``R_k = rot(2 pi w k / L)`` is a local minimum of the
+    rank-2 problem while the per-step angle stays below pi/2), stitched
+    pose 0 to pose 0: consecutive cycles by a chain bridge and each cycle
+    from the third on to one random earlier cycle (``rng(7)``), so the
+    cycle-quotient graph is an expander and the near-zero spectrum stays
+    the gauge.  Bridges vanish at the wound configuration (pose 0 of every
+    cycle is the identity there), which stays exactly critical.  The
+    default ``windings=2`` is contractible at rank 3, so one saddle
+    escape leads down to the global optimum.
+
+    Returns ``(meas, X_winding [N, 2, 3])``."""
+    n = n_cycles * cycle_len
+    e_i, e_j, kap = [], [], []
+    rng_b = np.random.default_rng(7)
+    for c in range(n_cycles):
+        base = c * cycle_len
+        for k in range(cycle_len):
+            e_i.append(base + k)
+            e_j.append(base + (k + 1) % cycle_len)
+            kap.append(kappa)
+        if c + 1 < n_cycles:
+            e_i.append(base)
+            e_j.append(base + cycle_len)
+            kap.append(bridge_kappa)
+        if c >= 2:
+            e_i.append(base)
+            e_j.append(int(rng_b.integers(0, c - 1)) * cycle_len)
+            kap.append(bridge_kappa)
+    m = len(e_i)
+    meas = Measurements(
+        d=2, num_poses=n,
+        r1=np.zeros(m, np.int32), p1=np.asarray(e_i, np.int64),
+        r2=np.zeros(m, np.int32), p2=np.asarray(e_j, np.int64),
+        R=np.tile(np.eye(2), (m, 1, 1)), t=np.zeros((m, 2)),
+        kappa=np.asarray(kap, float), tau=np.full(m, tau),
+        weight=np.ones(m), is_known_inlier=np.zeros(m, bool),
+    )
+    th = 2 * np.pi * windings * (np.arange(n) % cycle_len) / cycle_len
+    Rw = np.stack([np.stack([np.cos(th), -np.sin(th)], -1),
+                   np.stack([np.sin(th), np.cos(th)], -1)], -2)
+    Xw = np.concatenate([Rw, np.zeros((n, 2, 1))], axis=-1)
+    return meas, Xw
 
 
 def rejection_scores(weights: np.ndarray, meas: Measurements,

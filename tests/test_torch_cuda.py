@@ -1,8 +1,11 @@
 """The port's CUDA kernels on the card, against their plain PyTorch
 versions (``dpgo_tpu_torch.ops.rtr_kernel``), the launch counts of the
 solve, of a GREEDY round and of the refinement, fused segments and verdict
-windows free of host syncs, and the verdict loop against the per-eval loop.
-Every test needs a CUDA device and skips without one.
+windows free of host syncs, the verdict loop against the per-eval loop,
+and the certificate on the card: the sync-free small decompositions
+against ``torch.linalg``, the device payload against the same payload
+computed on the CPU in float64, and the certified epilogue free of host
+syncs.  Every test needs a CUDA device and skips without one.
 
 This file imports no JAX, so it also runs where only PyTorch is installed:
 
@@ -15,8 +18,10 @@ import torch
 
 from dpgo_tpu_torch.config import (AgentParams, RobustCostParams,
                                    RobustCostType, Schedule, SolverParams)
-from dpgo_tpu_torch.models import rbcd, refine
-from dpgo_tpu_torch.ops import manifold, quadratic
+from dpgo_tpu_torch import interop
+from dpgo_tpu_torch.models import certify, local_pgo, rbcd, refine
+from dpgo_tpu_torch.ops import manifold, quadratic, smallmat
+from dpgo_tpu_torch.types import edge_set_from_measurements
 from dpgo_tpu_torch.ops import rtr_kernel as rk
 from dpgo_tpu_torch.utils.synthetic import make_measurements
 
@@ -612,3 +617,100 @@ def test_b1_b4_cluster_route_repeats_bit_for_bit(card):
                      rk.rtr_refine_full(*ops, **rkw))
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+# ---------------------------------------------------------------------------
+# The certificate on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+def test_eigh_small_and_svd_thin_match_linalg_on_card(card, dtype, tol):
+    g = torch.Generator(device=card).manual_seed(0)
+    for n in (4, 12):
+        B = torch.randn(5, n, n, generator=g, device=card, dtype=dtype)
+        A = B + B.transpose(-1, -2)
+        w, V = smallmat.eigh_small(A)
+        w_ref = torch.linalg.eigvalsh(A)
+        scale = float(A.abs().max())
+        assert float((w - w_ref).abs().max()) <= tol * scale
+        rec = V @ torch.diag_embed(w) @ V.transpose(-1, -2)
+        assert float((rec - A).abs().max()) <= 10 * tol * scale
+    M = torch.randn(2000, 5, generator=g, device=card, dtype=dtype)
+    U, s, V = smallmat.svd_thin(M)
+    s_ref = torch.linalg.svdvals(M)
+    assert float((s - s_ref).abs().max()) <= tol * float(s_ref[0])
+    assert float((U @ torch.diag(s) @ V.T - M).abs().max()) <= \
+        10 * tol * float(s_ref[0])
+
+
+def _cert_problem(seed=5, n=60, num_lc=20):
+    meas = make_measurements(np.random.default_rng(seed), n=n, d=3,
+                             num_lc=num_lc, rot_noise=0.05,
+                             trans_noise=0.05)[0]
+    res = local_pgo.solve_local(meas, rank=5, grad_norm_tol=1e-6,
+                                max_iters=3, device="cpu")
+    return meas, res.X
+
+
+def _fixed_draws(n, dh, k=4, seed=0):
+    rng = np.random.default_rng(seed)
+    return interop.fixed_probe_draws({0: (rng.standard_normal((n, 1, dh)),
+                                          rng.standard_normal((n * dh, k)))})
+
+
+def test_device_payload_on_card_matches_cpu_f64(card, monkeypatch):
+    """The same payload, same draws, float64 on the card and on the CPU;
+    then float32 on the card against it."""
+    meas, X = _cert_problem()
+    monkeypatch.setattr(certify, "_probe_draws",
+                        _fixed_draws(X.shape[0], X.shape[2]))
+    pays = {}
+    for where, dev, dtype in (("cpu", "cpu", torch.float64),
+                              ("card64", card, torch.float64),
+                              ("card32", card, torch.float32)):
+        e = edge_set_from_measurements(meas, dtype=dtype, device=dev)
+        pays[where] = interop.payload_to_numpy(
+            certify.device_certificate_payload(X.to(dev, dtype), e, 0))
+    ref = pays["cpu"]
+    noise = 1e-9 * ref["sigma"]
+    for k in ("lam_min", "sigma", "rq", "defl_resid", "stat", "wscale"):
+        np.testing.assert_allclose(pays["card64"][k], ref[k], rtol=1e-8,
+                                   atol=noise, err_msg=k)
+    # float32: ten ulps of sigma, the error band the decision assumes.
+    band = 10 * float(np.finfo(np.float32).eps) * ref["sigma"]
+    for k in ("lam_min", "rq"):
+        assert abs(pays["card32"][k] - ref[k]) <= band, k
+    np.testing.assert_allclose(pays["card32"]["sigma"], ref["sigma"],
+                               rtol=1e-5)
+
+
+def test_certified_epilogue_has_no_host_sync(card):
+    """The certified solve through the verdict loop on the card, then its
+    certified epilogue again with every host sync an error."""
+    meas = make_measurements(np.random.default_rng(5), n=60, d=3,
+                             num_lc=20, rot_noise=0.05,
+                             trans_noise=0.05)[0]
+    params = AgentParams(d=3, r=5, num_robots=4, certify_mode="device")
+    prob = rbcd.prepare_problem(meas, 4, params, device=card)
+    res = rbcd.dispatch_prepared(prob, max_iters=16, grad_norm_tol=0.0,
+                                 verdict_every=8)
+    assert res.certificate is not None
+    assert res.certificate.device_verdict != certify.CERT_NONE
+    part = prob.part
+    edges_g = edge_set_from_measurements(part.meas_global,
+                                         dtype=torch.float32, device=card)
+    epi = rbcd.make_terminal_epilogue(
+        prob.graph, edges_g, part.meas_global.num_poses,
+        len(part.meas_global), prob.meta, certify_mode="device")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fin = epi(res.state.X, res.state.weights, {})
+        copy = rbcd._start_fetch(fin)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    host = rbcd._host_fetch(copy)
+    assert float(host["cert"]["lam_min"]) == res.certificate.lambda_min
+    assert float(host["cert"]["sigma"]) == res.certificate.sigma
+    assert host["Xg"].shape == (60, 5, 4)

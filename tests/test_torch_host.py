@@ -126,7 +126,10 @@ def test_port_imports_no_jax():
             "dpgo_tpu_torch.models.refine, dpgo_tpu_torch.robust, "
             "dpgo_tpu_torch.experiments.measure_r3, dpgo_tpu_torch.obs, "
             "dpgo_tpu_torch.obs.health, dpgo_tpu_torch.ops.chordal, "
-            "dpgo_tpu_torch.utils.partition, dpgo_tpu_torch.utils.synthetic; "
+            "dpgo_tpu_torch.utils.partition, dpgo_tpu_torch.utils.synthetic, "
+            "dpgo_tpu_torch.models.certify, dpgo_tpu_torch.models.local_pgo, "
+            "dpgo_tpu_torch.ops.lobpcg, "
+            "dpgo_tpu_torch.experiments.cert_witness; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'dpgo_tpu')); print(bad); "
             "sys.exit(1 if bad else 0)")

@@ -323,9 +323,22 @@ def test_terminal_epilogue_matches_jax():
     np.testing.assert_allclose(tfin["w_glob"].numpy(),
                                np.asarray(jfin["w_glob"]), rtol=1e-12)
     assert tfin["tail"].tolist() == [0, 1]
-    with pytest.raises(NotImplementedError, match="A5.1 in ROADMAP"):
-        rbcd.make_terminal_epilogue(graph, eg_t, n, m, meta,
-                                    certify_mode="device")
+    # With the device certificate the epilogue also carries the gathered
+    # iterate and the payload, computed on the collapsed weights.
+    tcert = rbcd.make_terminal_epilogue(graph, eg_t, n, m, meta,
+                                        certify_mode="device")(
+        ts.X, ts.weights, {})
+    jcert = jrbcd.make_terminal_epilogue(prob.graph, eg_j, n, m, prob.meta,
+                                         certify_mode="device")(
+        js.X, js.weights, {})
+    np.testing.assert_allclose(tcert["Xg"].numpy(), np.asarray(jcert["Xg"]),
+                               rtol=1e-12, atol=1e-14)
+    assert set(tcert["cert"]) == set(jcert["cert"])
+    # wscale is deterministic; sigma comes from different probe draws.
+    assert float(tcert["cert"]["wscale"]) == float(jcert["cert"]["wscale"])
+    np.testing.assert_allclose(float(tcert["cert"]["sigma"]),
+                               float(jcert["cert"]["sigma"]), rtol=1e-2)
+    assert tcert["cert"]["direction"].shape == (n, 4)
 
 
 def _run_with_hooks(pkg, start=None):
