@@ -97,7 +97,9 @@ class SolverParams:
     # float32 loads, so there is no one-hot matmul whose precision to pick.
     pallas_bf16_select: bool = False
     pallas_sel_mode: str = ""
-    # Dense connection-Laplacian formulation; not ported (raises).
+    # Dense connection-Laplacian formulation (``models.rbcd.use_dense_q``):
+    # the local problem's products become matmuls against the
+    # materialized per-agent Q, within ``DENSE_Q_BUDGET_BYTES``.
     dense_quadratic: bool = False
 
 

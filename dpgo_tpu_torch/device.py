@@ -25,3 +25,12 @@ def default_dtype(device: torch.device) -> torch.dtype:
     """float32 on a CUDA device (the kernel's type, as the TPU ran with
     x64 off), float64 on the CPU (the JAX package's default)."""
     return torch.float32 if device.type == "cuda" else torch.float64
+
+
+def sync_free(t: torch.Tensor) -> bool:
+    """Whether a loop over ``t``'s tensors must run to its bound with the
+    finished lanes frozen, instead of reading the host to stop early: on a
+    card, where a host read stalls the stream and breaks a sync-free
+    window; not on the CPU, where the early exit costs nothing and gives
+    the same result."""
+    return t.device.type != "cpu"

@@ -26,6 +26,7 @@ import torch
 from .device import resolve_device
 from .models.rbcd import GraphMeta, MultiAgentGraph, RBCDState, VerdictState
 from .models.refine import RefineConstants
+from .ops import quadratic
 from .types import EdgeSet
 
 
@@ -82,6 +83,7 @@ def graph_from_numpy(arrays, dtype: torch.dtype | None = None,
                     **{k: f(e[k]) for k in ("R", "t", "kappa", "tau",
                                             "weight", "mask", "is_lc",
                                             "fixed_weight")})
+    n_buf = np.shape(a["pose_mask"])[-1] + np.shape(a["nbr_mask"])[-1]
     return MultiAgentGraph(
         edges=edges, meas_id=i64(a["meas_id"]), n=i32(a["n"]),
         pose_mask=f(a["pose_mask"]), pub_idx=i64(a["pub_idx"]),
@@ -90,22 +92,19 @@ def graph_from_numpy(arrays, dtype: torch.dtype | None = None,
         global_index=i64(a["global_index"]), inc_slot=i32(a["inc_slot"]),
         inc_mask=f(a["inc_mask"]), eidx_i=i32(a["eidx_i"]),
         eidx_j=i32(a["eidx_j"]), rot_t=f32(a["rot_t"]),
-        trn_t=f32(a["trn_t"]), color=i32(a["color"]))
+        trn_t=f32(a["trn_t"]), color=i32(a["color"]),
+        dense_inc=quadratic.dense_q_incidence(e["i"], e["j"], n_buf, device))
 
 
 def state_from_numpy(arrays, dtype: torch.dtype | None = None,
                      device="cuda", seed: int = 0) -> RBCDState:
     """An ``RBCDState`` from the JAX package's, with its Nesterov (``V``,
-    ``gamma``, ``alpha``), GNC (``mu``, ``X_init``) and factor fields.  The
-    dense-Q buffer is not ported and must be absent (None).  JAX's ASYNC
-    key chain does not carry over: the port's clocks draw from ``seed``
-    (``models.rbcd._async_fired``)."""
+    ``gamma``, ``alpha``), GNC (``mu``, ``X_init``) and factor fields
+    (``chol``, and the dense-Q buffer ``Qbuf`` where it has one).  JAX's
+    ASYNC key chain does not carry over: the port's clocks draw from
+    ``seed`` (``models.rbcd._async_fired``)."""
     device = resolve_device(device)
     a = _fields(arrays)
-    if a.get("Qbuf") is not None:
-        raise NotImplementedError(
-            "state field 'Qbuf' belongs to the dense-Q formulation, which "
-            "is not ported yet (ROADMAP.md Queue A)")
     X = np.asarray(a["X"])
     if dtype is None:
         dtype = torch.float64 if X.dtype == np.float64 else torch.float32
@@ -120,7 +119,7 @@ def state_from_numpy(arrays, dtype: torch.dtype | None = None,
         ready=torch.as_tensor(np.array(a["ready"], bool), device=device),
         chol=f(a.get("chol")), V=f(a.get("V")), gamma=f(a.get("gamma")),
         alpha=f(a.get("alpha")), mu=f(a.get("mu")),
-        X_init=f(a.get("X_init")), seed=seed)
+        X_init=f(a.get("X_init")), seed=seed, Qbuf=f(a.get("Qbuf")))
 
 
 def refine_consts_from_numpy(arrays, device="cuda") -> RefineConstants:

@@ -16,9 +16,9 @@ segment), both drivers of ``run_rbcd`` (the per-eval loop and the
 device-resident verdict loop, each with its depth-1 speculation), the
 terminal epilogue with the device or host certificate
 (``certify_mode``), the chordal and odometry inits and
-``solve_rbcd_robust_iterated``.  The distributed init and the dense-Q
-formulation raise ``NotImplementedError`` naming the ROADMAP item that
-ports them (A6, A4.5).
+``solve_rbcd_robust_iterated``, the distributed init
+(``models.dist_init``) and the dense-Q formulation (the local problem as
+matmuls against the materialized per-agent Q, ``dense_q_all``).
 
 One deliberate deviation: ASYNC's Bernoulli clocks draw from a
 ``torch.Generator`` seeded from ``(seed, iteration)`` (``_async_fired``),
@@ -35,7 +35,7 @@ import torch
 
 from .. import robust
 from ..config import AgentParams, ROptAlg, RobustCostType, Schedule
-from ..device import default_dtype, resolve_device
+from ..device import default_dtype, resolve_device, sync_free
 from ..obs.health import HealthConfig
 from ..ops import manifold, quadratic, rtr_kernel, solver
 from ..types import (EdgeSet, Measurements, edge_set_from_measurements,
@@ -49,11 +49,6 @@ from .local_pgo import initial_poses, lift, round_solution
 #: Edge-tile width of the tile-major edge layout (the JAX package's
 #: ``pallas_tcg.TILE``); halved for pose buffers above 1024 slots.
 TILE = 256
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to dpgo_tpu_torch yet ({item} in ROADMAP.md)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,6 +89,9 @@ class MultiAgentGraph(NamedTuple):
     rot_t: torch.Tensor  # [A, nt, d*d, T] float32
     trn_t: torch.Tensor  # [A, nt, d, T] float32
     color: torch.Tensor  # [A] int32 greedy agent coloring
+    # Block incidence of the dense Q over the [n_max + S_max] buffer
+    # (``quadratic.dense_q_incidence``: target, slot, mask).
+    dense_inc: tuple | None = None
 
 
 class RBCDState(NamedTuple):
@@ -112,6 +110,10 @@ class RBCDState(NamedTuple):
     mu: torch.Tensor | None = None  # 0-dim GNC control parameter
     X_init: torch.Tensor | None = None  # initial guess (GNC, no warm start)
     seed: int = 0  # ASYNC clocks draw from (seed, iteration)
+    # [A, (d+1)(n_max+s_max), (d+1)(n_max+s_max)] materialized buffer
+    # Laplacians (``dense_q_all``) of the dense-Q formulation; None unless
+    # it runs.  Same refresh schedule as ``chol``.
+    Qbuf: torch.Tensor | None = None
 
 
 def edge_tile_shape(n_max: int, s_max: int, e_max: int) -> tuple[int, int]:
@@ -203,7 +205,9 @@ def build_graph(part: Partition, rank: int, dtype=torch.float64,
         eidx_j=i32(idx_j.reshape(A, nt, 1, T)),
         rot_t=f32(rot_flat.reshape(A, d * d, nt, T).transpose(0, 2, 1, 3)),
         trn_t=f32(trn_flat.reshape(A, d, nt, T).transpose(0, 2, 1, 3)),
-        color=i32(color))
+        color=i32(color),
+        dense_inc=quadratic.dense_q_incidence(plan.ei, plan.ej,
+                                              n_max + s_max, dev))
     meta = GraphMeta(num_robots=A, n_max=n_max, e_max=e_max, s_max=s_max,
                      p_max=p_max, d=d, rank=rank, num_colors=num_colors)
     return graph, meta
@@ -264,23 +268,50 @@ def precond_chol(edges: EdgeSet, graph: MultiAgentGraph,
     return quadratic.precond_factors(blocks, params.solver.precond_shift)
 
 
+#: Dense-Q memory budget: the [A, K, K] buffer Laplacians (K = (d+1)
+#: (n_max + s_max)) must fit beside the rest of the problem (the sphere2500
+#: stand-in at 8 agents takes 347.6 MB in float32).
+DENSE_Q_BUDGET_BYTES = 1 << 30
+
+
+def use_dense_q(meta: GraphMeta, params: AgentParams | None,
+                itemsize: int) -> bool:
+    """Whether the (opt-in) dense-Q formulation applies: requested through
+    ``SolverParams.dense_quadratic`` and within ``DENSE_Q_BUDGET_BYTES`` at
+    the problem's ``itemsize`` (4 for float32, 8 for float64)."""
+    if params is None or not params.solver.dense_quadratic:
+        return False
+    K = (meta.d + 1) * (meta.n_max + meta.s_max)
+    return meta.num_robots * K * K * itemsize <= DENSE_Q_BUDGET_BYTES
+
+
+def _dense(meta: GraphMeta, params: AgentParams | None,
+           dtype: torch.dtype) -> bool:
+    """Whether ``_formulation`` picks "dense" for an RBCD round (a forced
+    kernel comes first); never raises, so ``init_state`` can ask it."""
+    return params is not None and params.solver.pallas_tcg is not True \
+        and params.solver.algorithm == ROptAlg.RTR \
+        and use_dense_q(meta, params, dtype.itemsize)
+
+
 def _formulation(meta: GraphMeta, params: AgentParams | None,
                  graph: MultiAgentGraph, dtype: torch.dtype,
                  device: torch.device, rtr: bool | None = None) -> str:
-    """Which local-solve formulation a round runs: ``"kernel"`` (the fused
-    RTR step of ``ops.rtr_kernel``) or ``"ell"`` (plain PyTorch over the
-    ELL incidence).  The kernel runs on CUDA, for RTR in float32 — the
-    JAX package's rule at its ``rbcd.py:666``; on CUDA there is no other
-    condition, so a problem the kernel does not take raises in its wrapper
-    instead of running plain PyTorch.  ``pallas_tcg=True`` forces the
-    kernel's formulation and raises when it cannot run; on CPU tensors its
-    wrapper runs the kernel's plain version.  ``rtr`` says whether the
-    round is an RTR step; by default ``params.solver.algorithm`` decides
-    (a refine round always is one, ``models.refine``)."""
+    """Which local-solve formulation a round runs, in the JAX package's
+    order (its ``rbcd.py:651-690``): a forced kernel, then the dense-Q
+    opt-in (``"dense"``, when ``use_dense_q`` allows it), then the
+    automatic kernel, then ``"ell"`` (plain PyTorch over the ELL
+    incidence).  ``"kernel"`` is the fused RTR step of ``ops.rtr_kernel``:
+    it runs on CUDA, for RTR in float32, with no other condition, so a
+    problem the kernel does not take raises in its wrapper instead of
+    running plain PyTorch.  ``pallas_tcg=True`` forces it and raises when
+    it cannot run; on CPU tensors its wrapper runs the kernel's plain
+    version.  ``rtr`` says whether the round is an RTR step; by default
+    ``params.solver.algorithm`` decides.  A refine round passes
+    ``rtr=True``: it always is one, and has no dense form."""
     if params is None:
         return "ell"
-    if params.solver.dense_quadratic:
-        raise _not_ported("dense_quadratic", "A4.5")
+    rbcd_round = rtr is None
     if rtr is None:
         rtr = params.solver.algorithm == ROptAlg.RTR
     kernel_ok = rtr and dtype == torch.float32
@@ -290,10 +321,19 @@ def _formulation(meta: GraphMeta, params: AgentParams | None,
                 f"the kernel is float32-only and the problem is {dtype}")
             raise ValueError(f"pallas_tcg=True cannot run: {reason}")
         return "kernel"
+    if rbcd_round and _dense(meta, params, dtype):
+        return "dense"
     if params.solver.pallas_tcg is None and kernel_ok \
             and device.type == "cuda":
         return "kernel"
     return "ell"
+
+
+def dense_q_all(graph_edges: EdgeSet, meta: GraphMeta,
+                inc=None) -> torch.Tensor:
+    """Buffer Laplacians of all agents [A, K, K] (``quadratic.dense_q``),
+    summed through the graph's ``dense_inc`` where it is given."""
+    return quadratic.dense_q(graph_edges, meta.n_max + meta.s_max, inc)
 
 
 def kernel_operands(X: torch.Tensor, Z: torch.Tensor, edges: EdgeSet,
@@ -325,17 +365,72 @@ def kernel_options(params: AgentParams, meta: GraphMeta) -> dict:
                 grad_tol=sp.grad_norm_tol)
 
 
+def _agent_local_problem(Z: torch.Tensor, edges: EdgeSet, chol: torch.Tensor,
+                         graph: MultiAgentGraph, n_max: int,
+                         qbuf: torch.Tensor | None = None,
+                         X0: torch.Tensor | None = None) -> solver.Problem:
+    """Every agent's local problem with its neighbor buffer ``Z`` fixed.
+
+    With ``qbuf`` (the materialized buffer Laplacians, ``dense_q_all``):
+    gradient and Hessian-vector product are matmuls against ``Q_ll`` and
+    the linear term ``G = Z Q_nl`` of the round — the reference's own
+    ``f = 0.5 <Q, X^T X> + <X, G>`` form (``QuadraticProblem.cpp:50-73``).
+    The cost is that quadratic expanded about the round's start ``X0``:
+    ``f(X0) + <X0 Q_ll + G, U> + 0.5 <U Q_ll, U>`` with ``U = X - X0``
+    and ``f(X0)`` the edge sum — the same function, but in float32 the
+    JAX package's ``0.5 <X Q, X> + <X, G> + 0.5 <Z Q_nn, Z>`` is the small
+    difference of terms ~1e8 times larger at the sphere2500 stand-in's
+    scale, and loses every digit the trust-region test reads.  Otherwise
+    the ELL edge path (``quadratic.egrad_ell``)."""
+    n_buf = n_max + Z.shape[-3]
+    if qbuf is not None:
+        nl = n_max * Z.shape[-1]
+        Qll = qbuf[..., :nl, :nl].contiguous()
+        G = quadratic.to_mat(Z) @ qbuf[..., nl:, :nl]  # [A, r, (d+1) n]
+        X0m = quadratic.to_mat(X0)
+        f0 = quadratic.cost(torch.cat([X0, Z], dim=-3), edges)
+        E0 = X0m @ Qll + G
+
+        def cost_d(Xl):
+            U = quadratic.to_mat(Xl) - X0m
+            return f0 + torch.sum((E0 + 0.5 * (U @ Qll)) * U, dim=(-2, -1))
+
+        def egrad_d(Xl):
+            return quadratic.from_mat(quadratic.to_mat(Xl) @ Qll + G, n_max)
+
+        def ehess_d(Xl, V):
+            return quadratic.from_mat(quadratic.to_mat(V) @ Qll, n_max)
+
+        return solver.Problem(
+            cost=cost_d, egrad=egrad_d, ehess=ehess_d,
+            precond=lambda Xl, V: quadratic.precond_apply(chol, V))
+    inc_slot, inc_mask = graph.inc_slot, graph.inc_mask
+
+    def buf(Xl):
+        return torch.cat([Xl, Z], dim=-3)
+
+    return solver.Problem(
+        cost=lambda Xl: quadratic.cost(buf(Xl), edges),
+        egrad=lambda Xl: quadratic.egrad_ell(buf(Xl), edges, inc_slot,
+                                             inc_mask),
+        ehess=lambda Xl, V: quadratic.hessvec_ell(V, edges, inc_slot,
+                                                  inc_mask, n_buf),
+        precond=lambda Xl, V: quadratic.precond_apply(chol, V))
+
+
 def _agent_update(X: torch.Tensor, Z: torch.Tensor, edges: EdgeSet,
                   params: AgentParams, chol: torch.Tensor,
                   graph: MultiAgentGraph, meta: GraphMeta,
-                  kernel: bool = False):
+                  kernel: bool = False, qbuf: torch.Tensor | None = None):
     """One local solver step for every agent: ``X [A, n, r, k]`` with
     neighbor buffers ``Z [A, s, r, k]``.  Returns the updated blocks and
     the block gradient norms at the starting point [A].
 
     ``kernel`` runs the fused RTR step (``ops.rtr_kernel.rtr_full``, one
     launch for all agents); otherwise the plain RTR step of ``ops.solver``
-    runs over the ELL incidence."""
+    runs over the ELL incidence, or with ``qbuf`` over the dense Q.  On a
+    CUDA device the dense step runs its loops to their fixed bounds, the
+    finished lanes frozen, so it reads nothing on the host."""
     n_max = X.shape[-3]
     if params.solver.algorithm == ROptAlg.RGD:
         # Fixed-step projected gradient + retraction, preconditioning off
@@ -349,21 +444,10 @@ def _agent_update(X: torch.Tensor, Z: torch.Tensor, edges: EdgeSet,
             **kernel_options(params, meta))
         X_new = rtr_kernel.comp_minor(out.X, meta.rank, meta.d + 1)
         return X_new.to(X.dtype).contiguous(), out.stats[:, 4].to(X.dtype)
-    inc_slot, inc_mask = graph.inc_slot, graph.inc_mask
-    n_buf = n_max + Z.shape[-3]
-
-    def buf(Xl):
-        return torch.cat([Xl, Z], dim=-3)
-
-    problem = solver.Problem(
-        cost=lambda Xl: quadratic.cost(buf(Xl), edges),
-        egrad=lambda Xl: quadratic.egrad_ell(buf(Xl), edges, inc_slot,
-                                             inc_mask),
-        ehess=lambda Xl, V: quadratic.hessvec_ell(V, edges, inc_slot,
-                                                  inc_mask, n_buf),
-        precond=lambda Xl, V: quadratic.precond_apply(chol, V))
-    out = solver.rtr_single_step(problem, X, params.solver,
-                                 final_grad_norm=False)
+    problem = _agent_local_problem(Z, edges, chol, graph, n_max, qbuf, X)
+    out = solver.rtr_single_step(
+        problem, X, params.solver, final_grad_norm=False,
+        fixed_bounds=qbuf is not None and sync_free(X))
     return out.X, out.grad_norm_init
 
 
@@ -506,6 +590,7 @@ def _rbcd_round(state: RBCDState, graph: MultiAgentGraph, meta: GraphMeta,
     Z = exchange(X) if (not accel or restart or update_weights) else None
 
     chol = state.chol
+    qbuf = state.Qbuf
     if update_weights:
         # GNC weight update before the pose update (PGOAgent.cpp:654-668),
         # with the freeze decided on the device: from the third flagged
@@ -534,10 +619,20 @@ def _rbcd_round(state: RBCDState, graph: MultiAgentGraph, meta: GraphMeta,
             alpha = torch.where(frozen, alpha, torch.zeros_like(alpha))
     edges = graph.edges._replace(weight=weights)
     form = _formulation(meta, params, graph, X.dtype, X.device)
+    if form == "dense" and qbuf is None:
+        # An explicit opt-in that cannot run does not fall back.
+        raise ValueError(
+            "dense_quadratic=True but the state carries no Qbuf — build it "
+            "with init_state(..., params=...) using the same params, or "
+            "refresh_problem() after changing them")
     if update_weights or chol is None:
         # Reweighted Q: refactor the preconditioner (PGOAgent.cpp:1110-
         # 1112); a state built without params factors here too.
         chol = precond_chol(edges, graph, params)
+    if update_weights and (form == "dense" or qbuf is not None):
+        # ... and rebuild the dense Q (kept, refreshed, when carried while
+        # this round's params resolve elsewhere).
+        qbuf = dense_q_all(edges, meta, graph.dense_inc)
 
     # Nesterov bookkeeping (PGOAgent.cpp:1065-1091).
     if accel and not restart:
@@ -550,6 +645,7 @@ def _rbcd_round(state: RBCDState, graph: MultiAgentGraph, meta: GraphMeta,
         start, Zuse = X, Z
 
     kernel = form == "kernel"
+    q_use = qbuf if form == "dense" else None
     if schedule == Schedule.GREEDY:
         # One agent fires (the reference demo's argmax of the block
         # gradient norms, MultiRobotExample.cpp:242-256), selected by an
@@ -559,15 +655,15 @@ def _rbcd_round(state: RBCDState, graph: MultiAgentGraph, meta: GraphMeta,
         gn = manifold.norm(manifold.rgrad(
             start, _local_egrad(start, Zuse, edges, graph)))
         sel = torch.argmax(gn).reshape(1)
-        x1, z1, e1, c1, g1 = _select_agents((start, Zuse, edges, chol,
-                                             graph), sel)
+        x1, z1, e1, c1, g1, q1 = _select_agents((start, Zuse, edges, chol,
+                                                 graph, q_use), sel)
         upd, _ = _agent_update(x1, z1, e1, params, c1, g1, meta,
-                               kernel=kernel)
+                               kernel=kernel, qbuf=q1)
         fired = torch.arange(A, device=X.device) == sel
         X_upd = torch.where(fired[:, None, None, None], upd, start)
     else:
         X_upd, _ = _agent_update(start, Zuse, edges, params, chol, graph,
-                                 meta, kernel=kernel)
+                                 meta, kernel=kernel, qbuf=q_use)
         if schedule == Schedule.JACOBI:
             fired = None
         elif schedule == Schedule.ASYNC:
@@ -610,7 +706,7 @@ def _rbcd_round(state: RBCDState, graph: MultiAgentGraph, meta: GraphMeta,
     return state._replace(X=X_next, weights=weights,
                           iteration=state.iteration + 1, rel_change=rel,
                           ready=ready, chol=chol, V=V, gamma=gamma,
-                          alpha=alpha, mu=mu)
+                          alpha=alpha, mu=mu, Qbuf=qbuf)
 
 
 #: A round (the JAX package's jitted ``rbcd_step``; PyTorch runs eagerly).
@@ -647,8 +743,9 @@ def rbcd_segment(state: RBCDState, graph: MultiAgentGraph, num_rounds: int,
 
 def init_state(graph: MultiAgentGraph, meta: GraphMeta, X0: torch.Tensor,
                params: AgentParams | None = None, seed: int = 0) -> RBCDState:
-    """Fresh solver state at ``X0``: the preconditioner factors are baked
-    when the solver params are known; ``V = X0`` when accelerated
+    """Fresh solver state at ``X0``: the preconditioner factors (and the
+    dense Q when ``_formulation`` says "dense") are baked when the solver
+    params are known; ``V = X0`` when accelerated
     (``initializeAcceleration``); ``X_init = X0`` under a robust cost
     without warm start; ``seed`` keys the ASYNC clocks."""
     A = meta.num_robots
@@ -669,7 +766,24 @@ def init_state(graph: MultiAgentGraph, meta: GraphMeta, X0: torch.Tensor,
         mu=torch.tensor(mu0, dtype=dtype, device=dev),
         X_init=X0 if robust_on and not params.robust_opt_warm_start
         else None,
-        seed=seed)
+        seed=seed,
+        Qbuf=dense_q_all(graph.edges, meta, graph.dense_inc)
+        if _dense(meta, params, dtype)
+        else None)
+
+
+def refresh_problem(state: RBCDState, graph: MultiAgentGraph,
+                    meta: GraphMeta, params: AgentParams) -> RBCDState:
+    """Recompute the carried factors (the preconditioner, and the dense Q
+    when that formulation runs under ``params`` or the state carries one)
+    from ``state.weights`` — after setting weights from outside, e.g. when
+    resuming a GNC solve, since a round refreshes them only on its
+    weight-update rounds."""
+    edges = graph.edges._replace(weight=state.weights)
+    qbuf = dense_q_all(edges, meta, graph.dense_inc) \
+        if _dense(meta, params, state.X.dtype) or state.Qbuf is not None \
+        else None
+    return state._replace(chol=precond_chol(edges, graph, params), Qbuf=qbuf)
 
 
 def lifting_matrix(meta: GraphMeta, dtype=torch.float64,
@@ -717,15 +831,17 @@ def centralized_odometry_init(part: Partition, meta: GraphMeta,
 def initial_state_for(init: str, part: Partition, meta: GraphMeta,
                       graph: MultiAgentGraph, params: AgentParams,
                       dtype) -> torch.Tensor:
-    """Initial lifted state by policy: ``"chordal"``, ``"odometry"``;
-    ``"distributed"`` (per-agent init + robust frame alignment) is not
-    ported yet."""
+    """Initial lifted state by policy: ``"chordal"`` (the centralized
+    chordal init), ``"odometry"`` (the odometry chain) or ``"distributed"``
+    (per-agent local inits and robust frame alignment, no centralized
+    solve: ``models.dist_init``, ``PGOAgent.cpp:250-432``)."""
     if init == "chordal":
         return centralized_chordal_init(part, meta, graph, dtype)
     if init == "odometry":
         return centralized_odometry_init(part, meta, graph, dtype)
     if init == "distributed":
-        raise _not_ported("init='distributed'", "A6")
+        from .dist_init import distributed_initialization
+        return distributed_initialization(part, meta, graph, params, dtype)
     raise ValueError(f"unknown init policy {init!r}")
 
 

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import torch
 
+from ..device import sync_free
 from .smallmat import eigh_small, qr_small, svd_thin
 
 
@@ -106,7 +107,7 @@ def lobpcg_standard(A, X: torch.Tensor, m: int = 100,
             f"expected search dim * 5 < matrix dim (got {k * 5}, {n})")
     if tol is None:
         tol = float(torch.finfo(X.dtype).eps)
-    sync_free = X.device.type != "cpu"
+    frozen = sync_free(X)
 
     X = _orthonormalize(X)
     P = _extend_basis(X, k)
@@ -117,7 +118,7 @@ def lobpcg_standard(A, X: torch.Tensor, m: int = 100,
     i = torch.zeros((), dtype=torch.int64, device=X.device)
     for _ in range(m):
         active = converged < k
-        if not sync_free and not bool(active):
+        if not frozen and not bool(active):
             break
         Rn = _project_out(torch.cat([X, P], dim=1), R)
         XPR = torch.cat([X, P, Rn], dim=1)

@@ -182,27 +182,114 @@ def hessvec_ell(Vlocal: torch.Tensor, edges: EdgeSet, inc_slot: torch.Tensor,
     return egrad_ell(_pad_to(Vlocal, n_buf), edges, inc_slot, inc_mask)
 
 
-def diag_blocks(edges: EdgeSet, inc_slot: torch.Tensor,
-                inc_mask: torch.Tensor) -> torch.Tensor:
-    """Diagonal (d+1)x(d+1) blocks of the connection Laplacian at the rows
-    of the incidence into ``[i-side | j-side]`` (``egrad_ell``'s): block i
-    of edge (i -> j) gets ``[[wk I + wt t t^T, wt t], [wt t^T, wt]]``,
-    block j gets ``diag(wk, ..., wk, wt)``."""
+def _edge_blocks(edges: EdgeSet):
+    """Per-edge (d+1)x(d+1) blocks of the connection Laplacian for edge
+    (i -> j) with ``T = [[R, t], [0, 1]]`` and ``Omega = diag(wk I, wt)``:
+    ``(T Omega T^T, T Omega, Omega)``, each [..., E, k, k]."""
     d = edges.t.shape[-1]
     w = edges.mask * edges.weight
     wk = w * edges.kappa
     wt = w * edges.tau
     t = edges.t
     eye = torch.eye(d, dtype=t.dtype, device=t.device)
+    wtt = (wt[..., None] * t)[..., :, None]
     top = torch.cat([wk[..., None, None] * eye
                      + wt[..., None, None] * t[..., :, None] * t[..., None, :],
-                     (wt[..., None] * t)[..., :, None]], dim=-1)
+                     wtt], dim=-1)
     bottom = torch.cat([wt[..., None] * t, wt[..., None]], dim=-1)
     Bi = torch.cat([top, bottom[..., None, :]], dim=-2)
+    TOm = torch.cat([torch.cat([wk[..., None, None] * edges.R, wtt], dim=-1),
+                     torch.cat([torch.zeros_like(t), wt[..., None]],
+                               dim=-1)[..., None, :]], dim=-2)
     diag_j = torch.cat([wk[..., None].expand(wk.shape + (d,)),
                         wt[..., None]], dim=-1)
-    Bj = torch.diag_embed(diag_j)
+    return Bi, TOm, torch.diag_embed(diag_j)
+
+
+def diag_blocks(edges: EdgeSet, inc_slot: torch.Tensor,
+                inc_mask: torch.Tensor) -> torch.Tensor:
+    """Diagonal (d+1)x(d+1) blocks of the connection Laplacian at the rows
+    of the incidence into ``[i-side | j-side]`` (``egrad_ell``'s): block i
+    of edge (i -> j) gets ``[[wk I + wt t t^T, wt t], [wt t^T, wt]]``,
+    block j gets ``diag(wk, ..., wk, wt)``."""
+    Bi, _, Bj = _edge_blocks(edges)
     return ell_sum(torch.cat([Bi, Bj], dim=-3), inc_slot, inc_mask)
+
+
+def dense_q_incidence(i: np.ndarray, j: np.ndarray, n_buf: int,
+                      device=None):
+    """The block incidence of ``dense_q`` from the edges' buffer indices
+    ``i, j [..., E]`` (host arrays): every edge adds a term to the blocks
+    (i, i), (i, j), (j, i) and (j, j) of Q; ``target [..., U]`` lists each
+    batch element's distinct blocks (as row * n_buf + col, the rest at the
+    spare block n_buf^2) and ``(slot, mask) [..., U, K]`` their terms in
+    ascending order, the order ``ell_sum`` adds them in.  It depends on
+    the topology only, so it is built once with the graph
+    (``MultiAgentGraph.dense_inc``) and a GNC weight update rebuilds Q
+    from it without reading the host."""
+    i = np.asarray(i, np.int64)
+    j = np.asarray(j, np.int64)
+    lead, E = i.shape[:-1], i.shape[-1]
+    pair = np.concatenate([i * n_buf + i, i * n_buf + j, j * n_buf + i,
+                           j * n_buf + j], axis=-1).reshape(-1, 4 * E)
+    uniq = [np.unique(p, return_inverse=True) for p in pair]
+    U = max(1, max(len(u) for u, _ in uniq))
+    target = np.full((len(pair), U), n_buf * n_buf, np.int64)
+    uid = np.zeros((len(pair), 4 * E), np.int64)
+    for b, (u, inv) in enumerate(uniq):
+        target[b, :len(u)] = u
+        uid[b] = inv.reshape(-1)
+    slot, mask = incidence(U, torch.as_tensor(uid.reshape(lead + (4 * E,))))
+    return (torch.as_tensor(target.reshape(lead + (U,)), device=device),
+            slot.to(device), mask.to(device))
+
+
+def dense_q(edges: EdgeSet, n_buf: int, inc=None) -> torch.Tensor:
+    """The connection Laplacian Q over the pose buffer, materialized:
+    [..., (d+1) n_buf, (d+1) n_buf], pose-block-major — the matrix the
+    reference assembles sparse (``constructConnectionLaplacianSE``,
+    ``DPGO_utils.cpp:214-286``; shared edges ``PGOAgent.cpp:744-777``).
+    Per edge (i -> j):
+
+        Q[ii] += T Omega T^T   Q[ij] -= T Omega
+        Q[ji] -= Omega T^T     Q[jj] += Omega
+
+    The terms of each block (duplicate edges included) are summed through
+    the incidence ``inc`` (``dense_q_incidence``; built here, with one
+    copy of the indices to the host, when not given) in a fixed order,
+    never by ``index_add_``, so Q repeats bit for bit on every device and
+    run; the distinct blocks are then written once each."""
+    if inc is None:
+        inc = dense_q_incidence(edges.i.detach().cpu().numpy(),
+                                edges.j.detach().cpu().numpy(), n_buf,
+                                edges.i.device)
+    target, slot, mask = inc
+    Bi, TOm, Bj = _edge_blocks(edges)
+    blocks = ell_sum(torch.cat([Bi, -TOm, -TOm.transpose(-1, -2), Bj],
+                               dim=-3), slot, mask)
+    lead, k = target.shape[:-1], Bi.shape[-1]
+    B = math.prod(lead)
+    nb2 = n_buf * n_buf + 1  # + the spare block of padded targets
+    off = torch.arange(B, device=target.device).reshape(*lead, 1) * nb2
+    Q = blocks.new_zeros((B * nb2, k, k))
+    Q[(target + off).reshape(-1)] = blocks.reshape(-1, k, k)
+    Q = Q.reshape(lead + (nb2, k, k))[..., :-1, :, :]
+    Q = Q.reshape(lead + (n_buf, n_buf, k, k)).transpose(-3, -2)
+    return Q.reshape(lead + (n_buf * k, n_buf * k))
+
+
+def to_mat(X: torch.Tensor) -> torch.Tensor:
+    """Pose blocks [..., n, r, d+1] -> the stacked matrix [..., r, (d+1) n]
+    (the reference's trajectory layout, ``PGOAgent.h:222``)."""
+    n, r, k = X.shape[-3:]
+    return X.transpose(-3, -2).reshape(X.shape[:-3] + (r, n * k))
+
+
+def from_mat(Xm: torch.Tensor, n: int) -> torch.Tensor:
+    """Inverse of ``to_mat``: [..., r, (d+1) n] -> [..., n, r, d+1]."""
+    r = Xm.shape[-2]
+    k = Xm.shape[-1] // n
+    return Xm.reshape(Xm.shape[:-2] + (r, n, k)).transpose(-3, -2)
 
 
 def precond_factors(blocks: torch.Tensor, shift: float) -> torch.Tensor:

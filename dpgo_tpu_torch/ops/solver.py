@@ -53,9 +53,17 @@ def _sel(cond: torch.Tensor, new: torch.Tensor, old: torch.Tensor):
 
 
 def truncated_cg(X, grad, hvp, precond, radius, max_iters: int,
-                 kappa: float = 0.1, theta: float = 1.0) -> TCGResult:
+                 kappa: float = 0.1, theta: float = 1.0,
+                 fixed_bounds: bool = False) -> TCGResult:
     """Preconditioned Steihaug-Toint truncated CG on the tangent space at X:
-    ``min <grad, eta> + 0.5 <eta, H eta>`` s.t. ``||eta|| <= radius``."""
+    ``min <grad, eta> + 0.5 <eta, H eta>`` s.t. ``||eta|| <= radius``.
+    ``fixed_bounds`` runs all ``max_iters`` iterations with the finished
+    lanes frozen instead of reading the host to stop early: the same
+    result, and no host sync.  The caller sets it from
+    ``device.sync_free`` where the loop runs inside a sync-free window
+    (the dense round); the centralized solve reads the host every outer
+    iteration anyway, and the plain "ell" round is the kernel's plain
+    version, so both keep the early exit."""
     dtype = grad.dtype
     eps = torch.full((), 1e-30, dtype=dtype, device=grad.device)
     radius = torch.as_tensor(radius, dtype=dtype, device=grad.device)
@@ -71,9 +79,9 @@ def truncated_cg(X, grad, hvp, precond, radius, max_iters: int,
     k = torch.zeros(rz.shape, dtype=torch.int32, device=grad.device)
     done = rz <= 0
     hit = torch.zeros(rz.shape, dtype=torch.bool, device=grad.device)
-    while True:
+    for _ in range(max_iters):
         active = (k < max_iters) & ~done
-        if not bool(active.any()):
+        if not fixed_bounds and not bool(active.any()):
             break
         Hd = hvp(delta)
         d_Hd = manifold.inner(delta, Hd)
@@ -119,7 +127,8 @@ class RTRState(NamedTuple):
     done: torch.Tensor
 
 
-def _rtr_attempt(problem: Problem, X, fX, g, eg, radius, params: SolverParams):
+def _rtr_attempt(problem: Problem, X, fX, g, eg, radius, params: SolverParams,
+                 fixed_bounds: bool = False):
     """One tCG solve + acceptance test at ``radius``; returns
     (X_new, f_new, accepted, hit_boundary, rho)."""
     hvp = lambda V: manifold.ehess_to_rhess(  # noqa: E731
@@ -127,7 +136,7 @@ def _rtr_attempt(problem: Problem, X, fX, g, eg, radius, params: SolverParams):
     pre = lambda V: manifold.tangent_project(  # noqa: E731
         X, problem.precond(X, V))
     res = truncated_cg(X, g, hvp, pre, radius, params.max_inner_iters,
-                       params.tcg_kappa, params.tcg_theta)
+                       params.tcg_kappa, params.tcg_theta, fixed_bounds)
     X_prop = manifold.retract(X, res.eta)
     f_prop = problem.cost(X_prop)
     mdec = -(manifold.inner(g, res.eta)
@@ -180,11 +189,14 @@ def rtr_solve(problem: Problem, X0: torch.Tensor, params: SolverParams,
 
 
 def rtr_single_step(problem: Problem, X0: torch.Tensor, params: SolverParams,
-                    final_grad_norm: bool = True) -> RTRState:
+                    final_grad_norm: bool = True,
+                    fixed_bounds: bool = False) -> RTRState:
     """The RBCD local update (reference ``QuadraticOptimizer.cpp:92-110``):
     try a step at the current radius; on rejection shrink it by 4 and retry,
     at most ``max_rejections`` times, else keep the input.  Exits at once
-    when the gradient norm is below ``grad_norm_tol`` (``:65-69``)."""
+    when the gradient norm is below ``grad_norm_tol`` (``:65-69``).
+    ``fixed_bounds`` runs every loop (attempts and tCG) to its bound with
+    the finished lanes frozen: the same result with no host read."""
     f = problem.cost(X0)
     eg = problem.egrad(X0)
     g = manifold.rgrad(X0, eg)
@@ -194,12 +206,12 @@ def rtr_single_step(problem: Problem, X0: torch.Tensor, params: SolverParams,
     iters = torch.zeros(gn0.shape, dtype=torch.int32, device=gn0.device)
     accepted = torch.zeros(gn0.shape, dtype=torch.bool, device=gn0.device)
     done = gn0 < params.grad_norm_tol
-    while True:
+    for _ in range(params.max_rejections):
         active = (iters < params.max_rejections) & ~done
-        if not bool(active.any()):
+        if not fixed_bounds and not bool(active.any()):
             break
         X_new, f_new, acc, _, _ = _rtr_attempt(problem, X, f, g, eg, radius,
-                                               params)
+                                               params, fixed_bounds)
         X = _sel(active, X_new, X)
         f = _sel(active, f_new, f)
         radius = _sel(active, torch.where(acc, radius, radius / 4.0), radius)

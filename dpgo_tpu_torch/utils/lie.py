@@ -101,6 +101,10 @@ def project_to_rotation(M: torch.Tensor) -> torch.Tensor:
 
     U, s, V = svd_thin(M)
     d = M.shape[-1]
+    # The zero matrix (e.g. a weighted average whose weights are all 0)
+    # projects to the identity, as LAPACK's SVD (U = V = I) gives it.
+    U = torch.where(s[..., :1, None] > 0, U,
+                    torch.eye(d, dtype=M.dtype, device=M.device))
     if d in (2, 3):
         if d == 2:
             last = torch.stack([-U[..., 1, 0], U[..., 0, 0]], dim=-1)
@@ -183,3 +187,24 @@ def lifting_matrix(rank: int, d: int, dtype=torch.float64,
         raise ValueError(f"relaxation rank {rank} must be >= d = {d}")
     Y = np.eye(d) if rank == d else fixed_stiefel(rank, d)
     return torch.as_tensor(Y, dtype=dtype, device=resolve_device(device))
+
+
+def angular_to_chordal_so3(rad: float) -> float:
+    """Angular distance (radians) -> chordal (Frobenius) distance on SO(3)
+    (reference ``angular2ChordalSO3``, ``DPGO_utils.cpp:522-524``); a
+    Python float, so it never promotes a float32 tensor."""
+    return float(2.0 * np.sqrt(2.0) * np.sin(rad / 2.0))
+
+
+def chi2inv(quantile: float, dof: int) -> float:
+    """Chi-squared quantile (reference ``DPGO_utils.cpp:517-520``); a
+    config-time host scalar from scipy."""
+    from scipy.stats import chi2
+
+    return float(chi2.ppf(quantile, dof))
+
+
+def error_threshold_at_quantile(quantile: float, dof: int = 6) -> float:
+    """sqrt(chi2inv(q, dof)): a GNC barc from a probabilistic quantile
+    (reference ``RobustCost::computeErrorThresholdAtQuantile``)."""
+    return float(np.sqrt(chi2inv(quantile, dof)))

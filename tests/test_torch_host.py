@@ -81,6 +81,8 @@ def test_build_graph_bitwise(d, rank, A):
                                   rank, torch.float64, device="cpu")
     assert meta_a.__dict__ == meta_b.__dict__
     for f in gb._fields:
+        if f == "dense_inc":
+            continue  # the port's own (tests/test_torch_dense_q.py)
         if f == "edges":
             for k in gb.edges._fields:
                 x = np.asarray(getattr(ga.edges, k))
@@ -129,7 +131,10 @@ def test_port_imports_no_jax():
             "dpgo_tpu_torch.utils.partition, dpgo_tpu_torch.utils.synthetic, "
             "dpgo_tpu_torch.models.certify, dpgo_tpu_torch.models.local_pgo, "
             "dpgo_tpu_torch.ops.lobpcg, "
-            "dpgo_tpu_torch.experiments.cert_witness; "
+            "dpgo_tpu_torch.experiments.cert_witness, "
+            "dpgo_tpu_torch.ops.averaging, dpgo_tpu_torch.ops.df32, "
+            "dpgo_tpu_torch.models.dist_init, "
+            "dpgo_tpu_torch.models.refine_fused; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'dpgo_tpu')); print(bad); "
             "sys.exit(1 if bad else 0)")

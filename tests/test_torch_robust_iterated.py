@@ -158,46 +158,48 @@ def test_robust_iterated_errors():
             device="cpu")
 
 
-@pytest.mark.parametrize("entry,item", [
-    ("dense_quadratic", "A4.5"), ("certify_round", "A5.1"),
-    ("certify_epilogue", "A5.1"), ("distributed_init", "A6")])
-def test_not_ported_raises_name_their_roadmap_item(entry, item):
-    """The parts still to port raise naming their ROADMAP item.  The two
-    A5.1 cases (a round with ``certify_mode`` set, the epilogue with the
-    device certificate) were raises until certification was ported; they
-    now hold that the round runs and the epilogue returns ``cert``."""
+@pytest.mark.parametrize("entry", [
+    "dense_quadratic", "certify_round", "certify_epilogue",
+    "distributed_init"])
+def test_formerly_unported_entries_run(entry):
+    """Each id names a part that once raised as not ported (the dense-Q
+    round, a round with ``certify_mode`` set, the epilogue with the device
+    certificate, the distributed init).  Each now runs: the rounds advance
+    to a finite iterate, the epilogue returns ``cert``, and the init gives
+    a finite lifted state."""
     meas = _meas(n=20, num_lc=5)
     prob = rbcd.prepare_problem(meas, 2, device="cpu")
     state = rbcd.init_state(prob.graph, prob.meta, prob.X0)
 
-    def round_with(**kw):
-        return rbcd.rbcd_step(state, prob.graph, prob.meta,
+    def round_with(st=state, **kw):
+        return rbcd.rbcd_step(st, prob.graph, prob.meta,
                               tconfig.AgentParams(d=3, r=5, num_robots=2,
                                                   **kw))
 
-    call = {
-        "dense_quadratic": lambda: round_with(
-            solver=tconfig.SolverParams(dense_quadratic=True)),
-        "certify_round": lambda: round_with(certify_mode="host"),
-        "certify_epilogue": lambda: rbcd.make_terminal_epilogue(
-            prob.graph, rbcd._global_edges(prob.part, prob.graph,
-                                           torch.float64),
-            20, len(meas), prob.meta, certify_mode="device")(
-                state.X, state.weights, {}),
-        "distributed_init": lambda: rbcd.prepare_problem(
-            meas, 2, device="cpu", init="distributed"),
-    }[entry]
-    if entry == "certify_round":
-        out = call()
+    if entry in ("dense_quadratic", "certify_round"):
+        kw = dict(solver=tconfig.SolverParams(dense_quadratic=True)) \
+            if entry == "dense_quadratic" else dict(certify_mode="host")
+        st = state
+        if entry == "dense_quadratic":
+            st = rbcd.init_state(prob.graph, prob.meta, prob.X0,
+                                 tconfig.AgentParams(d=3, r=5, num_robots=2,
+                                                     **kw))
+            assert st.Qbuf is not None
+        out = round_with(st, **kw)
         assert out.iteration == 1 and bool(torch.isfinite(out.X).all())
         return
     if entry == "certify_epilogue":
-        fin = call()
+        fin = rbcd.make_terminal_epilogue(
+            prob.graph, rbcd._global_edges(prob.part, prob.graph,
+                                           torch.float64),
+            20, len(meas), prob.meta, certify_mode="device")(
+                state.X, state.weights, {})
         assert {"T", "w_glob", "Xg", "cert"} <= set(fin)
         assert bool(torch.isfinite(fin["cert"]["lam_min"]))
         return
-    with pytest.raises(NotImplementedError, match=f"\\({item} in ROADMAP"):
-        call()
+    dist = rbcd.prepare_problem(meas, 2, device="cpu", init="distributed")
+    assert dist.X0.shape == prob.X0.shape
+    assert bool(torch.isfinite(dist.X0).all())
 
 
 # ---------------------------------------------------------------------------
