@@ -73,7 +73,24 @@ synthetic stand-in for sphere2500 (2500 poses, 4948 edges, 8 robots, rank
   the host float64 ``refine.recenter``) and ``refine_until`` (B4 every
   round, the oracle every 8, 192 rounds enqueued), sync-free up to the
   one fetch (``_host_fetch``), then the host float64 verify: the gap to
-  the certify phase's f* at most 1e-6, the oracle within 1e-8 of f*.
+  the certify phase's f* at most 1e-6, the oracle within 1e-8 of f*;
+* ``agents`` — the per-robot deployment runtime (``agent.PGOAgent`` over
+  ``comms``; after ``verdict``, whose production arm's final cost it
+  gates against): the native g2o loader and topology planner against the
+  Python ones on the stand-in's g2o file; eight robots over
+  ``comms.loopback_fleet`` in lockstep to consensus (at most 300
+  rounds), the team cost within 1% of the production arm's, B2 launches
+  equal to the stepped iterates and host reads (``agent._host_read``)
+  equal to one per stepped iterate plus one per publish; B2 at A=1 on
+  agent 3's operands at its first and last iterate against its plain
+  version, and timed; 10 in-process rounds of the fleet through B2
+  against an "ell" fleet, within twice that fleet's divergence from
+  starts moved by one ulp; ``status_fetch_every=8`` reading 1/8 per
+  iterate, and one off-cadence iterate under the sync-error mode; a
+  chaos arm (10% drop, 25% delay, 5% reorder, robot 7 killed at round
+  40) within 1% of a fault-free arm; the async Poisson-clock loop at
+  50 Hz with overlapped bus clients for 10 s, every thread joined, one
+  second traced.
 
 Every launch gate is exact: the rounds each run enqueued, the per-eval
 loop's discarded speculative segment and the verdict loop's polish and
@@ -109,6 +126,8 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 import warnings
 from pathlib import Path
@@ -119,7 +138,8 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
-from dpgo_tpu_torch import robust  # noqa: E402
+from dpgo_tpu_torch import agent as agent_mod  # noqa: E402
+from dpgo_tpu_torch import comms, interop, robust  # noqa: E402
 from dpgo_tpu_torch.config import (AgentParams, RobustCostParams,  # noqa: E402
                                    RobustCostType, Schedule, SolverParams)
 from dpgo_tpu_torch.experiments import measure_r3  # noqa: E402
@@ -127,6 +147,7 @@ from dpgo_tpu_torch.models import (certify, dist_init,  # noqa: E402
                                    local_pgo, rbcd, refine, refine_fused)
 from dpgo_tpu_torch.ops import averaging, df32, quadratic, solver  # noqa
 from dpgo_tpu_torch.ops import rtr_kernel as rk  # noqa: E402
+from dpgo_tpu_torch.utils import g2o, graph_plan, native_io  # noqa: E402
 from dpgo_tpu_torch.utils import partition  # noqa: E402
 from dpgo_tpu_torch.types import edge_set_from_measurements  # noqa: E402
 from dpgo_tpu_torch.utils.synthetic import (  # noqa: E402
@@ -2100,6 +2121,499 @@ def fused_refine_phase(meas, f_star: float, dev, card: str) -> tuple[int,
     return b2, b4
 
 
+# ---------------------------------------------------------------------------
+# The agents phase: the per-robot deployment runtime on the card
+# ---------------------------------------------------------------------------
+
+#: The agents phase: the lockstep fleet's round cap; the chaos arm's
+#: rounds, killed robot and round, and round pacing (``tests/
+#: test_chaos.py``'s schedule); the async arm's rate and seconds; the
+#: fetch cadence of the latched arm and its rounds; the lockstep team
+#: cost's limit against the production arm's final cost.
+AGENT_MAX_ROUNDS, CHAOS_ROUNDS, CHAOS_KILL, CHAOS_PACE = 300, 60, (7, 40), \
+    0.004
+ASYNC_HZ, ASYNC_S, FETCH_K, FETCH_ROUNDS = 50.0, 10.0, 8, 16
+TEAM_COST_RTOL, CHAOS_RTOL = 0.01, 0.01
+
+
+def agent_fleet(part, params, dev) -> list:
+    """One ``PGOAgent`` per robot on the card: robot 0's lifting matrix
+    broadcast, each robot's ``setPoseGraph`` split ingested."""
+    agents = [agent_mod.PGOAgent(rid, params, device=dev)
+              for rid in range(part.num_robots)]
+    for ag in agents[1:]:
+        ag.set_lifting_matrix(agents[0].get_lifting_matrix())
+    for ag in agents:
+        ag.set_pose_graph(*partition.agent_measurements(part, ag.robot_id))
+    return agents
+
+
+def bus_lockstep(agents, rounds: int, *, until_consensus: bool,
+                 injector=None, kill=None, pace: float = 0.0,
+                 before_iterate=None, after_round=None) -> dict:
+    """Lockstep rounds over ``comms.loopback_fleet`` (``tests/
+    test_chaos.py``'s ``_run_fleet`` at staleness 0): every live robot
+    publishes its frame (no anchor), the bus relays, every live robot
+    ingests its peers' frames and iterates.  Returns the run's counts."""
+    A = len(agents)
+    policy = comms.RetryPolicy(max_attempts=2, base_delay_s=0.002,
+                               max_delay_s=0.01, send_timeout_s=0.5,
+                               recv_timeout_s=0.5)
+    bus, clients = comms.loopback_fleet(
+        A, injector=injector, policy=policy, round_timeout_s=0.15,
+        miss_limit=5, liveness_timeout_s=2.0)
+    for c in clients.values():
+        c.channel.start_heartbeat(0.05)
+    dead: set[int] = set()
+    st = {"rounds": 0, "stepped": 0, "iterates": 0, "publishes": 0,
+          "iterate_s": 0.0, "consensus": False}
+    t0 = time.perf_counter()
+    try:
+        for it in range(rounds):
+            if kill is not None and it == kill[1]:
+                dead.add(kill[0])
+                clients[kill[0]].close()
+            live = [ag for ag in agents if ag.robot_id not in dead]
+            for ag in live:
+                st["publishes"] += ag._X_dev is not None
+                clients[ag.robot_id].publish(comms.pack_agent_frame(ag),
+                                             timeout=0.5)
+            bus.round()
+            for ag in live:
+                c = clients[ag.robot_id]
+                merged = c.collect(timeout=0.3)
+                if merged is not None:
+                    for peer, pf in c.peer_frames(merged).items():
+                        comms.apply_peer_frame(ag, peer, pf)
+                    for lost in c.lost:
+                        ag.mark_neighbor_lost(lost)
+                if before_iterate is not None:
+                    before_iterate(ag)
+                t1 = time.perf_counter()
+                st["stepped"] += ag.iterate(True)
+                st["iterate_s"] += time.perf_counter() - t1
+                st["iterates"] += 1
+            st["rounds"] = it + 1
+            if after_round is not None:
+                after_round(agents)
+            if until_consensus and all(ag.should_terminate() for ag in live):
+                st["consensus"] = True
+                break
+            if pace:
+                time.sleep(pace)
+        torch.cuda.synchronize()
+        st["wall_s"] = time.perf_counter() - t0
+    finally:
+        bus.close()
+        for rid, c in clients.items():
+            if rid not in dead:
+                c.close()
+    st["lost"] = sorted(bus.lost)
+    return st
+
+
+def inproc_rounds(agents, rounds: int) -> int:
+    """Lockstep rounds with the exchange in process (packed arrays and
+    status gossip, no transport): the 10-round and latched arms."""
+    stepped = 0
+    for _ in range(rounds):
+        pubs = [ag.get_public_pose_arrays() for ag in agents]
+        sts = [ag.get_status() for ag in agents]
+        for dst in agents:
+            for src, pub in enumerate(pubs):
+                if src != dst.robot_id:
+                    dst.set_neighbor_status(sts[src])
+                    if pub is not None:
+                        dst.update_neighbor_poses_packed(src, *pub)
+        for ag in agents:
+            stepped += ag.iterate(True)
+    return stepped
+
+
+def lifted_cost(agents, part, meas, robots) -> float:
+    """The relaxed cost of the assembled lifted iterate over the edges
+    whose both endpoints belong to ``robots``: float64, on the host."""
+    N = meas.num_poses
+    Xg = np.zeros((N, RANK, meas.d + 1))
+    for rid in robots:
+        ids = part.global_index[rid][part.global_index[rid] >= 0]
+        Xg[ids] = np.asarray(agents[rid].X, np.float64)
+    keep = np.isin(part.meas.r1, robots) & np.isin(part.meas.r2, robots)
+    edges = edge_set_from_measurements(part.meas_global.select(keep),
+                                       device="cpu")
+    return float(quadratic.cost(torch.tensor(Xg), edges))
+
+
+def native_paths(meas) -> dict:
+    """The native host paths against the Python ones on the stand-in: the
+    g2o file written and read back both ways, the topology both ways
+    (the library was built in the ``build`` phase)."""
+    with tempfile.TemporaryDirectory(dir=native_io.BUILD_DIR) as tmp:
+        path = str(Path(tmp) / "standin.g2o")
+        g2o.write_g2o(meas, path)
+        t0 = time.perf_counter()
+        nat = g2o.read_g2o(path, backend="native")
+        t1 = time.perf_counter()
+        py = g2o.read_g2o_python(path)
+        t2 = time.perf_counter()
+    same = {f: bool(np.array_equal(getattr(nat, f), getattr(py, f)))
+            for f in ("r1", "p1", "r2", "p2", "R", "t", "kappa", "tau",
+                      "weight", "is_known_inlier")}
+    ulps = {f: float(np.max(np.abs(getattr(nat, f) - getattr(py, f))
+                            / np.spacing(np.abs(getattr(py, f)))))
+            for f in ("R", "t", "kappa", "tau")}
+    part = partition.partition_contiguous(py, ROBOTS)
+    m = part.meas
+    t3 = time.perf_counter()
+    pn = graph_plan.plan_topology(m.r1, m.p1, m.r2, m.p2, ROBOTS,
+                                  part.n_max, backend="native")
+    t4 = time.perf_counter()
+    pp = graph_plan.plan_topology(m.r1, m.p1, m.r2, m.p2, ROBOTS,
+                                  part.n_max, backend="python")
+    t5 = time.perf_counter()
+    plan_same = all(np.array_equal(np.asarray(getattr(pn, f)),
+                                   np.asarray(getattr(pp, f)))
+                    and np.asarray(getattr(pn, f)).dtype
+                    == np.asarray(getattr(pp, f)).dtype
+                    for f in pn._fields)
+    row = {"phase": "agents", "check": "native_paths",
+           "library": native_io.library_path().name, "edges": len(nat),
+           "read_native_s": t1 - t0, "read_python_s": t2 - t1,
+           "fields_bitwise": same, "max_ulps": ulps,
+           "plan_native_s": t4 - t3, "plan_python_s": t5 - t4,
+           "plan_bitwise": plan_same}
+    emit(row)
+    # tau of SE(3): the C++ loader takes tr(inv(I)) through cofactors, the
+    # Python parser through LAPACK; they may differ by one ulp (the JAX
+    # package's loaders likewise).  Every other field is bitwise.
+    check(all(v for k, v in same.items() if k != "tau")
+          and ulps["tau"] <= 1.0,
+          "the native g2o loader leaves the Python parse")
+    check(plan_same, "the native planner leaves the Python planner")
+    return row
+
+
+def agents_phase(meas, prod_cost: float, dev, card: str) -> int:
+    """The per-robot runtime (``agent.PGOAgent`` over ``comms``) on the
+    card: the native host paths; the lockstep fleet over the loopback bus
+    to consensus, with its launch and host-read counts; B2 at A=1 on agent
+    3's operands at its first and last stepped iterate; 10 in-process
+    rounds through B2 against the "ell" fleet; the latched fetch cadence
+    and one sync-free iterate; the chaos arm; the async arm.  Returns B2's
+    launches on the counted arms."""
+    native_paths(meas)
+    params = AgentParams(d=3, r=RANK, num_robots=ROBOTS)
+    part = partition.partition_contiguous(meas, ROBOTS)
+
+    # -- the lockstep fleet, counted ---------------------------------------
+    agents = agent_fleet(part, params, dev)
+    ops3, snap = {}, []
+
+    def before_iterate(ag):
+        if ag.robot_id == 3 and ag._graph is not None and \
+                ag._neighbor_buffer() is not None:
+            ops = dict(zip(B2_ORDER, (t.clone() for t in
+                                      rbcd.kernel_operands(
+                                          ag._X_device()[None],
+                                          ag._neighbor_buffer(),
+                                          ag._edges_weighted(),
+                                          ag._chol_device(), ag._graph))))
+            ops3.setdefault("first", ops)
+            ops3["last"] = ops
+
+    def after_round(ags):
+        if not snap and all(ag._graph is not None and
+                            ag._neighbor_buffer() is not None for ag in ags):
+            snap.extend(interop.agent_state_to_numpy(ag) for ag in ags)
+
+    torch.cuda.synchronize()
+    rk.LAUNCHES = 0
+    agent_mod.HOST_READS.clear()
+    st = bus_lockstep(agents, AGENT_MAX_ROUNDS, until_consensus=True,
+                      before_iterate=before_iterate, after_round=after_round)
+    launches = rk.LAUNCHES
+    reads = dict(agent_mod.HOST_READS)
+    b2_total = launches
+    team = lifted_cost(agents, part, meas, list(range(ROBOTS)))
+    ag3 = agents[3]
+    X3, z3 = ag3._X_device(), ag3._neighbor_buffer()
+    step_ms = cuda_ms(lambda: ag3._step(X3, z3), reps=10, inner=10)
+    row = {"phase": "agents", "check": "lockstep", "card": card,
+           "robots": ROBOTS, "rounds": st["rounds"],
+           "consensus": st["consensus"], "wall_s": st["wall_s"],
+           "iterates": st["iterates"], "stepped": st["stepped"],
+           "iterates_per_s": st["iterates"] / st["wall_s"],
+           "host_ms_per_iterate": 1e3 * st["iterate_s"] / st["iterates"],
+           "device_ms_per_step": step_ms,
+           "publishes": st["publishes"], "host_reads": reads,
+           "launches": {"rtr_full": launches},
+           "team_cost": team, "production_arm_cost": prod_cost,
+           "team_cost_ratio": team / prod_cost,
+           "formulation": "kernel" if ag3._kernel else "ell"}
+    emit(row)
+    check(all(ag._kernel for ag in agents),
+          "a robot's step does not run kernel B2 on the card")
+    check(all(ag.get_status().state == agent_mod.AgentState.INITIALIZED
+              for ag in agents), "a robot never initialized")
+    check(team <= (1 + TEAM_COST_RTOL) * prod_cost,
+          "the lockstep fleet's cost is above 1.01 x the production arm's")
+    check(launches == st["stepped"] > 0,
+          "the fleet did not launch B2 once per stepped iterate")
+    check(reads.get("rel_change", 0) == st["stepped"]
+          and reads.get("publish", 0) == st["publishes"]
+          and set(reads) <= {"rel_change", "publish", "align"},
+          "the fleet's host reads are not one per stepped iterate plus "
+          "one per publish")
+
+    # -- B2 at A=1 on agent 3's operands ------------------------------------
+    kw = rbcd.kernel_options(params, ag3._meta)
+    p_first, _ = kernel_parity(rk.rtr_full, rk.rtr_full_reference,
+                               ops3["first"], kw, "agent 3, first iterate")
+    p_last, _ = kernel_parity(rk.rtr_full, rk.rtr_full_reference,
+                              ops3["last"], kw, "agent 3, last iterate",
+                              floor=True)
+    a1_err = max(p_first["max_abs_dX"],
+                 p_last.get("max_abs_dX_agreeing", p_last["max_abs_dX"]))
+    a1 = ops3["first"]
+    emit({"phase": "timing", "card": card, "kernel": "rtr_full",
+          "agents": 1, "operands": "agent 3, first iterate",
+          "n": ag3.n, "edges": ag3._meta.e_max,
+          "route": plan_of(a1, kw).route, "cluster": plan_of(a1, kw).C,
+          "ms": cuda_ms(lambda: rk.rtr_full(*a1.values(), **kw), reps=10,
+                        inner=10),
+          "plain_ms": cuda_ms(lambda: rk.rtr_full_reference(*a1.values(),
+                                                            **kw),
+                              reps=5, warmup=1)})
+
+    # -- 10 in-process rounds through B2 against the "ell" fleet -------------
+    plain = AgentParams(d=3, r=RANK, num_robots=ROBOTS,
+                        solver=SolverParams(pallas_tcg=False))
+    ell = agent_fleet(part, plain, dev)
+
+    def ten_rounds(fleet, moved_seed=None):
+        for ag, s in zip(fleet, snap):
+            s = dict(s)
+            if moved_seed is not None:
+                gen = np.random.default_rng(moved_seed * 100 + ag.robot_id)
+                u = gen.integers(-1, 2, s["X"].shape)
+                s["X"] = (s["X"].astype(np.float32)
+                          * (1 + u * 2.0 ** -23).astype(np.float32))
+            interop.agent_state_from_numpy(ag, s)
+        inproc_rounds(fleet, 10)
+        return [ag._X_device().double() for ag in fleet]
+
+    def gap(xa, xb):
+        return max(float((a - b).abs().max()) for a, b in zip(xa, xb))
+
+    xk = ten_rounds(agents)
+    xe = ten_rounds(ell)
+    check(not any(ag._kernel for ag in ell), "the ell fleet ran a kernel")
+    spread = [gap(ten_rounds(ell, seed), xe)
+              for seed in range(PERTURBED_STARTS)]
+    limit = min(TRAJ_SPREAD * max(spread), TRAJ_MAX)
+    traj = gap(xk, xe)
+    emit({"phase": "agents", "check": "ten_rounds_kernel_vs_ell",
+          "robots": ROBOTS, "max_abs_dX": traj,
+          "ell_ulp_moved_starts_max_abs_dX": spread, "limit": limit,
+          "a1_parity_max_abs_dX": a1_err})
+    check(traj <= limit, "the fleet's 10 rounds through B2 leave the ell "
+          "fleet's by more than its own one-ulp divergence allows")
+
+    # -- the latched fetch cadence and a sync-free iterate -------------------
+    for ag, s in zip(agents, snap):
+        ag.params = dataclasses.replace(params, status_fetch_every=FETCH_K)
+        interop.agent_state_from_numpy(ag, s)
+    torch.cuda.synchronize()
+    rk.LAUNCHES = 0
+    agent_mod.HOST_READS.clear()
+    stepped = inproc_rounds(agents, FETCH_ROUNDS)
+    fetch_launches = rk.LAUNCHES
+    fetch_reads = dict(agent_mod.HOST_READS)
+    b2_total += fetch_launches
+    pubs = [ag.get_public_pose_arrays() for ag in agents]
+    for src, pub in enumerate(pubs):
+        if src != 3:
+            ag3.update_neighbor_poses_packed(src, *pub)
+    if (ag3.get_status().iteration_number + 1) % FETCH_K == 0:
+        inproc_rounds(agents, 1)
+    ag3._neighbor_buffer()
+    torch.cuda.synchronize()
+    before, reads0 = rk.LAUNCHES, dict(agent_mod.HOST_READS)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sync_free = ag3.iterate(True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    sync_free_ok = sync_free and rk.LAUNCHES == before + 1 and \
+        dict(agent_mod.HOST_READS) == reads0
+    emit({"phase": "agents", "check": "fetch_every", "k": FETCH_K,
+          "rounds": FETCH_ROUNDS, "stepped": stepped,
+          "rel_change_reads": fetch_reads.get("rel_change", 0),
+          "reads_per_iterate": fetch_reads.get("rel_change", 0) / stepped,
+          "launches": {"rtr_full": fetch_launches},
+          "sync_free_iterate": sync_free_ok})
+    check(stepped == ROBOTS * FETCH_ROUNDS and fetch_launches == stepped
+          and fetch_reads.get("rel_change", 0) * FETCH_K == stepped,
+          "status_fetch_every=8 did not read 1/8 per iterate")
+    check(sync_free_ok, "an iterate off the fetch cadence synced the host")
+
+    # -- the chaos arm --------------------------------------------------------
+    survivors = [r for r in range(ROBOTS) if r != CHAOS_KILL[0]]
+    costs, chaos = {}, {}
+    for arm in ("fault_free", "chaos"):
+        fleet = agent_fleet(part, params, dev)
+        inj = comms.FaultInjector(comms.FaultSpec(
+            drop=0.10, delay=0.25, delay_s=(CHAOS_PACE, 3 * CHAOS_PACE),
+            reorder=0.05), seed=7) if arm == "chaos" else None
+        torch.cuda.synchronize()
+        rk.LAUNCHES = 0
+        agent_mod.HOST_READS.clear()
+        t0 = time.perf_counter()
+        chaos[arm] = bus_lockstep(
+            fleet, CHAOS_ROUNDS, until_consensus=False, injector=inj,
+            kill=CHAOS_KILL if arm == "chaos" else None, pace=CHAOS_PACE)
+        chaos[arm]["seconds"] = time.perf_counter() - t0
+        chaos[arm]["launches"] = rk.LAUNCHES
+        b2_total += rk.LAUNCHES
+        check(rk.LAUNCHES == chaos[arm]["stepped"],
+              f"the {arm} arm did not launch B2 once per stepped iterate")
+        costs[arm] = lifted_cost(fleet, part, meas, survivors)
+        if inj is not None:
+            chaos[arm]["faults"] = dict(inj.stats)
+            chaos[arm]["survivors_lost"] = [fleet[r].lost_neighbors
+                                            for r in survivors]
+    rel = abs(costs["chaos"] - costs["fault_free"]) / costs["fault_free"]
+    emit({"phase": "agents", "check": "chaos", "card": card,
+          "rounds": CHAOS_ROUNDS, "kill": list(CHAOS_KILL),
+          "survivor_cost": costs, "rel_diff": rel,
+          **{arm: {k: v for k, v in s.items()} for arm, s in chaos.items()}})
+    check(chaos["chaos"]["lost"] == [CHAOS_KILL[0]]
+          and all(lost == [CHAOS_KILL[0]]
+                  for lost in chaos["chaos"]["survivors_lost"]),
+          "the chaos arm did not learn of the killed robot")
+    check(chaos["fault_free"]["lost"] == [], "the fault-free arm lost a robot")
+    check(rel <= CHAOS_RTOL, "the chaos arm's survivors left the fault-free "
+          "cost by more than 1%")
+
+    # -- the async arm --------------------------------------------------------
+    b2_total += async_arm(part, params, dev, card)
+    return b2_total
+
+
+def async_arm(part, params, dev, card: str) -> int:
+    """``start_optimization_loop(rate_hz=50)`` on every robot with the
+    overlapped bus clients (staleness 1) for ``ASYNC_S`` seconds: a relay
+    thread, one exchange thread and one Poisson-clock iterate thread per
+    robot; one second traced.  Returns B2's launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    agents = agent_fleet(part, params, dev)
+    policy = comms.RetryPolicy(max_attempts=2, base_delay_s=0.002,
+                               max_delay_s=0.01, send_timeout_s=0.5,
+                               recv_timeout_s=0.5)
+    bus, clients = comms.loopback_fleet(
+        ROBOTS, policy=policy, round_timeout_s=0.15, miss_limit=100,
+        liveness_timeout_s=10.0)
+    for c in clients.values():
+        c.channel.start_heartbeat(0.05)
+    errors, counts, lock = [], {r: [0, 0] for r in range(ROBOTS)}, \
+        threading.Lock()
+    stop_relay, stop_exchange = threading.Event(), threading.Event()
+    old_hook = threading.excepthook
+
+    def hook(args):
+        errors.append(f"{args.thread.name}: {args.exc_value!r}")
+    threading.excepthook = hook
+
+    for ag in agents:
+        real = ag.iterate
+
+        def counting(do_optimization=True, _real=real, _rid=ag.robot_id):
+            stepped = _real(do_optimization)
+            with lock:
+                counts[_rid][0] += 1
+                counts[_rid][1] += stepped
+            return stepped
+        ag.iterate = counting
+
+    def relay():
+        while not stop_relay.is_set():
+            bus.round()
+
+    def exchanger(ag):
+        c = clients[ag.robot_id]
+        c.start_overlap(1, timeout=1.0)
+        while not stop_exchange.is_set():
+            merged = c.exchange(comms.pack_agent_frame(ag), timeout=1.0)
+            if merged is not None:
+                for peer, pf in c.peer_frames(merged).items():
+                    comms.apply_peer_frame(ag, peer, pf)
+            time.sleep(1.0 / ASYNC_HZ)
+        c.drain_overlap(timeout=10.0)
+
+    torch.cuda.synchronize()
+    rk.LAUNCHES = 0
+    agent_mod.HOST_READS.clear()
+    relay_t = threading.Thread(target=relay, name="relay", daemon=True)
+    ex_ts = [threading.Thread(target=exchanger, args=(ag,),
+                              name=f"exchange-{ag.robot_id}", daemon=True)
+             for ag in agents]
+    t0 = time.perf_counter()
+    relay_t.start()
+    for t in ex_ts:
+        t.start()
+    for ag in agents:
+        ag.start_optimization_loop(rate_hz=ASYNC_HZ)
+    time.sleep(ASYNC_S / 2)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        time.sleep(1.0)
+        traced_s = time.perf_counter() - t1
+    traced_at = time.perf_counter() - t0
+    time.sleep(max(0.0, ASYNC_S - (time.perf_counter() - t0)))
+    run_s = time.perf_counter() - t0
+    for ag in agents:
+        ag.end_optimization_loop()
+    loops_joined = not any(ag.is_optimization_running() for ag in agents)
+    t_loops = time.perf_counter() - t0
+    stop_exchange.set()
+    for t in ex_ts:
+        t.join(timeout=30.0)
+    t_exchange = time.perf_counter() - t0
+    consensus = all(ag.should_terminate() for ag in agents)
+    stop_relay.set()
+    relay_t.join(timeout=30.0)
+    joined = loops_joined and not any(t.is_alive() for t in [relay_t, *ex_ts])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = rk.LAUNCHES
+    reads = dict(agent_mod.HOST_READS)
+    bus.close()
+    for c in clients.values():
+        c.close()
+    threading.excepthook = old_hook
+    dev_us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+    stepped = sum(s for _, s in counts.values())
+    emit({"phase": "agents", "check": "async", "card": card,
+          "rate_hz": ASYNC_HZ, "seconds": wall, "run_s": run_s,
+          "profile_exit_s": traced_at, "loops_joined_s": t_loops,
+          "exchange_joined_s": t_exchange, "staleness": 1,
+          "iterates_per_robot": [counts[r][0] for r in range(ROBOTS)],
+          "stepped_per_robot": [counts[r][1] for r in range(ROBOTS)],
+          "launches": {"rtr_full": launches}, "host_reads": reads,
+          "threads_joined": joined, "errors": errors,
+          "consensus": consensus, "lost": sorted(bus.lost),
+          "traced_s": traced_s, "device_busy_s": dev_us / 1e6,
+          "device_busy_share": dev_us / 1e6 / traced_s})
+    check(joined, "an async thread did not join")
+    check(not errors, "an async thread raised")
+    check(launches == stepped > 0,
+          "the async arm did not launch B2 once per stepped iterate")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -2116,7 +2630,13 @@ def main() -> int:
     lib_path = rk.build()
     rk.load()
     build_s = time.perf_counter() - t0
+    # The native g2o loader and planner (host code, g++), built here
+    # before the first problem build plans its topology through it.
+    t0 = time.perf_counter()
+    native_lib = native_io.build()
+    native_s = time.perf_counter() - t0
     emit({"phase": "build", "seconds": build_s, "library": lib_path.name,
+          "native_seconds": native_s, "native_library": native_lib.name,
           "ptxas": ptxas_report(rk.BUILD_LOG)})
     emit({"phase": "kernels", "kernels": [
         {"name": "rtr_full", "replaces": "pallas_tcg._rtr_full_kernel"},
@@ -2346,7 +2866,9 @@ def main() -> int:
     # window, the production arm ---------------------------------------------
     _, verdict_b2 = verdict_parity(prob, res, card)
     verdict_window(prob, params, dev, card)
-    _, prod_b2 = production_arm(prob, params, card, profile)
+    prod_row, prod_b2 = production_arm(prob, params, card, profile)
+    # --- the per-robot runtime: each robot's iterate is B2 at A=1 -----------
+    agents_b2 = agents_phase(meas, prod_row["cost_history"][-1], dev, card)
 
     # --- the ablation: B3's path ------------------------------------------
     ab = ablate_phase(dev, card)
@@ -2382,7 +2904,7 @@ def main() -> int:
         ablate=ab["rtr_full"], schedules=sched_b2, refine=descent_b2,
         verdict=verdict_b2 + prod_b2 + chordal_b2, odometry_init=odo_b2,
         robust_iterated=iter_b2, certify=cert_b2, dist_init=dist_b2,
-        dense=0, fused_refine=fused_b2)
+        dense=0, fused_refine=fused_b2, agents=agents_b2)
     for row in rows:
         row["launches"] = sum(row["launches_by_path"].values())
     rows.sort(key=lambda r: r["replaces"])

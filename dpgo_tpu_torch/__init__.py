@@ -4,8 +4,9 @@ Distributed pose-graph optimization by Riemannian block-coordinate descent
 on one device: the single-device solve (``models.rbcd.solve_rbcd``: every
 schedule, Nesterov acceleration, GNC) runs on an NVIDIA GPU, with every
 agent's local trust-region step fused into one hand-written CUDA kernel
-(``ops.rtr_kernel``).  The JAX package
-``dpgo_tpu`` stays the reference; this package imports none of it.
+(``ops.rtr_kernel``).  The per-robot deployment runtime (``agent``,
+``comms``) runs each robot's step as one launch of that kernel.  The JAX
+package ``dpgo_tpu`` stays the reference; this package imports none of it.
 """
 
 __version__ = "0.1.0"

@@ -12,8 +12,11 @@ iterate (``RefineRef.Xg``) is numpy in both.  For the certificate,
 ``payload_to_numpy`` and ``certificate_to_numpy`` bring either package's
 payload dict or ``CertificateResult`` to numpy, and ``fixed_probe_draws``
 makes a replacement for ``certify._probe_draws`` that returns given draws
-(e.g. JAX's ``PRNGKey(seed)`` / ``fold_in(key, 1)`` normals).  This module
-imports no JAX.
+(e.g. JAX's ``PRNGKey(seed)`` / ``fold_in(key, 1)`` normals).
+``agent_state_to_numpy`` reads a deployment agent's state (either
+package's ``PGOAgent``) as numpy arrays, and ``agent_state_from_numpy``
+loads such a state into a port ``PGOAgent``, so both packages can continue
+from one mid-run state.  This module imports no JAX.
 """
 
 from __future__ import annotations
@@ -197,3 +200,111 @@ def fixed_probe_draws(draws: dict):
                 f"{(n * dh, num_probe)}")
         return v0, V0
     return probe_draws
+
+
+#: The ``PGOAgent`` attributes an agent state carries across.
+_AGENT_ARRAYS = ("_V", "_Y", "_X_init", "_weights", "_nbr_vals",
+                 "_nbr_have", "_aux_vals", "_aux_have", "_ylift",
+                 "_T_local", "_global_anchor")
+_AGENT_SCALARS = ("_mu", "_gamma", "_alpha", "_num_weight_updates",
+                  "num_robots")
+
+
+def _host_array(x):
+    if x is None:
+        return None
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy().copy()
+    return np.array(x)
+
+
+def agent_state_to_numpy(agent) -> dict:
+    """A ``PGOAgent``'s state as numpy arrays and plain values — the
+    iterate and its Nesterov sequences, the weights and ``mu``, the
+    neighbor caches and their sequence numbers, the status, the neighbor
+    statuses, the lost neighbors and the lifting matrix.  Works on the JAX
+    package's agent and on the port's (a read of the port's device
+    tensors)."""
+    out = {k: _host_array(getattr(agent, k)) for k in _AGENT_ARRAYS}
+    # The port's iterate is read directly (its ``X`` property would go
+    # through the agent's counted host-read seam).
+    x_dev = getattr(agent, "_X_dev", None)
+    out["X"] = _host_array(x_dev if isinstance(x_dev, torch.Tensor)
+                           else agent.X)
+    out.update({k: getattr(agent, k) for k in _AGENT_SCALARS})
+    st = agent._status
+    out["status"] = (st.state.value, st.instance_number,
+                     st.iteration_number, bool(st.ready_to_terminate),
+                     float(st.relative_change))
+    out["neighbor_status"] = {
+        rid: (s.state.value, s.instance_number, s.iteration_number,
+              bool(s.ready_to_terminate), float(s.relative_change))
+        for rid, s in agent._neighbor_status.items()}
+    out["nbr_pose_seq"] = dict(agent._nbr_pose_seq)
+    out["nbr_aux_seq"] = dict(agent._nbr_aux_seq)
+    out["lost_neighbors"] = sorted(agent._lost_neighbors)
+    return out
+
+
+def agent_state_from_numpy(agent, arrays: dict) -> None:
+    """Load ``agent_state_to_numpy``'s state into a port ``PGOAgent`` that
+    ingested the same measurements (``set_pose_graph``: the same slots and
+    edges), on its device and in its dtype; the step's operands are built
+    when the state is INITIALIZED."""
+    from .agent import AgentState, PGOAgentStatus
+
+    a = dict(arrays)
+    with agent._lock:
+        nb = len(agent._slot_pose)
+        if np.asarray(a["_nbr_vals"]).shape[0] != nb:
+            raise ValueError("the state's neighbor slots do not match this "
+                             "agent's problem: ingest the same "
+                             "measurements first")
+
+        def dev(x):
+            return None if x is None else torch.as_tensor(
+                np.asarray(x, np.float64), dtype=agent.dtype,
+                device=agent.device)
+
+        agent.set_lifting_matrix(a["_ylift"])
+        agent.X = dev(a["X"])
+        agent._V, agent._Y = dev(a["_V"]), dev(a["_Y"])
+        agent._X_init = dev(a["_X_init"])
+        agent._weights = np.asarray(a["_weights"], np.float64).copy()
+        agent._weights_dev = None
+        agent._chol = None
+        for k in ("_nbr_vals", "_aux_vals"):
+            setattr(agent, k, np.asarray(a[k], np.float64).copy())
+        for k in ("_nbr_have", "_aux_have"):
+            setattr(agent, k, np.asarray(a[k], bool).copy())
+        agent._nbr_ver += 1
+        agent._aux_ver += 1
+        if a.get("_T_local") is not None:
+            agent._T_local = np.asarray(a["_T_local"], np.float64).copy()
+        anchor = a.get("_global_anchor")
+        agent._global_anchor = None if anchor is None else \
+            np.asarray(anchor, np.float64).copy()
+        agent._mu = float(a["_mu"])
+        agent._gamma = float(a["_gamma"])
+        agent._alpha = float(a["_alpha"])
+        agent._num_weight_updates = int(a["_num_weight_updates"])
+        agent.num_robots = int(a["num_robots"])
+        state, inst, it, ready, rel = a["status"]
+        agent._status.state = AgentState(int(state))
+        agent._status.instance_number = int(inst)
+        agent._status.iteration_number = int(it)
+        agent._status.ready_to_terminate = bool(ready)
+        agent._status.relative_change = float(rel)
+        agent._neighbor_status = {
+            int(rid): PGOAgentStatus(
+                robot_id=int(rid), state=AgentState(int(s[0])),
+                instance_number=int(s[1]), iteration_number=int(s[2]),
+                ready_to_terminate=bool(s[3]), relative_change=float(s[4]))
+            for rid, s in a["neighbor_status"].items()}
+        agent._nbr_pose_seq = {int(k): int(v)
+                               for k, v in a["nbr_pose_seq"].items()}
+        agent._nbr_aux_seq = {int(k): int(v)
+                              for k, v in a["nbr_aux_seq"].items()}
+        agent._lost_neighbors = {int(x) for x in a["lost_neighbors"]}
+        if agent._status.state == AgentState.INITIALIZED:
+            agent._build_step()

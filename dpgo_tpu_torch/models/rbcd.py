@@ -40,7 +40,7 @@ from ..obs.health import HealthConfig
 from ..ops import manifold, quadratic, rtr_kernel, solver
 from ..types import (EdgeSet, Measurements, edge_set_from_measurements,
                      loop_closure_mask)
-from ..utils.graph_plan import color_agents, plan_python
+from ..utils.graph_plan import color_agents, plan_topology
 from ..utils.lie import lifting_matrix as _lifting_matrix
 from ..utils.partition import (Partition, gather_poses_to_global,
                                partition_contiguous)
@@ -124,18 +124,22 @@ def edge_tile_shape(n_max: int, s_max: int, e_max: int) -> tuple[int, int]:
 
 
 def build_graph(part: Partition, rank: int, dtype=torch.float64,
-                device="cuda") -> tuple[MultiAgentGraph, GraphMeta]:
+                device="cuda", planner: str = "auto"
+                ) -> tuple[MultiAgentGraph, GraphMeta]:
     """Padded per-agent arrays from a partitioned measurement set: each
     shared measurement appears in both endpoint agents' edge lists with the
     remote endpoint redirected to a neighbor slot (``PGOAgent.cpp:228-
-    248``).  Topology from the Python planner (``utils.graph_plan``)."""
+    248``).  Topology from the planner (``utils.graph_plan.plan_topology``
+    with ``backend=planner``: native C++ when it builds, else Python —
+    identical output)."""
     dev = resolve_device(device)
     A = part.num_robots
     meas = part.meas
     d = meas.d
     n_max = part.n_max
 
-    plan = plan_python(meas.r1, meas.p1, meas.r2, meas.p2, A, n_max)
+    plan = plan_topology(meas.r1, meas.p1, meas.r2, meas.p2, A, n_max,
+                         backend=planner)
     e_max, s_max, p_max = plan.e_max, plan.s_max, plan.p_max
     cls = part.classify()  # 0 odo, 1 private LC, 2 shared
 
@@ -210,6 +214,86 @@ def build_graph(part: Partition, rank: int, dtype=torch.float64,
                                               n_max + s_max, dev))
     meta = GraphMeta(num_robots=A, n_max=n_max, e_max=e_max, s_max=s_max,
                      p_max=p_max, d=d, rank=rank, num_colors=num_colors)
+    return graph, meta
+
+
+def agent_graph(edges: EdgeSet, n: int, s: int,
+                rank: int) -> tuple[MultiAgentGraph, GraphMeta]:
+    """The A=1 view of ONE robot's problem that the round's operands read
+    (``kernel_operands``, ``_agent_local_problem``): ``edges`` is the
+    robot's own edge list over its ``[n + s]`` buffer (own poses, then
+    ``s`` neighbor slots; ``agent.PGOAgent``), unbatched.  Returns the
+    edges batched to ``[1, E]``, the ELL incidence of the ``n`` local poses
+    (slot ``e`` for endpoint i of edge e, ``E + e`` for endpoint j, in edge
+    order), the tile-major kernel arrays at ``edge_tile_shape(n, s, E)``
+    (padding index ``n + s``) and ``n``; the exchange tables are single
+    placeholders, as a robot exchanges through its transport.  The port's
+    counterpart of the JAX package's ``_edge_tile_shape`` +
+    ``agent_edge_tiles`` (its ``rbcd.py:518-620``)."""
+    dev = edges.R.device
+    d = edges.d
+    E = int(edges.i.shape[0])
+    ei = edges.i.cpu().numpy().astype(np.int64)
+    ej = edges.j.cpu().numpy().astype(np.int64)
+    inc: list[list[int]] = [[] for _ in range(n)]
+    for e in range(E):
+        if ei[e] < n:
+            inc[ei[e]].append(e)
+        if ej[e] < n:
+            inc[ej[e]].append(E + e)
+    K = max(1, max((len(r) for r in inc), default=1))
+    inc_slot = np.zeros((1, n, K), np.int32)
+    inc_mask = np.zeros((1, n, K), np.float64)
+    for v, row in enumerate(inc):
+        inc_slot[0, v, :len(row)] = row
+        inc_mask[0, v, :len(row)] = 1.0
+    T, nt = edge_tile_shape(n, s, E)
+    Ep = nt * T
+    idx_i = np.full(Ep, n + s, np.int32)
+    idx_j = np.full(Ep, n + s, np.int32)
+    idx_i[:E] = ei
+    idx_j[:E] = ej
+    rot = np.zeros((d * d, Ep), np.float32)
+    trn = np.zeros((d, Ep), np.float32)
+    rot[:, :E] = edges.R.cpu().numpy().transpose(1, 2, 0).reshape(d * d, E)
+    trn[:, :E] = edges.t.cpu().numpy().T
+    fdt = edges.R.dtype
+
+    def i64(x):
+        return torch.as_tensor(np.asarray(x, np.int64), device=dev)
+
+    def i32(x):
+        return torch.as_tensor(np.ascontiguousarray(x, np.int32),
+                               device=dev)
+
+    def f32(x):
+        return torch.as_tensor(np.ascontiguousarray(x, np.float32),
+                               device=dev)
+
+    def f(x):
+        return torch.as_tensor(np.asarray(x, np.float64), dtype=fdt,
+                               device=dev)
+
+    graph = MultiAgentGraph(
+        edges=EdgeSet(*(t[None] for t in edges)),
+        meas_id=i64(np.arange(E)[None]),
+        n=i32([n]),
+        pose_mask=f(np.ones((1, n))),
+        pub_idx=i64(np.zeros((1, 1))),
+        pub_mask=f(np.zeros((1, 1))),
+        nbr_robot=i64(np.zeros((1, s))),
+        nbr_pub=i64(np.zeros((1, s))),
+        nbr_mask=f(np.ones((1, s))),
+        global_index=i64(np.arange(n)[None]),
+        inc_slot=i32(inc_slot),
+        inc_mask=f(inc_mask),
+        eidx_i=i32(idx_i.reshape(1, nt, 1, T)),
+        eidx_j=i32(idx_j.reshape(1, nt, 1, T)),
+        rot_t=f32(rot.reshape(d * d, nt, T).transpose(1, 0, 2)[None]),
+        trn_t=f32(trn.reshape(d, nt, T).transpose(1, 0, 2)[None]),
+        color=i32([0]))
+    meta = GraphMeta(num_robots=1, n_max=n, e_max=E, s_max=s,
+                     p_max=1, d=d, rank=rank)
     return graph, meta
 
 

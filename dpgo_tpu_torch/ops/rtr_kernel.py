@@ -61,6 +61,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import NamedTuple
 
@@ -539,6 +540,18 @@ def rtr_refine_full_reference(idx_i, idx_j, rot, trn, wk, wt, rho_rot,
 
 _lib = None
 BUILD_LOG = ""
+#: Serializes ``build`` and ``load``: the agents' optimization threads
+#: (``agent.PGOAgent.start_optimization_loop``) may make the first launch
+#: from several threads of one process at once.
+_BUILD_LOCK = threading.RLock()
+#: Serializes the launch counters' read-modify-write across those threads.
+_COUNT_LOCK = threading.Lock()
+
+
+def _unique_suffix() -> str:
+    """A file-name tag no other build in flight shares: the process id and
+    the thread id (threads of one process share the pid)."""
+    return f"{os.getpid()}.{threading.get_ident()}"
 
 
 def _nvcc() -> str:
@@ -556,7 +569,15 @@ def build() -> Path:
     """Compile every ``csrc/*.cu`` (one ``nvcc`` per source, all started
     together) and link them into one shared library, unless these sources
     were built already; return the library's path.  Sets ``BUILD_LOG`` to
-    nvcc's output (the ptxas register and spill report)."""
+    nvcc's output (the ptxas register and spill report).  One build at a
+    time per process (``_BUILD_LOCK``); its object and temporary files are
+    named per process and thread, and the library appears by an atomic
+    rename, so concurrent processes never read a half-written file."""
+    with _BUILD_LOCK:
+        return _build()
+
+
+def _build() -> Path:
     global BUILD_LOG
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in SOURCES:
@@ -566,8 +587,8 @@ def build() -> Path:
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc, pid = _nvcc(), os.getpid()
-    objs = [BUILD_DIR / f"{src.stem}_{tag}.{pid}.o" for src in SOURCES]
+    nvcc, tag_u = _nvcc(), _unique_suffix()
+    objs = [BUILD_DIR / f"{src.stem}_{tag}.{tag_u}.o" for src in SOURCES]
     logs = [o.with_suffix(".log") for o in objs]
     procs = []
     for src, obj, log in zip(SOURCES, objs, logs):
@@ -583,7 +604,7 @@ def build() -> Path:
     if failed:
         raise RuntimeError(f"nvcc failed to build {', '.join(failed)}:\n"
                            f"{BUILD_LOG}")
-    tmp = lib.with_name(lib.name + f".{pid}.tmp")
+    tmp = lib.with_name(lib.name + f".{tag_u}.tmp")
     proc = subprocess.run([nvcc, "-shared", "-o", str(tmp),
                            *map(str, objs)], capture_output=True, text=True)
     BUILD_LOG += proc.stdout + proc.stderr
@@ -598,6 +619,13 @@ def build() -> Path:
 def load():
     """The bound kernel library; raises when there is no CUDA device or the
     build fails."""
+    if _lib is not None:
+        return _lib
+    with _BUILD_LOCK:
+        return _load()
+
+
+def _load():
     global _lib
     if _lib is not None:
         return _lib
@@ -759,7 +787,8 @@ def rtr_full(idx_i, idx_j, rot, trn, wk, wt, Xc, Zc, Lc, inc_slot, inc_mask,
             ws_floats, max_iters, kappa, theta, initial_radius,
             max_rejections, grad_tol, stream)
     _raise_on("rtr_full", err, r, d, plan.C)
-    LAUNCHES += 1
+    with _COUNT_LOCK:
+        LAUNCHES += 1
     return RTRFullOut(X_out, stats, iters)
 
 
@@ -805,7 +834,8 @@ def rtr(idx_i, idx_j, rot, trn, wk, wt, Xc, Zc, Sc, Lc, gc, inc_slot,
             ws_floats, max_iters, kappa, theta, initial_radius,
             max_rejections, stream)
     _raise_on("rtr", err, r, d, plan.C)
-    RTR_LAUNCHES += 1
+    with _COUNT_LOCK:
+        RTR_LAUNCHES += 1
     return RTROut(X_out, stats, iters)
 
 
@@ -850,7 +880,8 @@ def tcg(idx_i, idx_j, rot, trn, wk, wt, Xc, Sc, Lc, gc, radius, inc_slot,
             r, d, A, n, nt * T, T, e_max, K, *ptrs, ws.data_ptr(), ws_floats,
             max_iters, kappa, theta, stream)
     _raise_on("tcg", err, r, d, plan.C)
-    TCG_LAUNCHES += 1
+    with _COUNT_LOCK:
+        TCG_LAUNCHES += 1
     return TCGOut(eta, heta, stats)
 
 
@@ -900,5 +931,6 @@ def rtr_refine_full(idx_i, idx_j, rot, trn, wk, wt, rho_rot, rho_trn, Rc,
             ws_floats, max_iters, kappa, theta, initial_radius,
             max_rejections, grad_tol, stream)
     _raise_on("rtr_refine_full", err, r, d, plan.C)
-    REFINE_LAUNCHES += 1
+    with _COUNT_LOCK:
+        REFINE_LAUNCHES += 1
     return RTRRefineOut(D_out, stats, iters)

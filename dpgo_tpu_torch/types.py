@@ -54,6 +54,25 @@ class Measurements:
             weight=self.weight[idx],
             is_known_inlier=self.is_known_inlier[idx])
 
+    @staticmethod
+    def concatenate(parts: list["Measurements"]) -> "Measurements":
+        """The rows of ``parts`` in order, as one batch."""
+        assert parts
+        return Measurements(
+            d=parts[0].d,
+            num_poses=max(p.num_poses for p in parts),
+            r1=np.concatenate([p.r1 for p in parts]),
+            p1=np.concatenate([p.p1 for p in parts]),
+            r2=np.concatenate([p.r2 for p in parts]),
+            p2=np.concatenate([p.p2 for p in parts]),
+            R=np.concatenate([p.R for p in parts]),
+            t=np.concatenate([p.t for p in parts]),
+            kappa=np.concatenate([p.kappa for p in parts]),
+            tau=np.concatenate([p.tau for p in parts]),
+            weight=np.concatenate([p.weight for p in parts]),
+            is_known_inlier=np.concatenate(
+                [p.is_known_inlier for p in parts]))
+
 
 class EdgeSet(NamedTuple):
     """Struct-of-arrays edge list of tensors (optional leading batch dims).
@@ -88,9 +107,13 @@ def loop_closure_mask(meas: Measurements) -> np.ndarray:
 
 
 def edge_set_from_measurements(meas: Measurements, dtype=torch.float64,
-                               device="cuda") -> EdgeSet:
-    """EdgeSet over global pose indices ``p1``/``p2`` (the centralized
-    problem), on ``device`` in ``dtype``."""
+                               device="cuda", tail_index=None,
+                               head_index=None, is_lc=None) -> EdgeSet:
+    """EdgeSet on ``device`` in ``dtype``.  By default edges index poses by
+    their global index ``p1``/``p2`` (the centralized problem);
+    ``tail_index``/``head_index`` override the buffer indices (a robot's
+    own edge list with remote endpoints in its neighbor slots,
+    ``agent.PGOAgent``) and ``is_lc`` the loop-closure flags."""
     device = resolve_device(device)
     m = len(meas)
     d = meas.d
@@ -102,10 +125,14 @@ def edge_set_from_measurements(meas: Measurements, dtype=torch.float64,
     def ix(x):
         return torch.as_tensor(np.asarray(x, np.int64), device=device)
 
+    if is_lc is None:
+        is_lc = loop_closure_mask(meas)
     R = np.broadcast_to(np.eye(d), (m, d, d)) if m == 0 else meas.R
     return EdgeSet(
-        i=ix(meas.p1), j=ix(meas.p2), R=f(R), t=f(meas.t),
+        i=ix(meas.p1 if tail_index is None else tail_index),
+        j=ix(meas.p2 if head_index is None else head_index),
+        R=f(R), t=f(meas.t),
         kappa=f(meas.kappa), tau=f(meas.tau), weight=f(meas.weight),
         mask=f(np.ones(m)),
-        is_lc=f(loop_closure_mask(meas).astype(np.float64)),
+        is_lc=f(np.asarray(is_lc, bool).astype(np.float64)),
         fixed_weight=f(np.asarray(meas.is_known_inlier, np.float64)))

@@ -1,5 +1,8 @@
-"""g2o dataset reader and writer (pure Python path of
-``dpgo_tpu.utils.g2o``; the native C++ loader is not part of the port).
+"""g2o dataset reader and writer (port of ``dpgo_tpu.utils.g2o``).
+
+``read_g2o`` dispatches between the native C++ loader
+(``utils.native_io``, built by the port from ``native/g2o_parser.cpp``)
+and the pure-Python parser ``read_g2o_python``, as the JAX package does.
 
 Precisions follow the reference's information-divergence-minimizing
 choices (``DPGO_utils.cpp:139-143``, ``184-194``): SE(2)
@@ -41,9 +44,38 @@ def _open_g2o_text(source):
     return open(source)
 
 
-def read_g2o(source) -> Measurements:
-    """Parse ``EDGE_SE2`` / ``EDGE_SE3:QUAT`` lines into ``Measurements``;
-    ``VERTEX_*`` lines only count poses and ``FIX`` lines are ignored."""
+def read_g2o(source, backend: str = "auto") -> Measurements:
+    """Parse a .g2o dataset into ``Measurements``.
+
+    ``source`` is a filesystem path, the file's bytes, or a file-like
+    object.  ``backend``: ``"auto"`` uses the native loader when it builds
+    and otherwise warns and parses in Python; ``"native"`` / ``"python"``
+    force one side (``"native"`` raises when the library cannot be built).
+    The native loader reads files only: in-memory sources parse in Python,
+    and ``backend="native"`` with one raises.  Host IO, not a device
+    path."""
+    if backend not in ("auto", "native", "python"):
+        raise ValueError(f"unknown backend {backend!r}")
+    in_memory = isinstance(source, (bytes, bytearray, memoryview)) \
+        or hasattr(source, "read")
+    if backend != "python" and not in_memory:
+        from . import native_io
+        if backend == "native":
+            return native_io.read_g2o_native(source)
+        if native_io.native_available():
+            return native_io.read_g2o_native(source)
+        native_io.warn_fallback()
+    if backend == "native" and in_memory:
+        raise ValueError(
+            "backend='native' requires a filesystem path; bytes/file-like "
+            "sources parse with the Python backend")
+    return read_g2o_python(source)
+
+
+def read_g2o_python(source) -> Measurements:
+    """Parse ``EDGE_SE2`` / ``EDGE_SE3:QUAT`` lines into ``Measurements``
+    in Python (vectorized numpy); ``VERTEX_*`` lines only count poses and
+    ``FIX`` lines are ignored."""
     rows2, rows3, keys2, keys3 = [], [], [], []
     num_vertices = 0
     with _open_g2o_text(source) as f:

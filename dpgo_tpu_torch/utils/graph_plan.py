@@ -1,13 +1,26 @@
-"""Multi-agent topology planning (port of the Python planner of
-``dpgo_tpu.utils.graph_plan``; the native C++ planner is not part of the
-port).  Same scan and insertion orders, so the arrays are bit-identical to
-the JAX package's."""
+"""Multi-agent topology planning (port of ``dpgo_tpu.utils.graph_plan``).
+
+Computes the padded index structure of the batched RBCD layout from edge
+endpoints: per-agent edge rows with remote endpoints redirected to
+neighbor slots, public-pose tables, neighbor-slot tables and the ELL
+incidence.  Two backends with bit-identical output (same scan and
+insertion orders, and bit-identical to the JAX package's):
+
+* **native** — ``native/graph_builder.cpp`` through ctypes, in the library
+  the port builds itself (``utils.native_io``);
+* **python** — the dict-based planner.
+
+``plan_topology`` dispatches (``backend="auto" | "native" | "python"``).
+"""
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import numpy as np
+
+from . import native_io
 
 
 class TopologyPlan(NamedTuple):
@@ -26,6 +39,99 @@ class TopologyPlan(NamedTuple):
     nbr_mask: np.ndarray   # [A, s_max] bool
     inc_slot: np.ndarray   # [A, n_max, k_max] int32 into [gi | gj]
     inc_mask: np.ndarray   # [A, n_max, k_max] bool
+
+
+class _DpgoGraphPlan(ctypes.Structure):
+    _fields_ = [
+        ("A", ctypes.c_int32),
+        ("n_max", ctypes.c_int32),
+        ("e_max", ctypes.c_int32),
+        ("s_max", ctypes.c_int32),
+        ("p_max", ctypes.c_int32),
+        ("k_max", ctypes.c_int32),
+        ("ei", ctypes.POINTER(ctypes.c_int32)),
+        ("ej", ctypes.POINTER(ctypes.c_int32)),
+        ("meas_id", ctypes.POINTER(ctypes.c_int64)),
+        ("emask", ctypes.POINTER(ctypes.c_uint8)),
+        ("pub_idx", ctypes.POINTER(ctypes.c_int64)),
+        ("pub_mask", ctypes.POINTER(ctypes.c_uint8)),
+        ("nbr_robot", ctypes.POINTER(ctypes.c_int32)),
+        ("nbr_pub", ctypes.POINTER(ctypes.c_int32)),
+        ("nbr_mask", ctypes.POINTER(ctypes.c_uint8)),
+        ("inc_slot", ctypes.POINTER(ctypes.c_int32)),
+        ("inc_mask", ctypes.POINTER(ctypes.c_uint8)),
+        ("error", ctypes.c_char * 256),
+    ]
+
+
+_registered = False
+
+
+def _graph_lib():
+    """The native library with the planner's symbols registered, or None
+    when it cannot be built."""
+    global _registered
+    lib = native_io.load_library()
+    if lib is None:
+        return None
+    with native_io._lock:
+        if not _registered:
+            lib.dpgo_graph_plan.argtypes = [
+                ctypes.c_int64,
+                np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS"),
+                np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
+                np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS"),
+                np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
+                ctypes.c_int32, ctypes.c_int32,
+                ctypes.POINTER(_DpgoGraphPlan),
+            ]
+            lib.dpgo_graph_plan.restype = ctypes.c_int
+            lib.dpgo_graph_free.argtypes = [ctypes.POINTER(_DpgoGraphPlan)]
+            lib.dpgo_graph_free.restype = None
+            _registered = True
+    return lib
+
+
+def plan_native(r1, p1, r2, p2, num_robots: int, n_max: int) -> TopologyPlan:
+    """``plan_python``'s arrays from the native planner; raises
+    ``RuntimeError`` when the library cannot be built and ``ValueError``
+    on invalid indices (as ``plan_python``)."""
+    lib = _graph_lib()
+    if lib is None:
+        raise RuntimeError("native graph planner unavailable: "
+                           f"{native_io.load_error()}")
+    r1 = np.ascontiguousarray(r1, np.int32)
+    p1 = np.ascontiguousarray(p1, np.int64)
+    r2 = np.ascontiguousarray(r2, np.int32)
+    p2 = np.ascontiguousarray(p2, np.int64)
+    M = len(r1)
+    out = _DpgoGraphPlan()
+    rc = lib.dpgo_graph_plan(M, r1, p1, r2, p2, num_robots, n_max,
+                             ctypes.byref(out))
+    if rc != 0:
+        err = out.error.decode(errors="replace")
+        raise ValueError(f"native graph plan failed: {err}")
+    try:
+        A = num_robots
+        e, s, p, k = out.e_max, out.s_max, out.p_max, out.k_max
+        as_np = np.ctypeslib.as_array
+        plan = TopologyPlan(
+            e_max=int(e), s_max=int(s), p_max=int(p), k_max=int(k),
+            ei=as_np(out.ei, (A, e)).copy(),
+            ej=as_np(out.ej, (A, e)).copy(),
+            meas_id=as_np(out.meas_id, (A, e)).copy(),
+            emask=as_np(out.emask, (A, e)).astype(bool),
+            pub_idx=as_np(out.pub_idx, (A, p)).copy(),
+            pub_mask=as_np(out.pub_mask, (A, p)).astype(bool),
+            nbr_robot=as_np(out.nbr_robot, (A, s)).copy(),
+            nbr_pub=as_np(out.nbr_pub, (A, s)).copy(),
+            nbr_mask=as_np(out.nbr_mask, (A, s)).astype(bool),
+            inc_slot=as_np(out.inc_slot, (A, n_max, k)).copy(),
+            inc_mask=as_np(out.inc_mask, (A, n_max, k)).astype(bool),
+        )
+    finally:
+        lib.dpgo_graph_free(ctypes.byref(out))
+    return plan
 
 
 def plan_python(r1, p1, r2, p2, num_robots: int, n_max: int) -> TopologyPlan:
@@ -116,6 +222,21 @@ def plan_python(r1, p1, r2, p2, num_robots: int, n_max: int) -> TopologyPlan:
                         nbr_robot=nbr_robot, nbr_pub=nbr_pub,
                         nbr_mask=nbr_mask, inc_slot=inc_slot,
                         inc_mask=inc_mask)
+
+
+def plan_topology(r1, p1, r2, p2, num_robots: int, n_max: int,
+                  backend: str = "auto") -> TopologyPlan:
+    """Dispatch: ``"native"`` (raise when unavailable), ``"python"``, or
+    ``"auto"`` (native when the library builds, else Python)."""
+    if backend == "native":
+        return plan_native(r1, p1, r2, p2, num_robots, n_max)
+    if backend == "python":
+        return plan_python(r1, p1, r2, p2, num_robots, n_max)
+    if backend != "auto":
+        raise ValueError(f"unknown planner backend {backend!r}")
+    if _graph_lib() is not None:
+        return plan_native(r1, p1, r2, p2, num_robots, n_max)
+    return plan_python(r1, p1, r2, p2, num_robots, n_max)
 
 
 def color_agents(nbr_robot: np.ndarray, nbr_mask: np.ndarray,

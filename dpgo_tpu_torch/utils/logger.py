@@ -1,0 +1,160 @@
+"""CSV trajectory / measurement logging (port of
+``dpgo_tpu.utils.logger``), the equivalent of the reference's
+``PGOLogger`` (``src/PGOLogger.cpp``) that ``agent.PGOAgent`` writes its
+dumps through:
+
+* ``log_trajectory`` / ``load_trajectory`` — per-pose quaternion +
+  translation CSV (header ``pose_index,qx,qy,qz,qw,tx,ty,tz``,
+  ``PGOLogger.cpp:64``), written in the header/loader order (the
+  reference's writer emits translation first, ``PGOLogger.cpp:70-77``).
+* ``log_measurements`` / ``load_measurements`` — measurement CSV including
+  GNC weights and the known-inlier flag (``PGOLogger.cpp:29``, ``148-225``).
+* ``save_matrix`` / ``load_matrix`` — raw matrix dump, the reference's
+  ``writeMatrixToFile`` ``X.txt`` (``DPGO_utils.cpp:35-63``).
+
+SE(2) trajectories/measurements are logged by embedding the yaw rotation
+as a quaternion about z; pass ``d=2`` to the loaders to recover the planar
+form.  The same bytes as the JAX package's writer for the same values.
+The solver checkpoint tier (``save_checkpoint*``) is not ported yet
+(ROADMAP A10).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..types import Measurements
+from .lie import quat_to_rotation, rotation_to_quat
+
+TRAJECTORY_HEADER = "pose_index,qx,qy,qz,qw,tx,ty,tz"
+MEASUREMENT_HEADER = ("robot_src,pose_src,robot_dst,pose_dst,"
+                     "qx,qy,qz,qw,tx,ty,tz,kappa,tau,is_known_inlier,weight")
+
+
+def _embed_rotations(R: np.ndarray) -> np.ndarray:
+    """[n, d, d] rotations -> [n, 3, 3], embedding SE(2) yaw about z."""
+    R = np.asarray(R, np.float64)
+    if R.shape[-1] == 3:
+        return R
+    n = R.shape[0]
+    out = np.tile(np.eye(3), (n, 1, 1))
+    out[:, :2, :2] = R
+    return out
+
+
+def _embed_translations(t: np.ndarray) -> np.ndarray:
+    t = np.asarray(t, np.float64)
+    if t.shape[-1] == 3:
+        return t
+    return np.concatenate([t, np.zeros((t.shape[0], 1))], axis=-1)
+
+
+def log_trajectory(T: np.ndarray, path: str) -> None:
+    """Write a trajectory ``T: [n, d, d+1]`` of SE(d) poses to CSV.
+
+    Header-order columns (quaternion then translation), matching the
+    reference loader (``PGOLogger.cpp:110-129``).
+    """
+    T = np.asarray(T, np.float64)
+    n, d = T.shape[0], T.shape[1]
+    q = rotation_to_quat(_embed_rotations(T[:, :, :d]))  # [n, 4] (x, y, z, w)
+    t = _embed_translations(T[:, :, d])
+    with open(path, "w") as f:
+        f.write(TRAJECTORY_HEADER + "\n")
+        for i in range(n):
+            row = [i, *q[i], *t[i]]
+            f.write(",".join(_fmt(v) for v in row) + "\n")
+
+
+def load_trajectory(path: str, d: int = 3) -> np.ndarray:
+    """Load a trajectory CSV back into ``[n, d, d+1]`` (indexed by pose_index)."""
+    raw = np.loadtxt(path, delimiter=",", skiprows=1, ndmin=2)
+    if raw.size == 0:
+        return np.zeros((0, d, d + 1))
+    order = np.argsort(raw[:, 0].astype(int))
+    raw = raw[order]
+    q = raw[:, 1:5]
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    R = quat_to_rotation(q)
+    t = raw[:, 5:8]
+    n = raw.shape[0]
+    T = np.zeros((n, d, d + 1))
+    T[:, :, :d] = R[:, :d, :d]
+    T[:, :, d] = t[:, :d]
+    return T
+
+
+def log_measurements(meas: Measurements, path: str) -> None:
+    """Write a ``Measurements`` batch (incl. GNC weights) to CSV.
+
+    Same schema as the reference (``PGOLogger.cpp:29``): the final weights of
+    a robust solve ride along so a restart can skip re-running GNC from
+    scratch.
+    """
+    q = rotation_to_quat(_embed_rotations(meas.R))
+    t = _embed_translations(meas.t)
+    with open(path, "w") as f:
+        f.write(MEASUREMENT_HEADER + "\n")
+        for k in range(len(meas)):
+            row = [int(meas.r1[k]), int(meas.p1[k]),
+                   int(meas.r2[k]), int(meas.p2[k]),
+                   *q[k], *t[k],
+                   meas.kappa[k], meas.tau[k],
+                   int(meas.is_known_inlier[k]), meas.weight[k]]
+            f.write(",".join(_fmt(v) for v in row) + "\n")
+
+
+def load_measurements(path: str, load_weight: bool = True,
+                      d: int = 3) -> Measurements:
+    """Load a measurement CSV back into ``Measurements``.
+
+    ``load_weight=False`` resets GNC weights to 1 (fresh robust solve from
+    logged data), mirroring the reference's flag (``PGOLogger.cpp:148``).
+    """
+    raw = np.loadtxt(path, delimiter=",", skiprows=1, ndmin=2)
+    if raw.size == 0:
+        z = np.zeros(0)
+        return Measurements(
+            d=d, num_poses=0,
+            r1=z.astype(np.int32), p1=z.astype(np.int64),
+            r2=z.astype(np.int32), p2=z.astype(np.int64),
+            R=np.zeros((0, d, d)), t=np.zeros((0, d)),
+            kappa=z, tau=z, weight=z, is_known_inlier=z.astype(bool))
+    m = raw.shape[0]
+    q = raw[:, 4:8]
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    R = quat_to_rotation(q)[:, :d, :d]
+    t = raw[:, 8:11][:, :d]
+    p1 = raw[:, 1].astype(np.int64)
+    p2 = raw[:, 3].astype(np.int64)
+    return Measurements(
+        d=d,
+        num_poses=int(max(p1.max(), p2.max())) + 1 if m else 0,
+        r1=raw[:, 0].astype(np.int32),
+        p1=p1,
+        r2=raw[:, 2].astype(np.int32),
+        p2=p2,
+        R=np.ascontiguousarray(R),
+        t=np.ascontiguousarray(t),
+        kappa=raw[:, 11],
+        tau=raw[:, 12],
+        weight=raw[:, 14] if load_weight else np.ones(m),
+        is_known_inlier=raw[:, 13].astype(bool),
+    )
+
+
+def save_matrix(M: np.ndarray, path: str) -> None:
+    """Plain-text matrix dump (reference ``writeMatrixToFile``,
+    ``DPGO_utils.cpp:35-49``: one row per line, space-separated)."""
+    np.savetxt(path, np.asarray(M).reshape(M.shape[0], -1))
+
+
+def load_matrix(path: str, shape=None) -> np.ndarray:
+    M = np.loadtxt(path, ndmin=2)
+    return M.reshape(shape) if shape is not None else M
+
+
+def _fmt(v) -> str:
+    if isinstance(v, (int, np.integer)):
+        return str(int(v))
+    return repr(float(v))

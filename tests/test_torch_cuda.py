@@ -853,3 +853,143 @@ def test_distributed_init_on_card_matches_cpu(card):
                                 device="cpu", init="distributed")
     err = float((on_card.X0.double().cpu() - host.X0).abs().max())
     assert err <= 1e-4 * float(host.X0.abs().max())
+
+
+def _card_agents(card, A=3, n=60, num_lc=20, **kw):
+    """A small lockstep fleet of port agents on the card (float32)."""
+    from dpgo_tpu_torch.agent import PGOAgent
+    from dpgo_tpu_torch.utils.partition import (agent_measurements,
+                                                partition_contiguous)
+
+    meas = make_measurements(np.random.default_rng(7), n=n, d=3,
+                             num_lc=num_lc, rot_noise=0.02,
+                             trans_noise=0.02)[0]
+    part = partition_contiguous(meas, A)
+    params = AgentParams(d=3, r=5, num_robots=A, **kw)
+    ags = [PGOAgent(a, params, device=card) for a in range(A)]
+    for ag in ags[1:]:
+        ag.set_lifting_matrix(ags[0].get_lifting_matrix())
+    for ag in ags:
+        ag.set_pose_graph(*agent_measurements(part, ag.robot_id))
+    return ags
+
+
+def _card_exchange(ags):
+    pubs = [ag.get_public_pose_arrays() for ag in ags]
+    sts = [ag.get_status() for ag in ags]
+    for src, pub in enumerate(pubs):
+        for dst, ag in enumerate(ags):
+            if src != dst:
+                ag.set_neighbor_status(sts[src])
+                if pub is not None:
+                    ag.update_neighbor_poses_packed(src, *pub)
+
+
+def test_agent_iterate_b2_at_a1_matches_plain_version(card):
+    """Each robot's iterate is one B2 launch at A=1 on its own operands:
+    the kernel against its plain version on those operands, and the
+    launch count against the stepped iterates."""
+    ags = _card_agents(card)
+    for _ in range(2):
+        _card_exchange(ags)
+        for ag in ags:
+            ag.iterate(True)
+    assert all(ag._kernel for ag in ags)
+    before, stepped = rk.LAUNCHES, 0
+    for ag in ags:
+        z = ag._neighbor_buffer()
+        args = rbcd.kernel_operands(ag._X_device()[None], z,
+                                    ag._edges_weighted(), ag._chol_device(),
+                                    ag._graph)
+        kw = rbcd.kernel_options(ag.params, ag._meta)
+        out = rk.rtr_full(*args, **kw)
+        ref = rk.rtr_full_reference(*args, **kw)
+        torch.cuda.synchronize()
+        assert float((out.X - ref.X).abs().max()) <= 1e-4
+        assert torch.equal(out.stats[:, :2], ref.stats[:, :2])
+    assert rk.LAUNCHES == before + len(ags)
+    before = rk.LAUNCHES
+    for _ in range(3):
+        _card_exchange(ags)
+        for ag in ags:
+            stepped += ag.iterate(True)
+    assert stepped == 9 and rk.LAUNCHES == before + stepped
+    # From a thread of its own (as ``start_optimization_loop`` runs it) an
+    # iterate launches on that thread's current stream, the default one.
+    import threading
+
+    _card_exchange(ags)
+    seen = {}
+
+    def run():
+        seen["default"] = (torch.cuda.current_stream().cuda_stream
+                           == torch.cuda.default_stream().cuda_stream)
+        seen["stepped"] = ags[1].iterate(True)
+        torch.cuda.synchronize()
+    before = rk.LAUNCHES
+    t = threading.Thread(target=run)
+    t.start()
+    t.join(timeout=60)
+    assert seen == {"default": True, "stepped": True}
+    assert rk.LAUNCHES == before + 1
+
+
+def test_threads_racing_the_first_load_build_one_library(card, monkeypatch):
+    """Four threads make the first ``rtr_kernel.load()`` at once: one
+    build, one bound library (a fresh build directory)."""
+    import threading
+
+    monkeypatch.setattr(rk, "_lib", None)
+    monkeypatch.setattr(rk, "BUILD_DIR", rk.BUILD_DIR / "race")
+    builds = []
+    real = rk._build
+
+    def counting():
+        builds.append(threading.get_ident())
+        return real()
+    monkeypatch.setattr(rk, "_build", counting)
+    libs, errs = [], []
+
+    def go():
+        try:
+            libs.append(rk.load())
+        except Exception as e:  # noqa: BLE001 — reported below
+            errs.append(e)
+    threads = [threading.Thread(target=go) for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    assert not errs and len(libs) == 4
+    assert all(lib is libs[0] for lib in libs)
+    assert len(builds) == 1
+    names = sorted(p.name for p in rk.BUILD_DIR.iterdir())
+    assert len(names) == 1 and names[0].startswith("libdpgo_kernels_")
+
+
+def test_agent_iterate_without_fetch_has_no_host_sync(card):
+    """At ``status_fetch_every=4`` an iterate off the fetch cadence reads
+    nothing back: under the sync-error debug mode it raises nothing, and
+    it launches B2 once."""
+    from dpgo_tpu_torch import agent as agent_mod
+
+    ags = _card_agents(card, status_fetch_every=4)
+    for _ in range(4):
+        _card_exchange(ags)
+        for ag in ags:
+            ag.iterate(True)
+    _card_exchange(ags)
+    ag = ags[1]
+    assert ag.get_status().iteration_number % 4 != 3
+    ag._neighbor_buffer()  # upload the fresh neighbor poses first
+    torch.cuda.synchronize()
+    before = rk.LAUNCHES
+    reads = dict(agent_mod.HOST_READS)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        assert ag.iterate(True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert rk.LAUNCHES == before + 1
+    assert dict(agent_mod.HOST_READS) == reads

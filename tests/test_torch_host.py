@@ -117,7 +117,13 @@ def test_g2o_round_trip_matches_jax_reader(tmp_path, d):
     path = str(tmp_path / "g.g2o")
     g2o.write_g2o(mb, path)
     _assert_meas_equal(jg2o.read_g2o(path, backend="python"),
-                       g2o.read_g2o(path))
+                       g2o.read_g2o(path, backend="python"))
+    # The default dispatch reads through the native loader, as the JAX
+    # package's does; native against Python is in test_torch_native.py.
+    native = g2o.read_g2o(path)
+    python = g2o.read_g2o_python(path)
+    for f in ("r1", "p1", "r2", "p2", "R", "t", "kappa"):
+        assert np.array_equal(getattr(native, f), getattr(python, f)), f
 
 
 def test_port_imports_no_jax():
@@ -134,7 +140,10 @@ def test_port_imports_no_jax():
             "dpgo_tpu_torch.experiments.cert_witness, "
             "dpgo_tpu_torch.ops.averaging, dpgo_tpu_torch.ops.df32, "
             "dpgo_tpu_torch.models.dist_init, "
-            "dpgo_tpu_torch.models.refine_fused; "
+            "dpgo_tpu_torch.models.refine_fused, dpgo_tpu_torch.agent, "
+            "dpgo_tpu_torch.comms, dpgo_tpu_torch.obs.run, "
+            "dpgo_tpu_torch.obs.trace, dpgo_tpu_torch.utils.native_io, "
+            "dpgo_tpu_torch.utils.logger, dpgo_tpu_torch.utils.graph_plan; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'dpgo_tpu')); print(bad); "
             "sys.exit(1 if bad else 0)")

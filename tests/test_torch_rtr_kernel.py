@@ -271,3 +271,68 @@ def test_formulation_runs_the_kernel_for_every_float32_rtr_cuda_problem():
                              cpu) == "kernel"
     with pytest.raises(ValueError, match="float32-only"):
         rbcd._formulation(meta, forced, None, torch.float64, cuda)
+
+
+def test_build_and_load_are_serialized_across_threads(monkeypatch):
+    """Four threads racing the first ``build``/``load`` (the agents'
+    optimization threads may all make the first launch): one build at a
+    time, one library bound, and every thread's build files named apart
+    (threads share the pid).  ``_build`` and the loader are stand-ins
+    here: there is no nvcc and no card."""
+    import threading
+    import time as _time
+
+    active, peak, builds, loads, names = [0], [0], [], [], set()
+    lock = threading.Lock()
+
+    def slow_build():
+        with lock:
+            active[0] += 1
+            peak[0] = max(peak[0], active[0])
+            names.add(rk._unique_suffix())
+        _time.sleep(0.05)
+        with lock:
+            active[0] -= 1
+        builds.append(1)
+        return "libdpgo_kernels_stub.so"
+
+    class _Fn:
+        argtypes = restype = None
+
+    class _Lib:
+        def __getattr__(self, name):
+            fn = _Fn()
+            setattr(self, name, fn)
+            return fn
+
+    def fake_cdll(path):
+        loads.append(path)
+        _time.sleep(0.05)
+        return _Lib()
+
+    monkeypatch.setattr(rk, "_build", slow_build)
+    monkeypatch.setattr(rk, "_lib", None)
+    monkeypatch.setattr(rk.torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(rk.ctypes, "CDLL", fake_cdll)
+    libs, errs = [], []
+
+    def go(fn):
+        try:
+            libs.append(fn())
+        except Exception as e:  # noqa: BLE001 — reported below
+            errs.append(e)
+
+    threads = [threading.Thread(target=go, args=(rk.build,))
+               for _ in range(4)]
+    threads += [threading.Thread(target=go, args=(rk.load,))
+                for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=30)
+    assert not errs
+    assert peak[0] == 1                       # never two builds at once
+    assert len(loads) == 1                    # one library bound
+    assert len(names) == len(builds)          # per-thread file names
+    bound = [x for x in libs if not isinstance(x, str)]
+    assert len(bound) == 4 and all(x is rk._lib for x in bound)
