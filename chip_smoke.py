@@ -129,6 +129,7 @@ import sys
 import tempfile
 import threading
 import time
+import traceback
 import warnings
 from pathlib import Path
 
@@ -2523,7 +2524,9 @@ def async_arm(part, params, dev, card: str) -> int:
     old_hook = threading.excepthook
 
     def hook(args):
-        errors.append(f"{args.thread.name}: {args.exc_value!r}")
+        errors.append(f"{args.thread.name}: " + "".join(
+            traceback.format_exception(args.exc_type, args.exc_value,
+                                       args.exc_traceback)))
     threading.excepthook = hook
 
     for ag in agents:
@@ -2608,7 +2611,7 @@ def async_arm(part, params, dev, card: str) -> int:
           "traced_s": traced_s, "device_busy_s": dev_us / 1e6,
           "device_busy_share": dev_us / 1e6 / traced_s})
     check(joined, "an async thread did not join")
-    check(not errors, "an async thread raised")
+    check(not errors, "an async thread raised: " + "; ".join(errors))
     check(launches == stepped > 0,
           "the async arm did not launch B2 once per stepped iterate")
     return launches

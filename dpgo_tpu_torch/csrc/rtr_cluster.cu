@@ -100,6 +100,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "smem_limit.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -1256,8 +1258,8 @@ template <typename... KArgs>
 int cluster_config(void (*kern)(KArgs...), int A, int C,
                    const ClusterShape& sh, cudaStream_t stream,
                    cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sh.smem);
+  cudaError_t err =
+      raise_smem_limit(reinterpret_cast<const void*>(kern), (int)sh.smem);
   if (err != cudaSuccess) return (int)err;
   if (C > kPortableCluster) {
     err = cudaFuncSetAttribute(

@@ -76,6 +76,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "smem_limit.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -1116,8 +1118,8 @@ size_t smem_bytes(const Args& args, int r, int d) {
 template <typename Kern>
 int prepare_launch(Kern kern, const Args& args, int r, int d, size_t* smem) {
   *smem = smem_bytes(args, r, d);
-  return (int)cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
+  return (int)raise_smem_limit(reinterpret_cast<const void*>(kern),
+                               (int)*smem);
 }
 
 template <int R, int D>

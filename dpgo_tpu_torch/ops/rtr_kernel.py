@@ -88,6 +88,8 @@ _UNSUPPORTED_SHAPE = -1
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(sorted((_PKG / "csrc").glob("*.cu")))
+#: The headers the sources include; part of the build's hash.
+HEADERS = tuple(sorted((_PKG / "csrc").glob("*.cuh")))
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -580,7 +582,7 @@ def build() -> Path:
 def _build() -> Path:
     global BUILD_LOG
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         digest.update(src.name.encode() + b"\0" + src.read_bytes())
     tag = digest.hexdigest()[:16]
     lib = BUILD_DIR / f"libdpgo_kernels_{tag}.so"

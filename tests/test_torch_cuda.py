@@ -967,6 +967,46 @@ def test_threads_racing_the_first_load_build_one_library(card, monkeypatch):
     assert len(names) == 1 and names[0].startswith("libdpgo_kernels_")
 
 
+def test_threads_launching_b2_at_two_shapes_all_launch(card):
+    """Two threads launch B2 back to back at one agent each, at shapes that
+    need different shared memory (as the agents' optimization threads do,
+    each at its own robot's size).  The kernel's shared-memory limit is
+    the kernel's, not the thread's: every launch must still succeed and
+    agree with the plain version."""
+    import threading
+
+    sets = []
+    for n, num_lc in ((60, 20), (300, 100)):
+        prob, params, X, Z, chol = _round(card, n=n, A=1, num_lc=num_lc)
+        args = rbcd.kernel_operands(X, Z, prob.graph.edges, chol,
+                                    prob.graph)
+        kw = rbcd.kernel_options(params, prob.meta)
+        plan = rk.cluster_plan(prob.meta.n_max, prob.meta.e_max,
+                               args[9].shape[-1], 5, 3)
+        sets.append((args, kw, plan, rk.rtr_full_reference(*args, **kw)))
+    assert all(plan.route == "cluster" for _, _, plan, _ in sets)
+    assert sets[0][2].smem_bytes != sets[1][2].smem_bytes
+    reps, outs, errs = 300, {}, []
+
+    def go(i):
+        args, kw, _, _ = sets[i]
+        try:
+            for _ in range(reps):
+                outs[i] = rk.rtr_full(*args, **kw)
+            torch.cuda.synchronize()
+        except Exception as e:  # noqa: BLE001 — reported below
+            errs.append(e)
+    before = rk.LAUNCHES
+    threads = [threading.Thread(target=go, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not errs and rk.LAUNCHES == before + 2 * reps
+    for i, (_, _, _, ref) in enumerate(sets):
+        _assert_b2_matches(outs[i], ref)
+
+
 def test_agent_iterate_without_fetch_has_no_host_sync(card):
     """At ``status_fetch_every=4`` an iterate off the fetch cadence reads
     nothing back: under the sync-error debug mode it raises nothing, and
