@@ -90,7 +90,28 @@ synthetic stand-in for sphere2500 (2500 poses, 4948 edges, 8 robots, rank
   chaos arm (10% drop, 25% delay, 5% reorder, robot 7 killed at round
   40) within 1% of a fault-free arm; the async Poisson-clock loop at
   50 Hz with overlapped bus clients for 10 s, every thread joined, one
-  second traced.
+  second traced;
+* ``telemetry`` — the solve paths with an ``obs`` run on (after
+  ``verdict``): the production arm with telemetry off and on in this
+  process (rounds/s of both; host syncs per 100 rounds 2 x 100/K on, by
+  the run's own ``host_syncs_per_100_rounds`` and through
+  ``_host_fetch``, 100/K off), its ``solver_cost`` events equal to the
+  returned history and ``report.render_report`` of the run; a
+  ``FlightRecorder`` black box taken in the verdict loop (K = 16, 64
+  rounds) replayed on the card from its first snapshot, bit for bit; a
+  ``devprof.DeviceTraceWindow`` over 20 fused rounds, B2's device time in
+  the ``torch.profiler`` trace within 10% of the same launches between
+  CUDA events, and the window's device busy share;
+* ``tcp`` — ``python -m dpgo_tpu_torch.examples.tcp_deployment_example``
+  with eight robot processes on the card over localhost TCP (after
+  ``agents``): lockstep with ``--telemetry`` for 300 rounds (consensus
+  reached, the team cost within 1% of the production arm's, the merged
+  fleet timeline with spans and flow edges), a fault-free and a chaos
+  arm (``agents``' fault spec over TCP, robot 7 killed at round 40, the
+  survivors within 1% of the fault-free arm), and the async loop at
+  50 Hz with staleness 1 (iterates per robot, the device busy share as
+  the robots' summed CUDA-event step time over the wall); every robot
+  process's B2 launches equal its stepped iterates.
 
 Every launch gate is exact: the rounds each run enqueued, the per-eval
 loop's discarded speculative segment and the verdict loop's polish and
@@ -1137,6 +1158,28 @@ def verdict_window(prob, params, dev, card: str) -> dict:
     return row
 
 
+def counted_drive(drive) -> tuple:
+    """``drive()`` with its ``_host_fetch`` calls counted: (result, fetches,
+    seconds)."""
+    fetches = [0]
+    orig = rbcd._host_fetch
+
+    def counting(x):
+        fetches[0] += 1
+        return orig(x)
+
+    rbcd._host_fetch = counting
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = drive()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        rbcd._host_fetch = orig
+    return res, fetches[0], dt
+
+
 def production_arm(prob, params, card: str, profile: bool) -> tuple[dict,
                                                                     int]:
     """bench.py's production arm: ``PROD_ROUNDS`` rounds of the verdict
@@ -1154,33 +1197,18 @@ def production_arm(prob, params, card: str, profile: bool) -> tuple[dict,
                                       grad_norm_tol=0.0, eval_every=PROD_K,
                                       verdict_every=PROD_K)
     drive()
-    fetches = [0]
-    orig = rbcd._host_fetch
-
-    def counting(x):
-        fetches[0] += 1
-        return orig(x)
-
     rk.LAUNCHES = 0
-    rbcd._host_fetch = counting
-    try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = drive()
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-    finally:
-        rbcd._host_fetch = orig
+    res, fetches, dt = counted_drive(drive)
     launches = rk.LAUNCHES
     enqueued = rbcd.rounds_enqueued(res.iterations, max_iters=PROD_ROUNDS,
                                     eval_every=PROD_K, verdict_every=PROD_K)
-    syncs = 100.0 * (fetches[0] - 1) / res.iterations
+    syncs = 100.0 * (fetches - 1) / res.iterations
     row = {"phase": "verdict", "check": "production_arm", "card": card,
            "rounds": res.iterations, "rounds_enqueued": enqueued,
            "verdict_every": PROD_K, "eval_every": PROD_K,
            "terminated_by": res.terminated_by, "solve_s": dt,
            "rounds_per_s": enqueued / dt, "ms_per_round": 1e3 * dt / enqueued,
-           "host_fetches": fetches[0],
+           "host_fetches": fetches,
            "host_syncs_per_100_rounds": syncs,
            "cost_history": res.cost_history,
            "launches": {"rtr_full": launches}}
@@ -1584,7 +1612,7 @@ def certify_main_path(meas, params, dev, card: str) -> tuple[dict, int]:
            "dtype": str(prob.dtype), "verdict_every": CERT_K,
            "iterations": res.iterations, "terminated_by": res.terminated_by,
            "rounds_enqueued": enqueued, "launches": {"rtr_full": launches},
-           "host_fetches": fetches[0], "verdict_words": words,
+           "host_fetches": fetches, "verdict_words": words,
            "verdict": verdict, "certified": cert.certified,
            "decidable": cert.decidable, "lam": cert.lambda_min,
            "sigma": cert.sigma, "defl_resid": pay["defl_resid"],
@@ -2101,7 +2129,7 @@ def fused_refine_phase(meas, f_star: float, dev, card: str) -> tuple[int,
                "rtr_full": b2, "rtr_refine_full": b4},
            "verified_rel_gap": gap, "oracle_rel_gap": f_oracle / f_star
            - 1.0, "oracle_vs_verify": abs(f_oracle - f) / f_star,
-           "host_fetches": fetches[0], "sync_free_until_readback": True,
+           "host_fetches": fetches, "sync_free_until_readback": True,
            "descent_ms": ms[0], "recenter_ms": ms[1], "refine_ms": ms[2],
            "enqueue_s": t1 - t0, "readback_verify_s": t2 - t1,
            "total_s": t2 - t0, "recenter_vs_host": errs}
@@ -2617,6 +2645,348 @@ def async_arm(part, params, dev, card: str) -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Telemetry on the solve paths
+# ---------------------------------------------------------------------------
+
+#: The telemetry phase: K and rounds of the flight-recorder run, the fused
+#: rounds of the device trace window, and the window's agreement with the
+#: same launches timed between CUDA events.
+REC_K, REC_EVAL, REC_ROUNDS, WINDOW_ROUNDS, WINDOW_RTOL = 16, 4, 64, 20, 0.10
+#: GPU cycles of the spin ahead of each timed B2 launch (~0.5 ms).
+SPIN_BEFORE_B2 = 1_000_000
+
+
+def telemetry_phase(prob, params, dev, card: str, tmp: Path) -> int:
+    """Telemetry on the solve paths (``obs`` run on): the production arm
+    with telemetry off and on in this process, its host syncs per 100
+    rounds (2 x 100/K on, 100/K off) and its event stream against the
+    returned history, the run's report; a flight-recorder black box taken
+    in the verdict loop, replayed on the card bit for bit; a
+    ``devprof.DeviceTraceWindow`` over fused rounds, B2's device time in
+    it against the same launches between CUDA events.  Returns B2's
+    launches."""
+    from dpgo_tpu_torch import obs
+    from dpgo_tpu_torch.obs import devprof, recorder
+    from dpgo_tpu_torch.obs.report import render_report
+
+    pp = dataclasses.replace(prob, params=dataclasses.replace(
+        params, rel_change_tol=-1.0))
+
+    def drive():
+        return rbcd.dispatch_prepared(pp, max_iters=PROD_ROUNDS,
+                                      grad_norm_tol=0.0, eval_every=PROD_K,
+                                      verdict_every=PROD_K)
+
+    b2 = 0
+    arms = {}
+    for arm in ("off", "on"):
+        run_dir = tmp / f"prod_{arm}"
+        rk.LAUNCHES = 0
+        if arm == "on":
+            with obs.run_scope(str(run_dir)) as run:
+                res, fetches, dt = counted_drive(drive)
+                metric = run.registry.snapshot()[
+                    "host_syncs_per_100_rounds"]["series"][0]["value"]
+        else:
+            res, fetches, dt = counted_drive(drive)
+            metric = None
+        b2 += rk.LAUNCHES
+        enqueued = rbcd.rounds_enqueued(
+            res.iterations, max_iters=PROD_ROUNDS, eval_every=PROD_K,
+            verdict_every=PROD_K)
+        arms[arm] = {"rounds": res.iterations, "solve_s": dt,
+                     "rounds_per_s": enqueued / dt, "host_fetches": fetches,
+                     "fetches_per_100_rounds": 100.0 * fetches
+                     / res.iterations,
+                     "host_syncs_per_100_rounds_metric": metric,
+                     "launches": {"rtr_full": rk.LAUNCHES},
+                     "rounds_enqueued": enqueued,
+                     "cost_history": res.cost_history}
+    on = arms["on"]
+    evs = obs.read_events(str(tmp / "prod_on" / "events.jsonl"))
+    eval_costs = [e["value"] for e in evs if e.get("metric") == "solver_cost"
+                  and e.get("phase") == "eval"]
+    report = render_report(str(tmp / "prod_on"))
+    emit({"phase": "telemetry", "check": "production_arm", "card": card,
+          "verdict_every": PROD_K, **{f"telemetry_{k}": v
+                                      for k, v in arms.items()},
+          "events": len(evs), "eval_costs": eval_costs,
+          "report_lines": len(report.splitlines())})
+    check(on["host_syncs_per_100_rounds_metric"] == 2 * 100.0 / PROD_K
+          and on["fetches_per_100_rounds"] == 2 * 100.0 / PROD_K,
+          "telemetry on does not read 2 x 100/K per 100 rounds")
+    check(arms["off"]["host_fetches"] - 1 == PROD_ROUNDS // PROD_K,
+          "telemetry off does not read one word per K rounds")
+    check(all(a["launches"]["rtr_full"] == a["rounds_enqueued"]
+              for a in arms.values()),
+          "a production arm did not launch B2 once per enqueued round")
+    check(eval_costs == on["cost_history"] and
+          on["cost_history"] == arms["off"]["cost_history"],
+          "the event stream's costs are not the returned history")
+    check("solver_cost" in report and "host_syncs_per_100_rounds" in report,
+          "the report does not render the run")
+
+    # -- the flight recorder: a verdict-loop box replayed on the card --------
+    rec_dir = tmp / "recorder"
+    rk.LAUNCHES = 0
+    with obs.run_scope(str(rec_dir)) as run:
+        rec = recorder.FlightRecorder.attach(run)
+        res = rbcd.dispatch_prepared(pp, max_iters=REC_ROUNDS,
+                                     grad_norm_tol=0.0, eval_every=REC_EVAL,
+                                     verdict_every=REC_K)
+        path = rec.dump("chip_smoke")
+    b2 += rk.LAUNCHES
+    ctx, _ = recorder.load_blackbox(path)
+    rk.LAUNCHES = 0
+    rep = recorder.replay(path, snapshot=0, device=dev)
+    replay_b2 = rk.LAUNCHES
+    emit({"phase": "telemetry", "check": "flight_recorder", "card": card,
+          "rounds": res.iterations, "verdict_every": REC_K,
+          "eval_every": REC_EVAL,
+          "snapshots": [s["iteration"] for s in ctx["snapshots"]],
+          "replay_from": rep.snapshot_iteration,
+          "replayed_evals": len(rep.iterations), "match": rep.match,
+          "mismatches": rep.mismatches[:3],
+          "replay_launches": {"rtr_full": replay_b2}})
+    check(rep.match and len(rep.iterations) >= 2 * REC_K // REC_EVAL,
+          "the black box does not replay on the card bit for bit")
+    check(replay_b2 == REC_ROUNDS - rep.snapshot_iteration,
+          "the replay did not launch B2 once per round")
+
+    # -- device trace windows over fused rounds -------------------------------
+    # The first window gives the rounds' device busy share.  In the second,
+    # a spin kernel ahead of each B2 launch keeps the stream busy while
+    # the host records the events and launches, so the events bracket the
+    # kernel alone (on a starved stream they would also hold the host's
+    # launch latency); B2's slices in the trace are held against them.
+    state = rbcd.rbcd_steps(rbcd.init_state(prob.graph, prob.meta, prob.X0,
+                                            params),
+                            prob.graph, 2, prob.meta, params)
+    spans = []
+    real = rk.rtr_full
+
+    def timed(*a, **kw):
+        torch.cuda._sleep(SPIN_BEFORE_B2)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = real(*a, **kw)
+        e1.record()
+        spans.append((e0, e1))
+        return out
+
+    windows = {}
+    torch.cuda.synchronize()
+    rk.LAUNCHES = 0
+    with obs.run_scope(str(tmp / "window_run")):
+        for name in ("plain", "events"):
+            rk.rtr_full = timed if name == "events" else real
+            try:
+                win = devprof.DeviceTraceWindow(str(tmp / f"win_{name}"),
+                                                plane="solve").start()
+                state = rbcd.rbcd_steps(state, prob.graph, WINDOW_ROUNDS,
+                                        prob.meta, params)
+                att = win.stop(num_rounds=WINDOW_ROUNDS, label=name)
+            finally:
+                rk.rtr_full = real
+            events = []
+            for f in devprof.find_trace_files(str(tmp / f"win_{name}")):
+                events += devprof.load_trace_events(f)
+            check(att is not None and att["window_s"] > 0,
+                  "a device trace window holds no device event")
+            windows[name] = (att, *devprof.op_device_seconds(events,
+                                                             "rtr_full"))
+    b2 += rk.LAUNCHES
+    torch.cuda.synchronize()
+    event_s = sum(e0.elapsed_time(e1) for e0, e1 in spans) * 1e-3
+    att, _, _ = windows["plain"]
+    _, trace_s, trace_n = windows["events"]
+    emit({"phase": "telemetry", "check": "device_trace_window",
+          "card": card, "rounds": WINDOW_ROUNDS,
+          "window_s": att["window_s"], "lanes": att["lanes"],
+          "device_busy_share": (att["compute_s"] + att["collective_s"])
+          / att["window_s"],
+          "b2_plain_window_s": windows["plain"][1],
+          "b2_plain_window_launches": windows["plain"][2],
+          "b2_trace_s": trace_s, "b2_trace_launches": trace_n,
+          "b2_cuda_event_s": event_s, "b2_cuda_event_launches": len(spans),
+          "rel_diff": abs(trace_s - event_s) / max(event_s, 1e-12),
+          "top_ops": [{"op": t["op"][:80], "total_s": t["total_s"],
+                       "count": t["count"]} for t in att["top_ops"][:5]]})
+    check(trace_n == len(spans) == WINDOW_ROUNDS
+          and windows["plain"][2] == WINDOW_ROUNDS,
+          "a trace window does not hold one B2 slice per round")
+    check(abs(trace_s - event_s) <= WINDOW_RTOL * event_s,
+          "the trace's B2 device time is not within 10% of CUDA events")
+    return b2
+
+
+# ---------------------------------------------------------------------------
+# The multi-process TCP deployment on the card
+# ---------------------------------------------------------------------------
+
+#: Lockstep rounds (the agents phase's cap), the chaos arm's fault spec and
+#: round deadline, and the async arm's rounds at 50 Hz (about 10 s).
+TCP_ROUNDS, TCP_CHAOS_TIMEOUT, TCP_ASYNC_ROUNDS = 300, 0.5, 500
+
+
+def tcp_launch(data: str, out_dir: Path, *flags) -> tuple[dict, dict, float]:
+    """One run of the port's TCP launcher with eight robot processes on the
+    card: (its result line, each robot's npz, seconds)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m",
+         "dpgo_tpu_torch.examples.tcp_deployment_example", data,
+         "--robots", str(ROBOTS), "--rank", str(RANK), "--device", "cuda",
+         "--out-dir", str(out_dir), *flags],
+        cwd=str(ROOT), capture_output=True, text=True, timeout=600)
+    dt = time.perf_counter() - t0
+    check(proc.returncode == 0, "the TCP launcher failed:\n"
+          + proc.stderr[-4000:])
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    outs = {}
+    for r in range(ROBOTS):
+        p = out_dir / f"robot{r}.npz"
+        if p.exists():
+            outs[r] = dict(np.load(p))
+    return res, outs, dt
+
+
+def robot_counts(outs: dict) -> dict:
+    """The robots' launch, step and read counts and step times."""
+    reads: dict = {}
+    for o in outs.values():
+        for k, v in json.loads(str(o["host_reads"])).items():
+            reads[k] = reads.get(k, 0) + v
+    return {"b2_launches": {r: int(o["b2_launches"]) for r, o in outs.items()},
+            "stepped": {r: int(o["stepped"]) for r, o in outs.items()},
+            "iterates": {r: int(o["iterates"]) for r, o in outs.items()},
+            "host_reads": reads,
+            "step_device_s": sum(float(o["step_device_s"])
+                                 for o in outs.values()),
+            "solve_wall_s": max(float(o["solve_wall_s"])
+                                for o in outs.values())}
+
+
+def consensus_round(tdir: Path) -> int | None:
+    """The first round at which every robot's ``agent_iterate`` event says
+    ready, from the robots' telemetry streams."""
+    from dpgo_tpu_torch import obs
+
+    ready: dict = {}
+    for r in range(ROBOTS):
+        for e in obs.read_events(str(tdir / f"robot{r}" / "events.jsonl")):
+            if e.get("event") == "agent_iterate":
+                ready.setdefault(e["iteration"], {})[r] = e["ready"]
+    for it in sorted(ready):
+        if len(ready[it]) == ROBOTS and all(ready[it].values()):
+            return it
+    return None
+
+
+def tcp_phase(meas, prod_cost: float, card: str, tmp: Path) -> int:
+    """``python -m dpgo_tpu_torch.examples.tcp_deployment_example`` with
+    eight robot processes on the card over localhost TCP, each iterate one
+    B2 launch at A=1: lockstep with telemetry (team cost against the
+    production arm's, launches against stepped iterates, the merged fleet
+    timeline), a fault-free and a chaos arm (robot 7 killed at round 40),
+    and the async loop at 50 Hz with staleness 1.  Returns B2's launches
+    in the robot processes."""
+    from dpgo_tpu_torch.examples import tcp_deployment_example as tcp
+    from dpgo_tpu_torch.obs import timeline
+
+    t_phase = time.perf_counter()
+    data = str(tmp / "standin.g2o")
+    g2o.write_g2o(meas, data)
+    b2 = 0
+
+    def launches_ok(outs, arm):
+        c = robot_counts(outs)
+        check(all(c["b2_launches"][r] == c["stepped"][r] > 0 for r in outs),
+              f"a robot process of the {arm} arm did not launch B2 once "
+              "per stepped iterate")
+        return c
+
+    # -- lockstep, telemetry on ---------------------------------------------
+    res, outs, dt = tcp_launch(data, tmp / "lockstep", "--rounds",
+                               str(TCP_ROUNDS), "--telemetry")
+    c = launches_ok(outs, "lockstep")
+    b2 += sum(c["b2_launches"].values())
+    trace_path = tmp / "lockstep" / "trace.json"
+    counts = timeline.validate_chrome_trace(str(trace_path))
+    cons = consensus_round(tmp / "lockstep" / "telemetry")
+    emit({"phase": "tcp", "check": "lockstep", "card": card,
+          "robots": ROBOTS, "rounds": TCP_ROUNDS, "seconds": dt,
+          "consensus_round": cons, "team_cost": res["cost"],
+          "production_arm_cost": prod_cost,
+          "team_cost_ratio": res["cost"] / prod_cost,
+          "states": res["states"], "iterations": res["iterations"],
+          "bytes_sent": res["bytes_sent"], "timeline": counts,
+          "device_busy_share": c["step_device_s"] / c["solve_wall_s"], **c})
+    check(res["states"] == [2] * ROBOTS and res["lost"] == [],
+          "a lockstep robot did not finish initialized")
+    check(cons is not None, "the lockstep team did not reach consensus")
+    check(res["cost"] <= (1 + TEAM_COST_RTOL) * prod_cost,
+          "the TCP team's cost is above 1.01 x the production arm's")
+    check(counts["spans"] > 0 and counts["flows"] > 0,
+          "the merged fleet timeline has no spans or no flow edges")
+
+    # -- fault-free and chaos -------------------------------------------------
+    survivors = [r for r in range(ROBOTS) if r != CHAOS_KILL[0]]
+    common = ["--rounds", str(CHAOS_ROUNDS), "--round-timeout",
+              str(TCP_CHAOS_TIMEOUT)]
+    chaos_flags = ["--fault-drop", "0.10", "--fault-delay", "0.25",
+                   "--fault-delay-s", str(CHAOS_PACE), str(3 * CHAOS_PACE),
+                   "--fault-reorder", "0.05", "--fault-seed", "7",
+                   "--kill-robot", str(CHAOS_KILL[0]),
+                   "--kill-round", str(CHAOS_KILL[1])]
+    arms = {}
+    for arm, flags in (("fault_free", common), ("chaos",
+                                                common + chaos_flags)):
+        res, outs, dt = tcp_launch(data, tmp / arm, *flags)
+        c = launches_ok(outs, arm)
+        b2 += sum(c["b2_launches"].values())
+        arms[arm] = {"result": res, "seconds": dt,
+                     "survivor_cost": tcp.survivor_cost(
+                         data, ROBOTS, {r: outs[r] for r in survivors
+                                        if r in outs}), **c}
+    rel = abs(arms["chaos"]["survivor_cost"]
+              - arms["fault_free"]["survivor_cost"]) \
+        / arms["fault_free"]["survivor_cost"]
+    emit({"phase": "tcp", "check": "chaos", "card": card,
+          "rounds": CHAOS_ROUNDS, "kill": list(CHAOS_KILL),
+          "round_timeout_s": TCP_CHAOS_TIMEOUT, "rel_diff": rel, **arms})
+    check(arms["chaos"]["result"]["lost"] == [CHAOS_KILL[0]],
+          "the chaos arm did not lose exactly the killed robot")
+    check(arms["fault_free"]["result"]["lost"] == [],
+          "the fault-free arm lost a robot")
+    check(rel <= CHAOS_RTOL, "the chaos arm's survivors left the "
+          "fault-free cost by more than 1%")
+
+    # -- async ----------------------------------------------------------------
+    res, outs, dt = tcp_launch(data, tmp / "async", "--mode", "async",
+                               "--async-rate", str(ASYNC_HZ),
+                               "--staleness", "1", "--rounds",
+                               str(TCP_ASYNC_ROUNDS))
+    c = launches_ok(outs, "async")
+    b2 += sum(c["b2_launches"].values())
+    its = [c["iterates"][r] / float(outs[r]["solve_wall_s"])
+           for r in sorted(outs)]
+    emit({"phase": "tcp", "check": "async", "card": card,
+          "rate_hz": ASYNC_HZ, "staleness": 1, "seconds": dt,
+          "states": res["states"], "lost": res["lost"],
+          "iterates_per_robot": [c["iterates"][r] for r in sorted(outs)],
+          "iterates_per_s_per_robot": its,
+          "team_cost": res["cost"],
+          "device_busy_share": c["step_device_s"] / c["solve_wall_s"], **c})
+    check(res["lost"] == [] and len(outs) == ROBOTS,
+          "an async robot process did not finish")
+    emit({"phase": "tcp", "check": "time", "seconds":
+          time.perf_counter() - t_phase})
+    return b2
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -2870,8 +3240,15 @@ def main() -> int:
     _, verdict_b2 = verdict_parity(prob, res, card)
     verdict_window(prob, params, dev, card)
     prod_row, prod_b2 = production_arm(prob, params, card, profile)
-    # --- the per-robot runtime: each robot's iterate is B2 at A=1 -----------
-    agents_b2 = agents_phase(meas, prod_row["cost_history"][-1], dev, card)
+    with tempfile.TemporaryDirectory(dir=native_io.BUILD_DIR) as tmp:
+        # --- telemetry on the solve paths (obs run, recorder, devprof) ------
+        telemetry_b2 = telemetry_phase(prob, params, dev, card, Path(tmp))
+        # --- the per-robot runtime: each robot's iterate is B2 at A=1 -------
+        agents_b2 = agents_phase(meas, prod_row["cost_history"][-1], dev,
+                                 card)
+        # --- the same robots as eight processes over localhost TCP ----------
+        tcp_b2 = tcp_phase(meas, prod_row["cost_history"][-1], card,
+                           Path(tmp))
 
     # --- the ablation: B3's path ------------------------------------------
     ab = ablate_phase(dev, card)
@@ -2907,7 +3284,8 @@ def main() -> int:
         ablate=ab["rtr_full"], schedules=sched_b2, refine=descent_b2,
         verdict=verdict_b2 + prod_b2 + chordal_b2, odometry_init=odo_b2,
         robust_iterated=iter_b2, certify=cert_b2, dist_init=dist_b2,
-        dense=0, fused_refine=fused_b2, agents=agents_b2)
+        dense=0, fused_refine=fused_b2, agents=agents_b2,
+        telemetry=telemetry_b2, tcp=tcp_b2)
     for row in rows:
         row["launches"] = sum(row["launches_by_path"].values())
     rows.sort(key=lambda r: r["replaces"])

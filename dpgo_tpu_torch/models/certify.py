@@ -23,9 +23,11 @@
   rank staircase until certification or ``r_max`` (SE-Sync Algorithm 1
   adapted to the lifted SE(d) manifold).
 
-Not ported: telemetry (ROADMAP A10).  ``certify_solution`` and
-``decide_device_certificate`` behave as the JAX package's do with no
-telemetry run — no gauges, no ``_tally_cert`` counters, no health monitor.
+Telemetry: with an ambient ``obs`` run, ``certify_solution`` and
+``decide_device_certificate`` record the JAX package's gauges, counters
+(``_tally_cert``, the host f64 fallback's wall through ``_timed_f64``),
+one ``certificate`` event and the health monitor's REFUSE-streak verdict;
+with none they touch no telemetry at all.
 
 One deliberate deviation: the probe draws (the power iteration's ``v0``
 and LOBPCG's ``V0``) come from a ``torch.Generator`` seeded from the
@@ -38,10 +40,12 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import time
 
 import numpy as np
 import torch
 
+from .. import obs
 from ..config import SolverParams
 from ..device import resolve_device
 from ..ops import manifold, quadratic, solver
@@ -224,6 +228,59 @@ def _min_eig(X: torch.Tensor, edges: EdgeSet, seed: int = 0,
             torch.sqrt(torch.sum(XS * XS)), sigma)
 
 
+def _timed_f64(fn, sink: list):
+    """Wrap the host f64 REFUSE-band fallback so its wall seconds land in
+    ``sink`` — installed only when telemetry is live (the off path keeps
+    the bare closure)."""
+    def wrapped(t):
+        t_f = time.perf_counter()
+        try:
+            return fn(t)
+        finally:
+            sink.append(time.perf_counter() - t_f)
+    return wrapped
+
+
+def _tally_cert(run, certified: bool, decidable: bool, f64_secs: list,
+                source: str) -> None:
+    """ACCEPT/FAIL/REFUSE decision tallies plus the f64-fallback wall —
+    how often the expensive host eigensolve fires."""
+    status = "accept" if certified else ("fail" if decidable else "refuse")
+    run.counter("cert_status_total",
+                "certificate decisions by final status").inc(
+        status=status, source=source)
+    if f64_secs:
+        run.counter("cert_f64_fallback_seconds_total",
+                    "wall-clock spent in the host f64 REFUSE-band "
+                    "eigensolve fallback",
+                    unit="s").inc(sum(f64_secs), source=source)
+
+
+def _record_certificate(run, certified: bool, decidable: bool,
+                        lam_used: float, threshold: float, f64_secs: list,
+                        origin: str, **fields) -> None:
+    """The telemetry of one certificate decision (the JAX package's, shared
+    by ``certify_solution`` and ``decide_device_certificate``): the gap and
+    lambda gauges, the decision counters, one ``certificate`` event and the
+    health monitor's verdict timeline (``origin`` labels the caller).  The
+    eigenvalue gap is how far the decisive minimum eigenvalue clears
+    ``-threshold`` (the certificate's ``tol``)."""
+    gap = lam_used + threshold
+    run.gauge("certificate_eigenvalue_gap",
+              "lambda_min + tol of the dual certificate").set(gap)
+    run.gauge("certificate_lambda_min",
+              "minimum eigenvalue of the certificate operator").set(lam_used)
+    run.counter("certificates_evaluated", "certify_solution calls").inc()
+    _tally_cert(run, certified, decidable, f64_secs, source=origin)
+    run.event("certificate", phase="certify", certified=certified,
+              decidable=decidable, **fields)
+    from ..obs.health import monitor_for as _monitor_for
+
+    _monitor_for(run).observe_certificate(
+        certified=certified, decidable=decidable, lambda_min=lam_used,
+        source=origin)
+
+
 def certify_solution(X: torch.Tensor, edges: EdgeSet, eta: float = 1e-5,
                      seed: int = 0, num_probe: int = 4,
                      lobpcg_iters: int = 300,
@@ -237,6 +294,8 @@ def certify_solution(X: torch.Tensor, edges: EdgeSet, eta: float = 1e-5,
     eigenvalue is recomputed on the host in float64 (``lambda_min_f64``,
     warm-started from the eigenvector) and that value decides; with
     ``"never"`` the result reports ``decidable=False``."""
+    run = obs.get_run()
+    t0 = time.perf_counter() if run is not None else 0.0
     dim = X.shape[0] * X.shape[2]
     num_probe = _clamp_probes(num_probe, dim)
     lam_min, vec, stat, sigma = _min_eig(X, edges, seed,
@@ -248,10 +307,23 @@ def certify_solution(X: torch.Tensor, edges: EdgeSet, eta: float = 1e-5,
     tol = eta * wscale
     f64_solve = host_f64_solve(X, edges, tol, warm=vec) \
         if f64_verify == "auto" else None
-    certified, decidable, _, lam_f64, vec64 = decide_certificate(
+    f64_secs: list = []
+    if run is not None and f64_solve is not None:
+        f64_solve = _timed_f64(f64_solve, f64_secs)
+    certified, decidable, lam_used, lam_f64, vec64 = decide_certificate(
         lam_min_f, sigma_f, tol, float(torch.finfo(X.dtype).eps), f64_solve)
     if vec64 is not None:
         vec = torch.as_tensor(vec64, dtype=X.dtype, device=X.device)
+    if run is not None:
+        # ``float(lam_min)`` above already read the eigensolve back, so
+        # the timing fence is the existing readback.
+        _record_certificate(
+            run, certified, decidable, lam_used, tol, f64_secs,
+            "certify_solution", lambda_min=lam_min_f,
+            lambda_min_f64=lam_f64, eigenvalue_gap=lam_used + tol, tol=tol,
+            sigma=sigma_f, stationarity_gap=float(stat), dim=dim,
+            f64_fallback_s=sum(f64_secs) if f64_secs else None,
+            duration_s=time.perf_counter() - t0)
     return CertificateResult(
         certified=certified, lambda_min=lam_min_f, direction=vec,
         stationarity_gap=float(stat), sigma=sigma_f, tol=tol,
@@ -374,9 +446,12 @@ def decide_device_certificate(payload: dict, eta: float, dtype_eps: float,
     * else REFUSE, and ``f64_solve`` (when given) decides through
       ``f64_recheck`` — never the f32 value.
 
-    ``source`` names the caller, as in the JAX package (whose telemetry
-    reads it)."""
-    del source
+    ``source`` names the caller in the telemetry."""
+    run = obs.get_run()
+    t0 = time.perf_counter() if run is not None else 0.0
+    f64_secs: list = []
+    if run is not None and f64_solve is not None:
+        f64_solve = _timed_f64(f64_solve, f64_secs)
     lam = float(payload["lam_min"])
     sigma = float(payload["sigma"])
     rq = float(payload["rq"])
@@ -391,19 +466,30 @@ def decide_device_certificate(payload: dict, eta: float, dtype_eps: float,
 
     verdict = CERT_REFUSE
     certified = False
+    lam_used = lam
     lam_f64 = None
     if decidable and lam < -tol:
         verdict, decidable = CERT_FAIL, True
     elif decidable and defl_ok and lam >= -tol:
         verdict, certified = CERT_ACCEPT, True
     elif min(lam, rq) + 50.0 * err_est < -tol:
-        verdict, decidable = CERT_FAIL, True
+        verdict, decidable, lam_used = CERT_FAIL, True, min(lam, rq)
     elif f64_solve is not None:
         certified, decidable, lam_f64, vec64 = f64_recheck(f64_solve, tol)
+        lam_used = lam_f64
         if vec64 is not None:
             direction = torch.as_tensor(vec64, dtype=direction.dtype)
     else:
         decidable = False
+    if run is not None:
+        _record_certificate(
+            run, certified, decidable, lam_used, tol, f64_secs, source,
+            lambda_min=lam, lambda_min_f64=lam_f64,
+            eigenvalue_gap=lam_used + tol, tol=tol, sigma=sigma,
+            stationarity_gap=stat, device_verdict=CERT_STATUS[verdict],
+            source=source,
+            f64_fallback_s=sum(f64_secs) if f64_secs else None,
+            duration_s=time.perf_counter() - t0)
     return CertificateResult(
         certified=bool(certified), lambda_min=lam, direction=direction,
         stationarity_gap=stat, sigma=sigma, tol=tol, weight_scale=wscale,

@@ -15,7 +15,9 @@ stepping (``rbcd_steps``, ``rbcd_segment``, with no host sync inside a
 segment), both drivers of ``run_rbcd`` (the per-eval loop and the
 device-resident verdict loop, each with its depth-1 speculation), the
 terminal epilogue with the device or host certificate
-(``certify_mode``), the chordal and odometry inits and
+(``certify_mode``), the telemetry of both drivers (``obs``: metric
+events, the health monitor, the flight recorder, the sync-rate metric),
+the chordal and odometry inits and
 ``solve_rbcd_robust_iterated``, the distributed init
 (``models.dist_init``) and the dense-Q formulation (the local problem as
 matmuls against the materialized per-agent Q, ``dense_q_all``).
@@ -26,16 +28,19 @@ not from JAX's threefry key chain — the same distribution, another stream.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
+import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from .. import robust
+from .. import obs, robust
 from ..config import AgentParams, ROptAlg, RobustCostType, Schedule
 from ..device import default_dtype, resolve_device, sync_free
+from ..obs import recorder, trace
 from ..obs.health import HealthConfig
 from ..ops import manifold, quadratic, rtr_kernel, solver
 from ..types import (EdgeSet, Measurements, edge_set_from_measurements,
@@ -1222,18 +1227,20 @@ def _central_metrics_body(graph: MultiAgentGraph, edges_g: EdgeSet,
 def make_verdict_program(graph: MultiAgentGraph, edges_g: EdgeSet,
                          n_total: int, num_meas: int, telemetry: bool, *,
                          grad_norm_tol: float, robust_params=None,
+                         health_cfg: HealthConfig | None = None,
                          metrics_body=None):
     """The per-eval program of the device-resident loop: evaluates the
     metric row (``_central_metrics_body``, or ``metrics_body``, which must
     match its signature and width), appends it to the device-side history,
-    folds the convergence test and the health predicates (the default
-    ``obs.health.HealthConfig``) into the packed word, and latches the
+    folds the convergence test and the health predicates (``health_cfg``,
+    default ``obs.health.HealthConfig()``; the telemetry-on driver passes
+    its monitor's) into the packed word, and latches the
     first terminal eval — the JAX package's ``make_verdict_program``, as
     plain tensor ops with no host sync (``iteration`` is the host's round
     index, written with a fill).  The stall window is block-aligned (the
     anchor cost refreshed every ``stall_window`` evals), as there.  The
     history's length is ``init_verdict_state``'s."""
-    health_cfg = HealthConfig()
+    health_cfg = health_cfg if health_cfg is not None else HealthConfig()
     body = metrics_body if metrics_body is not None else \
         _central_metrics_body(graph, edges_g, n_total, num_meas, telemetry)
     spike_rtol = float(health_cfg.cost_spike_rtol)
@@ -1388,6 +1395,56 @@ def _epilogue_certificate(fin: dict, edges_g: EdgeSet, params, dtype):
         pay, eta, float(torch.finfo(dtype).eps), f64_solve=f64_solve)
 
 
+def _package_version() -> str:
+    """The port's version for run fingerprints (lazy import — the package
+    ``__init__`` is not a dependency of this module at import time)."""
+    from .. import __version__
+
+    return str(__version__)
+
+
+def _sel_mode(params: AgentParams) -> str:
+    """The JAX package's ``resolved_sel_mode`` of ``params`` (a
+    fingerprint field: ``pallas_sel_mode`` when set, else derived from
+    ``pallas_bf16_select``); the port's kernel has no selection matmuls,
+    so it records the configuration only."""
+    m = params.solver.pallas_sel_mode
+    if m:
+        if m not in ("f32", "bf16", "bf16x3"):
+            raise ValueError(f"unknown pallas_sel_mode {m!r}")
+        return m
+    return "bf16" if params.solver.pallas_bf16_select else "f32"
+
+
+@contextlib.contextmanager
+def _crash_dump_scope(flight_rec):
+    """Dump the attached flight recorder's black box when the driver loop
+    dies — a crash is exactly the moment the ring buffer pays for itself.
+    ``FlightRecorder.dump`` is first-write-wins, so an anomaly dump that
+    already fired (e.g. the abort policy raising SolverHealthError) is
+    not overwritten by the crash handler."""
+    try:
+        yield
+    except Exception:
+        if flight_rec is not None:
+            flight_rec.dump("crash")
+        raise
+
+
+def _emit_sync_rate(obs_run, fetches: int, rounds: int) -> None:
+    """Record the measured in-loop host-sync rate
+    (``host_syncs_per_100_rounds``; lower is better, gated by
+    ``obs.regress``).  Counts only the driver-loop fetches through the
+    ``_host_fetch`` seam — the per-eval loop's terminal epilogue read is
+    excluded, as it is paid once per solve regardless of loop design."""
+    rate = 100.0 * fetches / max(rounds, 1)
+    obs_run.gauge("host_syncs_per_100_rounds",
+                  "driver-loop device->host fetches per 100 RBCD rounds"
+                  ).set(rate)
+    obs_run.metric("host_syncs_per_100_rounds", rate, phase="solve",
+                   fetches=fetches, rounds=rounds)
+
+
 def run_rbcd(state: RBCDState, graph: MultiAgentGraph, meta: GraphMeta,
              segment, part: Partition, max_iters: int,
              grad_norm_tol: float = 0.1, eval_every: int = 1,
@@ -1412,12 +1469,20 @@ def run_rbcd(state: RBCDState, graph: MultiAgentGraph, meta: GraphMeta,
     device-resident verdict loop (``_run_verdict_loop``): one packed word
     read per K rounds and one terminal epilogue fetch.
 
+    Telemetry (``obs``) is resolved once per solve from ``obs.get_run()``.
+    Off, neither loop touches the registry, emits an event or adds a
+    transfer.  On, the per-eval row carries the telemetry scalars (GNC mu,
+    the inlier fraction, the mean weight, the per-agent relative change)
+    in the same fetch, feeding gauges, ``metric`` events, the health
+    monitor and an attached flight recorder (``_emit_eval``); the verdict
+    loop adds one counted fetch of the history rows per non-terminal
+    boundary, so both loops emit the same event stream.
+
     ``metrics_body_factory(telemetry)`` replaces the metric row's body in
     both loops.  ``start_iteration`` / ``start_num_weight_updates`` resume
     the verdict loop at an absolute round index, and ``boundary_cb(it, nwu,
     state, word, terminal)`` fires at every verdict boundary with the
-    pre-speculation state; all three need the verdict loop.  Telemetry is
-    not ported (A10): both loops run with it off."""
+    pre-speculation state; all three need the verdict loop."""
     if verdict_every is None and (start_iteration or start_num_weight_updates
                                   or boundary_cb is not None):
         raise ValueError(
@@ -1429,7 +1494,8 @@ def run_rbcd(state: RBCDState, graph: MultiAgentGraph, meta: GraphMeta,
     num_meas = len(part.meas_global)
     edges_g = edge_set_from_measurements(part.meas_global, dtype=dtype,
                                          device=dev)
-    telemetry = False
+    obs_run = obs.get_run()
+    telemetry = obs_run is not None
     central_metrics = metrics_body_factory(telemetry) \
         if metrics_body_factory is not None else \
         _central_metrics_body(graph, edges_g, n_total, num_meas, telemetry)
@@ -1441,6 +1507,38 @@ def run_rbcd(state: RBCDState, graph: MultiAgentGraph, meta: GraphMeta,
         return schedule_bounds(n_done, nwu, max_iters=max_iters,
                                eval_every=eval_every, params=params,
                                robust_on=robust_on, accel_on=accel_on)
+
+    health_mon = flight_rec = emit_eval = None
+    if telemetry:
+        from ..obs import health as health_mod
+
+        # The health monitor judges the scalars the row already carries;
+        # an attached flight recorder registers the problem so its black
+        # box is self-contained and replayable.
+        health_mon = health_mod.monitor_for(obs_run)
+        flight_rec = getattr(obs_run, "recorder", None)
+        if flight_rec is not None:
+            flight_rec.set_problem(part, meta, params, dtype,
+                                   eval_every=eval_every,
+                                   grad_norm_tol=grad_norm_tol,
+                                   max_iters=max_iters)
+        obs_run.set_fingerprint(
+            version=_package_version(),
+            solver="run_rbcd",
+            num_robots=meta.num_robots, rank=meta.rank, d=meta.d,
+            n_poses=n_total, n_meas=num_meas,
+            dtype=recorder.dtype_name(dtype),
+            schedule=params.schedule.value if params is not None else None,
+            robust_cost=params.robust.cost_type.value
+            if params is not None else None,
+            sel_mode=_sel_mode(params) if params is not None else None,
+            eval_every=eval_every)
+        obs_run.event("solve_start", phase="solve",
+                      num_robots=meta.num_robots, max_iters=max_iters,
+                      eval_every=eval_every, grad_norm_tol=grad_norm_tol,
+                      robust=robust_on, acceleration=accel_on)
+        emit_eval = _make_emit_eval(obs_run, params, robust_on, health_mon,
+                                    flight_rec)
 
     certify_mode = getattr(params, "certify_mode", "off") \
         if params is not None else "off"
@@ -1455,41 +1553,66 @@ def run_rbcd(state: RBCDState, graph: MultiAgentGraph, meta: GraphMeta,
             bounds=bounds, robust_on=robust_on, epilogue=epilogue,
             metrics_body=central_metrics, start_iteration=start_iteration,
             start_nwu=start_num_weight_updates, boundary_cb=boundary_cb,
-            certify_mode=certify_mode)
+            certify_mode=certify_mode, obs_run=obs_run,
+            health_mon=health_mon, flight_rec=flight_rec,
+            emit_eval=emit_eval)
 
     cost_hist, gn_hist = [], []
     terminated_by = "max_iters"
     it = 0
     nwu = 0
-    spec = None  # (state, it, uw) one segment past the last eval boundary
-    while it < max_iters:
-        target = min(((it // eval_every) + 1) * eval_every, max_iters)
-        if spec is not None:
-            state, it, uw = spec
-            nwu += int(uw)
-            spec = None
-        while it < target:
-            uw, rs, end = bounds(it, nwu)
-            nwu += int(uw)
-            state = segment(state, end - it, uw, rs)
-            it = end
-        row = _start_fetch(central_metrics(state.X, state.weights,
-                                           state.ready, state.mu,
-                                           state.rel_change))
-        if it < max_iters:
-            # Depth-1 speculation: flags are host functions of the round
-            # index, so the next segment is known before the row is read.
-            uw, rs, end = bounds(it, nwu)
-            spec = (segment(state, end - it, uw, rs), end, uw)
-        f, gn, consensus = _host_fetch(row)[:3].tolist()
-        cost_hist.append(f)
-        gn_hist.append(gn)
-        if gn < grad_norm_tol:
-            terminated_by = "grad_norm"
-            break
-        if consensus > 0:
-            terminated_by = "consensus"
-            break
+    host_fetches = 0  # the loop's reads through the ``_host_fetch`` seam
+    with _crash_dump_scope(flight_rec):
+        spec = None  # (state, it, uw) one segment past the last eval boundary
+        t_solve0 = t_window = time.perf_counter()
+        it_window = 0
+        while it < max_iters:
+            target = min(((it // eval_every) + 1) * eval_every, max_iters)
+            if spec is not None:
+                state, it, uw = spec
+                nwu += int(uw)
+                spec = None
+            while it < target:
+                uw, rs, end = bounds(it, nwu)
+                nwu += int(uw)
+                state = segment(state, end - it, uw, rs)
+                it = end
+            row = _start_fetch(central_metrics(state.X, state.weights,
+                                               state.ready, state.mu,
+                                               state.rel_change))
+            if it < max_iters:
+                # Depth-1 speculation: flags are host functions of the
+                # round index, so the next segment is known before the row
+                # is read.
+                uw, rs, end = bounds(it, nwu)
+                spec = (segment(state, end - it, uw, rs), end, uw)
+            if telemetry:
+                t_rb_m, t_rb_w = time.monotonic(), time.time()
+            vec = _host_fetch(row)
+            host_fetches += 1
+            if telemetry:
+                # The eval readback span: how much of the fetch stayed
+                # hidden behind the speculative segment.
+                trace.emit_span(obs_run, "eval_readback", t_rb_m, t_rb_w,
+                                time.monotonic() - t_rb_m, phase="eval",
+                                iteration=it)
+            f, gn, consensus = vec[:3].tolist()
+            cost_hist.append(f)
+            gn_hist.append(gn)
+            if telemetry:
+                # Host-side bookkeeping on the fetched row only.
+                now = time.perf_counter()
+                dt, t_window = now - t_window, now
+                rounds = max(it - it_window, 1)
+                it_window = it
+                emit_eval(it, vec.numpy(), rounds, dt / rounds, state=state,
+                          nwu=nwu)
+            if gn < grad_norm_tol:
+                terminated_by = "grad_norm"
+                break
+            if consensus > 0:
+                terminated_by = "consensus"
+                break
 
     fin = epilogue(state.X, state.weights, {})
     certificate = None
@@ -1500,30 +1623,114 @@ def run_rbcd(state: RBCDState, graph: MultiAgentGraph, meta: GraphMeta,
         # device.
         fin = _host_fetch(fin)
         certificate = _epilogue_certificate(fin, edges_g, params, dtype)
+    if telemetry:
+        _emit_sync_rate(obs_run, host_fetches, it)
+        obs_run.event(
+            "solve_end", phase="solve", iterations=it,
+            terminated_by=terminated_by,
+            duration_s=time.perf_counter() - t_solve0,
+            cost=cost_hist[-1] if cost_hist else None,
+            grad_norm=gn_hist[-1] if gn_hist else None,
+            num_weight_updates=nwu)
     return RBCDResult(T=fin["T"], X=state.X, cost_history=cost_hist,
                       grad_norm_history=gn_hist, iterations=it,
                       terminated_by=terminated_by, weights=fin["w_glob"],
                       state=state, certificate=certificate)
 
 
+def _make_emit_eval(obs_run, params, robust_on: bool, health_mon,
+                    flight_rec):
+    """One eval's telemetry — gauges, metric events, the flight-recorder
+    ring, the health verdict — shared verbatim by the per-eval loop and
+    the verdict loop (which feeds it fetched history rows), so both emit
+    the same event stream.  ``vec`` is a host-side (numpy) telemetry-width
+    metric row; ``state`` is passed only when an exact snapshot is at hand
+    (the per-eval loop)."""
+    g_cost = obs_run.gauge("solver_cost", "centralized SE(d) cost")
+    g_gn = obs_run.gauge("solver_grad_norm",
+                         "centralized Riemannian gradient norm")
+    c_rounds = obs_run.counter("solver_rounds", "RBCD rounds executed")
+    c_evals = obs_run.counter("solver_evals",
+                              "centralized metric evaluations")
+    h_round = obs_run.histogram(
+        "round_latency_seconds",
+        "wall-clock per RBCD round at phase boundaries", unit="s")
+    g_agent_lat = obs_run.gauge(
+        "agent_round_latency_seconds",
+        "per-agent round latency (lockstep rounds: the eval-window "
+        "wall-clock over rounds, identical across agents)", unit="s")
+    g_agent_rel = obs_run.gauge("agent_rel_change",
+                                "per-agent iterate relative change")
+    if robust_on:
+        g_mu = obs_run.gauge("gnc_mu", "GNC control parameter")
+        g_inl = obs_run.gauge("gnc_inlier_fraction",
+                              "fraction of updatable LC edges at w>0.5")
+
+    def emit_eval(it_ev, vec, rounds, per_round, state=None, nwu=0):
+        f, gn = float(vec[0]), float(vec[1])
+        mu_v, inl, mean_w = (float(x) for x in vec[3:6])
+        rel = vec[6:]
+        g_cost.set(f)
+        g_gn.set(gn)
+        c_rounds.inc(rounds)
+        c_evals.inc()
+        h_round.observe(per_round)
+        for a in range(rel.shape[0]):
+            g_agent_lat.set(per_round, agent=a)
+            g_agent_rel.set(float(rel[a]), agent=a)
+        ev = {"iteration": it_ev, "round_latency_s": per_round,
+              "rel_change_max": float(rel.max()) if rel.size else None}
+        obs_run.metric("solver_cost", f, phase="eval", **ev)
+        obs_run.metric("solver_grad_norm", gn, phase="eval", **ev)
+        if robust_on:
+            g_mu.set(mu_v)
+            g_inl.set(inl)
+            obs_run.metric("gnc_mu", mu_v, phase="eval", iteration=it_ev)
+            obs_run.metric("gnc_inlier_fraction", inl, phase="eval",
+                           iteration=it_ev, mean_weight=mean_w)
+        # Flight recorder first (so an anomaly dump includes this eval),
+        # then the health verdict — which may dump and, per the abort
+        # policy, raise SolverHealthError.
+        if flight_rec is not None:
+            flight_rec.record_eval(
+                it_ev, {"cost": f, "grad_norm": gn,
+                        "mu": mu_v, "inlier_frac": inl,
+                        "rel_change": rel},
+                state=state, num_weight_updates=nwu)
+        if health_mon is not None:
+            health_mon.observe_solver(
+                it_ev, f, gn,
+                mu=mu_v if robust_on else None,
+                inlier_frac=inl if robust_on else None,
+                rel_change=rel,
+                stage=robust.gnc_stage_index(mu_v, params.robust)
+                if robust_on else None)
+
+    return emit_eval
+
+
 def _run_verdict_loop(state, graph, meta, segment, *, max_iters,
                       grad_norm_tol, eval_every, verdict_every, dtype,
                       params, edges_g, n_total, num_meas, bounds, robust_on,
                       epilogue, metrics_body=None, start_iteration=0,
-                      start_nwu=0, boundary_cb=None, certify_mode="off"):
-    """Body of ``run_rbcd``'s device-resident mode, telemetry off.
+                      start_nwu=0, boundary_cb=None, certify_mode="off",
+                      obs_run=None, health_mon=None, flight_rec=None,
+                      emit_eval=None):
+    """Body of ``run_rbcd``'s device-resident mode.
 
     Per verdict boundary (every K rounds): the segments and the verdict
     evals up to the boundary are enqueued (``advance``, no host sync); the
-    boundary's word starts its copy to pinned host memory; the next
-    boundary's window is enqueued (depth-1 speculation); then the host
-    waits on the word's copy only (``_host_fetch``), so the speculative
-    window runs meanwhile.  At the terminal boundary one fused fetch brings
-    back the rounded trajectory, the weights, the history rows and the
-    latched indices; the histories and ``iterations`` are truncated at the
-    latched eval.  The telemetry branch of the JAX package's loop (a lazy
-    history fetch per boundary feeding the event stream) is not ported
-    (A10).
+    boundary's word starts its copy to pinned host memory (with telemetry
+    on, the history rows' copy with it); the next boundary's window is
+    enqueued (depth-1 speculation); then the host waits on the word's copy
+    only (``_host_fetch``), so the speculative window runs meanwhile.
+    With telemetry on, each non-terminal boundary reads its history rows
+    (one more counted ``_host_fetch``) and replays them through
+    ``emit_eval``; the verdict program and the epilogue run under
+    ``devprof.profiled_program``.  At the terminal boundary one fused
+    fetch brings back the rounded trajectory, the weights, the history
+    rows and the latched indices; the histories and ``iterations`` are
+    truncated at the latched eval.
 
     Resumption (``start_iteration``/``start_nwu``) re-enters at an
     absolute round index with a fresh verdict state: every schedule
@@ -1532,20 +1739,36 @@ def _run_verdict_loop(state, graph, meta, segment, *, max_iters,
         raise ValueError(
             f"verdict_every={verdict_every} must be a positive multiple "
             f"of eval_every={eval_every}")
+    telemetry = obs_run is not None
     dev = state.X.device
     max_evals = -(-max_iters // eval_every)
     verdict_step = make_verdict_program(
-        graph, edges_g, n_total, num_meas, False,
+        graph, edges_g, n_total, num_meas, telemetry,
         grad_norm_tol=grad_norm_tol,
         robust_params=params.robust if robust_on else None,
+        health_cfg=health_mon.config if health_mon is not None else None,
         metrics_body=metrics_body)
-    vs = init_verdict_state(max_evals, meta.num_robots, dtype, False,
+    vs = init_verdict_state(max_evals, meta.num_robots, dtype, telemetry,
                             device=dev)
-    n_evals = 0
+    profiled = []
+    if telemetry:
+        # First-call accounting of the two programs (wall, kernel
+        # launches, CUDA-event device time), published once their device
+        # work has finished — no host sync of its own.
+        from ..obs import devprof
+
+        verdict_step = devprof.profiled_program(
+            obs_run, verdict_step, key=f"verdict/k{verdict_every}",
+            label="verdict_step", plane="solve")
+        epilogue = devprof.profiled_program(
+            obs_run, epilogue, key="epilogue/terminal",
+            label="terminal_epilogue", plane="solve")
+        profiled = [verdict_step, epilogue]
+    eval_its: list[int] = []
+    fetches = 0
 
     def advance(st, it, nwu, vs, target):
         """Enqueue segments and verdict evals up to ``target``."""
-        nonlocal n_evals
         while it < target:
             ev_t = min(((it // eval_every) + 1) * eval_every, target)
             while it < ev_t:
@@ -1555,40 +1778,78 @@ def _run_verdict_loop(state, graph, meta, segment, *, max_iters,
                 it = end
             vs = verdict_step(st.X, st.weights, st.ready, st.mu,
                               st.rel_change, st.iteration, vs)
-            n_evals += 1
+            eval_its.append(it)
         return st, it, nwu, vs
 
     def bound(i):
         return min(((i // verdict_every) + 1) * verdict_every, max_iters)
 
-    it, nwu = int(start_iteration), int(start_nwu)
-    state, it, nwu, vs = advance(state, it, nwu, vs, bound(it))
-    n_pre = n_evals
-    while True:
-        state_pre, it_pre, nwu_pre, vs_pre = state, it, nwu, vs
-        word_copy = _start_fetch(vs_pre.word)
-        if it < max_iters:
-            state, it, nwu, vs = advance(state, it, nwu, vs, bound(it))
-        word = int(_host_fetch(word_copy))
-        status = word & 7
-        terminal = status != VERDICT_RUNNING or it_pre >= max_iters
-        if boundary_cb is not None:
-            boundary_cb(it_pre, nwu_pre, state_pre, word, terminal)
-        if terminal:
-            fin = _host_fetch(epilogue(
-                state_pre.X, state_pre.weights,
-                {"hist": vs_pre.hist,
-                 "tail": torch.stack([vs_pre.term_eval, vs_pre.term_it])}))
-            term_eval, term_it = (int(v) for v in fin["tail"])
-            if term_eval >= 0:
-                n_keep, it_final = term_eval + 1, term_it
-                terminated_by = _VERDICT_STATUS.get(status, "max_iters")
-            else:
-                n_keep, it_final = n_pre, it_pre
-                terminated_by = "max_iters"
-            state = state_pre
-            break
-        n_pre = n_evals
+    t_solve0 = t_window = time.perf_counter()
+    it_window = int(start_iteration)
+    fed = 0
+    hist_rows = None
+    n_keep = 0
+    with _crash_dump_scope(flight_rec):
+        it, nwu = int(start_iteration), int(start_nwu)
+        state, it, nwu, vs = advance(state, it, nwu, vs, bound(it))
+        n_pre = len(eval_its)
+        while True:
+            state_pre, it_pre, nwu_pre, vs_pre = state, it, nwu, vs
+            word_copy = _start_fetch(vs_pre.word)
+            hist_copy = _start_fetch(vs_pre.hist) if telemetry else None
+            if it < max_iters:
+                state, it, nwu, vs = advance(state, it, nwu, vs, bound(it))
+            word = int(_host_fetch(word_copy))
+            fetches += 1
+            status = word & 7
+            terminal = status != VERDICT_RUNNING or it_pre >= max_iters
+            if boundary_cb is not None:
+                boundary_cb(it_pre, nwu_pre, state_pre, word, terminal)
+            if telemetry and not terminal:
+                # The lazy history fetch: the per-eval rows the telemetry
+                # consumers see, counted like the word; at termination the
+                # rows ride the fused epilogue fetch instead.
+                hist_rows = _host_fetch(hist_copy).numpy()
+                fetches += 1
+            if terminal:
+                fin = _host_fetch(epilogue(
+                    state_pre.X, state_pre.weights,
+                    {"hist": vs_pre.hist,
+                     "tail": torch.stack([vs_pre.term_eval,
+                                          vs_pre.term_it])}))
+                hist_rows = fin["hist"].numpy()
+                fetches += int(telemetry)
+                term_eval, term_it = (int(v) for v in fin["tail"])
+                if term_eval >= 0:
+                    n_keep, it_final = term_eval + 1, term_it
+                    terminated_by = _VERDICT_STATUS.get(status, "max_iters")
+                else:
+                    n_keep, it_final = n_pre, it_pre
+                    terminated_by = "max_iters"
+            feed_to = min(n_pre, n_keep) if terminal else n_pre
+            if telemetry and feed_to > fed:
+                now = time.perf_counter()
+                dt, t_window = now - t_window, now
+                rounds_w = max(it_pre - it_window, 1)
+                it_window = it_pre
+                per_round = dt / rounds_w
+                for r in range(fed, feed_to):
+                    rounds_r = eval_its[r] - (eval_its[r - 1] if r
+                                              else int(start_iteration))
+                    emit_eval(eval_its[r], hist_rows[r], max(rounds_r, 1),
+                              per_round)
+                fed = feed_to
+                if flight_rec is not None and not terminal:
+                    # Exact-state snapshot at the verdict boundary (the
+                    # K-cadence analog of record_eval's snapshot path).
+                    rows_finite = np.isfinite(hist_rows[:feed_to]).all()
+                    flight_rec.snapshot_state(
+                        it_pre, state_pre, nwu_pre,
+                        healthy=bool(rows_finite))
+            if terminal:
+                state = state_pre
+                break
+            n_pre = len(eval_its)
 
     hist = fin["hist"]
     # The certificate payload crossed in the terminal fetch above; what
@@ -1596,13 +1857,25 @@ def _run_verdict_loop(state, graph, meta, segment, *, max_iters,
     # again only on a REFUSE.
     certificate = _epilogue_certificate(fin, edges_g, params, dtype) \
         if certify_mode != "off" else None
-    return RBCDResult(T=fin["T"], X=state.X,
-                      cost_history=[float(hist[r, 0]) for r in range(n_keep)],
-                      grad_norm_history=[float(hist[r, 1])
-                                         for r in range(n_keep)],
-                      iterations=it_final, terminated_by=terminated_by,
-                      weights=fin["w_glob"], state=state,
-                      certificate=certificate)
+    cost_hist = [float(hist[r, 0]) for r in range(n_keep)]
+    gn_hist = [float(hist[r, 1]) for r in range(n_keep)]
+    if telemetry:
+        for prog in profiled:
+            prog.flush()
+        _emit_sync_rate(obs_run, fetches,
+                        max(it_pre - int(start_iteration), 1))
+        obs_run.event(
+            "solve_end", phase="solve", iterations=it_final,
+            terminated_by=terminated_by,
+            duration_s=time.perf_counter() - t_solve0,
+            cost=cost_hist[-1] if cost_hist else None,
+            grad_norm=gn_hist[-1] if gn_hist else None,
+            num_weight_updates=nwu_pre,
+            verdict_every=verdict_every, verdict=unpack_verdict(word))
+    return RBCDResult(T=fin["T"], X=state.X, cost_history=cost_hist,
+                      grad_norm_history=gn_hist, iterations=it_final,
+                      terminated_by=terminated_by, weights=fin["w_glob"],
+                      state=state, certificate=certificate)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -21,9 +21,18 @@ imports pointed at the port:
 * Numerical health (``health.py``) — ``HealthMonitor`` anomaly detectors
   and the ``HealthConfig`` thresholds the verdict program folds in.
 
-Not ported yet (ROADMAP A10): the flight recorder (``recorder``), the
-serving profiler (``profile``), ``devprof``, ``timeline``, ``report``,
-``regress``, ``ledger`` and ``fleetobs``.
+* Flight recorder (``recorder.py``) — bounded ring of eval scalars and
+  exact state snapshots, dumped as ``blackbox.npz`` + ``blackbox.jsonl``
+  on anomaly or crash; ``python -m dpgo_tpu_torch.obs.recorder --replay``
+  reproduces the recorded trajectory bit for bit.
+* Profiling (``profile.py``, ``devprof.py``) — programs' first-call
+  records (wall, kernel launches, CUDA-event device time) and
+  ``torch.profiler`` device-time attribution.
+* Offline tools — ``timeline`` (merge per-process streams into one
+  Chrome trace), ``report`` (``python -m dpgo_tpu_torch.obs.report``),
+  ``regress`` (the convergence gate) and ``ledger``.
+
+Not ported yet (ROADMAP A9b/A10b): ``fleetobs``.
 """
 
 from __future__ import annotations
@@ -39,6 +48,7 @@ from .events import (
 from .exporters import to_prometheus_text, write_tensorboard_scalars
 from .health import HealthConfig, HealthMonitor, SolverHealthError, monitor_for
 from .metrics import Counter, Gauge, Histogram, MetricsRegistry
+from .recorder import FlightRecorder
 from .run import (
     TelemetryRun,
     end_run,
@@ -47,11 +57,14 @@ from .run import (
     run_scope,
     start_run,
 )
+from . import profile  # noqa: E402  (first-call / device profiling)
 from . import trace  # noqa: E402  (span API: trace.span / trace.start_span)
 
 __all__ = [
+    "profile",
     "Counter",
     "EventStream",
+    "FlightRecorder",
     "Gauge",
     "HealthConfig",
     "HealthMonitor",

@@ -128,6 +128,68 @@ def project_to_stiefel(M: torch.Tensor) -> torch.Tensor:
     return polar_orthonormalize(M)
 
 
+def project_to_stiefel_svd(M: torch.Tensor) -> torch.Tensor:
+    """SVD form of ``project_to_stiefel`` (``U V^T`` of the thin SVD;
+    robust at any conditioning; cold paths only)."""
+    U, _, Vh = torch.linalg.svd(M, full_matrices=False)
+    return U @ Vh
+
+
+def stiefel_from_gaussian(G: torch.Tensor) -> torch.Tensor:
+    """The point of St(r, d) that ``random_stiefel`` makes from a Gaussian
+    draw ``G`` [..., r, d]: the Q of its QR with signs fixed so diag(R) >
+    0 (the factorization's unique form) — the seam that parity tests feed
+    the JAX package's draws through."""
+    Q, R = torch.linalg.qr(G)
+    s = torch.sign(torch.diagonal(R, dim1=-2, dim2=-1))
+    s = torch.where(s == 0, torch.ones_like(s), s)
+    return Q * s[..., None, :]
+
+
+def random_stiefel(generator: torch.Generator | None, r: int, d: int,
+                   batch=(), dtype=torch.float32,
+                   device="cuda") -> torch.Tensor:
+    """Uniform random point(s) on St(r, d) via QR of a Gaussian drawn from
+    ``generator`` (a ``torch.Generator`` on ``device``, or None for the
+    default one) — the JAX package's ``random_stiefel(key, ...)``, with
+    another random stream (``stiefel_from_gaussian`` is the shared map)."""
+    dev = resolve_device(device)
+    G = torch.randn(tuple(batch) + (r, d), generator=generator, dtype=dtype,
+                    device=dev)
+    return stiefel_from_gaussian(G)
+
+
+def check_rotation_matrix(R, tol: float = 1e-8):
+    """Validate SO(d) membership: det +1 and orthonormal within ``tol``
+    (reference ``checkRotationMatrix``, ``DPGO_utils.cpp:526-531`` — an
+    assert there; a boolean here so callers choose raise vs mask).
+    Batched: returns an [...] bool array for [..., d, d] input (a tensor is
+    read to the host)."""
+    if isinstance(R, torch.Tensor):
+        R = R.detach().cpu().numpy()
+    R = np.asarray(R)
+    d = R.shape[-1]
+    det_ok = np.abs(np.linalg.det(R) - 1.0) < tol
+    eye = np.eye(d)
+    orth = np.linalg.norm(
+        np.swapaxes(R, -1, -2) @ R - eye, axis=(-2, -1)) < tol
+    out = det_ok & orth
+    return bool(out) if out.ndim == 0 else out
+
+
+def se_matrix(R: np.ndarray, t: np.ndarray) -> np.ndarray:
+    """Homogeneous SE(d) matrices [..., d+1, d+1] from R [..., d, d], t
+    [..., d] (host numpy)."""
+    R = np.asarray(R)
+    t = np.asarray(t)
+    d = R.shape[-1]
+    T = np.zeros(R.shape[:-2] + (d + 1, d + 1), dtype=R.dtype)
+    T[..., :d, :d] = R
+    T[..., :d, d] = t
+    T[..., d, d] = 1.0
+    return T
+
+
 # --- The JAX package's fixed Stiefel element, reproduced in numpy ----------
 
 _M32 = np.uint64(0xFFFFFFFF)

@@ -15,11 +15,23 @@ dumps through:
 SE(2) trajectories/measurements are logged by embedding the yaw rotation
 as a quaternion about z; pass ``d=2`` to the loaders to recover the planar
 form.  The same bytes as the JAX package's writer for the same values.
-The solver checkpoint tier (``save_checkpoint*``) is not ported yet
-(ROADMAP A10).
+
+* ``Checkpoint`` / ``save_checkpoint`` / ``load_checkpoint`` — the solver
+  checkpoint (lifted iterate, GNC weights, mu, iteration) as the JAX
+  package writes it, ``state.npz`` + ``meta.json``: a checkpoint either
+  package wrote loads in the other.  Tensors are saved through numpy (a
+  CUDA tensor is copied to the host); ``load_checkpoint`` returns numpy,
+  for the caller to put on its device.
+
+Not ported: the Orbax pair (``save_checkpoint_orbax`` /
+``load_checkpoint_orbax``), which needs the ``orbax`` package (ROADMAP).
 """
 
 from __future__ import annotations
+
+import dataclasses
+import json
+import os
 
 import numpy as np
 
@@ -158,3 +170,47 @@ def _fmt(v) -> str:
     if isinstance(v, (int, np.integer)):
         return str(int(v))
     return repr(float(v))
+
+
+# ---------------------------------------------------------------------------
+# Solver checkpoint (warm restart)
+# ---------------------------------------------------------------------------
+
+def _host(x) -> np.ndarray:
+    """``x`` as a host numpy array (a torch tensor is copied off its
+    device)."""
+    if hasattr(x, "detach"):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+@dataclasses.dataclass
+class Checkpoint:
+    """Everything needed to resume a (robust) solve.
+
+    The reference's resume path is ``loadTrajectory`` +
+    ``loadMeasurements(load_weight=true)`` feeding ``setPoseGraph``
+    (``PGOLogger.cpp:83-225``); this bundles the same data plus the lifted
+    iterate and GNC state so resumption is exact, not just warm.
+    """
+
+    X: np.ndarray          # lifted iterate, solver-native shape
+    weights: np.ndarray    # per-edge GNC weights (solver-native layout)
+    mu: float              # current GNC mu
+    iteration: int         # outer iteration count
+
+
+def save_checkpoint(ckpt: Checkpoint, directory: str) -> None:
+    os.makedirs(directory, exist_ok=True)
+    np.savez(os.path.join(directory, "state.npz"),
+             X=_host(ckpt.X), weights=_host(ckpt.weights))
+    with open(os.path.join(directory, "meta.json"), "w") as f:
+        json.dump({"mu": float(ckpt.mu), "iteration": int(ckpt.iteration)}, f)
+
+
+def load_checkpoint(directory: str) -> Checkpoint:
+    data = np.load(os.path.join(directory, "state.npz"))
+    with open(os.path.join(directory, "meta.json")) as f:
+        meta = json.load(f)
+    return Checkpoint(X=data["X"], weights=data["weights"],
+                      mu=meta["mu"], iteration=meta["iteration"])

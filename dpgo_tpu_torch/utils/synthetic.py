@@ -324,3 +324,22 @@ def rejection_scores(weights: np.ndarray, meas: Measurements,
     precision = tp / n_rej if n_rej else 1.0
     recall = tp / truth.sum() if truth.any() else 1.0
     return precision, recall, n_rej
+
+
+def trajectory_error(T, Rs, ts):
+    """Max pose error of T [n, d, d+1] vs ground truth, after aligning
+    pose 0 (gauge).  ``T`` may be a tensor (read to the host)."""
+    if hasattr(T, "detach"):
+        T = T.detach().cpu().numpy()
+    d = Rs.shape[-1]
+    R_est = np.asarray(T[..., :d])
+    t_est = np.asarray(T[..., d])
+    # Align: G = pose0_true * pose0_est^{-1}
+    Rg = Rs[0] @ R_est[0].T
+    tg = ts[0] - Rg @ t_est[0]
+    R_al = np.einsum("ab,nbc->nac", Rg, R_est)
+    t_al = t_est @ Rg.T + tg
+    return max(
+        float(np.abs(R_al - Rs).max()),
+        float(np.abs(t_al - ts).max()),
+    )

@@ -1033,3 +1033,69 @@ def test_agent_iterate_without_fetch_has_no_host_sync(card):
     torch.cuda.synchronize()
     assert rk.LAUNCHES == before + 1
     assert dict(agent_mod.HOST_READS) == reads
+
+
+def test_telemetry_on_verdict_loop_reads_two_per_window(card, tmp_path,
+                                                         monkeypatch):
+    """With an obs run on, the verdict loop reads the word and the history
+    rows per non-terminal boundary and the epilogue once — 2 x 100/K host
+    syncs per 100 rounds — each through ``_host_fetch``; the event stream's
+    costs are the returned history."""
+    from dpgo_tpu_torch import obs
+    from dpgo_tpu_torch.obs.events import read_events
+
+    meas = make_measurements(np.random.default_rng(5), n=60, d=3,
+                             num_lc=20, rot_noise=0.05,
+                             trans_noise=0.05)[0]
+    # A negative tolerance: at the float32 floor an agent's change is
+    # exactly 0, and a tolerance of 0 would end the run by consensus.
+    params = AgentParams(d=3, r=5, num_robots=4, rel_change_tol=-1.0)
+    calls = []
+    real = rbcd._host_fetch
+    monkeypatch.setattr(rbcd, "_host_fetch",
+                        lambda x: calls.append(1) or real(x))
+    d = str(tmp_path / "run")
+    with obs.run_scope(d) as run:
+        res = rbcd.solve_rbcd(meas, 4, params, max_iters=64,
+                              grad_norm_tol=0.0, verdict_every=16,
+                              device=card)
+        rate = run.registry.snapshot()[
+            "host_syncs_per_100_rounds"]["series"][0]["value"]
+    assert res.iterations == 64 and res.terminated_by == "max_iters"
+    assert rate == 2 * 100 / 16 and len(calls) == 2 * 64 // 16
+    costs = [e["value"] for e in read_events(f"{d}/events.jsonl")
+             if e.get("metric") == "solver_cost"]
+    assert costs == res.cost_history and len(costs) == 64
+
+
+def test_two_process_tcp_run_launches_b2_per_stepped_iterate(card,
+                                                             tmp_path):
+    """Two robot processes on the card over localhost TCP: each robot's B2
+    launches equal its stepped iterates."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from dpgo_tpu_torch.utils.g2o import write_g2o
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    meas = make_measurements(np.random.default_rng(0), n=36, d=3,
+                             num_lc=18, rot_noise=0.01,
+                             trans_noise=0.01)[0]
+    data = str(tmp_path / "s.g2o")
+    write_g2o(meas, data)
+    out = subprocess.run(
+        [sys.executable, "-m",
+         "dpgo_tpu_torch.examples.tcp_deployment_example", data,
+         "--robots", "2", "--rounds", "20", "--device", "cuda",
+         "--out-dir", str(tmp_path / "run")],
+        cwd=repo, env=dict(os.environ, PYTHONPATH=repo),
+        capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["states"] == [2, 2] and res["lost"] == []
+    for rid in range(2):
+        o = np.load(str(tmp_path / "run" / f"robot{rid}.npz"))
+        assert str(o["device"]).startswith("cuda")
+        assert int(o["b2_launches"]) == int(o["stepped"]) > 0

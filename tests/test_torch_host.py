@@ -143,7 +143,12 @@ def test_port_imports_no_jax():
             "dpgo_tpu_torch.models.refine_fused, dpgo_tpu_torch.agent, "
             "dpgo_tpu_torch.comms, dpgo_tpu_torch.obs.run, "
             "dpgo_tpu_torch.obs.trace, dpgo_tpu_torch.utils.native_io, "
-            "dpgo_tpu_torch.utils.logger, dpgo_tpu_torch.utils.graph_plan; "
+            "dpgo_tpu_torch.utils.logger, dpgo_tpu_torch.utils.graph_plan, "
+            "dpgo_tpu_torch.utils.profiling, dpgo_tpu_torch.obs.profile, "
+            "dpgo_tpu_torch.obs.devprof, dpgo_tpu_torch.obs.recorder, "
+            "dpgo_tpu_torch.obs.timeline, dpgo_tpu_torch.obs.ledger, "
+            "dpgo_tpu_torch.obs.regress, dpgo_tpu_torch.obs.report, "
+            "dpgo_tpu_torch.examples.tcp_deployment_example; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'dpgo_tpu')); print(bad); "
             "sys.exit(1 if bad else 0)")
