@@ -101,7 +101,8 @@ synthetic stand-in for sphere2500 (2500 poses, 4948 edges, 8 robots, rank
   rounds) replayed on the card from its first snapshot, bit for bit; a
   ``devprof.DeviceTraceWindow`` over 20 fused rounds, B2's device time in
   the ``torch.profiler`` trace within 10% of the same launches between
-  CUDA events, and the window's device busy share;
+  CUDA events (less an empty event pair per launch), and the window's
+  device busy share;
 * ``tcp`` — ``python -m dpgo_tpu_torch.examples.tcp_deployment_example``
   with eight robot processes on the card over localhost TCP (after
   ``agents``): lockstep with ``--telemetry`` for 300 rounds (consensus
@@ -111,7 +112,28 @@ synthetic stand-in for sphere2500 (2500 poses, 4948 edges, 8 robots, rank
   survivors within 1% of the fault-free arm), and the async loop at
   50 Hz with staleness 1 (iterates per robot, the device busy share as
   the robots' summed CUDA-event step time over the wall); every robot
-  process's B2 launches equal its stepped iterates.
+  process's B2 launches equal its stepped iterates;
+* ``serve`` — the serving plane (``dpgo_tpu_torch.serve``; after
+  ``tcp``): eight requests (the stand-in at 2500, 2480, 2460 and 2440
+  poses, seeds 0 and 1) prepared and padded to their buckets (prepare ms,
+  the chordal init's host syncs); the eight padded to one shape, B2 on
+  each padded member against B2 on its unpadded problem, and solved as
+  one batch by ``run_bucket`` (B2 once per round over 64 agents),
+  per-eval and verdict (K = 8) bit for bit, host fetches one per eval
+  (word) plus one, each member within 1e-5 of its own sequential solve's
+  final cost, its ten batch rounds equal to its padded problem's alone
+  and held to the 10-round trajectory rule where "ell" itself meets the
+  rule's cap, B2's step at each of "ell"'s ten iterates against the
+  plain version on every member, B2 timed at 64 agents; the serving
+  paths' B2 launches counted by agents per launch; a
+  ``SolveServer`` with a telemetry run and its warm pool serving four
+  copies of two stand-in requests from each of two tenants (copies bit
+  for bit equal, every batch a cache hit, ``serve_request`` events, a
+  ``/metrics`` scrape); ``python -m dpgo_tpu_torch.serve --port 0`` on the
+  card answering ``solve_g2o`` within 1e-6 of the in-process front-end;
+  bench_streaming.py's protocol (+5% loop closures: the delta path, its
+  tiles equal to a fresh pad bit for bit, the warm arm within 1e-5 of the
+  cold arm with B2 once per round, the warm/cold wall ratio).
 
 Every launch gate is exact: the rounds each run enqueued, the per-eval
 loop's discarded speculative segment and the verdict loop's polish and
@@ -141,6 +163,8 @@ time; per refine round for the cycle).
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 import json
 import re
@@ -237,6 +261,20 @@ FIRST_SEGMENT, FUSED_INNER, FUSED_MAX_ROUNDS, FUSED_CHECK = 110, 6, 192, 8
 FUSED_GAP = 1e-6
 #: Published H100 SXM peaks (dense FP32 outside the tensor cores; HBM3).
 PEAK_FP32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
+#: The serve phase: the requests (stand-in poses x seeds), the bucket
+#: quantum, the batch's rounds and K, the copies of each stand-in request
+#: per tenant at the server; a member's final cost against its sequential
+#: solve (and a served ticket's against its batch member), the TCP cost
+#: against the in-process one, the warm streaming cost against the cold
+#: one; bench_streaming.py's streamed fraction, round cap and tolerance.
+SERVE_SIZES, SERVE_SEEDS = (2500, 2480, 2460, 2440), (0, 1)
+SERVE_QUANTUM, SERVE_ROUNDS, SERVE_K, SERVE_TENANT_COPIES = 32, 200, 8, 4
+SERVE_COST_RTOL, TCP_COST_RTOL, STREAM_COST_RTOL = 1e-5, 1e-6, 1e-5
+#: The batch and the server run every one of their SERVE_ROUNDS rounds
+#: (``rel_change_tol`` 0, this gradient tolerance), so final costs compare
+#: at one round count.
+SERVE_GTOL = 1e-9
+STREAM_FRAC, STREAM_ITERS, STREAM_GTOL = 0.05, 400, 1e-9
 
 
 def check(ok: bool, what: str) -> None:
@@ -750,22 +788,11 @@ def kernel_parity(fn, ref_fn, ops: dict, kw: dict, where: str,
               and row["max_rel_d_stats"] <= STAT_RTOL,
               f"{name} kernel disagrees with its plain version ({where})")
         return row, out
-    agree = ~flips
     ws = fn(*ops.values(), _cluster=0, **kw)
-    f0, f0_ref = out.stats[:, 2], ref.stats[:, 2]
-    # A flipped agent: the side that accepted moved f by at most rounding.
-    df = torch.where(out.stats[:, 1] > 0, (out.stats[:, 3] - f0).abs(),
-                     (ref.stats[:, 3] - f0_ref).abs()) / f0_ref.abs()
-    row.update(
-        agents_agreeing=int(agree.sum()),
-        max_abs_dX_agreeing=float((out.X - ref.X)[agree].abs().max())
-        if bool(agree.any()) else 0.0,
-        max_rel_d_f_agreeing=rel_err(out.stats[agree, 3], ref.stats[agree, 3])
-        if bool(agree.any()) else 0.0,
-        max_rel_d_f0=rel_err(f0, f0_ref),
-        flipped_rel_df=df[flips].tolist(),
-        single_cta_stat_flips=int((ws.stats[:, :2] != ref.stats[:, :2])
-                                  .any(1).sum()))
+    row.update(flip_rule(out, ref),
+               single_cta_stat_flips=int((ws.stats[:, :2]
+                                          != ref.stats[:, :2])
+                                         .any(1).sum()))
     ok = (row["max_rel_d_f0"] <= STAT_RTOL
           and row["max_abs_dX_agreeing"] <= X_ATOL
           and row["max_rel_d_f_agreeing"] <= STAT_RTOL
@@ -782,6 +809,28 @@ def kernel_parity(fn, ref_fn, ops: dict, kw: dict, where: str,
     emit(row)
     check(ok, f"{name} kernel disagrees with its plain version ({where})")
     return row, out
+
+
+def flip_rule(out, ref) -> dict:
+    """The floor rule's terms for one B2/B3 launch against its plain
+    version: X and f on the agents whose attempts and accepted agree, f0
+    on all, and for each flipped agent the change in f that the side which
+    accepted made, relative to f0 (at most rounding when both are
+    right)."""
+    flips = (out.stats[:, :2] != ref.stats[:, :2]).any(1)
+    agree = ~flips
+    some = bool(agree.any())
+    f0, f0_ref = out.stats[:, 2], ref.stats[:, 2]
+    df = torch.where(out.stats[:, 1] > 0, (out.stats[:, 3] - f0).abs(),
+                     (ref.stats[:, 3] - f0_ref).abs()) / f0_ref.abs()
+    return {"agents_agreeing": int(agree.sum()),
+            "max_abs_dX_agreeing": float((out.X - ref.X)[agree].abs().max())
+            if some else 0.0,
+            "max_rel_d_f_agreeing": rel_err(out.stats[agree, 3],
+                                            ref.stats[agree, 3])
+            if some else 0.0,
+            "max_rel_d_f0": rel_err(f0, f0_ref),
+            "flipped_rel_df": df[flips].tolist()}
 
 
 def b3_against_b2(b3_ops: dict, b3_kw: dict, b3_out, b2_ops: dict,
@@ -2651,7 +2700,8 @@ def async_arm(part, params, dev, card: str) -> int:
 
 #: The telemetry phase: K and rounds of the flight-recorder run, the fused
 #: rounds of the device trace window, and the window's agreement with the
-#: same launches timed between CUDA events.
+#: same launches timed between CUDA events (less an empty pair's overhead
+#: per launch).
 REC_K, REC_EVAL, REC_ROUNDS, WINDOW_ROUNDS, WINDOW_RTOL = 16, 4, 64, 20, 0.10
 #: GPU cycles of the spin ahead of each timed B2 launch (~0.5 ms).
 SPIN_BEFORE_B2 = 1_000_000
@@ -2664,8 +2714,8 @@ def telemetry_phase(prob, params, dev, card: str, tmp: Path) -> int:
     returned history, the run's report; a flight-recorder black box taken
     in the verdict loop, replayed on the card bit for bit; a
     ``devprof.DeviceTraceWindow`` over fused rounds, B2's device time in
-    it against the same launches between CUDA events.  Returns B2's
-    launches."""
+    it against the same launches between CUDA events, less the overhead
+    of an empty event pair per launch.  Returns B2's launches."""
     from dpgo_tpu_torch import obs
     from dpgo_tpu_torch.obs import devprof, recorder
     from dpgo_tpu_torch.obs.report import render_report
@@ -2759,20 +2809,28 @@ def telemetry_phase(prob, params, dev, card: str, tmp: Path) -> int:
     # a spin kernel ahead of each B2 launch keeps the stream busy while
     # the host records the events and launches, so the events bracket the
     # kernel alone (on a starved stream they would also hold the host's
-    # launch latency); B2's slices in the trace are held against them.
+    # launch latency); B2's slices in the trace are held against them.  An
+    # event pair adds its own few microseconds to what it brackets (5-11%
+    # of a ~0.08 ms launch near the start): an empty pair recorded behind
+    # the same spin, just ahead of each bracketed launch, measures that
+    # overhead, and the empty pairs' sum is taken off the brackets' before
+    # the comparison.
     state = rbcd.rbcd_steps(rbcd.init_state(prob.graph, prob.meta, prob.X0,
                                             params),
                             prob.graph, 2, prob.meta, params)
-    spans = []
+    spans, empty = [], []
     real = rk.rtr_full
 
     def timed(*a, **kw):
         torch.cuda._sleep(SPIN_BEFORE_B2)
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
+        c0, c1, e0, e1 = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(4))
+        c0.record()
+        c1.record()
         e0.record()
         out = real(*a, **kw)
         e1.record()
+        empty.append((c0, c1))
         spans.append((e0, e1))
         return out
 
@@ -2800,6 +2858,8 @@ def telemetry_phase(prob, params, dev, card: str, tmp: Path) -> int:
     b2 += rk.LAUNCHES
     torch.cuda.synchronize()
     event_s = sum(e0.elapsed_time(e1) for e0, e1 in spans) * 1e-3
+    empty_s = sum(c0.elapsed_time(c1) for c0, c1 in empty) * 1e-3
+    net_s = event_s - empty_s
     att, _, _ = windows["plain"]
     _, trace_s, trace_n = windows["events"]
     emit({"phase": "telemetry", "check": "device_trace_window",
@@ -2811,14 +2871,18 @@ def telemetry_phase(prob, params, dev, card: str, tmp: Path) -> int:
           "b2_plain_window_launches": windows["plain"][2],
           "b2_trace_s": trace_s, "b2_trace_launches": trace_n,
           "b2_cuda_event_s": event_s, "b2_cuda_event_launches": len(spans),
-          "rel_diff": abs(trace_s - event_s) / max(event_s, 1e-12),
+          "empty_event_pairs_s": empty_s,
+          "b2_cuda_event_net_s": net_s,
+          "rel_diff_raw": abs(trace_s - event_s) / max(event_s, 1e-12),
+          "rel_diff": abs(trace_s - net_s) / max(net_s, 1e-12),
           "top_ops": [{"op": t["op"][:80], "total_s": t["total_s"],
                        "count": t["count"]} for t in att["top_ops"][:5]]})
     check(trace_n == len(spans) == WINDOW_ROUNDS
           and windows["plain"][2] == WINDOW_ROUNDS,
           "a trace window does not hold one B2 slice per round")
-    check(abs(trace_s - event_s) <= WINDOW_RTOL * event_s,
-          "the trace's B2 device time is not within 10% of CUDA events")
+    check(net_s > 0 and abs(trace_s - net_s) <= WINDOW_RTOL * net_s,
+          "the trace's B2 device time is not within 10% of CUDA events "
+          "(less the empty event pairs)")
     return b2
 
 
@@ -2985,6 +3049,602 @@ def tcp_phase(meas, prod_cost: float, card: str, tmp: Path) -> int:
     emit({"phase": "tcp", "check": "time", "seconds":
           time.perf_counter() - t_phase})
     return b2
+
+
+# ---------------------------------------------------------------------------
+# The serving plane: bucketing, the batched runner, the server, TCP,
+# streaming
+# ---------------------------------------------------------------------------
+
+def serve_requests() -> list:
+    """The serve phase's requests: the stand-in at SERVE_SIZES poses (loop
+    closures n - 51, as the stand-in) and SERVE_SEEDS, as ((n, seed),
+    measurements)."""
+    return [((n, seed), make_measurements(
+        np.random.default_rng(seed), n=n, d=3, num_lc=n - 51,
+        rot_noise=0.01, trans_noise=0.01)[0])
+        for n in SERVE_SIZES for seed in SERVE_SEEDS]
+
+
+@contextlib.contextmanager
+def host_syncs():
+    """Record the host syncs of a block: the warnings of the sync-warn
+    debug mode (count them with ``count_syncs``)."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as syncs:
+            warnings.simplefilter("always")
+            yield syncs
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def count_syncs(syncs) -> int:
+    return sum("synchroniz" in str(w.message) for w in syncs)
+
+
+def serve_prepare(reqs, params, dev, card: str) -> list:
+    """Each request prepared on the card and padded to its own bucket
+    (``SERVE_QUANTUM``), as the server does: its bucket, prepare ms and
+    the host syncs of the chordal init on the padded problem."""
+    from dpgo_tpu_torch.serve import bucket_shape_of, pad_problem
+
+    real_init, init_syncs = rbcd.lifted_init, {}
+    out = []
+    for key, meas in reqs:
+        with host_syncs() as syncs:
+            def counted_init(*a, **k):
+                n0 = len(syncs)
+                X0 = real_init(*a, **k)
+                init_syncs[key] = count_syncs(syncs[n0:])
+                return X0
+
+            rbcd.lifted_init = counted_init
+            try:
+                t0 = time.perf_counter()
+                prob = rbcd.prepare_problem(meas, ROBOTS, params, init=None,
+                                            device=dev)
+                shape = bucket_shape_of(prob, SERVE_QUANTUM)
+                padded = pad_problem(prob, shape)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+            finally:
+                rbcd.lifted_init = real_init
+        n_sync = count_syncs(syncs)
+        out.append(padded)
+        emit({"phase": "serve", "check": "prepare", "card": card,
+              "poses": key[0], "seed": key[1], "bucket": list(shape),
+              "n_max": prob.meta.n_max, "e_max": prob.meta.e_max,
+              "s_max": prob.meta.s_max, "prepare_ms": ms,
+              "prepare_host_syncs": n_sync,
+              "chordal_init_host_syncs": init_syncs[key]})
+    return out
+
+
+def unpadded(p, params):
+    """A padded member's own problem at its own shape, from the padded
+    member's initial iterate."""
+    return rbcd.PreparedProblem(part=p.prob.part, graph=p.prob.graph,
+                                meta=p.prob.meta, params=params,
+                                dtype=p.prob.dtype,
+                                X0=p.X0[:, :p.prob.meta.n_max].contiguous())
+
+
+def b2_once(X, graph, meta, params):
+    """One B2 launch at ``X`` on ``graph`` (factors as ``init_state``
+    makes them), as the round calls it."""
+    Z = rbcd.neighbor_buffer(rbcd.public_table(X, graph), graph)
+    chol = rbcd.precond_chol(graph.edges, graph, params)
+    out = rk.rtr_full(*rbcd.kernel_operands(X, Z, graph.edges, chol, graph),
+                      **rbcd.kernel_options(params, meta))
+    return rk.comp_minor(out.X, meta.rank, meta.d + 1)
+
+
+def padded_member_parity(batch, params, card: str) -> None:
+    """B2 on each padded member against B2 on its unpadded problem, from
+    the same start, one launch each: equal on the live rows (X_ATOL), the
+    padded rows left as they were."""
+    errs, untouched = [], []
+    for p in batch:
+        u = unpadded(p, params)
+        n = u.meta.n_max
+        X = b2_once(u.X0, u.graph, u.meta, params)
+        Xp = b2_once(p.X0, p.graph, p.meta, params)
+        live = u.graph.pose_mask > 0
+        errs.append(float((X[live] - Xp[:, :n][live]).abs().max()))
+        untouched.append(bool(torch.equal(Xp[:, n:], p.X0[:, n:].float())))
+    emit({"phase": "parity", "kernel": "rtr_full", "where": "serve padded "
+          "members vs their unpadded problems", "card": card,
+          "n_max": [[unpadded(p, params).meta.n_max, p.meta.n_max]
+                    for p in batch],
+          "max_abs_dX_live": errs, "padded_rows_untouched": untouched})
+    check(max(errs) <= X_ATOL and all(untouched),
+          "B2 on a padded member leaves its unpadded problem's result")
+
+
+@contextlib.contextmanager
+def served(by: collections.Counter):
+    """Tally the B2 launches of a block of the serving path into ``by``,
+    keyed by agents per launch: the increments of the wrapper's own count
+    across each call."""
+    real = rk.rtr_full
+
+    def tally(*a, **kw):
+        n0 = rk.LAUNCHES
+        out = real(*a, **kw)
+        by[int(a[0].shape[0])] += rk.LAUNCHES - n0
+        return out
+
+    rk.rtr_full = tally
+    try:
+        yield by
+    finally:
+        rk.rtr_full = real
+
+
+def step_parity(p, params, plain) -> dict:
+    """B2 at each of the "ell" formulation's ten JACOBI iterates from the
+    member's start against its plain version on the same operands, held
+    by ``kernel_parity``'s floor rule (``flip_rule``): X (X_ATOL) and f
+    (STAT_RTOL) on every agent whose attempts and accepted agree, f0
+    (STAT_RTOL) on all, every flipped decision within FLOOR_DF_RTOL of
+    f0.  Returns the worst of each over the ten rounds."""
+    kw = rbcd.kernel_options(params, p.meta)
+    chol = rbcd.precond_chol(p.graph.edges, p.graph, params)
+    st = rbcd.init_state(p.graph, p.meta, p.X0, plain)
+    worst = {"max_abs_dX_agreeing": 0.0, "max_rel_d_f_agreeing": 0.0,
+             "max_rel_d_f0": 0.0, "flipped_rel_df": 0.0, "stat_flips": 0}
+    for _ in range(10):
+        Z = rbcd.neighbor_buffer(rbcd.public_table(st.X, p.graph), p.graph)
+        ops = rbcd.kernel_operands(st.X, Z, p.graph.edges, chol, p.graph)
+        row = flip_rule(rk.rtr_full(*ops, **kw),
+                        rk.rtr_full_reference(*ops, **kw))
+        flipped = row["flipped_rel_df"]
+        row.update(flipped_rel_df=max(flipped, default=0.0),
+                   stat_flips=worst["stat_flips"] + len(flipped))
+        del row["agents_agreeing"]
+        worst = {k: max(worst[k], row[k]) for k in worst}
+        st = rbcd.rbcd_step(st, p.graph, p.meta, plain)
+    worst["ok"] = (worst["max_abs_dX_agreeing"] <= X_ATOL
+                   and worst["max_rel_d_f_agreeing"] <= STAT_RTOL
+                   and worst["max_rel_d_f0"] <= STAT_RTOL
+                   and worst["flipped_rel_df"] <= FLOOR_DF_RTOL)
+    return worst
+
+
+def counted_fetches():
+    """Count ``rbcd._host_fetch`` calls: (counter list, restore)."""
+    real, calls = rbcd._host_fetch, []
+
+    def fetch(x):
+        calls.append(1)
+        return real(x)
+
+    rbcd._host_fetch = fetch
+
+    def restore():
+        rbcd._host_fetch = real
+    return calls, restore
+
+
+def serve_batch(batch, params, card: str, by) -> tuple:
+    """``run_bucket`` over all eight requests padded to one shape (B = 8,
+    A = 64 agents per B2 launch), SERVE_ROUNDS rounds each at most
+    (``rel_change_tol`` 0, SERVE_GTOL): per-eval and verdict (K = SERVE_K)
+    runs, each member's final cost against its own sequential
+    ``dispatch_prepared``, the 10-round trajectory rule per member, and B2
+    timed at A = 64.  ``run_bucket``'s launches are tallied into ``by``
+    (``served``); the sequential solves, the reference replays and the
+    timing are not.  Returns (the per-eval results, the timing row)."""
+    from types import SimpleNamespace
+
+    from dpgo_tpu_torch.serve import ExecutableCache, run_bucket, runner
+
+    meta, shape = batch[0].meta, batch[0].shape
+    A = meta.num_robots
+    cache = ExecutableCache()
+    with served(by):
+        run_bucket(batch, cache, max_iters=2, grad_norm_tol=SERVE_GTOL)
+    runs = {}
+    for ve in (None, SERVE_K):
+        calls, restore = counted_fetches()
+        rk.LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            with served(by):
+                res, info = run_bucket(batch, cache, max_iters=SERVE_ROUNDS,
+                                       grad_norm_tol=SERVE_GTOL,
+                                       eval_every=1, verdict_every=ve)
+        finally:
+            restore()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = rk.LAUNCHES
+        words = -(-info["rounds"] // SERVE_K) if ve else info["evals"]
+        runs[ve] = (res, info, wall)
+        emit({"phase": "serve", "check": "run_bucket", "card": card,
+              "verdict_every": ve, "batch": info["batch"],
+              "agents_per_launch": info["batch"] * A,
+              "rounds": info["rounds"], "evals": info["evals"],
+              "b2_launches": launches, "host_fetches": len(calls),
+              "seconds": wall, "rounds_per_s": info["rounds"] / wall,
+              "requests_per_s": len(batch) / wall,
+              "iterations": [r.iterations for r in res],
+              "terminated_by": [r.terminated_by for r in res],
+              "cost_final": [r.cost_history[-1] for r in res]})
+        check(launches == info["rounds"],
+              "the batch did not launch B2 once per round for all members")
+        check(len(calls) == words + 1, "the batch's host fetches are not "
+              "one per eval (or word) plus the terminal fetch")
+    for a, b in zip(runs[None][0], runs[SERVE_K][0]):
+        check(a.cost_history == b.cost_history
+              and a.grad_norm_history == b.grad_norm_history
+              and (a.iterations, a.terminated_by)
+              == (b.iterations, b.terminated_by),
+              "the verdict batch differs from the per-eval batch")
+
+    # Each member against its own sequential solve on the card.
+    seq, seq_wall, rel = [], 0.0, []
+    for p, r in zip(batch, runs[None][0]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s = rbcd.dispatch_prepared(unpadded(p, params),
+                                   max_iters=SERVE_ROUNDS,
+                                   grad_norm_tol=SERVE_GTOL)
+        torch.cuda.synchronize()
+        seq_wall += time.perf_counter() - t0
+        seq.append(s)
+        rel.append(abs(r.cost_history[-1] - s.cost_history[-1])
+                   / abs(s.cost_history[-1]))
+    seq_rounds = sum(s.iterations for s in seq)
+    wall = runs[None][2]
+
+    # Ten rounds of the batch against each member's own.  The batch's rows
+    # equal each member's padded problem alone bit for bit (one shape), so
+    # each padded problem is held to the main phase's rule against "ell"
+    # on that same problem: at most TRAJ_SPREAD times ell's own divergence
+    # from starts moved by one ulp, capped at TRAJ_MAX.  Where ell itself
+    # leaves TRAJ_MAX from a start moved by one ulp, it fails that rule
+    # against itself, and ten rounds cannot tell B2's error from float32's;
+    # every member is also held round by round (``step_parity``), and
+    # those members by that alone.  The unpadded problem's own ten rounds
+    # (a plan at n_max 305-316 against 320) are a record.
+    st_b = runner.stack_states([rbcd.init_state(p.graph, meta, p.X0,
+                                                params) for p in batch])
+    g_b = runner.stack_graphs([p.graph for p in batch], meta,
+                              shape.n_total, shape.num_meas)
+    X10 = rbcd.rbcd_steps(st_b, g_b, 10, meta, params).X
+    plain = dataclasses.replace(
+        params, solver=dataclasses.replace(params.solver, pallas_tcg=False))
+    alone, gaps, spreads, limits, ruled, steps, unpad = ([] for _ in range(7))
+    for b, p in enumerate(batch):
+        rows = slice(b * A, (b + 1) * A)
+        live = p.graph.pose_mask > 0
+        own = rounds_from(p.X0, p.graph, meta, params)
+        alone.append(float((X10[rows] - own).abs().max()))
+        ell = rounds_from(p.X0, p.graph, meta, plain)
+        gaps.append(float((own - ell)[live].abs().max()))
+        spread = 0.0
+        for seed in range(PERTURBED_STARTS):
+            gen = torch.Generator(device=p.X0.device).manual_seed(seed)
+            step = torch.randint(-1, 2, p.X0.shape, generator=gen,
+                                 device=p.X0.device)
+            X0m = p.X0 * (1 + step * 2.0 ** -23)
+            spread = max(spread, float(
+                (rounds_from(X0m, p.graph, meta, plain) - ell)[live]
+                .abs().max()))
+        spreads.append(spread)
+        limits.append(min(TRAJ_SPREAD * spread, TRAJ_MAX))
+        ruled.append(spread <= TRAJ_MAX)
+        steps.append(step_parity(p, params, plain))
+        u = unpadded(p, params)
+        ulive = u.graph.pose_mask > 0
+        unpad.append(float((X10[rows, :u.meta.n_max][ulive] - rounds_from(
+            u.X0, u.graph, u.meta, params)[ulive]).abs().max()))
+    emit({"phase": "serve", "check": "batch_vs_sequential", "card": card,
+          "final_cost_rel_err": rel,
+          "traj_10_vs_padded_alone_max_abs_dX": alone,
+          "traj_10_kernel_vs_ell_max_abs_dX": gaps,
+          "ell_ulp_moved_starts_max_abs_dX": spreads,
+          "traj_limits": limits, "ell_within_cap": ruled,
+          "within_traj_rule": [g <= lim for g, lim in zip(gaps, limits)],
+          "per_round_parity": steps,
+          "record_traj_10_vs_unpadded_max_abs_dX": unpad,
+          "batch_seconds": wall,
+          "sequential_seconds": seq_wall,
+          "batch_rounds_per_s": runs[None][1]["rounds"] / wall,
+          "sequential_rounds_per_s": seq_rounds / seq_wall,
+          "batch_requests_per_s": len(batch) / wall,
+          "sequential_requests_per_s": len(batch) / seq_wall,
+          "sequential_iterations": [s.iterations for s in seq]})
+    check(max(rel) <= SERVE_COST_RTOL, "a batch member's final cost leaves "
+          "its sequential solve's by more than 1e-5")
+    check(max(alone) == 0.0, "a batch member's 10 rounds differ from its "
+          "padded problem's own")
+    check(all(g <= lim for g, lim, r in zip(gaps, limits, ruled) if r),
+          "a batch member's 10 rounds leave the plain formulation's by more "
+          "than its own one-ulp divergence allows")
+    check(all(st["ok"] for st in steps), "B2 at a batch member's ten "
+          "reference iterates disagrees with its plain version")
+
+    # B2 at A = 64: the batch's operands at the batch start.
+    ops, _ = operand_sets(SimpleNamespace(graph=g_b, meta=meta), params,
+                          st_b.X)
+    kw = rbcd.kernel_options(params, meta)
+    out = rk.rtr_full(*ops.values(), **kw)
+    ref = rk.rtr_full_reference(*ops.values(), **kw)
+    torch.cuda.synchronize()
+    err = float((out.X - ref.X).abs().max())
+    timing = route_timing(rk.rtr_full, ops, kw, out)
+    nbytes, flops = rtr_full_work(ops, out, g_b, meta)
+    b_ms, b_by = bound(nbytes, flops)
+    row = {"phase": "timing", "card": card, "kernel": "rtr_full",
+           "agents": len(batch) * A, "n_max": meta.n_max,
+           "e_max": meta.e_max, "max_abs_err": err, **timing,
+           "bound_ms": b_ms, "bound_by": b_by}
+    emit(row)
+    check(err <= X_ATOL, "B2 at A = 64 disagrees with its plain version")
+    return runs[None][0], row
+
+
+def serve_server(reqs, batch_res, params, dev, card: str, tmp: Path,
+                 by) -> None:
+    """``SolveServer`` in process with a telemetry run: a warm pool, then
+    SERVE_TENANT_COPIES copies of two stand-in requests from each of two
+    tenants submitted from threads (``max_batch`` 8): every ticket equal to
+    its batch twins bit for bit and within SERVE_COST_RTOL of its
+    ``run_bucket`` member, every real batch a cache hit, ``serve_request``
+    events and a ``/metrics`` scrape.  The warm pool's and the batches'
+    launches are tallied into ``by`` (``served``)."""
+    import urllib.request
+
+    from dpgo_tpu_torch import obs
+    from dpgo_tpu_torch.serve import SolveRequest, SolveServer
+
+    picks = list(range(len(SERVE_SEEDS)))  # the full-size stand-ins
+    per = SERVE_TENANT_COPIES
+
+    def requests(tenant):
+        return [SolveRequest(meas=reqs[i][1], num_robots=ROBOTS,
+                             params=params, tenant=tenant,
+                             max_iters=SERVE_ROUNDS,
+                             grad_norm_tol=SERVE_GTOL)
+                for i in picks for _ in range(per)]
+
+    run_dir = tmp / "serve_run"
+    with obs.run_scope(str(run_dir)), served(by):
+        with SolveServer(max_batch=8, quantum=SERVE_QUANTUM,
+                         batch_window_s=0.5, metrics_port=0,
+                         device=dev) as srv:
+            t0 = time.perf_counter()
+            warmed = srv.warm(requests("t0") + requests("t1"))
+            warm_s = time.perf_counter() - t0
+            built = srv.cache.compiles
+            tickets = {}
+            gate = threading.Barrier(2)
+
+            def submit(tenant):
+                gate.wait()
+                tickets[tenant] = [srv.submit(r) for r in requests(tenant)]
+
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=submit, args=(t,))
+                       for t in ("t0", "t1")]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join()
+            results = {t: [k.result(timeout=600) for k in ts]
+                       for t, ts in tickets.items()}
+            serve_s = time.perf_counter() - t0
+            status = srv.status()
+            base = f"http://{srv.sidecar.host}:{srv.sidecar.port}"
+            with urllib.request.urlopen(base + "/metrics", timeout=10) as r:
+                prom = r.read().decode("utf-8")
+    events = obs.read_events(str(run_dir / "events.jsonl"))
+    requested = [e for e in events if e.get("event") == "serve_request"]
+    batches = [e for e in events if e.get("event") == "serve_batch"]
+    rel, twins = [], True
+    for i in picks:
+        group = [results[t][j] for t in ("t0", "t1")
+                 for j in range(i * per, (i + 1) * per)]
+        twins &= all(g.cost_history == group[0].cost_history
+                     and torch.equal(g.T, group[0].T) for g in group)
+        ref = batch_res[i].cost_history[-1]
+        rel += [abs(g.cost_history[-1] - ref) / abs(ref) for g in group]
+    emit({"phase": "serve", "check": "server", "card": card,
+          "requests": 2 * len(picks) * per, "buckets_warmed": warmed,
+          "warm_s": warm_s, "serve_s": serve_s,
+          "requests_per_s": 2 * len(picks) * per / serve_s,
+          "batches": [{"size": e["size"], "batch": e["batch"],
+                       "rounds": e["rounds"]} for e in batches],
+          "cache": status["cache"], "cache_builds_after_warm":
+          status["cache"]["compiles"] - built,
+          "serve_request_events": len(requested),
+          "metrics_bytes": len(prom), "twins_bitwise_equal": twins,
+          "cost_rel_to_run_bucket_member": rel})
+    check(twins, "copies of one request in one batch differ")
+    check(max(rel) <= SERVE_COST_RTOL, "a served ticket leaves its "
+          "run_bucket member's cost by more than 1e-5")
+    check(status["cache"]["compiles"] == built,
+          "a real batch missed the warm pool's programs")
+    check(len(requested) == 2 * len(picks) * per,
+          "not every request emitted a serve_request event")
+    check("serve_requests_total" in prom
+          and "serve_cache_requests_total" in prom,
+          "the /metrics scrape lacks the serving counters")
+
+
+def serve_tcp(meas, dev, card: str, tmp: Path, by) -> None:
+    """``python -m dpgo_tpu_torch.serve --port 0`` as a process on the
+    card, and ``solve_g2o`` of the stand-in written as g2o: its cost
+    equals the in-process front-end's on the same bytes (1e-6).  The
+    in-process front-end's launches are tallied into ``by``."""
+    from dpgo_tpu_torch.serve import SolveServer
+    from dpgo_tpu_torch.serve.frontend import handle_request, solve_g2o
+
+    path = tmp / "serve_standin.g2o"
+    g2o.write_g2o(meas, str(path))
+    raw = path.read_bytes()
+    kw = dict(num_robots=ROBOTS, max_iters=SERVE_ROUNDS,
+              grad_norm_tol=GRAD_TOL, eval_every=1)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "dpgo_tpu_torch.serve", "--port", "0",
+         "--device", dev.type],
+        cwd=str(ROOT), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    try:
+        line = proc.stdout.readline()
+        check(line.startswith("listening on "),
+              f"the serve process did not listen: {line!r}")
+        host, port = line.split()[-1].rsplit(":", 1)
+        out = solve_g2o(host, int(port), raw, timeout=600, **kw)
+    finally:
+        proc.send_signal(2)
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        proc.stdout.close()
+        stderr = proc.stderr.read()
+        proc.stderr.close()
+    tcp_s = time.perf_counter() - t0
+    check(out["ok"], f"the TCP solve failed: {out}\n{stderr[-3000:]}")
+    frame = {"op": np.frombuffer(b"solve", np.uint8),
+             "g2o": np.frombuffer(raw, np.uint8),
+             "num_robots": np.int32(ROBOTS),
+             "max_iters": np.int32(SERVE_ROUNDS),
+             "grad_norm_tol": np.float64(GRAD_TOL),
+             "eval_every": np.int32(1)}
+    rk.LAUNCHES = 0
+    with served(by), SolveServer(max_batch=8, batch_window_s=0.0,
+                                 device=dev) as srv:
+        reply = handle_request(srv, frame)
+    launches = rk.LAUNCHES
+    check(int(reply["ok"]) == 1, "the in-process front-end failed")
+    a = float(out["cost_history"][-1])
+    b = float(np.asarray(reply["cost_history"])[-1])
+    rel = abs(a - b) / abs(b)
+    emit({"phase": "serve", "check": "tcp", "card": card, "seconds": tcp_s,
+          "iterations": out["iterations"],
+          "terminated_by": out["terminated_by"], "cost_tcp": a,
+          "cost_in_process": b, "rel_diff": rel,
+          "in_process_b2_launches": launches, "returncode": proc.returncode})
+    check(out["T"].shape == (N_POSES, 3, 4) and np.isfinite(out["T"]).all(),
+          "the TCP reply's trajectory is malformed")
+    check(rel <= TCP_COST_RTOL, "the TCP solve's cost leaves the "
+          "in-process one's by more than 1e-6")
+
+
+def serve_streaming(params, dev, card: str, by) -> None:
+    """bench_streaming.py's protocol on the stand-in (+5% of the
+    measurements streamed as the newest loop closures): ``apply_edges``
+    takes the delta path, the delta-applied tiles equal a fresh pad
+    bitwise, the warm arm reaches the cold arm's cost (1e-5) with B2
+    launches equal to its rounds enqueued, and the warm/cold wall ratio
+    (a record).  The warm dispatch's launches are tallied into ``by``; the
+    base solve and the cold arm are the protocol's references."""
+    import dataclasses
+
+    from dpgo_tpu_torch.models.incremental import LiveProblem
+    from dpgo_tpu_torch.serve import pad_problem
+    from dpgo_tpu_torch.types import loop_closure_mask
+
+    meas = make_measurements(np.random.default_rng(0), n=N_POSES, d=3,
+                             num_lc=NUM_LC, rot_noise=0.01,
+                             trans_noise=0.01)[0]
+    lc = np.nonzero(loop_closure_mask(meas))[0]
+    n_extra = max(1, int(round(STREAM_FRAC * len(meas))))
+    keep = np.ones(len(meas), bool)
+    keep[lc[-n_extra:]] = False
+    base = dataclasses.replace(meas.select(keep), num_poses=meas.num_poses)
+    extra = dataclasses.replace(meas.select(~keep), num_poses=meas.num_poses)
+    sp = dataclasses.replace(params, rel_change_tol=0.0)
+    kw = dict(max_iters=STREAM_ITERS, grad_norm_tol=STREAM_GTOL,
+              eval_every=2)
+    # Room for the stream: one quantum more than the streamed rows (the
+    # default of one quantum fits bench_streaming.py's three edges, not
+    # 247).
+    headroom = -(-len(extra) // SERVE_QUANTUM) + 1
+    live = LiveProblem(base, ROBOTS, params=sp, headroom=headroom,
+                       device=dev)
+    res0 = live.solve(**kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cold = rbcd.solve_rbcd(meas, ROBOTS, sp, device=dev, **kw)
+    torch.cuda.synchronize()
+    t_cold = time.perf_counter() - t0
+    rk.LAUNCHES = 0
+    t0 = time.perf_counter()
+    with served(by):
+        warm = live.warm_dispatch(res0, new_edges=extra, **kw)
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    warm_b2 = rk.LAUNCHES
+    mode = live.last_delta.mode
+    fresh = pad_problem(rbcd.prepare_problem(live.meas, ROBOTS, sp,
+                                             init=None, device=dev),
+                        live.shape)
+    tiles = all(torch.equal(getattr(live.padded.graph, f),
+                            getattr(fresh.graph, f))
+                for f in ("eidx_i", "eidx_j", "rot_t", "trn_t"))
+    rel = abs(warm.cost_history[-1] - cold.cost_history[-1]) \
+        / abs(cold.cost_history[-1])
+    enq = rbcd.rounds_enqueued(warm.iterations, max_iters=STREAM_ITERS,
+                               eval_every=2, params=sp)
+    emit({"phase": "serve", "check": "streaming", "card": card,
+          "edges_base": len(base), "edges_streamed": len(extra),
+          "headroom_quanta": headroom, "mode": mode,
+          "bucket": list(live.shape),
+          "tiles_equal_fresh_pad": tiles, "rounds_base": res0.iterations,
+          "rounds_cold": cold.iterations, "rounds_warm": warm.iterations,
+          "cost_cold": cold.cost_history[-1],
+          "cost_warm": warm.cost_history[-1], "rel_diff": rel,
+          "t_cold_s": t_cold, "t_warm_s": t_warm,
+          "warm_cold_wall_ratio": t_warm / t_cold,
+          "warm_b2_launches": warm_b2, "warm_rounds_enqueued": enq})
+    check(mode == "delta", "the streamed edges did not take the delta path")
+    check(tiles, "the delta-applied tiles differ from a fresh pad")
+    check(rel <= STREAM_COST_RTOL, "the warm arm's cost leaves the cold "
+          "arm's by more than 1e-5")
+    check(warm_b2 == enq, "the warm arm did not launch B2 once per round")
+
+
+def serve_phase(dev, card: str, tmp: Path) -> tuple[dict, dict]:
+    """The serving plane on the card (``dpgo_tpu_torch.serve``): the
+    requests' buckets, one batch of all eight (B2 once per round over
+    B*A = 64 agents), the in-process server, the TCP front-end, and
+    streaming.  Returns B2's launches on the serving path by agents per
+    launch (``run_bucket``, ``SolveServer``, the in-process front-end,
+    ``LiveProblem.warm_dispatch``) and B2's timing row at 64 agents."""
+    t0 = time.perf_counter()
+    params = AgentParams(d=3, r=RANK, num_robots=ROBOTS, rel_change_tol=0.0)
+    reqs = serve_requests()
+    padded = serve_prepare(reqs, params, dev, card)
+    emit({"phase": "serve", "check": "buckets", "card": card,
+          "requests": len(reqs),
+          "distinct_buckets": len({p.shape for p in padded})})
+
+    from dpgo_tpu_torch.serve import BucketShape, pad_problem
+
+    common = BucketShape(*[max(v) for v in zip(*[p.shape for p in padded])])
+    batch = [pad_problem(unpadded(p, params), common) for p in padded]
+    padded_member_parity(batch, params, card)
+    by = collections.Counter()
+    batch_res, timing = serve_batch(batch, params, card, by)
+    serve_server(reqs, batch_res, params, dev, card, tmp, by)
+    serve_tcp(reqs[0][1], dev, card, tmp, by)
+    serve_streaming(params, dev, card, by)
+    by = {str(k): v for k, v in sorted(by.items())}
+    emit({"phase": "serve", "check": "time", "card": card,
+          "seconds": time.perf_counter() - t0,
+          "b2_launches": sum(by.values()), "b2_launches_by_agents": by,
+          "b2_ms_at_64_agents": timing["ms"]})
+    return by, timing
 
 
 def main() -> int:
@@ -3249,6 +3909,8 @@ def main() -> int:
         # --- the same robots as eight processes over localhost TCP ----------
         tcp_b2 = tcp_phase(meas, prod_row["cost_history"][-1], card,
                            Path(tmp))
+        # --- the serving plane: a served batch is one B2 launch per round -
+        serve_by, serve_t = serve_phase(dev, card, Path(tmp))
 
     # --- the ablation: B3's path ------------------------------------------
     ab = ablate_phase(dev, card)
@@ -3285,7 +3947,10 @@ def main() -> int:
         verdict=verdict_b2 + prod_b2 + chordal_b2, odometry_init=odo_b2,
         robust_iterated=iter_b2, certify=cert_b2, dist_init=dist_b2,
         dense=0, fused_refine=fused_b2, agents=agents_b2,
-        telemetry=telemetry_b2, tcp=tcp_b2)
+        telemetry=telemetry_b2, tcp=tcp_b2, serve=sum(serve_by.values()))
+    b2_row["serve_launches_by_agents"] = serve_by
+    b2_row["serve_64_agents"] = {k: serve_t[k] for k in (
+        "ms", "ms_single_cta", "bound_ms", "bound_by", "cluster", "ctas")}
     for row in rows:
         row["launches"] = sum(row["launches_by_path"].values())
     rows.sort(key=lambda r: r["replaces"])

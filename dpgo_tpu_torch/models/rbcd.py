@@ -128,6 +128,48 @@ def edge_tile_shape(n_max: int, s_max: int, e_max: int) -> tuple[int, int]:
     return T, max(1, -(-e_max // T))
 
 
+def edge_tile_layout(ei, ej, R, t, valid, n_max: int, s_max: int,
+                     device) -> dict:
+    """The kernel's tile-major edge fields of a graph (``eidx_i``,
+    ``eidx_j``, ``rot_t``, ``trn_t``) from its host edge rows ``ei, ej
+    [A, E]``, ``R [A, E, d, d]``, ``t [A, E, d]`` and row mask ``valid
+    [A, E]`` (None: every row), on ``device``: rows padded to
+    ``edge_tile_shape(n_max, s_max, E)``, the endpoints of masked and
+    padded rows at the index ``n_max + s_max`` (neither a local pose nor a
+    neighbor slot), rotations and translations in float32.  The one
+    builder of ``build_graph``, ``agent_graph``, the serving plane's
+    ``serve.bucketing.pad_problem`` and ``models.incremental.LiveProblem``,
+    so a padded or delta-updated graph carries the layout a fresh build
+    would."""
+    ei = np.asarray(ei)
+    ej = np.asarray(ej)
+    R = np.asarray(R)
+    t = np.asarray(t)
+    A, E = ei.shape
+    d = R.shape[-1]
+    valid = np.ones((A, E), bool) if valid is None \
+        else np.asarray(valid).astype(bool)
+    T, nt = edge_tile_shape(n_max, s_max, E)
+    Ep = nt * T
+    idx_i = np.full((A, Ep), n_max + s_max, np.int32)
+    idx_j = np.full((A, Ep), n_max + s_max, np.int32)
+    idx_i[:, :E][valid] = ei[valid]
+    idx_j[:, :E][valid] = ej[valid]
+    rot = np.zeros((A, d * d, Ep), np.float32)
+    trn = np.zeros((A, d, Ep), np.float32)
+    rot[:, :, :E] = R.transpose(0, 2, 3, 1).reshape(A, d * d, E)
+    trn[:, :, :E] = t.transpose(0, 2, 1)
+
+    def put(x):
+        return torch.as_tensor(np.ascontiguousarray(x), device=device)
+
+    return dict(
+        eidx_i=put(idx_i.reshape(A, nt, 1, T)),
+        eidx_j=put(idx_j.reshape(A, nt, 1, T)),
+        rot_t=put(rot.reshape(A, d * d, nt, T).transpose(0, 2, 1, 3)),
+        trn_t=put(trn.reshape(A, d, nt, T).transpose(0, 2, 1, 3)))
+
+
 def build_graph(part: Partition, rank: int, dtype=torch.float64,
                 device="cuda", planner: str = "auto"
                 ) -> tuple[MultiAgentGraph, GraphMeta]:
@@ -165,17 +207,6 @@ def build_graph(part: Partition, rank: int, dtype=torch.float64,
     efix[valid] = np.asarray(meas.is_known_inlier, bool)[kk].astype(np.float64)
     eweight[valid] = meas.weight[kk]
 
-    T, nt = edge_tile_shape(n_max, s_max, e_max)
-    Ep = nt * T
-    pad_idx = n_max + s_max  # matches neither the local nor neighbor range
-    idx_i = np.full((A, Ep), pad_idx, np.int32)
-    idx_j = np.full((A, Ep), pad_idx, np.int32)
-    idx_i[:, :e_max][valid] = plan.ei[valid]
-    idx_j[:, :e_max][valid] = plan.ej[valid]
-    rot_flat = np.zeros((A, d * d, Ep), np.float32)
-    trn_flat = np.zeros((A, d, Ep), np.float32)
-    rot_flat[:, :, :e_max] = eR.transpose(0, 2, 3, 1).reshape(A, d * d, e_max)
-    trn_flat[:, :, :e_max] = et.transpose(0, 2, 1)
     pose_mask = (np.arange(n_max)[None, :] < part.n[:, None]).astype(
         np.float64)
     color, num_colors = color_agents(plan.nbr_robot, plan.nbr_mask, A)
@@ -189,10 +220,6 @@ def build_graph(part: Partition, rank: int, dtype=torch.float64,
 
     def i32(x):
         return torch.as_tensor(np.ascontiguousarray(x, np.int32), device=dev)
-
-    def f32(x):
-        return torch.as_tensor(np.ascontiguousarray(x, np.float32),
-                               device=dev)
 
     edges = EdgeSet(i=i64(plan.ei), j=i64(plan.ej), R=f(eR), t=f(et),
                     kappa=f(ekap), tau=f(etau), weight=f(eweight),
@@ -210,10 +237,8 @@ def build_graph(part: Partition, rank: int, dtype=torch.float64,
         global_index=i64(np.maximum(part.global_index, 0)),
         inc_slot=i32(plan.inc_slot),
         inc_mask=f(plan.inc_mask),
-        eidx_i=i32(idx_i.reshape(A, nt, 1, T)),
-        eidx_j=i32(idx_j.reshape(A, nt, 1, T)),
-        rot_t=f32(rot_flat.reshape(A, d * d, nt, T).transpose(0, 2, 1, 3)),
-        trn_t=f32(trn_flat.reshape(A, d, nt, T).transpose(0, 2, 1, 3)),
+        **edge_tile_layout(plan.ei, plan.ej, eR, et, valid, n_max, s_max,
+                           dev),
         color=i32(color),
         dense_inc=quadratic.dense_q_incidence(plan.ei, plan.ej,
                                               n_max + s_max, dev))
@@ -252,16 +277,6 @@ def agent_graph(edges: EdgeSet, n: int, s: int,
     for v, row in enumerate(inc):
         inc_slot[0, v, :len(row)] = row
         inc_mask[0, v, :len(row)] = 1.0
-    T, nt = edge_tile_shape(n, s, E)
-    Ep = nt * T
-    idx_i = np.full(Ep, n + s, np.int32)
-    idx_j = np.full(Ep, n + s, np.int32)
-    idx_i[:E] = ei
-    idx_j[:E] = ej
-    rot = np.zeros((d * d, Ep), np.float32)
-    trn = np.zeros((d, Ep), np.float32)
-    rot[:, :E] = edges.R.cpu().numpy().transpose(1, 2, 0).reshape(d * d, E)
-    trn[:, :E] = edges.t.cpu().numpy().T
     fdt = edges.R.dtype
 
     def i64(x):
@@ -269,10 +284,6 @@ def agent_graph(edges: EdgeSet, n: int, s: int,
 
     def i32(x):
         return torch.as_tensor(np.ascontiguousarray(x, np.int32),
-                               device=dev)
-
-    def f32(x):
-        return torch.as_tensor(np.ascontiguousarray(x, np.float32),
                                device=dev)
 
     def f(x):
@@ -292,10 +303,8 @@ def agent_graph(edges: EdgeSet, n: int, s: int,
         global_index=i64(np.arange(n)[None]),
         inc_slot=i32(inc_slot),
         inc_mask=f(inc_mask),
-        eidx_i=i32(idx_i.reshape(1, nt, 1, T)),
-        eidx_j=i32(idx_j.reshape(1, nt, 1, T)),
-        rot_t=f32(rot.reshape(d * d, nt, T).transpose(1, 0, 2)[None]),
-        trn_t=f32(trn.reshape(d, nt, T).transpose(1, 0, 2)[None]),
+        **edge_tile_layout(ei[None], ej[None], edges.R.cpu().numpy()[None],
+                           edges.t.cpu().numpy()[None], None, n, s, dev),
         color=i32([0]))
     meta = GraphMeta(num_robots=1, n_max=n, e_max=E, s_max=s,
                      p_max=1, d=d, rank=rank)
@@ -431,6 +440,11 @@ def kernel_operands(X: torch.Tensor, Z: torch.Tensor, edges: EdgeSet,
     at ``X`` with neighbor buffers ``Z``, in the kernel's layouts.  The
     weighted precisions are plain tensor work outside the kernel, as in the
     JAX package (its ``rbcd.py:735-737``)."""
+    if graph.eidx_i is None:
+        raise ValueError(
+            "the graph carries no tile-major edge fields (eidx_i, eidx_j, "
+            "rot_t, trn_t), which the kernel reads; build it with "
+            "build_graph, or pad it with serve.bucketing.pad_problem")
     A, nt, _, T = graph.eidx_i.shape
     n_max, k = X.shape[-3], X.shape[-1]
     w = edges.mask * edges.weight
@@ -635,6 +649,16 @@ def _select_agents(tree, sel: torch.Tensor):
     return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
 
 
+def _per_agent(v: torch.Tensor, A: int, ndim: int = 1) -> torch.Tensor:
+    """A per-problem value at every agent row, broadcastable against a
+    tensor of ``ndim`` dimensions: a 0-dim value (one problem) as it is,
+    a ``[B]`` one (the members of a served batch, ``serve.runner``)
+    repeated over each member's ``A`` agents."""
+    if v.dim() == 0:
+        return v
+    return v.repeat_interleave(A).reshape((-1,) + (1,) * (ndim - 1))
+
+
 def _rbcd_round(state: RBCDState, graph: MultiAgentGraph, meta: GraphMeta,
                 params: AgentParams, update_weights: bool = False,
                 restart: bool = False) -> RBCDState:
@@ -649,7 +673,16 @@ def _rbcd_round(state: RBCDState, graph: MultiAgentGraph, meta: GraphMeta,
     (``schedule_bounds``).  A restart round is a plain step followed by the
     collapse of the auxiliary sequences (``restartNesterovAcceleration``,
     ``PGOAgent.cpp:1040-1052``).  Nothing here reads a device value on the
-    host."""
+    host.
+
+    The same round steps a served batch of ``B`` problems
+    (``serve.runner``): ``graph`` holds every member's agents in one
+    ``[B*A, ...]`` axis (``meta`` stays one member's, A = its
+    ``num_robots``), ``state.mu`` is ``[B]``, and what the JAX package's
+    vmap keeps per member stays per member here: GNC's freeze test and
+    ``mu``, Nesterov's ``A``, GREEDY's argmax, COLORED's classes and
+    ASYNC's clocks.  The local step is still one launch for all
+    ``B*A`` agents."""
     if params.acceleration and state.V is None:
         raise ValueError(
             "params.acceleration is set but the state has no V sequence — "
@@ -670,6 +703,7 @@ def _rbcd_round(state: RBCDState, graph: MultiAgentGraph, meta: GraphMeta,
     X, weights, mu = state.X, state.weights, state.mu
     V, gamma, alpha = state.V, state.gamma, state.alpha
     A = meta.num_robots
+    B = X.shape[0] // A  # members of a served batch (``serve.runner``)
 
     def exchange(Xa):
         return neighbor_buffer(public_table(Xa, graph), graph)
@@ -686,26 +720,30 @@ def _rbcd_round(state: RBCDState, graph: MultiAgentGraph, meta: GraphMeta,
         # round on, once the converged-weight ratio of the PRE-update
         # weights reaches the reference's minimum over all agents, a
         # flagged round computes exactly a plain round.
+        # A batch's members each keep their own mu and freeze test.
         edges_r = graph.edges._replace(weight=weights)
-        w_new = _gnc_update_weights(X, Z, edges_r, mu, params)
+        w_new = _gnc_update_weights(X, Z, edges_r, _per_agent(mu, A, 2),
+                                    params)
         ratio_pre = _converged_weight_ratio(edges_r, params)
         ordinal = (state.iteration + 1) // params.robust_opt_inner_iters
         if ratio_pre is None or ordinal < 3:
             frozen = torch.zeros((), dtype=torch.bool, device=X.device)
         else:
-            frozen = torch.min(ratio_pre) \
+            frozen = ratio_pre.reshape(B, A).amin(dim=1).reshape(mu.shape) \
                 >= params.robust_opt_min_convergence_ratio
-        weights = torch.where(frozen, weights, w_new)
+        weights = torch.where(_per_agent(frozen, A, 2), weights, w_new)
         mu = torch.where(frozen, mu, robust.gnc_update_mu(mu, params.robust))
+        frozen_x = _per_agent(frozen, A, 4)
         if state.X_init is not None:
             # Warm start off: restart from the initial guess
             # (PGOAgent.cpp:657-662), which refreshes the exchange.
-            X = torch.where(frozen, X, state.X_init)
+            X = torch.where(frozen_x, X, state.X_init)
             Z = exchange(X)
         if accel:  # initializeAcceleration (PGOAgent.cpp:1054-1063)
-            V = torch.where(frozen, V, X)
-            gamma = torch.where(frozen, gamma, torch.zeros_like(gamma))
-            alpha = torch.where(frozen, alpha, torch.zeros_like(alpha))
+            V = torch.where(frozen_x, V, X)
+            frozen_a = _per_agent(frozen, A)
+            gamma = torch.where(frozen_a, gamma, torch.zeros_like(gamma))
+            alpha = torch.where(frozen_a, alpha, torch.zeros_like(alpha))
     edges = graph.edges._replace(weight=weights)
     form = _formulation(meta, params, graph, X.dtype, X.device)
     if form == "dense" and qbuf is None:
@@ -740,24 +778,31 @@ def _rbcd_round(state: RBCDState, graph: MultiAgentGraph, meta: GraphMeta,
         # gradient norms, MultiRobotExample.cpp:242-256), selected by an
         # ELL pass in the iterate dtype — not the kernel's f32 gn0, so
         # near-ties resolve as in the JAX package — and only it is solved:
-        # on CUDA float32, one launch with A = 1 on its slices.
+        # on CUDA float32, one launch on its slices (one agent per member
+        # of a batch).
         gn = manifold.norm(manifold.rgrad(
             start, _local_egrad(start, Zuse, edges, graph)))
-        sel = torch.argmax(gn).reshape(1)
+        arg = torch.argmax(gn.reshape(B, A), dim=1)
+        sel = arg + torch.arange(B, device=X.device) * A
         x1, z1, e1, c1, g1, q1 = _select_agents((start, Zuse, edges, chol,
                                                  graph, q_use), sel)
         upd, _ = _agent_update(x1, z1, e1, params, c1, g1, meta,
                                kernel=kernel, qbuf=q1)
-        fired = torch.arange(A, device=X.device) == sel
-        X_upd = torch.where(fired[:, None, None, None], upd, start)
+        fired = (torch.arange(A, device=X.device) == arg[:, None]).reshape(-1)
+        X_upd = torch.where(fired.reshape(B, A, 1, 1, 1), upd[:, None],
+                            start.reshape((B, A) + start.shape[1:])
+                            ).reshape(start.shape)
     else:
         X_upd, _ = _agent_update(start, Zuse, edges, params, chol, graph,
                                  meta, kernel=kernel, qbuf=q_use)
         if schedule == Schedule.JACOBI:
             fired = None
         elif schedule == Schedule.ASYNC:
+            # Every member draws the same clocks, as identical keys do
+            # under the JAX package's vmap.
             fired = _async_fired(state.seed, state.iteration, A,
-                                 params.async_update_prob, X.device)
+                                 params.async_update_prob, X.device
+                                 ).repeat(B)
         elif schedule == Schedule.COLORED:
             # One class of mutually non-adjacent agents per round, cycling.
             fired = graph.color == state.iteration % meta.num_colors
@@ -959,6 +1004,9 @@ class RBCDResult:
     # Terminal certification (certify.CertificateResult) when
     # params.certify_mode is "device" or "host", else None.
     certificate: object = None
+    # Set by the serving plane when the solve completed from a session
+    # snapshot after a worker died mid-batch (``serve.session``).
+    recovered: bool = False
 
 
 def global_weights(weights: torch.Tensor, graph: MultiAgentGraph,
@@ -1182,6 +1230,29 @@ def init_verdict_state(max_evals: int, num_robots: int, dtype,
         hist=torch.zeros((max_evals, W), dtype=dtype, device=dev))
 
 
+def fold_verdict(word, term_eval, term_it, eval_idx, iteration: int, gn,
+                 consensus, anomaly, stage, grad_norm_tol: float):
+    """Fold one eval into packed verdict words and latch the first terminal
+    eval, elementwise (0-dim for a solve, ``[B]`` for a served batch):
+    the convergence test (``gn`` against ``grad_norm_tol``, then
+    ``consensus``) gives the status until a terminal eval is latched, the
+    anomaly code is the largest seen, ``stage`` rides the high bits.
+    ``eval_idx`` is a tensor; ``iteration`` is the host's round index.
+    Returns ``(word, term_eval, term_it)``."""
+    status_now = torch.where(
+        gn < grad_norm_tol, VERDICT_GRAD_NORM,
+        torch.where(consensus > 0, VERDICT_CONSENSUS,
+                    VERDICT_RUNNING)).to(torch.int32)
+    status = torch.where(term_eval >= 0, word & 7, status_now)
+    first_term = (term_eval < 0) & (status != VERDICT_RUNNING)
+    term_eval = torch.where(first_term, eval_idx, term_eval)
+    term_it = torch.where(first_term, term_it.new_full((), int(iteration)),
+                          term_it)
+    anom = torch.maximum((word >> 3) & 7, anomaly)
+    word = (status | (anom << 3) | (stage << 6)).to(torch.int32)
+    return word, term_eval, term_it
+
+
 def _device_gnc_stage(mu: torch.Tensor, mu0: float, step: float,
                       kmax: int) -> torch.Tensor:
     """Device twin of ``robust.gnc_stage_index`` (same clamp semantics):
@@ -1298,25 +1369,15 @@ def make_verdict_program(graph: MultiAgentGraph, edges_g: EdgeSet,
                           code(stalled, ANOMALY_STALL)),
             torch.maximum(code(expl, ANOMALY_GRAD_EXPLOSION),
                           code(~finite, ANOMALY_NON_FINITE)))
-        anom = torch.maximum((vs.word >> 3) & 7, anom)
-
-        status_now = torch.where(
-            gn < grad_norm_tol, VERDICT_GRAD_NORM,
-            torch.where(consensus > 0, VERDICT_CONSENSUS,
-                        VERDICT_RUNNING)).to(torch.int32)
-        status = torch.where(vs.term_eval >= 0, vs.word & 7, status_now)
-        first_term = (vs.term_eval < 0) & (status != VERDICT_RUNNING)
-        term_eval = torch.where(first_term, vs.eval_idx, vs.term_eval)
-        term_it = torch.where(first_term,
-                              vs.term_it.new_full((), int(iteration)),
-                              vs.term_it)
+        word, term_eval, term_it = fold_verdict(
+            vs.word, vs.term_eval, vs.term_it, vs.eval_idx, iteration, gn,
+            consensus, anom, stage, grad_norm_tol)
 
         best = torch.where(finite, torch.minimum(best, f), best)
         ming = torch.where(finite, torch.minimum(ming, gn), ming)
         # A device index: no host read of eval_idx.
         hist = vs.hist.index_copy(0, vs.eval_idx.reshape(1).long(),
                                   vec[None, :].to(vs.hist.dtype))
-        word = (status | (anom << 3) | (stage << 6)).to(torch.int32)
         return VerdictState(word=word, eval_idx=vs.eval_idx + 1,
                             term_eval=term_eval, term_it=term_it,
                             best_cost=best, min_gn=ming, stage=stage,
@@ -1889,6 +1950,16 @@ class PreparedProblem:
     params: AgentParams
     dtype: torch.dtype
     X0: torch.Tensor | None = None
+
+    @property
+    def n_total(self) -> int:
+        """Global pose count."""
+        return self.part.meas_global.num_poses
+
+    @property
+    def num_meas(self) -> int:
+        """Global measurement count."""
+        return len(self.part.meas_global)
 
 
 def prepare_problem(meas: Measurements, num_robots: int,

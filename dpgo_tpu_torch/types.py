@@ -108,22 +108,34 @@ def loop_closure_mask(meas: Measurements) -> np.ndarray:
 
 def edge_set_from_measurements(meas: Measurements, dtype=torch.float64,
                                device="cuda", tail_index=None,
-                               head_index=None, is_lc=None) -> EdgeSet:
+                               head_index=None, is_lc=None,
+                               pad_to: int | None = None) -> EdgeSet:
     """EdgeSet on ``device`` in ``dtype``.  By default edges index poses by
     their global index ``p1``/``p2`` (the centralized problem);
     ``tail_index``/``head_index`` override the buffer indices (a robot's
     own edge list with remote endpoints in its neighbor slots,
-    ``agent.PGOAgent``) and ``is_lc`` the loop-closure flags."""
+    ``agent.PGOAgent``) and ``is_lc`` the loop-closure flags.  ``pad_to``
+    appends zero rows (mask 0) up to that many edges, as the serving
+    plane's bucket shapes need (``serve.bucketing``)."""
     device = resolve_device(device)
     m = len(meas)
     d = meas.d
+    n_pad = (pad_to or m) - m
+    if n_pad < 0:
+        raise ValueError(f"pad_to={pad_to} is below the {m} measurements")
+
+    def pad(x):
+        x = np.asarray(x)
+        if n_pad == 0:
+            return x
+        return np.pad(x, [(0, n_pad)] + [(0, 0)] * (x.ndim - 1))
 
     def f(x):
-        return torch.as_tensor(np.asarray(x, np.float64), dtype=dtype,
+        return torch.as_tensor(pad(np.asarray(x, np.float64)), dtype=dtype,
                                device=device)
 
     def ix(x):
-        return torch.as_tensor(np.asarray(x, np.int64), device=device)
+        return torch.as_tensor(pad(np.asarray(x, np.int64)), device=device)
 
     if is_lc is None:
         is_lc = loop_closure_mask(meas)

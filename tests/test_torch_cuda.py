@@ -1099,3 +1099,122 @@ def test_two_process_tcp_run_launches_b2_per_stepped_iterate(card,
         o = np.load(str(tmp_path / "run" / f"robot{rid}.npz"))
         assert str(o["device"]).startswith("cuda")
         assert int(o["b2_launches"]) == int(o["stepped"]) > 0
+
+
+def _served(card, sizes=((60, 20, 5), (64, 22, 6), (57, 18, 7)), A=4,
+            quantum=32):
+    """Problems of several sizes padded into one bucket on the card."""
+    from dpgo_tpu_torch.serve import BucketShape, bucket_shape_of, \
+        pad_problem
+
+    params = AgentParams(d=3, r=5, num_robots=A, rel_change_tol=0.0)
+    probs = [rbcd.prepare_problem(
+        make_measurements(np.random.default_rng(s), n=n, d=3, num_lc=lc,
+                          rot_noise=0.05, trans_noise=0.05)[0],
+        A, params, init=None, device=card) for n, lc, s in sizes]
+    shape = BucketShape(*[max(v) for v in zip(
+        *[bucket_shape_of(p, quantum) for p in probs])])
+    return params, [pad_problem(p, shape) for p in probs]
+
+
+@pytest.mark.parametrize("verdict_every", [None, 4])
+def test_served_batch_launches_b2_once_per_round(card, verdict_every):
+    """A bucket of three problems steps as one batch: one B2 launch per
+    round for all 3*4 agents (not one per member), every member finite,
+    and the verdict batch's reported results equal the per-eval batch's
+    bit for bit."""
+    from dpgo_tpu_torch.serve import ExecutableCache, run_bucket
+
+    _, padded = _served(card)
+    before = rk.LAUNCHES
+    res, info = run_bucket(padded, ExecutableCache(), max_iters=12,
+                           grad_norm_tol=1e-9, eval_every=2,
+                           verdict_every=verdict_every)
+    assert rk.LAUNCHES - before == info["rounds"] == 12
+    assert info["batch"] == 4 and info["size"] == 3
+    for r, p in zip(res, padded):
+        assert r.T.shape == (p.prob.n_total, 3, 4)
+        assert bool(torch.isfinite(r.T).all())
+        assert np.isfinite(r.cost_history).all()
+    if verdict_every is not None:
+        ref, _ = run_bucket(padded, ExecutableCache(), max_iters=12,
+                            grad_norm_tol=1e-9, eval_every=2)
+        for a, b in zip(ref, res):
+            assert a.cost_history == b.cost_history
+            assert (a.iterations, a.terminated_by) == \
+                (b.iterations, b.terminated_by)
+
+
+def test_served_member_b2_matches_unpadded_launch(card):
+    """B2 on a padded member's operands leaves the padded poses and rows
+    alone and agrees with B2 on the unpadded problem on the live rows."""
+    params, padded = _served(card)
+    p = padded[0]
+    prob = rbcd.prepare_problem(p.prob.part.meas_global, 4, params,
+                                device=card)
+    kw = rbcd.kernel_options(params, prob.meta)
+    g, X = prob.graph, prob.X0
+    Z = rbcd.neighbor_buffer(rbcd.public_table(X, g), g)
+    out = rk.rtr_full(*rbcd.kernel_operands(
+        X, Z, g.edges, rbcd.precond_chol(g.edges, g, params), g), **kw)
+    n, gp = prob.meta.n_max, p.graph
+    Xp = rbcd.scatter_to_agents(rbcd.gather_to_global(X, g, prob.n_total),
+                                gp)
+    Zp = rbcd.neighbor_buffer(rbcd.public_table(Xp, gp), gp)
+    outp = rk.rtr_full(*rbcd.kernel_operands(
+        Xp, Zp, gp.edges, rbcd.precond_chol(gp.edges, gp, params), gp),
+        **rbcd.kernel_options(params, p.meta))
+    torch.cuda.synchronize()
+    r, k = p.meta.rank, p.meta.d + 1
+    Xn = rk.comp_minor(out.X, r, k)
+    Xpn = rk.comp_minor(outp.X, r, k)
+    live = g.pose_mask > 0
+    assert float((Xn[live] - Xpn[:, :n][live]).abs().max()) <= 1e-4
+    assert torch.equal(Xpn[:, n:], Xp[:, n:].float())
+
+
+def test_delta_applied_live_problem_tiles_equal_a_fresh_pad(card):
+    """After a streamed delta on the card, the live problem's tile-major
+    fields equal a fresh ``pad_problem`` of the same measurements at the
+    same shape, bit for bit, and its B2 solve launches once per round."""
+    import dataclasses
+
+    from dpgo_tpu_torch.models.incremental import LiveProblem
+    from dpgo_tpu_torch.serve import pad_problem
+    from dpgo_tpu_torch.types import loop_closure_mask
+
+    meas = make_measurements(np.random.default_rng(2), n=80, d=3,
+                             num_lc=30, rot_noise=0.02, trans_noise=0.02)[0]
+    lc = np.nonzero(loop_closure_mask(meas))[0]
+    keep = np.ones(len(meas), bool)
+    keep[lc[-4:]] = False
+    base = dataclasses.replace(meas.select(keep), num_poses=meas.num_poses)
+    extra = dataclasses.replace(meas.select(~keep), num_poses=meas.num_poses)
+    params = AgentParams(d=3, r=5, num_robots=4, rel_change_tol=0.0)
+    live = LiveProblem(base, 4, params=params, device=card)
+    res0 = live.solve(max_iters=20, grad_norm_tol=1e-9)
+    assert live.apply_edges(extra).mode == "delta"
+    fresh = pad_problem(rbcd.prepare_problem(live.meas, 4, params,
+                                             init=None, device=card),
+                        live.shape)
+    for f in ("eidx_i", "eidx_j", "rot_t", "trn_t"):
+        assert torch.equal(getattr(live.padded.graph, f),
+                           getattr(fresh.graph, f)), f
+    before = rk.LAUNCHES
+    resw = live.warm_dispatch(res0, max_iters=10, grad_norm_tol=1e-12)
+    assert rk.LAUNCHES - before == rbcd.rounds_enqueued(
+        resw.iterations, max_iters=10, eval_every=1, params=params)
+
+
+def test_padded_graph_without_tiles_raises_on_card(card):
+    """No fallback: a float32 padded problem on the card whose graph lost
+    its tile-major fields raises instead of running "ell"."""
+    import dataclasses
+
+    from dpgo_tpu_torch.serve import ExecutableCache, run_bucket
+
+    _, padded = _served(card)
+    bare = [dataclasses.replace(p, graph=p.graph._replace(
+        eidx_i=None, eidx_j=None, rot_t=None, trn_t=None)) for p in padded]
+    with pytest.raises(ValueError, match="tile-major edge fields"):
+        run_bucket(bare, ExecutableCache(), max_iters=2)

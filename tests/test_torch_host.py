@@ -148,7 +148,10 @@ def test_port_imports_no_jax():
             "dpgo_tpu_torch.obs.devprof, dpgo_tpu_torch.obs.recorder, "
             "dpgo_tpu_torch.obs.timeline, dpgo_tpu_torch.obs.ledger, "
             "dpgo_tpu_torch.obs.regress, dpgo_tpu_torch.obs.report, "
-            "dpgo_tpu_torch.examples.tcp_deployment_example; "
+            "dpgo_tpu_torch.examples.tcp_deployment_example, "
+            "dpgo_tpu_torch.models.incremental, dpgo_tpu_torch.serve, "
+            "dpgo_tpu_torch.serve.frontend, dpgo_tpu_torch.serve.statusz, "
+            "dpgo_tpu_torch.serve.__main__; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'dpgo_tpu')); print(bad); "
             "sys.exit(1 if bad else 0)")
