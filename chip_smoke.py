@@ -275,6 +275,22 @@ SERVE_COST_RTOL, TCP_COST_RTOL, STREAM_COST_RTOL = 1e-5, 1e-6, 1e-5
 #: at one round count.
 SERVE_GTOL = 1e-9
 STREAM_FRAC, STREAM_ITERS, STREAM_GTOL = 0.05, 400, 1e-9
+#: The sharded phase (``parallel``, world size 1 over NCCL): rounds and K
+#: of the stand-in's equivalence runs; rounds before the GN tail and its
+#: outer steps; the resilience run's K, rounds, NaN-halo round and
+#: device-loss round; the multihost demo (processes, robots, rounds, K,
+#: the victim's boundary); BASELINE.md config #5 (poses, robots, seed,
+#: noise, loop-closure share, rounds, K).
+SHARD_ROUNDS, SHARD_K, SHARD_TAIL_ROUNDS, SHARD_TAIL_OUTER = 64, 8, 200, 4
+CHAOS_K, CHAOS_ROUNDS, CHAOS_NAN, CHAOS_LOSS = 4, 48, 13, 21
+MH_PROCS, MH_ROBOTS, MH_ROUNDS, MH_K, MH_KILL_AT = 2, 8, 24, 4, 3
+SCALE_POSES, SCALE_ROBOTS, SCALE_SEED, SCALE_NOISE, SCALE_LC = \
+    100_000, 64, 11, 0.05, 0.2
+SCALE_ROUNDS, SCALE_K, SCALE_OUTER = 8, 4, 4
+#: The sharded certificate against the device payload (both float32 on
+#: the card): ``tests/test_dist_certify.py``'s tolerance, relative to
+#: max(1, sigma); the PSD tolerance of a float32 certificate.
+SHARD_CERT_TOL, SHARD_CERT_ETA = 1e-3, 1e-3
 
 
 def check(ok: bool, what: str) -> None:
@@ -3614,6 +3630,454 @@ def serve_streaming(params, dev, card: str, by) -> None:
     check(warm_b2 == enq, "the warm arm did not launch B2 once per round")
 
 
+def _same_solve(a, b) -> bool:
+    """Histories, iterations, reason and trajectory bit for bit."""
+    return (a.cost_history == b.cost_history
+            and a.grad_norm_history == b.grad_norm_history
+            and (a.iterations, a.terminated_by)
+            == (b.iterations, b.terminated_by)
+            and torch.equal(a.T.cpu(), b.T.cpu()))
+
+
+def sharded_standin(meas, mesh, dev, card: str, tmp: Path):
+    """The stand-in through ``solve_rbcd_sharded`` at world size 1, per
+    eval and with the verdict loop (K = SHARD_K), with every exchange and
+    overlap mode, against ``rbcd.solve_rbcd`` bit for bit, B2 launches =
+    ``rounds_enqueued``; then the verdict loop's host syncs per 100 rounds
+    and one K-round window of the sharded programs under the sync-error
+    mode.  Returns (B2 launches, the verdict solve's result, the
+    problem)."""
+    from dpgo_tpu_torch import obs
+    from dpgo_tpu_torch.obs.events import read_events
+    from dpgo_tpu_torch.parallel import sharded
+
+    b2 = 0
+    # No consensus stop: the runs go on until the gradient gate latches
+    # (or SHARD_ROUNDS).
+    params = AgentParams(d=3, r=RANK, num_robots=ROBOTS, rel_change_tol=0.0)
+    kw = dict(max_iters=SHARD_ROUNDS, grad_norm_tol=GRAD_TOL)
+    rows, verdict_res = [], None
+    for K in (None, SHARD_K):
+        ref = rbcd.solve_rbcd(meas, ROBOTS, params, device=dev,
+                              verdict_every=K, **kw)
+        for extra in ({}, {"exchange": "ppermute"}, {"overlap": False},
+                      {"overlap": True}, {"overlap": "auto"}):
+            run_dir = tmp / f"sharded_auto_{K}"
+            scope = obs.run_scope(str(run_dir)) if extra.get(
+                "overlap") == "auto" else contextlib.nullcontext()
+            torch.cuda.synchronize()
+            rk.LAUNCHES = 0
+            with scope:
+                got = sharded.solve_rbcd_sharded(
+                    meas, ROBOTS, mesh=mesh, params=params, verdict_every=K,
+                    **kw, **extra)
+            torch.cuda.synchronize()
+            launches = rk.LAUNCHES
+            b2 += launches
+            enq = rbcd.rounds_enqueued(got.iterations, params=params,
+                                       max_iters=SHARD_ROUNDS, eval_every=1,
+                                       verdict_every=K)
+            row = {"verdict_every": K, **extra, "iterations": got.iterations,
+                   "terminated_by": got.terminated_by,
+                   "bitwise": _same_solve(got, ref), "b2_launches": launches,
+                   "rounds_enqueued": enq}
+            if extra.get("overlap") == "auto":
+                (dec,) = [e for e in read_events(str(run_dir / "events.jsonl"))
+                          if e.get("event") == "overlap_decision"]
+                row["overlap_decision"] = dec.get("reason")
+                check(dec.get("reason") == "single_device_mesh",
+                      "overlap='auto' did not record single_device_mesh")
+            rows.append(row)
+            check(row["bitwise"], f"solve_rbcd_sharded({extra}, K={K}) is "
+                  "not solve_rbcd bit for bit at world size 1")
+            check(launches == enq, "a sharded solve did not launch B2 once "
+                  "per enqueued round")
+            if K is not None and not extra:
+                verdict_res = got
+
+    # Host syncs per 100 rounds of the sharded verdict loop: words only.
+    fetches = [0]
+    orig = rbcd._host_fetch
+
+    def counting(x):
+        fetches[0] += 1
+        return orig(x)
+
+    rbcd._host_fetch = counting
+    try:
+        rk.LAUNCHES = 0
+        full = sharded.solve_rbcd_sharded(
+            meas, ROBOTS, mesh=mesh, params=AgentParams(
+                d=3, r=RANK, num_robots=ROBOTS, rel_change_tol=0.0),
+            max_iters=SHARD_ROUNDS, grad_norm_tol=0.0,
+            verdict_every=SHARD_K)
+        torch.cuda.synchronize()
+        b2 += rk.LAUNCHES
+    finally:
+        rbcd._host_fetch = orig
+    syncs = 100.0 * (fetches[0] - 1) / full.iterations
+    check(full.iterations == SHARD_ROUNDS
+          and syncs == 100.0 / SHARD_K,
+          f"the sharded verdict loop's host syncs per 100 rounds are not "
+          f"100/K ({fetches[0]} fetches in {full.iterations} rounds)")
+
+    # One K-round window of the sharded segment and verdict program with
+    # every host sync an error.
+    prob = rbcd.prepare_problem(meas, ROBOTS, params, device=dev)
+    part = prob.part
+    st, g = sharded.shard_problem(mesh, rbcd.init_state(
+        prob.graph, prob.meta, prob.X0, params), prob.graph)
+    edges_g = edge_set_from_measurements(part.meas_global,
+                                         dtype=torch.float32, device=dev)
+    n, M = part.meas_global.num_poses, len(part.meas_global)
+    seg = sharded.make_sharded_segment(mesh, prob.meta, params)
+    step = rbcd.make_verdict_program(
+        g, edges_g, n, M, False, grad_norm_tol=GRAD_TOL,
+        metrics_body=sharded.make_sharded_metrics_body(mesh, g, edges_g, n,
+                                                       M, False))
+    vs = rbcd.init_verdict_state(SHARD_K, ROBOTS, torch.float32, False,
+                                 device=dev)
+    torch.cuda.synchronize()
+    rk.LAUNCHES = 0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(SHARD_K):
+            st = seg(st, g, 1)
+            vs = step(st.X, st.weights, st.ready, st.mu, st.rel_change,
+                      st.iteration, vs)
+        copy = rbcd._start_fetch(vs.word)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    word = int(rbcd._host_fetch(copy))
+    torch.cuda.synchronize()
+    b2 += rk.LAUNCHES
+    check(rk.LAUNCHES == SHARD_K and word == int(vs.word),
+          "the sharded sync-free window is malformed")
+    emit({"phase": "sharded", "check": "standin", "card": card,
+          "world_size": mesh.size, "backend": str(
+              torch.distributed.get_backend()), "runs": rows,
+          "verdict_host_syncs_per_100_rounds": syncs,
+          "sync_free_window": {"rounds": SHARD_K,
+                               "word": rbcd.unpack_verdict(word)}})
+    return b2, verdict_res, prob
+
+
+def sharded_tail_and_certificate(meas, params, prob, res, mesh, dev,
+                                 card: str) -> int:
+    """``gn_tail_sharded`` (SHARD_TAIL_OUTER outer steps, two host reads
+    each and the final gate) from the iterate after SHARD_TAIL_ROUNDS
+    rounds, beside the host float64 ``refine.gn_tail`` from the same
+    start; ``certify_sharded`` on the verdict solve's terminal iterate
+    beside ``certify.device_certificate_payload``.  Returns B2 launches."""
+    from dpgo_tpu_torch.parallel import certify as pcert
+    from dpgo_tpu_torch.parallel import sharded
+
+    graph, meta = prob.graph, prob.meta
+    torch.cuda.synchronize()
+    rk.LAUNCHES = 0
+    st = rbcd.rbcd_steps(rbcd.init_state(graph, meta, prob.X0, params),
+                         graph, SHARD_TAIL_ROUNDS, meta, params)
+    torch.cuda.synchronize()
+    b2 = rk.LAUNCHES
+    cfg = refine.GNTailConfig(max_outer=SHARD_TAIL_OUTER,
+                              grad_norm_tol=1e-6)
+    reads = [0]
+    orig = rbcd._host_fetch
+
+    def counting(x):
+        reads[0] += 1
+        return orig(x)
+
+    rbcd._host_fetch = counting
+    t0 = time.perf_counter()
+    try:
+        Xa, tail = sharded.gn_tail_sharded(st.X, graph, meta, mesh=mesh,
+                                           cfg=cfg)
+    finally:
+        rbcd._host_fetch = orig
+    tail_s = time.perf_counter() - t0
+    n = prob.n_total
+    Xg64 = rbcd.gather_to_global(st.X, graph, n).double().cpu().numpy()
+    e64 = edge_set_from_measurements(prob.part.meas_global,
+                                     dtype=torch.float64, device="cpu")
+    t0 = time.perf_counter()
+    host = refine.gn_tail(Xg64, e64, cfg)
+    host_s = time.perf_counter() - t0
+    emit({"phase": "sharded", "check": "gn_tail", "card": card,
+          "start_rounds": SHARD_TAIL_ROUNDS, "max_outer": SHARD_TAIL_OUTER,
+          "sharded": {"cost": tail.cost_history,
+                      "grad_norm": tail.grad_norm_history,
+                      "cg_iterations": tail.cg_iterations,
+                      "terminated_by": tail.terminated_by,
+                      "host_reads": reads[0], "seconds": tail_s},
+          "host_f64": {"cost": host.cost_history,
+                       "grad_norm": host.grad_norm_history,
+                       "cg_iterations": host.cg_iterations,
+                       "terminated_by": host.terminated_by,
+                       "seconds": host_s}})
+    # Two reads per outer step, and the final gate unless a step found no
+    # decrease (then the loop stops before it).
+    check(reads[0] == 2 * tail.outer_iterations
+          + (tail.terminated_by != "no_decrease"),
+          "the sharded GN tail did not read the host exactly twice per "
+          "outer step")
+    check(bool(np.isfinite(tail.cost_history).all())
+          and tail.cost_history[-1] <= tail.cost_history[0],
+          "the sharded GN tail did not decrease the cost")
+
+    # The certificate of the verdict solve's terminal iterate, both ways.
+    X = res.X.to(dev)
+    edges_g = edge_set_from_measurements(prob.part.meas_global,
+                                         dtype=torch.float32, device=dev)
+    t0 = time.perf_counter()
+    cs = pcert.certify_sharded(X, graph, mesh=mesh, eta=SHARD_CERT_ETA,
+                               weights=res.state.weights.to(dev)
+                               if mesh.size == 1 else None)
+    cs_s = time.perf_counter() - t0
+    Xg = rbcd.gather_to_global(X, graph, n)
+    t0 = time.perf_counter()
+    pay = certify.device_certificate_payload(
+        Xg, edges_g._replace(weight=res.weights.to(dev)), 0)
+    pay = rbcd._host_fetch(pay)
+    cp = certify.decide_device_certificate(
+        pay, SHARD_CERT_ETA, float(torch.finfo(torch.float32).eps))
+    cp_s = time.perf_counter() - t0
+    gap = abs(cs.lambda_min - cp.lambda_min)
+    emit({"phase": "sharded", "check": "certificate", "card": card,
+          "certify_sharded": {"lambda_min": cs.lambda_min,
+                              "sigma": cs.sigma, "certified": cs.certified,
+                              "decidable": cs.decidable, "seconds": cs_s},
+          "device_payload": {"lambda_min": cp.lambda_min,
+                             "sigma": cp.sigma, "certified": cp.certified,
+                             "decidable": cp.decidable, "seconds": cp_s},
+          "lambda_gap": gap,
+          "limit": SHARD_CERT_TOL * max(1.0, cp.sigma)})
+    check(np.isfinite(cs.lambda_min) and np.isfinite(cp.lambda_min)
+          and gap <= SHARD_CERT_TOL * max(1.0, cp.sigma),
+          "certify_sharded and the device payload disagree on lambda_min")
+    return b2
+
+
+def sharded_resilience(meas, mesh, card: str, tmp: Path) -> int:
+    """K = CHAOS_K: a NaN halo at dispatch round CHAOS_NAN and a device
+    loss at CHAOS_LOSS; at world size 1 the loss recovers on the same
+    size.  The final cost within 1e-6 of the fault-free run's.  Returns
+    B2 launches."""
+    from dpgo_tpu_torch.parallel import resilience as pres
+    from dpgo_tpu_torch.parallel import sharded
+
+    params = AgentParams(d=3, r=RANK, num_robots=ROBOTS, rel_change_tol=0.0)
+    kw = dict(mesh=mesh, params=params, max_iters=CHAOS_ROUNDS,
+              verdict_every=CHAOS_K, eval_every=CHAOS_K, grad_norm_tol=0.0)
+    torch.cuda.synchronize()
+    rk.LAUNCHES = 0
+    clean = sharded.solve_rbcd_sharded(meas, ROBOTS, **kw)
+    inj = pres.CollectiveFaultInjector(pres.MeshFaultSpec(
+        nan_halo_rounds=(CHAOS_NAN,), device_loss_rounds=(CHAOS_LOSS,)),
+        seed=7)
+    chaos = sharded.solve_rbcd_sharded(
+        meas, ROBOTS, resilience=pres.ResilienceConfig(
+            checkpoint_dir=str(tmp / "chaos_ck"), injector=inj,
+            fetch_deadline_s=120.0), **kw)
+    torch.cuda.synchronize()
+    b2 = rk.LAUNCHES
+    rz = chaos.resilience
+    rel = abs(chaos.cost_history[-1] - clean.cost_history[-1]) \
+        / abs(clean.cost_history[-1])
+    emit({"phase": "sharded", "check": "resilience", "card": card,
+          "recovered": chaos.recovered, "resilience": rz,
+          "final_cost": chaos.cost_history[-1],
+          "fault_free_cost": clean.cost_history[-1], "rel_diff": rel})
+    # Both faults fire; at K = 4 the poisoned window's word is the fetch
+    # the device loss fails, so one rewind (to the clean checkpoint before
+    # the poison) recovers from both.
+    check(chaos.recovered and rz["injector"]["halo_nan"] == 1
+          and rz["injector"]["device_loss"] == 1
+          and "device_loss" in rz["fault_kinds"]
+          and set(rz["mesh_sizes"]) == {1},
+          "the resilience run did not recover from its faults")
+    check(rel <= 1e-6, "the recovered run's final cost is not the "
+          "fault-free one's")
+    return b2
+
+
+def sharded_multihost(card: str, tmp: Path) -> int:
+    """``launch_world(procs=2, mesh_size=1)`` with both processes on the
+    card, fault-free and with ``kill -9`` of rank 1 at boundary
+    MH_KILL_AT.  Returns B2 launches in the worker processes."""
+    from dpgo_tpu_torch.parallel import multihost
+
+    kw = dict(robots=MH_ROBOTS, mesh_size=1, rounds=MH_ROUNDS,
+              verdict_every=MH_K, device="cuda")
+    t0 = time.perf_counter()
+    clean = multihost.launch_world(MH_PROCS, workdir=str(tmp / "mh_clean"),
+                                   **kw)
+    t1 = time.perf_counter()
+    chaos = multihost.launch_world(MH_PROCS, workdir=str(tmp / "mh_kill"),
+                                   kill_rank=1, kill_at_boundary=MH_KILL_AT,
+                                   barrier_timeout_s=10.0, **kw)
+    t2 = time.perf_counter()
+    b2, per_rank = 0, {}
+    for arm in ("mh_clean", "mh_kill"):
+        for f in sorted((tmp / arm).glob("g*-r*.json")):
+            rec = json.loads(f.read_text())
+            if rec.get("ok"):
+                b2 += rec["b2_launches"]
+                per_rank[f"{arm}/{f.stem}"] = (rec["b2_launches"],
+                                               rec["rounds_executed"])
+    res, ref = chaos["result"], clean["result"]
+    rel = abs(res["final_cost"] - ref["final_cost"]) / abs(ref["final_cost"])
+    emit({"phase": "sharded", "check": "multihost", "card": card,
+          "clean": {"world_sizes": clean["world_sizes"],
+                    "final_cost": ref["final_cost"],
+                    "host_syncs_per_100_rounds":
+                        ref["host_syncs_per_100_rounds"],
+                    "device": ref["device"], "seconds": t1 - t0},
+          "kill": {"world_sizes": chaos["world_sizes"],
+                   "outcomes": [g["outcomes"]
+                                for g in chaos["generations"]],
+                   "resume_iteration": res["resume_iteration"],
+                   "final_cost": res["final_cost"], "seconds": t2 - t1},
+          "rel_diff": rel, "b2_launches_vs_rounds": per_rank})
+    check(clean["world_sizes"] == [MH_PROCS] and not clean["recovered"],
+          "the fault-free multihost world did not finish in one generation")
+    check(chaos["recovered"] and chaos["world_sizes"] == [MH_PROCS, 1]
+          and sorted(chaos["generations"][0]["outcomes"])
+          == ["process_lost", "signal:SIGKILL"]
+          and res["resume_iteration"] == MH_KILL_AT * MH_K,
+          "the killed multihost world did not resume in generation 2")
+    check(rel <= 1e-6, "the resumed multihost cost is not the fault-free "
+          "world's")
+    check(all(a == b for a, b in per_rank.values()),
+          "a multihost worker did not launch B2 once per round")
+    return b2
+
+
+def sharded_scale(mesh, dev, card: str) -> tuple[int, dict]:
+    """BASELINE.md config #5 at world size 1: SCALE_POSES poses,
+    SCALE_ROBOTS agents (``make_measurements_vectorized``, odometry init),
+    SCALE_ROUNDS rounds through the sharded verdict loop, then
+    ``gn_tail_sharded`` and the fused device certificate.  Returns B2
+    launches and the config's B2 row (ms per launch, route)."""
+    from dpgo_tpu_torch.parallel import sharded
+    from dpgo_tpu_torch.utils.synthetic import make_measurements_vectorized
+
+    t0 = time.perf_counter()
+    meas = make_measurements_vectorized(
+        np.random.default_rng(SCALE_SEED), SCALE_POSES, d=3,
+        num_lc=int(SCALE_LC * SCALE_POSES), rot_noise=SCALE_NOISE,
+        trans_noise=SCALE_NOISE)[0]
+    params = AgentParams(d=3, r=RANK, num_robots=SCALE_ROBOTS,
+                         rel_change_tol=0.0)
+    part = partition.partition_contiguous(meas, SCALE_ROBOTS)
+    graph_h, meta = rbcd.build_graph(part, RANK, torch.float32, dev)
+    X0 = rbcd.initial_state_for("odometry", part, meta, graph_h, params,
+                                torch.float32)
+    state, g = sharded.shard_problem(mesh, rbcd.init_state(
+        graph_h, meta, X0, params), graph_h)
+    n, M = part.meas_global.num_poses, len(part.meas_global)
+    edges_g = edge_set_from_measurements(part.meas_global,
+                                         dtype=torch.float32, device=dev)
+    seg = sharded.make_sharded_segment(mesh, meta, params)
+    assemble = sharded._global_assembly(mesh, g, n, M)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    rk.LAUNCHES = 0
+    t0 = time.perf_counter()
+    res = rbcd.run_rbcd(
+        state, g, meta,
+        lambda s, k, uw, rs: seg(s, g, k, update_weights=uw, restart=rs),
+        part, SCALE_ROUNDS, 0.0, SCALE_K,
+        torch.float32, params=params, verdict_every=SCALE_K,
+        metrics_body_factory=lambda tel: sharded.make_sharded_metrics_body(
+            mesh, g, edges_g, n, M, tel), assemble=assemble)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    b2 = rk.LAUNCHES
+    check(res.iterations == SCALE_ROUNDS and b2 == SCALE_ROUNDS
+          and bool(np.isfinite(res.cost_history).all()),
+          "config #5 did not run its rounds with finite costs")
+    # The GN-CG tail and the fused device certificate (one fetch).
+    t0 = time.perf_counter()
+    Xa, tail = sharded.gn_tail_sharded(
+        res.state.X, g, meta, mesh=mesh,
+        cfg=refine.GNTailConfig(max_outer=SCALE_OUTER),
+        weights=res.state.weights)
+    torch.cuda.synchronize()
+    tail_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    epilogue = rbcd.make_terminal_epilogue(g, edges_g, n, M, meta,
+                                           certify_mode="device",
+                                           assemble=assemble)
+    fin = rbcd._host_fetch(epilogue(Xa, res.state.weights, {}))
+    cert = certify.decide_device_certificate(
+        fin["cert"], SHARD_CERT_ETA, float(torch.finfo(torch.float32).eps))
+    cert_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    # B2 alone at this shape: one launch on the terminal iterate.
+    Z = rbcd.neighbor_buffer(rbcd.public_table(res.state.X, g), g)
+    ops = dict(zip(B2_ORDER, rbcd.kernel_operands(
+        res.state.X, Z, g.edges, res.state.chol, g)))
+    kw = rbcd.kernel_options(params, meta)
+    route = plan_of(ops, kw)
+    b2_ms = cuda_ms(lambda: rk.rtr_full(*ops.values(), **kw), reps=5,
+                    warmup=1)
+    row = {"poses": SCALE_POSES, "robots": SCALE_ROBOTS,
+           "edges": len(meas), "n_max": meta.n_max, "e_max": meta.e_max,
+           "s_max": meta.s_max, "rounds": res.iterations,
+           "verdict_every": SCALE_K, "build_s": build_s,
+           "loop_s": loop_s, "ms_per_round": 1e3 * loop_s / SCALE_ROUNDS,
+           "b2_ms_per_launch": b2_ms, "b2_route": route.route,
+           "b2_cluster": route.C, "peak_memory_bytes": peak,
+           "comm_bytes_per_round": {
+               str(k): sharded.comm_bytes_per_round(meta, k)
+               for k in (1, 2, 4, 8)},
+           "cost": [res.cost_history[0], res.cost_history[-1]],
+           "gn_tail": {"cost": tail.cost_history,
+                       "grad_norm": tail.grad_norm_history,
+                       "cg_iterations": tail.cg_iterations,
+                       "terminated_by": tail.terminated_by,
+                       "seconds": tail_s},
+           "certificate": {"lambda_min": cert.lambda_min,
+                           "sigma": cert.sigma,
+                           "certified": cert.certified,
+                           "decidable": cert.decidable,
+                           "seconds": cert_s}}
+    emit({"phase": "sharded", "check": "config5", "card": card, **row})
+    check(bool(np.isfinite(tail.cost_history).all()),
+          "config #5's GN tail is not finite")
+    return b2, row
+
+
+def sharded_phase(meas, params, dev, card: str, tmp: Path) -> tuple[int,
+                                                                    int,
+                                                                    dict]:
+    """The sharded plane (``dpgo_tpu_torch.parallel``) at world size 1 over
+    NCCL: the stand-in equivalence, the verdict loop, the GN tail, the
+    certificate, resilience, multihost and config #5.  Returns B2
+    launches in this process and in the multihost workers, and config
+    #5's row."""
+    from dpgo_tpu_torch.parallel import sharded
+
+    t_phase = time.perf_counter()
+    mesh = sharded.make_mesh(device=dev)
+    check(mesh.size == 1 and "nccl" in str(
+        torch.distributed.get_backend()).lower(),
+          "the card's mesh is not an NCCL world of size 1")
+    b2, res, prob = sharded_standin(meas, mesh, dev, card, tmp)
+    b2 += sharded_tail_and_certificate(meas, params, prob, res, mesh, dev,
+                                       card)
+    b2 += sharded_resilience(meas, mesh, card, tmp)
+    scale_b2, scale_row = sharded_scale(mesh, dev, card)
+    b2 += scale_b2
+    torch.distributed.destroy_process_group()
+    workers_b2 = sharded_multihost(card, tmp)
+    emit({"phase": "sharded", "check": "seconds", "card": card,
+          "seconds": time.perf_counter() - t_phase})
+    return b2, workers_b2, scale_row
+
+
 def serve_phase(dev, card: str, tmp: Path) -> tuple[dict, dict]:
     """The serving plane on the card (``dpgo_tpu_torch.serve``): the
     requests' buckets, one batch of all eight (B2 once per round over
@@ -3911,6 +4375,9 @@ def main() -> int:
                            Path(tmp))
         # --- the serving plane: a served batch is one B2 launch per round -
         serve_by, serve_t = serve_phase(dev, card, Path(tmp))
+        # --- the sharded plane at world size 1 over NCCL --------------------
+        sharded_b2, mh_b2, scale_row = sharded_phase(meas, params, dev,
+                                                     card, Path(tmp))
 
     # --- the ablation: B3's path ------------------------------------------
     ab = ablate_phase(dev, card)
@@ -3947,8 +4414,12 @@ def main() -> int:
         verdict=verdict_b2 + prod_b2 + chordal_b2, odometry_init=odo_b2,
         robust_iterated=iter_b2, certify=cert_b2, dist_init=dist_b2,
         dense=0, fused_refine=fused_b2, agents=agents_b2,
-        telemetry=telemetry_b2, tcp=tcp_b2, serve=sum(serve_by.values()))
+        telemetry=telemetry_b2, tcp=tcp_b2, serve=sum(serve_by.values()),
+        sharded=sharded_b2, sharded_multihost=mh_b2)
     b2_row["serve_launches_by_agents"] = serve_by
+    b2_row["sharded_config5"] = {k: scale_row[k] for k in (
+        "b2_ms_per_launch", "b2_route", "b2_cluster", "ms_per_round",
+        "n_max", "peak_memory_bytes")}
     b2_row["serve_64_agents"] = {k: serve_t[k] for k in (
         "ms", "ms_single_cta", "bound_ms", "bound_by", "cluster", "ctas")}
     for row in rows:

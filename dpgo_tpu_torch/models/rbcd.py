@@ -20,7 +20,10 @@ events, the health monitor, the flight recorder, the sync-rate metric),
 the chordal and odometry inits and
 ``solve_rbcd_robust_iterated``, the distributed init
 (``models.dist_init``) and the dense-Q formulation (the local problem as
-matmuls against the materialized per-agent Q, ``dense_q_all``).
+matmuls against the materialized per-agent Q, ``dense_q_all``).  With a
+``mesh`` (``parallel.sharded``) a round is one rank's share of the
+sharded round: the exchange plans (``plan_ppermute``, ``_exchange_for``)
+and the pipelined halo of ``rbcd_steps(overlap=True)``.
 
 One deliberate deviation: ASYNC's Bernoulli clocks draw from a
 ``torch.Generator`` seeded from ``(seed, iteration)`` (``_async_fired``),
@@ -354,6 +357,103 @@ def neighbor_buffer(Xpub: torch.Tensor,
     return Z * graph.nbr_mask[:, :, None, None]
 
 
+class PPermutePlan(NamedTuple):
+    """Per-agent routing of the shift-based pose exchange ([A, S_max]
+    tensors, sharded over agents like the rest of the graph): ``src``
+    indexes the stacked tables (0 = this rank's own, ``1 + i`` = the one
+    received at ``shifts[i]``), ``lrobot`` is the neighbor robot's index on
+    its home rank."""
+
+    src: torch.Tensor
+    lrobot: torch.Tensor
+
+
+def plan_ppermute(graph: MultiAgentGraph, num_robots: int, n_dev: int):
+    """Host-side routing plan of the shift-based neighbor exchange (the
+    JAX package's ``plan_ppermute``): the nonzero ring offsets between the
+    ranks of two agents joined by an edge, with agents in contiguous
+    blocks of ``num_robots // n_dev`` per rank (``parallel.shard_problem``
+    lays them out so).  Returns ``(shifts, plan)``: one point-to-point
+    exchange per shift, and the per-agent routing tensors on the graph's
+    device."""
+    if num_robots % n_dev != 0:
+        raise ValueError(
+            f"num_robots={num_robots} must be a multiple of n_dev={n_dev} "
+            "(contiguous agent blocks per device, as shard_problem lays out)")
+    A_loc = num_robots // n_dev
+    nbr_robot = graph.nbr_robot.cpu().numpy()
+    nbr_mask = graph.nbr_mask.cpu().numpy() > 0
+    dev_of = np.arange(num_robots) // A_loc
+    s = np.where(nbr_mask, (dev_of[:, None] - dev_of[nbr_robot]) % n_dev, 0)
+    shifts = tuple(sorted(set(s[nbr_mask].astype(int).tolist()) - {0}))
+    pos = {0: 0, **{sh: i + 1 for i, sh in enumerate(shifts)}}
+    src = np.zeros_like(s)
+    for sh, p in pos.items():
+        src[s == sh] = p
+    dev = graph.nbr_robot.device
+    plan = PPermutePlan(src=torch.as_tensor(src, dtype=torch.int64,
+                                            device=dev),
+                        lrobot=torch.as_tensor(nbr_robot % A_loc,
+                                               dtype=torch.int64, device=dev))
+    return shifts, plan
+
+
+def _ppermute_start(Xl: torch.Tensor, graph: MultiAgentGraph,
+                    plan: PPermutePlan, shifts: tuple, mesh):
+    """Start the neighbor exchange by one point-to-point transfer per
+    planned shift (rank i sends its public table to ``i + s``); the
+    returned callable waits and resolves the slots — the same buffer as
+    the all-gather route, bit for bit."""
+    T = public_table(Xl, graph)
+    recv = mesh.ppermute_start(T, shifts)
+
+    def resolve():
+        stacked = torch.stack([T, *recv()])
+        Z = stacked[plan.src, plan.lrobot, graph.nbr_pub]
+        return Z * graph.nbr_mask[:, :, None, None]
+
+    return resolve
+
+
+#: Collective fault-injection hook (``parallel.resilience``): when set,
+#: every exchange built by ``_exchange_for`` passes through it, so chaos
+#: tests can corrupt halo payloads at the seam itself.
+_exchange_wrap = None
+
+
+def _exchange_for(graph: MultiAgentGraph, A_tot: int, mesh,
+                  plan: PPermutePlan | None, shifts: tuple):
+    """The pose exchange of a round as ``start(Xl)``, which issues the
+    collective and returns a callable that waits for it and gives the
+    neighbor buffer: the all-gathered public table (v1), the shift-based
+    point-to-point route when a ``plan`` is given, plain gathers with
+    ``mesh=None``.  Split so the overlapped loop (``rbcd_steps(overlap=
+    True)``) can issue the next round's exchange right after the Stiefel
+    update and wait for it in the next round."""
+    if mesh is None:
+        if plan is not None:
+            raise ValueError("ppermute exchange requires a mesh")
+
+        def start(Xl):
+            Z = neighbor_buffer(public_table(Xl, graph), graph)
+            return lambda: Z
+    elif plan is None:
+        def start(Xl):
+            pending = mesh.all_gather_start(public_table(Xl, graph))
+            return lambda: neighbor_buffer(pending(), graph)
+    else:
+        def start(Xl):
+            return _ppermute_start(Xl, graph, plan, shifts, mesh)
+
+    if _exchange_wrap is not None:
+        wrapped = _exchange_wrap(lambda Xl: start(Xl)())
+
+        def start(Xl, _w=wrapped):
+            Z = _w(Xl)
+            return lambda: Z
+    return start
+
+
 # ---------------------------------------------------------------------------
 # The round
 # ---------------------------------------------------------------------------
@@ -661,7 +761,9 @@ def _per_agent(v: torch.Tensor, A: int, ndim: int = 1) -> torch.Tensor:
 
 def _rbcd_round(state: RBCDState, graph: MultiAgentGraph, meta: GraphMeta,
                 params: AgentParams, update_weights: bool = False,
-                restart: bool = False) -> RBCDState:
+                restart: bool = False, mesh=None,
+                plan: PPermutePlan | None = None, shifts: tuple = (),
+                halo=None, return_halo: bool = False):
     """One RBCD round over all agents (the JAX package's ``_rbcd_round``
     on one device): the public-pose exchange (of X, and of the Nesterov
     point when accelerated), the GNC weight update on flagged rounds, the
@@ -682,7 +784,20 @@ def _rbcd_round(state: RBCDState, graph: MultiAgentGraph, meta: GraphMeta,
     vmap keeps per member stays per member here: GNC's freeze test and
     ``mu``, Nesterov's ``A``, GREEDY's argmax, COLORED's classes and
     ASYNC's clocks.  The local step is still one launch for all
-    ``B*A`` agents."""
+    ``B*A`` agents.
+
+    With ``mesh`` (a ``parallel.sharded.Mesh``; the JAX package's
+    ``axis_name``) the round is one rank's share of a sharded round: the
+    state and graph hold this rank's ``A_loc`` contiguous agents, the
+    public tables are all-gathered over the mesh (or sent along the
+    ``plan``/``shifts`` of ``plan_ppermute``), GNC's freeze takes the
+    minimum ratio over all ranks, GREEDY the argmax of the gathered block
+    gradient norms, and ASYNC's clocks and the agent ids are global.  The
+    local step is still one launch, over the rank's agents.  ``halo`` (a
+    callable from the exchange's ``start``; plain rounds only) supplies the
+    current iterate's neighbor buffer, and ``return_halo`` also returns the
+    next round's, issued right after the Stiefel update — the pipelined
+    halo of ``rbcd_steps(overlap=True)``; the values are the same."""
     if params.acceleration and state.V is None:
         raise ValueError(
             "params.acceleration is set but the state has no V sequence — "
@@ -703,14 +818,24 @@ def _rbcd_round(state: RBCDState, graph: MultiAgentGraph, meta: GraphMeta,
     X, weights, mu = state.X, state.weights, state.mu
     V, gamma, alpha = state.V, state.gamma, state.alpha
     A = meta.num_robots
-    B = X.shape[0] // A  # members of a served batch (``serve.runner``)
+    A_loc = X.shape[0]
+    # Members of a served batch (``serve.runner``); a shard is one member.
+    B = 1 if mesh is not None else A_loc // A
+    offset = mesh.rank * A_loc if mesh is not None else 0
+    start_exchange = _exchange_for(graph, A, mesh, plan, shifts)
 
     def exchange(Xa):
-        return neighbor_buffer(public_table(Xa, graph), graph)
+        return start_exchange(Xa)()
 
+    if halo is not None and update_weights:
+        raise ValueError(
+            "a precomputed halo cannot serve a weight-update round: the "
+            "warm-start-off path resets X and must re-exchange")
     # The neighbor buffer of X: always un-accelerated; accelerated rounds
     # need it only on weight-update and restart rounds.
-    Z = exchange(X) if (not accel or restart or update_weights) else None
+    Z = None
+    if not accel or restart or update_weights:
+        Z = halo() if halo is not None else exchange(X)
 
     chol = state.chol
     qbuf = state.Qbuf
@@ -728,6 +853,9 @@ def _rbcd_round(state: RBCDState, graph: MultiAgentGraph, meta: GraphMeta,
         ordinal = (state.iteration + 1) // params.robust_opt_inner_iters
         if ratio_pre is None or ordinal < 3:
             frozen = torch.zeros((), dtype=torch.bool, device=X.device)
+        elif mesh is not None:
+            frozen = mesh.all_reduce(ratio_pre.amin(), "min") \
+                >= params.robust_opt_min_convergence_ratio
         else:
             frozen = ratio_pre.reshape(B, A).amin(dim=1).reshape(mu.shape) \
                 >= params.robust_opt_min_convergence_ratio
@@ -780,18 +908,29 @@ def _rbcd_round(state: RBCDState, graph: MultiAgentGraph, meta: GraphMeta,
         # near-ties resolve as in the JAX package — and only it is solved:
         # on CUDA float32, one launch on its slices (one agent per member
         # of a batch).
+        # On a mesh, every rank solves its local slot of the global argmax
+        # (one launch each) and only the owner's update is kept.
         gn = manifold.norm(manifold.rgrad(
             start, _local_egrad(start, Zuse, edges, graph)))
+        if mesh is not None:
+            gn = mesh.all_gather(gn)
         arg = torch.argmax(gn.reshape(B, A), dim=1)
-        sel = arg + torch.arange(B, device=X.device) * A
+        sel = arg % A_loc if mesh is not None else \
+            arg + torch.arange(B, device=X.device) * A
         x1, z1, e1, c1, g1, q1 = _select_agents((start, Zuse, edges, chol,
                                                  graph, q_use), sel)
         upd, _ = _agent_update(x1, z1, e1, params, c1, g1, meta,
                                kernel=kernel, qbuf=q1)
-        fired = (torch.arange(A, device=X.device) == arg[:, None]).reshape(-1)
-        X_upd = torch.where(fired.reshape(B, A, 1, 1, 1), upd[:, None],
-                            start.reshape((B, A) + start.shape[1:])
-                            ).reshape(start.shape)
+        if mesh is not None:
+            fired = torch.arange(offset, offset + A_loc,
+                                 device=X.device) == arg
+            X_upd = torch.where(fired[:, None, None, None], upd, start)
+        else:
+            fired = (torch.arange(A, device=X.device)
+                     == arg[:, None]).reshape(-1)
+            X_upd = torch.where(fired.reshape(B, A, 1, 1, 1), upd[:, None],
+                                start.reshape((B, A) + start.shape[1:])
+                                ).reshape(start.shape)
     else:
         X_upd, _ = _agent_update(start, Zuse, edges, params, chol, graph,
                                  meta, kernel=kernel, qbuf=q_use)
@@ -800,9 +939,10 @@ def _rbcd_round(state: RBCDState, graph: MultiAgentGraph, meta: GraphMeta,
         elif schedule == Schedule.ASYNC:
             # Every member draws the same clocks, as identical keys do
             # under the JAX package's vmap.
+            # A shard takes its slice of the global draw.
             fired = _async_fired(state.seed, state.iteration, A,
                                  params.async_update_prob, X.device
-                                 ).repeat(B)
+                                 ).repeat(B)[offset:offset + A_loc]
         elif schedule == Schedule.COLORED:
             # One class of mutually non-adjacent agents per round, cycling.
             fired = graph.color == state.iteration % meta.num_colors
@@ -837,10 +977,15 @@ def _rbcd_round(state: RBCDState, graph: MultiAgentGraph, meta: GraphMeta,
     else:
         rel = torch.where(fired, rel_new, state.rel_change)
         ready = torch.where(fired, ready_new, state.ready)
-    return state._replace(X=X_next, weights=weights,
-                          iteration=state.iteration + 1, rel_change=rel,
-                          ready=ready, chol=chol, V=V, gamma=gamma,
-                          alpha=alpha, mu=mu, Qbuf=qbuf)
+    new_state = state._replace(X=X_next, weights=weights,
+                               iteration=state.iteration + 1,
+                               rel_change=rel, ready=ready, chol=chol, V=V,
+                               gamma=gamma, alpha=alpha, mu=mu, Qbuf=qbuf)
+    if not return_halo:
+        return new_state
+    # The next round's halo, issued here so the collective runs while the
+    # caller goes on; it feeds nothing in this round.
+    return new_state, start_exchange(X_next)
 
 
 #: A round (the JAX package's jitted ``rbcd_step``; PyTorch runs eagerly).
@@ -848,27 +993,54 @@ rbcd_step = _rbcd_round
 
 
 def rbcd_steps(state: RBCDState, graph: MultiAgentGraph, num_rounds: int,
-               meta: GraphMeta, params: AgentParams) -> RBCDState:
+               meta: GraphMeta, params: AgentParams, mesh=None,
+               plan: PPermutePlan | None = None, shifts: tuple = (),
+               overlap: bool = False) -> RBCDState:
     """``num_rounds`` consecutive plain rounds (no weight update, no
     restart) — the JAX package's fused ``fori_loop``, here a Python loop
-    over the same round that enqueues every launch without a host sync."""
+    over the same round that enqueues every launch without a host sync.
+
+    ``overlap`` (mesh path, un-accelerated schedules; the JAX package's
+    ``_rbcd_rounds(overlap=True)``) carries each round's halo: the
+    exchange of ``X_k`` is issued at the end of round ``k - 1``, right
+    after its Stiefel update, and waited for in round ``k``.  The values
+    are the same round for round; the loop costs one extra exchange (its
+    prologue).  Accelerated rounds exchange the momentum point, so they
+    take the plain loop."""
+    accel = params.acceleration and state.V is not None
+    if overlap and mesh is not None and not accel and num_rounds > 0:
+        halo = _exchange_for(graph, meta.num_robots, mesh, plan,
+                             shifts)(state.X)
+        for _ in range(num_rounds):
+            state, halo = _rbcd_round(state, graph, meta, params, mesh=mesh,
+                                      plan=plan, shifts=shifts, halo=halo,
+                                      return_halo=True)
+        halo()  # the last issued exchange completes before its buffers go
+        return state
     for _ in range(num_rounds):
-        state = _rbcd_round(state, graph, meta, params)
+        state = _rbcd_round(state, graph, meta, params, mesh=mesh,
+                            plan=plan, shifts=shifts)
     return state
 
 
 def rbcd_segment(state: RBCDState, graph: MultiAgentGraph, num_rounds: int,
                  meta: GraphMeta, params: AgentParams,
                  first_update_weights: bool = False,
-                 first_restart: bool = False) -> RBCDState:
+                 first_restart: bool = False, mesh=None,
+                 plan: PPermutePlan | None = None, shifts: tuple = (),
+                 overlap: bool = False) -> RBCDState:
     """One schedule segment: a (possibly flagged) first round and
     ``num_rounds - 1`` plain rounds.  On CUDA in float32, where every local
     solve is one kernel launch, a segment has no host sync — what a later
-    CUDA graph captures.  With both flags False this is ``rbcd_steps``."""
+    CUDA graph captures.  With both flags False this is ``rbcd_steps``.
+    ``mesh``/``plan``/``shifts``/``overlap`` as in ``_rbcd_round`` and
+    ``rbcd_steps``."""
     state = _rbcd_round(state, graph, meta, params,
                         update_weights=first_update_weights,
-                        restart=first_restart)
-    return rbcd_steps(state, graph, num_rounds - 1, meta, params)
+                        restart=first_restart, mesh=mesh, plan=plan,
+                        shifts=shifts)
+    return rbcd_steps(state, graph, num_rounds - 1, meta, params, mesh=mesh,
+                      plan=plan, shifts=shifts, overlap=overlap)
 
 
 # ---------------------------------------------------------------------------
@@ -1005,8 +1177,12 @@ class RBCDResult:
     # params.certify_mode is "device" or "host", else None.
     certificate: object = None
     # Set by the serving plane when the solve completed from a session
-    # snapshot after a worker died mid-batch (``serve.session``).
+    # snapshot after a worker died mid-batch (``serve.session``), and by
+    # the sharded plane after a rewind (``parallel.resilience``).
     recovered: bool = False
+    # The sharded plane's resilience summary (``CheckpointSupervisor
+    # .finish``) when ``solve_rbcd_sharded(resilience=...)`` ran.
+    resilience: dict | None = None
 
 
 def global_weights(weights: torch.Tensor, graph: MultiAgentGraph,
@@ -1390,7 +1566,7 @@ def make_verdict_program(graph: MultiAgentGraph, edges_g: EdgeSet,
 def make_terminal_epilogue(graph: MultiAgentGraph, edges_g: EdgeSet,
                            n_total: int, num_meas: int, meta: GraphMeta, *,
                            certify_mode: str = "off",
-                           certify_seed: int = 0):
+                           certify_seed: int = 0, assemble=None):
     """The terminal program of a solve: gather, rounding and anchoring
     (``round_global``), the weight collapse, and — with
     ``certify_mode="device"`` — the gauge-deflated device certificate
@@ -1404,7 +1580,9 @@ def make_terminal_epilogue(graph: MultiAgentGraph, edges_g: EdgeSet,
     epilogue is one ``_host_fetch``.  The host decision on the fetched
     dict is ``_epilogue_certificate``.  The lifting matrix and the global
     edges' incidence are built here, once, so the program itself copies
-    nothing to the device."""
+    nothing to the device.  ``assemble(Xa, weights) -> (Xg, w_glob)``
+    replaces the gather and the weight collapse (the sharded plane's,
+    whose ranks each hold a shard of the agents)."""
     if certify_mode not in ("off", "device", "host"):
         raise ValueError(f"unknown certify_mode {certify_mode!r}")
     device_cert = certify_mode == "device"
@@ -1416,8 +1594,11 @@ def make_terminal_epilogue(graph: MultiAgentGraph, edges_g: EdgeSet,
         inc_g = quadratic.edge_incidence(edges_g, n_total)
 
     def epilogue(Xa, weights, extras: dict) -> dict:
-        Xg = gather_to_global(Xa, graph, n_total)
-        w_glob = global_weights(weights, graph, num_meas)
+        if assemble is not None:
+            Xg, w_glob = assemble(Xa, weights)
+        else:
+            Xg = gather_to_global(Xa, graph, n_total)
+            w_glob = global_weights(weights, graph, num_meas)
         out = {"T": round_global(Xg, ylift.to(Xg.dtype)), "w_glob": w_glob,
                **extras}
         if want_xg:
@@ -1512,7 +1693,7 @@ def run_rbcd(state: RBCDState, graph: MultiAgentGraph, meta: GraphMeta,
              dtype=torch.float64, params: AgentParams | None = None,
              verdict_every: int | None = None, metrics_body_factory=None,
              start_iteration: int = 0, start_num_weight_updates: int = 0,
-             boundary_cb=None) -> RBCDResult:
+             boundary_cb=None, assemble=None) -> RBCDResult:
     """The driver loop (``MultiRobotExample.cpp:175-264``): rounds run in
     schedule segments — ``segment(state, k, update_weights, restart)`` runs
     ``k`` rounds, the first one flagged (weight update or restart, from
@@ -1543,7 +1724,8 @@ def run_rbcd(state: RBCDState, graph: MultiAgentGraph, meta: GraphMeta,
     both loops.  ``start_iteration`` / ``start_num_weight_updates`` resume
     the verdict loop at an absolute round index, and ``boundary_cb(it, nwu,
     state, word, terminal)`` fires at every verdict boundary with the
-    pre-speculation state; all three need the verdict loop."""
+    pre-speculation state; all three need the verdict loop.
+    ``assemble`` goes to ``make_terminal_epilogue``."""
     if verdict_every is None and (start_iteration or start_num_weight_updates
                                   or boundary_cb is not None):
         raise ValueError(
@@ -1604,7 +1786,8 @@ def run_rbcd(state: RBCDState, graph: MultiAgentGraph, meta: GraphMeta,
     certify_mode = getattr(params, "certify_mode", "off") \
         if params is not None else "off"
     epilogue = make_terminal_epilogue(graph, edges_g, n_total, num_meas,
-                                      meta, certify_mode=certify_mode)
+                                      meta, certify_mode=certify_mode,
+                                      assemble=assemble)
     if verdict_every is not None:
         return _run_verdict_loop(
             state, graph, meta, segment, max_iters=max_iters,

@@ -26,13 +26,14 @@ Python loops of eager rounds with no host sync (the momentum's restart
 flag stays on the device); a cycle reads ``D`` back once, and its
 recenter reads the graph's index arrays.
 
-Not ported yet (ROADMAP Queue A): the Gauss-Newton tail (``GNTailConfig``,
-``gn_tail``, ``gn_precond_blocks``, ``stall_handoff``), which needs the
-certificate.
+The Gauss-Newton-CG tail (``GNTailConfig``, ``gn_tail``, host f64 on the
+certificate operator; ``gn_precond_blocks`` for the sharded tail of
+``parallel.sharded.gn_tail_sharded``; ``stall_handoff``) closes the file.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import time
 from typing import Callable, NamedTuple
@@ -701,3 +702,215 @@ def solve_refine(Xg64: np.ndarray, graph, meta, params: AgentParams,
         Xg64 = global_x(ref, D, graph)
     # Only reachable when the safeguard fired on the last verify pass.
     return best[1], best[0], max_cycles, history
+
+
+# ---------------------------------------------------------------------------
+# Gauss-Newton-CG tail
+# ---------------------------------------------------------------------------
+#
+# The lifted PGO cost is quadratic in X, so its Riemannian Hessian at X is
+# the certificate operator S = Q - Lambda (``certify.sparse_certificate``,
+# host f64): one sparse matrix gives the exact gradient (X S, Lambda being
+# the tangent-projection multiplier) and the exact Newton model.  A
+# preconditioned CG solve of P (V S) = -grad on the tangent space and a
+# backtracking projective retraction make one second-order step at O(E)
+# memory — the polish that breaks the block-coordinate floor.
+
+
+@dataclasses.dataclass(frozen=True)
+class GNTailConfig:
+    """Knobs of the Gauss-Newton-CG tail (``gn_tail``)."""
+
+    max_outer: int = 20          # outer GN steps
+    grad_norm_tol: float = 0.1   # stop below this centralized grad norm
+    cg_max_iters: int = 400      # CG iterations per outer step
+    cg_rtol: float = 0.05        # relative residual target per CG solve
+    damping: float = 0.0         # Levenberg-style shift added to S
+    precond_shift: float = 0.1   # block-Jacobi factorization shift
+    step_shrink: float = 0.25    # backtracking factor
+    max_backtracks: int = 8
+
+
+@dataclasses.dataclass
+class GNTailResult:
+    X: np.ndarray                # [n, r, d+1] f64 polished iterate
+    cost_history: list
+    grad_norm_history: list      # per outer step, INCLUDING the final point
+    outer_iterations: int
+    cg_iterations: int
+    converged: bool
+    terminated_by: str           # grad_norm | max_outer | no_decrease
+
+
+def _gn_diag_blocks(S, n: int, dh: int, shift: float) -> np.ndarray:
+    """Per-pose (d+1)x(d+1) diagonal blocks of the sparse certificate
+    operator plus a Tikhonov shift — the block-Jacobi preconditioner of
+    the tail's CG (a vectorized COO filter and scatter-add)."""
+    C = S.tocoo()
+    m = (C.row // dh) == (C.col // dh)
+    blocks = np.zeros((n, dh, dh))
+    np.add.at(blocks, (C.row[m] // dh, C.row[m] % dh, C.col[m] % dh),
+              C.data[m])
+    blocks += shift * np.eye(dh)
+    return blocks
+
+
+def gn_precond_blocks(edges: EdgeSet, lam: torch.Tensor,
+                      inc_slot: torch.Tensor, inc_mask: torch.Tensor,
+                      d: int, shift: float) -> torch.Tensor:
+    """Per-pose (d+1)x(d+1) diagonal blocks of ``S = Q - Lambda`` for a
+    batch of agents — ``_gn_diag_blocks`` on the device, for the sharded
+    tail.  ``edges`` is the per-agent EdgeSet ([A, E] fields,
+    buffer-indexed) and ``inc_slot``/``inc_mask`` its ELL incidence of the
+    local poses, so neighbor-slot endpoints drop out and a shared edge
+    contributes one block per endpoint across the fleet.  ``lam [A, n, d,
+    d]`` carries the per-pose dual blocks ``sym(Y^T (XQ)_Y)``."""
+    blocks = quadratic.diag_blocks(edges, inc_slot, inc_mask)
+    k = d + 1
+    pad = torch.zeros(blocks.shape, dtype=blocks.dtype, device=blocks.device)
+    pad[..., :d, :d] = lam
+    eye = torch.eye(k, dtype=blocks.dtype, device=blocks.device)
+    return (blocks - pad) + shift * eye
+
+
+def _gn_tangent(X: np.ndarray, V: np.ndarray, d: int) -> np.ndarray:
+    """Tangent projection at X (numpy twin of ``manifold.tangent_project``):
+    rotation columns lose their Y sym(Y^T W) component, translations pass."""
+    Y = X[..., :d]
+    W = V[..., :d]
+    YtW = np.einsum("nrd,nre->nde", Y, W)
+    sym = 0.5 * (YtW + np.swapaxes(YtW, -1, -2))
+    out = V.copy()
+    out[..., :d] = W - np.einsum("nrd,nde->nre", Y, sym)
+    return out
+
+
+def gn_tail(X64: np.ndarray, edges_global,
+            cfg: GNTailConfig | None = None, log=None) -> GNTailResult:
+    """Preconditioned Gauss-Newton-CG polish of a lifted global iterate
+    (host f64, scipy).  Opt-in: run it after the BCD/momentum stages
+    stall (``stall_handoff``) when an absolute gradient-norm gate matters.
+
+    Per outer step: assemble ``S = Q - Lambda(X)``
+    (``certify.sparse_certificate``; the Riemannian gradient is ``X S``
+    and the Hessian-vector product ``P(V S)``), solve the Newton system by
+    block-Jacobi-preconditioned CG on the tangent space (negative-
+    curvature guard for indefinite saddles), and take a backtracking
+    projective retraction accepted only on true f64 cost decrease.  The
+    reported gradient norm is the ``manifold.norm(rgrad)`` the
+    ``run_rbcd`` gate reads."""
+    from .certify import sparse_certificate
+
+    cfg = cfg or GNTailConfig()
+    X = np.asarray(X64, np.float64).copy()
+    n, r, dh = X.shape
+    d = dh - 1
+    cost = global_cost(X, edges_global)
+    cost_hist = [cost]
+    gn_hist: list = []
+    cg_total = 0
+    terminated_by = "max_outer"
+    outer_done = 0
+
+    for outer in range(int(cfg.max_outer)):
+        S = sparse_certificate(X, edges_global)
+        Xf = X.transpose(1, 0, 2).reshape(r, n * dh)
+        grad = (Xf @ S).reshape(r, n, dh).transpose(1, 0, 2)
+        # X S is already tangent; re-project before measuring the gate.
+        grad = _gn_tangent(X, grad, d)
+        gn = float(np.sqrt(np.sum(grad * grad)))
+        gn_hist.append(gn)
+        if log is not None:
+            log(f"  gn_tail outer {outer}: cost {cost:.9g} gn {gn:.4g}")
+        if gn < cfg.grad_norm_tol:
+            terminated_by = "grad_norm"
+            break
+        outer_done = outer + 1
+
+        blocks = _gn_diag_blocks(S, n, dh, cfg.precond_shift)
+
+        def A(V):
+            Vf = V.transpose(1, 0, 2).reshape(r, n * dh)
+            W = (Vf @ S).reshape(r, n, dh).transpose(1, 0, 2)
+            if cfg.damping:
+                W = W + cfg.damping * V
+            return _gn_tangent(X, W, d)
+
+        def Minv(V):
+            W = np.linalg.solve(blocks, V.transpose(0, 2, 1))
+            return _gn_tangent(X, W.transpose(0, 2, 1), d)
+
+        # Preconditioned CG on the tangent space, Steihaug-style negative
+        # curvature exit (the accumulated step, or steepest descent on the
+        # very first iteration).
+        b = -grad
+        v = np.zeros_like(b)
+        res = b.copy()
+        z = Minv(res)
+        p = z.copy()
+        rz = float(np.sum(res * z))
+        b_norm = float(np.sqrt(np.sum(b * b)))
+        for k in range(int(cfg.cg_max_iters)):
+            Ap = A(p)
+            pAp = float(np.sum(p * Ap))
+            cg_total += 1
+            if pAp <= 0:
+                if k == 0:
+                    v = b.copy()  # gradient direction
+                break
+            alpha = rz / pAp
+            v = v + alpha * p
+            res = res - alpha * Ap
+            if float(np.sqrt(np.sum(res * res))) <= cfg.cg_rtol * b_norm:
+                break
+            z = Minv(res)
+            rz_new = float(np.sum(res * z))
+            p = z + (rz_new / rz) * p
+            rz = rz_new
+
+        # Backtracking projective retraction on the true f64 cost.
+        step = 1.0
+        accepted = False
+        for _ in range(int(cfg.max_backtracks)):
+            Xc = _np_project_manifold(X + step * v, d)
+            c_new = global_cost(Xc, edges_global)
+            if np.isfinite(c_new) and c_new < cost:
+                X, cost = Xc, c_new
+                accepted = True
+                break
+            step *= cfg.step_shrink
+        cost_hist.append(cost)
+        if not accepted:
+            terminated_by = "no_decrease"
+            break
+    else:
+        # max_outer exhausted: measure the final point's gate value.
+        S = sparse_certificate(X, edges_global)
+        Xf = X.transpose(1, 0, 2).reshape(r, n * dh)
+        grad = _gn_tangent(
+            X, (Xf @ S).reshape(r, n, dh).transpose(1, 0, 2), d)
+        gn_hist.append(float(np.sqrt(np.sum(grad * grad))))
+
+    return GNTailResult(
+        X=X, cost_history=cost_hist, grad_norm_history=gn_hist,
+        outer_iterations=outer_done, cg_iterations=cg_total,
+        converged=terminated_by == "grad_norm",
+        terminated_by=terminated_by)
+
+
+def stall_handoff(gn_history, window: int = 8, rtol: float = 1e-2,
+                  grad_norm_tol: float = 0.1) -> bool:
+    """The GN-tail trigger: True when the BCD gradient-norm trajectory has
+    plateaued ABOVE the absolute gate — no relative improvement over the
+    trailing ``window`` evals (the health layer's stall test on the
+    gradient norm), so the driver hands the iterate to ``gn_tail`` when
+    more BCD rounds stopped paying."""
+    hist = [float(g) for g in gn_history]
+    if len(hist) < window:
+        return False
+    if hist[-1] < grad_norm_tol:
+        return False  # already through the gate — nothing to break
+    first, last = hist[-window], hist[-1]
+    if not (np.isfinite(first) and np.isfinite(last)):
+        return False
+    return first - last <= rtol * abs(first)

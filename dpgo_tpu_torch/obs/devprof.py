@@ -15,6 +15,7 @@
 * ``profiled_program`` — the solver planes' first-call accounting
   (``profile.ProfiledExecutable`` under the plane's phase and metric
   prefix).
+* ``time_arm`` — the plain wall timer of the overlap gate's A/B arms.
 
 Device events are recognized by their Chrome-trace category, where the
 JAX package keys on XLA's ``args.hlo_op`` marker: ``torch.profiler``
@@ -33,6 +34,7 @@ import gzip
 import json
 import os
 import threading
+import time
 
 from .run import get_run
 
@@ -49,6 +51,7 @@ __all__ = [
     "load_trace_events",
     "op_device_seconds",
     "profiled_program",
+    "time_arm",
 ]
 
 #: Kernel-name prefixes that mark a device op as a cross-device
@@ -459,3 +462,34 @@ def profiled_program(run, fn, key: str, label: str, plane: str,
         fn, key, label, static_names, phase=plane, metric_prefix=plane,
         **extra)
 
+
+
+def _first_tensor(tree):
+    """The first tensor of a tensor / tuple / list / dict / NamedTuple
+    tree, or None."""
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return tree
+    items = tree.values() if isinstance(tree, dict) else \
+        tree if isinstance(tree, (tuple, list)) else ()
+    for t in items:
+        found = _first_tensor(t)
+        if found is not None:
+            return found
+    return None
+
+
+def time_arm(fn, *args) -> float:
+    """Wall seconds for one fully finished call of ``fn`` — the plain A/B
+    timer the overlap gate uses with telemetry off (no obs machinery).
+    On the card the fence is ``torch.cuda.synchronize`` of the output's
+    device; CPU work has finished when the call returns."""
+    import torch
+
+    t0 = time.monotonic()
+    out = fn(*args)
+    t = _first_tensor(out)
+    if t is not None and t.device.type == "cuda":
+        torch.cuda.synchronize(t.device)
+    return time.monotonic() - t0

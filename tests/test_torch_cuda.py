@@ -1218,3 +1218,71 @@ def test_padded_graph_without_tiles_raises_on_card(card):
         eidx_i=None, eidx_j=None, rot_t=None, trn_t=None)) for p in padded]
     with pytest.raises(ValueError, match="tile-major edge fields"):
         run_bucket(bare, ExecutableCache(), max_iters=2)
+
+
+@pytest.mark.parametrize("schedule,verdict_every", [
+    (Schedule.JACOBI, None), (Schedule.JACOBI, 4), (Schedule.GREEDY, 4),
+    (Schedule.COLORED, None)])
+def test_sharded_world_one_over_nccl_equals_solve_rbcd(card, schedule,
+                                                       verdict_every):
+    """At world size 1 over NCCL the sharded solve is ``solve_rbcd`` bit
+    for bit, every float32 round one B2 launch (= ``rounds_enqueued``),
+    with both exchanges and both overlap modes."""
+    import torch.distributed as dist
+
+    from dpgo_tpu_torch.parallel import sharded
+
+    meas = make_measurements(np.random.default_rng(4), n=120, d=3,
+                             num_lc=40, rot_noise=0.03,
+                             trans_noise=0.03)[0]
+    params = AgentParams(d=3, r=5, num_robots=4, schedule=schedule)
+    kw = dict(max_iters=24, grad_norm_tol=1e-3, verdict_every=verdict_every)
+    mesh = sharded.make_mesh(device=card)
+    assert "nccl" in str(dist.get_backend()).lower() and mesh.size == 1
+    ref = rbcd.solve_rbcd(meas, 4, params, device=card, **kw)
+    for extra in ({}, {"exchange": "ppermute"}, {"overlap": False}):
+        before = rk.LAUNCHES
+        got = sharded.solve_rbcd_sharded(meas, 4, mesh=mesh, params=params,
+                                         **kw, **extra)
+        torch.cuda.synchronize()
+        assert got.cost_history == ref.cost_history
+        assert got.grad_norm_history == ref.grad_norm_history
+        assert (got.iterations, got.terminated_by) == \
+            (ref.iterations, ref.terminated_by)
+        assert torch.equal(got.T.cpu(), ref.T.cpu())
+        assert rk.LAUNCHES - before == rbcd.rounds_enqueued(
+            got.iterations, max_iters=24, eval_every=1, params=params,
+            verdict_every=verdict_every)
+
+
+def test_sharded_gn_tail_on_card_reads_twice_per_outer_step(card):
+    """The sharded GN tail's CG and backtracking loops run to their bounds
+    on the card: two host reads per outer step and the final gate."""
+    from dpgo_tpu_torch.parallel import sharded
+
+    meas = make_measurements(np.random.default_rng(4), n=120, d=3,
+                             num_lc=40, rot_noise=0.03,
+                             trans_noise=0.03)[0]
+    params = AgentParams(d=3, r=5, num_robots=4)
+    prob = rbcd.prepare_problem(meas, 4, params, device=card)
+    st = rbcd.rbcd_steps(rbcd.init_state(prob.graph, prob.meta, prob.X0,
+                                         params), prob.graph, 20, prob.meta,
+                         params)
+    reads = [0]
+    orig = rbcd._host_fetch
+
+    def counting(x):
+        reads[0] += 1
+        return orig(x)
+
+    rbcd._host_fetch = counting
+    try:
+        _, tail = sharded.gn_tail_sharded(
+            st.X, prob.graph, prob.meta, mesh=sharded.make_mesh(device=card),
+            cfg=refine.GNTailConfig(max_outer=2, grad_norm_tol=1e-9,
+                                    cg_max_iters=30))
+    finally:
+        rbcd._host_fetch = orig
+    assert reads[0] == 2 * tail.outer_iterations + (
+        tail.terminated_by != "no_decrease")
+    assert np.isfinite(tail.cost_history).all()

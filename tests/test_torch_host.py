@@ -151,7 +151,12 @@ def test_port_imports_no_jax():
             "dpgo_tpu_torch.examples.tcp_deployment_example, "
             "dpgo_tpu_torch.models.incremental, dpgo_tpu_torch.serve, "
             "dpgo_tpu_torch.serve.frontend, dpgo_tpu_torch.serve.statusz, "
-            "dpgo_tpu_torch.serve.__main__; "
+            "dpgo_tpu_torch.serve.__main__, dpgo_tpu_torch.parallel, "
+            "dpgo_tpu_torch.parallel.sharded, "
+            "dpgo_tpu_torch.parallel.resilience, "
+            "dpgo_tpu_torch.parallel.certify, "
+            "dpgo_tpu_torch.parallel.multihost, "
+            "dpgo_tpu_torch.parallel.world, dpgo_tpu_torch.obs.fleetobs; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'dpgo_tpu')); print(bad); "
             "sys.exit(1 if bad else 0)")
