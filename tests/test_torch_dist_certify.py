@@ -139,7 +139,7 @@ def test_sharded_certificate_on_four_ranks(tmp_path):
             for w in (None, wA)]
     out = spawn_world(4, "dpgo_tpu_torch.parallel.world:multi_job",
                       kwargs=dict(jobs=jobs), workdir=tmp_path,
-                      timeout_s=120)
+                      timeout_s=60)
     for r in out[1:]:
         assert r[0]["lambda_min"] == out[0][0]["lambda_min"]
         assert np.array_equal(r[0]["direction"], out[0][0]["direction"])

@@ -200,7 +200,7 @@ def test_sharded_tail_on_four_ranks_matches_jax(tmp_path):
                       kwargs=dict(meas=_meas("torch"), num_robots=A,
                                   params=_params(tconfig), rounds=12,
                                   cfg=refine.GNTailConfig(**CFG)),
-                      workdir=tmp_path, timeout_s=90)
+                      workdir=tmp_path, timeout_s=60)
     jgraph, jmeta, jstate, _, _ = _jax_problem()
     _, ref = jgn_sharded(jstate.X, jgraph, jmeta, mesh=jmake_mesh(4),
                          cfg=jrefine.GNTailConfig(**CFG))

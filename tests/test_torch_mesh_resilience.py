@@ -398,7 +398,7 @@ def chaos_runs(tmp_path_factory):
                                fault=fault,
                                count_fetches=name == "clean")))
     res = spawn_world(4, "dpgo_tpu_torch.parallel.world:multi_job",
-                      kwargs=dict(jobs=jobs), workdir=work, timeout_s=150)
+                      kwargs=dict(jobs=jobs), workdir=work, timeout_s=60)
     for r in res[1:]:  # the result is replicated, leavers included
         for a, b in zip(r, res[0]):
             assert a["cost_history"] == b["cost_history"]

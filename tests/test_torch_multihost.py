@@ -268,7 +268,7 @@ def test_launch_world_refusals():
 
 _DEMO = dict(robots=8, n=40, num_lc=8, rounds=12, verdict_every=4,
              device="cpu", first_barrier_timeout_s=60.0,
-             worker_timeout_s=90.0)
+             worker_timeout_s=60.0)
 
 
 def test_multihost_worlds_and_kill9_recovery(tmp_path):

@@ -120,7 +120,7 @@ def port_runs(tmp_path_factory):
     for ws in (1, 2, 4):
         res = spawn_world(ws, "dpgo_tpu_torch.parallel.world:multi_job",
                           kwargs=dict(jobs=jobs), workdir=work,
-                          timeout_s=120)
+                          timeout_s=60)
         for r in res[1:]:  # every rank returns the same result
             for a, b in zip(r, res[0]):
                 assert a["cost_history"] == b["cost_history"]
@@ -298,7 +298,7 @@ def test_eight_ranks_one_agent_each_match_jax(port_runs, tmp_path):
         meas=_meas("torch", outliers), num_robots=A,
         params=_params(tconfig, pkw), max_iters=ROUNDS, eval_every=EVAL,
         grad_norm_tol=1e-12, verdict_every=K), workdir=tmp_path,
-        timeout_s=120)
+        timeout_s=60)
     for r in out:
         _same(r, port_runs[1]["jacobi"])
     ref = _jax_solve("jacobi", 8)
@@ -322,7 +322,7 @@ def test_overlap_auto_on_four_ranks_records_evidence(port_runs, tmp_path):
         params=_params(tconfig, pkw), max_iters=ROUNDS, eval_every=EVAL,
         grad_norm_tol=1e-12, verdict_every=K, overlap="auto",
         telemetry_dir=str(tmp_path / "tel")), workdir=tmp_path,
-        timeout_s=120)
+        timeout_s=60)
     decisions = []
     for r in range(4):
         evs = read_events(str(tmp_path / "tel" / f"rank{r}" /

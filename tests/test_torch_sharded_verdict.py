@@ -150,7 +150,7 @@ def test_sharded_verdict_on_two_ranks_matches_jax(tmp_path):
                                count_fetches=True)))
     out = spawn_world(2, "dpgo_tpu_torch.parallel.world:multi_job",
                       kwargs=dict(jobs=jobs), workdir=tmp_path,
-                      timeout_s=90)[0]
+                      timeout_s=60)[0]
     for (case, (kw, robust, outliers)), got in zip(CASES.items(), out):
         ref = jsharded.solve_rbcd_sharded(
             _noisy("jax", outliers=outliers), A, mesh=jmake_mesh(2),
