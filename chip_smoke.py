@@ -278,19 +278,24 @@ STREAM_FRAC, STREAM_ITERS, STREAM_GTOL = 0.05, 400, 1e-9
 #: The sharded phase (``parallel``, world size 1 over NCCL): rounds and K
 #: of the stand-in's equivalence runs; rounds before the GN tail and its
 #: outer steps; the resilience run's K, rounds, NaN-halo round and
-#: device-loss round; the multihost demo (processes, robots, rounds, K,
+#: device-loss round (four K-windows apart, so the NaN's anomaly word is
+#: fetched and rewound before the loss fails a later fetch); the
+#: multihost demo (processes, robots, rounds, K,
 #: the victim's boundary); BASELINE.md config #5 (poses, robots, seed,
 #: noise, loop-closure share, rounds, K).
 SHARD_ROUNDS, SHARD_K, SHARD_TAIL_ROUNDS, SHARD_TAIL_OUTER = 64, 8, 200, 4
-CHAOS_K, CHAOS_ROUNDS, CHAOS_NAN, CHAOS_LOSS = 4, 48, 13, 21
+RES_K, RES_ROUNDS, RES_NAN, RES_LOSS = 4, 48, 13, 29
 MH_PROCS, MH_ROBOTS, MH_ROUNDS, MH_K, MH_KILL_AT = 2, 8, 24, 4, 3
 SCALE_POSES, SCALE_ROBOTS, SCALE_SEED, SCALE_NOISE, SCALE_LC = \
     100_000, 64, 11, 0.05, 0.2
 SCALE_ROUNDS, SCALE_K, SCALE_OUTER = 8, 4, 4
 #: The sharded certificate against the device payload (both float32 on
-#: the card): ``tests/test_dist_certify.py``'s tolerance, relative to
-#: max(1, sigma); the PSD tolerance of a float32 certificate.
-SHARD_CERT_TOL, SHARD_CERT_ETA = 1e-3, 1e-3
+#: the card): the PSD tolerance eta, the smallest round value at which a
+#: float32 eigensolve decides on the stand-in (decidable needs the error
+#: band 10 eps sigma <= tol / 2 = eta * wscale / 2: eta >= 6.5e-3 at sigma
+#: 2.73e5, wscale 100), and the lambda gap allowed, in float32 ulps of
+#: sigma (the error band itself).
+SHARD_CERT_ETA, SHARD_CERT_ULPS = 1e-2, 10
 
 
 def check(ok: bool, what: str) -> None:
@@ -3754,7 +3759,7 @@ def sharded_standin(meas, mesh, dev, card: str, tmp: Path):
     check(rk.LAUNCHES == SHARD_K and word == int(vs.word),
           "the sharded sync-free window is malformed")
     emit({"phase": "sharded", "check": "standin", "card": card,
-          "world_size": mesh.size, "backend": str(
+          "b2_launches": b2, "world_size": mesh.size, "backend": str(
               torch.distributed.get_backend()), "runs": rows,
           "verdict_host_syncs_per_100_rounds": syncs,
           "sync_free_window": {"rounds": SHARD_K,
@@ -3772,13 +3777,17 @@ def sharded_tail_and_certificate(meas, params, prob, res, mesh, dev,
     from dpgo_tpu_torch.parallel import certify as pcert
     from dpgo_tpu_torch.parallel import sharded
 
-    graph, meta = prob.graph, prob.meta
+    meta = prob.meta
+    st, graph = sharded.shard_problem(mesh, rbcd.init_state(
+        prob.graph, meta, prob.X0, params), prob.graph)
+    seg = sharded.make_sharded_segment(mesh, meta, params)
     torch.cuda.synchronize()
     rk.LAUNCHES = 0
-    st = rbcd.rbcd_steps(rbcd.init_state(graph, meta, prob.X0, params),
-                         graph, SHARD_TAIL_ROUNDS, meta, params)
+    st = seg(st, graph, SHARD_TAIL_ROUNDS)
     torch.cuda.synchronize()
     b2 = rk.LAUNCHES
+    check(b2 == SHARD_TAIL_ROUNDS, "the sharded rounds before the GN tail "
+          "did not launch B2 once a round")
     cfg = refine.GNTailConfig(max_outer=SHARD_TAIL_OUTER,
                               grad_norm_tol=1e-6)
     reads = [0]
@@ -3804,7 +3813,8 @@ def sharded_tail_and_certificate(meas, params, prob, res, mesh, dev,
     host = refine.gn_tail(Xg64, e64, cfg)
     host_s = time.perf_counter() - t0
     emit({"phase": "sharded", "check": "gn_tail", "card": card,
-          "start_rounds": SHARD_TAIL_ROUNDS, "max_outer": SHARD_TAIL_OUTER,
+          "start_rounds": SHARD_TAIL_ROUNDS, "b2_launches": b2,
+          "max_outer": SHARD_TAIL_OUTER,
           "sharded": {"cost": tail.cost_history,
                       "grad_norm": tail.grad_norm_history,
                       "cg_iterations": tail.cg_iterations,
@@ -3843,37 +3853,46 @@ def sharded_tail_and_certificate(meas, params, prob, res, mesh, dev,
         pay, SHARD_CERT_ETA, float(torch.finfo(torch.float32).eps))
     cp_s = time.perf_counter() - t0
     gap = abs(cs.lambda_min - cp.lambda_min)
+    limit = SHARD_CERT_ULPS * float(torch.finfo(torch.float32).eps) \
+        * cp.sigma
     emit({"phase": "sharded", "check": "certificate", "card": card,
+          "eta": SHARD_CERT_ETA,
           "certify_sharded": {"lambda_min": cs.lambda_min,
-                              "sigma": cs.sigma, "certified": cs.certified,
+                              "sigma": cs.sigma, "tol": cs.tol,
+                              "certified": cs.certified,
                               "decidable": cs.decidable, "seconds": cs_s},
           "device_payload": {"lambda_min": cp.lambda_min,
-                             "sigma": cp.sigma, "certified": cp.certified,
+                             "sigma": cp.sigma, "tol": cp.tol,
+                             "defl_resid": float(pay["defl_resid"]),
+                             "certified": cp.certified,
                              "decidable": cp.decidable, "seconds": cp_s},
-          "lambda_gap": gap,
-          "limit": SHARD_CERT_TOL * max(1.0, cp.sigma)})
+          "lambda_gap": gap, "limit": limit})
+    check(cs.decidable and cp.decidable,
+          "a certificate of the stand-in is not decidable in float32")
+    check(cs.certified == cp.certified,
+          "certify_sharded and the device payload give other verdicts")
     check(np.isfinite(cs.lambda_min) and np.isfinite(cp.lambda_min)
-          and gap <= SHARD_CERT_TOL * max(1.0, cp.sigma),
+          and gap <= limit,
           "certify_sharded and the device payload disagree on lambda_min")
     return b2
 
 
 def sharded_resilience(meas, mesh, card: str, tmp: Path) -> int:
-    """K = CHAOS_K: a NaN halo at dispatch round CHAOS_NAN and a device
-    loss at CHAOS_LOSS; at world size 1 the loss recovers on the same
+    """K = RES_K: a NaN halo at dispatch round RES_NAN and a device
+    loss at RES_LOSS; at world size 1 the loss recovers on the same
     size.  The final cost within 1e-6 of the fault-free run's.  Returns
     B2 launches."""
     from dpgo_tpu_torch.parallel import resilience as pres
     from dpgo_tpu_torch.parallel import sharded
 
     params = AgentParams(d=3, r=RANK, num_robots=ROBOTS, rel_change_tol=0.0)
-    kw = dict(mesh=mesh, params=params, max_iters=CHAOS_ROUNDS,
-              verdict_every=CHAOS_K, eval_every=CHAOS_K, grad_norm_tol=0.0)
+    kw = dict(mesh=mesh, params=params, max_iters=RES_ROUNDS,
+              verdict_every=RES_K, eval_every=RES_K, grad_norm_tol=0.0)
     torch.cuda.synchronize()
     rk.LAUNCHES = 0
     clean = sharded.solve_rbcd_sharded(meas, ROBOTS, **kw)
     inj = pres.CollectiveFaultInjector(pres.MeshFaultSpec(
-        nan_halo_rounds=(CHAOS_NAN,), device_loss_rounds=(CHAOS_LOSS,)),
+        nan_halo_rounds=(RES_NAN,), device_loss_rounds=(RES_LOSS,)),
         seed=7)
     chaos = sharded.solve_rbcd_sharded(
         meas, ROBOTS, resilience=pres.ResilienceConfig(
@@ -3885,17 +3904,20 @@ def sharded_resilience(meas, mesh, card: str, tmp: Path) -> int:
     rel = abs(chaos.cost_history[-1] - clean.cost_history[-1]) \
         / abs(clean.cost_history[-1])
     emit({"phase": "sharded", "check": "resilience", "card": card,
+          "b2_launches": b2, "rounds": [clean.iterations, chaos.iterations],
           "recovered": chaos.recovered, "resilience": rz,
           "final_cost": chaos.cost_history[-1],
           "fault_free_cost": clean.cost_history[-1], "rel_diff": rel})
-    # Both faults fire; at K = 4 the poisoned window's word is the fetch
-    # the device loss fails, so one rewind (to the clean checkpoint before
-    # the poison) recovers from both.
+    # Both faults fire, each caught by its own word: the NaN by the
+    # verdict's anomaly latch, the loss by the fetch it fails; one rewind
+    # each, on the same size.
     check(chaos.recovered and rz["injector"]["halo_nan"] == 1
           and rz["injector"]["device_loss"] == 1
+          and rz["recoveries"] == 2
+          and any(k.startswith("anomaly") for k in rz["fault_kinds"])
           and "device_loss" in rz["fault_kinds"]
-          and set(rz["mesh_sizes"]) == {1},
-          "the resilience run did not recover from its faults")
+          and rz["mesh_sizes"] == [1, 1, 1],
+          "the resilience run did not recover from each of its faults")
     check(rel <= 1e-6, "the recovered run's final cost is not the "
           "fault-free one's")
     return b2
@@ -4023,11 +4045,16 @@ def sharded_scale(mesh, dev, card: str) -> tuple[int, dict]:
     route = plan_of(ops, kw)
     b2_ms = cuda_ms(lambda: rk.rtr_full(*ops.values(), **kw), reps=5,
                     warmup=1)
+    # A plain round once the loop is running: SCALE_K sharded rounds from
+    # the terminal state, back to back (loop_s above holds run_rbcd's
+    # one-time epilogue build and its terminal fetch).
+    round_ms = cuda_ms(lambda: seg(res.state, g, SCALE_K), reps=3,
+                       warmup=1) / SCALE_K
     row = {"poses": SCALE_POSES, "robots": SCALE_ROBOTS,
            "edges": len(meas), "n_max": meta.n_max, "e_max": meta.e_max,
            "s_max": meta.s_max, "rounds": res.iterations,
            "verdict_every": SCALE_K, "build_s": build_s,
-           "loop_s": loop_s, "ms_per_round": 1e3 * loop_s / SCALE_ROUNDS,
+           "loop_s": loop_s, "ms_per_round": round_ms,
            "b2_ms_per_launch": b2_ms, "b2_route": route.route,
            "b2_cluster": route.C, "peak_memory_bytes": peak,
            "comm_bytes_per_round": {

@@ -421,7 +421,7 @@ def _ppermute_start(Xl: torch.Tensor, graph: MultiAgentGraph,
 _exchange_wrap = None
 
 
-def _exchange_for(graph: MultiAgentGraph, A_tot: int, mesh,
+def _exchange_for(graph: MultiAgentGraph, mesh,
                   plan: PPermutePlan | None, shifts: tuple):
     """The pose exchange of a round as ``start(Xl)``, which issues the
     collective and returns a callable that waits for it and gives the
@@ -446,7 +446,7 @@ def _exchange_for(graph: MultiAgentGraph, A_tot: int, mesh,
             return _ppermute_start(Xl, graph, plan, shifts, mesh)
 
     if _exchange_wrap is not None:
-        wrapped = _exchange_wrap(lambda Xl: start(Xl)())
+        wrapped = _exchange_wrap(lambda Xl, _s=start: _s(Xl)())
 
         def start(Xl, _w=wrapped):
             Z = _w(Xl)
@@ -822,7 +822,7 @@ def _rbcd_round(state: RBCDState, graph: MultiAgentGraph, meta: GraphMeta,
     # Members of a served batch (``serve.runner``); a shard is one member.
     B = 1 if mesh is not None else A_loc // A
     offset = mesh.rank * A_loc if mesh is not None else 0
-    start_exchange = _exchange_for(graph, A, mesh, plan, shifts)
+    start_exchange = _exchange_for(graph, mesh, plan, shifts)
 
     def exchange(Xa):
         return start_exchange(Xa)()
@@ -1009,8 +1009,7 @@ def rbcd_steps(state: RBCDState, graph: MultiAgentGraph, num_rounds: int,
     take the plain loop."""
     accel = params.acceleration and state.V is not None
     if overlap and mesh is not None and not accel and num_rounds > 0:
-        halo = _exchange_for(graph, meta.num_robots, mesh, plan,
-                             shifts)(state.X)
+        halo = _exchange_for(graph, mesh, plan, shifts)(state.X)
         for _ in range(num_rounds):
             state, halo = _rbcd_round(state, graph, meta, params, mesh=mesh,
                                       plan=plan, shifts=shifts, halo=halo,

@@ -297,7 +297,7 @@ def run_worker(args) -> int:
     tail-tolerant)."""
     import torch
 
-    torch.set_num_threads(max(1, int(args.threads)))
+    torch.set_num_threads(1)
     boot = (time.monotonic(), time.time())
     if getattr(args, "telemetry_dir", ""):
         with obs.run_scope(args.telemetry_dir):
@@ -402,8 +402,6 @@ def _worker_main(args, boot) -> int:
     try:
         res = solve_rbcd_sharded(
             meas, args.robots, mesh=mesh,
-            dtype={"auto": None, "float32": torch.float32,
-                   "float64": torch.float64}[args.dtype],
             params=params, max_iters=args.rounds,
             verdict_every=args.verdict_every,
             eval_every=args.verdict_every, grad_norm_tol=0.0,
@@ -512,14 +510,13 @@ def launch_world(procs: int = 2, *, robots: int = 8, mesh_size: int = 1,
                  worker_timeout_s: float = 1800.0,
                  session: str = "multihost-solve",
                  telemetry_dir: str | None = None,
-                 device: str = "cuda", dtype: str = "auto",
-                 threads: int = 1) -> dict:
+                 device: str = "cuda") -> dict:
     """Run one multihost solve to completion, across generations.
 
     Spawns ``procs`` worker processes (``python -m
     dpgo_tpu_torch.parallel.multihost --worker``, each on ``device``: the
-    card unless ``"cpu"`` is asked for; ``dtype`` "auto" is float32 on
-    CUDA, float64 on the CPU) joined through the launcher's ``TCPStore``;
+    card unless ``"cpu"`` is asked for; float32 on CUDA, float64 on the
+    CPU; one torch thread each) joined through the launcher's ``TCPStore``;
     if a generation loses a process (the two chaos levers: a worker
     SIGKILLs itself at a named verdict boundary, or the launcher
     ``kill -9``\\ s a rank after a wall-clock delay), the surviving ranks
@@ -602,8 +599,7 @@ def launch_world(procs: int = 2, *, robots: int = 8, mesh_size: int = 1,
                        "--worker", "--rank", str(rank),
                        "--world", str(world),
                        "--coordinator", f"127.0.0.1:{coord.port}",
-                       "--device", str(device), "--dtype", str(dtype),
-                       "--threads", str(threads),
+                       "--device", str(device),
                        "--generation", str(gen),
                        "--robots", str(robots),
                        "--mesh-size", str(mesh_size),
@@ -750,12 +746,6 @@ def _build_parser() -> argparse.ArgumentParser:
                         "this package)")
     p.add_argument("--device", default="cuda",
                    help="each rank's device: cuda (default) or cpu")
-    p.add_argument("--dtype", default="auto",
-                   choices=("auto", "float32", "float64"),
-                   help="solve dtype (auto: float32 on CUDA, float64 on "
-                        "the CPU)")
-    p.add_argument("--threads", type=int, default=1,
-                   help="torch intra-op threads per rank")
     p.add_argument("--n", type=int, default=64,
                    help="poses in the synthetic demo problem")
     p.add_argument("--num-lc", type=int, default=12)
@@ -812,8 +802,7 @@ def main(argv=None) -> int:
         kill_rank=kill_rank, kill_at_boundary=kill_at,
         kill_after_s=args.kill_after,
         max_generations=args.max_generations, session=args.session,
-        telemetry_dir=args.telemetry_dir or None, device=args.device,
-        dtype=args.dtype, threads=args.threads)
+        telemetry_dir=args.telemetry_dir or None, device=args.device)
     res = summary["result"]
     # ONE machine-readable line (json.loads-able whether callers read
     # the whole file or the last line) — the scripting/CI contract.

@@ -14,9 +14,9 @@
   mesh's first rank writes; every rank reads.
 
 * **A deterministic collective fault injector** —
-  ``CollectiveFaultInjector`` wraps the exchange seams
-  (``rbcd._exchange_for`` / ``sharded._gather_exchange`` through their
-  ``_exchange_wrap`` / ``_gather_wrap`` hooks) and the driver's
+  ``CollectiveFaultInjector`` wraps the exchange seam
+  (``rbcd._exchange_for``, which ``sharded._gather_exchange`` builds on,
+  through its ``_exchange_wrap`` hook) and the driver's
   ``rbcd._host_fetch`` reads to inject NaN/corrupt halo payloads,
   simulated device loss, and hung fetches — seeded per link like the
   deployment plane's ``comms.faults.FaultInjector``, so chaos runs
@@ -259,8 +259,9 @@ class CollectiveFaultInjector:
       exchange carries the corrupt halo to every neighbor — the
       mid-solve transient that must trip the verdict anomaly latch.
     * **trace-time** (``installed()`` / ``wrap_exchange``): the
-      ``rbcd._exchange_wrap`` / ``sharded._gather_wrap`` hooks pass
-      every exchange closure built while installed through
+      ``rbcd._exchange_wrap`` hook passes every exchange closure built
+      while installed (the solver round's and the GN tail's and
+      certificate's ``sharded._gather_exchange``) through
       ``wrap_exchange``, which corrupts a seeded neighbor-buffer slot in
       the traced program itself — persistent corruption for seam-level
       tests.  (Only programs COMPILED while installed are affected;
@@ -350,10 +351,10 @@ class CollectiveFaultInjector:
     # -- trace-time exchange corruption -------------------------------------
 
     def wrap_exchange(self, exchange):
-        """Wrap an exchange closure (``rbcd._exchange_for`` /
-        ``sharded._gather_exchange`` product) so the resolved neighbor
-        buffer carries one seeded corrupted slot — trace-level, so every
-        round of a program compiled through the wrap is affected."""
+        """Wrap an exchange closure (an ``rbcd._exchange_for`` product)
+        so the resolved neighbor buffer carries one seeded corrupted slot
+        — trace-level, so every round of a program compiled through the
+        wrap is affected."""
         link = self.spec.link if self.spec.link is not None else (0, 1)
         rng = self._rng(link)
         payload = float("nan") if self.spec.nan_halo_rounds else 1e30
@@ -374,17 +375,14 @@ class CollectiveFaultInjector:
 
     @contextlib.contextmanager
     def installed(self):
-        """Install the wrap on both exchange seams for the scope's
+        """Install the wrap on the exchange seam for the scope's
         duration: every exchange built meanwhile is corrupted."""
-        from . import sharded  # late import: sharded imports this module
-        prev_r, prev_s = rbcd._exchange_wrap, sharded._gather_wrap
+        prev = rbcd._exchange_wrap
         rbcd._exchange_wrap = self.wrap_exchange
-        sharded._gather_wrap = self.wrap_exchange
         try:
             yield self
         finally:
-            rbcd._exchange_wrap = prev_r
-            sharded._gather_wrap = prev_s
+            rbcd._exchange_wrap = prev
 
     # -- fetch-side faults ---------------------------------------------------
 

@@ -38,7 +38,7 @@ import torch.distributed as dist
 
 from .. import obs
 from ..config import AgentParams
-from ..device import default_dtype, resolve_device, sync_free
+from ..device import default_dtype, resolve_device
 from ..models import rbcd, refine
 from ..models.rbcd import GraphMeta, MultiAgentGraph, RBCDState, init_state
 from ..ops import manifold, quadratic, smallmat
@@ -379,23 +379,12 @@ def comm_bytes_per_round(meta: GraphMeta, mesh_size: int,
 # Sharded verdict program (the device-resident loop on the mesh)
 # ---------------------------------------------------------------------------
 
-#: Collective fault-injection hook (``parallel.resilience``) — the twin of
-#: ``rbcd._exchange_wrap``: when set, every exchange built by
-#: ``_gather_exchange`` passes through it.
-_gather_wrap = None
-
-
 def _gather_exchange(graph: MultiAgentGraph, mesh: Mesh):
     """Neighbor-buffer exchange of any ``[A_loc, n, p, d+1]`` block: the
-    all-gather of its public table over the mesh, then the slot resolve —
-    the solver round's v1 exchange (``rbcd.neighbor_buffer``)."""
-    def exchange(Vl):
-        return rbcd.neighbor_buffer(
-            mesh.all_gather(rbcd.public_table(Vl, graph)), graph)
-
-    if _gather_wrap is not None:
-        exchange = _gather_wrap(exchange)
-    return exchange
+    solver round's all-gather exchange (``rbcd._exchange_for`` without a
+    plan, so ``rbcd._exchange_wrap`` reaches it too), waited for at once."""
+    start = rbcd._exchange_for(graph, mesh, None, ())
+    return lambda Vl: start(Vl)()
 
 
 def local_grad_rows(V, Vz, graph: MultiAgentGraph):
@@ -483,9 +472,9 @@ def make_sharded_metrics_body(mesh: Mesh, graph: MultiAgentGraph,
 # product is an all-reduce, the block-Jacobi preconditioner is
 # ``refine.gn_precond_blocks`` per rank, factored by the sync-free
 # ``smallmat`` Cholesky, and one outer step — CG and backtracking included
-# — is one call that reads nothing on the host: on a card both loops run
-# to their bounds with the finished lanes frozen (on the CPU they stop
-# early, which reads a flag the CPU already holds).  The driver reads the
+# — is one call that reads nothing on the host: both loops run to their
+# bounds with the finished lanes frozen (the same values and counts as
+# stopping early), on the card and on the CPU alike.  The driver reads the
 # gate norm and one stats vector per outer step through ``rbcd._host_fetch``.
 
 
@@ -499,7 +488,6 @@ def _gn_outer_shard(X, graph: MultiAgentGraph, *, mesh: Mesh,
     d = meta.d
     n_max = meta.n_max
     dtype = X.dtype
-    bounded = sync_free(X)
 
     def psum(v):
         return mesh.all_reduce(v)
@@ -584,22 +572,15 @@ def _gn_outer_shard(X, graph: MultiAgentGraph, *, mesh: Mesh,
         res_it = torch.where(neg, res, res_new)
         p_it = torch.where(stop, p, p_new)
         rz_it = torch.where(stop, rz, rz_new)
-        if bounded:
-            # Frozen once done: the lanes keep their values, k stops.
-            live = ~done
-            k = k + live.to(k.dtype)
-            v = torch.where(live, v_it, v)
-            res = torch.where(live, res_it, res)
-            p = torch.where(live, p_it, p)
-            rz = torch.where(live, rz_it, rz)
-            neg_seen = neg_seen | (neg & live)
-            done = done | stop
-        else:
-            k = k + 1
-            v, res, p, rz = v_it, res_it, p_it, rz_it
-            neg_seen = neg_seen | neg
-            if bool(stop):
-                break
+        # Frozen once done: the lanes keep their values, k stops.
+        live = ~done
+        k = k + live.to(k.dtype)
+        v = torch.where(live, v_it, v)
+        res = torch.where(live, res_it, res)
+        p = torch.where(live, p_it, p)
+        rz = torch.where(live, rz_it, rz)
+        neg_seen = neg_seen | (neg & live)
+        done = done | stop
     cg_iters = k
 
     # Backtracking projective retraction on the true (all-reduced) cost.
@@ -609,21 +590,12 @@ def _gn_outer_shard(X, graph: MultiAgentGraph, *, mesh: Mesh,
     for _ in range(int(cfg.max_backtracks)):
         Xc = manifold.project(X + step * v)
         fc = cost_of(Xc)
-        ok = torch.isfinite(fc) & (fc < f0)
-        if bounded:
-            live = ~accepted
-            ok = ok & live
-            X_new = torch.where(ok, Xc, X_new)
-            f_new = torch.where(ok, fc, f_new)
-            step = torch.where(live, step * cfg.step_shrink, step)
-            accepted = accepted | ok
-        else:
-            step = step * cfg.step_shrink
-            X_new = torch.where(ok, Xc, X_new)
-            f_new = torch.where(ok, fc, f_new)
-            accepted = accepted | ok
-            if bool(ok):
-                break
+        live = ~accepted
+        ok = torch.isfinite(fc) & (fc < f0) & live
+        X_new = torch.where(ok, Xc, X_new)
+        f_new = torch.where(ok, fc, f_new)
+        step = torch.where(live, step * cfg.step_shrink, step)
+        accepted = accepted | ok
 
     stats = torch.stack([f0, gn, cg_iters.to(dtype), neg_seen.to(dtype),
                          accepted.to(dtype), f_new, step])

@@ -7,9 +7,10 @@ returns each rank's picklable result.  The CPU parity tests run the
 sharded plane over gloo worlds of 1, 2, 4 and 8 ranks this way; the jobs
 below are the ones they use.
 
-Every rank sets ``torch.set_num_threads(threads)`` (1 by default: eager ops
-on tiny tensors, several ranks on a shared host), and the group is
-initialized with a timeout of ``timeout_s``; the whole world is killed
+The worlds are gloo groups on the CPU.  Every rank sets
+``torch.set_num_threads(1)`` (eager ops on tiny tensors, several ranks on a
+shared host), and the group is initialized with a timeout of
+``timeout_s``; the whole world is killed
 when it outlives ``timeout_s``, so a hung rank fails its caller instead of
 hanging it.
 
@@ -39,9 +40,8 @@ _REPO_ROOT = Path(__file__).resolve().parents[2]
 
 
 def spawn_world(world_size: int, target: str, args: tuple = (),
-                kwargs: dict | None = None, *, workdir, backend: str = "gloo",
-                timeout_s: float = 60.0, threads: int = 1,
-                env: dict | None = None) -> list:
+                kwargs: dict | None = None, *, workdir,
+                timeout_s: float = 60.0) -> list:
     """Run ``target`` (``"module:function"``) with ``args``/``kwargs`` on
     every rank of a new ``world_size``-rank world; returns the ranks'
     results in rank order.  Raises ``TimeoutError`` (after killing every
@@ -55,7 +55,6 @@ def spawn_world(world_size: int, target: str, args: tuple = (),
     with open(job, "wb") as fh:
         pickle.dump((target, tuple(args), dict(kwargs or {})), fh)
     penv = dict(os.environ)
-    penv.update(env or {})
     penv["PYTHONPATH"] = str(_REPO_ROOT) + (
         os.pathsep + penv["PYTHONPATH"] if penv.get("PYTHONPATH") else "")
     procs, outs, logs = [], [], []
@@ -68,7 +67,7 @@ def spawn_world(world_size: int, target: str, args: tuple = (),
             procs.append(subprocess.Popen(
                 [sys.executable, "-m", "dpgo_tpu_torch.parallel.world",
                  str(job), str(rank), str(world_size), str(store), str(out),
-                 backend, str(timeout_s), str(threads)],
+                 str(timeout_s)],
                 env=penv, stdout=lf, stderr=subprocess.STDOUT,
                 cwd=str(_REPO_ROOT)))
     deadline = time.monotonic() + timeout_s
@@ -107,16 +106,15 @@ def _tails(logs, n: int = 3000) -> str:
 
 
 def _rank_main(argv) -> int:
-    job, rank, world_size, store_path, out, backend, timeout_s, threads = \
-        argv
+    job, rank, world_size, store_path, out, timeout_s = argv
     import torch
     import torch.distributed as dist
 
-    torch.set_num_threads(int(threads))
+    torch.set_num_threads(1)
     rank, world_size = int(rank), int(world_size)
     timeout = datetime.timedelta(seconds=float(timeout_s))
     store = dist.FileStore(store_path, world_size)
-    dist.init_process_group(backend, store=store, rank=rank,
+    dist.init_process_group("gloo", store=store, rank=rank,
                             world_size=world_size, timeout=timeout)
     with open(job, "rb") as fh:
         target, args, kwargs = pickle.load(fh)

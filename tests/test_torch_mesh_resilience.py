@@ -196,11 +196,34 @@ def test_injector_wrap_exchange_and_installed_hooks():
     inj.enabled = False
     assert torch.equal(inj.wrap_exchange(lambda Xl: Z0)(None), Z0)
     inj.enabled = True
-    assert rbcd._exchange_wrap is None and sharded_mod._gather_wrap is None
+    # One hook serves the round's exchange and the all-gather exchange of
+    # the GN tail and certificate: both are built through it while it is
+    # installed, and neither is touched once it is gone.
+    graph, _meta, state = _graph_for(_noisy("torch"))
+
+    class OneRank:  # the all-gather of a world of one rank
+        def all_gather_start(self, t):
+            return lambda: t
+
+    def builds():
+        start = rbcd._exchange_for(graph, None, None, ())
+        return (lambda X: start(X)(),
+                sharded_mod._gather_exchange(graph, OneRank()))
+
+    clean = rbcd.neighbor_buffer(rbcd.public_table(state.X, graph), graph)
+    n0 = inj.stats["links_wrapped"]
+    assert rbcd._exchange_wrap is None
     with inj.installed():
         assert rbcd._exchange_wrap.__self__ is inj
-        assert sharded_mod._gather_wrap.__self__ is inj
-    assert rbcd._exchange_wrap is None and sharded_mod._gather_wrap is None
+        wrapped = builds()
+    assert rbcd._exchange_wrap is None
+    assert inj.stats["links_wrapped"] == n0 + 2
+    for ex in wrapped:
+        Z = ex(state.X)
+        assert torch.isnan(Z).any()
+        assert torch.equal(Z[~torch.isnan(Z)], clean[~torch.isnan(Z)])
+    for ex in builds():
+        assert torch.equal(ex(state.X), clean)
 
 
 def test_injector_fetch_side_device_loss_and_hang():
