@@ -60,7 +60,7 @@ synthetic stand-in for sphere2500 (2500 poses, 4948 edges, 8 robots, rank
   rounds from the host's chordal init against the "ell" formulation's,
   within B2's 10-round bound, with no kernel launched; Q built twice bit
   for bit; one K-round verdict window under the sync-error debug mode;
-  its time per round beside B2's (a record), and two dense rounds traced
+  its time per round beside B2's (a record), and one dense round traced
   by ``torch.profiler`` (the device busy share);
 * ``dist_init`` — ``models.dist_init.distributed_initialization`` on the
   card in float32 (the alignment in float64) against the float64 CPU
@@ -89,7 +89,7 @@ synthetic stand-in for sphere2500 (2500 poses, 4948 edges, 8 robots, rank
   iterate, and one off-cadence iterate under the sync-error mode; a
   chaos arm (10% drop, 25% delay, 5% reorder, robot 7 killed at round
   40) within 1% of a fault-free arm; the async Poisson-clock loop at
-  50 Hz with overlapped bus clients for 10 s, every thread joined, one
+  50 Hz with overlapped bus clients for 5 s, every thread joined, one
   second traced;
 * ``telemetry`` — the solve paths with an ``obs`` run on (after
   ``verdict``): the production arm with telemetry off and on in this
@@ -105,12 +105,13 @@ synthetic stand-in for sphere2500 (2500 poses, 4948 edges, 8 robots, rank
   device busy share;
 * ``tcp`` — ``python -m dpgo_tpu_torch.examples.tcp_deployment_example``
   with eight robot processes on the card over localhost TCP (after
-  ``agents``): lockstep with ``--telemetry`` for 300 rounds (consensus
-  reached, the team cost within 1% of the production arm's, the merged
-  fleet timeline with spans and flow edges), a fault-free and a chaos
-  arm (``agents``' fault spec over TCP, robot 7 killed at round 40, the
-  survivors within 1% of the fault-free arm), and the async loop at
-  50 Hz with staleness 1 (iterates per robot, the device busy share as
+  ``agents``): lockstep with ``--telemetry`` for 60 rounds under the
+  chaos arm's round deadline (consensus reached, the team cost within 1%
+  of the production arm's, the merged fleet timeline with spans and flow
+  edges) as the fault-free arm of a chaos arm (``agents``' fault spec
+  over TCP, robot 7 killed at round 40, the survivors within 1% of the
+  fault-free arm), and the async loop at 50 Hz for 250 rounds with
+  staleness 1 (iterates per robot, the device busy share as
   the robots' summed CUDA-event step time over the wall); every robot
   process's B2 launches equal its stepped iterates;
 * ``serve`` — the serving plane (``dpgo_tpu_torch.serve``; after
@@ -133,7 +134,27 @@ synthetic stand-in for sphere2500 (2500 poses, 4948 edges, 8 robots, rank
   card answering ``solve_g2o`` within 1e-6 of the in-process front-end;
   bench_streaming.py's protocol (+5% loop closures: the delta path, its
   tiles equal to a fresh pad bit for bit, the warm arm within 1e-5 of the
-  cold arm with B2 once per round, the warm/cold wall ratio).
+  cold arm with B2 once per round, the warm/cold wall ratio);
+* ``fleet`` — the serving fleet (``dpgo_tpu_torch.serve.fleet``; after
+  ``serve``, on its eight requests, 20 rounds each, the long sessions
+  300): eight session-tagged requests, twice each, through a
+  ``FleetRouter`` over two in-process replicas on the card, each on its
+  rendezvous replica both times and within 1e-5 of a lone
+  ``SolveServer``'s cost; a drain migration (``migrate_from``) resumed
+  from its snapshot bit for bit against the uninterrupted solve;
+  ``kill_replica`` with three sessions in flight (none lost, the
+  in-flight one resumed, the pool respawned) and the autoscaler at a
+  zero queue-wait SLO, then ``scale_down``; two child replicas
+  (``ProcServer``, each its own process and CUDA context) behind the
+  router on an empty artifact tier: the cold one stores the kernel
+  library, the warm one binds it from the tier (no nvcc, no compile
+  seconds, the cold one's result bit for bit), then the cold one is
+  ``SIGKILL``ed with two sessions in flight (dead within the heartbeat
+  budget, the sessions finished on the other from the shared store);
+  a third child on a corrupted entry quarantines it and still serves;
+  B2 launches equal rounds for each in-process replica and each child
+  (its telemetry's dispatch spans); requests/s of one and two replicas
+  (a record: they share the card).
 
 Every launch gate is exact: the rounds each run enqueued, the per-eval
 loop's discarded speculative segment and the verdict loop's polish and
@@ -153,7 +174,8 @@ the refine phase B4 is held against its plain version on both routes and
 timed on both and at every cluster size.  The ``plan`` line gives the
 route of all four kernels at the slice shape.
 
-Each phase prints one JSON line; any failure raises.  The line before the
+Each phase prints JSON lines, each with ``elapsed_s`` since the start,
+and a ``seconds`` line when it ends; any failure raises.  The line before the
 last is the kernel table ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  ``--profile`` traces the first
 dispatch, one more solve and one more refine cycle with ``torch.profiler``
@@ -254,6 +276,9 @@ SPIN_CYCLES = 200_000_000
 CERT_RANK, CERT_GTOL, CERT_MAX_ITERS, CERT_K = 5, 1e-9, 1000, 8
 CERT_LAM_TOL = 1e-6
 STAIR_R_MIN, STAIR_R_MAX, WIND_CYCLES, WIND_LEN = 4, 6, 8, 16
+#: LOBPCG iterations of the wound instance's failing rank: its escape
+#: direction only (an eigenvalue near -5.86, far below -tol).
+WIND_ESCAPE_LOBPCG = 100
 #: The fused refinement (bench_convergence.py's fused arm): descent rounds
 #: before the handoff, the tCG budget, the refine rounds' cap and the
 #: oracle's cadence, and the gap to reach (the oracle stops at 0.3 of it).
@@ -268,24 +293,31 @@ PEAK_FP32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
 #: against the in-process one, the warm streaming cost against the cold
 #: one; bench_streaming.py's streamed fraction, round cap and tolerance.
 SERVE_SIZES, SERVE_SEEDS = (2500, 2480, 2460, 2440), (0, 1)
-SERVE_QUANTUM, SERVE_ROUNDS, SERVE_K, SERVE_TENANT_COPIES = 32, 200, 8, 4
+SERVE_QUANTUM, SERVE_ROUNDS, SERVE_K, SERVE_TENANT_COPIES = 32, 100, 8, 4
 SERVE_COST_RTOL, TCP_COST_RTOL, STREAM_COST_RTOL = 1e-5, 1e-6, 1e-5
 #: The batch and the server run every one of their SERVE_ROUNDS rounds
 #: (``rel_change_tol`` 0, this gradient tolerance), so final costs compare
 #: at one round count.
 SERVE_GTOL = 1e-9
 STREAM_FRAC, STREAM_ITERS, STREAM_GTOL = 0.05, 400, 1e-9
+#: The fleet phase (the serve phase's requests): rounds of a request and
+#: its eval cadence (a session snapshot every eval), and rounds of the
+#: sessions a drain or a kill stops mid-flight.
+FLEET_ROUNDS, FLEET_EVAL, FLEET_LONG_ROUNDS = 20, 10, 300
 #: The sharded phase (``parallel``, world size 1 over NCCL): rounds and K
 #: of the stand-in's equivalence runs; rounds before the GN tail and its
 #: outer steps; the resilience run's K, rounds, NaN-halo round and
 #: device-loss round (four K-windows apart, so the NaN's anomaly word is
 #: fetched and rewound before the loss fails a later fetch); the
 #: multihost demo (processes, robots, rounds, K,
-#: the victim's boundary); BASELINE.md config #5 (poses, robots, seed,
+#: the victim's boundary, and the kill arm's steady-state barrier timeout,
+#: its fault-detection latency: a boundary of K rounds here takes
+#: milliseconds); BASELINE.md config #5 (poses, robots, seed,
 #: noise, loop-closure share, rounds, K).
 SHARD_ROUNDS, SHARD_K, SHARD_TAIL_ROUNDS, SHARD_TAIL_OUTER = 64, 8, 200, 4
 RES_K, RES_ROUNDS, RES_NAN, RES_LOSS = 4, 48, 13, 29
 MH_PROCS, MH_ROBOTS, MH_ROUNDS, MH_K, MH_KILL_AT = 2, 8, 24, 4, 3
+MH_BARRIER_S = 3.0
 SCALE_POSES, SCALE_ROBOTS, SCALE_SEED, SCALE_NOISE, SCALE_LC = \
     100_000, 64, 11, 0.05, 0.2
 SCALE_ROUNDS, SCALE_K, SCALE_OUTER = 8, 4, 4
@@ -303,8 +335,24 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f"chip_smoke: {what}")
 
 
+#: The script's start, and the end of the last phase ``lap`` timed.
+T_START = time.perf_counter()
+_LAP = [T_START]
+
+
 def emit(obj) -> None:
+    """Print one JSON line; a phase line also gets ``elapsed_s``, the
+    seconds since the script started."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
+
+
+def lap(phase: str) -> None:
+    """The phase's line of ``seconds``: the wall since the last lap."""
+    now = time.perf_counter()
+    emit({"phase": phase, "check": "seconds", "seconds": now - _LAP[0]})
+    _LAP[0] = now
 
 
 def nvidia_smi() -> str:
@@ -1498,12 +1546,12 @@ def rtr_host_reads(edges, n: int, dev, iters: int = 10) -> dict:
 
 
 def certificate_profile(Xg, edges, inc, card: str) -> dict:
-    """Where the certificate stage's time goes: a payload with 20 LOBPCG
+    """Where the certificate stage's time goes: a payload with 10 LOBPCG
     iterations traced by ``torch.profiler`` (device busy share, kernel
     launches), and the small eigensolves of LOBPCG timed alone."""
     from dpgo_tpu_torch.ops import smallmat
 
-    iters = 20
+    iters = 10
     prof = profile_run(lambda: certify.device_certificate_payload(
         Xg, edges, 0, lobpcg_iters=iters, inc=inc) and iters)
     g = torch.Generator(device=Xg.device).manual_seed(0)
@@ -1603,11 +1651,13 @@ def certify_fstar(meas, dev, card: str) -> dict:
     return row
 
 
-def certify_main_path(meas, params, dev, card: str) -> tuple[dict, int]:
+def certify_main_path(meas, params, dev, card: str) -> tuple[dict, int,
+                                                              float]:
     """(b) The slice's main path: the certified solve through the verdict
     loop, counted; the certified epilogue under the sync-error mode and
-    timed; the verdict's soundness against the host float64 eigensolve;
-    one ``certify_mode="host"`` run.  Returns the B2 launches."""
+    timed; the verdict's soundness against the dense oracle; one
+    ``certify_mode="host"`` run.  Returns the row, the B2 launches and the
+    host-mode run's seconds."""
     cparams = dataclasses.replace(params, certify_mode="device")
     prob = rbcd.prepare_problem(meas, ROBOTS, cparams, device=dev)
     fetches = [0]
@@ -1668,14 +1718,13 @@ def certify_main_path(meas, params, dev, card: str) -> tuple[dict, int]:
     pay = {k: (float(v) if v.dim() == 0 else None)
            for k, v in fin["cert"].items()}
 
-    # Soundness against the host float64 eigensolve on the iterate.
+    # Soundness against the dense oracle on the iterate (float64 on the
+    # card; the host float64 tier is held against it in (a)).
     X64 = fin["Xg"].double().cpu().numpy()
     e_host = edge_set_from_measurements(part.meas_global,
                                         dtype=torch.float64, device="cpu")
     e_host = e_host._replace(weight=res.weights.double().cpu())
     tol = cert.tol
-    lam64, resid = host_lambda_min(X64, e_host, tol,
-                                   fin["cert"]["direction"].double().cpu())
     lam_dense = dense_spectrum(X64, e_host, dev, 1)[0]
     verdict = certify.CERT_STATUS[cert.device_verdict]
     row = {"phase": "certify", "check": "main_path", "card": card,
@@ -1689,7 +1738,6 @@ def certify_main_path(meas, params, dev, card: str) -> tuple[dict, int]:
            "rq": pay["rq"], "tol": tol, "wscale": cert.weight_scale,
            "stationarity_gap": cert.stationarity_gap,
            "lambda_min_f64_fallback": cert.lambda_min_f64,
-           "lambda_min_host_f64": lam64, "host_f64_resid": resid,
            "lambda_min_dense": lam_dense,
            "epilogue_certified_ms": epi_ms,
            "epilogue_off_ms": off_ms,
@@ -1705,20 +1753,25 @@ def certify_main_path(meas, params, dev, card: str) -> tuple[dict, int]:
     check(pay["lam_min"] == cert.lambda_min and pay["sigma"] == cert.sigma,
           "the certified epilogue does not repeat the driver's payload")
     if cert.device_verdict == certify.CERT_ACCEPT:
-        check(lam64 >= -tol, "ACCEPT, but lambda_min_f64 < -tol")
+        check(lam_dense >= -tol, "ACCEPT, but the dense lambda_min < -tol")
     elif cert.device_verdict == certify.CERT_FAIL:
-        check(lam64 < -tol or pay["rq"] < -tol,
-              "FAIL, but neither lambda_min_f64 nor the RQ is below -tol")
+        check(lam_dense < -tol or pay["rq"] < -tol,
+              "FAIL, but neither the dense lambda_min nor the RQ is below "
+              "-tol")
     else:
         check(cert.device_verdict == certify.CERT_REFUSE
               and cert.lambda_min_f64 is not None,
               "a REFUSE did not end in the host decision")
         if cert.certified:
-            check(lam64 >= -tol, "the host decision certified, but "
-                  "lambda_min_f64 < -tol")
+            check(lam_dense >= -tol, "the host decision certified, but "
+                  "the dense lambda_min < -tol")
 
-    # The post-hoc host mode once, through the per-eval loop.
-    hparams = dataclasses.replace(params, certify_mode="host")
+    # The post-hoc host mode once, through the per-eval loop, at the
+    # sharded check's eta, where the float32 eigensolve decides alone (the
+    # host float64 pass it would take at 1e-5 is the main path's REFUSE
+    # fallback above).
+    hparams = dataclasses.replace(params, certify_mode="host",
+                                  certify_eta=SHARD_CERT_ETA)
     hprob = dataclasses.replace(prob, params=hparams)
     rk.LAUNCHES = 0
     t2 = time.perf_counter()
@@ -1736,20 +1789,25 @@ def certify_main_path(meas, params, dev, card: str) -> tuple[dict, int]:
           "rounds_enqueued": h_enqueued, "certified": hc.certified,
           "decidable": hc.decidable, "lambda_min": hc.lambda_min,
           "lambda_min_f64": hc.lambda_min_f64, "tol": hc.tol,
-          "sigma": hc.sigma, "device_verdict":
+          "eta": SHARD_CERT_ETA, "sigma": hc.sigma, "device_verdict":
           certify.CERT_STATUS[hc.device_verdict], "solve_s": host_s})
     check(h_launches == h_enqueued,
           "the host-mode solve did not launch B2 once per enqueued round")
     check(hc.device_verdict == certify.CERT_NONE,
           "the host mode ran a device eigensolve")
+    check(hc.decidable and hc.lambda_min_f64 is None,
+          "the host mode's float32 eigensolve did not decide alone")
     check(bool(torch.isfinite(hres.T).all()),
           "the host-mode trajectory is malformed")
-    return row, launches + h_launches
+    return row, launches + h_launches, time.perf_counter() - t2
 
 
 def staircase_from(meas, X, r_max: int, dev) -> tuple[list, object]:
     """``solve_staircase``'s loop from a given iterate ``X`` (float64):
     solve at the rank of X, certify, escape to the next rank on failure.
+    The rank of X must fail (the caller's gate): its eigensolve only has
+    to find the escape direction, so it runs WIND_ESCAPE_LOBPCG iterations;
+    every later rank certifies at ``certify_solution``'s own count.
     Returns the rank history and the last certificate."""
     edges = edge_set_from_measurements(meas, dtype=torch.float64,
                                        device=dev)
@@ -1758,11 +1816,13 @@ def staircase_from(meas, X, r_max: int, dev) -> tuple[list, object]:
                                      params.precond_shift)
     X = torch.as_tensor(X, dtype=torch.float64).to(dev)
     history = []
-    for r in range(X.shape[1], r_max + 1):
+    r0 = X.shape[1]
+    for r in range(r0, r_max + 1):
         out = solver.rtr_solve(problem, X, params, max_iters=300,
                                grad_norm_tol=1e-6)
         X = out.X
-        cert = certify.certify_solution(X, edges, seed=r)
+        kw = {"lobpcg_iters": WIND_ESCAPE_LOBPCG} if r == r0 else {}
+        cert = certify.certify_solution(X, edges, seed=r, **kw)
         history.append((r, float(out.f), cert.lambda_min))
         if cert.certified or r == r_max:
             return history, cert
@@ -1773,9 +1833,9 @@ def staircase_from(meas, X, r_max: int, dev) -> tuple[list, object]:
 def certify_staircase(meas, dev, card: str) -> dict:
     """(c) The staircase in float64 on the card: ``solve_staircase`` on
     the stand-in from rank ``STAIR_R_MIN``, its verdict held for soundness
-    against the host float64 eigensolve; and the staircase's loop from the
-    wound critical point of ``make_stitched_winding`` (fails at rank 2,
-    escapes, certifies)."""
+    against the dense oracle; and the staircase's loop from the wound
+    critical point of ``make_stitched_winding`` (fails at rank 2, escapes,
+    certifies)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     st = certify.solve_staircase(meas, r_min=STAIR_R_MIN, r_max=STAIR_R_MAX,
@@ -1784,9 +1844,7 @@ def certify_staircase(meas, dev, card: str) -> dict:
     t1 = time.perf_counter()
     e_host = edge_set_from_measurements(meas, dtype=torch.float64,
                                         device="cpu")
-    lam64, _ = host_lambda_min(st.X.cpu().numpy(), e_host,
-                               st.certificate.tol,
-                               st.certificate.direction.cpu().numpy())
+    lam_dense = dense_spectrum(st.X.cpu().numpy(), e_host, dev, 1)[0]
     t2 = time.perf_counter()
     wmeas, Xw = make_stitched_winding(WIND_CYCLES, WIND_LEN)
     w_hist, w_cert = staircase_from(wmeas, Xw, STAIR_R_MAX, dev)
@@ -1796,16 +1854,17 @@ def certify_staircase(meas, dev, card: str) -> dict:
            "dtype": "float64",
            "standin": {"history": st.history, "rank": st.rank,
                        "certified": st.certificate.certified,
-                       "lambda_min_host_f64": lam64,
-                       "seconds": t1 - t0, "host_f64_s": t2 - t1},
+                       "lambda_min_dense": lam_dense,
+                       "seconds": t1 - t0, "dense_s": t2 - t1},
            "winding": {"poses": wmeas.num_poses, "edges": len(wmeas),
                        "history": w_hist, "rank": w_hist[-1][0],
                        "certified": w_cert.certified,
+                       "escape_lobpcg_iters": WIND_ESCAPE_LOBPCG,
                        "seconds": t3 - t2}}
     emit(row)
     check(not st.certificate.certified
-          or lam64 >= -st.certificate.tol, "the stand-in's staircase "
-          "certified, but lambda_min_f64 < -tol")
+          or lam_dense >= -st.certificate.tol, "the stand-in's staircase "
+          "certified, but the dense lambda_min < -tol")
     check(len(w_hist) >= 2 and w_hist[0][0] == 2
           and w_hist[0][2] < -w_cert.tol,
           "the wound instance did not fail at rank 2")
@@ -1821,9 +1880,18 @@ def certify_phase(meas, params, dev, card: str) -> tuple[int, float]:
     check(not torch.backends.cuda.matmul.allow_tf32,
           "float32 matmuls run in TF32: an f32 certificate would be "
           "unsound")
+    parts = {}
+    t0 = time.perf_counter()
     fstar = certify_fstar(meas, dev, card)
-    _, launches = certify_main_path(meas, params, dev, card)
+    t1 = time.perf_counter()
+    _, launches, parts["host_mode"] = certify_main_path(meas, params, dev,
+                                                        card)
+    t2 = time.perf_counter()
     certify_staircase(meas, dev, card)
+    parts.update(fstar=t1 - t0, main_path=t2 - t1 - parts["host_mode"],
+                 staircase=time.perf_counter() - t2)
+    emit({"phase": "certify", "check": "parts", "card": card,
+          "seconds": parts})
     return launches, fstar["f_star"]
 
 
@@ -1999,8 +2067,8 @@ def dense_phase(prob, params, X0_host, chol_host, ell, traj_limit, dev,
     """The dense-Q formulation on the card: 10 rounds from the host's
     chordal init against the "ell" formulation's (B2's 10-round bound), no
     kernel launch, Q built twice bit for bit, one K-round verdict window
-    under the sync-error mode, rounds/s beside the kernel's, and two dense
-    rounds traced (the device busy share)."""
+    under the sync-error mode, rounds/s beside the kernel's, and one dense
+    round traced (the device busy share)."""
     graph, meta, part = prob.graph, prob.meta, prob.part
     dparams = dataclasses.replace(params, solver=dataclasses.replace(
         params.solver, dense_quadratic=True))
@@ -2052,9 +2120,9 @@ def dense_phase(prob, params, X0_host, chol_host, ell, traj_limit, dev,
         return k
     kernel_ms = cuda_ms(lambda: window(params), reps=3, warmup=1) \
         / VERDICT_K
-    # Where a dense round's time goes: two rounds (and the Q build of
+    # Where a dense round's time goes: one round (and the Q build of
     # ``init_state``) traced.
-    prof = profile_run(lambda: window(dparams, 2))
+    prof = profile_run(lambda: window(dparams, 1))
     row = {"phase": "dense", "card": card, "formulation": form,
            "qbuf_bytes": q_bytes, "qbuf_build_s": build_s,
            "qbuf_builds_bitwise_equal": q_equal,
@@ -2231,7 +2299,7 @@ def fused_refine_phase(meas, f_star: float, dev, card: str) -> tuple[int,
 #: cost's limit against the production arm's final cost.
 AGENT_MAX_ROUNDS, CHAOS_ROUNDS, CHAOS_KILL, CHAOS_PACE = 300, 60, (7, 40), \
     0.004
-ASYNC_HZ, ASYNC_S, FETCH_K, FETCH_ROUNDS = 50.0, 10.0, 8, 16
+ASYNC_HZ, ASYNC_S, FETCH_K, FETCH_ROUNDS = 50.0, 5.0, 8, 16
 TEAM_COST_RTOL, CHAOS_RTOL = 0.01, 0.01
 
 
@@ -2939,9 +3007,10 @@ def telemetry_phase(prob, params, dev, card: str, tmp: Path) -> int:
 # The multi-process TCP deployment on the card
 # ---------------------------------------------------------------------------
 
-#: Lockstep rounds (the agents phase's cap), the chaos arm's fault spec and
-#: round deadline, and the async arm's rounds at 50 Hz (about 10 s).
-TCP_ROUNDS, TCP_CHAOS_TIMEOUT, TCP_ASYNC_ROUNDS = 300, 0.5, 500
+#: The chaos arm's round deadline (the fault-free arm, which is also the
+#: lockstep arm with telemetry, runs under it too), and the async arm's
+#: rounds at 50 Hz (about 5 s).
+TCP_CHAOS_TIMEOUT, TCP_ASYNC_ROUNDS = 0.5, 250
 
 
 def tcp_launch(data: str, out_dir: Path, *flags) -> tuple[dict, dict, float]:
@@ -3001,11 +3070,11 @@ def consensus_round(tdir: Path) -> int | None:
 def tcp_phase(meas, prod_cost: float, card: str, tmp: Path) -> int:
     """``python -m dpgo_tpu_torch.examples.tcp_deployment_example`` with
     eight robot processes on the card over localhost TCP, each iterate one
-    B2 launch at A=1: lockstep with telemetry (team cost against the
-    production arm's, launches against stepped iterates, the merged fleet
-    timeline), a fault-free and a chaos arm (robot 7 killed at round 40),
-    and the async loop at 50 Hz with staleness 1.  Returns B2's launches
-    in the robot processes."""
+    B2 launch at A=1: a fault-free lockstep arm with telemetry (team cost
+    against the production arm's, launches against stepped iterates, the
+    merged fleet timeline) that is also the reference of a chaos arm
+    (robot 7 killed at round 40), and the async loop at 50 Hz with
+    staleness 1.  Returns B2's launches in the robot processes."""
     from dpgo_tpu_torch.examples import tcp_deployment_example as tcp
     from dpgo_tpu_torch.obs import timeline
 
@@ -3021,16 +3090,19 @@ def tcp_phase(meas, prod_cost: float, card: str, tmp: Path) -> int:
               "per stepped iterate")
         return c
 
-    # -- lockstep, telemetry on ---------------------------------------------
-    res, outs, dt = tcp_launch(data, tmp / "lockstep", "--rounds",
-                               str(TCP_ROUNDS), "--telemetry")
+    # -- lockstep with telemetry: the fault-free arm ---------------------------
+    survivors = [r for r in range(ROBOTS) if r != CHAOS_KILL[0]]
+    common = ["--rounds", str(CHAOS_ROUNDS), "--round-timeout",
+              str(TCP_CHAOS_TIMEOUT)]
+    res, outs, dt = tcp_launch(data, tmp / "lockstep", *common,
+                               "--telemetry")
     c = launches_ok(outs, "lockstep")
     b2 += sum(c["b2_launches"].values())
     trace_path = tmp / "lockstep" / "trace.json"
     counts = timeline.validate_chrome_trace(str(trace_path))
     cons = consensus_round(tmp / "lockstep" / "telemetry")
     emit({"phase": "tcp", "check": "lockstep", "card": card,
-          "robots": ROBOTS, "rounds": TCP_ROUNDS, "seconds": dt,
+          "robots": ROBOTS, "rounds": CHAOS_ROUNDS, "seconds": dt,
           "consensus_round": cons, "team_cost": res["cost"],
           "production_arm_cost": prod_cost,
           "team_cost_ratio": res["cost"] / prod_cost,
@@ -3044,23 +3116,21 @@ def tcp_phase(meas, prod_cost: float, card: str, tmp: Path) -> int:
           "the TCP team's cost is above 1.01 x the production arm's")
     check(counts["spans"] > 0 and counts["flows"] > 0,
           "the merged fleet timeline has no spans or no flow edges")
+    arms = {"fault_free": {"result": res, "seconds": dt,
+                           "survivor_cost": tcp.survivor_cost(
+                               data, ROBOTS, {r: outs[r] for r in survivors
+                                              if r in outs}), **c}}
 
-    # -- fault-free and chaos -------------------------------------------------
-    survivors = [r for r in range(ROBOTS) if r != CHAOS_KILL[0]]
-    common = ["--rounds", str(CHAOS_ROUNDS), "--round-timeout",
-              str(TCP_CHAOS_TIMEOUT)]
+    # -- chaos ----------------------------------------------------------------
     chaos_flags = ["--fault-drop", "0.10", "--fault-delay", "0.25",
                    "--fault-delay-s", str(CHAOS_PACE), str(3 * CHAOS_PACE),
                    "--fault-reorder", "0.05", "--fault-seed", "7",
                    "--kill-robot", str(CHAOS_KILL[0]),
                    "--kill-round", str(CHAOS_KILL[1])]
-    arms = {}
-    for arm, flags in (("fault_free", common), ("chaos",
-                                                common + chaos_flags)):
-        res, outs, dt = tcp_launch(data, tmp / arm, *flags)
-        c = launches_ok(outs, arm)
-        b2 += sum(c["b2_launches"].values())
-        arms[arm] = {"result": res, "seconds": dt,
+    res, outs, dt = tcp_launch(data, tmp / "chaos", *common, *chaos_flags)
+    c = launches_ok(outs, "chaos")
+    b2 += sum(c["b2_launches"].values())
+    arms["chaos"] = {"result": res, "seconds": dt,
                      "survivor_cost": tcp.survivor_cost(
                          data, ROBOTS, {r: outs[r] for r in survivors
                                         if r in outs}), **c}
@@ -3965,7 +4035,7 @@ def sharded_multihost(card: str, tmp: Path) -> int:
     t1 = time.perf_counter()
     chaos = multihost.launch_world(MH_PROCS, workdir=str(tmp / "mh_kill"),
                                    kill_rank=1, kill_at_boundary=MH_KILL_AT,
-                                   barrier_timeout_s=10.0, **kw)
+                                   barrier_timeout_s=MH_BARRIER_S, **kw)
     t2 = time.perf_counter()
     b2, per_rank = 0, {}
     for arm in ("mh_clean", "mh_kill"):
@@ -4073,6 +4143,11 @@ def sharded_scale(mesh, dev, card: str) -> tuple[int, dict]:
     route = plan_of(ops, kw)
     b2_ms = cuda_ms(lambda: rk.rtr_full(*ops.values(), **kw), reps=5,
                     warmup=1)
+    # Its bound at the live extent, from this launch's own attempts and
+    # tCG iterations.
+    b2_bytes, b2_flops = rtr_full_work(ops, rk.rtr_full(*ops.values(),
+                                                        **kw), g, meta)
+    b2_bound_ms, b2_bound_by = bound(b2_bytes, b2_flops)
     # A plain round once the loop is running: SCALE_K sharded rounds from
     # the terminal state, back to back (loop_s above holds run_rbcd's
     # one-time epilogue build and its terminal fetch).
@@ -4084,7 +4159,9 @@ def sharded_scale(mesh, dev, card: str) -> tuple[int, dict]:
            "verdict_every": SCALE_K, "build_s": build_s,
            "loop_s": loop_s, "ms_per_round": round_ms,
            "b2_ms_per_launch": b2_ms, "b2_route": route.route,
-           "b2_cluster": route.C, "peak_memory_bytes": peak,
+           "b2_cluster": route.C, "b2_bound_ms": b2_bound_ms,
+           "b2_bound_by": b2_bound_by, "b2_bytes": b2_bytes,
+           "b2_flops": b2_flops, "peak_memory_bytes": peak,
            "comm_bytes_per_round": {
                str(k): sharded.comm_bytes_per_round(meta, k)
                for k in (1, 2, 4, 8)},
@@ -4166,6 +4243,468 @@ def serve_phase(dev, card: str, tmp: Path) -> tuple[dict, dict]:
     return by, timing
 
 
+# ---------------------------------------------------------------------------
+# The serving fleet: router, replica manager, child replicas, artifact tier
+# ---------------------------------------------------------------------------
+
+def fleet_request(meas, sid=None, rounds=None):
+    """A stand-in request of the fleet phase: it runs all its rounds
+    (consensus unreachable, ``rel_change_tol`` < 0, and SERVE_GTOL), eval
+    every FLEET_EVAL rounds."""
+    from dpgo_tpu_torch.serve import SolveRequest
+
+    return SolveRequest(
+        meas=meas, num_robots=ROBOTS,
+        params=AgentParams(d=3, r=RANK, num_robots=ROBOTS,
+                           rel_change_tol=-1.0),
+        max_iters=FLEET_ROUNDS if rounds is None else rounds,
+        grad_norm_tol=SERVE_GTOL, eval_every=FLEET_EVAL, session_id=sid)
+
+
+@contextlib.contextmanager
+def fleet_tally():
+    """B2 launches (``rk.rtr_full`` calls on the card, each one launch) and
+    rounds (``run_bucket``'s ``info``) of in-process replicas' batches, by
+    replica id (``SolveServer._run_batch``'s ``replica_id``; None for a
+    lone server); also the launch counter's growth over the block."""
+    from dpgo_tpu_torch.serve import server as server_mod
+
+    tls = threading.local()
+    lock = threading.Lock()
+    out = {"launches": collections.Counter(), "rounds": collections.Counter(),
+           "counter": rk.LAUNCHES}
+    real_b2, real_rb = rk.rtr_full, server_mod.run_bucket
+    real_batch = server_mod.SolveServer._run_batch
+
+    def b2(*a, **kw):
+        res = real_b2(*a, **kw)
+        with lock:
+            out["launches"][getattr(tls, "rid", "?")] += 1
+        return res
+
+    def run_bucket(*a, **kw):
+        res, info = real_rb(*a, **kw)
+        with lock:
+            out["rounds"][getattr(tls, "rid", "?")] += info["rounds"]
+        return res, info
+
+    def run_batch(self, tickets):
+        tls.rid = self.replica_id
+        return real_batch(self, tickets)
+
+    rk.rtr_full, server_mod.run_bucket = b2, run_bucket
+    server_mod.SolveServer._run_batch = run_batch
+    try:
+        yield out
+    finally:
+        rk.rtr_full, server_mod.run_bucket = real_b2, real_rb
+        server_mod.SolveServer._run_batch = real_batch
+        out["counter"] = rk.LAUNCHES - out["counter"]
+
+
+def wait_for(pred, timeout: float, what: str, every: float = 0.005):
+    deadline = time.monotonic() + timeout
+    while not pred():
+        check(time.monotonic() < deadline, what)
+        time.sleep(every)
+
+
+def snapshot_of(store: Path, sid: str) -> bool:
+    """Whether ``sid`` has a finished snapshot in ``store`` (its
+    ``snap-<iteration>.npz``, renamed into place; not the ``.tmp`` file
+    the store writes first)."""
+    d = store / sid
+    return d.is_dir() and any(re.fullmatch(r"snap-\d{8}\.npz", f.name)
+                              for f in d.iterdir())
+
+
+def inproc_fleet(n: int, dev, store: Path | None = None, **mgr_kw):
+    """A FleetRouter over ``n`` in-process replicas on ``dev`` (one
+    ``SolveServer`` each; with ``store`` a shared session store and
+    resumed migrations)."""
+    from dpgo_tpu_torch.serve import (FleetRouter, ReplicaManager,
+                                      SolveServer)
+
+    def make_server(rid):
+        return SolveServer(max_batch=8, quantum=SERVE_QUANTUM,
+                           batch_window_s=0.0, replica_id=rid, device=dev,
+                           session_store=None if store is None
+                           else str(store),
+                           session_every=1, resume_sessions=store is not None)
+
+    mgr_kw.setdefault("monitor_interval_s", 0.05)
+    return FleetRouter(ReplicaManager(make_server, min_replicas=n, **mgr_kw))
+
+
+def settle(tickets: dict) -> tuple[dict, list]:
+    """Each ticket's result, and the sessions lost (their ticket raised)."""
+    res, lost = {}, []
+    for sid, t in tickets.items():
+        try:
+            res[sid] = t.result(timeout=600)
+        except Exception:
+            lost.append(sid)
+    return res, lost
+
+
+def same_result(a, b) -> bool:
+    return (a.cost_history == b.cost_history
+            and a.grad_norm_history == b.grad_norm_history
+            and a.iterations == b.iterations
+            and torch.equal(a.T.cpu(), b.T.cpu()))
+
+
+def fleet_affinity(reqs, dev, card: str, tmp: Path) -> dict:
+    """Gate 1: eight session-tagged stand-in requests, twice each, through
+    a 2-replica fleet: each lands on its rendezvous replica both times, and
+    each result is within SERVE_COST_RTOL of the same request on a lone
+    ``SolveServer``.  Also requests/s of 1 and 2 replicas over the eight
+    requests, each arm twice (a record, not a throughput benchmark)."""
+    from dpgo_tpu_torch.serve import SolveServer
+    from dpgo_tpu_torch.serve.fleet import router as router_mod
+
+    sids = [f"fleet-{n}-{seed}" for (n, seed), _ in reqs]
+    with SolveServer(max_batch=8, quantum=SERVE_QUANTUM, batch_window_s=0.0,
+                     device=dev) as lone:
+        ref = [lone.solve(fleet_request(m), timeout=600) for _, m in reqs]
+    placed, rel, twins = [], [], True
+    with inproc_fleet(2, dev, tmp / "affinity_sessions") as router:
+        ids = [r.replica_id for r in router.manager.replicas()]
+        for rep in range(2):
+            tickets = [router.submit(fleet_request(m, sid=s))
+                       for s, (_, m) in zip(sids, reqs)]
+            res = [t.result(timeout=600) for t in tickets]
+            placed.append([t._replica.replica_id for t in tickets])
+            rel += [abs(r.cost_history[-1] - f.cost_history[-1])
+                    / abs(f.cost_history[-1]) for r, f in zip(res, ref)]
+            if rep == 0:
+                first = res
+            else:
+                twins &= all(same_result(a, b) for a, b in zip(first, res))
+        st = router.status()
+    want = [max(ids, key=lambda r: router_mod._hrw_weight(f"s|{s}", r))
+            for s in sids]
+    # Requests/s of 1 and 2 replicas, a record only: every replica warmed
+    # by one request first, the arms in both orders.
+    rps = {1: [], 2: []}
+    for n in (1, 2, 2, 1):
+        with inproc_fleet(n, dev) as router:
+            for rep_ in router.manager.replicas():
+                rep_.server.solve(fleet_request(reqs[0][1]), timeout=600)
+            t0 = time.perf_counter()
+            tickets = [router.submit(fleet_request(m)) for _, m in reqs]
+            for t in tickets:
+                t.result(timeout=600)
+            rps[n].append(len(reqs) / (time.perf_counter() - t0))
+    emit({"phase": "fleet", "check": "affinity", "card": card,
+          "sessions": len(sids), "replicas": ids, "placed": placed,
+          "rendezvous": want, "requests_routed": st["requests_routed"],
+          "cost_rel_to_lone_server": rel, "repeats_bitwise_equal": twins,
+          "requests_per_s": {str(k): v for k, v in rps.items()},
+          "requests_per_s_window": len(reqs)})
+    check(placed[0] == placed[1] == want,
+          "a session left its rendezvous replica")
+    check(len(set(want)) == 2, "the eight sessions hashed onto one replica")
+    check(max(rel) <= SERVE_COST_RTOL, "a fleet result leaves the lone "
+          "server's cost by more than 1e-5")
+    return rps
+
+
+def fleet_drain(meas, dev, card: str, tmp: Path) -> None:
+    """Gate 2: a long session-tagged solve stopped mid-flight by
+    ``router.migrate_from`` resumes from its boundary snapshot on the other
+    replica and ends bit for bit where the uninterrupted solve does."""
+    from dpgo_tpu_torch.serve import SolveServer
+
+    req = fleet_request(meas, sid="fleet-drain", rounds=FLEET_LONG_ROUNDS)
+    with SolveServer(max_batch=8, quantum=SERVE_QUANTUM, batch_window_s=0.0,
+                     device=dev, session_store=str(tmp / "drain_base"),
+                     session_every=1) as lone:
+        base = lone.solve(req, timeout=600)
+    store = tmp / "drain_sessions"
+    with inproc_fleet(2, dev, store) as router:
+        t = router.submit(req)
+        wait_for(lambda: snapshot_of(store, "fleet-drain"), 120,
+                 "no boundary snapshot before the drain")
+        src = t._replica
+        moved = router.migrate_from(src)
+        res = t.result(timeout=600)
+        dst = t._replica
+    m = len(res.cost_history)
+    suffix = (res.cost_history == base.cost_history[-m:]
+              and res.grad_norm_history == base.grad_norm_history[-m:])
+    bitwise = suffix and torch.equal(res.T.cpu(), base.T.cpu())
+    emit({"phase": "fleet", "check": "drain_migration", "card": card,
+          "rounds": FLEET_LONG_ROUNDS, "moved": moved,
+          "from": src.replica_id, "to": dst.replica_id,
+          "resumed_evals": m, "base_evals": len(base.cost_history),
+          "recovered": res.recovered, "bitwise_equal": bitwise,
+          "cost": res.cost_history[-1]})
+    check(moved == 1 and t.migrations == 1 and dst is not src,
+          "the drain did not migrate the session")
+    check(res.recovered and 0 < m < len(base.cost_history),
+          "the migrated session did not resume from a snapshot")
+    check(bitwise, "the migrated session leaves the uninterrupted solve")
+
+
+def fleet_kill_and_scale(reqs, dev, card: str, tmp: Path) -> None:
+    """Gate 3: ``kill_replica`` with sessions in flight loses none and the
+    pool respawns to ``min_replicas``; a zero queue-wait SLO scales the
+    pool up, and ``scale_down()`` returns it to its minimum."""
+    store = tmp / "kill_sessions"
+    with inproc_fleet(2, dev, store) as router:
+        mgr = router.manager
+        tickets = {f"fleet-kill-{i}": router.submit(fleet_request(
+            m, sid=f"fleet-kill-{i}", rounds=FLEET_LONG_ROUNDS))
+            for i, (_, m) in enumerate(reqs[:3])}
+        first = next(iter(tickets))
+        wait_for(lambda: snapshot_of(store, first), 120,
+                 "no snapshot before the kill")
+        victim = tickets[first]._replica
+        mgr.kill_replica(victim.replica_id)
+        res, lost = settle(tickets)
+        migrations = router.status()["migrations"]
+        wait_for(lambda: len(mgr.replicas()) == 2, 120,
+                 "the pool did not respawn")
+        kill_st = mgr.status()
+    router = inproc_fleet(1, dev, max_replicas=2, queue_wait_slo_s=0.0,
+                          min_scale_observations=2, scale_cooldown_s=0.2,
+                          scale_window_s=60.0)
+    mgr = router.manager
+    try:
+        n = 0
+        deadline = time.monotonic() + 120
+        while mgr.status()["scale_ups"] < 1:
+            router.solve(fleet_request(reqs[0][1], rounds=FLEET_EVAL),
+                         timeout=600)
+            n += 1
+            check(time.monotonic() < deadline, "the autoscaler never "
+                  "scaled up under a zero queue-wait SLO")
+        up = len(mgr.replicas())
+        down = mgr.scale_down()
+        scale_st = mgr.status()
+    finally:
+        router.close()
+    emit({"phase": "fleet", "check": "kill_and_scale", "card": card,
+          "victim": victim.replica_id, "sessions": len(tickets),
+          "lost": lost, "migrations": migrations,
+          "terminated_by": {s: r.terminated_by for s, r in res.items()},
+          "recovered": [s for s, r in res.items() if r.recovered],
+          "respawns": kill_st["respawns"], "pool": kill_st["pool"],
+          "requests_to_scale_up": n, "pool_after_scale_up": up,
+          "scale_down": down, "scale": {k: scale_st[k] for k in (
+              "scale_ups", "scale_downs", "pool")}})
+    check(lost == [] and migrations >= 1 and res[first].recovered,
+          "a session was lost, or none migrated, or the in-flight one did "
+          "not resume from its snapshot, when its replica died")
+    check(kill_st["respawns"] >= 1 and victim.replica_id
+          not in kill_st["pool"], "the pool did not respawn after the kill")
+    check(up == 2 and down and len(scale_st["pool"]) == 1,
+          "the autoscaler did not scale up and back down")
+
+
+def child_b2(tdir: Path) -> tuple[int, int]:
+    """A child replica's B2 launches and rounds, from its telemetry: the
+    ``device_dispatch`` spans of its batches (a killed child's up to its
+    last finished dispatch window)."""
+    from dpgo_tpu_torch import obs
+
+    spans = [e for e in obs.read_events(str(tdir / "events.jsonl"))
+             if e.get("event") == "span"
+             and e.get("name") == "device_dispatch"]
+    return (sum(int(e.get("b2_launches", 0)) for e in spans),
+            sum(int(e.get("rounds", 0)) for e in spans))
+
+
+def child_compile_seconds(tdir: Path) -> float:
+    """``serve_compile_seconds_total`` from a closed child's metrics."""
+    with open(tdir / "metrics.json") as fh:
+        fam = json.load(fh)["metrics"].get("serve_compile_seconds_total")
+    return sum(float(s["value"]) for s in fam["series"]) if fam else 0.0
+
+
+def child_compiles(tdir: Path) -> list:
+    """A child's artifact-tier ``compile_profile`` events: how its kernel
+    library was bound (a disk hit and its load seconds, or a build and
+    whether nvcc ran).  The programs' first-call records share the event
+    name and carry no ``disk_hit``."""
+    from dpgo_tpu_torch import obs
+
+    return [{k: e[k] for k in ("label", "disk_hit", "nvcc", "load_s",
+                               "build_s") if k in e}
+            for e in obs.read_events(str(tdir / "events.jsonl"))
+            if e.get("event") == "compile_profile" and "disk_hit" in e]
+
+
+def proc_server(rid: str, dev, tmp: Path, aot: Path, **kw):
+    from dpgo_tpu_torch.serve.fleet import ProcServer
+
+    return ProcServer(replica_id=rid, max_batch=8, batch_window_s=0.0,
+                      device=str(dev), aot_cache_dir=str(aot),
+                      telemetry_dir=str(tmp / f"child-{rid}"),
+                      workdir=str(tmp), **kw)
+
+
+def first_solve(submit, req) -> tuple:
+    """``submit(req)``'s ticket, its result and its wall."""
+    t0 = time.perf_counter()
+    t = submit(req)
+    res = t.result(timeout=600)
+    return t, res, time.perf_counter() - t0
+
+
+def fleet_children(meas, dev, card: str, tmp: Path) -> int:
+    """Gates 4 and 5: child replicas on the card.  Two children behind the
+    router share an empty ``aot_cache_dir`` and a session store: the cold
+    one's first solve finds the library in ``_build/`` and stores it, the
+    warm one's binds it from the tier (no nvcc run,
+    ``serve_compile_seconds_total`` 0, the cold one's result bit for bit),
+    both over the TCP front-end; the cold one is then killed with
+    ``SIGKILL`` with two sessions in flight (dead within the heartbeat
+    budget, its sessions finished on the warm one from the shared store).
+    A third child finding a corrupted entry quarantines it and still
+    serves.  Every child's B2 launches (from its telemetry) equal its
+    rounds.  Returns the children's B2 launches."""
+    import signal
+
+    from dpgo_tpu_torch.serve import FleetRouter, ReplicaManager
+
+    aot, store = tmp / "aot", tmp / "child_sessions"
+
+    def make_server(rid):
+        return proc_server(rid, dev, tmp, aot, session_store=str(store),
+                           session_every=1, resume_sessions=True)
+
+    router = FleetRouter(ReplicaManager(make_server, min_replicas=2,
+                                        monitor_interval_s=0.2,
+                                        respawn=False))
+    try:
+        cold, warm = router.manager.replicas()
+        # Session ids by the child they hash onto.
+        cands = [f"child-{i}" for i in range(64)]
+        on = {r: [s for s in cands if router._pick(
+            fleet_request(meas, sid=s), set()) is r] for r in (cold, warm)}
+        check(len(on[cold]) >= 3 and len(on[warm]) >= 2,
+              "too few session ids hash onto a child")
+        t, cold_res, cold_s = first_solve(
+            router.submit, fleet_request(meas, sid=on[cold][0]))
+        check(t._replica is cold, "the cold request left its child")
+        cold_disk = cold.server._beat_once()["cache"]["disk"]
+        t, warm_res, warm_s = first_solve(
+            router.submit, fleet_request(meas, sid=on[warm][0]))
+        check(t._replica is warm, "the warm request left its child")
+        sids = on[cold][1:3] + on[warm][1:2]
+        tickets = {s: router.submit(fleet_request(
+            meas, sid=s, rounds=FLEET_LONG_ROUNDS)) for s in sids}
+        wait_for(lambda: snapshot_of(store, sids[0]), 300,
+                 "no child snapshot before the kill", every=0.02)
+        budget = cold.server.heartbeat_s * cold.server.heartbeat_misses
+        cold.server.proc.send_signal(signal.SIGKILL)
+        t_kill = time.perf_counter()
+        wait_for(lambda: not cold.alive(), budget,
+                 "the killed child did not read as dead within the "
+                 "heartbeat budget", every=0.001)
+        dead_s = time.perf_counter() - t_kill
+        res, lost = settle(tickets)
+        warm_disk = warm.server._beat_once()["cache"]["disk"]
+        migrations = router.status()["migrations"]
+    finally:
+        router.close()
+
+    entries = sorted(aot.glob("lib-*.so"))
+    check(len(entries) == 1, f"the tier holds {len(entries)} entries")
+    for entry in entries:
+        blob = bytearray(entry.read_bytes())
+        blob[len(blob) // 2] ^= 0xFF
+        entry.write_bytes(bytes(blob))
+    bad = proc_server("corrupt", dev, tmp, aot)
+    try:
+        _, bad_res, _ = first_solve(bad.submit, fleet_request(meas))
+        bad_disk = bad._beat_once()["cache"]["disk"]
+    finally:
+        bad.close()
+
+    rids = [cold.replica_id, warm.replica_id, "corrupt"]
+    b2 = {rid: child_b2(tmp / f"child-{rid}") for rid in rids}
+    compiles = {rid: child_compiles(tmp / f"child-{rid}") for rid in rids}
+    warm_compile_s = child_compile_seconds(tmp / f"child-{warm.replica_id}")
+    emit({"phase": "fleet", "check": "children", "card": card,
+          "cold": cold.replica_id, "warm": warm.replica_id,
+          "cold_first_solve_s": cold_s, "warm_first_solve_s": warm_s,
+          "cold_disk": cold_disk, "warm_disk": warm_disk,
+          "compile_profile": compiles,
+          "warm_compile_seconds_total": warm_compile_s,
+          "warm_equals_cold_bitwise": same_result(warm_res, cold_res),
+          "killed_sessions": sids[:2], "dead_after_s": dead_s,
+          "heartbeat_budget_s": budget, "lost": lost,
+          "migrations": migrations,
+          "terminated_by": {s: r.terminated_by for s, r in res.items()},
+          "recovered": [s for s, r in res.items() if r.recovered],
+          "corrupt_disk": bad_disk,
+          "corrupt_equals_cold_bitwise": same_result(bad_res, cold_res),
+          "b2_launches_and_rounds": b2})
+    check(cold_disk["disk_misses"] == 1 and cold_disk["stores"] == 1
+          and not any(e.get("nvcc") for e in compiles[cold.replica_id]),
+          "the cold child did not find the built library and store it")
+    check(warm_disk["disk_hits"] >= 1 and warm_disk["disk_misses"] == 0
+          and any(e.get("disk_hit") for e in compiles[warm.replica_id])
+          and not any(e.get("nvcc") for e in compiles[warm.replica_id]),
+          "the warm child did not bind the library from the disk tier")
+    check(warm_compile_s == 0.0,
+          "the warm child's serve_compile_seconds_total is not 0")
+    check(same_result(warm_res, cold_res),
+          "the warm child's result differs from the cold child's")
+    check(lost == [] and migrations >= 1,
+          "a child's session was lost, or none migrated, after kill -9")
+    check(res[sids[0]].recovered, "the killed child's in-flight session "
+          "did not resume from the shared session store")
+    check(bad_disk["quarantined"] == 1 and bad_disk["stores"] == 1
+          and same_result(bad_res, cold_res),
+          "the corrupted entry was not quarantined, or the child did not "
+          "serve")
+    for rid, (n, rounds) in b2.items():
+        check(n == rounds and n > 0, f"child {rid} launched B2 {n} times "
+              f"in {rounds} rounds")
+    return sum(n for n, _ in b2.values())
+
+
+def fleet_phase(dev, card: str, tmp: Path) -> int:
+    """The serving fleet on the card (``dpgo_tpu_torch.serve.fleet``; after
+    ``serve``), on the serve phase's stand-in requests.  Returns B2's
+    launches on the fleet's paths (the replicas in process and in the
+    children) and those of its lone reference servers (the serve path)."""
+    t0 = time.perf_counter()
+    reqs = serve_requests()
+    tmp = tmp / "fleet"
+    tmp.mkdir()
+    with fleet_tally() as tally:
+        rps = fleet_affinity(reqs, dev, card, tmp)
+        fleet_drain(reqs[0][1], dev, card, tmp)
+        fleet_kill_and_scale(reqs, dev, card, tmp)
+    per = {str(k): (tally["launches"][k], tally["rounds"][k])
+           for k in sorted(set(tally["launches"]) | set(tally["rounds"]),
+                           key=str)}
+    # The lone reference servers (replica id None) are the serve path.
+    lone = per.pop("None", (0, 0))
+    emit({"phase": "fleet", "check": "in_process_b2", "card": card,
+          "b2_launches_and_rounds_by_replica": per,
+          "lone_server_b2_launches_and_rounds": lone,
+          "launch_counter": tally["counter"]})
+    check(all(n == r for n, r in [*per.values(), lone])
+          and sum(n for n, _ in per.values()) + lone[0] == tally["counter"],
+          "an in-process replica's B2 launches are not its rounds")
+    check(all(per[r][0] > 0 for r in ("r0", "r1")),
+          "an in-process replica launched no B2")
+    children = fleet_children(reqs[0][1], dev, card, tmp)
+    inproc = sum(n for n, _ in per.values())
+    emit({"phase": "fleet", "check": "time", "card": card,
+          "seconds": time.perf_counter() - t0,
+          "b2_launches": inproc + children, "b2_in_process": inproc,
+          "b2_children": children, "b2_lone_servers": lone[0],
+          "requests_per_s": {str(k): v for k, v in rps.items()}})
+    return inproc + children, lone[0]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -4190,6 +4729,7 @@ def main() -> int:
     emit({"phase": "build", "seconds": build_s, "library": lib_path.name,
           "native_seconds": native_s, "native_library": native_lib.name,
           "ptxas": ptxas_report(rk.BUILD_LOG)})
+    lap("build")
     emit({"phase": "kernels", "kernels": [
         {"name": "rtr_full", "replaces": "pallas_tcg._rtr_full_kernel"},
         {"name": "tcg", "replaces": "pallas_tcg._tcg_kernel"},
@@ -4308,7 +4848,9 @@ def main() -> int:
           "the kernel's 10 rounds leave the plain formulation's by more "
           "than its own one-ulp divergence allows")
     determinism(prob, params, plain, X0_host)
+    lap("parity")
     dense_phase(prob, params, X0_host, chol_host, ell, traj_limit, dev, card)
+    lap("dense")
 
     # --- the main path: a first dispatch in the process, then the counted
     # one; under --profile the first one is traced -------------------------
@@ -4413,26 +4955,36 @@ def main() -> int:
     if profile:
         emit({"phase": "profile", "path": "solve", "card": card,
               **profile_run(solve)})
+    lap("solve")
 
     # --- the verdict loop: parity with the per-eval run above, a sync-free
     # window, the production arm ---------------------------------------------
     _, verdict_b2 = verdict_parity(prob, res, card)
     verdict_window(prob, params, dev, card)
     prod_row, prod_b2 = production_arm(prob, params, card, profile)
+    lap("verdict")
     with tempfile.TemporaryDirectory(dir=native_io.BUILD_DIR) as tmp:
         # --- telemetry on the solve paths (obs run, recorder, devprof) ------
         telemetry_b2 = telemetry_phase(prob, params, dev, card, Path(tmp))
+        lap("telemetry")
         # --- the per-robot runtime: each robot's iterate is B2 at A=1 -------
         agents_b2 = agents_phase(meas, prod_row["cost_history"][-1], dev,
                                  card)
+        lap("agents")
         # --- the same robots as eight processes over localhost TCP ----------
         tcp_b2 = tcp_phase(meas, prod_row["cost_history"][-1], card,
                            Path(tmp))
+        lap("tcp")
         # --- the serving plane: a served batch is one B2 launch per round -
         serve_by, serve_t = serve_phase(dev, card, Path(tmp))
+        lap("serve")
+        # --- the fleet: replicas in process and as child processes ----------
+        fleet_b2, fleet_lone_b2 = fleet_phase(dev, card, Path(tmp))
+        lap("fleet")
         # --- the sharded plane at world size 1 over NCCL --------------------
         sharded_b2, mh_b2, scale_row = sharded_phase(meas, params, dev,
                                                      card, Path(tmp))
+        lap("sharded")
 
     # --- the ablation: B3's path ------------------------------------------
     ab = ablate_phase(dev, card)
@@ -4452,35 +5004,44 @@ def main() -> int:
                  "floor_accept_flips": flips["rtr"], **route_columns(b3_t),
                  "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                  "library_ms": None, "bytes": nbytes, "flops": flops})
+    lap("ablate")
 
     # --- the rest of the round: every schedule, Nesterov, GNC --------------
     sched_b2 = schedules_phase(prob, dev, card)
+    lap("schedules")
     odo_b2 = odometry_phase(prob, meas, params, dev, card)
+    lap("odometry_init")
     iter_b2 = robust_iterated_phase(dev, card)
+    lap("robust_iterated")
     dist_b2, chordal_b2 = dist_init_phase(prob, meas, params, dev, card)
+    lap("dist_init")
 
     b4_row, descent_b2 = refine_phase(prob, meas, card, profile)
     rows.append(b4_row)
+    lap("refine")
     cert_b2, f_star = certify_phase(meas, params, dev, card)
+    lap("certify")
     fused_b2, fused_b4 = fused_refine_phase(meas, f_star, dev, card)
+    lap("fused_refine")
     b4_row["launches_by_path"]["fused_refine"] = fused_b4
     b2_row["launches_by_path"].update(
         ablate=ab["rtr_full"], schedules=sched_b2, refine=descent_b2,
         verdict=verdict_b2 + prod_b2 + chordal_b2, odometry_init=odo_b2,
         robust_iterated=iter_b2, certify=cert_b2, dist_init=dist_b2,
         dense=0, fused_refine=fused_b2, agents=agents_b2,
-        telemetry=telemetry_b2, tcp=tcp_b2, serve=sum(serve_by.values()),
-        sharded=sharded_b2, sharded_multihost=mh_b2)
+        telemetry=telemetry_b2, tcp=tcp_b2, serve=sum(serve_by.values()) + fleet_lone_b2,
+        fleet=fleet_b2, sharded=sharded_b2, sharded_multihost=mh_b2)
     b2_row["serve_launches_by_agents"] = serve_by
     b2_row["sharded_config5"] = {k: scale_row[k] for k in (
-        "b2_ms_per_launch", "b2_route", "b2_cluster", "ms_per_round",
-        "n_max", "peak_memory_bytes")}
+        "b2_ms_per_launch", "b2_route", "b2_cluster", "b2_bound_ms",
+        "b2_bound_by", "ms_per_round", "n_max", "peak_memory_bytes")}
     b2_row["serve_64_agents"] = {k: serve_t[k] for k in (
         "ms", "ms_single_cta", "bound_ms", "bound_by", "cluster", "ctas")}
     for row in rows:
         row["launches"] = sum(row["launches_by_path"].values())
     rows.sort(key=lambda r: r["replaces"])
 
+    emit({"phase": "time", "seconds": time.perf_counter() - T_START})
     print(card, flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

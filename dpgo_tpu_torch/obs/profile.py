@@ -70,8 +70,9 @@ class FirstCall:
     waiting."""
 
     def __init__(self, run, key, label, phase, metric_prefix, fields,
-                 events):
+                 events, count_compile=True):
         self.run = run
+        self.count_compile = count_compile
         self.key = key
         self.label = label
         self.phase = phase
@@ -93,10 +94,12 @@ class FirstCall:
         self.emitted = True
         run, fields = self.run, self.fields
         run.event("compile_profile", phase=self.phase, **fields)
-        run.counter(f"{self.metric_prefix}_compile_seconds_total",
-                    "host wall of profiled programs' first calls (the "
-                    "kernel library's build and load when they pay it)",
-                    unit="s").inc(fields["first_call_s"], label=self.label)
+        if self.count_compile:
+            run.counter(f"{self.metric_prefix}_compile_seconds_total",
+                        "host wall of profiled programs' first calls (the "
+                        "kernel library's build and load when they pay "
+                        "it)", unit="s").inc(fields["first_call_s"],
+                                             label=self.label)
         run.gauge(f"{self.metric_prefix}_first_call_launches",
                   "hand-written kernel launches of the last profiled "
                   "program's first call").set(fields["launches"],
@@ -111,11 +114,14 @@ class FirstCall:
 
 def aot_compile_profile(run, fn, args, kwargs, key: str, label: str,
                         phase: str = "serve", metric_prefix: str = "serve",
-                        **extra):
+                        count_compile: bool = True, **extra):
     """Run ``fn``'s first call for these arguments under the first-call
     probe and return ``(out, FirstCall)``.  ``phase``/``metric_prefix``
     scope the event and metric names to the emitting plane; ``run`` is the
-    caller's already-resolved ambient run (the caller's fence)."""
+    caller's already-resolved ambient run (the caller's fence).
+    ``count_compile=False`` keeps the first call's wall out of
+    ``<prefix>_compile_seconds_total`` (the caller bound the kernel
+    library elsewhere, so the call compiles nothing)."""
     import torch
 
     dev = _first_cuda_device((args, kwargs))
@@ -134,7 +140,8 @@ def aot_compile_profile(run, fn, args, kwargs, key: str, label: str,
               "launches": kernel_launches() - n0,
               "device": str(dev) if dev is not None else "cpu"}
     fields.update(extra)
-    rec = FirstCall(run, key, label, phase, metric_prefix, fields, events)
+    rec = FirstCall(run, key, label, phase, metric_prefix, fields, events,
+                    count_compile)
     return out, rec
 
 
@@ -146,8 +153,10 @@ class ProfiledExecutable:
 
     def __init__(self, fn, key: str, label: str,
                  static_names: tuple = (), phase: str = "serve",
-                 metric_prefix: str = "serve", **extra):
+                 metric_prefix: str = "serve", count_compile: bool = True,
+                 **extra):
         self._fn = fn
+        self._count = bool(count_compile)
         self._phase = str(phase)
         self._prefix = str(metric_prefix)
         self._key = str(key)
@@ -173,7 +182,8 @@ class ProfiledExecutable:
         out, rec = aot_compile_profile(
             run, self._fn, args, kwargs, self._key, self._label,
             phase=self._phase, metric_prefix=self._prefix,
-            static=dict(combo) or None, **self._extra)
+            count_compile=self._count, static=dict(combo) or None,
+            **self._extra)
         if not rec.emit():
             with self._lock:
                 self._pending.append(rec)

@@ -57,7 +57,9 @@ batched over agents with a leading ``A``:
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
+import json
 import os
 import shutil
 import subprocess
@@ -542,6 +544,17 @@ def rtr_refine_full_reference(idx_i, idx_j, rot, trn, wk, wt, rho_rot,
 
 _lib = None
 BUILD_LOG = ""
+#: Builds of this process that ran ``nvcc`` (a build that finds its
+#: library in ``BUILD_DIR`` runs none).
+NVCC_RUNS = 0
+#: The C entry points ``load``/``bind`` declare: a library lacking one is
+#: not this build's.
+SYMBOLS = ("dpgo_rtr_workspace_floats", "dpgo_rtr_full_launch",
+           "dpgo_rtr_launch", "dpgo_tcg_launch",
+           "dpgo_rtr_refine_full_launch", "dpgo_rtr_cluster_smem_bytes",
+           "dpgo_rtr_cluster_max_clusters", "dpgo_rtr_full_cluster_launch",
+           "dpgo_rtr_cluster_launch", "dpgo_tcg_cluster_launch",
+           "dpgo_rtr_refine_full_cluster_launch")
 #: Serializes ``build`` and ``load``: the agents' optimization threads
 #: (``agent.PGOAgent.start_optimization_loop``) may make the first launch
 #: from several threads of one process at once.
@@ -567,11 +580,49 @@ def _nvcc() -> str:
     return nvcc
 
 
+def source_digest() -> str:
+    """The library's source identity: sha256 over ``NVCC_FLAGS`` and every
+    source and header (name and bytes)."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in SOURCES + HEADERS:
+        digest.update(src.name.encode() + b"\0" + src.read_bytes())
+    return digest.hexdigest()
+
+
+@functools.lru_cache(maxsize=1)
+def nvcc_version() -> str | None:
+    """``nvcc --version``'s output, or None where there is no nvcc."""
+    try:
+        nvcc = _nvcc()
+        out = subprocess.run([nvcc, "--version"], capture_output=True,
+                             text=True, timeout=60)
+    except (RuntimeError, OSError, subprocess.SubprocessError):
+        return None
+    return out.stdout.strip() or None
+
+
+def toolchain() -> dict:
+    """What besides the sources makes the built library: ``nvcc
+    --version``, torch and the CUDA version torch was built for."""
+    return {"nvcc": nvcc_version(), "torch": torch.__version__,
+            "cuda": torch.version.cuda}
+
+
+def library_path() -> Path:
+    """Where ``build`` puts the library: named by the sources and the
+    toolchain, so a library another nvcc or torch built from the same
+    sources is never taken for this one."""
+    digest = hashlib.sha256(source_digest().encode())
+    digest.update(json.dumps(toolchain(), sort_keys=True).encode())
+    return BUILD_DIR / f"libdpgo_kernels_{digest.hexdigest()[:16]}.so"
+
+
 def build() -> Path:
     """Compile every ``csrc/*.cu`` (one ``nvcc`` per source, all started
-    together) and link them into one shared library, unless these sources
-    were built already; return the library's path.  Sets ``BUILD_LOG`` to
-    nvcc's output (the ptxas register and spill report).  One build at a
+    together) and link them into one shared library, unless this toolchain
+    built these sources already; return the library's path.  Sets
+    ``BUILD_LOG`` to nvcc's output (the ptxas register and spill report)
+    and counts the build in ``NVCC_RUNS`` when nvcc ran.  One build at a
     time per process (``_BUILD_LOCK``); its object and temporary files are
     named per process and thread, and the library appears by an atomic
     rename, so concurrent processes never read a half-written file."""
@@ -580,16 +631,22 @@ def build() -> Path:
 
 
 def _build() -> Path:
-    global BUILD_LOG
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES + HEADERS:
-        digest.update(src.name.encode() + b"\0" + src.read_bytes())
-    tag = digest.hexdigest()[:16]
-    lib = BUILD_DIR / f"libdpgo_kernels_{tag}.so"
+    global NVCC_RUNS
+    lib = library_path()
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    NVCC_RUNS += 1
+    _compile(lib)
+    return lib
+
+
+def _compile(lib: Path) -> None:
+    """Run nvcc: every source to an object, all at once, then the link to
+    ``lib`` by an atomic rename."""
+    global BUILD_LOG
     nvcc, tag_u = _nvcc(), _unique_suffix()
+    tag = lib.stem.rsplit("_", 1)[-1]
     objs = [BUILD_DIR / f"{src.stem}_{tag}.{tag_u}.o" for src in SOURCES]
     logs = [o.with_suffix(".log") for o in objs]
     procs = []
@@ -615,7 +672,6 @@ def _build() -> Path:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed to link {lib.name}:\n{BUILD_LOG}")
     os.replace(tmp, lib)
-    return lib
 
 
 def load():
@@ -628,13 +684,38 @@ def load():
 
 
 def _load():
-    global _lib
     if _lib is not None:
         return _lib
+    _need_cuda()
+    return _bind(build())
+
+
+def bind(path):
+    """Bind the kernel library at ``path`` (a copy of this build's library,
+    as the serving plane's artifact tier keeps one) unless a library is
+    bound already; returns the bound library.  Raises when there is no
+    CUDA device."""
+    with _BUILD_LOCK:
+        if _lib is not None:
+            return _lib
+        _need_cuda()
+        return _bind(path)
+
+
+def bound() -> bool:
+    """Whether this process has bound the kernel library."""
+    return _lib is not None
+
+
+def _need_cuda() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("the port's kernels need a CUDA device and "
                            "none is available")
-    lib = ctypes.CDLL(str(build()))
+
+
+def _bind(path):
+    global _lib
+    lib = ctypes.CDLL(str(path))
     P, I, F, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
         ctypes.c_longlong
     lib.dpgo_rtr_workspace_floats.argtypes = [I, I, I, I, I]

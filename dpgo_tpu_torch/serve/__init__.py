@@ -1,5 +1,5 @@
 """PGO-as-a-service: the multi-tenant batched solve front-end (port of
-``dpgo_tpu.serve``, without its ``fleet`` scale-out layer).
+``dpgo_tpu.serve``).
 
 * ``bucketing`` — pads prepared problems (``models.rbcd.PreparedProblem``)
   into shape buckets so compatible requests stack into one batch, with
@@ -18,6 +18,11 @@
   telemetry run is live.
 * ``session`` — the crash-recovery session store (the JAX package's
   snapshot format).
+* ``fleet`` — the scale-out layer: ``ReplicaManager`` runs N replicas
+  (spawn/monitor/respawn/autoscale, in process or as child processes),
+  ``FleetRouter`` rendezvous-hashes sessions onto them and live-migrates
+  tickets across drains and deaths, and ``AOTDiskCache`` persists the
+  kernel library so replica restarts bind it without ``nvcc``.
 
 Quickstart (in-process)::
 
@@ -33,6 +38,7 @@ TCP: ``python -m dpgo_tpu_torch.serve --port 0`` then
 
 from .bucketing import BucketShape, bucket_shape_of, pad_problem
 from .cache import ExecutableCache, problem_fingerprint
+from .fleet import AOTDiskCache, FleetRouter, Replica, ReplicaManager
 from .runner import run_bucket
 from .server import (OverCapacityError, ServeSLO, SolveRequest, SolveServer,
                      SolveTicket)
@@ -52,4 +58,8 @@ __all__ = [
     "SolveTicket",
     "SessionSnapshot",
     "SessionStore",
+    "AOTDiskCache",
+    "FleetRouter",
+    "Replica",
+    "ReplicaManager",
 ]

@@ -72,13 +72,18 @@ def main(argv: list[str] | None = None) -> int:
                          "dies mid-batch")
     ap.add_argument("--replica-id", default=None,
                     help="identity this server reports in status()/healthz "
-                         "replica blocks (defaults to an anonymous "
-                         "singleton)")
+                         "replica blocks (fleet deployments name each "
+                         "member; defaults to an anonymous singleton)")
+    ap.add_argument("--aot-cache-dir", metavar="DIR", default=None,
+                    help="artifact tier root (shared across replicas and "
+                         "restarts): the kernel library is persisted here "
+                         "and bound from it without nvcc, so a warm "
+                         "restart's first solve builds nothing")
     ap.add_argument("--resume-sessions", action="store_true",
                     help="with --session-dir: resume session-tagged "
                          "requests from their newest snapshot at ADMISSION "
                          "(not just after a crash) — the receiving end of "
-                         "a live migration")
+                         "fleet live-migration")
     ap.add_argument("--drain", action="store_true",
                     help="on SIGINT, drain instead of hard-close: stop "
                          "admission with structured sheds, finish the "
@@ -101,7 +106,8 @@ def main(argv: list[str] | None = None) -> int:
                              session_store=args.session_dir,
                              replica_id=args.replica_id,
                              device=args.device,
-                             resume_sessions=args.resume_sessions)
+                             resume_sessions=args.resume_sessions,
+                             aot_cache_dir=args.aot_cache_dir)
         try:
             with ServeFrontend(
                     server, host=args.host, port=args.port,

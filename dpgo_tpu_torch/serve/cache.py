@@ -87,12 +87,14 @@ class ExecutableCache:
     provide the exclusion.  A builder that raises clears its in-flight
     marker so waiters (and retries) attempt the build themselves.
 
-    The JAX package's persistent disk tier (``disk=``, its
-    ``serve/fleet/aotcache.py``) belongs to the fleet, which the port does
-    not carry yet.
+    ``disk`` is the optional artifact tier
+    (``serve.fleet.aotcache.AOTDiskCache``), which ``SolveServer`` resolves
+    the kernel library through before its first batch on the card; the
+    cache only carries the handle and surfaces the tier's stats.
     """
 
-    def __init__(self):
+    def __init__(self, disk=None):
+        self.disk = disk
         self._lock = threading.Lock()
         self._entries: dict[str, object] = {}           # guarded-by: _lock
         self._building: dict[str, threading.Event] = {}  # guarded-by: _lock
@@ -152,5 +154,8 @@ class ExecutableCache:
 
     def stats(self) -> dict:
         with self._lock:
-            return {"entries": len(self._entries), "compiles": self.compiles,
-                    "hits": self.hits}
+            out = {"entries": len(self._entries), "compiles": self.compiles,
+                   "hits": self.hits}
+        if self.disk is not None:
+            out["disk"] = self.disk.stats()
+        return out

@@ -29,8 +29,11 @@ single terminal fetch.  With telemetry on, the cached entries are
 ``obs.profile.ProfiledExecutable``\\ s (first-call wall, kernel launches
 and device time recorded per fingerprint key), each dispatch window times
 itself into ``serve_dispatch_device_seconds``, and the stack/dispatch/
-slice stages emit spans under the server's per-batch ``dispatch`` span;
-with telemetry off none of that machinery exists.
+slice stages emit spans under the server's per-batch ``dispatch`` span —
+each ``device_dispatch`` span carries the rounds it stepped and the
+process's B2 launches meanwhile (exact in a process with one serving
+thread, as a fleet child is); with telemetry off none of that machinery
+exists.
 
 Termination mirrors ``run_rbcd``: per problem, the centralized gradient
 norm against ``grad_norm_tol`` or all-agents consensus; the batch keeps
@@ -54,6 +57,7 @@ from ..config import RobustCostType
 from ..models import rbcd
 from ..obs.trace import span
 from ..ops import manifold, quadratic
+from ..ops import rtr_kernel as rk
 from ..types import EdgeSet
 from .bucketing import PaddedProblem
 from .cache import ExecutableCache, fingerprint_key, problem_fingerprint
@@ -267,7 +271,11 @@ def _cached_exec(cache: ExecutableCache, fp: dict, make,
     telemetry fence: with a run live, the cached entry is a
     ``ProfiledExecutable`` (first-call wall, kernel launches and device
     time recorded per fingerprint key); with telemetry off the bare
-    program is stored and no profiling object ever exists."""
+    program is stored and no profiling object ever exists.  A cache
+    carrying the artifact tier keeps first calls out of
+    ``serve_compile_seconds_total``: its server bound the kernel library
+    through the tier before the first batch, so there the metric counts
+    nvcc builds only."""
     run = obs.get_run()
     if run is None:
         return cache.get(fp, make)
@@ -275,7 +283,7 @@ def _cached_exec(cache: ExecutableCache, fp: dict, make,
 
     return cache.get(fp, lambda: ProfiledExecutable(
         make(), key=fingerprint_key(fp), label=fp.get("kind", "?"),
-        static_names=static_names,
+        static_names=static_names, count_compile=cache.disk is None,
         bucket=fp.get("bucket_shape"), batch=fp.get("batch")))
 
 
@@ -433,8 +441,9 @@ def run_bucket(padded: list[PaddedProblem], cache: ExecutableCache,
             vtarget = min(((it // verdict_every) + 1) * verdict_every,
                           max_iters)
             t_d0 = time.monotonic() if run is not None else 0.0
+            it0, k0 = it, rk.LAUNCHES
             with span("device_dispatch", phase="serve", batch=B,
-                      verdict=True):
+                      verdict=True) as dsp:
                 while it < vtarget:
                     state_b, it, nwu = advance(
                         state_b, it, nwu,
@@ -448,6 +457,7 @@ def run_bucket(padded: list[PaddedProblem], cache: ExecutableCache,
                 # The batch's one readback per K rounds: the packed
                 # per-problem verdict vector.
                 wv = rbcd._host_fetch(word)
+                dsp.add(rounds=it - it0, b2_launches=rk.LAUNCHES - k0)
             if run is not None:
                 _dispatch_time(run, t_d0)
             if session_cb is not None:
@@ -467,11 +477,13 @@ def run_bucket(padded: list[PaddedProblem], cache: ExecutableCache,
             and not interrupted:
         target = min(((it // eval_every) + 1) * eval_every, max_iters)
         t_d0 = time.monotonic() if run is not None else 0.0
-        with span("device_dispatch", phase="serve", batch=B):
+        it0, k0 = it, rk.LAUNCHES
+        with span("device_dispatch", phase="serve", batch=B) as dsp:
             state_b, it, nwu = advance(state_b, it, nwu, target)
             # The metrics readback is the batch's sync point per eval.
             vec = rbcd._host_fetch(met(state_b.X, state_b.weights,
                                        state_b.ready, graph_b, eg_b, inc_g))
+            dsp.add(rounds=it - it0, b2_launches=rk.LAUNCHES - k0)
         if run is not None:
             _dispatch_time(run, t_d0)
         evals += 1

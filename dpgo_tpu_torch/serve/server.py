@@ -280,7 +280,8 @@ class SolveServer:
                  worker_restarts: int = 2,
                  replica_id: str | None = None,
                  device="cuda",
-                 resume_sessions: bool = False):
+                 resume_sessions: bool = False,
+                 aot_cache_dir: str | None = None):
         if max_batch < 1 or max_queue < 1:
             raise ValueError("max_batch and max_queue must be >= 1")
         self.max_batch = int(max_batch)
@@ -325,7 +326,17 @@ class SolveServer:
         #: ``drain()``/``kill()`` set it to break the in-flight batch at
         #: its next eval boundary (after the boundary snapshot lands).
         self._interrupt = threading.Event()
-        self.cache = ExecutableCache()
+        disk = None
+        if aot_cache_dir is not None:
+            # Lazy import: fleet's router/manager import this module.
+            from .fleet.aotcache import AOTDiskCache
+
+            disk = AOTDiskCache(aot_cache_dir)
+        #: The bucket-program cache; with ``aot_cache_dir`` it carries the
+        #: fleet's artifact tier (``serve.fleet.aotcache``), through which
+        #: the first batch on the card binds the kernel library.
+        self.cache = ExecutableCache(disk=disk)
+        self._kernels_bound = False
         # One condition serializes ALL cross-thread server state: client
         # threads (submit/status/sidecar scrapes), the worker, and close.
         self._cond = threading.Condition()
@@ -478,6 +489,7 @@ class SolveServer:
         for req in requests:
             padded, key, _ = self._prepare(req)
             groups.setdefault(key, []).append((padded, req))
+        self._bind_kernels()
         for members in groups.values():
             padded_list = [p for p, _ in members][:self.max_batch]
             req0 = members[0][1]
@@ -872,6 +884,19 @@ class SolveServer:
         if batch:
             self._run_batch(batch)
 
+    def _bind_kernels(self) -> None:
+        """Bind the kernel library through the artifact tier once, before
+        the first batch on the card (``aotcache.resolve_kernel_library``:
+        bound, else disk, else build and store).  A failed build raises;
+        a CPU server, or one without the tier, does nothing."""
+        if self._kernels_bound or self.cache.disk is None \
+                or self.device.type != "cuda":
+            return
+        from .fleet.aotcache import resolve_kernel_library
+
+        resolve_kernel_library(self.cache.disk)
+        self._kernels_bound = True
+
     def _run_batch(self, tickets: list[SolveTicket]) -> None:
         t0 = time.monotonic()
         t0_wall = time.time()
@@ -911,6 +936,7 @@ class SolveServer:
             # when the worker dies is the batch that was in flight.
             self._active = list(tickets)
         try:
+            self._bind_kernels()
             ve = self.verdict_every
             if ve is not None and ve % max(req0.eval_every, 1) != 0:
                 ve = None  # incompatible cadence: legacy per-eval loop

@@ -1286,3 +1286,104 @@ def test_sharded_gn_tail_on_card_reads_twice_per_outer_step(card):
     assert reads[0] == 2 * tail.outer_iterations + (
         tail.terminated_by != "no_decrease")
     assert np.isfinite(tail.cost_history).all()
+
+
+def _fleet_request(n=60, rounds=8, sid=None):
+    from dpgo_tpu_torch.serve import SolveRequest
+
+    meas = make_measurements(np.random.default_rng(1), n=n, d=3,
+                             num_lc=20, rot_noise=0.01,
+                             trans_noise=0.01)[0]
+    return SolveRequest(meas=meas, num_robots=2,
+                        params=AgentParams(d=3, r=5, num_robots=2,
+                                           rel_change_tol=0.0),
+                        max_iters=rounds, grad_norm_tol=1e-12, eval_every=2,
+                        session_id=sid)
+
+
+def _child_events(tdir):
+    from dpgo_tpu_torch import obs
+
+    return obs.read_events(str(tdir / "events.jsonl"))
+
+
+def test_warm_child_binds_the_kernel_library_from_disk(card, tmp_path):
+    """A cold child on an empty artifact tier finds the built library and
+    stores it; a warm child binds it from the tier (a disk hit, no nvcc,
+    no compile seconds) and serves the cold child's result bit for bit;
+    each child's B2 launches (its dispatch spans) equal its rounds."""
+    import json
+
+    from dpgo_tpu_torch.serve.fleet import ProcServer
+
+    rk.build()
+    req = _fleet_request()
+    aot = tmp_path / "aot"
+    out = {}
+    for arm in ("cold", "warm"):
+        tdir = tmp_path / arm
+        srv = ProcServer(replica_id=arm, device="cuda",
+                         aot_cache_dir=str(aot), telemetry_dir=str(tdir),
+                         workdir=str(tmp_path), batch_window_s=0.0)
+        try:
+            res = srv.submit(req).result(timeout=600)
+            disk = srv._beat_once()["cache"]["disk"]
+        finally:
+            srv.close()
+        evs = _child_events(tdir)
+        spans = [e for e in evs if e.get("event") == "span"
+                 and e.get("name") == "device_dispatch"]
+        with open(tdir / "metrics.json") as fh:
+            fam = json.load(fh)["metrics"].get("serve_compile_seconds_total")
+        out[arm] = {"res": res, "disk": disk,
+                    "compiles": [e for e in evs
+                                 if e.get("event") == "compile_profile"
+                                 and "disk_hit" in e],
+                    "b2": sum(e["b2_launches"] for e in spans),
+                    "rounds": sum(e["rounds"] for e in spans),
+                    "compile_s": sum(s["value"] for s in fam["series"])
+                    if fam else 0.0}
+    cold, warm = out["cold"], out["warm"]
+    assert cold["disk"]["disk_misses"] == 1 and cold["disk"]["stores"] == 1
+    assert [e["disk_hit"] for e in cold["compiles"]] == [False]
+    assert warm["disk"]["disk_hits"] == 1
+    assert warm["disk"]["disk_misses"] == 0 and warm["disk"]["stores"] == 0
+    assert [e["disk_hit"] for e in warm["compiles"]] == [True]
+    assert not any(e.get("nvcc") for e in cold["compiles"] +
+                   warm["compiles"])
+    assert warm["compile_s"] == 0.0
+    assert warm["res"].cost_history == cold["res"].cost_history
+    assert torch.equal(warm["res"].T, cold["res"].T)
+    for arm in out.values():
+        assert arm["b2"] == arm["rounds"] == 8
+
+
+def test_in_process_replicas_launch_b2_from_two_threads(card, tmp_path):
+    """Two in-process replicas on one card under the router, their worker
+    threads launching B2 at once: the sessions spread over both replicas,
+    one B2 launch per round of every batch, each result within 1e-5 of a
+    lone server's final cost."""
+    from dpgo_tpu_torch.serve import (FleetRouter, ReplicaManager,
+                                      SolveServer)
+
+    reqs = [_fleet_request(n=60 + 70 * i, rounds=12, sid=f"s{i}")
+            for i in range(4)]
+    with SolveServer(batch_window_s=0.0, device=card) as lone:
+        ref = [lone.solve(r, timeout=600) for r in reqs]
+
+    def make_server(rid):
+        return SolveServer(batch_window_s=0.0, replica_id=rid, device=card)
+
+    before = rk.LAUNCHES
+    with FleetRouter(ReplicaManager(make_server, min_replicas=2)) as router:
+        tickets = [router.submit(r) for r in reqs]
+        res = [t.result(timeout=600) for t in tickets]
+        placed = {t._replica.replica_id for t in tickets}
+        batches = sum(r.server.status()["batches_dispatched"]
+                      for r in router.manager.replicas())
+    assert rk.LAUNCHES - before == 12 * batches and batches >= 2
+    assert placed == {"r0", "r1"}
+    for a, b in zip(res, ref):
+        assert abs(a.cost_history[-1] - b.cost_history[-1]) <= \
+            1e-5 * abs(b.cost_history[-1])
+        assert a.T.shape == b.T.shape and bool(torch.isfinite(a.T).all())
