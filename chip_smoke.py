@@ -156,6 +156,22 @@ synthetic stand-in for sphere2500 (2500 poses, 4948 edges, 8 robots, rank
   (its telemetry's dispatch spans); requests/s of one and two replicas
   (a record: they share the card).
 
+* ``config5`` — BASELINE.md config #5 (100,000 poses, 64 robots, seed
+  11, noise 0.05, 20,000 loop closures, rank 5, float32; made once and
+  shared with ``sharded``) through the main path, ``rbcd.solve_rbcd``
+  with the odometry init and the verdict loop (12 rounds, K = 4): B2 once
+  per enqueued round on the spread route (``csrc/rtr_spread.cu``; the
+  ``solve`` line carries the four kernels' plan at this shape: B2 and B4
+  spread, B1 and B3 workspace); B2 at the terminal iterate against its
+  plain version (max |ΔX| on live rows at most 1e-4 of the largest live
+  entry, ROADMAP's accept-flip rule), against itself bit for bit with
+  the same tCG iterations, and timed in turns with the workspace route
+  (spread, workspace, workspace, spread) beside its bound; B2 at rank 7,
+  the staircase's top, at the odometry init of config #5's graph, held
+  and timed; B4 at this shape (constants recentered at the terminal
+  iterate, three refine rounds in) against its plain version on the
+  spread and workspace routes, timed on both;
+
 Every launch gate is exact: the rounds each run enqueued, the per-eval
 loop's discarded speculative segment and the verdict loop's polish and
 speculative windows included (``rbcd.rounds_enqueued``).
@@ -171,8 +187,12 @@ After the solve, B2 and B3 are timed on the cluster route and on the
 workspace route (``_cluster=0``) at both operand sets, B1 on both routes,
 and B2 at every cluster size the card can place (``cluster_sweep``); in
 the refine phase B4 is held against its plain version on both routes and
-timed on both and at every cluster size.  The ``plan`` line gives the
-route of all four kernels at the slice shape.
+timed on both and at every cluster size, and at one agent of the whole
+stand-in (2500 poses) on the spread and workspace routes.  The ``plan``
+line gives the route of all four kernels at the slice shape.  The kernel
+table lists each kernel's routes, and the spread route of B2 and B4 as
+rows of their own (``rtr_full_spread``, ``rtr_refine_full_spread``,
+timed at config #5).
 
 Each phase prints JSON lines, each with ``elapsed_s`` since the start,
 and a ``seconds`` line when it ends; any failure raises.  The line before the
@@ -321,6 +341,9 @@ MH_BARRIER_S = 3.0
 SCALE_POSES, SCALE_ROBOTS, SCALE_SEED, SCALE_NOISE, SCALE_LC = \
     100_000, 64, 11, 0.05, 0.2
 SCALE_ROUNDS, SCALE_K, SCALE_OUTER = 8, 4, 4
+#: The config5 phase (config #5 through ``solve_rbcd``): rounds, K, and
+#: the rank staircase's top rank, where B2 is held once more.
+C5_ROUNDS, C5_K, C5_TOP_RANK = 12, 4, 7
 #: The sharded certificate against the device payload (both float32 on
 #: the card): the PSD tolerance eta, the smallest round value at which a
 #: float32 eigensolve decides on the stand-in (decidable needs the error
@@ -724,16 +747,19 @@ def refine_phase(prob, meas, card: str, profile: bool) -> list:
     emit({"phase": "parity", "kernel": "rtr_refine_full", "agents": ROBOTS,
           **row_ws})
 
-    # One agent of 2500 poses: no cluster holds it (the workspace route).
+    # One agent of 2500 poses: no cluster holds it (the spread route), and
+    # the workspace route on the same operands.
     part1 = partition.partition_contiguous(meas, 1)
     g1, m1 = rbcd.build_graph(part1, RANK, torch.float32, dev)
     ref1 = refine.recenter(Xg64, g1, m1, rparams, edges64)
     ops1 = refine_operands(torch.zeros_like(ref1.consts.R), ref1.consts, g1)
-    row1, _ = refine_parity(ops1, rbcd.kernel_options(rparams, m1))
-    emit({"phase": "parity", "kernel": "rtr_refine_full", "agents": 1,
-          "e_max": m1.e_max, "payload_bytes": m1.e_max * 144, **row1})
-    check(row1["cuda_route"] == "workspace",
-          "one agent of the whole problem left the workspace route")
+    kw1 = rbcd.kernel_options(rparams, m1)
+    for cluster in (None, 0):
+        row1, _ = refine_parity(ops1, kw1, cluster)
+        emit({"phase": "parity", "kernel": "rtr_refine_full", "agents": 1,
+              "e_max": m1.e_max, "payload_bytes": m1.e_max * 144, **row1})
+    check(plan_of(ops1, kw1, "rtr_refine_full").route == "spread",
+          "one agent of the whole problem left the spread route")
 
     plain = dataclasses.replace(rparams, solver=dataclasses.replace(
         rparams.solver, pallas_tcg=False))
@@ -809,10 +835,12 @@ def first_agent(ops: dict) -> dict:
 
 def plan_of(ops: dict, kw: dict, kernel: str = "rtr_full",
             cluster: int | None = None):
-    """The route ``kernel`` takes on ``ops``: the plan's, or the one
-    ``cluster`` forces (as the wrappers' ``_cluster``)."""
-    _, n, K = ops["inc_slot"].shape
-    return rk._route(cluster, n, kw["e_max"], K, kw["r"], kw["d"], kernel)
+    """The route ``kernel`` takes on ``ops``: the plan's for this many
+    agents on this card, or the one ``cluster`` forces (as the wrappers'
+    ``_cluster``)."""
+    A, n, K = ops["inc_slot"].shape
+    return rk._route(cluster, n, kw["e_max"], K, kw["r"], kw["d"], kernel,
+                     agents=A, sms=rk.sm_count(ops["inc_slot"].device))
 
 
 def kernel_parity(fn, ref_fn, ops: dict, kw: dict, where: str,
@@ -945,7 +973,7 @@ def route_timing(fn, ops: dict, kw: dict, out) -> dict:
            "ms_per_tcg_iter_single_cta": ms_ws / iters,
            "cuda_route": plan.route, "cluster": plan.C,
            "ctas": ops["inc_slot"].shape[0] * max(plan.C, 1),
-           "smem_bytes_per_cta": plan.smem_bytes}
+           "stripes": plan.stripes, "smem_bytes_per_cta": plan.smem_bytes}
     if hasattr(out, "tcg_iters"):
         row["attempts"] = out.stats[:, 0].tolist()
     return row
@@ -4073,23 +4101,239 @@ def sharded_multihost(card: str, tmp: Path) -> int:
     return b2
 
 
-def sharded_scale(mesh, dev, card: str) -> tuple[int, dict]:
-    """BASELINE.md config #5 at world size 1: SCALE_POSES poses,
-    SCALE_ROBOTS agents (``make_measurements_vectorized``, odometry init),
-    SCALE_ROUNDS rounds through the sharded verdict loop, then
-    ``gn_tail_sharded`` and the fused device certificate.  Returns B2
-    launches and the config's B2 row (ms per launch, route)."""
-    from dpgo_tpu_torch.parallel import sharded
+def config5_instance() -> tuple:
+    """BASELINE.md config #5 (SCALE_POSES poses, SCALE_ROBOTS robots,
+    ``make_measurements_vectorized``): its measurements, contiguous
+    partition and parameters, made once for the config5 and sharded
+    phases."""
     from dpgo_tpu_torch.utils.synthetic import make_measurements_vectorized
 
-    t0 = time.perf_counter()
     meas = make_measurements_vectorized(
         np.random.default_rng(SCALE_SEED), SCALE_POSES, d=3,
         num_lc=int(SCALE_LC * SCALE_POSES), rot_noise=SCALE_NOISE,
         trans_noise=SCALE_NOISE)[0]
     params = AgentParams(d=3, r=RANK, num_robots=SCALE_ROBOTS,
                          rel_change_tol=0.0)
-    part = partition.partition_contiguous(meas, SCALE_ROBOTS)
+    return meas, partition.partition_contiguous(meas, SCALE_ROBOTS), params
+
+
+def live_rel_dX(a: torch.Tensor, b: torch.Tensor, graph,
+                agents: torch.Tensor) -> tuple[float, float]:
+    """Max |a - b| over the live pose columns of ``agents`` (a bool mask)
+    of component-major iterates ``[A, rk, n]``, and the largest |b| there
+    (padded poses are no data)."""
+    n = a.shape[-1]
+    live = (torch.arange(n, device=a.device)[None, :]
+            < graph.n[:, None]) & agents[:, None]
+    live = live[:, None, :].expand_as(a)
+    if not bool(live.any()):
+        return 0.0, 0.0
+    return (float((a - b).abs()[live].max()), float(b.abs()[live].max()))
+
+
+def config5_b2(ops: dict, kw: dict, graph, meta, where: str,
+               workspace: bool) -> tuple[dict, object]:
+    """B2 on its planned route at config #5's shape against its plain
+    version: max |ΔX| on live rows of the agents whose accept decisions
+    agree at most X_ATOL of the largest live entry, f0 and f at
+    STAT_RTOL, every flip within FLOOR_DF_RTOL of f0 (ROADMAP's accept-flip
+    rule); a second launch equal bit for bit, with the same tCG
+    iterations; then timed in turns (planned, workspace, workspace,
+    planned) where ``workspace`` (the workspace route has no r = 7), else
+    alone, with the plain version's time and the launch's bound."""
+    out = rk.rtr_full(*ops.values(), **kw)
+    again = rk.rtr_full(*ops.values(), **kw)
+    ref = rk.rtr_full_reference(*ops.values(), **kw)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(out.X).all() and torch.isfinite(out.stats)
+               .all()), "rtr_full returned non-finite values at config #5")
+    plan = plan_of(ops, kw)
+    rule = flip_rule(out, ref)
+    agree = ~(out.stats[:, :2] != ref.stats[:, :2]).any(1)
+    err, scale = live_rel_dX(out.X, ref.X, graph, agree)
+    bitwise = all(torch.equal(a, b) for a, b in zip(out, again))
+    row = {"phase": "config5", "check": "b2", "operands": where,
+           "rank": kw["r"], "agents": ops["Xc"].shape[0],
+           "n_max": meta.n_max, "plan": plan._asdict(),
+           "max_abs_dX_live": err, "max_abs_X_live": scale,
+           "rel_dX_live": err / max(scale, 1e-30), **rule,
+           "repeat_bitwise": bitwise,
+           "tcg_iters": out.tcg_iters.tolist(),
+           "plain_tcg_iters": ref.tcg_iters.tolist(),
+           "tcg_iter_flips": int((out.tcg_iters != ref.tcg_iters).sum()),
+           "attempts": out.stats[:, 0].tolist(),
+           "plain_attempts": ref.stats[:, 0].tolist()}
+    check(plan.route == "spread", f"B2 at config #5 ({where}) is not on "
+          "the spread route")
+    check(err <= X_ATOL * scale and rule["max_rel_d_f0"] <= STAT_RTOL
+          and rule["max_rel_d_f_agreeing"] <= STAT_RTOL
+          and all(x <= FLOOR_DF_RTOL for x in rule["flipped_rel_df"]),
+          f"B2 at config #5 ({where}) disagrees with its plain version")
+    check(bitwise and torch.equal(out.tcg_iters, again.tcg_iters),
+          f"B2 at config #5 ({where}) does not repeat bit for bit")
+    if workspace:
+        row["timing"] = route_timing(rk.rtr_full, ops, kw, out)
+    else:
+        ms = cuda_ms(lambda: rk.rtr_full(*ops.values(), **kw), reps=10,
+                     inner=10)
+        iters = max(int(out.tcg_iters.max()), 1)
+        row["timing"] = {"ms": ms, "max_tcg_iters": iters,
+                         "ms_per_tcg_iter": ms / iters,
+                         "cuda_route": plan.route, "cluster": plan.C,
+                         "ctas": ops["Xc"].shape[0] * plan.C,
+                         "stripes": plan.stripes,
+                         "smem_bytes_per_cta": plan.smem_bytes}
+    row["plain_ms"] = cuda_ms(lambda: rk.rtr_full_reference(*ops.values(),
+                                                            **kw),
+                              reps=3, warmup=1)
+    row["bytes"], row["flops"] = rtr_full_work(ops, out, graph, meta)
+    row["bound_ms"], row["bound_by"] = bound(row["bytes"], row["flops"])
+    emit(row)
+    return row, out
+
+
+def config5_phase(inst, dev, card: str) -> dict:
+    """BASELINE.md config #5 through the main path: ``solve_rbcd``
+    (odometry init, the verdict loop, C5_ROUNDS rounds at K = C5_K), B2
+    once per enqueued round on the spread route; the four kernels' plan
+    at this shape; B2 at the terminal iterate against its plain version,
+    bit for bit against itself and timed in turns with the workspace
+    route; B2 at rank C5_TOP_RANK (the staircase's top) at the odometry
+    init; B4 at this shape (constants recentered at the terminal iterate,
+    three refine rounds in) against its plain version on the spread and
+    workspace routes and timed on both.  Returns the spread route's rows
+    of the kernel table."""
+    meas, part, params = inst
+    rk.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = rbcd.solve_rbcd(meas, SCALE_ROBOTS, params, max_iters=C5_ROUNDS,
+                          grad_norm_tol=0.0, part=part, init="odometry",
+                          verdict_every=C5_K, device=dev)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    launches = rk.LAUNCHES
+    enqueued = rbcd.rounds_enqueued(res.iterations, max_iters=C5_ROUNDS,
+                                    eval_every=1, params=params,
+                                    verdict_every=C5_K)
+    prob = rbcd.prepare_problem(meas, SCALE_ROBOTS, params,
+                                dtype=torch.float32, part=part, init=None,
+                                device=dev)
+    graph, meta = prob.graph, prob.meta
+    X = res.state.X
+    Z = rbcd.neighbor_buffer(rbcd.public_table(X, graph), graph)
+    ops = dict(zip(B2_ORDER, rbcd.kernel_operands(
+        X, Z, graph.edges, res.state.chol, graph)))
+    kw = rbcd.kernel_options(params, meta)
+    plans = {k: plan_of(ops, kw, k)._asdict() for k in rk.KERNELS}
+    emit({"phase": "config5", "check": "solve", "card": card,
+          "poses": SCALE_POSES, "robots": SCALE_ROBOTS,
+          "edges": len(meas), "n_max": meta.n_max, "e_max": meta.e_max,
+          "s_max": meta.s_max, "kinc": ops["inc_slot"].shape[-1],
+          "sms": rk.sm_count(dev), "plan": plans,
+          "iterations": res.iterations, "terminated_by": res.terminated_by,
+          "cost": [res.cost_history[0], res.cost_history[-1]],
+          "b2_launches": launches, "rounds_enqueued": enqueued,
+          "solve_s": solve_s})
+    check(plans["rtr_full"]["route"] == "spread"
+          and plans["rtr_refine_full"]["route"] == "spread"
+          and plans["rtr"]["route"] == plans["tcg"]["route"] == "workspace",
+          "config #5's plan is not B2 and B4 spread, B1 and B3 workspace")
+    check(res.iterations == C5_ROUNDS and launches == enqueued
+          and bool(np.isfinite(res.cost_history).all())
+          and res.cost_history[-1] < res.cost_history[0],
+          "config #5's solve did not launch B2 once per enqueued round "
+          "with finite, falling costs")
+
+    b2, out = config5_b2(ops, kw, graph, meta, "terminal iterate", True)
+    # The staircase's top rank at the odometry init of config #5's graph.
+    params7 = dataclasses.replace(params, r=C5_TOP_RANK)
+    g7, m7 = rbcd.build_graph(part, C5_TOP_RANK, torch.float32, dev)
+    X7 = rbcd.initial_state_for("odometry", part, m7, g7, params7,
+                                torch.float32)
+    Z7 = rbcd.neighbor_buffer(rbcd.public_table(X7, g7), g7)
+    ops7 = dict(zip(B2_ORDER, rbcd.kernel_operands(
+        X7, Z7, g7.edges, rbcd.precond_chol(g7.edges, g7, params7), g7)))
+    b2_7, _ = config5_b2(ops7, rbcd.kernel_options(params7, m7), g7, m7,
+                         "odometry init", False)
+    del g7, X7, Z7, ops7
+
+    # B4 at this shape, from the terminal iterate.
+    rparams = dataclasses.replace(params, solver=dataclasses.replace(
+        params.solver, grad_norm_tol=1e-9))
+    edges64 = refine.host_edges_f64(meas)
+    Xg64 = rbcd.gather_to_global(X, graph, SCALE_POSES).double().cpu() \
+        .numpy()
+    ref = refine.recenter(Xg64, graph, meta, rparams, edges64)
+    rk.REFINE_LAUNCHES = 0
+    D = refine.refine_rounds(torch.zeros_like(ref.consts.R), ref.consts,
+                             graph, meta, rparams, 3)
+    b4_launches = rk.REFINE_LAUNCHES
+    ops4 = refine_operands(D, ref.consts, graph)
+    kw4 = rbcd.kernel_options(rparams, meta)
+    row4, out4 = refine_parity(ops4, kw4)
+    row4_ws, _ = refine_parity(ops4, kw4, cluster=0)
+    check(row4["cuda_route"] == "spread", "B4 at config #5 is not on the "
+          "spread route")
+    b4_t = route_timing(rk.rtr_refine_full, ops4, kw4, out4)
+    b4_plain = cuda_ms(lambda: rk.rtr_refine_full_reference(
+        *ops4.values(), **kw4), reps=3, warmup=1)
+    b4_bytes, b4_flops = rtr_refine_full_work(ops4, out4, graph, meta)
+    b4_bound, b4_by = bound(b4_bytes, b4_flops)
+    emit({"phase": "config5", "check": "b4", "card": card,
+          "spread": row4, "workspace": row4_ws, "timing": b4_t,
+          "plain_ms": b4_plain, "bound_ms": b4_bound, "bound_by": b4_by,
+          "bytes": b4_bytes, "flops": b4_flops,
+          "refine_round_launches": b4_launches})
+    check(b4_launches == 3, "the refine rounds did not launch B4 once each")
+
+    t = b2["timing"]
+    spread_b2 = {
+        "name": "rtr_full_spread", "route": "cuda",
+        "source": "dpgo_tpu_torch/csrc/rtr_spread.cu",
+        "replaces": "dpgo_tpu/ops/pallas_tcg.py:662",
+        "launches_by_path": {"config5": launches},
+        "max_abs_err": max(b2["max_abs_dX_live"], b2_7["max_abs_dX_live"]),
+        "floor_accept_flips": len(b2["flipped_rel_df"])
+        + len(b2_7["flipped_rel_df"]),
+        "cuda_route": "spread", "cluster": t["cluster"], "ctas": t["ctas"],
+        "stripes": t["stripes"], "ms": t["ms"],
+        "ms_single_cta": t["ms_single_cta"], "speedup": t["speedup"],
+        "us_per_tcg_iter": 1e3 * t["ms_per_tcg_iter"],
+        "us_per_tcg_iter_single_cta": 1e3 * t["ms_per_tcg_iter_single_cta"],
+        "plain_ms": b2["plain_ms"], "bound_ms": b2["bound_ms"],
+        "bound_by": b2["bound_by"], "library_ms": None,
+        "bytes": b2["bytes"], "flops": b2["flops"],
+        "rank7": {k: b2_7["timing"][k] for k in (
+            "ms", "cluster", "ctas", "stripes", "ms_per_tcg_iter")}
+        | {k: b2_7[k] for k in ("plain_ms", "bound_ms", "bound_by",
+                                "max_abs_dX_live", "rel_dX_live")}}
+    spread_b4 = {
+        "name": "rtr_refine_full_spread", "route": "cuda",
+        "source": "dpgo_tpu_torch/csrc/rtr_spread.cu",
+        "replaces": "dpgo_tpu/ops/pallas_tcg.py:715",
+        "launches_by_path": {"config5": b4_launches},
+        "max_abs_err": row4["max_abs_dD"], "cuda_route": "spread",
+        "cluster": b4_t["cluster"], "ctas": b4_t["ctas"],
+        "stripes": b4_t["stripes"], "ms": b4_t["ms"],
+        "ms_single_cta": b4_t["ms_single_cta"], "speedup": b4_t["speedup"],
+        "us_per_tcg_iter": 1e3 * b4_t["ms_per_tcg_iter"],
+        "us_per_tcg_iter_single_cta":
+        1e3 * b4_t["ms_per_tcg_iter_single_cta"],
+        "plain_ms": b4_plain, "bound_ms": b4_bound, "bound_by": b4_by,
+        "library_ms": None, "bytes": b4_bytes, "flops": b4_flops}
+    return {"rows": [spread_b2, spread_b4]}
+
+
+def sharded_scale(mesh, dev, card: str, inst) -> tuple[int, dict]:
+    """BASELINE.md config #5 at world size 1 (``config5_instance``: odometry
+    init), SCALE_ROUNDS rounds through the sharded verdict loop, then
+    ``gn_tail_sharded`` and the fused device certificate.  Returns B2
+    launches and the config's B2 row (ms per launch, route)."""
+    from dpgo_tpu_torch.parallel import sharded
+
+    t0 = time.perf_counter()
+    meas, part, params = inst
     graph_h, meta = rbcd.build_graph(part, RANK, torch.float32, dev)
     X0 = rbcd.initial_state_for("odometry", part, meta, graph_h, params,
                                 torch.float32)
@@ -4182,9 +4426,8 @@ def sharded_scale(mesh, dev, card: str) -> tuple[int, dict]:
     return b2, row
 
 
-def sharded_phase(meas, params, dev, card: str, tmp: Path) -> tuple[int,
-                                                                    int,
-                                                                    dict]:
+def sharded_phase(meas, params, dev, card: str, tmp: Path,
+                  inst) -> tuple[int, int, dict]:
     """The sharded plane (``dpgo_tpu_torch.parallel``) at world size 1 over
     NCCL: the stand-in equivalence, the verdict loop, the GN tail, the
     certificate, resilience, multihost and config #5.  Returns B2
@@ -4201,7 +4444,7 @@ def sharded_phase(meas, params, dev, card: str, tmp: Path) -> tuple[int,
     b2 += sharded_tail_and_certificate(meas, params, prob, res, mesh, dev,
                                        card)
     b2 += sharded_resilience(meas, mesh, card, tmp)
-    scale_b2, scale_row = sharded_scale(mesh, dev, card)
+    scale_b2, scale_row = sharded_scale(mesh, dev, card, inst)
     b2 += scale_b2
     torch.distributed.destroy_process_group()
     workers_b2 = sharded_multihost(card, tmp)
@@ -4981,9 +5224,14 @@ def main() -> int:
         # --- the fleet: replicas in process and as child processes ----------
         fleet_b2, fleet_lone_b2 = fleet_phase(dev, card, Path(tmp))
         lap("fleet")
+        # --- config #5 through the main path: B2 and B4 spread --------------
+        inst = config5_instance()
+        c5 = config5_phase(inst, dev, card)
+        lap("config5")
         # --- the sharded plane at world size 1 over NCCL --------------------
         sharded_b2, mh_b2, scale_row = sharded_phase(meas, params, dev,
-                                                     card, Path(tmp))
+                                                     card, Path(tmp), inst)
+        del inst
         lap("sharded")
 
     # --- the ablation: B3's path ------------------------------------------
@@ -5037,9 +5285,16 @@ def main() -> int:
         "b2_bound_by", "ms_per_round", "n_max", "peak_memory_bytes")}
     b2_row["serve_64_agents"] = {k: serve_t[k] for k in (
         "ms", "ms_single_cta", "bound_ms", "bound_by", "cluster", "ctas")}
+    routes = {"cluster": "dpgo_tpu_torch/csrc/rtr_cluster.cu",
+              "workspace": "dpgo_tpu_torch/csrc/rtr_full.cu"}
+    for row in rows:
+        row["routes"] = dict(routes)
+        if row["name"] in rk.SPREAD_KERNELS:
+            row["routes"]["spread"] = f"{row['name']}_spread"
+    rows.extend(c5["rows"])
     for row in rows:
         row["launches"] = sum(row["launches_by_path"].values())
-    rows.sort(key=lambda r: r["replaces"])
+    rows.sort(key=lambda r: (r["replaces"], r["name"]))
 
     emit({"phase": "time", "seconds": time.perf_counter() - T_START})
     print(card, flush=True)

@@ -1,6 +1,6 @@
 """The fused local RTR step of RBCD: the hand-written CUDA kernels
-(``csrc/rtr_cluster.cu``, ``csrc/rtr_full.cu``) and their plain PyTorch
-versions.
+(``csrc/rtr_cluster.cu``, ``csrc/rtr_spread.cu``, ``csrc/rtr_full.cu``) and
+their plain PyTorch versions.
 
 Port of the TPU kernels ``dpgo_tpu/ops/pallas_tcg.py``:
 
@@ -25,13 +25,19 @@ was given lie on the CPU.  The kernels are compiled with ``nvcc`` for
 ``nvcc`` per source, all at once), into one library in
 ``dpgo_tpu_torch/_build/``, and bound through ``ctypes``.
 
-Each of the four kernels has two routes, chosen from the shape before the
-launch by ``cluster_plan``: the **cluster** route (``rtr_cluster.cu``: one
-thread-block cluster of C CTAs per agent, its loop vectors and edge payload
-in the cluster's shared memory) for every agent that fits a cluster, and
-the **workspace** route (``rtr_full.cu``: one CTA per agent, loop vectors in
-a per-agent device-memory workspace) above that.  A cluster the card
-refuses or cannot place raises; nothing retries another route.
+The route is chosen from the shape before the launch by ``cluster_plan``:
+the **cluster** route (``rtr_cluster.cu``: one thread-block cluster of C
+CTAs per agent, its loop vectors and edge payload in the cluster's shared
+memory) for every agent that fits a cluster; above that ceiling, the
+**spread** route for ``rtr_full`` and ``rtr_refine_full`` (``rtr_spread.cu``:
+C CTAs per agent picked so that all agents' CTAs cover the card's SMs in one
+wave, lane groups walking the CTA's poses in stripes, the CG direction and
+z in shared memory, the other loop vectors and the payload in a per-agent
+device-memory workspace) and the **workspace** route for ``rtr`` and
+``tcg`` (``rtr_full.cu``: one CTA per agent, loop vectors in a per-agent
+workspace), which is also where the other two go when no spread fits.  A
+cluster the card refuses or cannot place raises; nothing retries another
+route.
 
 Inputs use the JAX package's tile-major layout (``models.rbcd.build_graph``),
 batched over agents with a leading ``A``:
@@ -116,6 +122,18 @@ MAX_CLUSTER_THREADS = 512
 #: Loop vectors of the cluster kernels held in shared memory (delta twice)
 #: — ``rtr_cluster.cu``; ``rtr_refine_full`` adds D and Rc.
 _CLUSTER_VECS = 10
+#: Threads per CTA of the spread kernels at most (``rtr_spread.cu``'s
+#: kThreads): 128 registers a thread at one CTA per SM.
+SPREAD_THREADS = 512
+#: Loop vectors of the spread kernels held in shared memory: the CG
+#: direction (twice) and z, which the Hessian sweep reads at the other
+#: endpoints.
+_SPREAD_SMEM_VECS = 3
+#: The kernels with a spread route (B2 and B4).
+SPREAD_KERNELS = ("rtr_full", "rtr_refine_full")
+#: SMs of an H100 SXM: what the plan assumes where it is not told the card's
+#: own count (``sm_count``).
+H100_SMS = 132
 #: The kernels, by wrapper name, as the C launchers number them
 #: (``Kernel`` in ``rtr_cluster.cu``).
 KERNELS = {"rtr_full": 0, "rtr": 1, "tcg": 2, "rtr_refine_full": 3}
@@ -146,11 +164,12 @@ class TCGOut(NamedTuple):
 
 
 class ClusterPlan(NamedTuple):
-    route: str       # "cluster" or "workspace"
+    route: str       # "cluster", "spread" or "workspace"
     C: int           # CTAs per agent (0 on the workspace route)
     P: int           # poses per CTA
     threads: int     # threads per CTA
     smem_bytes: int  # shared memory per CTA
+    stripes: int = 1  # poses each lane group walks (spread route)
 
 
 # ---------------------------------------------------------------------------
@@ -200,22 +219,58 @@ def _fits(plan: ClusterPlan) -> bool:
             and plan.smem_bytes <= MAX_SMEM_BYTES)
 
 
+def spread_shape(r: int, d: int, n_max: int, C: int) -> ClusterPlan:
+    """The shape of the spread kernels for ``C`` CTAs per agent (the
+    formula of ``rtr_spread.cu``'s ``spread_shape``; B2 and B4 share it):
+    P = ceil(n_max / C) poses in each CTA, r lanes per pose and 32 // r
+    poses per warp, at most ``SPREAD_THREADS`` threads, so each lane group
+    walks ceil(P / groups) poses (its stripes); shared memory holds the
+    ``_SPREAD_SMEM_VECS`` vectors ``[P, vec_stride]`` and the reduction
+    slots (two buffers of 4 floats for each warp of the cluster)."""
+    P = -(-n_max // C)
+    per_warp = 32 // r
+    threads = min(SPREAD_THREADS, -(-P // per_warp) * 32)
+    stripes = -(-P // (threads // 32 * per_warp))
+    floats = (_SPREAD_SMEM_VECS * P * _vec_stride(r * (d + 1))
+              + 2 * C * (threads // 32) * 4)
+    return ClusterPlan("spread", C, P, threads, 4 * floats, stripes)
+
+
+def _spread_plan(n_max: int, r: int, d: int, agents: int,
+                 sms: int) -> ClusterPlan | None:
+    """The spread route's plan: C = sms // agents CTAs per agent (all
+    agents' CTAs in one wave over the card's SMs), at least 1, raised until
+    one CTA's shared memory fits, at most the largest cluster; None when
+    no C fits."""
+    C = min(max(sms // max(agents, 1), 1), CLUSTER_SIZES[-1])
+    for c in range(C, CLUSTER_SIZES[-1] + 1):
+        plan = spread_shape(r, d, n_max, c)
+        if plan.smem_bytes <= MAX_SMEM_BYTES:
+            return plan
+    return None
+
+
 def cluster_plan(n_max: int, e_max: int, kinc: int, r: int, d: int,
-                 kernel: str = "rtr_full") -> ClusterPlan:
+                 kernel: str = "rtr_full", agents: int = 1,
+                 sms: int = H100_SMS) -> ClusterPlan:
     """The route of ``kernel`` (``rtr_full``, ``rtr``, ``tcg`` or
-    ``rtr_refine_full``) for agents of ``n_max`` poses, ``e_max`` edges and
-    ``kinc`` incidence entries per pose.  The cluster route when some C of
-    ``CLUSTER_SIZES`` fits the card (at most ``MAX_CLUSTER_THREADS``
-    threads and ``MAX_SMEM_BYTES`` of shared memory per CTA, by
-    ``cluster_shape`` of this kernel): of the portable sizes (up to 8) that
-    fit, the smallest with at most ``SPREAD_WARPS`` warps per CTA, else the
-    largest; 16 only when no portable size fits.  Else the workspace route
-    (one CTA of 256 threads per agent; its shared memory holds the edge
-    payload when that fits)."""
+    ``rtr_refine_full``) for ``agents`` agents of ``n_max`` poses, ``e_max``
+    edges and ``kinc`` incidence entries per pose on a card of ``sms`` SMs.
+    The cluster route when some C of ``CLUSTER_SIZES`` fits the card (at
+    most ``MAX_CLUSTER_THREADS`` threads and ``MAX_SMEM_BYTES`` of shared
+    memory per CTA, by ``cluster_shape`` of this kernel): of the portable
+    sizes (up to 8) that fit, the smallest with at most ``SPREAD_WARPS``
+    warps per CTA, else the largest; 16 only when no portable size fits.
+    Else, for ``rtr_full`` and ``rtr_refine_full``, the spread route
+    (``_spread_plan``) when it fits; else the workspace route (one CTA of
+    256 threads per agent; its shared memory holds the edge payload when
+    that fits)."""
     fitting = [plan for plan in (cluster_shape(r, d, n_max, kinc, C, kernel)
                                  for C in CLUSTER_SIZES) if _fits(plan)]
     if not fitting:
-        return _workspace_plan(n_max, e_max, r, d, kernel)
+        plan = (_spread_plan(n_max, r, d, agents, sms)
+                if kernel in SPREAD_KERNELS else None)
+        return plan or _workspace_plan(n_max, e_max, r, d, kernel)
     portable = [plan for plan in fitting if plan.C <= 8] or fitting
     spread = [plan for plan in portable
               if plan.threads <= 32 * SPREAD_WARPS]
@@ -236,12 +291,29 @@ def _workspace_plan(n_max: int, e_max: int, r: int, d: int,
 
 
 def _route(cluster: int | None, n_max: int, e_max: int, kinc: int, r: int,
-           d: int, kernel: str) -> ClusterPlan:
+           d: int, kernel: str, spread: int | None = None, agents: int = 1,
+           sms: int = H100_SMS) -> ClusterPlan:
     """``cluster_plan``, or the route a test or ``chip_smoke.py`` forces:
-    ``0`` the workspace route, ``C > 0`` a cluster of C CTAs (raises when
-    one CTA of it cannot fit the card)."""
+    ``cluster`` ``0`` the workspace route, ``C > 0`` a cluster of C CTAs;
+    ``spread`` ``C`` the spread route over C CTAs per agent (``rtr_full``
+    and ``rtr_refine_full`` only).  Raises when one CTA of a forced shape
+    cannot fit the card."""
+    if spread is not None:
+        if cluster is not None:
+            raise ValueError("force one route: a cluster or a spread")
+        if kernel not in SPREAD_KERNELS:
+            raise ValueError(f"{kernel} has no spread route")
+        if spread < 1:
+            raise ValueError(f"spread over {spread} CTAs")
+        plan = spread_shape(r, d, n_max, spread)
+        if plan.smem_bytes > MAX_SMEM_BYTES:
+            raise ValueError(
+                f"a spread over {spread} CTAs cannot hold an agent of "
+                f"{n_max} poses: {plan.smem_bytes} B of shared memory per "
+                f"CTA (at most {MAX_SMEM_BYTES})")
+        return plan
     if cluster is None:
-        return cluster_plan(n_max, e_max, kinc, r, d, kernel)
+        return cluster_plan(n_max, e_max, kinc, r, d, kernel, agents, sms)
     if cluster == 0:
         return _workspace_plan(n_max, e_max, r, d, kernel)
     if cluster < 0:
@@ -554,7 +626,10 @@ SYMBOLS = ("dpgo_rtr_workspace_floats", "dpgo_rtr_full_launch",
            "dpgo_rtr_refine_full_launch", "dpgo_rtr_cluster_smem_bytes",
            "dpgo_rtr_cluster_max_clusters", "dpgo_rtr_full_cluster_launch",
            "dpgo_rtr_cluster_launch", "dpgo_tcg_cluster_launch",
-           "dpgo_rtr_refine_full_cluster_launch")
+           "dpgo_rtr_refine_full_cluster_launch", "dpgo_rtr_spread_shape",
+           "dpgo_rtr_spread_workspace_floats", "dpgo_rtr_spread_max_clusters",
+           "dpgo_rtr_full_spread_launch",
+           "dpgo_rtr_refine_full_spread_launch")
 #: Serializes ``build`` and ``load``: the agents' optimization threads
 #: (``agent.PGOAgent.start_optimization_loop``) may make the first launch
 #: from several threads of one process at once.
@@ -748,6 +823,18 @@ def _bind(path):
     lib.dpgo_rtr_refine_full_cluster_launch.argtypes = (
         [I] * 10 + [P] * 21 + [I, F, F, F, I, F, P])
     lib.dpgo_rtr_refine_full_cluster_launch.restype = I
+    lib.dpgo_rtr_spread_shape.argtypes = [I] * 5 + [P]
+    lib.dpgo_rtr_spread_shape.restype = LL
+    lib.dpgo_rtr_spread_workspace_floats.argtypes = [I] * 7
+    lib.dpgo_rtr_spread_workspace_floats.restype = LL
+    lib.dpgo_rtr_spread_max_clusters.argtypes = [I] * 5 + [P]
+    lib.dpgo_rtr_spread_max_clusters.restype = I
+    lib.dpgo_rtr_full_spread_launch.argtypes = (
+        [I] * 10 + [P] * 16 + [LL, I, F, F, F, I, F, P])
+    lib.dpgo_rtr_full_spread_launch.restype = I
+    lib.dpgo_rtr_refine_full_spread_launch.argtypes = (
+        [I] * 10 + [P] * 22 + [LL, I, F, F, F, I, F, P])
+    lib.dpgo_rtr_refine_full_spread_launch.restype = I
     _lib = lib
     return lib
 
@@ -763,6 +850,34 @@ def cluster_capacity(r: int, d: int, n_max: int, kinc: int, C: int,
                                                ctypes.byref(count))
     _raise_on("cluster_capacity", err, r, d)
     return count.value
+
+
+def spread_capacity(r: int, d: int, n_max: int, C: int,
+                    kernel: str = "rtr_full") -> int:
+    """How many clusters of ``C`` CTAs of spread kernel ``kernel`` the card
+    can hold at once for agents of ``n_max`` poses
+    (``cudaOccupancyMaxActiveClusters``); 0 when it cannot place one."""
+    count = ctypes.c_int(0)
+    err = load().dpgo_rtr_spread_max_clusters(r, d, n_max, C,
+                                              _kernel_id(kernel),
+                                              ctypes.byref(count))
+    _raise_on("spread_capacity", err, r, d)
+    return count.value
+
+
+@functools.lru_cache(maxsize=None)
+def _card_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(dev) -> int:
+    """The SMs of ``dev``'s card, which the spread route's plan covers;
+    ``H100_SMS`` for a device that is not CUDA."""
+    dev = torch.device(dev)
+    if dev.type != "cuda":
+        return H100_SMS
+    return _card_sms(torch.cuda.current_device() if dev.index is None
+                     else dev.index)
 
 
 def _check(name: str, dev, tensors: dict, shapes: dict) -> None:
@@ -803,7 +918,7 @@ def _raise_on(name: str, err: int, r: int, d: int, C: int = 0) -> None:
                            f"{C} CTAs of this shape")
     if err == _TOO_MANY_SLOTS:
         raise ValueError(f"{name}: more than 2**20 neighbor slots per agent "
-                         "on the cluster route")
+                         "on the cluster and spread routes")
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed (cudaError_t "
                            f"{err})")
@@ -827,13 +942,15 @@ def rtr_full(idx_i, idx_j, rot, trn, wk, wt, Xc, Zc, Lc, inc_slot, inc_mask,
              n_local, *, r: int, d: int, e_max: int, max_iters: int,
              kappa: float, theta: float, initial_radius: float,
              max_rejections: int, grad_tol: float,
-             _cluster: int | None = None) -> RTRFullOut:
+             _cluster: int | None = None,
+             _spread: int | None = None) -> RTRFullOut:
     """One local RTR step for every agent (see the module docstring for the
     layouts).  CUDA tensors launch the kernel of the route ``cluster_plan``
     picks on the current stream, once for all agents; CPU tensors run
-    ``rtr_full_reference``.  ``_cluster`` forces a route, for the card
-    tests and ``chip_smoke.py`` only: ``0`` the workspace route, ``C`` a
-    cluster of C CTAs."""
+    ``rtr_full_reference``.  ``_cluster`` and ``_spread`` force a route,
+    for the card tests and ``chip_smoke.py`` only: ``_cluster=0`` the
+    workspace route, ``_cluster=C`` a cluster of C CTAs, ``_spread=C`` the
+    spread route over C CTAs per agent."""
     global LAUNCHES
     A, _, n = Xc.shape
     s, K = Zc.shape[-1], inc_slot.shape[-1]
@@ -841,7 +958,8 @@ def rtr_full(idx_i, idx_j, rot, trn, wk, wt, Xc, Zc, Lc, inc_slot, inc_mask,
                    Xc=Xc, Zc=Zc, Lc=Lc, inc_slot=inc_slot,
                    inc_mask=inc_mask, n_local=n_local)
     _check("rtr_full", Xc.device, tensors, _shapes(idx_i, r, d, n, s, K, A))
-    plan = _route(_cluster, n, e_max, K, r, d, "rtr_full")
+    plan = _route(_cluster, n, e_max, K, r, d, "rtr_full", _spread, A,
+                  sm_count(Xc.device))
     kw = dict(r=r, d=d, e_max=e_max, max_iters=max_iters, kappa=kappa,
               theta=theta, initial_radius=initial_radius,
               max_rejections=max_rejections, grad_tol=grad_tol)
@@ -862,6 +980,14 @@ def rtr_full(idx_i, idx_j, rot, trn, wk, wt, Xc, Zc, Lc, inc_slot, inc_mask,
         err = lib.dpgo_rtr_full_cluster_launch(
             r, d, plan.C, A, n, s, nt * T, T, e_max, K, *ptrs, max_iters,
             kappa, theta, initial_radius, max_rejections, grad_tol, stream)
+    elif plan.route == "spread":
+        ws_floats = lib.dpgo_rtr_spread_workspace_floats(
+            r, d, n, e_max, K, plan.C, KERNELS["rtr_full"])
+        ws = torch.empty((A, ws_floats), dtype=torch.float32, device=dev)
+        err = lib.dpgo_rtr_full_spread_launch(
+            r, d, plan.C, A, n, s, nt * T, T, e_max, K, *ptrs, ws.data_ptr(),
+            ws_floats, max_iters, kappa, theta, initial_radius,
+            max_rejections, grad_tol, stream)
     else:
         ws_floats = lib.dpgo_rtr_workspace_floats(r, d, n, e_max, 0)
         ws = torch.empty((A, ws_floats), dtype=torch.float32, device=dev)
@@ -973,12 +1099,13 @@ def rtr_refine_full(idx_i, idx_j, rot, trn, wk, wt, rho_rot, rho_trn, Rc,
                     n_local, *, r: int, d: int, e_max: int, max_iters: int,
                     kappa: float, theta: float, initial_radius: float,
                     max_rejections: int, grad_tol: float,
-                    _cluster: int | None = None) -> RTRRefineOut:
+                    _cluster: int | None = None,
+                    _spread: int | None = None) -> RTRRefineOut:
     """One re-centered RTR step on the corrections ``Dc`` for every agent
     (see the module docstring for the layouts).  CUDA tensors launch the
     kernel of the route ``cluster_plan`` picks on the current stream, once
     for all agents; CPU tensors run ``rtr_refine_full_reference``.
-    ``_cluster`` as in ``rtr_full``."""
+    ``_cluster`` and ``_spread`` as in ``rtr_full``."""
     global REFINE_LAUNCHES
     A, _, n = Dc.shape
     s, K = Dzc.shape[-1], inc_slot.shape[-1]
@@ -988,7 +1115,8 @@ def rtr_refine_full(idx_i, idx_j, rot, trn, wk, wt, rho_rot, rho_trn, Rc,
                    inc_mask=inc_mask, n_local=n_local)
     _check("rtr_refine_full", Dc.device, tensors,
            _shapes(idx_i, r, d, n, s, K, A))
-    plan = _route(_cluster, n, e_max, K, r, d, "rtr_refine_full")
+    plan = _route(_cluster, n, e_max, K, r, d, "rtr_refine_full", _spread,
+                  A, sm_count(Dc.device))
     kw = dict(r=r, d=d, e_max=e_max, max_iters=max_iters, kappa=kappa,
               theta=theta, initial_radius=initial_radius,
               max_rejections=max_rejections, grad_tol=grad_tol)
@@ -1006,6 +1134,14 @@ def rtr_refine_full(idx_i, idx_j, rot, trn, wk, wt, rho_rot, rho_trn, Rc,
         err = lib.dpgo_rtr_refine_full_cluster_launch(
             r, d, plan.C, A, n, s, nt * T, T, e_max, K, *ptrs, max_iters,
             kappa, theta, initial_radius, max_rejections, grad_tol, stream)
+    elif plan.route == "spread":
+        ws_floats = lib.dpgo_rtr_spread_workspace_floats(
+            r, d, n, e_max, K, plan.C, KERNELS["rtr_refine_full"])
+        ws = torch.empty((A, ws_floats), dtype=torch.float32, device=dev)
+        err = lib.dpgo_rtr_refine_full_spread_launch(
+            r, d, plan.C, A, n, s, nt * T, T, e_max, K, *ptrs, ws.data_ptr(),
+            ws_floats, max_iters, kappa, theta, initial_radius,
+            max_rejections, grad_tol, stream)
     else:
         ws_floats = lib.dpgo_rtr_workspace_floats(r, d, n, e_max, 1)
         ws = torch.empty((A, ws_floats), dtype=torch.float32, device=dev)

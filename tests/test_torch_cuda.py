@@ -433,14 +433,19 @@ def test_cluster_route_matches_plain_versions_at_every_size(card, d, r, A):
 
 def test_agent_above_the_cluster_limit_takes_the_workspace_route(card):
     # 4200 poses in one agent: at C = 16 a CTA would hold 263 poses, 1408
-    # threads at 5 lanes a pose, more than the kernel's 512.
+    # threads at 5 lanes a pose, more than the kernel's 512.  B3 takes the
+    # workspace route, B2 the spread route (and the workspace route when
+    # forced).
     prob, params, X, Z, chol = _round(card, n=4200, A=1, num_lc=1000)
     b2 = rbcd.kernel_operands(X, Z, prob.graph.edges, chol, prob.graph)
     kw = rbcd.kernel_options(params, prob.meta)
     assert rk.cluster_plan(prob.meta.n_max, prob.meta.e_max,
-                           b2[9].shape[-1], 5, 3).route == "workspace"
-    _assert_b2_matches(rk.rtr_full(*b2, **kw),
-                       rk.rtr_full_reference(*b2, **kw))
+                           b2[9].shape[-1], 5, 3).route == "spread"
+    assert rk.cluster_plan(prob.meta.n_max, prob.meta.e_max,
+                           b2[9].shape[-1], 5, 3, "rtr").route == "workspace"
+    ref2 = rk.rtr_full_reference(*b2, **kw)
+    _assert_b2_matches(rk.rtr_full(*b2, **kw), ref2)
+    _assert_b2_matches(rk.rtr_full(*b2, _cluster=0, **kw), ref2)
     b3 = _b3_args(prob, X, Z, chol)
     b3_kw = _b3_kw(params, prob.meta)
     _assert_b3_matches(rk.rtr(*b3, **b3_kw), rk.rtr_reference(*b3, **b3_kw))
@@ -588,11 +593,14 @@ def test_b1_b4_above_the_cluster_limit_take_the_workspace_route(card):
     prob, params, _, ops = _refine_operands(card, n=4200, A=1, num_lc=1000,
                                             rounds=3)
     kw = rbcd.kernel_options(params, prob.meta)
+    # B4 takes the spread route there, and the workspace route when forced.
     assert rk.cluster_plan(prob.meta.n_max, prob.meta.e_max,
                            ops[15].shape[-1], 5, 3,
-                           "rtr_refine_full").route == "workspace"
-    _assert_refine_gates(rk.rtr_refine_full(*ops, **kw),
-                         rk.rtr_refine_full_reference(*ops, **kw), ops[9])
+                           "rtr_refine_full").route == "spread"
+    ref = rk.rtr_refine_full_reference(*ops, **kw)
+    _assert_refine_gates(rk.rtr_refine_full(*ops, **kw), ref, ops[9])
+    _assert_refine_gates(rk.rtr_refine_full(*ops, _cluster=0, **kw), ref,
+                         ops[9])
 
 
 def test_b1_b4_cluster_that_cannot_be_placed_raises(card):
@@ -617,6 +625,126 @@ def test_b1_b4_cluster_route_repeats_bit_for_bit(card):
                      rk.rtr_refine_full(*ops, **rkw))
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+# ---------------------------------------------------------------------------
+# The spread route of B2 and B4 (csrc/rtr_spread.cu)
+# ---------------------------------------------------------------------------
+
+#: Four agents of 1700 poses: no cluster holds one (at r = 5 a CTA of the
+#: cluster route holds at most 96 poses, 16 CTAs 1536).
+SPREAD_A, SPREAD_N = 4, 1700
+
+
+def _spread_b2(card):
+    prob, params, X, Z, chol = _round(card, n=SPREAD_A * SPREAD_N,
+                                      A=SPREAD_A, num_lc=250 * SPREAD_A)
+    b2 = rbcd.kernel_operands(X, Z, prob.graph.edges, chol, prob.graph)
+    return prob, b2, rbcd.kernel_options(params, prob.meta)
+
+
+def _spread_b4(card):
+    prob, params, _, ops = _refine_operands(card, n=SPREAD_A * SPREAD_N,
+                                            A=SPREAD_A,
+                                            num_lc=250 * SPREAD_A, rounds=3)
+    return prob, ops, rbcd.kernel_options(params, prob.meta)
+
+
+def _spread_sizes(kernel, n):
+    """The spread sizes up to 16 the card can place for this shape."""
+    return [C for C in range(1, 17)
+            if rk.spread_shape(5, 3, n, C).smem_bytes <= rk.MAX_SMEM_BYTES
+            and rk.spread_capacity(5, 3, n, C, kernel) >= 1]
+
+
+def test_spread_route_matches_plain_versions(card):
+    prob, b2, kw = _spread_b2(card)
+    m = prob.meta
+    plan = rk.cluster_plan(m.n_max, m.e_max, b2[9].shape[-1], 5, 3,
+                           agents=SPREAD_A, sms=rk.sm_count(card))
+    assert plan.route == "spread" and plan.stripes > 1
+    ref = rk.rtr_full_reference(*b2, **kw)
+    before = rk.LAUNCHES
+    _assert_b2_matches(rk.rtr_full(*b2, **kw), ref)
+    for C in (2, 5, 8):
+        _assert_b2_matches(rk.rtr_full(*b2, _spread=C, **kw), ref)
+    torch.cuda.synchronize()
+    assert rk.LAUNCHES == before + 4
+    prob, ops, kw4 = _spread_b4(card)
+    assert rk.cluster_plan(prob.meta.n_max, prob.meta.e_max,
+                           ops[15].shape[-1], 5, 3, "rtr_refine_full",
+                           agents=SPREAD_A).route == "spread"
+    ref4 = rk.rtr_refine_full_reference(*ops, **kw4)
+    before = rk.REFINE_LAUNCHES
+    _assert_refine_gates(rk.rtr_refine_full(*ops, **kw4), ref4, ops[9])
+    _assert_refine_gates(rk.rtr_refine_full(*ops, _spread=2, **kw4), ref4,
+                         ops[9])
+    torch.cuda.synchronize()
+    assert rk.REFINE_LAUNCHES == before + 2
+
+
+def test_spread_route_repeats_bit_for_bit(card):
+    _, b2, kw = _spread_b2(card)
+    first, second = rk.rtr_full(*b2, **kw), rk.rtr_full(*b2, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    _, ops, kw4 = _spread_b4(card)
+    first, second = (rk.rtr_refine_full(*ops, **kw4),
+                     rk.rtr_refine_full(*ops, **kw4))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_solve_on_the_spread_route_launches_b2_once_per_round(card):
+    meas = make_measurements(np.random.default_rng(3), n=SPREAD_A * SPREAD_N,
+                             d=3, num_lc=250 * SPREAD_A, rot_noise=0.02,
+                             trans_noise=0.02)[0]
+    params = AgentParams(d=3, r=5, num_robots=SPREAD_A)
+    prob = rbcd.prepare_problem(meas, SPREAD_A, params, device=card)
+    m = prob.meta
+    assert rk.cluster_plan(m.n_max, m.e_max, prob.graph.inc_slot.shape[-1],
+                           5, 3, agents=SPREAD_A).route == "spread"
+    for verdict_every in (None, 2):
+        before = rk.LAUNCHES
+        res = rbcd.solve_rbcd(meas, SPREAD_A, params, max_iters=6,
+                              grad_norm_tol=0.1, verdict_every=verdict_every)
+        assert res.iterations > 0
+        assert rk.LAUNCHES - before == rbcd.rounds_enqueued(
+            res.iterations, max_iters=6, eval_every=1, params=params,
+            verdict_every=verdict_every)
+
+
+def test_spread_that_cannot_be_placed_raises(card):
+    _, b2, kw = _spread_b2(card)
+    _, ops, kw4 = _spread_b4(card)
+    before = (rk.LAUNCHES, rk.REFINE_LAUNCHES)
+    with pytest.raises(RuntimeError, match="cannot place"):
+        rk.rtr_full(*b2, _spread=32, **kw)
+    with pytest.raises(RuntimeError, match="cannot place"):
+        rk.rtr_refine_full(*ops, _spread=32, **kw4)
+    assert (rk.LAUNCHES, rk.REFINE_LAUNCHES) == before
+    assert rk.spread_capacity(5, 3, SPREAD_N, 32) == 0
+    assert 2 in _spread_sizes("rtr_full", SPREAD_N)
+
+
+@pytest.mark.parametrize("d,r,n_max", [(3, 5, 1594), (3, 5, 97), (3, 7, 1594),
+                                       (2, 3, 5000), (3, 4, 40), (2, 2, 700)])
+def test_spread_shape_matches_the_launcher(card, d, r, n_max):
+    # The launcher sizes each spread kernel by the formula spread_shape
+    # states: poses, threads and stripes per CTA, shared memory.
+    import ctypes
+
+    lib = rk.load()
+    out = (ctypes.c_int * 3)()
+    for kernel in rk.SPREAD_KERNELS:
+        for C in range(1, 17):
+            smem = lib.dpgo_rtr_spread_shape(r, d, n_max, C,
+                                             rk.KERNELS[kernel], out)
+            plan = rk.spread_shape(r, d, n_max, C)
+            assert (tuple(out), smem) == ((plan.P, plan.threads,
+                                           plan.stripes), plan.smem_bytes)
+    assert lib.dpgo_rtr_spread_shape(r, d, n_max, 2, rk.KERNELS["rtr"],
+                                     out) == -4
 
 
 # ---------------------------------------------------------------------------
