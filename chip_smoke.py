@@ -166,11 +166,31 @@ synthetic stand-in for sphere2500 (2500 poses, 4948 edges, 8 robots, rank
   plain version (max |ΔX| on live rows at most 1e-4 of the largest live
   entry, ROADMAP's accept-flip rule), against itself bit for bit with
   the same tCG iterations, and timed in turns with the workspace route
-  (spread, workspace, workspace, spread) beside its bound; B2 at rank 7,
-  the staircase's top, at the odometry init of config #5's graph, held
-  and timed; B4 at this shape (constants recentered at the terminal
-  iterate, three refine rounds in) against its plain version on the
-  spread and workspace routes, timed on both;
+  (spread, workspace, workspace, spread) beside its bound; B2 at ranks 7
+  and 10 (the staircase's default top; C = 4 there) at the odometry init
+  of config #5's graph, held and timed, and B4 at rank 10 recentered
+  there, held on the spread and workspace routes and timed; B4 at this
+  shape (constants recentered at the terminal iterate, three refine
+  rounds in) against its plain version on the spread and workspace
+  routes, timed on both;
+* ``ranks`` — every (r, d) the kernel library holds, which must be the
+  staircase's d = 3 with 3 <= r <= 10 and d = 2 with 2 <= r <= 10
+  (``csrc/shapes.cuh``): B1-B4 on the planned (cluster) route and on the
+  workspace route at the card's chordal init (B4 recentered there), d = 3
+  on the stand-in and d = 2 on the SE(2) stand-in (BASELINE.md config
+  #4's size: 10,000 poses, 20,687 edges, 32 robots), each against its
+  plain version and against itself bit for bit, timed in turns, its plan,
+  plain time and bound on one line per shape;
+* ``staircase`` — ``parallel.certify.solve_staircase_sharded`` in float32
+  at world size 1 on the stand-in from rank 6 to rank 7: B2 once per
+  round, B4 once per polish round, every rank's verdict held for
+  soundness against the host float64 eigensolve on its iterate, seconds
+  per rank;
+* ``se2`` — SE(2) end to end on its stand-in: ``solve_rbcd`` over 32
+  robots at rank 3 with GNC through the verdict loop (B2 once per
+  enqueued round), then the f32 distributed staircase from rank 4 to
+  rank 5 (500 Nesterov-accelerated rounds a rank, eta 0.1), held as
+  ``staircase``;
 
 Every launch gate is exact: the rounds each run enqueued, the per-eval
 loop's discarded speculative segment and the verdict loop's polish and
@@ -209,6 +229,7 @@ import collections
 import contextlib
 import dataclasses
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -296,8 +317,11 @@ SPIN_CYCLES = 200_000_000
 CERT_RANK, CERT_GTOL, CERT_MAX_ITERS, CERT_K = 5, 1e-9, 1000, 8
 CERT_LAM_TOL = 1e-6
 STAIR_R_MIN, STAIR_R_MAX, WIND_CYCLES, WIND_LEN = 4, 6, 8, 16
-#: LOBPCG iterations of the wound instance's failing rank: its escape
-#: direction only (an eigenvalue near -5.86, far below -tol).
+#: LOBPCG iterations of the wound instance's certificates: at the failing
+#: rank its escape direction only (an eigenvalue near -5.86, far below
+#: -tol); at the rank that certifies, 384 dimensions, where 100 iterations
+#: converge (300, ``certify_solution``'s default, until the rank
+#: staircase's phases needed the script's time).
 WIND_ESCAPE_LOBPCG = 100
 #: The fused refinement (bench_convergence.py's fused arm): descent rounds
 #: before the handoff, the tCG budget, the refine rounds' cap and the
@@ -342,8 +366,20 @@ SCALE_POSES, SCALE_ROBOTS, SCALE_SEED, SCALE_NOISE, SCALE_LC = \
     100_000, 64, 11, 0.05, 0.2
 SCALE_ROUNDS, SCALE_K, SCALE_OUTER = 8, 4, 4
 #: The config5 phase (config #5 through ``solve_rbcd``): rounds, K, and
-#: the rank staircase's top rank, where B2 is held once more.
-C5_ROUNDS, C5_K, C5_TOP_RANK = 12, 4, 7
+#: the ranks above the solve's where B2 is held once more (r = 7, and the
+#: staircase's default top, where B4 is held too).
+C5_ROUNDS, C5_K, C5_TOP_RANKS = 12, 4, (7, 10)
+#: The rank staircase's default top (``certify.solve_staircase``,
+#: ``parallel.certify.solve_staircase_sharded``): the kernels hold every
+#: (r, d) with d in (2, 3) and d <= r <= RANK_TOP.
+RANK_TOP = 10
+#: The ranks phase's timing: CUDA-event runs and launches per run of each
+#: kernel, in turns with the workspace route; the shapes PERF.md tabulates.
+RANK_REPS, RANK_INNER = 3, 5
+PERF_SHAPES = ((7, 3), (10, 3), (4, 2), (10, 2))
+#: The SE(2) stand-in at BASELINE.md config #4's size (city10000: 10,000
+#: poses, 20,687 edges), its robots and rank.
+SE2_POSES, SE2_LC, SE2_ROBOTS, SE2_RANK = 10000, 10688, 32, 3
 #: The sharded certificate against the device payload (both float32 on
 #: the card): the PSD tolerance eta, the smallest round value at which a
 #: float32 eigensolve decides on the stand-in (decidable needs the error
@@ -351,6 +387,19 @@ C5_ROUNDS, C5_K, C5_TOP_RANK = 12, 4, 7
 #: 2.73e5, wscale 100), and the lambda gap allowed, in float32 ulps of
 #: sigma (the error band itself).
 SHARD_CERT_ETA, SHARD_CERT_ULPS = 1e-2, 10
+#: The f32 distributed staircase on each stand-in: its ranks, rounds per
+#: rank and PSD tolerance eta, the smallest round value at which its
+#: float32 eigensolve decides (the error band 10 eps sigma <= tol / 2 =
+#: eta * wscale / 2, wscale 100): SHARD_CERT_ETA at the stand-in's sigma
+#: (2.73e5), 0.1 at the SE(2) stand-in's (~2.5e6).  Below it a verdict
+#: falls to the host's float64 LOBPCG, which at the SE(2) stand-in's
+#: 30,000 dimensions takes minutes.  The SE(2) stand-in's long chains take
+#: Nesterov-accelerated rounds (the JAX package's at-scale configuration
+#: of the staircase) and more of them.
+STAIR_SPHERE = dict(r_min=6, r_max=7, rounds_per_rank=300, accel=False,
+                    eta=SHARD_CERT_ETA)
+STAIR_SE2 = dict(r_min=4, r_max=5, rounds_per_rank=500, accel=True,
+                 eta=0.1)
 
 
 def check(ok: bool, what: str) -> None:
@@ -1833,10 +1882,9 @@ def certify_main_path(meas, params, dev, card: str) -> tuple[dict, int,
 def staircase_from(meas, X, r_max: int, dev) -> tuple[list, object]:
     """``solve_staircase``'s loop from a given iterate ``X`` (float64):
     solve at the rank of X, certify, escape to the next rank on failure.
-    The rank of X must fail (the caller's gate): its eigensolve only has
-    to find the escape direction, so it runs WIND_ESCAPE_LOBPCG iterations;
-    every later rank certifies at ``certify_solution``'s own count.
-    Returns the rank history and the last certificate."""
+    The rank of X must fail (the caller's gate); every rank's eigensolve
+    runs WIND_ESCAPE_LOBPCG iterations.  Returns the rank history and the
+    last certificate."""
     edges = edge_set_from_measurements(meas, dtype=torch.float64,
                                        device=dev)
     params = SolverParams(initial_radius=1e1, max_inner_iters=50)
@@ -1844,13 +1892,12 @@ def staircase_from(meas, X, r_max: int, dev) -> tuple[list, object]:
                                      params.precond_shift)
     X = torch.as_tensor(X, dtype=torch.float64).to(dev)
     history = []
-    r0 = X.shape[1]
-    for r in range(r0, r_max + 1):
+    for r in range(X.shape[1], r_max + 1):
         out = solver.rtr_solve(problem, X, params, max_iters=300,
                                grad_norm_tol=1e-6)
         X = out.X
-        kw = {"lobpcg_iters": WIND_ESCAPE_LOBPCG} if r == r0 else {}
-        cert = certify.certify_solution(X, edges, seed=r, **kw)
+        cert = certify.certify_solution(X, edges, seed=r,
+                                        lobpcg_iters=WIND_ESCAPE_LOBPCG)
         history.append((r, float(out.f), cert.lambda_min))
         if cert.certified or r == r_max:
             return history, cert
@@ -4101,6 +4148,335 @@ def sharded_multihost(card: str, tmp: Path) -> int:
     return b2
 
 
+# ---------------------------------------------------------------------------
+# Every rank of the staircase: the kernels at each (r, d), the f32
+# distributed staircase on both stand-ins, SE(2) end to end
+# ---------------------------------------------------------------------------
+
+def se2_standin():
+    """The SE(2) stand-in at BASELINE.md config #4's size: 10,000 poses,
+    20,687 edges (city10000's counts)."""
+    return make_measurements(np.random.default_rng(0), n=SE2_POSES, d=2,
+                             num_lc=SE2_LC, rot_noise=0.01,
+                             trans_noise=0.01)[0]
+
+
+def instantiated_shapes() -> list:
+    """Every (r, d), d in (3, 2) and d <= r <= 16, that the kernel library
+    holds: the launchers refuse any other (``cluster_capacity`` raises)."""
+    found = []
+    for d in (3, 2):
+        for r in range(d, 17):
+            try:
+                rk.cluster_capacity(r, d, 64, 4, 1)
+            except ValueError:
+                continue
+            found.append((r, d))
+    return found
+
+
+#: Each kernel's wrapper, plain version and work (for the bound).
+KERNEL_FNS = {
+    "rtr_full": (rk.rtr_full, rk.rtr_full_reference, rtr_full_work),
+    "rtr": (rk.rtr, rk.rtr_reference, rtr_work),
+    "tcg": (rk.tcg, rk.tcg_reference, tcg_work),
+    "rtr_refine_full": (rk.rtr_refine_full, rk.rtr_refine_full_reference,
+                        rtr_refine_full_work)}
+
+
+def rank_operands(meas, robots: int, r: int, edges64, dev) -> tuple:
+    """The four kernels' operands and options at rank ``r`` on ``meas``
+    over ``robots`` agents, at the card's chordal init (B4: recentered
+    there in float64, a zero correction), and the graph and meta."""
+    d = meas.d
+    params = AgentParams(d=d, r=r, num_robots=robots)
+    prob = rbcd.prepare_problem(meas, robots, params, device=dev)
+    graph, meta = prob.graph, prob.meta
+    b2, b3 = operand_sets(prob, params, prob.X0)
+    kw = rbcd.kernel_options(params, meta)
+    b3_kw = {k: v for k, v in kw.items() if k != "grad_tol"}
+    tkw = {k: kw[k] for k in ("r", "d", "e_max", "max_iters", "kappa",
+                              "theta")}
+    rparams = dataclasses.replace(params, rel_change_tol=0.0,
+                                  solver=dataclasses.replace(
+                                      params.solver, grad_norm_tol=1e-9))
+    Xg64 = rbcd.gather_to_global(prob.X0, graph, meas.num_poses).double() \
+        .cpu().numpy()
+    ref = refine.recenter(Xg64, graph, meta, rparams, edges64)
+    b4 = refine_operands(torch.zeros_like(ref.consts.R), ref.consts, graph)
+    return ({"rtr_full": (b2, kw), "rtr": (b3, b3_kw),
+             "tcg": (tcg_operands(b3), tkw),
+             "rtr_refine_full": (b4, rbcd.kernel_options(rparams, meta))},
+            graph, meta)
+
+
+def shape_parity(kernel: str, ops: dict, kw: dict, ref,
+                 cluster: int | None) -> tuple[dict, object]:
+    """``kernel`` on its planned route (``cluster=None``) or the workspace
+    route (``0``) against its plain version's output ``ref``, with the
+    gates of the slice shape's checks (B2/B3 ``kernel_parity``, B1 the
+    tcg radii, B4 ``refine_parity``), and a second launch bit for bit."""
+    fn = KERNEL_FNS[kernel][0]
+    out = fn(*ops.values(), _cluster=cluster, **kw)
+    again = fn(*ops.values(), _cluster=cluster, **kw)
+    torch.cuda.synchronize()
+    route = plan_of(ops, kw, kernel, cluster)
+    flips = int((out.stats != ref.stats).any(1).sum()) if kernel == "tcg" \
+        else int((out.stats[:, :2] != ref.stats[:, :2]).any(1).sum())
+    row = {"route": route.route, "C": route.C, "stat_flips": flips,
+           "repeat_bitwise": all(torch.equal(a, b)
+                                 for a, b in zip(out, again))}
+    if kernel == "tcg":
+        row["err"] = float((out.eta - ref.eta).abs().max())
+        row["rel_d_heta"] = float((out.heta - ref.heta).abs().max()
+                                  / ref.heta.abs().max().clamp(min=1e-30))
+        ok = row["err"] <= X_ATOL and row["rel_d_heta"] <= STAT_RTOL
+    elif kernel == "rtr_refine_full":
+        step = float((ref.D - ops["Dc"]).abs().max())
+        row["err"] = float((out.D - ref.D).abs().max())
+        df = ref.stats[:, 2:4]
+        row.update(rel_dD=row["err"] / max(step, 1e-30),
+                   rel_d_df0_df=float((out.stats[:, 2:4] - df).abs().max()
+                                      / df.abs().max().clamp(min=1e-30)),
+                   rel_d_gn0=rel_err(out.stats[:, 4], ref.stats[:, 4]))
+        ok = (row["rel_dD"] <= D_STEP_RTOL and row["rel_d_df0_df"] <= DF_RTOL
+              and row["rel_d_gn0"] <= STAT_RTOL)
+    else:
+        row["err"] = float((out.X - ref.X).abs().max())
+        row["max_rel_d_stats"] = rel_err(out.stats[:, 2:], ref.stats[:, 2:])
+        ok = row["err"] <= X_ATOL and row["max_rel_d_stats"] <= STAT_RTOL
+    finite = all(bool(torch.isfinite(t).all()) for t in out
+                 if t.is_floating_point())
+    check(finite and ok and flips == 0 and row["repeat_bitwise"],
+          f"{kernel} at (r, d) = ({kw['r']}, {kw['d']}) disagrees with its "
+          f"plain version or itself ({route.route} route): {row}")
+    return row, out
+
+
+def shape_turns(fn, ops: dict, kw: dict) -> dict:
+    """ms per launch of ``fn`` on its planned route and on the workspace
+    route, in turns (planned, workspace, workspace, planned)."""
+    def run(cluster=None):
+        return cuda_ms(lambda: fn(*ops.values(), _cluster=cluster, **kw),
+                       reps=RANK_REPS, inner=RANK_INNER, warmup=1)
+    c1, w1, w2, c2 = run(), run(0), run(0), run()
+    return {"ms": (c1 + c2) / 2, "ms_workspace": (w1 + w2) / 2,
+            "ms_runs": [c1, c2], "ms_workspace_runs": [w1, w2]}
+
+
+def ranks_phase(stand_ins: dict, dev, card: str) -> dict:
+    """B1-B4 at every (r, d) the library holds (it must hold d = 3 with
+    3 <= r <= RANK_TOP and d = 2 with 2 <= r <= RANK_TOP), d = 3 on the
+    sphere2500 stand-in and d = 2 on the SE(2) stand-in (``stand_ins[d]``:
+    measurements, robots, host float64 edges): each kernel on its planned
+    route (a cluster at these shapes) and on the workspace route against
+    its plain version and itself, timed in turns, beside its plain
+    version's time and its bound; the plan of each.  Returns, per kernel,
+    the shapes each route ran at, the largest error, and the PERF_SHAPES
+    rows."""
+    shapes = instantiated_shapes()
+    want = [(r, d) for d in (3, 2) for r in range(d, RANK_TOP + 1)]
+    emit({"phase": "ranks", "check": "shapes", "instantiated": shapes})
+    check(shapes == want, "the kernel library does not hold exactly the "
+          "staircase's shapes (d <= r <= 10, d in (2, 3))")
+    ran = {k: {"cluster": [], "workspace": []} for k in rk.KERNELS}
+    worst = dict.fromkeys(rk.KERNELS, 0.0)
+    perf = {}
+    for r, d in shapes:
+        t0 = time.perf_counter()
+        meas, robots, edges64 = stand_ins[d]
+        sets, graph, meta = rank_operands(meas, robots, r, edges64, dev)
+        row = {"phase": "ranks", "card": card, "r": r, "d": d,
+               "agents": robots, "n_max": meta.n_max, "e_max": meta.e_max,
+               "kinc": graph.inc_slot.shape[-1], "kernels": {}}
+        for kernel, (ops, kw) in sets.items():
+            fn, ref_fn, work = KERNEL_FNS[kernel]
+            plan = plan_of(ops, kw, kernel)
+            check(plan.route == "cluster", f"{kernel} at (r, d) = ({r}, "
+                  f"{d}) does not take a cluster on the stand-in")
+            ref = ref_fn(*ops.values(), **kw)
+            c_row, out = shape_parity(kernel, ops, kw, ref, None)
+            w_row, _ = shape_parity(kernel, ops, kw, ref, 0)
+            nbytes, flops = work(ops, out, graph, meta)
+            b_ms, b_by = bound(nbytes, flops)
+            k_row = {"plan": plan._asdict(), "cluster": c_row,
+                     "workspace": w_row, **shape_turns(fn, ops, kw),
+                     "plain_ms": cuda_ms(lambda: ref_fn(*ops.values(), **kw),
+                                         reps=1, warmup=0),
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "max_tcg_iters": int(tcg_iters_of(out).max())}
+            row["kernels"][kernel] = k_row
+            for route in ("cluster", "workspace"):
+                ran[kernel][route].append([r, d])
+            worst[kernel] = max(worst[kernel], c_row["err"], w_row["err"])
+            if (r, d) in PERF_SHAPES:
+                perf.setdefault(f"{r},{d}", {})[kernel] = {
+                    k: k_row[k] for k in ("ms", "ms_workspace", "plain_ms",
+                                          "bound_ms", "bound_by")}
+        row["seconds"] = time.perf_counter() - t0
+        emit(row)
+        del sets, graph
+    return {"shapes": ran, "max_abs_err": worst, "perf_shapes": perf}
+
+
+def psd_shifted(X64: np.ndarray, edges, tol: float, dev) -> bool:
+    """Whether S + tol I is positive definite, S the certificate operator
+    at ``X64`` (``certify.sparse_certificate``, float64): a Cholesky
+    factorization of the assembled matrix in float64 on the card (an
+    oracle only, never the path).  A certificate at tolerance ``tol`` (it
+    claims lambda_min(S) >= -tol) is sound only where it is."""
+    S = certify.sparse_certificate(X64, edges).tocsr()
+    St = torch.sparse_csr_tensor(
+        torch.as_tensor(S.indptr, dtype=torch.int64),
+        torch.as_tensor(S.indices, dtype=torch.int64),
+        torch.as_tensor(S.data), size=S.shape).to(dev).to_dense()
+    St.diagonal().add_(tol)
+    info = int(torch.linalg.cholesky_ex(St)[1])
+    del St
+    torch.cuda.empty_cache()
+    return info == 0
+
+
+def staircase_f32(where: str, meas, robots: int, run: dict, dev,
+                  card: str, host_eigensolve: bool) -> tuple[int, int]:
+    """``parallel.certify.solve_staircase_sharded`` in float32 at world
+    size 1 with ``run``'s ranks, rounds per rank, acceleration and
+    tolerance, counted: B2 once per round, B4 once per polish round
+    (``refine.ROUNDS``).  Every rank's verdict is held for soundness on
+    the iterate it certified: against the float64 Cholesky of S + tol I on
+    the card (``psd_shifted``), and with ``host_eigensolve`` against the
+    host float64 eigensolve (``host_lambda_min``, warm-started from the
+    certificate's direction) as the certify phase does; a certificate
+    either refutes fails the phase.  Returns the B2 and B4 launches."""
+    from dpgo_tpu_torch.parallel import certify as pcert
+    from dpgo_tpu_torch.parallel import sharded
+
+    check(not torch.distributed.is_initialized(), "a process group is left "
+          "over from an earlier phase")
+    mesh = sharded.make_mesh(device=dev)
+    verdicts = []
+    orig = pcert.certify_sharded
+
+    def recording(Xa, graph, **k):
+        cert = orig(Xa, graph, **k)
+        # The direction on the global poses, as the f64 fallback warms up.
+        gidx = graph.global_index.cpu().numpy()
+        live = graph.pose_mask.cpu().numpy() > 0
+        Xg64, edges_g = k["global_ctx"]
+        warm = np.zeros((Xg64.shape[0], Xg64.shape[2]))
+        warm[gidx[live]] = cert.direction.double().cpu().numpy()[live]
+        verdicts.append((Xg64, edges_g, warm, cert))
+        return cert
+
+    pcert.certify_sharded = recording
+    try:
+        rk.LAUNCHES = 0
+        rk.REFINE_LAUNCHES = 0
+        refine.ROUNDS = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        T, Xa, rank, cert, hist = pcert.solve_staircase_sharded(
+            meas, robots, mesh=mesh, dtype=torch.float32, device=dev, **run)
+        torch.cuda.synchronize()
+        solve_s = time.perf_counter() - t0
+        b2, b4, polish = rk.LAUNCHES, rk.REFINE_LAUNCHES, refine.ROUNDS
+    finally:
+        pcert.certify_sharded = orig
+        torch.distributed.destroy_process_group()
+    ranks = []
+    t1 = time.perf_counter()
+    for Xg64, edges_g, warm, c in verdicts:
+        X64 = np.asarray(Xg64, dtype=np.float64)
+        row = {"rank": X64.shape[1], "certified": c.certified,
+               "decidable": c.decidable, "lambda_min": c.lambda_min,
+               "tol": c.tol, "psd_shifted_f64": psd_shifted(
+                   X64, edges_g, c.tol, dev)}
+        if host_eigensolve:
+            lam, resid = host_lambda_min(X64, edges_g, c.tol, warm)
+            row.update(lambda_min_host_f64=lam, host_f64_resid=resid,
+                       host_f64_certified=lam >= -c.tol)
+        ranks.append(row)
+    host_s = time.perf_counter() - t1
+    emit({"phase": "staircase", "where": where, "card": card,
+          "dtype": "float32", "poses": meas.num_poses, "edges": len(meas),
+          "d": meas.d, "robots": robots, **run,
+          "rank": rank, "certified": cert.certified,
+          "history": [{"rank": h[0], "cost": h[1], "lambda_min": h[2],
+                       "seconds": h[3]} for h in hist],
+          "verdicts": ranks, "b2_launches": b2,
+          "rounds": run["rounds_per_rank"] * len(hist), "b4_launches": b4,
+          "polish_rounds": polish, "solve_s": solve_s,
+          "host_f64_s": host_s})
+    check(T.shape == (meas.num_poses, meas.d, meas.d + 1)
+          and bool(torch.isfinite(T).all()), f"{where}: the staircase's "
+          "trajectory is malformed")
+    check([h[0] for h in hist] == list(range(run["r_min"], rank + 1))
+          and [v["rank"] for v in ranks] == [h[0] for h in hist],
+          f"{where}: the staircase skipped a rank or a certificate")
+    check(all(np.isfinite(h[1]) for h in hist), f"{where}: a staircase "
+          "rank's cost is not finite")
+    check(b2 == run["rounds_per_rank"] * len(hist), f"{where}: B2 did not "
+          "launch once per staircase round")
+    check(b4 == polish > 0, f"{where}: B4 did not launch once per polish "
+          "round")
+    check(all(v["psd_shifted_f64"] and v.get("host_f64_certified", True)
+              or not v["certified"] for v in ranks),
+          f"{where}: a rank certified that the float64 Cholesky of S + tol "
+          "I or the host float64 eigensolve refutes")
+    return b2, b4
+
+
+def se2_phase(meas, dev, card: str) -> dict:
+    """SE(2) end to end on its stand-in: ``solve_rbcd`` over SE2_ROBOTS
+    robots at rank SE2_RANK with GNC (the schedules phase's COLORED +
+    GNC_TLS configuration), through the verdict loop, counted (B2 =
+    enqueued rounds); then the f32 distributed staircase of STAIR_SE2
+    (``staircase_f32``).  Returns the B2
+    launches of each and the staircase's B4 launches."""
+    params = AgentParams(d=2, r=SE2_RANK, num_robots=SE2_ROBOTS,
+                         **dict(schedule_configs())["COLORED+GNC_TLS"])
+    rk.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = rbcd.solve_rbcd(meas, SE2_ROBOTS, params,
+                          max_iters=SCHED_MAX_ITERS,
+                          eval_every=SCHED_EVAL_EVERY, verdict_every=ITER_K,
+                          grad_norm_tol=GRAD_TOL, dtype=torch.float32,
+                          device=dev)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    launches = rk.LAUNCHES
+    enqueued = rbcd.rounds_enqueued(res.iterations, params=params,
+                                    max_iters=SCHED_MAX_ITERS,
+                                    eval_every=SCHED_EVAL_EVERY,
+                                    verdict_every=ITER_K)
+    costs = res.cost_history
+    w = res.weights
+    row = {"phase": "se2", "check": "gnc_solve", "card": card,
+           "poses": meas.num_poses, "edges": len(meas), "robots": SE2_ROBOTS,
+           "rank": SE2_RANK, "dtype": "float32",
+           "iterations": res.iterations, "terminated_by": res.terminated_by,
+           "cost_first": costs[0], "cost_final": costs[-1],
+           "grad_norm_final": res.grad_norm_history[-1],
+           "mu": float(res.state.mu), "below_half": int((w < 0.5).sum()),
+           "verdict_every": ITER_K, "solve_s": solve_s,
+           "b2_launches": launches, "rounds_enqueued": enqueued}
+    emit(row)
+    check(res.T.shape == (meas.num_poses, 2, 3)
+          and bool(torch.isfinite(res.T).all())
+          and bool(np.isfinite(costs).all()) and costs[-1] < costs[0],
+          "the SE(2) GNC solve is malformed or its cost did not fall")
+    check(row["below_half"] <= GNC_INLIER_REJECT_MAX * len(meas),
+          "GNC rejected too many of the SE(2) stand-in's inliers")
+    check(launches == enqueued and res.iterations > 0,
+          "the SE(2) solve did not launch B2 once per enqueued round")
+    # The host eigensolve at its 30,000 dimensions outlasts the script's
+    # budget: the float64 Cholesky on the card holds the verdicts.
+    b2, b4 = staircase_f32("se2", meas, SE2_ROBOTS, STAIR_SE2, dev, card,
+                           host_eigensolve=False)
+    return {"gnc": launches, "staircase_b2": b2, "staircase_b4": b4}
+
+
 def config5_instance() -> tuple:
     """BASELINE.md config #5 (SCALE_POSES poses, SCALE_ROBOTS robots,
     ``make_measurements_vectorized``): its measurements, contiguous
@@ -4192,17 +4568,65 @@ def config5_b2(ops: dict, kw: dict, graph, meta, where: str,
     return row, out
 
 
+def config5_rank(part, params, rank: int, meas, dev, card: str) -> dict:
+    """B2 at ``rank`` on config #5's graph at the odometry init against its
+    plain version (``config5_b2``: the spread route, its plan printed) and,
+    at the staircase's top, B4 recentered there against its plain version
+    on the spread and workspace routes and timed on the spread route."""
+    params_r = dataclasses.replace(params, r=rank)
+    g, m = rbcd.build_graph(part, rank, torch.float32, dev)
+    X = rbcd.initial_state_for("odometry", part, m, g, params_r,
+                               torch.float32)
+    Z = rbcd.neighbor_buffer(rbcd.public_table(X, g), g)
+    ops = dict(zip(B2_ORDER, rbcd.kernel_operands(
+        X, Z, g.edges, rbcd.precond_chol(g.edges, g, params_r), g)))
+    b2, _ = config5_b2(ops, rbcd.kernel_options(params_r, m), g, m,
+                       "odometry init", False)
+    out = {"b2": b2}
+    if rank == RANK_TOP:
+        rparams = dataclasses.replace(params_r, solver=dataclasses.replace(
+            params_r.solver, grad_norm_tol=1e-9))
+        Xg64 = rbcd.gather_to_global(X, g, SCALE_POSES).double().cpu() \
+            .numpy()
+        ref = refine.recenter(Xg64, g, m, rparams,
+                              refine.host_edges_f64(meas))
+        ops4 = refine_operands(torch.zeros_like(ref.consts.R), ref.consts,
+                               g)
+        kw4 = rbcd.kernel_options(rparams, m)
+        row4, out4 = refine_parity(ops4, kw4)
+        row4_ws, _ = refine_parity(ops4, kw4, cluster=0)
+        plan4 = plan_of(ops4, kw4, "rtr_refine_full")
+        check(plan4.route == "spread", f"B4 at config #5, rank {rank}, is "
+              "not on the spread route")
+        ms = cuda_ms(lambda: rk.rtr_refine_full(*ops4.values(), **kw4),
+                     reps=5, inner=5)
+        nbytes, flops = rtr_refine_full_work(ops4, out4, g, m)
+        b_ms, b_by = bound(nbytes, flops)
+        out["b4"] = {"spread": row4, "workspace": row4_ws, "ms": ms,
+                     "cluster": plan4.C, "ctas": m.num_robots * plan4.C,
+                     "stripes": plan4.stripes,
+                     "plain_ms": cuda_ms(lambda: rk.rtr_refine_full_reference(
+                         *ops4.values(), **kw4), reps=1, warmup=0),
+                     "bound_ms": b_ms, "bound_by": b_by}
+        emit({"phase": "config5", "check": "b4", "card": card,
+              "rank": rank, "plan": plan4._asdict(),
+              **{k: v for k, v in out["b4"].items()
+                 if k not in ("spread", "workspace")},
+              "parity": {"spread": row4, "workspace": row4_ws}})
+    return out
+
+
 def config5_phase(inst, dev, card: str) -> dict:
     """BASELINE.md config #5 through the main path: ``solve_rbcd``
     (odometry init, the verdict loop, C5_ROUNDS rounds at K = C5_K), B2
     once per enqueued round on the spread route; the four kernels' plan
     at this shape; B2 at the terminal iterate against its plain version,
     bit for bit against itself and timed in turns with the workspace
-    route; B2 at rank C5_TOP_RANK (the staircase's top) at the odometry
-    init; B4 at this shape (constants recentered at the terminal iterate,
-    three refine rounds in) against its plain version on the spread and
-    workspace routes and timed on both.  Returns the spread route's rows
-    of the kernel table."""
+    route; B2 at each rank of C5_TOP_RANKS at the odometry init and B4 at
+    the top one (``config5_rank``); B4 at this shape (constants recentered
+    at the terminal iterate, three refine rounds in) against its plain
+    version on the spread and workspace routes and timed on both.  Returns
+    the spread route's rows of the kernel table."""
     meas, part, params = inst
     rk.LAUNCHES = 0
     torch.cuda.synchronize()
@@ -4246,17 +4670,9 @@ def config5_phase(inst, dev, card: str) -> dict:
           "with finite, falling costs")
 
     b2, out = config5_b2(ops, kw, graph, meta, "terminal iterate", True)
-    # The staircase's top rank at the odometry init of config #5's graph.
-    params7 = dataclasses.replace(params, r=C5_TOP_RANK)
-    g7, m7 = rbcd.build_graph(part, C5_TOP_RANK, torch.float32, dev)
-    X7 = rbcd.initial_state_for("odometry", part, m7, g7, params7,
-                                torch.float32)
-    Z7 = rbcd.neighbor_buffer(rbcd.public_table(X7, g7), g7)
-    ops7 = dict(zip(B2_ORDER, rbcd.kernel_operands(
-        X7, Z7, g7.edges, rbcd.precond_chol(g7.edges, g7, params7), g7)))
-    b2_7, _ = config5_b2(ops7, rbcd.kernel_options(params7, m7), g7, m7,
-                         "odometry init", False)
-    del g7, X7, Z7, ops7
+    # Higher ranks at the odometry init of config #5's graph.
+    tops = {rank: config5_rank(part, params, rank, meas, dev, card)
+            for rank in C5_TOP_RANKS}
 
     # B4 at this shape, from the terminal iterate.
     rparams = dataclasses.replace(params, solver=dataclasses.replace(
@@ -4293,9 +4709,11 @@ def config5_phase(inst, dev, card: str) -> dict:
         "source": "dpgo_tpu_torch/csrc/rtr_spread.cu",
         "replaces": "dpgo_tpu/ops/pallas_tcg.py:662",
         "launches_by_path": {"config5": launches},
-        "max_abs_err": max(b2["max_abs_dX_live"], b2_7["max_abs_dX_live"]),
+        "max_abs_err": max([b2["max_abs_dX_live"]]
+                           + [t["b2"]["max_abs_dX_live"]
+                              for t in tops.values()]),
         "floor_accept_flips": len(b2["flipped_rel_df"])
-        + len(b2_7["flipped_rel_df"]),
+        + sum(len(t["b2"]["flipped_rel_df"]) for t in tops.values()),
         "cuda_route": "spread", "cluster": t["cluster"], "ctas": t["ctas"],
         "stripes": t["stripes"], "ms": t["ms"],
         "ms_single_cta": t["ms_single_cta"], "speedup": t["speedup"],
@@ -4304,16 +4722,20 @@ def config5_phase(inst, dev, card: str) -> dict:
         "plain_ms": b2["plain_ms"], "bound_ms": b2["bound_ms"],
         "bound_by": b2["bound_by"], "library_ms": None,
         "bytes": b2["bytes"], "flops": b2["flops"],
-        "rank7": {k: b2_7["timing"][k] for k in (
+        "by_rank": {rank: {k: t["b2"]["timing"][k] for k in (
             "ms", "cluster", "ctas", "stripes", "ms_per_tcg_iter")}
-        | {k: b2_7[k] for k in ("plain_ms", "bound_ms", "bound_by",
-                                "max_abs_dX_live", "rel_dX_live")}}
+            | {k: t["b2"][k] for k in ("plain_ms", "bound_ms", "bound_by",
+                                       "max_abs_dX_live", "rel_dX_live")}
+            for rank, t in tops.items()}}
     spread_b4 = {
         "name": "rtr_refine_full_spread", "route": "cuda",
         "source": "dpgo_tpu_torch/csrc/rtr_spread.cu",
         "replaces": "dpgo_tpu/ops/pallas_tcg.py:715",
         "launches_by_path": {"config5": b4_launches},
-        "max_abs_err": row4["max_abs_dD"], "cuda_route": "spread",
+        "max_abs_err": max([row4["max_abs_dD"]]
+                           + [t["b4"]["spread"]["max_abs_dD"]
+                              for t in tops.values() if "b4" in t]),
+        "cuda_route": "spread",
         "cluster": b4_t["cluster"], "ctas": b4_t["ctas"],
         "stripes": b4_t["stripes"], "ms": b4_t["ms"],
         "ms_single_cta": b4_t["ms_single_cta"], "speedup": b4_t["speedup"],
@@ -4321,7 +4743,10 @@ def config5_phase(inst, dev, card: str) -> dict:
         "us_per_tcg_iter_single_cta":
         1e3 * b4_t["ms_per_tcg_iter_single_cta"],
         "plain_ms": b4_plain, "bound_ms": b4_bound, "bound_by": b4_by,
-        "library_ms": None, "bytes": b4_bytes, "flops": b4_flops}
+        "library_ms": None, "bytes": b4_bytes, "flops": b4_flops,
+        "by_rank": {rank: {k: t["b4"][k] for k in (
+            "ms", "cluster", "ctas", "stripes", "plain_ms", "bound_ms",
+            "bound_by")} for rank, t in tops.items() if "b4" in t}}
     return {"rows": [spread_b2, spread_b4]}
 
 
@@ -4969,6 +5394,10 @@ def main() -> int:
     t0 = time.perf_counter()
     native_lib = native_io.build()
     native_s = time.perf_counter() - t0
+    emit({"phase": "build", "check": "cold_build", "seconds": build_s,
+          "nvcc_ran": rk.NVCC_RUNS > 0, "cpu_count": os.cpu_count(),
+          "parts_per_source": rk.BUILD_PARTS,
+          "unit_seconds": rk.BUILD_SECONDS})
     emit({"phase": "build", "seconds": build_s, "library": lib_path.name,
           "native_seconds": native_s, "native_library": native_lib.name,
           "ptxas": ptxas_report(rk.BUILD_LOG)})
@@ -5271,14 +5700,31 @@ def main() -> int:
     lap("certify")
     fused_b2, fused_b4 = fused_refine_phase(meas, f_star, dev, card)
     lap("fused_refine")
-    b4_row["launches_by_path"]["fused_refine"] = fused_b4
+
+    # --- every rank of the staircase: B1-B4 at each (r, d) -----------------
+    se2 = se2_standin()
+    ranks = ranks_phase({3: (meas, ROBOTS, refine.host_edges_f64(meas)),
+                         2: (se2, SE2_ROBOTS, refine.host_edges_f64(se2))},
+                        dev, card)
+    lap("ranks")
+    # --- the f32 distributed staircase above rank 5 --------------------------
+    stair_b2, stair_b4 = staircase_f32("sphere", meas, ROBOTS, STAIR_SPHERE,
+                                       dev, card, host_eigensolve=True)
+    lap("staircase")
+    # --- SE(2) end to end: the GNC solve, then the f32 staircase ------------
+    se2_l = se2_phase(se2, dev, card)
+    lap("se2")
+    b4_row["launches_by_path"].update(fused_refine=fused_b4,
+                                      staircase=stair_b4,
+                                      se2=se2_l["staircase_b4"])
     b2_row["launches_by_path"].update(
         ablate=ab["rtr_full"], schedules=sched_b2, refine=descent_b2,
         verdict=verdict_b2 + prod_b2 + chordal_b2, odometry_init=odo_b2,
         robust_iterated=iter_b2, certify=cert_b2, dist_init=dist_b2,
         dense=0, fused_refine=fused_b2, agents=agents_b2,
         telemetry=telemetry_b2, tcp=tcp_b2, serve=sum(serve_by.values()) + fleet_lone_b2,
-        fleet=fleet_b2, sharded=sharded_b2, sharded_multihost=mh_b2)
+        fleet=fleet_b2, sharded=sharded_b2, sharded_multihost=mh_b2,
+        staircase=stair_b2, se2=se2_l["gnc"] + se2_l["staircase_b2"])
     b2_row["serve_launches_by_agents"] = serve_by
     b2_row["sharded_config5"] = {k: scale_row[k] for k in (
         "b2_ms_per_launch", "b2_route", "b2_cluster", "b2_bound_ms",
@@ -5291,6 +5737,15 @@ def main() -> int:
         row["routes"] = dict(routes)
         if row["name"] in rk.SPREAD_KERNELS:
             row["routes"]["spread"] = f"{row['name']}_spread"
+        # The (r, d) each route ran at in this script (the ranks phase),
+        # and its largest error there (X, eta or D, as the row's kernel).
+        row["shapes"] = ranks["shapes"][row["name"]]
+        row["max_abs_err_ranks"] = ranks["max_abs_err"][row["name"]]
+        row["perf_shapes"] = {k: v[row["name"]]
+                              for k, v in ranks["perf_shapes"].items()}
+    for row in c5["rows"]:
+        row["shapes"] = {"spread": [[RANK, 3]] + [
+            [r, 3] for r in row["by_rank"]]}
     rows.extend(c5["rows"])
     for row in rows:
         row["launches"] = sum(row["launches_by_path"].values())

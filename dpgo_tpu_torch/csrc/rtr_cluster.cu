@@ -100,10 +100,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "shapes.cuh"
 #include "smem_limit.cuh"
 
 namespace cg = cooperative_groups;
 
+namespace dpgo_cluster {
 namespace {
 
 // Threads per CTA (ops/rtr_kernel.MAX_CLUSTER_THREADS); values a
@@ -183,6 +185,10 @@ ClusterShape cluster_shape(int r, int d, int n, int kinc, int C,
   return {P, threads, floats * sizeof(float)};
 }
 
+}  // namespace
+
+// The launchers' arguments: a type every translation unit of this source
+// shares (see shapes.cuh).
 struct ClusterArgs {
   int n, s, Ep, T, E, kinc;
   const int* idx_i;
@@ -206,6 +212,8 @@ struct ClusterArgs {
   int max_iters;
   float kappa, theta;
 };
+
+namespace {
 
 // One thread's view of its agent: the cluster's shape, this thread's pose
 // slot and row, and the carved shared memory of its CTA.
@@ -1312,64 +1320,6 @@ int launch_cluster(void (*kern)(KArgs...), int A, int C,
   return (int)cudaGetLastError();
 }
 
-template <int R, int D>
-int launch_rtr_full(const ClusterArgs& g, int A, int C, float initial_radius,
-                    int max_rejections, float grad_tol, float* X_out,
-                    float* stats, int* tcg_iters, cudaStream_t stream) {
-  if (g.s > kIndexMask + 1) return kTooManySlots;
-  const ClusterShape sh = cluster_shape(R, D, g.n, g.kinc, C, false);
-  return launch_cluster(rtr_full_cluster_kernel<R, D>, A, C, sh, stream, g,
-                        initial_radius, max_rejections, grad_tol, X_out,
-                        stats, tcg_iters);
-}
-
-template <int R, int D>
-int launch_rtr(const ClusterArgs& g, int A, int C, float initial_radius,
-               int max_rejections, float* X_out, float* stats,
-               int* tcg_iters, cudaStream_t stream) {
-  if (g.s > kIndexMask + 1) return kTooManySlots;
-  const ClusterShape sh = cluster_shape(R, D, g.n, g.kinc, C, false);
-  return launch_cluster(rtr_cluster_kernel<R, D>, A, C, sh, stream, g,
-                        initial_radius, max_rejections, X_out, stats,
-                        tcg_iters);
-}
-
-template <int R, int D>
-int launch_tcg(const ClusterArgs& g, int A, int C, const float* radius,
-               float* eta, float* heta, float* stats, cudaStream_t stream) {
-  const ClusterShape sh = cluster_shape(R, D, g.n, g.kinc, C, false);
-  return launch_cluster(tcg_cluster_kernel<R, D>, A, C, sh, stream, g,
-                        radius, eta, heta, stats);
-}
-
-template <int R, int D>
-int launch_refine(const ClusterArgs& g, int A, int C, float initial_radius,
-                  int max_rejections, float grad_tol, float* D_out,
-                  float* stats, int* tcg_iters, cudaStream_t stream) {
-  if (g.s > kIndexMask + 1) return kTooManySlots;
-  const ClusterShape sh = cluster_shape(R, D, g.n, g.kinc, C, true);
-  return launch_cluster(rtr_refine_full_cluster_kernel<R, D>, A, C, sh,
-                        stream, g, initial_radius, max_rejections, grad_tol,
-                        D_out, stats, tcg_iters);
-}
-
-template <int R, int D>
-int query_clusters(int kernel, int n, int kinc, int C, int* count) {
-  const ClusterShape sh = cluster_shape(R, D, n, kinc, C, kernel == kRefine);
-  switch (kernel) {
-    case kRtrFull:
-      return max_clusters(rtr_full_cluster_kernel<R, D>, C, sh, count);
-    case kRtr:
-      return max_clusters(rtr_cluster_kernel<R, D>, C, sh, count);
-    case kTcg:
-      return max_clusters(tcg_cluster_kernel<R, D>, C, sh, count);
-    case kRefine:
-      return max_clusters(rtr_refine_full_cluster_kernel<R, D>, C, sh,
-                          count);
-  }
-  return kUnknownKernel;
-}
-
 ClusterArgs make_args(int n, int s, int Ep, int T, int E, int kinc,
                       const void* idx_i, const void* idx_j, const void* rot,
                       const void* trn, const void* wk, const void* wt,
@@ -1404,13 +1354,111 @@ ClusterArgs make_args(int n, int s, int Ep, int T, int E, int kinc,
   return a;
 }
 
-constexpr int kUnsupportedShape = -1;
-
 }  // namespace
 
-#define DPGO_DISPATCH(R_, D_, CALL) \
-  if (r == R_ && d == D_) return CALL<R_, D_>
+// The launchers of one (r, d).  Each kernel part of the build defines them
+// and instantiates them for its share of DPGO_SHAPES; the dispatch part
+// calls them (shapes.cuh).  Launchers<R, D, false> is a shape another part
+// instantiates.
+template <int R, int D, bool kInPart = true>
+struct Launchers {};
 
+template <int R, int D>
+struct Launchers<R, D, true> {
+  static int rtr_full(const ClusterArgs& g, int A, int C,
+                      float initial_radius, int max_rejections,
+                      float grad_tol, float* X_out, float* stats,
+                      int* tcg_iters, cudaStream_t stream);
+  static int rtr(const ClusterArgs& g, int A, int C, float initial_radius,
+                 int max_rejections, float* X_out, float* stats,
+                 int* tcg_iters, cudaStream_t stream);
+  static int tcg(const ClusterArgs& g, int A, int C, const float* radius,
+                 float* eta, float* heta, float* stats, cudaStream_t stream);
+  static int refine(const ClusterArgs& g, int A, int C, float initial_radius,
+                    int max_rejections, float grad_tol, float* D_out,
+                    float* stats, int* tcg_iters, cudaStream_t stream);
+  static int query_clusters(int kernel, int n, int kinc, int C, int* count);
+};
+
+#if DPGO_PART >= 0
+
+template <int R, int D>
+int Launchers<R, D, true>::rtr_full(const ClusterArgs& g, int A, int C,
+                                    float initial_radius, int max_rejections,
+                                    float grad_tol, float* X_out,
+                                    float* stats, int* tcg_iters,
+                                    cudaStream_t stream) {
+  if (g.s > kIndexMask + 1) return kTooManySlots;
+  const ClusterShape sh = cluster_shape(R, D, g.n, g.kinc, C, false);
+  return launch_cluster(rtr_full_cluster_kernel<R, D>, A, C, sh, stream, g,
+                        initial_radius, max_rejections, grad_tol, X_out,
+                        stats, tcg_iters);
+}
+
+template <int R, int D>
+int Launchers<R, D, true>::rtr(const ClusterArgs& g, int A, int C,
+                               float initial_radius, int max_rejections,
+                               float* X_out, float* stats, int* tcg_iters,
+                               cudaStream_t stream) {
+  if (g.s > kIndexMask + 1) return kTooManySlots;
+  const ClusterShape sh = cluster_shape(R, D, g.n, g.kinc, C, false);
+  return launch_cluster(rtr_cluster_kernel<R, D>, A, C, sh, stream, g,
+                        initial_radius, max_rejections, X_out, stats,
+                        tcg_iters);
+}
+
+template <int R, int D>
+int Launchers<R, D, true>::tcg(const ClusterArgs& g, int A, int C,
+                               const float* radius, float* eta, float* heta,
+                               float* stats, cudaStream_t stream) {
+  const ClusterShape sh = cluster_shape(R, D, g.n, g.kinc, C, false);
+  return launch_cluster(tcg_cluster_kernel<R, D>, A, C, sh, stream, g,
+                        radius, eta, heta, stats);
+}
+
+template <int R, int D>
+int Launchers<R, D, true>::refine(const ClusterArgs& g, int A, int C,
+                                  float initial_radius, int max_rejections,
+                                  float grad_tol, float* D_out, float* stats,
+                                  int* tcg_iters, cudaStream_t stream) {
+  if (g.s > kIndexMask + 1) return kTooManySlots;
+  const ClusterShape sh = cluster_shape(R, D, g.n, g.kinc, C, true);
+  return launch_cluster(rtr_refine_full_cluster_kernel<R, D>, A, C, sh,
+                        stream, g, initial_radius, max_rejections, grad_tol,
+                        D_out, stats, tcg_iters);
+}
+
+template <int R, int D>
+int Launchers<R, D, true>::query_clusters(int kernel, int n, int kinc, int C,
+                                          int* count) {
+  const ClusterShape sh = cluster_shape(R, D, n, kinc, C, kernel == kRefine);
+  switch (kernel) {
+    case kRtrFull:
+      return max_clusters(rtr_full_cluster_kernel<R, D>, C, sh, count);
+    case kRtr:
+      return max_clusters(rtr_cluster_kernel<R, D>, C, sh, count);
+    case kTcg:
+      return max_clusters(tcg_cluster_kernel<R, D>, C, sh, count);
+    case kRefine:
+      return max_clusters(rtr_refine_full_cluster_kernel<R, D>, C, sh,
+                          count);
+  }
+  return kUnknownKernel;
+}
+
+#define DPGO_INSTANTIATE(R_, D_) \
+  template struct Launchers<R_, D_, dpgo_shapes::in_part(R_, D_)>;
+DPGO_SHAPES(DPGO_INSTANTIATE)
+#undef DPGO_INSTANTIATE
+
+#endif  // DPGO_PART >= 0
+
+#if DPGO_PART < 0
+
+using dpgo_shapes::dispatch;
+
+// The entry points have C linkage: their names are global, whatever the
+// namespace.
 extern "C" {
 
 // Shared-memory bytes of one CTA of cluster kernel `kernel` (Kernel) for
@@ -1429,12 +1477,9 @@ long long dpgo_rtr_cluster_smem_bytes(int r, int d, int n_max, int kinc,
 int dpgo_rtr_cluster_max_clusters(int r, int d, int n_max, int kinc, int C,
                                   int kernel, void* count) {
   int* c = static_cast<int*>(count);
-  DPGO_DISPATCH(5, 3, query_clusters)(kernel, n_max, kinc, C, c);
-  DPGO_DISPATCH(4, 3, query_clusters)(kernel, n_max, kinc, C, c);
-  DPGO_DISPATCH(3, 3, query_clusters)(kernel, n_max, kinc, C, c);
-  DPGO_DISPATCH(3, 2, query_clusters)(kernel, n_max, kinc, C, c);
-  DPGO_DISPATCH(2, 2, query_clusters)(kernel, n_max, kinc, C, c);
-  return kUnsupportedShape;
+  return dispatch<Launchers>(r, d, [&](auto launchers) {
+    return launchers.query_clusters(kernel, n_max, kinc, C, c);
+  });
 }
 
 int dpgo_rtr_full_cluster_launch(
@@ -1453,22 +1498,10 @@ int dpgo_rtr_full_cluster_launch(
   float* st = static_cast<float*>(stats);
   int* it = static_cast<int*>(tcg_iters);
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
-  DPGO_DISPATCH(5, 3, launch_rtr_full)(g, A, C, initial_radius,
-                                       max_rejections, grad_tol, xo, st, it,
-                                       cs);
-  DPGO_DISPATCH(4, 3, launch_rtr_full)(g, A, C, initial_radius,
-                                       max_rejections, grad_tol, xo, st, it,
-                                       cs);
-  DPGO_DISPATCH(3, 3, launch_rtr_full)(g, A, C, initial_radius,
-                                       max_rejections, grad_tol, xo, st, it,
-                                       cs);
-  DPGO_DISPATCH(3, 2, launch_rtr_full)(g, A, C, initial_radius,
-                                       max_rejections, grad_tol, xo, st, it,
-                                       cs);
-  DPGO_DISPATCH(2, 2, launch_rtr_full)(g, A, C, initial_radius,
-                                       max_rejections, grad_tol, xo, st, it,
-                                       cs);
-  return kUnsupportedShape;
+  return dispatch<Launchers>(r, d, [&](auto launchers) {
+    return launchers.rtr_full(g, A, C, initial_radius, max_rejections,
+                              grad_tol, xo, st, it, cs);
+  });
 }
 
 int dpgo_rtr_cluster_launch(
@@ -1486,17 +1519,10 @@ int dpgo_rtr_cluster_launch(
   float* st = static_cast<float*>(stats);
   int* it = static_cast<int*>(tcg_iters);
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
-  DPGO_DISPATCH(5, 3, launch_rtr)(a, A, C, initial_radius, max_rejections,
-                                  xo, st, it, cs);
-  DPGO_DISPATCH(4, 3, launch_rtr)(a, A, C, initial_radius, max_rejections,
-                                  xo, st, it, cs);
-  DPGO_DISPATCH(3, 3, launch_rtr)(a, A, C, initial_radius, max_rejections,
-                                  xo, st, it, cs);
-  DPGO_DISPATCH(3, 2, launch_rtr)(a, A, C, initial_radius, max_rejections,
-                                  xo, st, it, cs);
-  DPGO_DISPATCH(2, 2, launch_rtr)(a, A, C, initial_radius, max_rejections,
-                                  xo, st, it, cs);
-  return kUnsupportedShape;
+  return dispatch<Launchers>(r, d, [&](auto launchers) {
+    return launchers.rtr(a, A, C, initial_radius, max_rejections, xo, st, it,
+                         cs);
+  });
 }
 
 int dpgo_tcg_cluster_launch(
@@ -1515,12 +1541,9 @@ int dpgo_tcg_cluster_launch(
   float* h = static_cast<float*>(heta);
   float* st = static_cast<float*>(stats);
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
-  DPGO_DISPATCH(5, 3, launch_tcg)(a, A, C, rd, e, h, st, cs);
-  DPGO_DISPATCH(4, 3, launch_tcg)(a, A, C, rd, e, h, st, cs);
-  DPGO_DISPATCH(3, 3, launch_tcg)(a, A, C, rd, e, h, st, cs);
-  DPGO_DISPATCH(3, 2, launch_tcg)(a, A, C, rd, e, h, st, cs);
-  DPGO_DISPATCH(2, 2, launch_tcg)(a, A, C, rd, e, h, st, cs);
-  return kUnsupportedShape;
+  return dispatch<Launchers>(r, d, [&](auto launchers) {
+    return launchers.tcg(a, A, C, rd, e, h, st, cs);
+  });
 }
 
 int dpgo_rtr_refine_full_cluster_launch(
@@ -1544,22 +1567,14 @@ int dpgo_rtr_refine_full_cluster_launch(
   float* st = static_cast<float*>(stats);
   int* it = static_cast<int*>(tcg_iters);
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
-  DPGO_DISPATCH(5, 3, launch_refine)(a, A, C, initial_radius,
-                                     max_rejections, grad_tol, dout, st, it,
-                                     cs);
-  DPGO_DISPATCH(4, 3, launch_refine)(a, A, C, initial_radius,
-                                     max_rejections, grad_tol, dout, st, it,
-                                     cs);
-  DPGO_DISPATCH(3, 3, launch_refine)(a, A, C, initial_radius,
-                                     max_rejections, grad_tol, dout, st, it,
-                                     cs);
-  DPGO_DISPATCH(3, 2, launch_refine)(a, A, C, initial_radius,
-                                     max_rejections, grad_tol, dout, st, it,
-                                     cs);
-  DPGO_DISPATCH(2, 2, launch_refine)(a, A, C, initial_radius,
-                                     max_rejections, grad_tol, dout, st, it,
-                                     cs);
-  return kUnsupportedShape;
+  return dispatch<Launchers>(r, d, [&](auto launchers) {
+    return launchers.refine(a, A, C, initial_radius, max_rejections, grad_tol,
+                            dout, st, it, cs);
+  });
 }
 
 }  // extern "C"
+
+#endif  // DPGO_PART < 0
+
+}  // namespace dpgo_cluster

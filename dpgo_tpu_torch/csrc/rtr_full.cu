@@ -76,8 +76,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "shapes.cuh"
 #include "smem_limit.cuh"
 
+namespace dpgo_full {
 namespace {
 
 constexpr int kThreads = 256;
@@ -716,6 +718,10 @@ __device__ void load_edges(Problem& P, unsigned char* payload, int a, int Ep,
   __syncthreads();
 }
 
+}  // namespace
+
+// The launchers' arguments: types every translation unit of this source
+// shares (see shapes.cuh).
 struct Args {
   int A, n, s, Ep, T, E, kinc;
   int payload_in_smem;  // else the payload follows gbuf in the workspace
@@ -738,6 +744,8 @@ struct Args {
   int max_iters;
   float kappa, theta;
 };
+
+namespace {
 
 template <int R, int D>
 __device__ Problem setup(const Args& g, unsigned char* smem, int a,
@@ -942,6 +950,8 @@ tcg_kernel(Args args, const float* Sc, const float* gc, const float* radius,
   }
 }
 
+}  // namespace
+
 // Per-recenter constants of the refine kernel, [A, ...] component-major.
 struct RefineConsts {
   const float* Rc;    // [RK, n] reference point
@@ -949,6 +959,8 @@ struct RefineConsts {
   const float* Gref;  // [RK, n] Euclidean gradient at Rc
   const float* S0;    // [D*D, n] sym(Rc_Y^T Gref_Y)
 };
+
+namespace {
 
 // Args.X is the correction D and Args.Z its neighbor slots Dz.
 template <int R, int D>
@@ -1122,57 +1134,6 @@ int prepare_launch(Kern kern, const Args& args, int r, int d, size_t* smem) {
                                (int)*smem);
 }
 
-template <int R, int D>
-int launch_rtr_full(const Args& args, float initial_radius, int max_rejections,
-                    float grad_tol, float* X_out, float* stats, int* tcg_iters,
-                    cudaStream_t stream) {
-  size_t smem;
-  const int err = prepare_launch(rtr_full_kernel<R, D>, args, R, D, &smem);
-  if (err != 0) return err;
-  rtr_full_kernel<R, D><<<args.A, kThreads, smem, stream>>>(
-      args, initial_radius, max_rejections, grad_tol, X_out, stats, tcg_iters);
-  return (int)cudaGetLastError();
-}
-
-template <int R, int D>
-int launch_rtr(const Args& args, const float* Sc, const float* gc,
-               float initial_radius, int max_rejections, float* X_out,
-               float* stats, int* tcg_iters, cudaStream_t stream) {
-  size_t smem;
-  const int err = prepare_launch(rtr_kernel<R, D>, args, R, D, &smem);
-  if (err != 0) return err;
-  rtr_kernel<R, D><<<args.A, kThreads, smem, stream>>>(
-      args, Sc, gc, initial_radius, max_rejections, X_out, stats, tcg_iters);
-  return (int)cudaGetLastError();
-}
-
-template <int R, int D>
-int launch_tcg(const Args& args, const float* Sc, const float* gc,
-               const float* radius, float* eta, float* heta, float* stats,
-               cudaStream_t stream) {
-  size_t smem;
-  const int err = prepare_launch(tcg_kernel<R, D>, args, R, D, &smem);
-  if (err != 0) return err;
-  tcg_kernel<R, D><<<args.A, kThreads, smem, stream>>>(args, Sc, gc, radius,
-                                                        eta, heta, stats);
-  return (int)cudaGetLastError();
-}
-
-template <int R, int D>
-int launch_rtr_refine_full(const Args& args, const RefineConsts& rc,
-                           float initial_radius, int max_rejections,
-                           float grad_tol, float* D_out, float* stats,
-                           int* tcg_iters, cudaStream_t stream) {
-  size_t smem;
-  const int err =
-      prepare_launch(rtr_refine_full_kernel<R, D>, args, R, D, &smem);
-  if (err != 0) return err;
-  rtr_refine_full_kernel<R, D><<<args.A, kThreads, smem, stream>>>(
-      args, rc, initial_radius, max_rejections, grad_tol, D_out, stats,
-      tcg_iters);
-  return (int)cudaGetLastError();
-}
-
 Args make_args(int r, int d, int A, int n, int s, int Ep, int T, int E,
                int kinc, const void* idx_i, const void* idx_j,
                const void* rot, const void* trn, const void* wk,
@@ -1212,13 +1173,101 @@ Args make_args(int r, int d, int A, int n, int s, int Ep, int T, int E,
   return g;
 }
 
-constexpr int kUnsupportedShape = -1;
-
 }  // namespace
 
-#define DPGO_DISPATCH(R_, D_, CALL)            \
-  if (r == R_ && d == D_) return CALL<R_, D_>
+// The launchers of one (r, d).  Each kernel part of the build defines them
+// and instantiates them for its share of DPGO_SHAPES; the dispatch part
+// calls them (shapes.cuh).  Launchers<R, D, false> is a shape another part
+// instantiates.
+template <int R, int D, bool kInPart = true>
+struct Launchers {};
 
+template <int R, int D>
+struct Launchers<R, D, true> {
+  static int rtr_full(const Args& args, float initial_radius,
+                      int max_rejections, float grad_tol, float* X_out,
+                      float* stats, int* tcg_iters, cudaStream_t stream);
+  static int rtr(const Args& args, const float* Sc, const float* gc,
+                 float initial_radius, int max_rejections, float* X_out,
+                 float* stats, int* tcg_iters, cudaStream_t stream);
+  static int tcg(const Args& args, const float* Sc, const float* gc,
+                 const float* radius, float* eta, float* heta, float* stats,
+                 cudaStream_t stream);
+  static int rtr_refine_full(const Args& args, const RefineConsts& rc,
+                             float initial_radius, int max_rejections,
+                             float grad_tol, float* D_out, float* stats,
+                             int* tcg_iters, cudaStream_t stream);
+};
+
+#if DPGO_PART >= 0
+
+template <int R, int D>
+int Launchers<R, D, true>::rtr_full(const Args& args, float initial_radius,
+                                    int max_rejections, float grad_tol,
+                                    float* X_out, float* stats,
+                                    int* tcg_iters, cudaStream_t stream) {
+  size_t smem;
+  const int err = prepare_launch(rtr_full_kernel<R, D>, args, R, D, &smem);
+  if (err != 0) return err;
+  rtr_full_kernel<R, D><<<args.A, kThreads, smem, stream>>>(
+      args, initial_radius, max_rejections, grad_tol, X_out, stats, tcg_iters);
+  return (int)cudaGetLastError();
+}
+
+template <int R, int D>
+int Launchers<R, D, true>::rtr(const Args& args, const float* Sc,
+                               const float* gc, float initial_radius,
+                               int max_rejections, float* X_out, float* stats,
+                               int* tcg_iters, cudaStream_t stream) {
+  size_t smem;
+  const int err = prepare_launch(rtr_kernel<R, D>, args, R, D, &smem);
+  if (err != 0) return err;
+  rtr_kernel<R, D><<<args.A, kThreads, smem, stream>>>(
+      args, Sc, gc, initial_radius, max_rejections, X_out, stats, tcg_iters);
+  return (int)cudaGetLastError();
+}
+
+template <int R, int D>
+int Launchers<R, D, true>::tcg(const Args& args, const float* Sc,
+                               const float* gc, const float* radius,
+                               float* eta, float* heta, float* stats,
+                               cudaStream_t stream) {
+  size_t smem;
+  const int err = prepare_launch(tcg_kernel<R, D>, args, R, D, &smem);
+  if (err != 0) return err;
+  tcg_kernel<R, D><<<args.A, kThreads, smem, stream>>>(args, Sc, gc, radius,
+                                                        eta, heta, stats);
+  return (int)cudaGetLastError();
+}
+
+template <int R, int D>
+int Launchers<R, D, true>::rtr_refine_full(
+    const Args& args, const RefineConsts& rc, float initial_radius,
+    int max_rejections, float grad_tol, float* D_out, float* stats,
+    int* tcg_iters, cudaStream_t stream) {
+  size_t smem;
+  const int err =
+      prepare_launch(rtr_refine_full_kernel<R, D>, args, R, D, &smem);
+  if (err != 0) return err;
+  rtr_refine_full_kernel<R, D><<<args.A, kThreads, smem, stream>>>(
+      args, rc, initial_radius, max_rejections, grad_tol, D_out, stats,
+      tcg_iters);
+  return (int)cudaGetLastError();
+}
+
+#define DPGO_INSTANTIATE(R_, D_) \
+  template struct Launchers<R_, D_, dpgo_shapes::in_part(R_, D_)>;
+DPGO_SHAPES(DPGO_INSTANTIATE)
+#undef DPGO_INSTANTIATE
+
+#endif  // DPGO_PART >= 0
+
+#if DPGO_PART < 0
+
+using dpgo_shapes::dispatch;
+
+// The entry points have C linkage: their names are global, whatever the
+// namespace.
 extern "C" {
 
 // Floats of per-agent workspace: the loop vectors [RK, n] (8, or 9 for
@@ -1253,17 +1302,10 @@ int dpgo_rtr_full_launch(int r, int d, int A, int n, int s, int Ep, int T,
   float* st = static_cast<float*>(stats);
   int* it = static_cast<int*>(tcg_iters);
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
-  DPGO_DISPATCH(5, 3, launch_rtr_full)(g, initial_radius, max_rejections,
-                                       grad_tol, xo, st, it, cs);
-  DPGO_DISPATCH(4, 3, launch_rtr_full)(g, initial_radius, max_rejections,
-                                       grad_tol, xo, st, it, cs);
-  DPGO_DISPATCH(3, 3, launch_rtr_full)(g, initial_radius, max_rejections,
-                                       grad_tol, xo, st, it, cs);
-  DPGO_DISPATCH(3, 2, launch_rtr_full)(g, initial_radius, max_rejections,
-                                       grad_tol, xo, st, it, cs);
-  DPGO_DISPATCH(2, 2, launch_rtr_full)(g, initial_radius, max_rejections,
-                                       grad_tol, xo, st, it, cs);
-  return kUnsupportedShape;
+  return dispatch<Launchers>(r, d, [&](auto launchers) {
+    return launchers.rtr_full(g, initial_radius, max_rejections, grad_tol, xo,
+                              st, it, cs);
+  });
 }
 
 int dpgo_rtr_launch(int r, int d, int A, int n, int s, int Ep, int T,
@@ -1286,17 +1328,10 @@ int dpgo_rtr_launch(int r, int d, int A, int n, int s, int Ep, int T,
   float* st = static_cast<float*>(stats);
   int* it = static_cast<int*>(tcg_iters);
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
-  DPGO_DISPATCH(5, 3, launch_rtr)(a, sc, gc, initial_radius, max_rejections,
-                                  xo, st, it, cs);
-  DPGO_DISPATCH(4, 3, launch_rtr)(a, sc, gc, initial_radius, max_rejections,
-                                  xo, st, it, cs);
-  DPGO_DISPATCH(3, 3, launch_rtr)(a, sc, gc, initial_radius, max_rejections,
-                                  xo, st, it, cs);
-  DPGO_DISPATCH(3, 2, launch_rtr)(a, sc, gc, initial_radius, max_rejections,
-                                  xo, st, it, cs);
-  DPGO_DISPATCH(2, 2, launch_rtr)(a, sc, gc, initial_radius, max_rejections,
-                                  xo, st, it, cs);
-  return kUnsupportedShape;
+  return dispatch<Launchers>(r, d, [&](auto launchers) {
+    return launchers.rtr(a, sc, gc, initial_radius, max_rejections, xo, st, it,
+                         cs);
+  });
 }
 
 int dpgo_tcg_launch(int r, int d, int A, int n, int Ep, int T, int e_max,
@@ -1320,12 +1355,9 @@ int dpgo_tcg_launch(int r, int d, int A, int n, int Ep, int T, int e_max,
   float* h = static_cast<float*>(heta);
   float* st = static_cast<float*>(stats);
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
-  DPGO_DISPATCH(5, 3, launch_tcg)(a, sc, gc, rd, e, h, st, cs);
-  DPGO_DISPATCH(4, 3, launch_tcg)(a, sc, gc, rd, e, h, st, cs);
-  DPGO_DISPATCH(3, 3, launch_tcg)(a, sc, gc, rd, e, h, st, cs);
-  DPGO_DISPATCH(3, 2, launch_tcg)(a, sc, gc, rd, e, h, st, cs);
-  DPGO_DISPATCH(2, 2, launch_tcg)(a, sc, gc, rd, e, h, st, cs);
-  return kUnsupportedShape;
+  return dispatch<Launchers>(r, d, [&](auto launchers) {
+    return launchers.tcg(a, sc, gc, rd, e, h, st, cs);
+  });
 }
 
 int dpgo_rtr_refine_full_launch(
@@ -1350,17 +1382,14 @@ int dpgo_rtr_refine_full_launch(
   float* st = static_cast<float*>(stats);
   int* it = static_cast<int*>(tcg_iters);
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
-  DPGO_DISPATCH(5, 3, launch_rtr_refine_full)(
-      g, rc, initial_radius, max_rejections, grad_tol, dout, st, it, cs);
-  DPGO_DISPATCH(4, 3, launch_rtr_refine_full)(
-      g, rc, initial_radius, max_rejections, grad_tol, dout, st, it, cs);
-  DPGO_DISPATCH(3, 3, launch_rtr_refine_full)(
-      g, rc, initial_radius, max_rejections, grad_tol, dout, st, it, cs);
-  DPGO_DISPATCH(3, 2, launch_rtr_refine_full)(
-      g, rc, initial_radius, max_rejections, grad_tol, dout, st, it, cs);
-  DPGO_DISPATCH(2, 2, launch_rtr_refine_full)(
-      g, rc, initial_radius, max_rejections, grad_tol, dout, st, it, cs);
-  return kUnsupportedShape;
+  return dispatch<Launchers>(r, d, [&](auto launchers) {
+    return launchers.rtr_refine_full(g, rc, initial_radius, max_rejections,
+                                     grad_tol, dout, st, it, cs);
+  });
 }
 
 }  // extern "C"
+
+#endif  // DPGO_PART < 0
+
+}  // namespace dpgo_full

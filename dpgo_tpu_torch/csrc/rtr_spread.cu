@@ -73,10 +73,12 @@
 #include <mutex>
 #include <tuple>
 
+#include "shapes.cuh"
 #include "smem_limit.cuh"
 
 namespace cg = cooperative_groups;
 
+namespace dpgo_spread {
 namespace {
 
 // Threads per CTA at most (ops/rtr_kernel.SPREAD_THREADS); values a
@@ -180,6 +182,10 @@ long long workspace_floats(int r, int d, int n, int e_max, int kinc, int C,
   return (floats + 3) / 4 * 4;
 }
 
+}  // namespace
+
+// The launchers' arguments: a type every translation unit of this source
+// shares (see shapes.cuh).
 struct SpreadArgs {
   int n, s, Ep, T, E, kinc;
   const int* idx_i;
@@ -205,6 +211,8 @@ struct SpreadArgs {
   int max_iters;
   float kappa, theta;
 };
+
+namespace {
 
 // One thread's view of its agent: the cluster's shape, this thread's lane
 // group and row, the pose of the current stripe, and where the vectors,
@@ -1418,44 +1426,6 @@ int launch_spread(void (*kern)(KArgs...), int A, int C,
   return (int)cudaGetLastError();
 }
 
-template <int R, int D>
-int launch_rtr_full(const SpreadArgs& g, int A, int C, float initial_radius,
-                    int max_rejections, float grad_tol, float* X_out,
-                    float* stats, int* tcg_iters, cudaStream_t stream) {
-  if (g.s > kIndexMask + 1) return kTooManySlots;
-  const SpreadShape sh = spread_shape(R, D, g.n, C);
-  return launch_spread(rtr_full_spread_kernel<R, D>, A, C, sh, stream, g,
-                       initial_radius, max_rejections, grad_tol, X_out, stats,
-                       tcg_iters);
-}
-
-template <int R, int D>
-int launch_refine(const SpreadArgs& g, int A, int C, float initial_radius,
-                  int max_rejections, float grad_tol, float* D_out,
-                  float* stats, int* tcg_iters, cudaStream_t stream) {
-  if (g.s > kIndexMask + 1) return kTooManySlots;
-  const SpreadShape sh = spread_shape(R, D, g.n, C);
-  return launch_spread(rtr_refine_full_spread_kernel<R, D>, A, C, sh, stream,
-                       g, initial_radius, max_rejections, grad_tol, D_out,
-                       stats, tcg_iters);
-}
-
-template <int R, int D>
-int query_clusters(int kernel, int n, int C, int* count) {
-  const SpreadShape sh = spread_shape(R, D, n, C);
-  if (C > kMaxCluster) {
-    *count = 0;
-    return 0;
-  }
-  switch (kernel) {
-    case kRtrFull:
-      return max_clusters(rtr_full_spread_kernel<R, D>, C, sh, count);
-    case kRefine:
-      return max_clusters(rtr_refine_full_spread_kernel<R, D>, C, sh, count);
-  }
-  return kUnknownKernel;
-}
-
 SpreadArgs make_args(int n, int s, int Ep, int T, int E, int kinc,
                      const void* idx_i, const void* idx_j, const void* rot,
                      const void* trn, const void* wk, const void* wt,
@@ -1493,24 +1463,84 @@ SpreadArgs make_args(int n, int s, int Ep, int T, int E, int kinc,
   return a;
 }
 
-constexpr int kUnsupportedShape = -1;
-
 }  // namespace
 
-// The spread route's (r, d): the cluster route's five and the rank
-// staircase's r = 6, 7 at d = 3.
-#define DPGO_DISPATCH(R_, D_, CALL) \
-  if (r == R_ && d == D_) return CALL<R_, D_>
-#define DPGO_SPREAD_SHAPES(CALL, ...)       \
-  DPGO_DISPATCH(5, 3, CALL)(__VA_ARGS__);   \
-  DPGO_DISPATCH(4, 3, CALL)(__VA_ARGS__);   \
-  DPGO_DISPATCH(3, 3, CALL)(__VA_ARGS__);   \
-  DPGO_DISPATCH(3, 2, CALL)(__VA_ARGS__);   \
-  DPGO_DISPATCH(2, 2, CALL)(__VA_ARGS__);   \
-  DPGO_DISPATCH(6, 3, CALL)(__VA_ARGS__);   \
-  DPGO_DISPATCH(7, 3, CALL)(__VA_ARGS__);   \
-  return kUnsupportedShape
+// The launchers of one (r, d).  Each kernel part of the build defines them
+// and instantiates them for its share of DPGO_SHAPES; the dispatch part
+// calls them (shapes.cuh).  Launchers<R, D, false> is a shape another part
+// instantiates.
+template <int R, int D, bool kInPart = true>
+struct Launchers {};
 
+template <int R, int D>
+struct Launchers<R, D, true> {
+  static int rtr_full(const SpreadArgs& g, int A, int C,
+                      float initial_radius, int max_rejections,
+                      float grad_tol, float* X_out, float* stats,
+                      int* tcg_iters, cudaStream_t stream);
+  static int refine(const SpreadArgs& g, int A, int C, float initial_radius,
+                    int max_rejections, float grad_tol, float* D_out,
+                    float* stats, int* tcg_iters, cudaStream_t stream);
+  static int query_clusters(int kernel, int n, int C, int* count);
+};
+
+#if DPGO_PART >= 0
+
+template <int R, int D>
+int Launchers<R, D, true>::rtr_full(const SpreadArgs& g, int A, int C,
+                                    float initial_radius, int max_rejections,
+                                    float grad_tol, float* X_out,
+                                    float* stats, int* tcg_iters,
+                                    cudaStream_t stream) {
+  if (g.s > kIndexMask + 1) return kTooManySlots;
+  const SpreadShape sh = spread_shape(R, D, g.n, C);
+  return launch_spread(rtr_full_spread_kernel<R, D>, A, C, sh, stream, g,
+                       initial_radius, max_rejections, grad_tol, X_out, stats,
+                       tcg_iters);
+}
+
+template <int R, int D>
+int Launchers<R, D, true>::refine(const SpreadArgs& g, int A, int C,
+                                  float initial_radius, int max_rejections,
+                                  float grad_tol, float* D_out, float* stats,
+                                  int* tcg_iters, cudaStream_t stream) {
+  if (g.s > kIndexMask + 1) return kTooManySlots;
+  const SpreadShape sh = spread_shape(R, D, g.n, C);
+  return launch_spread(rtr_refine_full_spread_kernel<R, D>, A, C, sh, stream,
+                       g, initial_radius, max_rejections, grad_tol, D_out,
+                       stats, tcg_iters);
+}
+
+template <int R, int D>
+int Launchers<R, D, true>::query_clusters(int kernel, int n, int C,
+                                          int* count) {
+  const SpreadShape sh = spread_shape(R, D, n, C);
+  if (C > kMaxCluster) {
+    *count = 0;
+    return 0;
+  }
+  switch (kernel) {
+    case kRtrFull:
+      return max_clusters(rtr_full_spread_kernel<R, D>, C, sh, count);
+    case kRefine:
+      return max_clusters(rtr_refine_full_spread_kernel<R, D>, C, sh, count);
+  }
+  return kUnknownKernel;
+}
+
+#define DPGO_INSTANTIATE(R_, D_) \
+  template struct Launchers<R_, D_, dpgo_shapes::in_part(R_, D_)>;
+DPGO_SHAPES(DPGO_INSTANTIATE)
+#undef DPGO_INSTANTIATE
+
+#endif  // DPGO_PART >= 0
+
+#if DPGO_PART < 0
+
+using dpgo_shapes::dispatch;
+
+// The entry points have C linkage: their names are global, whatever the
+// namespace.
 extern "C" {
 
 // The spread shape of kernel `kernel` for agents of n_max poses over C
@@ -1540,7 +1570,9 @@ long long dpgo_rtr_spread_workspace_floats(int r, int d, int n_max, int e_max,
 int dpgo_rtr_spread_max_clusters(int r, int d, int n_max, int C, int kernel,
                                  void* count) {
   int* c = static_cast<int*>(count);
-  DPGO_SPREAD_SHAPES(query_clusters, kernel, n_max, C, c);
+  return dispatch<Launchers>(r, d, [&](auto launchers) {
+    return launchers.query_clusters(kernel, n_max, C, c);
+  });
 }
 
 int dpgo_rtr_full_spread_launch(
@@ -1559,8 +1591,10 @@ int dpgo_rtr_full_spread_launch(
   float* st = static_cast<float*>(stats);
   int* it = static_cast<int*>(tcg_iters);
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
-  DPGO_SPREAD_SHAPES(launch_rtr_full, g, A, C, initial_radius, max_rejections,
-                     grad_tol, xo, st, it, cs);
+  return dispatch<Launchers>(r, d, [&](auto launchers) {
+    return launchers.rtr_full(g, A, C, initial_radius, max_rejections,
+                              grad_tol, xo, st, it, cs);
+  });
 }
 
 int dpgo_rtr_refine_full_spread_launch(
@@ -1584,8 +1618,14 @@ int dpgo_rtr_refine_full_spread_launch(
   float* st = static_cast<float*>(stats);
   int* it = static_cast<int*>(tcg_iters);
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
-  DPGO_SPREAD_SHAPES(launch_refine, a, A, C, initial_radius, max_rejections,
-                     grad_tol, dout, st, it, cs);
+  return dispatch<Launchers>(r, d, [&](auto launchers) {
+    return launchers.refine(a, A, C, initial_radius, max_rejections, grad_tol,
+                            dout, st, it, cs);
+  });
 }
 
 }  // extern "C"
+
+#endif  // DPGO_PART < 0
+
+}  // namespace dpgo_spread

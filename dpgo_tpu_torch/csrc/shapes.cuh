@@ -1,0 +1,65 @@
+// The (r, d) shapes every kernel of this directory is instantiated for,
+// and how the build splits each source over translation units.
+//
+// The shapes are those the rank staircase reaches with the JAX package's
+// defaults (r_max = 10): d = 3 with 3 <= r <= 10 and d = 2 with
+// 2 <= r <= 10.  A launcher returns -1 for any other (r, d); the Python
+// side keeps no copy of this list.
+//
+// The build (ops/rtr_kernel._compile) compiles each source several times,
+// all at once, with -DDPGO_PARTS=n and -DDPGO_PART=p:
+//   * a kernel part (0 <= p < n) defines the per-shape launchers and
+//     instantiates them, with their kernels, for the shapes at places p,
+//     p + n, p + 2n, ... of DPGO_SHAPES;
+//   * the dispatch part (p = -1) holds the extern "C" entry points, which
+//     pick the launchers of the (r, d) they are given (dispatch below) and
+//     call them across translation units.
+// A kernel part's launchers are the static members of Launchers<R, D,
+// true>, explicitly instantiated as Launchers<R, D, in_part(R, D)>: the
+// shapes of other parts instantiate the empty Launchers<R, D, false>.
+
+#pragma once
+
+#define DPGO_SHAPES(X)                                                    \
+  X(3, 3) X(4, 3) X(5, 3) X(6, 3) X(7, 3) X(8, 3) X(9, 3) X(10, 3)        \
+  X(2, 2) X(3, 2) X(4, 2) X(5, 2) X(6, 2) X(7, 2) X(8, 2) X(9, 2) X(10, 2)
+
+#if !defined(DPGO_PART) || !defined(DPGO_PARTS)
+#error "compile with -DDPGO_PARTS=n -DDPGO_PART=p (ops/rtr_kernel._compile)"
+#endif
+
+namespace dpgo_shapes {
+
+struct Shape {
+  int r, d;
+};
+
+constexpr Shape kShapes[] = {
+#define DPGO_SHAPE_ENTRY(R_, D_) {R_, D_},
+    DPGO_SHAPES(DPGO_SHAPE_ENTRY)
+#undef DPGO_SHAPE_ENTRY
+};
+
+// Whether this kernel part instantiates (r, d): the shapes are dealt to the
+// parts in list order.
+constexpr bool in_part(int r, int d) {
+  int i = 0;
+  while (kShapes[i].r != r || kShapes[i].d != d) ++i;
+  return i % DPGO_PARTS == DPGO_PART;
+}
+
+// What a launcher returns for an (r, d) without instantiation.
+constexpr int kUnsupportedShape = -1;
+
+// f(Launchers<R, D>{}) for a listed (r, d), else kUnsupportedShape:
+// `Launchers` is a source's class of per-shape launchers (static members).
+template <template <int, int, bool> class Launchers, typename F>
+int dispatch(int r, int d, F&& f) {
+#define DPGO_SHAPE_CASE(R_, D_) \
+  if (r == R_ && d == D_) return f(Launchers<R_, D_, true>{});
+  DPGO_SHAPES(DPGO_SHAPE_CASE)
+#undef DPGO_SHAPE_CASE
+  return kUnsupportedShape;
+}
+
+}  // namespace dpgo_shapes

@@ -21,9 +21,14 @@ Each wrapper runs the kernel for CUDA tensors and raises when it cannot; it
 takes its plain version (``rtr_full_reference`` / ``rtr_reference`` /
 ``tcg_reference`` / ``rtr_refine_full_reference``) only when the tensors it
 was given lie on the CPU.  The kernels are compiled with ``nvcc`` for
-``sm_90a`` at first use, from every ``csrc/*.cu`` of this package (one
-``nvcc`` per source, all at once), into one library in
-``dpgo_tpu_torch/_build/``, and bound through ``ctypes``.
+``sm_90a`` at first use, from every ``csrc/*.cu`` of this package (each
+source as its ``BUILD_PARTS`` kernel parts and a dispatch part, one
+``nvcc`` each, all at once), into one library in
+``dpgo_tpu_torch/_build/``, and bound through ``ctypes``.  Every kernel
+is instantiated for the (r, d) of ``csrc/shapes.cuh``: d = 3 with
+3 <= r <= 10 and d = 2 with 2 <= r <= 10, every rank the staircase
+reaches by default; a launcher refuses any other shape and the wrapper
+raises.
 
 The route is chosen from the shape before the launch by ``cluster_plan``:
 the **cluster** route (``rtr_cluster.cu``: one thread-block cluster of C
@@ -70,6 +75,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import NamedTuple
 
@@ -101,6 +107,11 @@ HEADERS = tuple(sorted((_PKG / "csrc").glob("*.cuh")))
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+#: Kernel translation units per source: ``nvcc`` runs once for each, and
+#: once more for the source's dispatch part, all at once (``csrc/shapes.cuh``
+#: deals the (r, d) instantiations to the parts).  ``rtr_full.cu``, whose
+#: kernels hold r(d+1)-float rows a thread, takes the most compiling.
+BUILD_PARTS = {"rtr_cluster.cu": 3, "rtr_full.cu": 8, "rtr_spread.cu": 3}
 #: The cluster launcher's own error codes: the card cannot place one
 #: cluster of the size asked for; more neighbor slots than its edge payload
 #: can index (2**20).
@@ -616,6 +627,9 @@ def rtr_refine_full_reference(idx_i, idx_j, rot, trn, wk, wt, rho_rot,
 
 _lib = None
 BUILD_LOG = ""
+#: Seconds from the start of the last build to the end of each of its
+#: ``nvcc`` runs, by ``source:part``.
+BUILD_SECONDS: dict = {}
 #: Builds of this process that ran ``nvcc`` (a build that finds its
 #: library in ``BUILD_DIR`` runs none).
 NVCC_RUNS = 0
@@ -656,9 +670,11 @@ def _nvcc() -> str:
 
 
 def source_digest() -> str:
-    """The library's source identity: sha256 over ``NVCC_FLAGS`` and every
-    source and header (name and bytes)."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    """The library's source identity: sha256 over ``NVCC_FLAGS``,
+    ``BUILD_PARTS`` and every source and header (name and bytes)."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode()
+                            + f" parts={sorted(BUILD_PARTS.items())}"
+                            .encode())
     for src in SOURCES + HEADERS:
         digest.update(src.name.encode() + b"\0" + src.read_bytes())
     return digest.hexdigest()
@@ -693,9 +709,10 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile every ``csrc/*.cu`` (one ``nvcc`` per source, all started
-    together) and link them into one shared library, unless this toolchain
-    built these sources already; return the library's path.  Sets
+    """Compile every ``csrc/*.cu`` (its ``BUILD_PARTS`` kernel parts and
+    one dispatch part, one ``nvcc`` each, all started together) and
+    link them into one shared library, unless this toolchain built these
+    sources already; return the library's path.  Sets
     ``BUILD_LOG`` to nvcc's output (the ptxas register and spill report)
     and counts the build in ``NVCC_RUNS`` when nvcc ran.  One build at a
     time per process (``_BUILD_LOCK``); its object and temporary files are
@@ -717,24 +734,40 @@ def _build() -> Path:
 
 
 def _compile(lib: Path) -> None:
-    """Run nvcc: every source to an object, all at once, then the link to
-    ``lib`` by an atomic rename."""
+    """Run nvcc: every part of every source to an object (the dispatch part
+    ``-1`` and the source's kernel parts ``0 .. BUILD_PARTS[name] - 1``),
+    all at once, then the link to ``lib`` by an atomic rename."""
     global BUILD_LOG
     nvcc, tag_u = _nvcc(), _unique_suffix()
     tag = lib.stem.rsplit("_", 1)[-1]
-    objs = [BUILD_DIR / f"{src.stem}_{tag}.{tag_u}.o" for src in SOURCES]
+    units = [(src, part) for src in SOURCES
+             for part in range(-1, BUILD_PARTS[src.name])]
+    objs = [BUILD_DIR / f"{src.stem}_{part + 1}_{tag}.{tag_u}.o"
+            for src, part in units]
     logs = [o.with_suffix(".log") for o in objs]
     procs = []
-    for src, obj, log in zip(SOURCES, objs, logs):
+    start = time.perf_counter()
+    for (src, part), obj, log in zip(units, objs, logs):
         with open(log, "w") as out:
             procs.append(subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                [nvcc, *NVCC_FLAGS, f"-DDPGO_PARTS={BUILD_PARTS[src.name]}",
+                 f"-DDPGO_PART={part}", "-c", "-o", str(obj), str(src)],
                 stdout=out, stderr=subprocess.STDOUT))
-    codes = [proc.wait() for proc in procs]
+    BUILD_SECONDS.clear()
+    pending = dict(zip(units, procs))
+    while pending:
+        for (src, part), proc in list(pending.items()):
+            if proc.poll() is not None:
+                BUILD_SECONDS[f"{src.name}:{part}"] = \
+                    time.perf_counter() - start
+                del pending[(src, part)]
+        time.sleep(0.05)
+    codes = [proc.returncode for proc in procs]
     BUILD_LOG = "".join(log.read_text() for log in logs)
     for log in logs:
         log.unlink()
-    failed = [src.name for src, code in zip(SOURCES, codes) if code != 0]
+    failed = [f"{src.name} (part {part})"
+              for (src, part), code in zip(units, codes) if code != 0]
     if failed:
         raise RuntimeError(f"nvcc failed to build {', '.join(failed)}:\n"
                            f"{BUILD_LOG}")
@@ -911,8 +944,8 @@ def _raise_on(name: str, err: int, r: int, d: int, C: int = 0) -> None:
     """Turn a launcher's non-zero return into an exception."""
     if err == _UNSUPPORTED_SHAPE:
         raise ValueError(f"{name}: (r, d) = {(r, d)} is not a shape the "
-                         "kernel is instantiated for (DPGO_DISPATCH in "
-                         "csrc/*.cu)")
+                         "kernel is instantiated for (DPGO_SHAPES in "
+                         "csrc/shapes.cuh)")
     if err == _UNPLACEABLE:
         raise RuntimeError(f"{name}: the card cannot place a cluster of "
                            f"{C} CTAs of this shape")

@@ -358,8 +358,9 @@ def solve_staircase_sharded(meas, num_robots: int, mesh: Mesh | None = None,
     n_total = part.meas_global.num_poses
 
     def to_global(Xa_full, graph):
+        # On the host in float64, wherever the agents' iterate lives.
         return rbcd.gather_to_global(
-            torch.as_tensor(Xa_full, dtype=torch.float64),
+            torch.as_tensor(Xa_full).to("cpu", torch.float64),
             rbcd._tree_map(lambda t: t.cpu(), graph), n_total).numpy()
 
     Xa = None if X0 is None else torch.as_tensor(X0)

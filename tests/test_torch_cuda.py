@@ -27,6 +27,11 @@ from dpgo_tpu_torch.utils.synthetic import make_measurements
 
 pytestmark = pytest.mark.cuda
 
+#: Every (d, r) the kernels are instantiated for (``csrc/shapes.cuh``): the
+#: rank staircase's d = 3 with 3 <= r <= 10 and d = 2 with 2 <= r <= 10.
+SHAPES = ([(3, r) for r in range(3, 11)]
+          + [(2, r) for r in range(2, 11)])
+
 
 @pytest.fixture
 def card():
@@ -47,7 +52,7 @@ def _round(card, d=3, r=5, n=60, A=4, num_lc=20):
     return prob, params, X, Z, chol
 
 
-@pytest.mark.parametrize("d,r", [(3, 5), (2, 3)])
+@pytest.mark.parametrize("d,r", SHAPES)
 def test_rtr_full_kernel_matches_plain_version(card, d, r):
     prob, params, X, Z, chol = _round(card, d=d, r=r)
     args = rbcd.kernel_operands(X, Z, prob.graph.edges, chol, prob.graph)
@@ -81,7 +86,7 @@ def _assert_b3_matches(out, ref):
                                rtol=1e-4, atol=0)
 
 
-@pytest.mark.parametrize("d,r", [(3, 5), (2, 3)])
+@pytest.mark.parametrize("d,r", SHAPES)
 def test_rtr_kernel_matches_plain_version(card, d, r):
     prob, params, X, Z, chol = _round(card, d=d, r=r)
     args = _b3_args(prob, X, Z, chol)
@@ -108,7 +113,9 @@ def test_rtr_kernel_payload_too_large_for_shared_memory(card):
 
 
 def test_rtr_kernel_shape_without_instantiation_raises(card):
-    prob, params, X, Z, chol = _round(card, d=3, r=6, A=2, n=40, num_lc=10)
+    # r = 11 is above the staircase's default top (r_max = 10): no kernel
+    # is instantiated for it.
+    prob, params, X, Z, chol = _round(card, d=3, r=11, A=2, n=40, num_lc=10)
     before = rk.RTR_LAUNCHES
     with pytest.raises(ValueError, match="instantiated"):
         rk.rtr(*_b3_args(prob, X, Z, chol), **_b3_kw(params, prob.meta))
@@ -288,11 +295,11 @@ def test_edge_payload_too_large_for_shared_memory(card):
 
 
 def test_shape_without_kernel_raises_on_card(card):
-    # r = 6 has no instantiation: the solve raises rather than running the
+    # r = 11 has no instantiation: the solve raises rather than running the
     # plain formulation on the card.
     meas = make_measurements(np.random.default_rng(5), n=40, d=3, num_lc=10,
                              rot_noise=0.05, trans_noise=0.05)[0]
-    params = AgentParams(d=3, r=6, num_robots=2)
+    params = AgentParams(d=3, r=11, num_robots=2)
     before = rk.LAUNCHES
     with pytest.raises(ValueError, match="instantiated"):
         rbcd.solve_rbcd(meas, 2, params, max_iters=2)
@@ -333,7 +340,7 @@ def _assert_refine_matches(out, ref_out, D_in):
                                rtol=1e-3, atol=1e-9)
 
 
-@pytest.mark.parametrize("d,r", [(3, 5), (2, 3)])
+@pytest.mark.parametrize("d,r", SHAPES)
 def test_rtr_refine_full_kernel_matches_plain_version(card, d, r):
     prob, params, ref, ops = _refine_operands(card, d=d, r=r)
     kw = rbcd.kernel_options(params, prob.meta)
@@ -364,9 +371,10 @@ def test_refine_payload_too_large_for_shared_memory(card):
 
 
 def test_refine_shape_without_kernel_raises_on_card(card):
+    # r = 11: above every instantiated shape.
     meas = make_measurements(np.random.default_rng(5), n=40, d=3, num_lc=10,
                              rot_noise=0.05, trans_noise=0.05)[0]
-    params = AgentParams(d=3, r=6, num_robots=2)
+    params = AgentParams(d=3, r=11, num_robots=2)
     prob = rbcd.prepare_problem(meas, 2, params, device=card)
     Xg = rbcd.gather_to_global(prob.X0, prob.graph, 40).double().cpu()
     ref = refine.recenter(Xg.numpy(), prob.graph, prob.meta, params,
@@ -410,7 +418,7 @@ def _assert_b2_matches(out, ref):
 
 
 @pytest.mark.parametrize("A", [3, 1])
-@pytest.mark.parametrize("d,r", [(3, 5), (2, 3)])
+@pytest.mark.parametrize("d,r", SHAPES)
 def test_cluster_route_matches_plain_versions_at_every_size(card, d, r, A):
     prob, b2, kw, b3, b3_kw = _cluster_operands(card, d, r, A)
     plan = rk.cluster_plan(prob.meta.n_max, prob.meta.e_max,
@@ -463,7 +471,9 @@ def test_cluster_that_cannot_be_placed_raises(card):
 
 @pytest.mark.parametrize("d,r,n_max,kinc", [(3, 5, 316, 11), (3, 5, 2000, 9),
                                             (2, 3, 350, 7), (3, 4, 40, 3),
-                                            (2, 2, 600, 12), (3, 3, 257, 5)])
+                                            (2, 2, 600, 12), (3, 3, 257, 5),
+                                            (3, 10, 316, 11),
+                                            (2, 10, 328, 11)])
 def test_cluster_smem_bytes_match_the_plan(card, d, r, n_max, kinc):
     # Every kernel's launcher carves the bytes its cluster_shape states.
     lib = rk.load()
@@ -533,7 +543,7 @@ def _placeable_for(kernel, n, K, r, d):
 
 
 @pytest.mark.parametrize("A", [3, 1])
-@pytest.mark.parametrize("d,r", [(3, 5), (2, 3)])
+@pytest.mark.parametrize("d,r", SHAPES)
 def test_tcg_cluster_route_matches_plain_version_at_every_size(card, d, r,
                                                                A):
     prob, b2, kw, b3, b3_kw = _cluster_operands(card, d, r, A)
@@ -562,7 +572,7 @@ def _refine_cluster_operands(card, d, r, A):
 
 
 @pytest.mark.parametrize("A", [3, 1])
-@pytest.mark.parametrize("d,r", [(3, 5), (2, 3)])
+@pytest.mark.parametrize("d,r", SHAPES)
 def test_refine_cluster_route_matches_plain_version_at_every_size(card, d, r,
                                                                   A):
     prob, ops, kw = _refine_cluster_operands(card, d, r, A)
@@ -627,6 +637,30 @@ def test_b1_b4_cluster_route_repeats_bit_for_bit(card):
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
+@pytest.mark.parametrize("d,r", SHAPES)
+def test_workspace_route_matches_plain_versions_at_every_shape(card, d, r):
+    # The single-CTA route (csrc/rtr_full.cu) of B1-B4, forced, on one
+    # agent of ~300 poses: each launch counted, each against its plain
+    # version.
+    prob, b2, kw, b3, b3_kw = _cluster_operands(card, d, r, 1)
+    # B4's operands come from a few B2 rounds: made before the count.
+    _, ops, rkw = _refine_cluster_operands(card, d, r, 1)
+    before = (rk.LAUNCHES, rk.RTR_LAUNCHES, rk.TCG_LAUNCHES,
+              rk.REFINE_LAUNCHES)
+    _assert_b2_matches(rk.rtr_full(*b2, _cluster=0, **kw),
+                       rk.rtr_full_reference(*b2, **kw))
+    _assert_b3_matches(rk.rtr(*b3, _cluster=0, **b3_kw),
+                       rk.rtr_reference(*b3, **b3_kw))
+    args, tkw = _tcg_args(b3, 1.0), _tcg_kw(b3_kw)
+    _assert_tcg_matches(rk.tcg(*args, _cluster=0, **tkw),
+                        rk.tcg_reference(*args, **tkw))
+    _assert_refine_gates(rk.rtr_refine_full(*ops, _cluster=0, **rkw),
+                         rk.rtr_refine_full_reference(*ops, **rkw), ops[9])
+    torch.cuda.synchronize()
+    assert (rk.LAUNCHES, rk.RTR_LAUNCHES, rk.TCG_LAUNCHES,
+            rk.REFINE_LAUNCHES) == tuple(b + 1 for b in before)
+
+
 # ---------------------------------------------------------------------------
 # The spread route of B2 and B4 (csrc/rtr_spread.cu)
 # ---------------------------------------------------------------------------
@@ -683,6 +717,38 @@ def test_spread_route_matches_plain_versions(card):
     assert rk.REFINE_LAUNCHES == before + 2
 
 
+@pytest.mark.parametrize("d,r", [(3, 10), (2, 10)])
+def test_spread_route_matches_plain_versions_at_the_top_rank(card, d, r):
+    # r = 10, the staircase's default top: B2 and B4 on agents of 1700
+    # poses take the spread route, planned and at C = 4.
+    prob, params, X, Z, chol = _round(card, d=d, r=r, n=SPREAD_A * SPREAD_N,
+                                      A=SPREAD_A, num_lc=250 * SPREAD_A)
+    m = prob.meta
+    b2 = rbcd.kernel_operands(X, Z, prob.graph.edges, chol, prob.graph)
+    kw = rbcd.kernel_options(params, m)
+    assert rk.cluster_plan(m.n_max, m.e_max, b2[9].shape[-1], r, d,
+                           agents=SPREAD_A,
+                           sms=rk.sm_count(card)).route == "spread"
+    ref = rk.rtr_full_reference(*b2, **kw)
+    before = rk.LAUNCHES
+    _assert_b2_matches(rk.rtr_full(*b2, **kw), ref)
+    _assert_b2_matches(rk.rtr_full(*b2, _spread=4, **kw), ref)
+    torch.cuda.synchronize()
+    assert rk.LAUNCHES == before + 2
+    prob, params, _, ops = _refine_operands(card, d=d, r=r,
+                                            n=SPREAD_A * SPREAD_N,
+                                            A=SPREAD_A,
+                                            num_lc=250 * SPREAD_A, rounds=3)
+    kw4 = rbcd.kernel_options(params, prob.meta)
+    ref4 = rk.rtr_refine_full_reference(*ops, **kw4)
+    before = rk.REFINE_LAUNCHES
+    _assert_refine_gates(rk.rtr_refine_full(*ops, **kw4), ref4, ops[9])
+    _assert_refine_gates(rk.rtr_refine_full(*ops, _spread=4, **kw4), ref4,
+                         ops[9])
+    torch.cuda.synchronize()
+    assert rk.REFINE_LAUNCHES == before + 2
+
+
 def test_spread_route_repeats_bit_for_bit(card):
     _, b2, kw = _spread_b2(card)
     first, second = rk.rtr_full(*b2, **kw), rk.rtr_full(*b2, **kw)
@@ -728,7 +794,8 @@ def test_spread_that_cannot_be_placed_raises(card):
 
 
 @pytest.mark.parametrize("d,r,n_max", [(3, 5, 1594), (3, 5, 97), (3, 7, 1594),
-                                       (2, 3, 5000), (3, 4, 40), (2, 2, 700)])
+                                       (2, 3, 5000), (3, 4, 40), (2, 2, 700),
+                                       (3, 10, 1594), (2, 10, 5000)])
 def test_spread_shape_matches_the_launcher(card, d, r, n_max):
     # The launcher sizes each spread kernel by the formula spread_shape
     # states: poses, threads and stripes per CTA, shared memory.

@@ -171,7 +171,8 @@ def _kernel_operands(h, consts, D0):
                                                          h.graph)))
 
 
-@pytest.mark.parametrize("d,r", [(3, 5), (2, 3)])
+@pytest.mark.parametrize("d,r", [(3, 5), (2, 3), (3, 7), (3, 10), (2, 4),
+                                 (2, 10)])
 def test_rtr_refine_full_reference_matches_pallas_kernel(d, r):
     h = _handoff(d=d, r=r, n=40, rounds=30) if (d, r) != (3, 5) \
         else _handoff()

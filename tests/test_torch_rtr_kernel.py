@@ -30,6 +30,10 @@ KW = dict(max_iters=10, kappa=0.1, theta=1.0)
 RTR_KW = dict(KW, initial_radius=100.0, max_rejections=10, grad_tol=1e-2)
 ORDER = ("idx_i", "idx_j", "rot", "trn", "wk", "wt", "Xc", "Zc", "Lc",
          "inc_slot", "inc_mask", "n_local")
+#: The parity shapes (d, rank, n, A, num_lc): the first two of every test,
+#: then the rank staircase's (r, d) = (7, 3), (10, 3), (4, 2) and (10, 2).
+SHAPES = [(3, 5, 24, 4, 12), (2, 3, 16, 2, 6), (3, 7, 24, 4, 12),
+          (3, 10, 24, 4, 12), (2, 4, 16, 2, 6), (2, 10, 16, 2, 6)]
 
 
 def _problem(seed, n, A, d, rank, num_lc, dtype=torch.float32):
@@ -82,8 +86,32 @@ def test_tcg_reference_matches_pallas_tcg(radius):
         assert bool(ref.stats[a, 1] > 0) == bool(stats[0, 1] > 0)
 
 
-@pytest.mark.parametrize("d,rank,n,A,num_lc", [(3, 5, 24, 4, 12),
-                                               (2, 3, 16, 2, 6)])
+@pytest.mark.parametrize("d,rank,n,A,num_lc", SHAPES[2:])
+def test_tcg_reference_matches_pallas_tcg_at_staircase_ranks(d, rank, n, A,
+                                                             num_lc):
+    """B1's plain version against ``pallas_tcg.tcg_call`` at the ranks the
+    staircase climbs to, fed g and S from ``rbcd.gradient_pass``."""
+    graph, meta, X0, Z, chol, _ = _problem(3, n=n, A=A, d=d, rank=rank,
+                                           num_lc=num_lc)
+    ops = _b3_operands(graph, meta, X0, Z, chol)
+    rad = torch.ones(A)
+    args = [ops[k] for k in ORDER[:7]] + [ops["Sc"], ops["Lc"], ops["gc"],
+                                          rad, ops["inc_slot"],
+                                          ops["inc_mask"]]
+    ref = rk.tcg_reference(*args, r=rank, d=d, e_max=meta.e_max, **KW)
+    for a in range(A):
+        eta_c, heta_c, stats = ptcg.tcg_call(
+            *[_j(ops[k][a]) for k in ORDER[:7]], _j(ops["Sc"][a]),
+            _j(ops["Lc"][a]), _j(ops["gc"][a]),
+            jnp.ones((1, 1), jnp.float32), r=rank, d=d, interpret=True,
+            **KW)
+        np.testing.assert_allclose(ref.eta[a].numpy(), eta_c, atol=1e-5)
+        np.testing.assert_allclose(ref.heta[a].numpy(), heta_c, atol=1e-4)
+        assert int(ref.stats[a, 0]) == int(stats[0, 0])
+        assert bool(ref.stats[a, 1] > 0) == bool(stats[0, 1] > 0)
+
+
+@pytest.mark.parametrize("d,rank,n,A,num_lc", SHAPES)
 def test_rtr_full_reference_matches_pallas_kernel(d, rank, n, A, num_lc):
     _, meta, _, _, _, ops = _problem(5, n=n, A=A, d=d, rank=rank,
                                      num_lc=num_lc)
@@ -111,8 +139,7 @@ def _b3_operands(graph, meta, X0, Z, chol):
                                                chol, graph)))
 
 
-@pytest.mark.parametrize("d,rank,n,A,num_lc", [(3, 5, 24, 4, 12),
-                                               (2, 3, 16, 2, 6)])
+@pytest.mark.parametrize("d,rank,n,A,num_lc", SHAPES)
 def test_rtr_reference_matches_pallas_kernel(d, rank, n, A, num_lc):
     """B3's plain version against ``pallas_tcg.rtr_call`` (interpreter
     mode, per agent), fed g and S from ``rbcd.gradient_pass``."""
