@@ -366,17 +366,32 @@ SCALE_POSES, SCALE_ROBOTS, SCALE_SEED, SCALE_NOISE, SCALE_LC = \
     100_000, 64, 11, 0.05, 0.2
 SCALE_ROUNDS, SCALE_K, SCALE_OUTER = 8, 4, 4
 #: The config5 phase (config #5 through ``solve_rbcd``): rounds, K, and
-#: the ranks above the solve's where B2 is held once more (r = 7, and the
-#: staircase's default top, where B4 is held too).
-C5_ROUNDS, C5_K, C5_TOP_RANKS = 12, 4, (7, 10)
+#: the ranks above the solve's where B2 is held once more (r = 7, the
+#: staircase's default top, and r = 18, the top rank the JAX package's
+#: VMEM gate admits at config #5's agents); B4 is held too at r = 10 (the
+#: templated top shape) and r = 18 (the rank-generic instantiation).
+C5_ROUNDS, C5_K, C5_TOP_RANKS = 12, 4, (7, 10, 18)
 #: The rank staircase's default top (``certify.solve_staircase``,
 #: ``parallel.certify.solve_staircase_sharded``): the kernels hold every
-#: (r, d) with d in (2, 3) and d <= r <= RANK_TOP.
+#: (r, d) with d in (2, 3) and d <= r <= RANK_TOP as templated shapes.
 RANK_TOP = 10
 #: The ranks phase's timing: CUDA-event runs and launches per run of each
 #: kernel, in turns with the workspace route; the shapes PERF.md tabulates.
 RANK_REPS, RANK_INNER = 3, 5
 PERF_SHAPES = ((7, 3), (10, 3), (4, 2), (10, 2))
+#: The kernels' ceiling (``csrc/shapes.cuh``): one rank-generic
+#: instantiation per d serves 11 <= r <= RANK_CEIL.  The high_ranks phase
+#: holds it at HIGH_RANKS[d]: a pose of r lanes (one or two a warp), of
+#: one whole warp, and of two and three warps, up to the top rank the JAX
+#: package's VMEM gate admits at each stand-in's agents (73 on the
+#: sphere2500 stand-in, 78 on the SE(2) stand-in); launches per timed run
+#: (the workspace route at r = 73 takes milliseconds a launch).  B3's path
+#: there: the round ablation at HIGH_ABLATE_RANK, its rounds.  The f32
+#: distributed staircase from rank 11 on the stand-in.
+RANK_CEIL = 128
+HIGH_RANKS = {3: (11, 16, 17, 32, 33, 73), 2: (11, 32, 33, 78)}
+HIGH_INNER = 3
+HIGH_ABLATE_RANK, HIGH_ABLATE_ROUNDS = 11, 20
 #: The SE(2) stand-in at BASELINE.md config #4's size (city10000: 10,000
 #: poses, 20,687 edges), its robots and rank.
 SE2_POSES, SE2_LC, SE2_ROBOTS, SE2_RANK = 10000, 10688, 32, 3
@@ -400,6 +415,8 @@ STAIR_SPHERE = dict(r_min=6, r_max=7, rounds_per_rank=300, accel=False,
                     eta=SHARD_CERT_ETA)
 STAIR_SE2 = dict(r_min=4, r_max=5, rounds_per_rank=500, accel=True,
                  eta=0.1)
+STAIR_HIGH = dict(r_min=11, r_max=12, rounds_per_rank=300, accel=False,
+                  eta=SHARD_CERT_ETA)
 
 
 def check(ok: bool, what: str) -> None:
@@ -460,9 +477,12 @@ def ptxas_report(log: str) -> list:
     said of its registers and spills."""
     rows, name = [], None
     for ln in log.splitlines():
-        m = re.search(r"\d([a-z][a-z_]*_kernel)ILi(\d+)ELi(\d+)E", ln)
+        # <R,D> of a templated or R = 0 kernel; <r,D> of the workspace
+        # route's rank-generic kernels (``*_rt<D>``).
+        m = re.search(r"\d([a-z][a-z_]*_kernel(?:_rt)?)I(?:Li(\d+)E)?Li(\d+)E",
+                      ln)
         if "Compiling entry function" in ln and m:
-            name = f"{m[1]}<{m[2]},{m[3]}>"
+            name = f"{m[1]}<{m[2] or 'r'},{m[3]}>"
             rows.append(name)
         elif name and ("registers" in ln or "spill" in ln):
             rows[-1] += " | " + ln.split(":", 1)[-1].strip()
@@ -883,13 +903,14 @@ def first_agent(ops: dict) -> dict:
 
 
 def plan_of(ops: dict, kw: dict, kernel: str = "rtr_full",
-            cluster: int | None = None):
+            cluster: int | None = None, spread: int | None = None):
     """The route ``kernel`` takes on ``ops``: the plan's for this many
-    agents on this card, or the one ``cluster`` forces (as the wrappers'
-    ``_cluster``)."""
+    agents on this card, or the one ``cluster`` or ``spread`` forces (as
+    the wrappers' ``_cluster`` and ``_spread``)."""
     A, n, K = ops["inc_slot"].shape
     return rk._route(cluster, n, kw["e_max"], K, kw["r"], kw["d"], kernel,
-                     agents=A, sms=rk.sm_count(ops["inc_slot"].device))
+                     spread, agents=A,
+                     sms=rk.sm_count(ops["inc_slot"].device))
 
 
 def kernel_parity(fn, ref_fn, ops: dict, kw: dict, where: str,
@@ -4162,13 +4183,14 @@ def se2_standin():
 
 
 def instantiated_shapes() -> list:
-    """Every (r, d), d in (3, 2) and d <= r <= 16, that the kernel library
-    holds: the launchers refuse any other (``cluster_capacity`` raises)."""
+    """Every (r, d), d in (3, 2) and d <= r <= RANK_CEIL + 1, that the
+    kernel library holds: the launchers refuse any other
+    (``cluster_capacity`` raises)."""
     found = []
     for d in (3, 2):
-        for r in range(d, 17):
-            try:
-                rk.cluster_capacity(r, d, 64, 4, 1)
+        for r in range(d, RANK_CEIL + 2):
+            try:  # four poses: one CTA holds them at every rank
+                rk.cluster_capacity(r, d, 4, 2, 1)
             except ValueError:
                 continue
             found.append((r, d))
@@ -4210,17 +4232,26 @@ def rank_operands(meas, robots: int, r: int, edges64, dev) -> tuple:
             graph, meta)
 
 
+def route_opts(cluster: int | None, spread: int | None = None) -> dict:
+    """The wrappers' route-forcing keywords."""
+    return ({"_spread": spread} if spread is not None
+            else {"_cluster": cluster})
+
+
 def shape_parity(kernel: str, ops: dict, kw: dict, ref,
-                 cluster: int | None) -> tuple[dict, object]:
-    """``kernel`` on its planned route (``cluster=None``) or the workspace
-    route (``0``) against its plain version's output ``ref``, with the
-    gates of the slice shape's checks (B2/B3 ``kernel_parity``, B1 the
-    tcg radii, B4 ``refine_parity``), and a second launch bit for bit."""
+                 cluster: int | None,
+                 spread: int | None = None) -> tuple[dict, object]:
+    """``kernel`` on its planned route (``cluster=None``), the workspace
+    route (``0``) or a spread over ``spread`` CTAs against its plain
+    version's output ``ref``, with the gates of the slice shape's checks
+    (B2/B3 ``kernel_parity``, B1 the tcg radii, B4 ``refine_parity``), and
+    a second launch bit for bit."""
     fn = KERNEL_FNS[kernel][0]
-    out = fn(*ops.values(), _cluster=cluster, **kw)
-    again = fn(*ops.values(), _cluster=cluster, **kw)
+    opts = route_opts(cluster, spread)
+    out = fn(*ops.values(), **opts, **kw)
+    again = fn(*ops.values(), **opts, **kw)
     torch.cuda.synchronize()
-    route = plan_of(ops, kw, kernel, cluster)
+    route = plan_of(ops, kw, kernel, cluster, spread)
     flips = int((out.stats != ref.stats).any(1).sum()) if kernel == "tcg" \
         else int((out.stats[:, :2] != ref.stats[:, :2]).any(1).sum())
     row = {"route": route.route, "C": route.C, "stat_flips": flips,
@@ -4274,11 +4305,12 @@ def ranks_phase(stand_ins: dict, dev, card: str) -> dict:
     version's time and its bound; the plan of each.  Returns, per kernel,
     the shapes each route ran at, the largest error, and the PERF_SHAPES
     rows."""
-    shapes = instantiated_shapes()
-    want = [(r, d) for d in (3, 2) for r in range(d, RANK_TOP + 1)]
-    emit({"phase": "ranks", "check": "shapes", "instantiated": shapes})
-    check(shapes == want, "the kernel library does not hold exactly the "
-          "staircase's shapes (d <= r <= 10, d in (2, 3))")
+    held = instantiated_shapes()
+    want = [(r, d) for d in (3, 2) for r in range(d, RANK_CEIL + 1)]
+    emit({"phase": "ranks", "check": "shapes", "instantiated": held})
+    check(held == want, "the kernel library does not hold exactly the "
+          "ranks d <= r <= 128, d in (2, 3)")
+    shapes = [(r, d) for r, d in held if r <= RANK_TOP]
     ran = {k: {"cluster": [], "workspace": []} for k in rk.KERNELS}
     worst = dict.fromkeys(rk.KERNELS, 0.0)
     perf = {}
@@ -4319,6 +4351,138 @@ def ranks_phase(stand_ins: dict, dev, card: str) -> dict:
     return {"shapes": ran, "max_abs_err": worst, "perf_shapes": perf}
 
 
+#: Each kernel's TPU body (``dpgo_tpu/ops/pallas_tcg.py``).
+REPLACES = {"tcg": "dpgo_tpu/ops/pallas_tcg.py:599",
+            "rtr_full": "dpgo_tpu/ops/pallas_tcg.py:662",
+            "rtr": "dpgo_tpu/ops/pallas_tcg.py:614",
+            "rtr_refine_full": "dpgo_tpu/ops/pallas_tcg.py:715"}
+ROUTE_SOURCES = {"cluster": "dpgo_tpu_torch/csrc/rtr_cluster.cu",
+                 "spread": "dpgo_tpu_torch/csrc/rtr_spread.cu",
+                 "workspace": "dpgo_tpu_torch/csrc/rtr_full.cu"}
+
+
+def generic_rows(high: dict, launches: dict) -> list:
+    """The kernel-table rows of the rank-generic instantiation: per kernel,
+    its launches on the paths above the templated ranks (``launches``),
+    its time, plain time and bound at the stand-in's rank 11 (the path's
+    shape), every (r, d) it ran at by route, and its largest error."""
+    out = []
+    for kernel, paths in launches.items():
+        at11 = high["rows"][kernel]["11,3"]
+        out.append({
+            "name": f"{kernel}_generic", "route": "cuda",
+            "source": ROUTE_SOURCES[at11["route"]],
+            "replaces": REPLACES[kernel], "launches_by_path": paths,
+            "max_abs_err": high["max_abs_err"][kernel],
+            "cuda_route": at11["route"], "cluster": at11["C"],
+            "ms": at11[f"ms_{at11['route']}"], "plain_ms": at11["plain_ms"],
+            "bound_ms": at11["bound_ms"], "bound_by": at11["bound_by"],
+            "library_ms": None,
+            "routes": {route: ROUTE_SOURCES[route]
+                       for route in high["shapes"][kernel]},
+            "shapes": high["shapes"][kernel],
+            "by_rank": high["rows"][kernel]})
+    return out
+
+
+def high_rank_routes(kernel: str, ops: dict, kw: dict) -> dict:
+    """Every route ``kernel`` reaches at this shape, as (cluster, spread)
+    forcing arguments: the planned one, the workspace route, and for B2 and
+    B4 the spread route the plan would take above the cluster ceiling."""
+    plan = plan_of(ops, kw, kernel)
+    routes = {plan.route: (None, None)}
+    if plan.route != "workspace":
+        routes["workspace"] = (0, None)
+    if kernel in rk.SPREAD_KERNELS and plan.route != "spread":
+        A, n, _ = ops["inc_slot"].shape
+        spread = rk._spread_plan(n, kw["r"], kw["d"], A,
+                                 rk.sm_count(ops["inc_slot"].device))
+        if spread is not None:
+            routes["spread"] = (None, spread.C)
+    return routes
+
+
+def high_ranks_phase(stand_ins: dict, dev, card: str) -> dict:
+    """B1-B4 of the rank-generic instantiation (``csrc/shapes.cuh``, 11 <= r
+    <= RANK_CEIL) at HIGH_RANKS[d], d = 3 on the sphere2500 stand-in and
+    d = 2 on the SE(2) stand-in (``stand_ins[d]``), at the card's chordal
+    init (B4 recentered there): each kernel on every route it reaches
+    (``high_rank_routes``) against its plain version and itself, each
+    route's ms per launch, the plain version's time and the launch's
+    bound.  Returns, per kernel, the shapes each route ran at, the largest
+    error, and the rows by (r, d)."""
+    ran = {k: {} for k in rk.KERNELS}
+    worst = dict.fromkeys(rk.KERNELS, 0.0)
+    rows = {k: {} for k in rk.KERNELS}
+    for d, ranks in HIGH_RANKS.items():
+        meas, robots, edges64 = stand_ins[d]
+        for r in ranks:
+            t0 = time.perf_counter()
+            sets, graph, meta = rank_operands(meas, robots, r, edges64, dev)
+            row = {"phase": "high_ranks", "card": card, "r": r, "d": d,
+                   "agents": robots, "n_max": meta.n_max,
+                   "e_max": meta.e_max, "kinc": graph.inc_slot.shape[-1],
+                   "kernels": {}}
+            for kernel, (ops, kw) in sets.items():
+                fn, ref_fn, work = KERNEL_FNS[kernel]
+                plan = plan_of(ops, kw, kernel)
+                ref = ref_fn(*ops.values(), **kw)
+                k_row = {"plan": plan._asdict(), "routes": {}}
+                out_planned = None
+                for route, (c, sp) in high_rank_routes(kernel, ops,
+                                                       kw).items():
+                    p_row, out = shape_parity(kernel, ops, kw, ref, c, sp)
+                    opts = route_opts(c, sp)
+                    p_row["ms"] = cuda_ms(
+                        lambda: fn(*ops.values(), **opts, **kw),
+                        reps=RANK_REPS, inner=HIGH_INNER, warmup=1)
+                    k_row["routes"][route] = p_row
+                    ran[kernel].setdefault(route, []).append([r, d])
+                    worst[kernel] = max(worst[kernel], p_row["err"])
+                    if c is None and sp is None:
+                        out_planned = out
+                nbytes, flops = work(ops, out_planned, graph, meta)
+                b_ms, b_by = bound(nbytes, flops)
+                k_row.update(
+                    ms=k_row["routes"][plan.route]["ms"],
+                    plain_ms=cuda_ms(lambda: ref_fn(*ops.values(), **kw),
+                                     reps=1, warmup=0),
+                    bound_ms=b_ms, bound_by=b_by,
+                    max_tcg_iters=int(tcg_iters_of(out_planned).max()))
+                row["kernels"][kernel] = k_row
+                rows[kernel][f"{r},{d}"] = {
+                    "route": plan.route, "C": plan.C,
+                    **{f"ms_{route}": v["ms"]
+                       for route, v in k_row["routes"].items()},
+                    **{k: k_row[k] for k in ("plain_ms", "bound_ms",
+                                             "bound_by", "max_tcg_iters")}}
+            row["seconds"] = time.perf_counter() - t0
+            emit(row)
+            del sets, graph
+    return {"shapes": ran, "max_abs_err": worst, "rows": rows}
+
+
+def ablate_high(dev, card: str) -> dict:
+    """The round ablation at rank HIGH_ABLATE_RANK on the stand-in (B3's
+    path above the templated ranks), counted; returns its launches."""
+    rk.LAUNCHES = 0
+    rk.RTR_LAUNCHES = 0
+    torch.cuda.synchronize()
+    out = measure_r3.ablate(rank=HIGH_ABLATE_RANK, rounds=HIGH_ABLATE_ROUNDS,
+                            device=dev)
+    launches = {"rtr": rk.RTR_LAUNCHES, "rtr_full": rk.LAUNCHES}
+    emit({"phase": "high_ranks", "check": "ablate", "card": card,
+          "rank": HIGH_ABLATE_RANK, **out, "launches": launches})
+    check(bool(np.isfinite(out["b3_stats"]).all()
+               and np.isfinite(out["gn0"]).all()),
+          f"the ablation at rank {HIGH_ABLATE_RANK} returned non-finite "
+          "values")
+    check(launches["rtr"] == out["b3_calls"] > 0 and launches["rtr_full"] > 0,
+          f"the ablation at rank {HIGH_ABLATE_RANK} did not launch B3 once "
+          "per call")
+    return launches
+
+
 def psd_shifted(X64: np.ndarray, edges, tol: float, dev) -> bool:
     """Whether S + tol I is positive definite, S the certificate operator
     at ``X64`` (``certify.sparse_certificate``, float64): a Cholesky
@@ -4338,16 +4502,14 @@ def psd_shifted(X64: np.ndarray, edges, tol: float, dev) -> bool:
 
 
 def staircase_f32(where: str, meas, robots: int, run: dict, dev,
-                  card: str, host_eigensolve: bool) -> tuple[int, int]:
+                  card: str) -> tuple[int, int]:
     """``parallel.certify.solve_staircase_sharded`` in float32 at world
     size 1 with ``run``'s ranks, rounds per rank, acceleration and
     tolerance, counted: B2 once per round, B4 once per polish round
     (``refine.ROUNDS``).  Every rank's verdict is held for soundness on
-    the iterate it certified: against the float64 Cholesky of S + tol I on
-    the card (``psd_shifted``), and with ``host_eigensolve`` against the
-    host float64 eigensolve (``host_lambda_min``, warm-started from the
-    certificate's direction) as the certify phase does; a certificate
-    either refutes fails the phase.  Returns the B2 and B4 launches."""
+    the iterate it certified against the float64 Cholesky of S + tol I on
+    the card (``psd_shifted``); a certificate it refutes fails the phase.
+    Returns the B2 and B4 launches."""
     from dpgo_tpu_torch.parallel import certify as pcert
     from dpgo_tpu_torch.parallel import sharded
 
@@ -4359,13 +4521,8 @@ def staircase_f32(where: str, meas, robots: int, run: dict, dev,
 
     def recording(Xa, graph, **k):
         cert = orig(Xa, graph, **k)
-        # The direction on the global poses, as the f64 fallback warms up.
-        gidx = graph.global_index.cpu().numpy()
-        live = graph.pose_mask.cpu().numpy() > 0
         Xg64, edges_g = k["global_ctx"]
-        warm = np.zeros((Xg64.shape[0], Xg64.shape[2]))
-        warm[gidx[live]] = cert.direction.double().cpu().numpy()[live]
-        verdicts.append((Xg64, edges_g, warm, cert))
+        verdicts.append((Xg64, edges_g, cert))
         return cert
 
     pcert.certify_sharded = recording
@@ -4385,18 +4542,13 @@ def staircase_f32(where: str, meas, robots: int, run: dict, dev,
         torch.distributed.destroy_process_group()
     ranks = []
     t1 = time.perf_counter()
-    for Xg64, edges_g, warm, c in verdicts:
+    for Xg64, edges_g, c in verdicts:
         X64 = np.asarray(Xg64, dtype=np.float64)
-        row = {"rank": X64.shape[1], "certified": c.certified,
-               "decidable": c.decidable, "lambda_min": c.lambda_min,
-               "tol": c.tol, "psd_shifted_f64": psd_shifted(
-                   X64, edges_g, c.tol, dev)}
-        if host_eigensolve:
-            lam, resid = host_lambda_min(X64, edges_g, c.tol, warm)
-            row.update(lambda_min_host_f64=lam, host_f64_resid=resid,
-                       host_f64_certified=lam >= -c.tol)
-        ranks.append(row)
-    host_s = time.perf_counter() - t1
+        ranks.append({"rank": X64.shape[1], "certified": c.certified,
+                      "decidable": c.decidable, "lambda_min": c.lambda_min,
+                      "tol": c.tol, "psd_shifted_f64": psd_shifted(
+                          X64, edges_g, c.tol, dev)})
+    check_s = time.perf_counter() - t1
     emit({"phase": "staircase", "where": where, "card": card,
           "dtype": "float32", "poses": meas.num_poses, "edges": len(meas),
           "d": meas.d, "robots": robots, **run,
@@ -4406,7 +4558,7 @@ def staircase_f32(where: str, meas, robots: int, run: dict, dev,
           "verdicts": ranks, "b2_launches": b2,
           "rounds": run["rounds_per_rank"] * len(hist), "b4_launches": b4,
           "polish_rounds": polish, "solve_s": solve_s,
-          "host_f64_s": host_s})
+          "f64_check_s": check_s})
     check(T.shape == (meas.num_poses, meas.d, meas.d + 1)
           and bool(torch.isfinite(T).all()), f"{where}: the staircase's "
           "trajectory is malformed")
@@ -4419,10 +4571,9 @@ def staircase_f32(where: str, meas, robots: int, run: dict, dev,
           "launch once per staircase round")
     check(b4 == polish > 0, f"{where}: B4 did not launch once per polish "
           "round")
-    check(all(v["psd_shifted_f64"] and v.get("host_f64_certified", True)
-              or not v["certified"] for v in ranks),
+    check(all(v["psd_shifted_f64"] or not v["certified"] for v in ranks),
           f"{where}: a rank certified that the float64 Cholesky of S + tol "
-          "I or the host float64 eigensolve refutes")
+          "I refutes")
     return b2, b4
 
 
@@ -4470,10 +4621,7 @@ def se2_phase(meas, dev, card: str) -> dict:
           "GNC rejected too many of the SE(2) stand-in's inliers")
     check(launches == enqueued and res.iterations > 0,
           "the SE(2) solve did not launch B2 once per enqueued round")
-    # The host eigensolve at its 30,000 dimensions outlasts the script's
-    # budget: the float64 Cholesky on the card holds the verdicts.
-    b2, b4 = staircase_f32("se2", meas, SE2_ROBOTS, STAIR_SE2, dev, card,
-                           host_eigensolve=False)
+    b2, b4 = staircase_f32("se2", meas, SE2_ROBOTS, STAIR_SE2, dev, card)
     return {"gnc": launches, "staircase_b2": b2, "staircase_b4": b4}
 
 
@@ -4571,8 +4719,9 @@ def config5_b2(ops: dict, kw: dict, graph, meta, where: str,
 def config5_rank(part, params, rank: int, meas, dev, card: str) -> dict:
     """B2 at ``rank`` on config #5's graph at the odometry init against its
     plain version (``config5_b2``: the spread route, its plan printed) and,
-    at the staircase's top, B4 recentered there against its plain version
-    on the spread and workspace routes and timed on the spread route."""
+    at the templated top RANK_TOP and the top of C5_TOP_RANKS, B4
+    recentered there against its plain version on the spread and workspace
+    routes and timed on the spread route."""
     params_r = dataclasses.replace(params, r=rank)
     g, m = rbcd.build_graph(part, rank, torch.float32, dev)
     X = rbcd.initial_state_for("odometry", part, m, g, params_r,
@@ -4583,7 +4732,7 @@ def config5_rank(part, params, rank: int, meas, dev, card: str) -> dict:
     b2, _ = config5_b2(ops, rbcd.kernel_options(params_r, m), g, m,
                        "odometry init", False)
     out = {"b2": b2}
-    if rank == RANK_TOP:
+    if rank in (RANK_TOP, C5_TOP_RANKS[-1]):
         rparams = dataclasses.replace(params_r, solver=dataclasses.replace(
             params_r.solver, grad_norm_tol=1e-9))
         Xg64 = rbcd.gather_to_global(X, g, SCALE_POSES).double().cpu() \
@@ -4623,7 +4772,7 @@ def config5_phase(inst, dev, card: str) -> dict:
     at this shape; B2 at the terminal iterate against its plain version,
     bit for bit against itself and timed in turns with the workspace
     route; B2 at each rank of C5_TOP_RANKS at the odometry init and B4 at
-    the top one (``config5_rank``); B4 at this shape (constants recentered
+    RANK_TOP and the top one (``config5_rank``); B4 at this shape (constants recentered
     at the terminal iterate, three refine rounds in) against its plain
     version on the spread and workspace routes and timed on both.  Returns
     the spread route's rows of the kernel table."""
@@ -5709,11 +5858,19 @@ def main() -> int:
     lap("ranks")
     # --- the f32 distributed staircase above rank 5 --------------------------
     stair_b2, stair_b4 = staircase_f32("sphere", meas, ROBOTS, STAIR_SPHERE,
-                                       dev, card, host_eigensolve=True)
+                                       dev, card)
     lap("staircase")
     # --- SE(2) end to end: the GNC solve, then the f32 staircase ------------
     se2_l = se2_phase(se2, dev, card)
     lap("se2")
+    # --- above the templated ranks: the rank-generic instantiation --------
+    high = high_ranks_phase({3: (meas, ROBOTS, refine.host_edges_f64(meas)),
+                             2: (se2, SE2_ROBOTS,
+                                 refine.host_edges_f64(se2))}, dev, card)
+    ab_high = ablate_high(dev, card)
+    high_b2, high_b4 = staircase_f32("sphere_r11", meas, ROBOTS,
+                                     STAIR_HIGH, dev, card)
+    lap("high_ranks")
     b4_row["launches_by_path"].update(fused_refine=fused_b4,
                                       staircase=stair_b4,
                                       se2=se2_l["staircase_b4"])
@@ -5731,8 +5888,7 @@ def main() -> int:
         "b2_bound_by", "ms_per_round", "n_max", "peak_memory_bytes")}
     b2_row["serve_64_agents"] = {k: serve_t[k] for k in (
         "ms", "ms_single_cta", "bound_ms", "bound_by", "cluster", "ctas")}
-    routes = {"cluster": "dpgo_tpu_torch/csrc/rtr_cluster.cu",
-              "workspace": "dpgo_tpu_torch/csrc/rtr_full.cu"}
+    routes = {k: ROUTE_SOURCES[k] for k in ("cluster", "workspace")}
     for row in rows:
         row["routes"] = dict(routes)
         if row["name"] in rk.SPREAD_KERNELS:
@@ -5747,6 +5903,11 @@ def main() -> int:
         row["shapes"] = {"spread": [[RANK, 3]] + [
             [r, 3] for r in row["by_rank"]]}
     rows.extend(c5["rows"])
+    rows.extend(generic_rows(high, {
+        "tcg": {}, "rtr": {"ablate_r11": ab_high["rtr"]},
+        "rtr_full": {"ablate_r11": ab_high["rtr_full"],
+                     "staircase_r11": high_b2},
+        "rtr_refine_full": {"staircase_r11": high_b4}}))
     for row in rows:
         row["launches"] = sum(row["launches_by_path"].values())
     rows.sort(key=lambda r: (r["replaces"], r["name"]))

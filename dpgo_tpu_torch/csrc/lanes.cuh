@@ -1,0 +1,60 @@
+// The lane layout of the cluster and spread kernels at rank r, shared by
+// rtr_cluster.cu and rtr_spread.cu (ops/rtr_kernel.py mirrors the three
+// formulae).  Up to r = 32 a pose takes r lanes of a warp, one row each,
+// and a warp holds 32 / r poses; above it a pose takes ceil(r / 32) whole
+// warps, row q on lane q % 32 of warp q / 32, and its group sums meet in
+// kGroupSums shared slots a warp (D (D + 1) / 2 <= 6 values).
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kGroupSums = 8;
+
+// Poses a warp holds: 32 / r up to r = 32, one (over several warps) above.
+__host__ __device__ constexpr int poses_per_warp(int r) {
+  return r <= 32 ? 32 / r : 1;
+}
+
+// Warps one pose takes: 1 up to r = 32, ceil(r / 32) above.
+__host__ __device__ constexpr int pose_warps(int r) {
+  return r <= 32 ? 1 : (r + 31) / 32;
+}
+
+// Shared floats of the group-sum slots of a CTA of `warps` warps: only a
+// pose that spans warps (r > 32) sums through them.
+__host__ __device__ constexpr int group_slots(int r, int warps) {
+  return r > 32 ? warps * kGroupSums : 0;
+}
+
+// Sums of N values over the rows of a pose that spans warps (r > 32): each
+// warp's butterfly sum goes to its slot of `gslots` ([warps][kGroupSums],
+// shared), and after a block barrier every lane adds its pose's warps'
+// slots in order, so every lane of the pose ends with the same values.  A
+// second barrier frees the slots.  Every thread of the CTA must call it.
+template <int N>
+__device__ void wide_group_sum(float* gslots, int r, float (&v)[N]) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+    for (int i = 0; i < N; ++i) v[i] += __shfl_xor_sync(0xffffffffu, v[i], o);
+  const int warp = threadIdx.x >> 5;
+  const int W = pose_warps(r);
+  if ((threadIdx.x & 31) == 0) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) gslots[warp * kGroupSums + i] = v[i];
+  }
+  __syncthreads();
+  const float* first = gslots + (warp - warp % W) * kGroupSums;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    float s = first[i];
+    for (int j = 1; j < W; ++j) s += first[j * kGroupSums + i];
+    v[i] = s;
+  }
+  __syncthreads();
+}
+
+}  // namespace

@@ -44,6 +44,15 @@
 //     (sym(Y^T W)) and the retraction (M^T M): sums of the d(d+1)/2
 //     entries of a symmetric d x d matrix over the group's lanes by
 //     shuffles, in a fixed order that every lane of the group shares.
+//   * The rank-generic instantiation (R = 0, 11 <= r <= 128; shapes.cuh)
+//     reads r from the launch and keeps that layout up to r = 32 (at r =
+//     17..31 a warp holds one pose and leaves 32 - r lanes idle).  Above
+//     32 a pose takes ceil(r / 32) whole warps, row q on lane q % 32 of
+//     its (q / 32)-th warp, so a thread still holds one row of d + 1
+//     floats; its group sums are warp butterflies met in shared slots
+//     after a block barrier (lanes.cuh's wide_group_sum), which every
+//     group sum's callers reach together (all threads of the CTA call
+//     them).
 //   * State on chip: every loop vector (eta, Heta, r, z, delta, Hd, g, the
 //     proposal xp) and the operands read only (X, L, S) live in the owning
 //     CTA's shared memory for the whole launch; nothing of the tCG loop
@@ -100,6 +109,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "lanes.cuh"
 #include "shapes.cuh"
 #include "smem_limit.cuh"
 
@@ -167,21 +179,24 @@ struct ClusterShape {
 };
 
 // The one formula for the cluster kernels' shape (cluster_plan mirrors it):
-// 32 / r poses per warp; vectors, then L [K*K][P], S [D*D][P], the payload
-// [F][Kinc][P] and the double-buffered reduction slots [2][C * warps][4].
-// B1-B3 share it; B4 adds two vectors (D, Rc) and the rho fields.
+// 32 / r poses per warp (ceil(r / 32) warps per pose above r = 32);
+// vectors, then L [K*K][P], S [D*D][P], the payload [F][Kinc][P], the
+// double-buffered reduction slots [2][C * warps][4] and, above r = 32, the
+// group-sum slots [warps][kGroupSums].  B1-B3 share it; B4 adds two vectors
+// (D, Rc) and the rho fields.
 ClusterShape cluster_shape(int r, int d, int n, int kinc, int C,
                            bool refine) {
   const int P = (n + C - 1) / C;
-  const int per_warp = 32 / r;
-  const int threads = (P + per_warp - 1) / per_warp * 32;
+  const int per_warp = poses_per_warp(r);
+  const int threads = (P + per_warp - 1) / per_warp * 32 * pose_warps(r);
   const int k = d + 1;
   const int vecs = refine ? kRefineVecs : kVecs;
   const int fields = payload_fields(d) + (refine ? refine_fields(r, d) : 0);
   const size_t floats = (size_t)vecs * P * vec_stride(r * k) +
                         (size_t)(k * k + d * d) * P +
                         (size_t)fields * kinc * P +
-                        2 * (size_t)C * (threads / 32) * kMaxSums;
+                        2 * (size_t)C * (threads / 32) * kMaxSums +
+                        group_slots(r, threads / 32);
   return {P, threads, floats * sizeof(float)};
 }
 
@@ -213,6 +228,16 @@ struct ClusterArgs {
   float kappa, theta;
 };
 
+// The arguments of the rank-generic instantiation (R = 0): the rank too.
+// The templated shapes keep ClusterArgs, so their kernels compile as they
+// did before R = 0 existed.
+struct ClusterArgsR : ClusterArgs {
+  int r;
+};
+
+template <int R>
+using ArgsOf = std::conditional_t<R == 0, ClusterArgsR, ClusterArgs>;
+
 namespace {
 
 // One thread's view of its agent: the cluster's shape, this thread's pose
@@ -230,6 +255,27 @@ struct Ctx {
   float* pay;       // [F][Kinc][P]
   float* red;       // [2][C * warps][kMaxSums]
 };
+
+// The context of the rank-generic instantiation (R = 0): the launch's rank
+// and the group-sum slots of a pose that spans warps.  Helpers take a Ctx
+// and read these through rank_of and wide_group_sum at R = 0 only.
+struct CtxR : Ctx {
+  int r;
+  float* gslots;  // [warps][kGroupSums] (r > 32)
+};
+
+template <int R>
+using CtxOf = std::conditional_t<R == 0, CtxR, Ctx>;
+
+// The rank: the template's, or at R = 0 the launch's.
+template <int R>
+__device__ __forceinline__ int rank_of(const Ctx& cx) {
+  if constexpr (R == 0) {
+    return static_cast<const CtxR&>(cx).r;
+  } else {
+    return R;
+  }
+}
 
 template <int K>
 __device__ __forceinline__ void ld_row(const float* p, float (&v)[K]) {
@@ -258,7 +304,12 @@ __device__ __forceinline__ void st_row(float* p, const float (&v)[K]) {
 // Row `row` of pose slot pl of vector v in this CTA's shared memory.
 template <int R, int K>
 __device__ __forceinline__ float* row_at(const Ctx& cx, int v, int pl) {
-  return cx.vec + ((size_t)v * cx.P + pl) * vec_stride(R * K) + cx.row * K;
+  if constexpr (R == 0) {
+    return cx.vec + ((size_t)v * cx.P + pl) * vec_stride(rank_of<0>(cx) * K) +
+           cx.row * K;
+  } else {
+    return cx.vec + ((size_t)v * cx.P + pl) * vec_stride(R * K) + cx.row * K;
+  }
 }
 
 // This thread's row of vector v, zero where it holds none.
@@ -322,9 +373,27 @@ __device__ __forceinline__ float dot(const float (&a)[K],
 
 // Sums of N values over the R lanes of this thread's pose, rows in order:
 // every lane of the group ends with the same values.  All 32 lanes of the
-// warp must call it.
+// warp must call it (at R = 0 above r = 32, every thread of the CTA).
 template <int R, int N>
 __device__ __forceinline__ void group_sum(const Ctx& cx, float (&v)[N]) {
+  if constexpr (R == 0) {
+    const int r = rank_of<0>(cx);
+    if (r > 32) {
+      const CtxR& cr = static_cast<const CtxR&>(cx);
+      wide_group_sum<N>(cr.gslots, cr.r, v);
+    } else {
+      float s[N];
+#pragma unroll
+      for (int i = 0; i < N; ++i) s[i] = __shfl_sync(kFull, v[i], cx.base);
+      for (int j = 1; j < r; ++j)
+#pragma unroll
+        for (int i = 0; i < N; ++i)
+          s[i] += __shfl_sync(kFull, v[i], cx.base + j);
+#pragma unroll
+      for (int i = 0; i < N; ++i) v[i] = s[i];
+    }
+    return;
+  }
   float s[N];
 #pragma unroll
   for (int i = 0; i < N; ++i) s[i] = __shfl_sync(kFull, v[i], cx.base);
@@ -673,9 +742,18 @@ __device__ void sweep(const Ctx& cx, int v, bool with_z,
 #pragma unroll
         for (int cc = 0; cc < D; ++cc)
           cR += cx.pay[(rho + cc) * stride + at] * rR[cc];
-        const float ct =
-            cx.pay[(payload_fields(D) + R * D + cx.row) * stride + at] * rt;
-        f += wk * cR + wt * ct + 0.5f * (wk * sR + wt * (rt * rt));
+        if constexpr (R == 0) {
+          const float ct =
+              cx.pay[(payload_fields(D) + rank_of<0>(cx) * D + cx.row) *
+                         stride +
+                     at] *
+              rt;
+          f += wk * cR + wt * ct + 0.5f * (wk * sR + wt * (rt * rt));
+        } else {
+          const float ct =
+              cx.pay[(payload_fields(D) + R * D + cx.row) * stride + at] * rt;
+          f += wk * cR + wt * ct + 0.5f * (wk * sR + wt * (rt * rt));
+        }
       } else {
         f += wk * sR + wt * (rt * rt);
       }
@@ -701,17 +779,21 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // payload of their ELL entries with cp.async, wait, and make everything
 // visible to the cluster.  REFINE: X (the correction D) lands in kD, Rc in
 // kRc, and the cost-owner entries carry the reference residuals.
-template <int R, int D, bool REFINE>
-__device__ Ctx setup(const ClusterArgs& g, float* smem, int a) {
+// setup of the rank-generic instantiation (R = 0): r from the launch, the
+// lane layout of rank_of's r (r lanes a pose up to 32, ceil(r / 32) warps a
+// pose above), and the group-sum slots after the reduction slots.
+template <int D, bool REFINE>
+__device__ CtxR setup_rt(const ClusterArgsR& g, float* smem, int a) {
   constexpr int K = D + 1;
-  constexpr int RK = R * K;
   constexpr int DD = D * D;
   constexpr int KK = K * K;
-  constexpr int kPerWarp = 32 / R;
   constexpr int F0 = payload_fields(D);
-  constexpr int F = F0 + (REFINE ? refine_fields(R, D) : 0);
   cg::cluster_group cl = cg::this_cluster();
-  Ctx cx;
+  CtxR cx;
+  cx.r = g.r;
+  const int r = g.r;
+  const int RK = r * K;
+  const int F = F0 + (REFINE ? refine_fields(r, D) : 0);
   cx.n = g.n;
   cx.s = g.s;
   cx.kinc = g.kinc;
@@ -721,13 +803,24 @@ __device__ Ctx setup(const ClusterArgs& g, float* smem, int a) {
   cx.P = (g.n + cx.C - 1) / cx.C;
   cx.parity = 0;
   const int lane = threadIdx.x & 31;
-  const int group = lane / R;
-  cx.row = lane - group * R;
-  cx.base = group * R;
-  cx.pl = (threadIdx.x >> 5) * kPerWarp + group;
+  bool lane_ok;  // the lane holds a row of a pose group
+  const int warp = threadIdx.x >> 5;
+  if (r <= 32) {
+    const int group = lane / r;
+    cx.row = lane - group * r;
+    cx.base = group * r;
+    cx.pl = warp * poses_per_warp(r) + group;
+    lane_ok = group < poses_per_warp(r);
+  } else {
+    const int W = pose_warps(r);
+    cx.pl = warp / W;
+    cx.row = (warp - cx.pl * W) * 32 + lane;
+    cx.base = 0;
+    lane_ok = cx.row < r;
+  }
   const int c0 = cx.rank * cx.P;
   const int p = c0 + cx.pl;
-  cx.own = group < kPerWarp && cx.pl < cx.P && p < g.n;
+  cx.own = lane_ok && cx.pl < cx.P && p < g.n;
   cx.Z = g.Z + (size_t)a * RK * g.s;
   cx.vec = smem;
   cx.L = cx.vec + (size_t)(REFINE ? kRefineVecs : kVecs) * cx.P *
@@ -735,25 +828,26 @@ __device__ Ctx setup(const ClusterArgs& g, float* smem, int a) {
   cx.S = cx.L + (size_t)KK * cx.P;
   cx.pay = cx.S + (size_t)DD * cx.P;
   cx.red = cx.pay + (size_t)F * g.kinc * cx.P;  // [2][C nw][4]
+  cx.gslots = cx.red + 2 * (size_t)cx.C * (blockDim.x >> 5) * kMaxSums;
 
   if (cx.own) {
-    float* x = row_at<R, K>(cx, REFINE ? kD : kX, cx.pl);
+    float* x = row_at<0, K>(cx, REFINE ? kD : kX, cx.pl);
     const size_t comp = (size_t)a * RK + cx.row * K;
 #pragma unroll
     for (int q = 0; q < K; ++q) cp_async4(x + q, g.X + (comp + q) * g.n + p);
     if (REFINE) {
-      float* rc = row_at<R, K>(cx, kRc, cx.pl);
+      float* rc = row_at<0, K>(cx, kRc, cx.pl);
 #pragma unroll
       for (int q = 0; q < K; ++q)
         cp_async4(rc + q, g.Rc + (comp + q) * g.n + p);
     }
-    for (int i = cx.row; i < KK; i += R)
+    for (int i = cx.row; i < KK; i += r)
       cp_async4(cx.L + i * cx.P + cx.pl, g.L + ((size_t)a * KK + i) * g.n + p);
     if (g.S != nullptr) {
-      for (int i = cx.row; i < DD; i += R)
+      for (int i = cx.row; i < DD; i += r)
         cp_async4(cx.S + i * cx.P + cx.pl,
                   g.S + ((size_t)a * DD + i) * g.n + p);
-      float* gv = row_at<R, K>(cx, kG, cx.pl);
+      float* gv = row_at<0, K>(cx, kG, cx.pl);
 #pragma unroll
       for (int q = 0; q < K; ++q)
         cp_async4(gv + q, g.g + (comp + q) * g.n + p);
@@ -802,13 +896,13 @@ __device__ Ctx setup(const ClusterArgs& g, float* smem, int a) {
       cp_async4(cx.pay + (2 + DD + D) * stride + t, g.wt + ge);
       if (REFINE && (w & kCostOwner)) {
 #pragma unroll
-        for (int k = 0; k < R * D; ++k)
+        for (int k = 0; k < r * D; ++k)
           cp_async4(cx.pay + (F0 + k) * stride + t,
-                    g.rho_rot + (tile * (R * D) + k) * g.T + ln);
+                    g.rho_rot + (tile * (r * D) + k) * g.T + ln);
 #pragma unroll
-        for (int k = 0; k < R; ++k)
-          cp_async4(cx.pay + (F0 + R * D + k) * stride + t,
-                    g.rho_trn + (tile * R + k) * g.T + ln);
+        for (int k = 0; k < r; ++k)
+          cp_async4(cx.pay + (F0 + r * D + k) * stride + t,
+                    g.rho_trn + (tile * r + k) * g.T + ln);
       }
     }
     words[t] = w;
@@ -822,6 +916,135 @@ __device__ Ctx setup(const ClusterArgs& g, float* smem, int a) {
   }
   cl.sync();
   return cx;
+}
+
+template <int R, int D, bool REFINE>
+__device__ CtxOf<R> setup(const ArgsOf<R>& g, float* smem, int a) {
+  if constexpr (R == 0) {
+    return setup_rt<D, REFINE>(g, smem, a);
+  } else {
+    constexpr int K = D + 1;
+    constexpr int RK = R * K;
+    constexpr int DD = D * D;
+    constexpr int KK = K * K;
+    constexpr int kPerWarp = 32 / R;
+    constexpr int F0 = payload_fields(D);
+    constexpr int F = F0 + (REFINE ? refine_fields(R, D) : 0);
+    cg::cluster_group cl = cg::this_cluster();
+    Ctx cx;
+    cx.n = g.n;
+    cx.s = g.s;
+    cx.kinc = g.kinc;
+    cx.n_act = g.n_local[a];
+    cx.C = (int)cl.num_blocks();
+    cx.rank = (int)cl.block_rank();
+    cx.P = (g.n + cx.C - 1) / cx.C;
+    cx.parity = 0;
+    const int lane = threadIdx.x & 31;
+    const int group = lane / R;
+    cx.row = lane - group * R;
+    cx.base = group * R;
+    cx.pl = (threadIdx.x >> 5) * kPerWarp + group;
+    const int c0 = cx.rank * cx.P;
+    const int p = c0 + cx.pl;
+    cx.own = group < kPerWarp && cx.pl < cx.P && p < g.n;
+    cx.Z = g.Z + (size_t)a * RK * g.s;
+    cx.vec = smem;
+    cx.L = cx.vec + (size_t)(REFINE ? kRefineVecs : kVecs) * cx.P *
+                        vec_stride(RK);
+    cx.S = cx.L + (size_t)KK * cx.P;
+    cx.pay = cx.S + (size_t)DD * cx.P;
+    cx.red = cx.pay + (size_t)F * g.kinc * cx.P;  // [2][C nw][4]
+
+    if (cx.own) {
+      float* x = row_at<R, K>(cx, REFINE ? kD : kX, cx.pl);
+      const size_t comp = (size_t)a * RK + cx.row * K;
+#pragma unroll
+      for (int q = 0; q < K; ++q) cp_async4(x + q, g.X + (comp + q) * g.n + p);
+      if (REFINE) {
+        float* rc = row_at<R, K>(cx, kRc, cx.pl);
+#pragma unroll
+        for (int q = 0; q < K; ++q)
+          cp_async4(rc + q, g.Rc + (comp + q) * g.n + p);
+      }
+      for (int i = cx.row; i < KK; i += R)
+        cp_async4(cx.L + i * cx.P + cx.pl,
+                  g.L + ((size_t)a * KK + i) * g.n + p);
+      if (g.S != nullptr) {
+        for (int i = cx.row; i < DD; i += R)
+          cp_async4(cx.S + i * cx.P + cx.pl,
+                    g.S + ((size_t)a * DD + i) * g.n + p);
+        float* gv = row_at<R, K>(cx, kG, cx.pl);
+#pragma unroll
+        for (int q = 0; q < K; ++q)
+          cp_async4(gv + q, g.g + (comp + q) * g.n + p);
+      }
+    }
+    const int nt = g.Ep / g.T;
+    const int stride = g.kinc * cx.P;
+    int* words = reinterpret_cast<int*>(cx.pay);
+    // The incidence and index loads do not depend on the branch (padded
+    // entries read slot 0 of a real pose), so unrolled iterations start them
+    // together.
+#pragma unroll 4
+    for (int t = threadIdx.x; t < stride; t += blockDim.x) {
+      const int c = t / cx.P;
+      const int pe = c0 + t - c * cx.P;
+      const size_t ie = ((size_t)a * g.n + min(pe, g.n - 1)) * g.kinc + c;
+      const float m = g.incm[ie];
+      const int sl = g.inc[ie];
+      const bool side_j = sl >= g.E;
+      const int e = side_j ? sl - g.E : sl;
+      const size_t ge = (size_t)a * g.Ep + e;
+      const int ii = g.idx_i[ge];
+      const int other = side_j ? ii : g.idx_j[ge];
+      int w = 0;
+      if (pe < g.n && m != 0.f) {
+        w = kLive | (side_j ? kSideJ : 0) |
+            ((!side_j || ii >= g.n) ? kCostOwner : 0);
+        if (other < g.n) {
+          const int rank = other / cx.P;
+          w |= kPose | (rank << kRankShift) | (other - rank * cx.P);
+        } else if (other < g.n + g.s) {
+          w |= kSlot | (other - g.n);
+        }
+        const int tl = e / g.T;
+        const int ln = e - tl * g.T;
+        const size_t tile = (size_t)a * nt + tl;
+#pragma unroll
+        for (int k = 0; k < DD; ++k)
+          cp_async4(cx.pay + (1 + k) * stride + t,
+                    g.rot + (tile * DD + k) * g.T + ln);
+#pragma unroll
+        for (int k = 0; k < D; ++k)
+          cp_async4(cx.pay + (1 + DD + k) * stride + t,
+                    g.trn + (tile * D + k) * g.T + ln);
+        cp_async4(cx.pay + (1 + DD + D) * stride + t, g.wk + ge);
+        cp_async4(cx.pay + (2 + DD + D) * stride + t, g.wt + ge);
+        if (REFINE && (w & kCostOwner)) {
+#pragma unroll
+          for (int k = 0; k < R * D; ++k)
+            cp_async4(cx.pay + (F0 + k) * stride + t,
+                      g.rho_rot + (tile * (R * D) + k) * g.T + ln);
+#pragma unroll
+          for (int k = 0; k < R; ++k)
+            cp_async4(cx.pay + (F0 + R * D + k) * stride + t,
+                      g.rho_trn + (tile * R + k) * g.T + ln);
+        }
+      }
+      words[t] = w;
+    }
+    cp_async_wait_all();
+    __syncthreads();  // every thread's copies of L have landed
+    if (cx.own && cx.row == 0) {
+#pragma unroll
+      for (int i = 0; i < K; ++i)
+        cx.L[i * (K + 1) * cx.P + cx.pl] =
+            1.f / cx.L[i * (K + 1) * cx.P + cx.pl];
+    }
+    cl.sync();
+    return cx;
+  }
 }
 
 // Steihaug-Toint truncated CG (pallas_tcg._build_math.tcg) on this
@@ -1052,14 +1275,19 @@ __device__ Attempts attempts(Ctx& cx, const ClusterArgs& args, float* xo,
 
 template <int R, int D>
 __global__ void __launch_bounds__(kMaxThreads, 1)
-rtr_full_cluster_kernel(ClusterArgs args, float initial_radius,
+rtr_full_cluster_kernel(ArgsOf<R> args, float initial_radius,
                         int max_rejections, float grad_tol, float* X_out,
                         float* stats, int* tcg_iters) {
   constexpr int K = D + 1;
   constexpr int RK = R * K;
   extern __shared__ __align__(16) float smem[];
   const int a = blockIdx.x / cg::this_cluster().num_blocks();
-  Ctx cx = setup<R, D, false>(args, smem, a);
+  CtxOf<R> cx = setup<R, D, false>(args, smem, a);
+  if constexpr (R == 0) {
+    // RK is 0 at R = 0: the agent's slices start at the launch's rank.
+    const size_t off = (size_t)a * rank_of<0>(cx) * K * cx.n;
+    X_out += off;
+  }
   float* xo = X_out + (size_t)a * RK * cx.n;
 
   // Start point: G = egrad([X | Z]), S = sym(Y^T G_Y), g = P_X(G), f0.
@@ -1104,14 +1332,19 @@ rtr_full_cluster_kernel(ClusterArgs args, float initial_radius,
 
 template <int R, int D>
 __global__ void __launch_bounds__(kMaxThreads, 1)
-rtr_cluster_kernel(ClusterArgs args, float initial_radius,
+rtr_cluster_kernel(ArgsOf<R> args, float initial_radius,
                    int max_rejections, float* X_out, float* stats,
                    int* tcg_iters) {
   constexpr int K = D + 1;
   constexpr int RK = R * K;
   extern __shared__ __align__(16) float smem[];
   const int a = blockIdx.x / cg::this_cluster().num_blocks();
-  Ctx cx = setup<R, D, false>(args, smem, a);
+  CtxOf<R> cx = setup<R, D, false>(args, smem, a);
+  if constexpr (R == 0) {
+    // RK is 0 at R = 0: the agent's slices start at the launch's rank.
+    const size_t off = (size_t)a * rank_of<0>(cx) * K * cx.n;
+    X_out += off;
+  }
   float* xo = X_out + (size_t)a * RK * cx.n;
   float s1[1] = {0.f};
   if (cx.own) {
@@ -1139,13 +1372,19 @@ rtr_cluster_kernel(ClusterArgs args, float initial_radius,
 
 template <int R, int D>
 __global__ void __launch_bounds__(kMaxThreads, 1)
-tcg_cluster_kernel(ClusterArgs args, const float* radius, float* eta_out,
+tcg_cluster_kernel(ArgsOf<R> args, const float* radius, float* eta_out,
                    float* heta_out, float* stats) {
   constexpr int K = D + 1;
   constexpr int RK = R * K;
   extern __shared__ __align__(16) float smem[];
   const int a = blockIdx.x / cg::this_cluster().num_blocks();
-  Ctx cx = setup<R, D, false>(args, smem, a);
+  CtxOf<R> cx = setup<R, D, false>(args, smem, a);
+  if constexpr (R == 0) {
+    // RK is 0 at R = 0: the agent's slices start at the launch's rank.
+    const size_t off = (size_t)a * rank_of<0>(cx) * K * cx.n;
+    eta_out += off;
+    heta_out += off;
+  }
   bool hit;
   const int k = tcg<R, D>(cx, radius[a], args.max_iters, args.kappa,
                           args.theta, &hit);
@@ -1172,7 +1411,7 @@ tcg_cluster_kernel(ClusterArgs args, const float* radius, float* eta_out,
 // args.g the constants S0 and g0.
 template <int R, int D>
 __global__ void __launch_bounds__(kMaxThreads, 1)
-rtr_refine_full_cluster_kernel(ClusterArgs args, float initial_radius,
+rtr_refine_full_cluster_kernel(ArgsOf<R> args, float initial_radius,
                                int max_rejections, float grad_tol,
                                float* D_out, float* stats, int* tcg_iters) {
   constexpr int K = D + 1;
@@ -1180,7 +1419,13 @@ rtr_refine_full_cluster_kernel(ClusterArgs args, float initial_radius,
   constexpr int DD = D * D;
   extern __shared__ __align__(16) float smem[];
   const int a = blockIdx.x / cg::this_cluster().num_blocks();
-  Ctx cx = setup<R, D, true>(args, smem, a);
+  CtxOf<R> cx = setup<R, D, true>(args, smem, a);
+  if constexpr (R == 0) {
+    // RK is 0 at R = 0: the agent's slices start at the launch's rank.
+    const size_t off = (size_t)a * rank_of<0>(cx) * K * cx.n;
+    D_out += off;
+    args.Gref += off;
+  }
   float* xo = D_out + (size_t)a * RK * cx.n;
 
   // dG = egrad([D | Dz]) (the residual map is affine with this linear
@@ -1220,7 +1465,13 @@ rtr_refine_full_cluster_kernel(ClusterArgs args, float initial_radius,
 #pragma unroll
     for (int j = 0; j < DD; ++j)
       St[j] = (cx.own ? cx.S[j * cx.P + cx.pl] : 0.f) + S1[j];
-    __syncwarp();  // every row has read S0 before row 0 overwrites it
+    // Every row has read S0 before row 0 overwrites it (a pose spans
+    // warps at R = 0 above r = 32).
+    if constexpr (R == 0) {
+      __syncthreads();
+    } else {
+      __syncwarp();
+    }
     if (cx.own && cx.row == 0) {
 #pragma unroll
       for (int j = 0; j < DD; ++j) cx.S[j * cx.P + cx.pl] = St[j];
@@ -1365,73 +1616,89 @@ struct Launchers {};
 
 template <int R, int D>
 struct Launchers<R, D, true> {
-  static int rtr_full(const ClusterArgs& g, int A, int C,
+  static int rtr_full(const ClusterArgs& g, int r, int A, int C,
                       float initial_radius, int max_rejections,
                       float grad_tol, float* X_out, float* stats,
                       int* tcg_iters, cudaStream_t stream);
-  static int rtr(const ClusterArgs& g, int A, int C, float initial_radius,
-                 int max_rejections, float* X_out, float* stats,
-                 int* tcg_iters, cudaStream_t stream);
-  static int tcg(const ClusterArgs& g, int A, int C, const float* radius,
-                 float* eta, float* heta, float* stats, cudaStream_t stream);
-  static int refine(const ClusterArgs& g, int A, int C, float initial_radius,
-                    int max_rejections, float grad_tol, float* D_out,
-                    float* stats, int* tcg_iters, cudaStream_t stream);
-  static int query_clusters(int kernel, int n, int kinc, int C, int* count);
+  static int rtr(const ClusterArgs& g, int r, int A, int C,
+                 float initial_radius, int max_rejections, float* X_out,
+                 float* stats, int* tcg_iters, cudaStream_t stream);
+  static int tcg(const ClusterArgs& g, int r, int A, int C,
+                 const float* radius, float* eta, float* heta, float* stats,
+                 cudaStream_t stream);
+  static int refine(const ClusterArgs& g, int r, int A, int C,
+                    float initial_radius, int max_rejections, float grad_tol,
+                    float* D_out, float* stats, int* tcg_iters,
+                    cudaStream_t stream);
+  static int query_clusters(int kernel, int r, int n, int kinc, int C,
+                            int* count);
 };
 
 #if DPGO_PART >= 0
 
-template <int R, int D>
-int Launchers<R, D, true>::rtr_full(const ClusterArgs& g, int A, int C,
-                                    float initial_radius, int max_rejections,
-                                    float grad_tol, float* X_out,
-                                    float* stats, int* tcg_iters,
-                                    cudaStream_t stream) {
-  if (g.s > kIndexMask + 1) return kTooManySlots;
-  const ClusterShape sh = cluster_shape(R, D, g.n, g.kinc, C, false);
-  return launch_cluster(rtr_full_cluster_kernel<R, D>, A, C, sh, stream, g,
-                        initial_radius, max_rejections, grad_tol, X_out,
-                        stats, tcg_iters);
+// The kernels' arguments at this shape: the rank joins them at R = 0.
+template <int R>
+ArgsOf<R> args_of(const ClusterArgs& g, int r) {
+  if constexpr (R == 0) {
+    ClusterArgsR a;
+    static_cast<ClusterArgs&>(a) = g;
+    a.r = r;
+    return a;
+  } else {
+    return g;
+  }
 }
 
 template <int R, int D>
-int Launchers<R, D, true>::rtr(const ClusterArgs& g, int A, int C,
+int Launchers<R, D, true>::rtr_full(const ClusterArgs& g, int r, int A,
+                                    int C, float initial_radius,
+                                    int max_rejections, float grad_tol,
+                                    float* X_out, float* stats,
+                                    int* tcg_iters, cudaStream_t stream) {
+  if (g.s > kIndexMask + 1) return kTooManySlots;
+  const ClusterShape sh = cluster_shape(r, D, g.n, g.kinc, C, false);
+  return launch_cluster(rtr_full_cluster_kernel<R, D>, A, C, sh, stream,
+                        args_of<R>(g, r), initial_radius, max_rejections,
+                        grad_tol, X_out, stats, tcg_iters);
+}
+
+template <int R, int D>
+int Launchers<R, D, true>::rtr(const ClusterArgs& g, int r, int A, int C,
                                float initial_radius, int max_rejections,
                                float* X_out, float* stats, int* tcg_iters,
                                cudaStream_t stream) {
   if (g.s > kIndexMask + 1) return kTooManySlots;
-  const ClusterShape sh = cluster_shape(R, D, g.n, g.kinc, C, false);
-  return launch_cluster(rtr_cluster_kernel<R, D>, A, C, sh, stream, g,
-                        initial_radius, max_rejections, X_out, stats,
-                        tcg_iters);
+  const ClusterShape sh = cluster_shape(r, D, g.n, g.kinc, C, false);
+  return launch_cluster(rtr_cluster_kernel<R, D>, A, C, sh, stream,
+                        args_of<R>(g, r), initial_radius, max_rejections,
+                        X_out, stats, tcg_iters);
 }
 
 template <int R, int D>
-int Launchers<R, D, true>::tcg(const ClusterArgs& g, int A, int C,
+int Launchers<R, D, true>::tcg(const ClusterArgs& g, int r, int A, int C,
                                const float* radius, float* eta, float* heta,
                                float* stats, cudaStream_t stream) {
-  const ClusterShape sh = cluster_shape(R, D, g.n, g.kinc, C, false);
-  return launch_cluster(tcg_cluster_kernel<R, D>, A, C, sh, stream, g,
-                        radius, eta, heta, stats);
+  const ClusterShape sh = cluster_shape(r, D, g.n, g.kinc, C, false);
+  return launch_cluster(tcg_cluster_kernel<R, D>, A, C, sh, stream,
+                        args_of<R>(g, r), radius, eta, heta, stats);
 }
 
 template <int R, int D>
-int Launchers<R, D, true>::refine(const ClusterArgs& g, int A, int C,
+int Launchers<R, D, true>::refine(const ClusterArgs& g, int r, int A, int C,
                                   float initial_radius, int max_rejections,
                                   float grad_tol, float* D_out, float* stats,
                                   int* tcg_iters, cudaStream_t stream) {
   if (g.s > kIndexMask + 1) return kTooManySlots;
-  const ClusterShape sh = cluster_shape(R, D, g.n, g.kinc, C, true);
+  const ClusterShape sh = cluster_shape(r, D, g.n, g.kinc, C, true);
   return launch_cluster(rtr_refine_full_cluster_kernel<R, D>, A, C, sh,
-                        stream, g, initial_radius, max_rejections, grad_tol,
-                        D_out, stats, tcg_iters);
+                        stream, args_of<R>(g, r), initial_radius,
+                        max_rejections, grad_tol, D_out, stats, tcg_iters);
 }
 
 template <int R, int D>
-int Launchers<R, D, true>::query_clusters(int kernel, int n, int kinc, int C,
-                                          int* count) {
-  const ClusterShape sh = cluster_shape(R, D, n, kinc, C, kernel == kRefine);
+int Launchers<R, D, true>::query_clusters(int kernel, int r, int n, int kinc,
+                                          int C, int* count) {
+  const ClusterShape sh = cluster_shape(r, D, n, kinc, C, kernel == kRefine);
   switch (kernel) {
     case kRtrFull:
       return max_clusters(rtr_full_cluster_kernel<R, D>, C, sh, count);
@@ -1449,6 +1716,7 @@ int Launchers<R, D, true>::query_clusters(int kernel, int n, int kinc, int C,
 #define DPGO_INSTANTIATE(R_, D_) \
   template struct Launchers<R_, D_, dpgo_shapes::in_part(R_, D_)>;
 DPGO_SHAPES(DPGO_INSTANTIATE)
+DPGO_GENERIC_SHAPES(DPGO_INSTANTIATE)
 #undef DPGO_INSTANTIATE
 
 #endif  // DPGO_PART >= 0
@@ -1478,7 +1746,7 @@ int dpgo_rtr_cluster_max_clusters(int r, int d, int n_max, int kinc, int C,
                                   int kernel, void* count) {
   int* c = static_cast<int*>(count);
   return dispatch<Launchers>(r, d, [&](auto launchers) {
-    return launchers.query_clusters(kernel, n_max, kinc, C, c);
+    return launchers.query_clusters(kernel, r, n_max, kinc, C, c);
   });
 }
 
@@ -1499,7 +1767,7 @@ int dpgo_rtr_full_cluster_launch(
   int* it = static_cast<int*>(tcg_iters);
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
   return dispatch<Launchers>(r, d, [&](auto launchers) {
-    return launchers.rtr_full(g, A, C, initial_radius, max_rejections,
+    return launchers.rtr_full(g, r, A, C, initial_radius, max_rejections,
                               grad_tol, xo, st, it, cs);
   });
 }
@@ -1520,8 +1788,8 @@ int dpgo_rtr_cluster_launch(
   int* it = static_cast<int*>(tcg_iters);
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
   return dispatch<Launchers>(r, d, [&](auto launchers) {
-    return launchers.rtr(a, A, C, initial_radius, max_rejections, xo, st, it,
-                         cs);
+    return launchers.rtr(a, r, A, C, initial_radius, max_rejections, xo, st,
+                         it, cs);
   });
 }
 
@@ -1542,7 +1810,7 @@ int dpgo_tcg_cluster_launch(
   float* st = static_cast<float*>(stats);
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
   return dispatch<Launchers>(r, d, [&](auto launchers) {
-    return launchers.tcg(a, A, C, rd, e, h, st, cs);
+    return launchers.tcg(a, r, A, C, rd, e, h, st, cs);
   });
 }
 
@@ -1568,8 +1836,8 @@ int dpgo_rtr_refine_full_cluster_launch(
   int* it = static_cast<int*>(tcg_iters);
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
   return dispatch<Launchers>(r, d, [&](auto launchers) {
-    return launchers.refine(a, A, C, initial_radius, max_rejections, grad_tol,
-                            dout, st, it, cs);
+    return launchers.refine(a, r, A, C, initial_radius, max_rejections,
+                            grad_tol, dout, st, it, cs);
   });
 }
 

@@ -54,7 +54,11 @@
 // every loop condition is block-uniform.  The per-pose math (tangent
 // projection, the (d+1)x(d+1) preconditioner solves, the Newton-Schulz
 // sweeps) is unrolled over the template parameters (R, D).  Spreading one
-// agent over several CTAs is what rtr_cluster.cu does.
+// agent over several CTAs is what rtr_cluster.cu does.  Above the
+// templated ranks (11 <= r <= 128, shapes.cuh) the *_rt kernels below read
+// r from the launch and walk a pose's rows one at a time, so no thread
+// holds r (d + 1) floats; this route is then the catch-all where no
+// cluster (and, for B2 and B4, no spread) holds an agent.
 //
 // The refine kernel is bound the same way: its payload adds r*d + r floats
 // of reference residuals per edge (144 B an edge at r = 5, d = 3 instead of
@@ -1110,6 +1114,932 @@ rtr_refine_full_kernel(Args args, RefineConsts rc, float initial_radius,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The rank-generic instantiation (R = 0, 11 <= r <= 128; shapes.cuh): the
+// same kernels with r read from the launch.  A thread still owns whole
+// poses (and edges), but never holds a pose's r (d + 1) floats: it walks
+// the rows one at a time, d + 1 floats each, through the workspace.  Where
+// the rows meet (sym(Y^T W) of a tangent projection, M^T M of a retraction,
+// E of the refine step's), a first pass over the rows sums the d x d matrix
+// and a second pass applies it, reading each row again (the loop vectors
+// stay in L2).  Every sum keeps one fixed order.
+// ---------------------------------------------------------------------------
+
+// setup and load_edges at rank r.
+template <int D>
+__device__ void load_edges_rt(Problem& P, unsigned char* payload, int a,
+                              int Ep, int T, const int* idx_i,
+                              const int* idx_j, const float* rot,
+                              const float* trn, const float* wk,
+                              const float* wt, const float* rho_rot,
+                              const float* rho_trn, int r) {
+  const int rr = r;
+  const int E = P.E;
+  int* ei = reinterpret_cast<int*>(payload);
+  int* ej = ei + E;
+  float* srot = reinterpret_cast<float*>(ej + E);
+  float* strn = srot + D * D * E;
+  float* swk = strn + D * E;
+  float* swt = swk + E;
+  float* srr = swt + E;
+  float* srt = srr + rr * D * E;
+  const int nt = Ep / T;
+  const size_t base = (size_t)a * Ep;
+  for (int e = threadIdx.x; e < E; e += blockDim.x) {
+    const int tl = e / T;
+    const int ln = e - tl * T;
+    const size_t tile = (size_t)a * nt + tl;
+    ei[e] = idx_i[base + e];
+    ej[e] = idx_j[base + e];
+    swk[e] = wk[base + e];
+    swt[e] = wt[base + e];
+#pragma unroll
+    for (int c = 0; c < D * D; ++c)
+      srot[c * E + e] = rot[(tile * (D * D) + c) * T + ln];
+#pragma unroll
+    for (int c = 0; c < D; ++c)
+      strn[c * E + e] = trn[(tile * D + c) * T + ln];
+    if (rho_rot != nullptr) {
+#pragma unroll
+      for (int c = 0; c < rr * D; ++c)
+        srr[c * E + e] = rho_rot[(tile * (rr * D) + c) * T + ln];
+#pragma unroll
+      for (int c = 0; c < rr; ++c)
+        srt[c * E + e] = rho_trn[(tile * rr + c) * T + ln];
+    }
+  }
+  P.ei = ei;
+  P.ej = ej;
+  P.rot = srot;
+  P.trn = strn;
+  P.wk = swk;
+  P.wt = swt;
+  P.rho_rot = srr;
+  P.rho_trn = srt;
+  __syncthreads();
+}
+
+template <int D>
+__device__ Problem setup_rt(const Args& g, int r, unsigned char* smem,
+                            int a, float** vecs, int nvec) {
+  const int RK = r * (D + 1);
+  Problem P;
+  P.n = g.n;
+  P.s = g.s;
+  P.E = g.E;
+  P.kinc = g.kinc;
+  P.n_act = g.n_local[a];
+  P.X = g.X + (size_t)a * RK * g.n;
+  P.Z = g.Z + (size_t)a * RK * g.s;
+  P.L = g.L + (size_t)a * (D + 1) * (D + 1) * g.n;
+  P.inc = g.inc + (size_t)a * g.n * g.kinc;
+  P.incm = g.incm + (size_t)a * g.n * g.kinc;
+  float* ws = g.ws + (size_t)a * g.ws_stride;
+  const size_t vec = (size_t)RK * g.n;
+  for (int i = 0; i < nvec; ++i) vecs[i] = ws + i * vec;
+  float* S = ws + nvec * vec;
+  P.S = S;
+  P.gbuf = S + (size_t)D * D * g.n;
+  P.red = reinterpret_cast<float*>(smem);
+  unsigned char* payload =
+      g.payload_in_smem
+          ? smem + kRedBytes
+          : reinterpret_cast<unsigned char*>(P.gbuf + 2 * (size_t)g.E * RK);
+  load_edges_rt<D>(P, payload, a, g.Ep, g.T, g.idx_i, g.idx_j, g.rot,
+                   g.trn, g.wk, g.wt, g.rho_rot, g.rho_trn, r);
+  return P;
+}
+
+// Row a of pose p of the component-major vector V [r K, n].
+template <int K>
+__device__ __forceinline__ void ld_prow(const float* V, int n, int p, int a,
+                                        float (&v)[K]) {
+#pragma unroll
+  for (int q = 0; q < K; ++q) v[q] = V[(a * K + q) * n + p];
+}
+
+template <int K>
+__device__ __forceinline__ void st_prow(float* V, int n, int p, int a,
+                                        const float (&v)[K]) {
+#pragma unroll
+  for (int q = 0; q < K; ++q) V[(a * K + q) * n + p] = v[q];
+}
+
+// sym(sum_a X_a^T W_a) over the r rows of pose p, rotation columns only.
+template <int D>
+__device__ void sym_rows(const float* X, const float* W, int n, int p, int r,
+                         float (&sy)[D * D]) {
+  constexpr int K = D + 1;
+  float M[D][D];
+#pragma unroll
+  for (int b = 0; b < D; ++b)
+#pragma unroll
+    for (int c = 0; c < D; ++c) M[b][c] = 0.f;
+  for (int a = 0; a < r; ++a) {
+    float x[K], w[K];
+    ld_prow<K>(X, n, p, a, x);
+    ld_prow<K>(W, n, p, a, w);
+#pragma unroll
+    for (int b = 0; b < D; ++b)
+#pragma unroll
+      for (int c = 0; c < D; ++c) M[b][c] += x[b] * w[c];
+  }
+#pragma unroll
+  for (int b = 0; b < D; ++b)
+#pragma unroll
+    for (int c = 0; c < D; ++c) sy[b * D + c] = 0.5f * (M[b][c] + M[c][b]);
+}
+
+// w <- w - x sy on one row (translation unchanged).
+template <int D>
+__device__ __forceinline__ void sub_row(const float (&x)[D + 1],
+                                        const float (&sy)[D * D],
+                                        float (&w)[D + 1]) {
+#pragma unroll
+  for (int c = 0; c < D; ++c) {
+    float s = 0.f;
+#pragma unroll
+    for (int b = 0; b < D; ++b) s += x[b] * sy[b * D + c];
+    w[c] -= s;
+  }
+}
+
+// One row's block-Jacobi solve from pose p's lower Cholesky factor Lp
+// (precond's arithmetic, without the projection).
+template <int D>
+__device__ __forceinline__ void chol_row(const float (&Lp)[(D + 1) * (D + 1)],
+                                         float (&v)[D + 1]) {
+  constexpr int K = D + 1;
+  float y[K];
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    float s = v[i];
+#pragma unroll
+    for (int q = 0; q < i; ++q) s -= Lp[i * K + q] * y[q];
+    y[i] = s / Lp[i * K + i];
+  }
+#pragma unroll
+  for (int i = K - 1; i >= 0; --i) {
+    float s = y[i];
+#pragma unroll
+    for (int q = i + 1; q < K; ++q) s -= Lp[q * K + i] * v[q];
+    v[i] = s / Lp[i * K + i];
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void ld_factor(const Problem& P, int p,
+                                          float (&Lp)[(D + 1) * (D + 1)]) {
+#pragma unroll
+  for (int i = 0; i < (D + 1) * (D + 1); ++i) Lp[i] = P.L[i * P.n + p];
+}
+
+// Edge e's transform, read once for all its rows.
+template <int D>
+__device__ __forceinline__ void edge_consts(const Problem& P, int e,
+                                            float (&Rm)[D * D],
+                                            float (&t)[D]) {
+#pragma unroll
+  for (int c = 0; c < D * D; ++c) Rm[c] = P.rot[c * P.E + e];
+#pragma unroll
+  for (int c = 0; c < D; ++c) t[c] = P.trn[c * P.E + e];
+}
+
+// Row a of the lifted residuals of the edge (i, j) at the buffer point
+// [V | Zv] (edge_residuals' arithmetic for one row).
+template <int D>
+__device__ __forceinline__ void edge_row(const Problem& P, int i, int j,
+                                         int a, const float* V,
+                                         const float* Zv,
+                                         const float (&Rm)[D * D],
+                                         const float (&t)[D], float (&rR)[D],
+                                         float& rt) {
+  constexpr int K = D + 1;
+  float vi[K], vj[K];
+#pragma unroll
+  for (int c = 0; c < K; ++c) {
+    vi[c] = gather(V, P.n, Zv, P.s, i, a * K + c);
+    vj[c] = gather(V, P.n, Zv, P.s, j, a * K + c);
+  }
+#pragma unroll
+  for (int c = 0; c < D; ++c) {
+    float s = 0.f;
+#pragma unroll
+    for (int b = 0; b < D; ++b) s += vi[b] * Rm[b * D + c];
+    rR[c] = vj[c] - s;
+  }
+  float s = 0.f;
+#pragma unroll
+  for (int b = 0; b < D; ++b) s += vi[b] * t[b];
+  rt = vj[D] - vi[D] - s;
+}
+
+// grad_sweep at rank r: the edge pass writes each edge's rows one at a
+// time, the ELL gather sums each pose's rows one at a time.
+template <int D>
+__device__ void grad_sweep_rt(const Problem& P, int r, const float* V,
+                              const float* Zv, float* out) {
+  constexpr int K = D + 1;
+  const int RK = r * K;
+  for (int e = threadIdx.x; e < P.E; e += blockDim.x) {
+    float Rm[D * D], t[D];
+    edge_consts<D>(P, e, Rm, t);
+    const int i = P.ei[e];
+    const int j = P.ej[e];
+    const float wk = P.wk[e];
+    const float wt = P.wt[e];
+    float* gi = P.gbuf + (size_t)e * RK;
+    float* gj = P.gbuf + (size_t)(P.E + e) * RK;
+    for (int a = 0; a < r; ++a) {
+      float rR[D], rt;
+      edge_row<D>(P, i, j, a, V, Zv, Rm, t, rR, rt);
+#pragma unroll
+      for (int c = 0; c < D; ++c) {
+        float s = 0.f;
+#pragma unroll
+        for (int b = 0; b < D; ++b) s += rR[b] * Rm[c * D + b];
+        gj[a * K + c] = wk * rR[c];
+        gi[a * K + c] = -wk * s - wt * rt * t[c];
+      }
+      gj[a * K + D] = wt * rt;
+      gi[a * K + D] = -wt * rt;
+    }
+  }
+  __syncthreads();
+  for (int p = threadIdx.x; p < P.n; p += blockDim.x) {
+    for (int a = 0; a < r; ++a) {
+      float acc[K];
+#pragma unroll
+      for (int q = 0; q < K; ++q) acc[q] = 0.f;
+      for (int c = 0; c < P.kinc; ++c) {
+        if (P.incm[p * P.kinc + c] != 0.f) {
+          const float* row =
+              P.gbuf + (size_t)P.inc[p * P.kinc + c] * RK + a * K;
+#pragma unroll
+          for (int q = 0; q < K; ++q) acc[q] += row[q];
+        }
+      }
+      st_prow<K>(out, P.n, p, a, acc);
+    }
+  }
+  __syncthreads();
+}
+
+// cost (REFINE false) or refine_cost (true) at rank r, row by row.
+template <int D, bool REFINE>
+__device__ float cost_rt(const Problem& P, int r, const float* V,
+                         const float* Zv) {
+  float acc[1] = {0.f};
+  for (int e = threadIdx.x; e < P.E; e += blockDim.x) {
+    float Rm[D * D], t[D];
+    edge_consts<D>(P, e, Rm, t);
+    const int i = P.ei[e];
+    const int j = P.ej[e];
+    float cR = 0.f, ct = 0.f, qR = 0.f, qt = 0.f;
+    for (int a = 0; a < r; ++a) {
+      float rR[D], rt;
+      edge_row<D>(P, i, j, a, V, Zv, Rm, t, rR, rt);
+#pragma unroll
+      for (int c = 0; c < D; ++c) {
+        if (REFINE) cR += P.rho_rot[(a * D + c) * P.E + e] * rR[c];
+        qR += rR[c] * rR[c];
+      }
+      if (REFINE) ct += P.rho_trn[a * P.E + e] * rt;
+      qt += rt * rt;
+    }
+    const float wk = P.wk[e];
+    const float wt = P.wt[e];
+    acc[0] += REFINE ? wk * cR + wt * ct + 0.5f * (wk * qR + wt * qt)
+                     : wk * qR + wt * qt;
+  }
+  block_sum<1>(acc, P.red);
+  return REFINE ? acc[0] : 0.5f * acc[0];
+}
+
+// tcg at rank r: the same iteration, each preconditioner solve row by row
+// into W.z and projected by a second pass over the pose's rows.
+template <int D>
+__device__ int tcg_rt(const Problem& P, int r, const float* g, float radius,
+                      int max_iters, float kappa, float theta,
+                      const TcgVecs& W, bool* hit_out) {
+  constexpr int K = D + 1;
+  const int n = P.n;
+  float s2[2] = {0.f, 0.f};
+  for (int p = threadIdx.x; p < n; p += blockDim.x) {
+    float Lp[K * K], sy[D * D];
+    ld_factor<D>(P, p, Lp);
+    for (int a = 0; a < r; ++a) {
+      float v[K];
+      ld_prow<K>(g, n, p, a, v);
+      st_prow<K>(W.rr, n, p, a, v);
+      chol_row<D>(Lp, v);
+      st_prow<K>(W.z, n, p, a, v);
+    }
+    sym_rows<D>(P.X, W.z, n, p, r, sy);
+    for (int a = 0; a < r; ++a) {
+      float x[K], v[K], zz[K];
+      const float zero[K] = {};
+      ld_prow<K>(P.X, n, p, a, x);
+      ld_prow<K>(g, n, p, a, v);
+      ld_prow<K>(W.z, n, p, a, zz);
+      sub_row<D>(x, sy, zz);
+      st_prow<K>(W.z, n, p, a, zz);
+      s2[0] += dot<K>(v, zz);
+      s2[1] += dot<K>(v, v);
+#pragma unroll
+      for (int q = 0; q < K; ++q) zz[q] = -zz[q];
+      st_prow<K>(W.delta, n, p, a, zz);
+      st_prow<K>(W.eta, n, p, a, zero);
+      st_prow<K>(W.heta, n, p, a, zero);
+    }
+  }
+  block_sum<2>(s2, P.red);
+  float rz = s2[0];
+  const float r0n = sqrtf(s2[1]);
+  float r0n_th;
+  if (theta == 1.f) {
+    r0n_th = r0n;
+  } else if (theta == 0.f) {
+    r0n_th = 1.f;
+  } else {
+    r0n_th = expf(theta * logf(fmaxf(r0n, kEps)));
+  }
+  const float target = r0n * fminf(kappa, r0n_th);
+  const float rad2 = radius * radius;
+
+  int k = 0;
+  bool done = rz <= 0.f;
+  bool hit = false;
+  while (k < max_iters && !done) {
+    // Hd = P_X(EucHess[delta] - [delta_Y S | 0])
+    grad_sweep_rt<D>(P, r, W.delta, nullptr, W.hd);
+    float s4[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int p = threadIdx.x; p < n; p += blockDim.x) {
+      float Sp[D * D], sy[D * D];
+#pragma unroll
+      for (int i = 0; i < D * D; ++i) Sp[i] = P.S[i * n + p];
+      for (int a = 0; a < r; ++a) {
+        float dl[K], h[K];
+        ld_prow<K>(W.delta, n, p, a, dl);
+        ld_prow<K>(W.hd, n, p, a, h);
+#pragma unroll
+        for (int c = 0; c < D; ++c) {
+          float s = 0.f;
+#pragma unroll
+          for (int b = 0; b < D; ++b) s += dl[b] * Sp[b * D + c];
+          h[c] -= s;
+        }
+        st_prow<K>(W.hd, n, p, a, h);
+      }
+      sym_rows<D>(P.X, W.hd, n, p, r, sy);
+      for (int a = 0; a < r; ++a) {
+        float x[K], dl[K], h[K], et[K];
+        ld_prow<K>(P.X, n, p, a, x);
+        ld_prow<K>(W.delta, n, p, a, dl);
+        ld_prow<K>(W.hd, n, p, a, h);
+        ld_prow<K>(W.eta, n, p, a, et);
+        sub_row<D>(x, sy, h);
+        st_prow<K>(W.hd, n, p, a, h);
+        s4[0] += dot<K>(dl, h);
+        s4[1] += dot<K>(et, et);
+        s4[2] += dot<K>(et, dl);
+        s4[3] += dot<K>(dl, dl);
+      }
+    }
+    block_sum<4>(s4, P.red);
+    const float d_hd = s4[0], e_e = s4[1], e_d = s4[2], d_d = s4[3];
+    const float alpha = rz / (fabsf(d_hd) < kEps ? kEps : d_hd);
+    const float e_e_next = e_e + 2.f * alpha * e_d + alpha * alpha * d_d;
+    const bool crossing = (d_hd <= 0.f) || (e_e_next >= rad2);
+    const float disc = fmaxf(e_d * e_d + d_d * (rad2 - e_e), 0.f);
+    const float tau = (-e_d + sqrtf(disc)) / (d_d < kEps ? kEps : d_d);
+    const float step = crossing ? tau : alpha;
+
+    s2[0] = 0.f;
+    s2[1] = 0.f;
+    for (int p = threadIdx.x; p < n; p += blockDim.x) {
+      float Lp[K * K], sy[D * D];
+      ld_factor<D>(P, p, Lp);
+      for (int a = 0; a < r; ++a) {
+        float dl[K], h[K], v[K];
+        ld_prow<K>(W.delta, n, p, a, dl);
+        ld_prow<K>(W.hd, n, p, a, h);
+        ld_prow<K>(W.eta, n, p, a, v);
+#pragma unroll
+        for (int q = 0; q < K; ++q) v[q] += step * dl[q];
+        st_prow<K>(W.eta, n, p, a, v);
+        ld_prow<K>(W.heta, n, p, a, v);
+#pragma unroll
+        for (int q = 0; q < K; ++q) v[q] += step * h[q];
+        st_prow<K>(W.heta, n, p, a, v);
+        ld_prow<K>(W.rr, n, p, a, v);
+#pragma unroll
+        for (int q = 0; q < K; ++q) v[q] += alpha * h[q];
+        st_prow<K>(W.rr, n, p, a, v);
+        chol_row<D>(Lp, v);
+        st_prow<K>(W.z, n, p, a, v);
+      }
+      sym_rows<D>(P.X, W.z, n, p, r, sy);
+      for (int a = 0; a < r; ++a) {
+        float x[K], v[K], zz[K];
+        ld_prow<K>(P.X, n, p, a, x);
+        ld_prow<K>(W.rr, n, p, a, v);
+        ld_prow<K>(W.z, n, p, a, zz);
+        sub_row<D>(x, sy, zz);
+        st_prow<K>(W.z, n, p, a, zz);
+        s2[0] += dot<K>(v, zz);
+        s2[1] += dot<K>(v, v);
+      }
+    }
+    block_sum<2>(s2, P.red);
+    const float rz_in = s2[0];
+    const bool converged = sqrtf(s2[1]) <= target;
+    const float beta = rz_in / (fabsf(rz) < kEps ? kEps : rz);
+    for (int p = threadIdx.x; p < n; p += blockDim.x) {
+      for (int a = 0; a < r; ++a) {
+        float dl[K], zz[K];
+        ld_prow<K>(W.delta, n, p, a, dl);
+        ld_prow<K>(W.z, n, p, a, zz);
+#pragma unroll
+        for (int q = 0; q < K; ++q) dl[q] = -zz[q] + beta * dl[q];
+        st_prow<K>(W.delta, n, p, a, dl);
+      }
+    }
+    __syncthreads();
+    rz = rz_in;
+    ++k;
+    done = crossing || converged;
+    hit = hit || crossing;
+  }
+  *hit_out = hit;
+  return k;
+}
+
+// retract at rank r: M^T M summed over the pose's rows, the Newton-Schulz
+// sweeps once per pose, then each row of the polar factor.  Poses at or
+// past the agent's own count are left untouched.
+template <int D>
+__device__ void retract_rt(const Problem& P, int r, const float* V,
+                           float* out) {
+  constexpr int K = D + 1;
+  const int n = P.n;
+  for (int p = threadIdx.x; p < n; p += blockDim.x) {
+    if (p >= P.n_act) {
+      for (int a = 0; a < r; ++a) {
+        float x[K];
+        ld_prow<K>(P.X, n, p, a, x);
+        st_prow<K>(out, n, p, a, x);
+      }
+      continue;
+    }
+    float Y[D][D], Zm[D][D], T[D][D], tmp[D][D];
+#pragma unroll
+    for (int b = 0; b < D; ++b)
+#pragma unroll
+      for (int c = 0; c < D; ++c) Y[b][c] = 0.f;
+    for (int a = 0; a < r; ++a) {
+      float x[K], v[K], M[D];
+      ld_prow<K>(P.X, n, p, a, x);
+      ld_prow<K>(V, n, p, a, v);
+#pragma unroll
+      for (int c = 0; c < D; ++c) M[c] = x[c] + v[c];
+#pragma unroll
+      for (int b = 0; b < D; ++b)
+#pragma unroll
+        for (int c = 0; c < D; ++c) Y[b][c] += M[b] * M[c];
+    }
+    float s = 0.f;
+#pragma unroll
+    for (int b = 0; b < D; ++b) s += Y[b][b];
+    s = fmaxf(s, 1e-37f);
+#pragma unroll
+    for (int b = 0; b < D; ++b)
+#pragma unroll
+      for (int c = 0; c < D; ++c) {
+        Y[b][c] = Y[b][c] / s;
+        Zm[b][c] = (b == c) ? 1.f : 0.f;
+      }
+    for (int it = 0; it < kNsSweeps; ++it) {
+      matmul3<D>(Zm, Y, tmp);
+#pragma unroll
+      for (int b = 0; b < D; ++b)
+#pragma unroll
+        for (int c = 0; c < D; ++c)
+          T[b][c] = 0.5f * (((b == c) ? 3.f : 0.f) - tmp[b][c]);
+      matmul3<D>(Y, T, tmp);
+      matmul3<D>(T, Zm, Y);  // Y holds the new Z for a moment
+#pragma unroll
+      for (int b = 0; b < D; ++b)
+#pragma unroll
+        for (int c = 0; c < D; ++c) {
+          Zm[b][c] = Y[b][c];
+          Y[b][c] = tmp[b][c];
+        }
+    }
+    const float inv = 1.f / sqrtf(s);
+    for (int a = 0; a < r; ++a) {
+      float x[K], v[K], o[K];
+      ld_prow<K>(P.X, n, p, a, x);
+      ld_prow<K>(V, n, p, a, v);
+#pragma unroll
+      for (int c = 0; c < D; ++c) {
+        float acc = 0.f;
+#pragma unroll
+        for (int b = 0; b < D; ++b) acc += (x[b] + v[b]) * Zm[b][c];
+        o[c] = acc * inv;
+      }
+      o[D] = x[D] + v[D];
+      st_prow<K>(out, n, p, a, o);
+    }
+  }
+  __syncthreads();
+}
+
+// retract_refine at rank r: E summed over the pose's rows, its series once
+// per pose, then each row of D_new.  Poses at or past the agent's own count
+// keep their D.
+template <int D>
+__device__ void retract_refine_rt(const Problem& P, int r, const float* Rc,
+                                  const float* Dv, const float* V,
+                                  float* out) {
+  constexpr int K = D + 1;
+  const int n = P.n;
+  for (int p = threadIdx.x; p < n; p += blockDim.x) {
+    if (p >= P.n_act) {
+      for (int a = 0; a < r; ++a) {
+        float u[K];
+        ld_prow<K>(Dv, n, p, a, u);
+        st_prow<K>(out, n, p, a, u);
+      }
+      continue;
+    }
+    float M[D][D], E[D][D], E2[D][D], E3[D][D], E4[D][D];
+#pragma unroll
+    for (int b = 0; b < D; ++b)
+#pragma unroll
+      for (int c = 0; c < D; ++c) M[b][c] = 0.f;
+    for (int a = 0; a < r; ++a) {
+      float rc[K], u[K], v[K];
+      ld_prow<K>(Rc, n, p, a, rc);
+      ld_prow<K>(Dv, n, p, a, u);
+      ld_prow<K>(V, n, p, a, v);
+#pragma unroll
+      for (int q = 0; q < K; ++q) u[q] += v[q];
+#pragma unroll
+      for (int b = 0; b < D; ++b)
+#pragma unroll
+        for (int c = 0; c < D; ++c)
+          M[b][c] += rc[b] * u[c] + u[b] * rc[c] + u[b] * u[c];
+    }
+#pragma unroll
+    for (int b = 0; b < D; ++b)
+#pragma unroll
+      for (int c = 0; c < D; ++c) E[b][c] = 0.5f * (M[b][c] + M[c][b]);
+    matmul3<D>(E, E, E2);
+    matmul3<D>(E2, E, E3);
+    matmul3<D>(E2, E2, E4);
+#pragma unroll
+    for (int b = 0; b < D; ++b)
+#pragma unroll
+      for (int c = 0; c < D; ++c)
+        M[b][c] = -0.5f * E[b][c] + 0.375f * E2[b][c] -
+                  0.3125f * E3[b][c] + 0.2734375f * E4[b][c];
+    for (int a = 0; a < r; ++a) {
+      float rc[K], u[K], v[K], o[K];
+      ld_prow<K>(Rc, n, p, a, rc);
+      ld_prow<K>(Dv, n, p, a, u);
+      ld_prow<K>(V, n, p, a, v);
+#pragma unroll
+      for (int q = 0; q < K; ++q) u[q] += v[q];
+#pragma unroll
+      for (int c = 0; c < D; ++c) {
+        float s = 0.f;
+#pragma unroll
+        for (int b = 0; b < D; ++b) s += (rc[b] + u[b]) * M[b][c];
+        o[c] = u[c] + s;
+      }
+      o[D] = u[D];
+      st_prow<K>(out, n, p, a, o);
+    }
+  }
+  __syncthreads();
+}
+
+// out <- V, row by row.
+template <int K>
+__device__ void copy_rows(const float* V, int n, int r, float* out) {
+  for (int p = threadIdx.x; p < n; p += blockDim.x) {
+    for (int a = 0; a < r; ++a) {
+      float x[K];
+      ld_prow<K>(V, n, p, a, x);
+      st_prow<K>(out, n, p, a, x);
+    }
+  }
+}
+
+// (<g, eta>, <eta, Heta>) over the agent.
+template <int K>
+__device__ void model_dots(const Problem& P, int r, const float* g,
+                           const TcgVecs& W, float (&m2)[2]) {
+  m2[0] = 0.f;
+  m2[1] = 0.f;
+  for (int p = threadIdx.x; p < P.n; p += blockDim.x) {
+    for (int a = 0; a < r; ++a) {
+      float gv[K], et[K], he[K];
+      ld_prow<K>(g, P.n, p, a, gv);
+      ld_prow<K>(W.eta, P.n, p, a, et);
+      ld_prow<K>(W.heta, P.n, p, a, he);
+      m2[0] += dot<K>(gv, et);
+      m2[1] += dot<K>(et, he);
+    }
+  }
+  block_sum<2>(m2, P.red);
+}
+
+// attempts at rank r.
+template <int D>
+__device__ Attempts attempts_rt(const Problem& P, int r, const float* g,
+                                const TcgVecs& W, float* xp, float* xo,
+                                float f0, int k_att, float radius,
+                                int max_rejections, const Args& args) {
+  constexpr int K = D + 1;
+  Attempts at{k_att, false, f0, 0};
+  while (at.k_att < max_rejections && !at.accepted) {
+    bool hit;
+    at.iters += tcg_rt<D>(P, r, g, radius, args.max_iters, args.kappa,
+                          args.theta, W, &hit);
+    retract_rt<D>(P, r, W.eta, xp);
+    const float f_prop = cost_rt<D, false>(P, r, xp, P.Z);
+    float m2[2];
+    model_dots<K>(P, r, g, W, m2);
+    const float mdec = -(m2[0] + 0.5f * m2[1]);
+    const float rho = (f0 - f_prop) / fmaxf(mdec, kEps);
+    const bool ok = (rho > 0.1f) && (f_prop <= f0);
+    if (ok) {
+      copy_rows<K>(xp, P.n, r, xo);
+      at.f_best = f_prop;
+    } else {
+      radius = radius / 4.f;
+    }
+    ++at.k_att;
+    at.accepted = ok;
+    __syncthreads();
+  }
+  return at;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+rtr_full_kernel_rt(Args args, int r, float initial_radius,
+                   int max_rejections, float grad_tol, float* X_out,
+                   float* stats, int* tcg_iters) {
+  constexpr int K = D + 1;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int a = blockIdx.x;
+  float* v[kVecs];
+  Problem P = setup_rt<D>(args, r, smem, a, v, kVecs);
+  float* g = v[0];
+  float* xp = v[7];
+  TcgVecs W{v[1], v[2], v[3], v[4], v[5], v[6]};
+  float* xo = X_out + (size_t)a * r * K * P.n;
+  float* S = const_cast<float*>(P.S);
+  const int n = P.n;
+
+  // Start point: G = egrad([X | Z]) into W.hd, S = sym(Y^T G_Y), g = P_X(G).
+  grad_sweep_rt<D>(P, r, P.X, P.Z, W.hd);
+  float gg[1] = {0.f};
+  for (int p = threadIdx.x; p < n; p += blockDim.x) {
+    float sy[D * D];
+    sym_rows<D>(P.X, W.hd, n, p, r, sy);
+#pragma unroll
+    for (int i = 0; i < D * D; ++i) S[i * n + p] = sy[i];
+    for (int q = 0; q < r; ++q) {
+      float x[K], G[K];
+      ld_prow<K>(P.X, n, p, q, x);
+      ld_prow<K>(W.hd, n, p, q, G);
+      st_prow<K>(xo, n, p, q, x);
+      sub_row<D>(x, sy, G);
+      st_prow<K>(g, n, p, q, G);
+      gg[0] += dot<K>(G, G);
+    }
+  }
+  block_sum<1>(gg, P.red);
+  const float gn0 = sqrtf(gg[0]);
+  const float f0 = cost_rt<D, false>(P, r, P.X, P.Z);
+
+  const Attempts at = attempts_rt<D>(P, r, g, W, xp, xo, f0,
+                                     (gn0 < grad_tol) ? max_rejections : 0,
+                                     initial_radius, max_rejections, args);
+  if (threadIdx.x == 0) {
+    float* st = stats + (size_t)a * 5;
+    st[0] = (float)at.k_att;
+    st[1] = at.accepted ? 1.f : 0.f;
+    st[2] = f0;
+    st[3] = at.f_best;
+    st[4] = gn0;
+    tcg_iters[a] = at.iters;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+rtr_kernel_rt(Args args, int r, const float* Sc, const float* gc,
+              float initial_radius, int max_rejections, float* X_out,
+              float* stats, int* tcg_iters) {
+  constexpr int K = D + 1;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int a = blockIdx.x;
+  float* v[kVecs];
+  Problem P = setup_rt<D>(args, r, smem, a, v, kVecs);
+  const int n = P.n;
+  const size_t off = (size_t)a * r * K * n;
+  P.S = Sc + (size_t)a * D * D * n;
+  const float* g = gc + off;
+  float* xp = v[7];
+  TcgVecs W{v[1], v[2], v[3], v[4], v[5], v[6]};
+  float* xo = X_out + off;
+  copy_rows<K>(P.X, n, r, xo);
+  const float f0 = cost_rt<D, false>(P, r, P.X, P.Z);
+  const Attempts at = attempts_rt<D>(P, r, g, W, xp, xo, f0, 0,
+                                     initial_radius, max_rejections, args);
+  if (threadIdx.x == 0) {
+    float* st = stats + (size_t)a * 4;
+    st[0] = (float)at.k_att;
+    st[1] = at.accepted ? 1.f : 0.f;
+    st[2] = f0;
+    st[3] = at.f_best;
+    tcg_iters[a] = at.iters;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+tcg_kernel_rt(Args args, int r, const float* Sc, const float* gc,
+              const float* radius, float* eta_out, float* heta_out,
+              float* stats) {
+  constexpr int K = D + 1;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int a = blockIdx.x;
+  float* v[kVecs];
+  Problem P = setup_rt<D>(args, r, smem, a, v, kVecs);
+  P.S = Sc + (size_t)a * D * D * P.n;
+  const size_t off = (size_t)a * r * K * P.n;
+  TcgVecs W{eta_out + off, heta_out + off, v[3], v[4], v[5], v[6]};
+  bool hit;
+  const int k = tcg_rt<D>(P, r, gc + off, radius[a], args.max_iters,
+                          args.kappa, args.theta, W, &hit);
+  if (threadIdx.x == 0) {
+    stats[(size_t)a * 2] = (float)k;
+    stats[(size_t)a * 2 + 1] = hit ? 1.f : 0.f;
+  }
+}
+
+// rtr_refine_full_kernel at rank r.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+rtr_refine_full_kernel_rt(Args args, int r, RefineConsts rc,
+                          float initial_radius, int max_rejections,
+                          float grad_tol, float* D_out, float* stats,
+                          int* tcg_iters) {
+  constexpr int K = D + 1;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int a = blockIdx.x;
+  float* v[kRefineVecs];
+  Problem P = setup_rt<D>(args, r, smem, a, v, kRefineVecs);
+  const int n = P.n;
+  const size_t off = (size_t)a * r * K * n;
+  const float* Dst = P.X;
+  const float* Rc = rc.Rc + off;
+  const float* g0 = rc.g0 + off;
+  const float* Gref = rc.Gref + off;
+  const float* S0 = rc.S0 + (size_t)a * D * D * n;
+  float* g = v[0];
+  float* dp = v[7];
+  float* Y = v[8];
+  TcgVecs W{v[1], v[2], v[3], v[4], v[5], v[6]};
+  float* dout = D_out + off;
+  float* S = const_cast<float*>(P.S);
+
+  // dG = egrad([D | Dz]) into W.hd, then S1 = sym(D_Y^T Gref_Y + Y_Y^T
+  // dG_Y) over the rows, S = S0 + S1, the re-centered gradient g and Y.
+  grad_sweep_rt<D>(P, r, Dst, P.Z, W.hd);
+  float gg[1] = {0.f};
+  for (int p = threadIdx.x; p < n; p += blockDim.x) {
+    float M1[D][D], S1[D][D], St[D][D];
+#pragma unroll
+    for (int b = 0; b < D; ++b)
+#pragma unroll
+      for (int c = 0; c < D; ++c) M1[b][c] = 0.f;
+    for (int q = 0; q < r; ++q) {
+      float dd[K], y[K], G[K], Gr[K];
+      ld_prow<K>(Dst, n, p, q, dd);
+      ld_prow<K>(Rc, n, p, q, y);
+      ld_prow<K>(W.hd, n, p, q, G);
+      ld_prow<K>(Gref, n, p, q, Gr);
+#pragma unroll
+      for (int b = 0; b < D; ++b)
+#pragma unroll
+        for (int c = 0; c < D; ++c)
+          M1[b][c] += dd[b] * Gr[c] + (y[b] + dd[b]) * G[c];
+    }
+#pragma unroll
+    for (int b = 0; b < D; ++b)
+#pragma unroll
+      for (int c = 0; c < D; ++c) S1[b][c] = 0.5f * (M1[b][c] + M1[c][b]);
+#pragma unroll
+    for (int b = 0; b < D; ++b)
+#pragma unroll
+      for (int c = 0; c < D; ++c) {
+        St[b][c] = S0[(b * D + c) * n + p] + S1[b][c];
+        S[(b * D + c) * n + p] = St[b][c];
+      }
+    for (int q = 0; q < r; ++q) {
+      float dd[K], y[K], G[K], gv[K];
+      ld_prow<K>(Dst, n, p, q, dd);
+      ld_prow<K>(Rc, n, p, q, y);
+      ld_prow<K>(W.hd, n, p, q, G);
+      ld_prow<K>(g0, n, p, q, gv);
+      st_prow<K>(dout, n, p, q, dd);
+#pragma unroll
+      for (int c = 0; c < D; ++c) {
+        float s = 0.f;
+#pragma unroll
+        for (int b = 0; b < D; ++b) s += y[b] * S1[b][c] + dd[b] * St[b][c];
+        gv[c] = gv[c] + G[c] - s;
+      }
+      gv[D] = gv[D] + G[D];
+      st_prow<K>(g, n, p, q, gv);
+      gg[0] += dot<K>(gv, gv);
+#pragma unroll
+      for (int i = 0; i < K; ++i) y[i] += dd[i];
+      st_prow<K>(Y, n, p, q, y);
+    }
+  }
+  block_sum<1>(gg, P.red);
+  const float gn0 = sqrtf(gg[0]);
+  P.X = Y;  // projections, curvature and preconditioner are taken at Y
+
+  // Initial radius at the preconditioned-gradient (Cauchy) scale; the
+  // solve goes through W.z, which tcg overwrites.
+  float pp[1] = {0.f};
+  for (int p = threadIdx.x; p < n; p += blockDim.x) {
+    float Lp[K * K], sy[D * D];
+    ld_factor<D>(P, p, Lp);
+    for (int q = 0; q < r; ++q) {
+      float pg[K];
+      ld_prow<K>(g, n, p, q, pg);
+      chol_row<D>(Lp, pg);
+      st_prow<K>(W.z, n, p, q, pg);
+    }
+    sym_rows<D>(Y, W.z, n, p, r, sy);
+    for (int q = 0; q < r; ++q) {
+      float y[K], pg[K];
+      ld_prow<K>(Y, n, p, q, y);
+      ld_prow<K>(W.z, n, p, q, pg);
+      sub_row<D>(y, sy, pg);
+      pp[0] += dot<K>(pg, pg);
+    }
+  }
+  block_sum<1>(pp, P.red);
+  float radius = fminf(initial_radius, 10.f * sqrtf(pp[0]));
+  const float f0 = cost_rt<D, true>(P, r, Dst, P.Z);
+
+  int k_att = (gn0 < grad_tol) ? max_rejections : 0;
+  float f_best = f0;
+  bool accepted = false;
+  int iters = 0;
+  while (k_att < max_rejections && !accepted) {
+    bool hit;
+    iters += tcg_rt<D>(P, r, g, radius, args.max_iters, args.kappa,
+                       args.theta, W, &hit);
+    retract_refine_rt<D>(P, r, Rc, Dst, W.eta, dp);
+    const float f_prop = cost_rt<D, true>(P, r, dp, P.Z);
+    float m2[2];
+    model_dots<K>(P, r, g, W, m2);
+    const float mdec = -(m2[0] + 0.5f * m2[1]);
+    const float rho = (f0 - f_prop) / fmaxf(mdec, kEps);
+    const bool ok = (rho > 0.1f) && (f_prop <= f0);
+    if (ok) {
+      copy_rows<K>(dp, n, r, dout);
+      f_best = f_prop;
+    } else {
+      radius = radius / 4.f;
+    }
+    ++k_att;
+    accepted = ok;
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) {
+    float* st = stats + (size_t)a * 5;
+    st[0] = (float)k_att;
+    st[1] = accepted ? 1.f : 0.f;
+    st[2] = f0;
+    st[3] = f_best;
+    st[4] = gn0;
+    tcg_iters[a] = iters;
+  }
+}
+
 // The one formula for an agent's edge payload: indices, transforms and
 // weights, plus the reference residuals in refine mode.
 size_t payload_bytes(int r, int d, int E, bool refine) {
@@ -1184,16 +2114,16 @@ struct Launchers {};
 
 template <int R, int D>
 struct Launchers<R, D, true> {
-  static int rtr_full(const Args& args, float initial_radius,
+  static int rtr_full(const Args& args, int r, float initial_radius,
                       int max_rejections, float grad_tol, float* X_out,
                       float* stats, int* tcg_iters, cudaStream_t stream);
-  static int rtr(const Args& args, const float* Sc, const float* gc,
+  static int rtr(const Args& args, int r, const float* Sc, const float* gc,
                  float initial_radius, int max_rejections, float* X_out,
                  float* stats, int* tcg_iters, cudaStream_t stream);
-  static int tcg(const Args& args, const float* Sc, const float* gc,
+  static int tcg(const Args& args, int r, const float* Sc, const float* gc,
                  const float* radius, float* eta, float* heta, float* stats,
                  cudaStream_t stream);
-  static int rtr_refine_full(const Args& args, const RefineConsts& rc,
+  static int rtr_refine_full(const Args& args, int r, const RefineConsts& rc,
                              float initial_radius, int max_rejections,
                              float grad_tol, float* D_out, float* stats,
                              int* tcg_iters, cudaStream_t stream);
@@ -1202,62 +2132,102 @@ struct Launchers<R, D, true> {
 #if DPGO_PART >= 0
 
 template <int R, int D>
-int Launchers<R, D, true>::rtr_full(const Args& args, float initial_radius,
-                                    int max_rejections, float grad_tol,
-                                    float* X_out, float* stats,
-                                    int* tcg_iters, cudaStream_t stream) {
+int Launchers<R, D, true>::rtr_full(const Args& args, int r,
+                                    float initial_radius, int max_rejections,
+                                    float grad_tol, float* X_out,
+                                    float* stats, int* tcg_iters,
+                                    cudaStream_t stream) {
   size_t smem;
-  const int err = prepare_launch(rtr_full_kernel<R, D>, args, R, D, &smem);
-  if (err != 0) return err;
-  rtr_full_kernel<R, D><<<args.A, kThreads, smem, stream>>>(
-      args, initial_radius, max_rejections, grad_tol, X_out, stats, tcg_iters);
-  return (int)cudaGetLastError();
+  if constexpr (R == 0) {
+    const int err = prepare_launch(rtr_full_kernel_rt<D>, args, r, D, &smem);
+    if (err != 0) return err;
+    rtr_full_kernel_rt<D><<<args.A, kThreads, smem, stream>>>(
+        args, r, initial_radius, max_rejections, grad_tol, X_out, stats,
+        tcg_iters);
+    return (int)cudaGetLastError();
+  } else {
+    const int err = prepare_launch(rtr_full_kernel<R, D>, args, R, D, &smem);
+    if (err != 0) return err;
+    rtr_full_kernel<R, D><<<args.A, kThreads, smem, stream>>>(
+        args, initial_radius, max_rejections, grad_tol, X_out, stats,
+        tcg_iters);
+    return (int)cudaGetLastError();
+  }
 }
 
 template <int R, int D>
-int Launchers<R, D, true>::rtr(const Args& args, const float* Sc,
+int Launchers<R, D, true>::rtr(const Args& args, int r, const float* Sc,
                                const float* gc, float initial_radius,
                                int max_rejections, float* X_out, float* stats,
                                int* tcg_iters, cudaStream_t stream) {
   size_t smem;
-  const int err = prepare_launch(rtr_kernel<R, D>, args, R, D, &smem);
-  if (err != 0) return err;
-  rtr_kernel<R, D><<<args.A, kThreads, smem, stream>>>(
-      args, Sc, gc, initial_radius, max_rejections, X_out, stats, tcg_iters);
-  return (int)cudaGetLastError();
+  if constexpr (R == 0) {
+    const int err = prepare_launch(rtr_kernel_rt<D>, args, r, D, &smem);
+    if (err != 0) return err;
+    rtr_kernel_rt<D><<<args.A, kThreads, smem, stream>>>(
+        args, r, Sc, gc, initial_radius, max_rejections, X_out, stats,
+        tcg_iters);
+    return (int)cudaGetLastError();
+  } else {
+    const int err = prepare_launch(rtr_kernel<R, D>, args, R, D, &smem);
+    if (err != 0) return err;
+    rtr_kernel<R, D><<<args.A, kThreads, smem, stream>>>(
+        args, Sc, gc, initial_radius, max_rejections, X_out, stats,
+        tcg_iters);
+    return (int)cudaGetLastError();
+  }
 }
 
 template <int R, int D>
-int Launchers<R, D, true>::tcg(const Args& args, const float* Sc,
+int Launchers<R, D, true>::tcg(const Args& args, int r, const float* Sc,
                                const float* gc, const float* radius,
                                float* eta, float* heta, float* stats,
                                cudaStream_t stream) {
   size_t smem;
-  const int err = prepare_launch(tcg_kernel<R, D>, args, R, D, &smem);
-  if (err != 0) return err;
-  tcg_kernel<R, D><<<args.A, kThreads, smem, stream>>>(args, Sc, gc, radius,
-                                                        eta, heta, stats);
-  return (int)cudaGetLastError();
+  if constexpr (R == 0) {
+    const int err = prepare_launch(tcg_kernel_rt<D>, args, r, D, &smem);
+    if (err != 0) return err;
+    tcg_kernel_rt<D><<<args.A, kThreads, smem, stream>>>(
+        args, r, Sc, gc, radius, eta, heta, stats);
+    return (int)cudaGetLastError();
+  } else {
+    const int err = prepare_launch(tcg_kernel<R, D>, args, R, D, &smem);
+    if (err != 0) return err;
+    tcg_kernel<R, D><<<args.A, kThreads, smem, stream>>>(args, Sc, gc, radius,
+                                                          eta, heta, stats);
+    return (int)cudaGetLastError();
+  }
 }
 
 template <int R, int D>
 int Launchers<R, D, true>::rtr_refine_full(
-    const Args& args, const RefineConsts& rc, float initial_radius,
+    const Args& args, int r, const RefineConsts& rc, float initial_radius,
     int max_rejections, float grad_tol, float* D_out, float* stats,
     int* tcg_iters, cudaStream_t stream) {
   size_t smem;
-  const int err =
-      prepare_launch(rtr_refine_full_kernel<R, D>, args, R, D, &smem);
-  if (err != 0) return err;
-  rtr_refine_full_kernel<R, D><<<args.A, kThreads, smem, stream>>>(
-      args, rc, initial_radius, max_rejections, grad_tol, D_out, stats,
-      tcg_iters);
-  return (int)cudaGetLastError();
+  if constexpr (R == 0) {
+    const int err =
+        prepare_launch(rtr_refine_full_kernel_rt<D>, args, r, D, &smem);
+    if (err != 0) return err;
+    rtr_refine_full_kernel_rt<D><<<args.A, kThreads, smem, stream>>>(
+        args, r, rc, initial_radius, max_rejections, grad_tol, D_out, stats,
+        tcg_iters);
+    return (int)cudaGetLastError();
+  } else {
+    const int err =
+        prepare_launch(rtr_refine_full_kernel<R, D>, args, R, D, &smem);
+    if (err != 0) return err;
+    rtr_refine_full_kernel<R, D><<<args.A, kThreads, smem, stream>>>(
+        args, rc, initial_radius, max_rejections, grad_tol, D_out, stats,
+        tcg_iters);
+    return (int)cudaGetLastError();
+  }
 }
 
 #define DPGO_INSTANTIATE(R_, D_) \
   template struct Launchers<R_, D_, dpgo_shapes::in_part(R_, D_)>;
 DPGO_SHAPES(DPGO_INSTANTIATE)
+DPGO_GENERIC_SHAPES(DPGO_INSTANTIATE)
 #undef DPGO_INSTANTIATE
 
 #endif  // DPGO_PART >= 0
@@ -1303,8 +2273,8 @@ int dpgo_rtr_full_launch(int r, int d, int A, int n, int s, int Ep, int T,
   int* it = static_cast<int*>(tcg_iters);
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
   return dispatch<Launchers>(r, d, [&](auto launchers) {
-    return launchers.rtr_full(g, initial_radius, max_rejections, grad_tol, xo,
-                              st, it, cs);
+    return launchers.rtr_full(g, r, initial_radius, max_rejections, grad_tol,
+                              xo, st, it, cs);
   });
 }
 
@@ -1329,8 +2299,8 @@ int dpgo_rtr_launch(int r, int d, int A, int n, int s, int Ep, int T,
   int* it = static_cast<int*>(tcg_iters);
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
   return dispatch<Launchers>(r, d, [&](auto launchers) {
-    return launchers.rtr(a, sc, gc, initial_radius, max_rejections, xo, st, it,
-                         cs);
+    return launchers.rtr(a, r, sc, gc, initial_radius, max_rejections, xo, st,
+                         it, cs);
   });
 }
 
@@ -1356,7 +2326,7 @@ int dpgo_tcg_launch(int r, int d, int A, int n, int Ep, int T, int e_max,
   float* st = static_cast<float*>(stats);
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
   return dispatch<Launchers>(r, d, [&](auto launchers) {
-    return launchers.tcg(a, sc, gc, rd, e, h, st, cs);
+    return launchers.tcg(a, r, sc, gc, rd, e, h, st, cs);
   });
 }
 
@@ -1383,8 +2353,9 @@ int dpgo_rtr_refine_full_launch(
   int* it = static_cast<int*>(tcg_iters);
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
   return dispatch<Launchers>(r, d, [&](auto launchers) {
-    return launchers.rtr_refine_full(g, rc, initial_radius, max_rejections,
-                                     grad_tol, dout, st, it, cs);
+    return launchers.rtr_refine_full(g, r, rc, initial_radius,
+                                     max_rejections, grad_tol, dout, st, it,
+                                     cs);
   });
 }
 

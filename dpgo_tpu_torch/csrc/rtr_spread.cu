@@ -53,6 +53,14 @@
 //     so their round trips overlap; B2's retraction runs each pose's 24
 //     Newton-Schulz sweeps on one lane of its group, not on every row's
 //     (retract_stripes).
+//   * The rank-generic instantiation (R = 0, 11 <= r <= 128; shapes.cuh)
+//     reads r from the launch: up to r = 32 a group is r lanes of a warp as
+//     above; above, a pose takes ceil(r / 32) whole warps (row q on lane q %
+//     32 of its (q / 32)-th warp) and its group sums meet in shared slots
+//     after a block barrier (lanes.cuh's wide_group_sum).  A thread
+//     still holds one row of d + 1 floats; B2's retraction runs on every
+//     row of the pose (retract_row), since a batch of r stripes' sums would
+//     hold r (d + 1) floats a thread.
 //   * Sweeps, cost ownership, reductions, the retractions' arithmetic and
 //     the double-buffered direction with two cluster barriers per tCG
 //     iteration are rtr_cluster.cu's.  A thread adds its stripes' terms in
@@ -72,7 +80,9 @@
 #include <map>
 #include <mutex>
 #include <tuple>
+#include <type_traits>
 
+#include "lanes.cuh"
 #include "shapes.cuh"
 #include "smem_limit.cuh"
 
@@ -146,19 +156,23 @@ struct SpreadShape {
 };
 
 // The one formula for the spread kernels' shape (ops/rtr_kernel.
-// spread_shape mirrors it): 32 / r poses per warp, at most kThreads
-// threads, ceil(P / groups) stripes; shared memory holds the kSmemVecs
-// vectors [P][vec_stride] and the double-buffered reduction slots
-// [2][C * warps][4].  B2 and B4 share it.
+// spread_shape mirrors it): 32 / r poses per warp (ceil(r / 32) warps per
+// pose above r = 32), at most kThreads threads of whole groups,
+// ceil(P / groups) stripes; shared memory holds the kSmemVecs vectors
+// [P][vec_stride], the double-buffered reduction slots [2][C * warps][4]
+// and, above r = 32, the group-sum slots [warps][kGroupSums].  B2 and B4
+// share it.
 SpreadShape spread_shape(int r, int d, int n, int C) {
   const int P = (n + C - 1) / C;
-  const int per_warp = 32 / r;
-  int threads = (P + per_warp - 1) / per_warp * 32;
-  if (threads > kThreads) threads = kThreads;
-  const int groups = threads / 32 * per_warp;
+  const int per_warp = poses_per_warp(r);
+  const int W = pose_warps(r);
+  int threads = (P + per_warp - 1) / per_warp * 32 * W;
+  if (threads > kThreads) threads = kThreads / 32 / W * W * 32;
+  const int groups = threads / 32 / W * per_warp;
   const int stripes = (P + groups - 1) / groups;
   const size_t floats = (size_t)kSmemVecs * P * vec_stride(r * (d + 1)) +
-                        2 * (size_t)C * (threads / 32) * kMaxSums;
+                        2 * (size_t)C * (threads / 32) * kMaxSums +
+                        group_slots(r, threads / 32);
   return {P, threads, stripes, floats * sizeof(float)};
 }
 
@@ -212,6 +226,16 @@ struct SpreadArgs {
   float kappa, theta;
 };
 
+// The arguments of the rank-generic instantiation (R = 0): the rank too.
+// The templated shapes keep SpreadArgs, so their kernels compile as they
+// did before R = 0 existed.
+struct SpreadArgsR : SpreadArgs {
+  int r;
+};
+
+template <int R>
+using ArgsOf = std::conditional_t<R == 0, SpreadArgsR, SpreadArgs>;
+
 namespace {
 
 // One thread's view of its agent: the cluster's shape, this thread's lane
@@ -240,6 +264,27 @@ struct Ctx {
   int* eids;        // workspace [Kinc][P]: their edges
   float* red;       // shared [2][C * warps][kMaxSums]
 };
+
+// rtr_cluster.cu's CtxR: the launch's rank and the group-sum slots of the
+// rank-generic instantiation (R = 0), read through rank_of and
+// wide_group_sum at R = 0 only.
+struct CtxR : Ctx {
+  int r;
+  float* gslots;  // shared [warps][kGroupSums] (r > 32)
+};
+
+template <int R>
+using CtxOf = std::conditional_t<R == 0, CtxR, Ctx>;
+
+// The rank: the template's, or at R = 0 the launch's.
+template <int R>
+__device__ __forceinline__ int rank_of(const Ctx& cx) {
+  if constexpr (R == 0) {
+    return static_cast<const CtxR&>(cx).r;
+  } else {
+    return R;
+  }
+}
 
 // Point the thread at stripe st: pose slot st * groups + grp of its CTA.
 __device__ __forceinline__ void at_stripe(Ctx& cx, int st) {
@@ -310,6 +355,13 @@ __device__ __forceinline__ void st_row(float* p, const float (&v)[K]) {
 // first kSmemVecs, else the workspace.
 template <int R, int K>
 __device__ __forceinline__ float* row_at(const Ctx& cx, int v, int pl) {
+  if constexpr (R == 0) {
+    const int VS = vec_stride(rank_of<0>(cx) * K);
+    if (v < kSmemVecs)
+      return cx.vec + ((size_t)v * cx.P + pl) * VS + cx.row * K;
+    return cx.gv + ((size_t)(v - kSmemVecs) * cx.np + pose_of(cx, pl)) * VS +
+           cx.row * K;
+  }
   constexpr int VS = vec_stride(R * K);
   if (v < kSmemVecs)
     return cx.vec + ((size_t)v * cx.P + pl) * VS + cx.row * K;
@@ -335,6 +387,43 @@ __device__ __forceinline__ void st_own(const Ctx& cx, int v,
   if (cx.own) st_row<K>(row_at<R, K>(cx, v, cx.pl), x);
 }
 
+// ld_other at R = 0, the stride of the launch's rank.
+template <int K>
+__device__ __forceinline__ void ld_other_rt(const Ctx& cx, int v, int w,
+                                            float (&x)[K], int prev,
+                                            float beta) {
+  const int VS = vec_stride(rank_of<0>(cx) * K);
+  const int at = w & kIndexMask;
+  if (w & kPose) {
+    const int rank = (w >> kRankShift) & 15;
+    if (v >= kSmemVecs) {
+      ld_row_l2<K>(cx.gv + ((size_t)(v - kSmemVecs) * cx.np + rank * cx.P +
+                            at) * VS + cx.row * K,
+                   x);
+      return;
+    }
+    auto at_owner = [&](int vec) {
+      float* p = cx.vec + ((size_t)vec * cx.P + at) * VS + cx.row * K;
+      return rank == cx.rank ? p : cg::this_cluster().map_shared_rank(p, rank);
+    };
+    if (prev < 0) {
+      ld_row<K>(at_owner(v), x);
+    } else {
+      float z[K];
+      ld_row<K>(at_owner(v), z);
+      ld_row<K>(at_owner(prev), x);
+#pragma unroll
+      for (int q = 0; q < K; ++q) x[q] = -z[q] + beta * x[q];
+    }
+  } else if (w & kSlot) {
+#pragma unroll
+    for (int q = 0; q < K; ++q) x[q] = cx.Z[(cx.row * K + q) * cx.s + at];
+  } else {
+#pragma unroll
+    for (int q = 0; q < K; ++q) x[q] = 0.f;
+  }
+}
+
 // This thread's row of the other endpoint of the ELL entry with payload
 // word w: a pose's shared vector v from the CTA that owns it (or, with
 // prev >= 0, -v + beta prev: the next CG direction, which its owner may
@@ -344,6 +433,10 @@ template <int R, int K>
 __device__ __forceinline__ void ld_other(const Ctx& cx, int v, int w,
                                          float (&x)[K], int prev,
                                          float beta) {
+  if constexpr (R == 0) {
+    ld_other_rt<K>(cx, v, w, x, prev, beta);
+    return;
+  }
   constexpr int VS = vec_stride(R * K);
   const int at = w & kIndexMask;
   if (w & kPose) {
@@ -387,9 +480,27 @@ __device__ __forceinline__ float dot(const float (&a)[K],
 
 // Sums of N values over the R lanes of this thread's pose, rows in order:
 // every lane of the group ends with the same values.  All 32 lanes of the
-// warp must call it.
+// warp must call it (at R = 0 above r = 32, every thread of the CTA).
 template <int R, int N>
 __device__ __forceinline__ void group_sum(const Ctx& cx, float (&v)[N]) {
+  if constexpr (R == 0) {
+    const int r = rank_of<0>(cx);
+    if (r > 32) {
+      const CtxR& cr = static_cast<const CtxR&>(cx);
+      wide_group_sum<N>(cr.gslots, cr.r, v);
+    } else {
+      float s[N];
+#pragma unroll
+      for (int i = 0; i < N; ++i) s[i] = __shfl_sync(kFull, v[i], cx.base);
+      for (int j = 1; j < r; ++j)
+#pragma unroll
+        for (int i = 0; i < N; ++i)
+          s[i] += __shfl_sync(kFull, v[i], cx.base + j);
+#pragma unroll
+      for (int i = 0; i < N; ++i) v[i] = s[i];
+    }
+    return;
+  }
   float s[N];
 #pragma unroll
   for (int i = 0; i < N; ++i) s[i] = __shfl_sync(kFull, v[i], cx.base);
@@ -611,6 +722,75 @@ __device__ void retract_stripes(Ctx& cx) {
   }
 }
 
+// B2's retraction of every stripe into kXp at R = 0: rtr_cluster.cu's
+// retract, each lane of the pose's group running the Newton-Schulz sweeps
+// on the group's sum of M^T M and keeping its own row of the polar factor,
+// translations added.  Poses at or past the agent's own count keep X.  All
+// threads of the CTA call it.
+template <int D>
+__device__ void retract_rows(Ctx& cx) {
+  constexpr int K = D + 1;
+  constexpr int NM = D * (D + 1) / 2;
+  for (int st = 0; st < cx.stripes; ++st) {
+    at_stripe(cx, st);
+    float x[K], et[K], M[D], m[NM], MM[D * D];
+    ld_own<0, K>(cx, kX, x);
+    ld_own<0, K>(cx, kEta, et);
+#pragma unroll
+    for (int c = 0; c < D; ++c) M[c] = x[c] + et[c];
+    int i = 0;
+#pragma unroll
+    for (int b = 0; b < D; ++b)
+#pragma unroll
+      for (int c = b; c < D; ++c, ++i) m[i] = M[b] * M[c];
+    group_sym<0, D>(cx, m, MM);
+    float Y[D][D], Zm[D][D], T[D][D], tmp[D][D];
+    float s = 0.f;
+#pragma unroll
+    for (int b = 0; b < D; ++b) s += MM[b * D + b];
+    s = fmaxf(s, 1e-37f);
+#pragma unroll
+    for (int b = 0; b < D; ++b)
+#pragma unroll
+      for (int c = 0; c < D; ++c) {
+        Y[b][c] = MM[b * D + c] / s;
+        Zm[b][c] = (b == c) ? 1.f : 0.f;
+      }
+    for (int it = 0; it < kNsSweeps; ++it) {
+      matmul3<D>(Zm, Y, tmp);
+#pragma unroll
+      for (int b = 0; b < D; ++b)
+#pragma unroll
+        for (int c = 0; c < D; ++c)
+          T[b][c] = 0.5f * (((b == c) ? 3.f : 0.f) - tmp[b][c]);
+      matmul3<D>(Y, T, tmp);
+      matmul3<D>(T, Zm, Y);  // Y holds the new Z for a moment
+#pragma unroll
+      for (int b = 0; b < D; ++b)
+#pragma unroll
+        for (int c = 0; c < D; ++c) {
+          Zm[b][c] = Y[b][c];
+          Y[b][c] = tmp[b][c];
+        }
+    }
+    const float inv = 1.f / sqrtf(s);
+    float o[K];
+#pragma unroll
+    for (int c = 0; c < D; ++c) {
+      float acc = 0.f;
+#pragma unroll
+      for (int b = 0; b < D; ++b) acc += M[b] * Zm[b][c];
+      o[c] = acc * inv;
+    }
+    o[D] = x[D] + et[D];
+    if (pose_of(cx, cx.pl) < cx.n_act) {
+      st_own<0, K>(cx, kXp, o);
+    } else {
+      st_own<0, K>(cx, kXp, x);
+    }
+  }
+}
+
 // rtr_cluster.cu's retract_refine: this thread's row of the refine step's
 // D_new (the four-term polar-correction series on U = D + V about Rc).
 template <int R, int D>
@@ -777,7 +957,13 @@ __device__ void sweep(const Ctx& cx, int v, bool with_z,
       if (REFINE) {
         // This row's reference residuals: rho_rot's row, then rho_trn.
         float rh[K];
-        ld_row_l2<K>(cx.rho + ((size_t)cx.eids[at] * R + cx.row) * K, rh);
+        if constexpr (R == 0) {
+          ld_row_l2<K>(
+              cx.rho + ((size_t)cx.eids[at] * rank_of<0>(cx) + cx.row) * K,
+              rh);
+        } else {
+          ld_row_l2<K>(cx.rho + ((size_t)cx.eids[at] * R + cx.row) * K, rh);
+        }
         float cR = 0.f;
 #pragma unroll
         for (int cc = 0; cc < D; ++cc) cR += rh[cc] * rR[cc];
@@ -798,19 +984,23 @@ __device__ void sweep(const Ctx& cx, int v, bool with_z,
 // share of the reference residuals (REFINE) and, for its poses' live ELL
 // entries in ELL order, their words (rtr_cluster.cu's), edge numbers and
 // edge records, then publish everything to the cluster.
-template <int R, int D, bool REFINE>
-__device__ Ctx setup(const SpreadArgs& g, float* smem, int a) {
+// setup of the rank-generic instantiation (R = 0): r from the launch, the
+// lane layout of that r (r lanes a pose up to 32, ceil(r / 32) warps a
+// pose above), and the group-sum slots after the reduction slots.
+template <int D, bool REFINE>
+__device__ CtxR setup_rt(const SpreadArgsR& g, float* smem, int a) {
   constexpr int K = D + 1;
-  constexpr int RK = R * K;
   constexpr int DD = D * D;
   constexpr int KK = K * K;
-  constexpr int kPerWarp = 32 / R;
-  constexpr int VS = vec_stride(RK);
   constexpr int LF = l_floats(D);
   constexpr int SF = s_floats(D);
   constexpr int EF = edge_floats(D);
   cg::cluster_group cl = cg::this_cluster();
-  Ctx cx;
+  CtxR cx;
+  cx.r = g.r;
+  const int r = g.r;
+  const int RK = r * K;
+  const int VS = vec_stride(RK);
   cx.n = g.n;
   cx.s = g.s;
   cx.kinc = g.kinc;
@@ -821,16 +1011,28 @@ __device__ Ctx setup(const SpreadArgs& g, float* smem, int a) {
   cx.np = cx.C * cx.P;
   cx.parity = 0;
   const int lane = threadIdx.x & 31;
-  const int group = lane / R;
-  cx.row = lane - group * R;
-  cx.base = group * R;
-  cx.lane_ok = group < kPerWarp;
-  cx.groups = (blockDim.x >> 5) * kPerWarp;
-  cx.grp = (threadIdx.x >> 5) * kPerWarp + group;
+  const int warp = threadIdx.x >> 5;
+  if (r <= 32) {
+    const int per_warp = poses_per_warp(r);
+    const int group = lane / r;
+    cx.row = lane - group * r;
+    cx.base = group * r;
+    cx.lane_ok = group < per_warp;
+    cx.groups = (blockDim.x >> 5) * per_warp;
+    cx.grp = warp * per_warp + group;
+  } else {
+    const int W = pose_warps(r);
+    cx.grp = warp / W;
+    cx.row = (warp - cx.grp * W) * 32 + lane;
+    cx.base = 0;
+    cx.lane_ok = cx.row < r;
+    cx.groups = (blockDim.x >> 5) / W;
+  }
   cx.stripes = (cx.P + cx.groups - 1) / cx.groups;
   cx.Z = g.Z + (size_t)a * RK * g.s;
   cx.vec = smem;
   cx.red = smem + (size_t)kSmemVecs * cx.P * VS;  // [2][C nw][4]
+  cx.gslots = cx.red + 2 * (size_t)cx.C * (blockDim.x >> 5) * kMaxSums;
   float* ws = g.ws + (size_t)a * g.ws_stride;
   cx.gv = ws;
   cx.L = ws + (size_t)((REFINE ? kRefineVecs : kVecs) - kSmemVecs) * cx.np *
@@ -855,16 +1057,16 @@ __device__ Ctx setup(const SpreadArgs& g, float* smem, int a) {
     float x[K];
 #pragma unroll
     for (int q = 0; q < K; ++q) x[q] = __ldg(g.X + (comp + q) * g.n + p);
-    st_own<R, K>(cx, REFINE ? kD : kX, x);
+    st_own<0, K>(cx, REFINE ? kD : kX, x);
     if (REFINE) {
 #pragma unroll
       for (int q = 0; q < K; ++q) x[q] = __ldg(g.Rc + (comp + q) * g.n + p);
-      st_own<R, K>(cx, kRc, x);
+      st_own<0, K>(cx, kRc, x);
     }
     if (g.S != nullptr) {
 #pragma unroll
       for (int q = 0; q < K; ++q) x[q] = __ldg(g.g + (comp + q) * g.n + p);
-      st_own<R, K>(cx, kG, x);
+      st_own<0, K>(cx, kG, x);
     }
   }
   // The factors' lower triangles (diagonal reciprocals) and S0, one entry
@@ -901,12 +1103,12 @@ __device__ Ctx setup(const SpreadArgs& g, float* smem, int a) {
       const size_t tile = (size_t)a * nt + tl;
       float* rh = cx.rho + (size_t)e * RK;
 #pragma unroll
-      for (int row = 0; row < R; ++row) {
+      for (int row = 0; row < r; ++row) {
 #pragma unroll
         for (int k = 0; k < D; ++k)
-          rh[row * K + k] = g.rho_rot[(tile * (R * D) + row * D + k) * g.T +
+          rh[row * K + k] = g.rho_rot[(tile * (r * D) + row * D + k) * g.T +
                                       ln];
-        rh[row * K + D] = g.rho_trn[(tile * R + row) * g.T + ln];
+        rh[row * K + D] = g.rho_trn[(tile * r + row) * g.T + ln];
       }
     }
   }
@@ -973,6 +1175,187 @@ __device__ Ctx setup(const SpreadArgs& g, float* smem, int a) {
   __threadfence();  // the workspace rows other CTAs read, before the barrier
   cl.sync();
   return cx;
+}
+
+template <int R, int D, bool REFINE>
+__device__ CtxOf<R> setup(const ArgsOf<R>& g, float* smem, int a) {
+  if constexpr (R == 0) {
+    return setup_rt<D, REFINE>(g, smem, a);
+  } else {
+    constexpr int K = D + 1;
+    constexpr int RK = R * K;
+    constexpr int DD = D * D;
+    constexpr int KK = K * K;
+    constexpr int kPerWarp = 32 / R;
+    constexpr int VS = vec_stride(RK);
+    constexpr int LF = l_floats(D);
+    constexpr int SF = s_floats(D);
+    constexpr int EF = edge_floats(D);
+    cg::cluster_group cl = cg::this_cluster();
+    Ctx cx;
+    cx.n = g.n;
+    cx.s = g.s;
+    cx.kinc = g.kinc;
+    cx.n_act = g.n_local[a];
+    cx.C = (int)cl.num_blocks();
+    cx.rank = (int)cl.block_rank();
+    cx.P = (g.n + cx.C - 1) / cx.C;
+    cx.np = cx.C * cx.P;
+    cx.parity = 0;
+    const int lane = threadIdx.x & 31;
+    const int group = lane / R;
+    cx.row = lane - group * R;
+    cx.base = group * R;
+    cx.lane_ok = group < kPerWarp;
+    cx.groups = (blockDim.x >> 5) * kPerWarp;
+    cx.grp = (threadIdx.x >> 5) * kPerWarp + group;
+    cx.stripes = (cx.P + cx.groups - 1) / cx.groups;
+    cx.Z = g.Z + (size_t)a * RK * g.s;
+    cx.vec = smem;
+    cx.red = smem + (size_t)kSmemVecs * cx.P * VS;  // [2][C nw][4]
+    float* ws = g.ws + (size_t)a * g.ws_stride;
+    cx.gv = ws;
+    cx.L = ws + (size_t)((REFINE ? kRefineVecs : kVecs) - kSmemVecs) * cx.np *
+                    VS;
+    cx.S = cx.L + (size_t)LF * cx.np;
+    const size_t stride = (size_t)g.kinc * cx.P;
+    float* recs = cx.S + (size_t)SF * cx.np;
+    cx.rec = recs + (size_t)cx.rank * stride * EF;
+    cx.rho = REFINE ? recs + (size_t)cx.C * stride * EF : nullptr;
+    cx.cnt = reinterpret_cast<int*>(recs + (size_t)cx.C * stride * EF +
+                                    (REFINE ? (size_t)RK * g.E : 0)) +
+             (size_t)cx.rank * (cx.P + 3 * stride);
+    cx.words = cx.cnt + cx.P;
+    cx.eids = cx.words + stride;
+    int* slots = cx.eids + stride;
+
+    for (int st = 0; st < cx.stripes; ++st) {
+      at_stripe(cx, st);
+      if (!cx.own) continue;
+      const int p = pose_of(cx, cx.pl);
+      const size_t comp = (size_t)a * RK + cx.row * K;
+      float x[K];
+#pragma unroll
+      for (int q = 0; q < K; ++q) x[q] = __ldg(g.X + (comp + q) * g.n + p);
+      st_own<R, K>(cx, REFINE ? kD : kX, x);
+      if (REFINE) {
+#pragma unroll
+        for (int q = 0; q < K; ++q) x[q] = __ldg(g.Rc + (comp + q) * g.n + p);
+        st_own<R, K>(cx, kRc, x);
+      }
+      if (g.S != nullptr) {
+#pragma unroll
+        for (int q = 0; q < K; ++q) x[q] = __ldg(g.g + (comp + q) * g.n + p);
+        st_own<R, K>(cx, kG, x);
+      }
+    }
+    // The factors' lower triangles (diagonal reciprocals) and S0, one entry
+    // a thread at a time, consecutive threads on consecutive poses.
+    const int c0 = cx.rank * cx.P;
+    const int np_cta = min(cx.P, g.n - c0);
+    constexpr int NL = K * (K + 1) / 2;
+#pragma unroll 4
+    for (int t = threadIdx.x; t < NL * np_cta; t += blockDim.x) {
+      const int e = t / np_cta;
+      const int p = c0 + t - e * np_cta;
+      int i = 0;
+      while ((i + 1) * (i + 2) / 2 <= e) ++i;
+      const int q = e - i * (i + 1) / 2;
+      const float l = __ldg(g.L + ((size_t)a * KK + i * K + q) * g.n + p);
+      cx.L[(size_t)p * LF + e] = i == q ? 1.f / l : l;
+    }
+    if (g.S != nullptr) {
+#pragma unroll 4
+      for (int t = threadIdx.x; t < DD * np_cta; t += blockDim.x) {
+        const int e = t / np_cta;
+        const int p = c0 + t - e * np_cta;
+        cx.S[(size_t)p * SF + e] = __ldg(g.S + ((size_t)a * DD + e) * g.n + p);
+      }
+    }
+    // The reference residuals by edge and row, the agent's CTAs taking
+    // every C-th block of edges.
+    const int nt = g.Ep / g.T;
+    if (REFINE) {
+      for (int e = cx.rank * blockDim.x + threadIdx.x; e < g.E;
+           e += cx.C * blockDim.x) {
+        const int tl = e / g.T;
+        const int ln = e - tl * g.T;
+        const size_t tile = (size_t)a * nt + tl;
+        float* rh = cx.rho + (size_t)e * RK;
+#pragma unroll
+        for (int row = 0; row < R; ++row) {
+#pragma unroll
+          for (int k = 0; k < D; ++k)
+            rh[row * K + k] = g.rho_rot[(tile * (R * D) + row * D + k) * g.T +
+                                        ln];
+          rh[row * K + D] = g.rho_trn[(tile * R + row) * g.T + ln];
+        }
+      }
+    }
+    // Each pose's live ELL entries, numbered in ELL order: the slot of
+    // entry (c, pose) among them (-1 when it is not live), and their count.
+    for (int pl = threadIdx.x; pl < cx.P; pl += blockDim.x) {
+      const int pe = c0 + pl;
+      int live = 0;
+#pragma unroll 4
+      for (int c = 0; c < g.kinc; ++c) {
+        const bool on =
+            pe < g.n &&
+            __ldg(g.incm + ((size_t)a * g.n + min(pe, g.n - 1)) * g.kinc +
+                  c) != 0.f;
+        slots[c * cx.P + pl] = on ? live : -1;
+        live += on;
+      }
+      cx.cnt[pl] = live;
+    }
+    __syncthreads();
+    // The words, edge numbers and edge records (rot, trn, wk, wt) of the
+    // live entries at their slots.
+#pragma unroll 4
+    for (int t = threadIdx.x; t < (int)stride; t += blockDim.x) {
+      const int slot = slots[t];
+      if (slot < 0) continue;
+      const int c = t / cx.P;
+      const int pl = t - c * cx.P;
+      const int pe = c0 + pl;
+      const int sl = __ldg(g.inc + ((size_t)a * g.n + pe) * g.kinc + c);
+      const bool side_j = sl >= g.E;
+      const int e = side_j ? sl - g.E : sl;
+      const size_t ge = (size_t)a * g.Ep + e;
+      const int ii = __ldg(g.idx_i + ge);
+      const int other = side_j ? ii : __ldg(g.idx_j + ge);
+      int w = kLive | (side_j ? kSideJ : 0) |
+              ((!side_j || ii >= g.n) ? kCostOwner : 0);
+      if (other < g.n) {
+        const int rank = other / cx.P;
+        w |= kPose | (rank << kRankShift) | (other - rank * cx.P);
+      } else if (other < g.n + g.s) {
+        w |= kSlot | (other - g.n);
+      }
+      const int at = slot * cx.P + pl;
+      cx.words[at] = w;
+      cx.eids[at] = e;
+      const int tl = e / g.T;
+      const int ln = e - tl * g.T;
+      const size_t tile = (size_t)a * nt + tl;
+      float rec[EF] = {};
+#pragma unroll
+      for (int k = 0; k < DD; ++k)
+        rec[k] = __ldg(g.rot + (tile * DD + k) * g.T + ln);
+#pragma unroll
+      for (int k = 0; k < D; ++k)
+        rec[DD + k] = __ldg(g.trn + (tile * D + k) * g.T + ln);
+      rec[DD + D] = __ldg(g.wk + ge);
+      rec[DD + D + 1] = __ldg(g.wt + ge);
+#pragma unroll
+      for (int j = 0; j < EF / 4; ++j)
+        reinterpret_cast<float4*>(cx.rec + (size_t)at * EF)[j] = make_float4(
+            rec[4 * j], rec[4 * j + 1], rec[4 * j + 2], rec[4 * j + 3]);
+    }
+    __threadfence();  // the workspace rows other CTAs read, before the barrier
+    cl.sync();
+    return cx;
+  }
 }
 
 // rtr_cluster.cu's tcg over the stripes: Steihaug-Toint truncated CG from
@@ -1161,6 +1544,8 @@ __device__ Attempts attempts(Ctx& cx, const SpreadArgs& args, float* xo,
           st_own<R, K>(cx, kXp, x);
         }
       }
+    } else if constexpr (R == 0) {
+      retract_rows<D>(cx);
     } else {
       retract_stripes<R, D>(cx);
     }
@@ -1206,14 +1591,19 @@ __device__ Attempts attempts(Ctx& cx, const SpreadArgs& args, float* xo,
 
 template <int R, int D>
 __global__ void __launch_bounds__(kThreads, 1)
-rtr_full_spread_kernel(SpreadArgs args, float initial_radius,
+rtr_full_spread_kernel(ArgsOf<R> args, float initial_radius,
                        int max_rejections, float grad_tol, float* X_out,
                        float* stats, int* tcg_iters) {
   constexpr int K = D + 1;
   constexpr int RK = R * K;
   extern __shared__ __align__(16) float smem[];
   const int a = blockIdx.x / cg::this_cluster().num_blocks();
-  Ctx cx = setup<R, D, false>(args, smem, a);
+  CtxOf<R> cx = setup<R, D, false>(args, smem, a);
+  if constexpr (R == 0) {
+    // RK is 0 at R = 0: the agent's slices start at the launch's rank.
+    const size_t off = (size_t)a * rank_of<0>(cx) * K * cx.n;
+    X_out += off;
+  }
   float* xo = X_out + (size_t)a * RK * cx.n;
 
   // Start point: G = egrad([X | Z]), S = sym(Y^T G_Y), g = P_X(G), f0.
@@ -1262,7 +1652,7 @@ rtr_full_spread_kernel(SpreadArgs args, float initial_radius,
 // args.g the constants S0 and g0.
 template <int R, int D>
 __global__ void __launch_bounds__(kThreads, 1)
-rtr_refine_full_spread_kernel(SpreadArgs args, float initial_radius,
+rtr_refine_full_spread_kernel(ArgsOf<R> args, float initial_radius,
                               int max_rejections, float grad_tol,
                               float* D_out, float* stats, int* tcg_iters) {
   constexpr int K = D + 1;
@@ -1270,7 +1660,13 @@ rtr_refine_full_spread_kernel(SpreadArgs args, float initial_radius,
   constexpr int DD = D * D;
   extern __shared__ __align__(16) float smem[];
   const int a = blockIdx.x / cg::this_cluster().num_blocks();
-  Ctx cx = setup<R, D, true>(args, smem, a);
+  CtxOf<R> cx = setup<R, D, true>(args, smem, a);
+  if constexpr (R == 0) {
+    // RK is 0 at R = 0: the agent's slices start at the launch's rank.
+    const size_t off = (size_t)a * rank_of<0>(cx) * K * cx.n;
+    D_out += off;
+    args.Gref += off;
+  }
   float* xo = D_out + (size_t)a * RK * cx.n;
 
   // rtr_cluster.cu's re-centered start: dG and the cost increment at D in
@@ -1312,7 +1708,13 @@ rtr_refine_full_spread_kernel(SpreadArgs args, float initial_radius,
     group_sym<R, D>(cx, m, S1);
 #pragma unroll
     for (int j = 0; j < DD; ++j) St[j] = S0[j] + S1[j];
-    __syncwarp();  // every row has read S0 before row 0 overwrites it
+    // Every row has read S0 before row 0 overwrites it (a pose spans
+    // warps at R = 0 above r = 32).
+    if constexpr (R == 0) {
+      __syncthreads();
+    } else {
+      __syncwarp();
+    }
     if (cx.own && cx.row == 0) {
 #pragma unroll
       for (int j = 0; j < DD; ++j) cx.S[(size_t)p * s_floats(D) + j] = St[j];
@@ -1474,47 +1876,61 @@ struct Launchers {};
 
 template <int R, int D>
 struct Launchers<R, D, true> {
-  static int rtr_full(const SpreadArgs& g, int A, int C,
+  static int rtr_full(const SpreadArgs& g, int r, int A, int C,
                       float initial_radius, int max_rejections,
                       float grad_tol, float* X_out, float* stats,
                       int* tcg_iters, cudaStream_t stream);
-  static int refine(const SpreadArgs& g, int A, int C, float initial_radius,
-                    int max_rejections, float grad_tol, float* D_out,
-                    float* stats, int* tcg_iters, cudaStream_t stream);
-  static int query_clusters(int kernel, int n, int C, int* count);
+  static int refine(const SpreadArgs& g, int r, int A, int C,
+                    float initial_radius, int max_rejections, float grad_tol,
+                    float* D_out, float* stats, int* tcg_iters,
+                    cudaStream_t stream);
+  static int query_clusters(int kernel, int r, int n, int C, int* count);
 };
 
 #if DPGO_PART >= 0
 
+// The kernels' arguments at this shape: the rank joins them at R = 0.
+template <int R>
+ArgsOf<R> args_of(const SpreadArgs& g, int r) {
+  if constexpr (R == 0) {
+    SpreadArgsR a;
+    static_cast<SpreadArgs&>(a) = g;
+    a.r = r;
+    return a;
+  } else {
+    return g;
+  }
+}
+
 template <int R, int D>
-int Launchers<R, D, true>::rtr_full(const SpreadArgs& g, int A, int C,
+int Launchers<R, D, true>::rtr_full(const SpreadArgs& g, int r, int A, int C,
                                     float initial_radius, int max_rejections,
                                     float grad_tol, float* X_out,
                                     float* stats, int* tcg_iters,
                                     cudaStream_t stream) {
   if (g.s > kIndexMask + 1) return kTooManySlots;
-  const SpreadShape sh = spread_shape(R, D, g.n, C);
-  return launch_spread(rtr_full_spread_kernel<R, D>, A, C, sh, stream, g,
-                       initial_radius, max_rejections, grad_tol, X_out, stats,
-                       tcg_iters);
+  const SpreadShape sh = spread_shape(r, D, g.n, C);
+  return launch_spread(rtr_full_spread_kernel<R, D>, A, C, sh, stream,
+                       args_of<R>(g, r), initial_radius, max_rejections,
+                       grad_tol, X_out, stats, tcg_iters);
 }
 
 template <int R, int D>
-int Launchers<R, D, true>::refine(const SpreadArgs& g, int A, int C,
+int Launchers<R, D, true>::refine(const SpreadArgs& g, int r, int A, int C,
                                   float initial_radius, int max_rejections,
                                   float grad_tol, float* D_out, float* stats,
                                   int* tcg_iters, cudaStream_t stream) {
   if (g.s > kIndexMask + 1) return kTooManySlots;
-  const SpreadShape sh = spread_shape(R, D, g.n, C);
+  const SpreadShape sh = spread_shape(r, D, g.n, C);
   return launch_spread(rtr_refine_full_spread_kernel<R, D>, A, C, sh, stream,
-                       g, initial_radius, max_rejections, grad_tol, D_out,
-                       stats, tcg_iters);
+                       args_of<R>(g, r), initial_radius, max_rejections,
+                       grad_tol, D_out, stats, tcg_iters);
 }
 
 template <int R, int D>
-int Launchers<R, D, true>::query_clusters(int kernel, int n, int C,
+int Launchers<R, D, true>::query_clusters(int kernel, int r, int n, int C,
                                           int* count) {
-  const SpreadShape sh = spread_shape(R, D, n, C);
+  const SpreadShape sh = spread_shape(r, D, n, C);
   if (C > kMaxCluster) {
     *count = 0;
     return 0;
@@ -1531,6 +1947,7 @@ int Launchers<R, D, true>::query_clusters(int kernel, int n, int C,
 #define DPGO_INSTANTIATE(R_, D_) \
   template struct Launchers<R_, D_, dpgo_shapes::in_part(R_, D_)>;
 DPGO_SHAPES(DPGO_INSTANTIATE)
+DPGO_GENERIC_SHAPES(DPGO_INSTANTIATE)
 #undef DPGO_INSTANTIATE
 
 #endif  // DPGO_PART >= 0
@@ -1571,7 +1988,7 @@ int dpgo_rtr_spread_max_clusters(int r, int d, int n_max, int C, int kernel,
                                  void* count) {
   int* c = static_cast<int*>(count);
   return dispatch<Launchers>(r, d, [&](auto launchers) {
-    return launchers.query_clusters(kernel, n_max, C, c);
+    return launchers.query_clusters(kernel, r, n_max, C, c);
   });
 }
 
@@ -1592,7 +2009,7 @@ int dpgo_rtr_full_spread_launch(
   int* it = static_cast<int*>(tcg_iters);
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
   return dispatch<Launchers>(r, d, [&](auto launchers) {
-    return launchers.rtr_full(g, A, C, initial_radius, max_rejections,
+    return launchers.rtr_full(g, r, A, C, initial_radius, max_rejections,
                               grad_tol, xo, st, it, cs);
   });
 }
@@ -1619,8 +2036,8 @@ int dpgo_rtr_refine_full_spread_launch(
   int* it = static_cast<int*>(tcg_iters);
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
   return dispatch<Launchers>(r, d, [&](auto launchers) {
-    return launchers.refine(a, A, C, initial_radius, max_rejections, grad_tol,
-                            dout, st, it, cs);
+    return launchers.refine(a, r, A, C, initial_radius, max_rejections,
+                            grad_tol, dout, st, it, cs);
   });
 }
 

@@ -25,10 +25,12 @@ was given lie on the CPU.  The kernels are compiled with ``nvcc`` for
 source as its ``BUILD_PARTS`` kernel parts and a dispatch part, one
 ``nvcc`` each, all at once), into one library in
 ``dpgo_tpu_torch/_build/``, and bound through ``ctypes``.  Every kernel
-is instantiated for the (r, d) of ``csrc/shapes.cuh``: d = 3 with
-3 <= r <= 10 and d = 2 with 2 <= r <= 10, every rank the staircase
-reaches by default; a launcher refuses any other shape and the wrapper
-raises.
+runs at d in {2, 3} and d <= r <= ``MAX_RANK`` (``csrc/shapes.cuh``): the
+ranks the staircase reaches by default (r <= 10) are templated shapes, and
+one rank-generic instantiation per d, which reads r from the launch, takes
+11 <= r <= 128.  Above ``MAX_RANK`` the route plan, and so every wrapper
+given CUDA tensors, raises (the plain versions run at any rank); a launcher
+refuses any other shape and the wrapper raises.
 
 The route is chosen from the shape before the launch by ``cluster_plan``:
 the **cluster** route (``rtr_cluster.cu``: one thread-block cluster of C
@@ -107,10 +109,11 @@ HEADERS = tuple(sorted((_PKG / "csrc").glob("*.cuh")))
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-#: Kernel translation units per source: ``nvcc`` runs once for each, and
-#: once more for the source's dispatch part, all at once (``csrc/shapes.cuh``
-#: deals the (r, d) instantiations to the parts).  ``rtr_full.cu``, whose
-#: kernels hold r(d+1)-float rows a thread, takes the most compiling.
+#: Kernel translation units per source for the templated (r, d): ``nvcc``
+#: runs once for each, once more for the source's rank-generic part and once
+#: for its dispatch part, all at once (``csrc/shapes.cuh`` deals the
+#: instantiations to the parts).  ``rtr_full.cu``, whose templated kernels
+#: hold r(d+1)-float rows a thread, takes the most compiling.
 BUILD_PARTS = {"rtr_cluster.cu": 3, "rtr_full.cu": 8, "rtr_spread.cu": 3}
 #: The cluster launcher's own error codes: the card cannot place one
 #: cluster of the size asked for; more neighbor slots than its edge payload
@@ -128,8 +131,14 @@ SPREAD_WARPS = 8
 #: Shared memory one CTA can use on sm_90.
 MAX_SMEM_BYTES = 232448
 #: Threads per CTA the cluster kernels are compiled for (r lanes per pose,
-#: 32 // r poses per warp).
+#: 32 // r poses per warp; above r = 32, ceil(r / 32) warps per pose).
 MAX_CLUSTER_THREADS = 512
+#: The highest rank the kernels run (``csrc/shapes.cuh``: the templated
+#: shapes up to r = 10, the rank-generic instantiation from 11 to here).
+MAX_RANK = 128
+#: Shared floats per warp for the group sums of a pose that spans warps
+#: (r > 32; ``kGroupSums`` of ``csrc/lanes.cuh``).
+_GROUP_SUMS = 8
 #: Loop vectors of the cluster kernels held in shared memory (delta twice)
 #: — ``rtr_cluster.cu``; ``rtr_refine_full`` adds D and Rc.
 _CLUSTER_VECS = 10
@@ -194,6 +203,31 @@ def _vec_stride(rk: int) -> int:
     return 4 * (s if s % 2 else s + 1)
 
 
+def _poses_per_warp(r: int) -> int:
+    """Poses a warp holds on the cluster and spread routes: r lanes each up
+    to r = 32, one pose (over several warps) above."""
+    return 32 // r if r <= 32 else 1
+
+
+def _pose_warps(r: int) -> int:
+    """Warps one pose takes: 1 up to r = 32, ceil(r / 32) above."""
+    return 1 if r <= 32 else -(-r // 32)
+
+
+def _group_slots(r: int, warps: int) -> int:
+    """Shared floats of the group-sum slots of a CTA of ``warps`` warps:
+    only a pose that spans warps (r > 32) sums through them."""
+    return warps * _GROUP_SUMS if r > 32 else 0
+
+
+def _check_rank(r: int) -> None:
+    if r > MAX_RANK:
+        raise ValueError(
+            f"rank r = {r} is above the kernels' ceiling of r = {MAX_RANK} "
+            "(csrc/shapes.cuh: d in {2, 3} and d <= r <= "
+            f"{MAX_RANK})")
+
+
 def _kernel_id(kernel: str) -> int:
     if kernel not in KERNELS:
         raise ValueError(f"unknown kernel {kernel!r}: one of {list(KERNELS)}")
@@ -205,10 +239,12 @@ def cluster_shape(r: int, d: int, n_max: int, kinc: int, C: int,
     """The shape of cluster kernel ``kernel`` for ``C`` CTAs per agent (the
     formula of ``dpgo_rtr_cluster_smem_bytes``): P = ceil(n_max / C) poses
     in each CTA, r lanes per pose (one row of its block each) and 32 // r
-    poses per warp; its shared memory holds the loop vectors ``[P,
-    vec_stride]``, the factors L and curvature S, the edge payload of its
-    poses' ELL entries ``[fields, Kinc, P]`` and the reduction slots (two
-    buffers of 4 floats for each warp of the cluster).  ``rtr_full``,
+    poses per warp (above r = 32, ceil(r / 32) whole warps per pose); its
+    shared memory holds the loop vectors ``[P, vec_stride]``, the factors L
+    and curvature S, the edge payload of its poses' ELL entries ``[fields,
+    Kinc, P]``, the reduction slots (two buffers of 4 floats for each warp
+    of the cluster) and, above r = 32, the group-sum slots (8 floats a
+    warp).  ``rtr_full``,
     ``rtr`` and ``tcg`` share one shape: 10 vectors and ``d*d + d + 3``
     payload fields.  ``rtr_refine_full`` adds two vectors (the correction D
     and the reference Rc) and, in the payload, the edge's reference
@@ -217,11 +253,12 @@ def cluster_shape(r: int, d: int, n_max: int, kinc: int, C: int,
     refine = _kernel_id(kernel) == KERNELS["rtr_refine_full"]
     P = -(-n_max // C)
     k = d + 1
-    threads = -(-P // (32 // r)) * 32
+    threads = -(-P // _poses_per_warp(r)) * 32 * _pose_warps(r)
     vecs = _CLUSTER_VECS + (2 if refine else 0)
     fields = d * d + d + 3 + (r * k if refine else 0)
     floats = (vecs * P * _vec_stride(r * k) + (k * k + d * d) * P
-              + fields * kinc * P + 2 * C * (threads // 32) * 4)
+              + fields * kinc * P + 2 * C * (threads // 32) * 4
+              + _group_slots(r, threads // 32))
     return ClusterPlan("cluster", C, P, threads, 4 * floats)
 
 
@@ -234,16 +271,19 @@ def spread_shape(r: int, d: int, n_max: int, C: int) -> ClusterPlan:
     """The shape of the spread kernels for ``C`` CTAs per agent (the
     formula of ``rtr_spread.cu``'s ``spread_shape``; B2 and B4 share it):
     P = ceil(n_max / C) poses in each CTA, r lanes per pose and 32 // r
-    poses per warp, at most ``SPREAD_THREADS`` threads, so each lane group
+    poses per warp (above r = 32, ceil(r / 32) whole warps per pose), at
+    most ``SPREAD_THREADS`` threads of whole lane groups, so each lane group
     walks ceil(P / groups) poses (its stripes); shared memory holds the
-    ``_SPREAD_SMEM_VECS`` vectors ``[P, vec_stride]`` and the reduction
-    slots (two buffers of 4 floats for each warp of the cluster)."""
+    ``_SPREAD_SMEM_VECS`` vectors ``[P, vec_stride]``, the reduction slots
+    (two buffers of 4 floats for each warp of the cluster) and, above r =
+    32, the group-sum slots."""
     P = -(-n_max // C)
-    per_warp = 32 // r
-    threads = min(SPREAD_THREADS, -(-P // per_warp) * 32)
-    stripes = -(-P // (threads // 32 * per_warp))
+    per_warp, W = _poses_per_warp(r), _pose_warps(r)
+    threads = min(SPREAD_THREADS // 32 // W * W * 32,
+                  -(-P // per_warp) * 32 * W)
+    stripes = -(-P // (threads // 32 // W * per_warp))
     floats = (_SPREAD_SMEM_VECS * P * _vec_stride(r * (d + 1))
-              + 2 * C * (threads // 32) * 4)
+              + 2 * C * (threads // 32) * 4 + _group_slots(r, threads // 32))
     return ClusterPlan("spread", C, P, threads, 4 * floats, stripes)
 
 
@@ -275,7 +315,8 @@ def cluster_plan(n_max: int, e_max: int, kinc: int, r: int, d: int,
     Else, for ``rtr_full`` and ``rtr_refine_full``, the spread route
     (``_spread_plan``) when it fits; else the workspace route (one CTA of
     256 threads per agent; its shared memory holds the edge payload when
-    that fits)."""
+    that fits), which fits any shape.  Raises above ``MAX_RANK``."""
+    _check_rank(r)
     fitting = [plan for plan in (cluster_shape(r, d, n_max, kinc, C, kernel)
                                  for C in CLUSTER_SIZES) if _fits(plan)]
     if not fitting:
@@ -308,7 +349,8 @@ def _route(cluster: int | None, n_max: int, e_max: int, kinc: int, r: int,
     ``cluster`` ``0`` the workspace route, ``C > 0`` a cluster of C CTAs;
     ``spread`` ``C`` the spread route over C CTAs per agent (``rtr_full``
     and ``rtr_refine_full`` only).  Raises when one CTA of a forced shape
-    cannot fit the card."""
+    cannot fit the card, and above ``MAX_RANK``."""
+    _check_rank(r)
     if spread is not None:
         if cluster is not None:
             raise ValueError("force one route: a cluster or a spread")
@@ -709,8 +751,9 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile every ``csrc/*.cu`` (its ``BUILD_PARTS`` kernel parts and
-    one dispatch part, one ``nvcc`` each, all started together) and
+    """Compile every ``csrc/*.cu`` (its ``BUILD_PARTS`` kernel parts, its
+    rank-generic part and its dispatch part, one ``nvcc`` each, all started
+    together) and
     link them into one shared library, unless this toolchain built these
     sources already; return the library's path.  Sets
     ``BUILD_LOG`` to nvcc's output (the ptxas register and spill report)
@@ -735,13 +778,14 @@ def _build() -> Path:
 
 def _compile(lib: Path) -> None:
     """Run nvcc: every part of every source to an object (the dispatch part
-    ``-1`` and the source's kernel parts ``0 .. BUILD_PARTS[name] - 1``),
-    all at once, then the link to ``lib`` by an atomic rename."""
+    ``-1``, the source's kernel parts ``0 .. BUILD_PARTS[name] - 1`` and its
+    rank-generic part ``BUILD_PARTS[name]``), all at once, then the link to
+    ``lib`` by an atomic rename."""
     global BUILD_LOG
     nvcc, tag_u = _nvcc(), _unique_suffix()
     tag = lib.stem.rsplit("_", 1)[-1]
     units = [(src, part) for src in SOURCES
-             for part in range(-1, BUILD_PARTS[src.name])]
+             for part in range(-1, BUILD_PARTS[src.name] + 1)]
     objs = [BUILD_DIR / f"{src.stem}_{part + 1}_{tag}.{tag_u}.o"
             for src, part in units]
     logs = [o.with_suffix(".log") for o in objs]
@@ -913,6 +957,19 @@ def sm_count(dev) -> int:
                      else dev.index)
 
 
+def _plan(dev, cluster: int | None, n_max: int, e_max: int, kinc: int,
+          r: int, d: int, kernel: str, spread: int | None = None,
+          agents: int = 1) -> ClusterPlan | None:
+    """The route a wrapper launches on a CUDA ``dev`` (``_route`` on its
+    card's SMs).  On the CPU the plain version runs at any rank: there only
+    a forced route is planned, so that a shape the card cannot hold raises
+    there as well, and None is returned otherwise."""
+    if dev.type == "cpu" and cluster is None and spread is None:
+        return None
+    return _route(cluster, n_max, e_max, kinc, r, d, kernel, spread, agents,
+                  sm_count(dev))
+
+
 def _check(name: str, dev, tensors: dict, shapes: dict) -> None:
     """Device, dtype, shape and contiguity checks shared by the wrappers;
     the kernel's launcher checks the shape (r, d) itself."""
@@ -944,8 +1001,8 @@ def _raise_on(name: str, err: int, r: int, d: int, C: int = 0) -> None:
     """Turn a launcher's non-zero return into an exception."""
     if err == _UNSUPPORTED_SHAPE:
         raise ValueError(f"{name}: (r, d) = {(r, d)} is not a shape the "
-                         "kernel is instantiated for (DPGO_SHAPES in "
-                         "csrc/shapes.cuh)")
+                         "kernel is instantiated for (csrc/shapes.cuh: d in "
+                         f"{{2, 3}} and d <= r <= {MAX_RANK})")
     if err == _UNPLACEABLE:
         raise RuntimeError(f"{name}: the card cannot place a cluster of "
                            f"{C} CTAs of this shape")
@@ -991,8 +1048,8 @@ def rtr_full(idx_i, idx_j, rot, trn, wk, wt, Xc, Zc, Lc, inc_slot, inc_mask,
                    Xc=Xc, Zc=Zc, Lc=Lc, inc_slot=inc_slot,
                    inc_mask=inc_mask, n_local=n_local)
     _check("rtr_full", Xc.device, tensors, _shapes(idx_i, r, d, n, s, K, A))
-    plan = _route(_cluster, n, e_max, K, r, d, "rtr_full", _spread, A,
-                  sm_count(Xc.device))
+    plan = _plan(Xc.device, _cluster, n, e_max, K, r, d, "rtr_full",
+                 _spread, A)
     kw = dict(r=r, d=d, e_max=e_max, max_iters=max_iters, kappa=kappa,
               theta=theta, initial_radius=initial_radius,
               max_rejections=max_rejections, grad_tol=grad_tol)
@@ -1050,7 +1107,7 @@ def rtr(idx_i, idx_j, rot, trn, wk, wt, Xc, Zc, Sc, Lc, gc, inc_slot,
                    Xc=Xc, Zc=Zc, Sc=Sc, Lc=Lc, gc=gc, inc_slot=inc_slot,
                    inc_mask=inc_mask, n_local=n_local)
     _check("rtr", Xc.device, tensors, _shapes(idx_i, r, d, n, s, K, A))
-    plan = _route(_cluster, n, e_max, K, r, d, "rtr")
+    plan = _plan(Xc.device, _cluster, n, e_max, K, r, d, "rtr")
     kw = dict(r=r, d=d, e_max=e_max, max_iters=max_iters, kappa=kappa,
               theta=theta, initial_radius=initial_radius,
               max_rejections=max_rejections)
@@ -1096,7 +1153,7 @@ def tcg(idx_i, idx_j, rot, trn, wk, wt, Xc, Sc, Lc, gc, radius, inc_slot,
                    Xc=Xc, Sc=Sc, Lc=Lc, gc=gc, radius=radius,
                    inc_slot=inc_slot, inc_mask=inc_mask)
     _check("tcg", Xc.device, tensors, _shapes(idx_i, r, d, n, 0, K, A))
-    plan = _route(_cluster, n, e_max, K, r, d, "tcg")
+    plan = _plan(Xc.device, _cluster, n, e_max, K, r, d, "tcg")
     kw = dict(r=r, d=d, e_max=e_max, max_iters=max_iters, kappa=kappa,
               theta=theta)
     if Xc.device.type == "cpu":
@@ -1148,8 +1205,8 @@ def rtr_refine_full(idx_i, idx_j, rot, trn, wk, wt, rho_rot, rho_trn, Rc,
                    inc_mask=inc_mask, n_local=n_local)
     _check("rtr_refine_full", Dc.device, tensors,
            _shapes(idx_i, r, d, n, s, K, A))
-    plan = _route(_cluster, n, e_max, K, r, d, "rtr_refine_full", _spread,
-                  A, sm_count(Dc.device))
+    plan = _plan(Dc.device, _cluster, n, e_max, K, r, d, "rtr_refine_full",
+                 _spread, A)
     kw = dict(r=r, d=d, e_max=e_max, max_iters=max_iters, kappa=kappa,
               theta=theta, initial_radius=initial_radius,
               max_rejections=max_rejections, grad_tol=grad_tol)

@@ -27,10 +27,16 @@ from dpgo_tpu_torch.utils.synthetic import make_measurements
 
 pytestmark = pytest.mark.cuda
 
-#: Every (d, r) the kernels are instantiated for (``csrc/shapes.cuh``): the
-#: rank staircase's d = 3 with 3 <= r <= 10 and d = 2 with 2 <= r <= 10.
+#: Every (d, r) the kernels are instantiated for as templated shapes
+#: (``csrc/shapes.cuh``): the rank staircase's d = 3 with 3 <= r <= 10 and
+#: d = 2 with 2 <= r <= 10.
 SHAPES = ([(3, r) for r in range(3, 11)]
           + [(2, r) for r in range(2, 11)])
+#: Ranks of the rank-generic instantiation the card tests hold (11 <= r <=
+#: 128): a pose of r lanes (r <= 32, one or two poses a warp) and a pose
+#: over two, three and four warps.
+GENERIC_SHAPES = [(3, 11), (3, 17), (3, 33), (2, 17), (2, 33), (3, 73),
+                  (3, 128)]
 
 
 @pytest.fixture
@@ -113,13 +119,26 @@ def test_rtr_kernel_payload_too_large_for_shared_memory(card):
 
 
 def test_rtr_kernel_shape_without_instantiation_raises(card):
-    # r = 11 is above the staircase's default top (r_max = 10): no kernel
-    # is instantiated for it.
-    prob, params, X, Z, chol = _round(card, d=3, r=11, A=2, n=40, num_lc=10)
+    # r = 129 is above the kernels' ceiling (r <= 128): no kernel runs it.
+    prob, params, X, Z, chol = _round(card, d=3, r=129, A=2, n=40,
+                                      num_lc=10)
     before = rk.RTR_LAUNCHES
-    with pytest.raises(ValueError, match="instantiated"):
+    with pytest.raises(ValueError, match="ceiling of r = 128"):
         rk.rtr(*_b3_args(prob, X, Z, chol), **_b3_kw(params, prob.meta))
     assert rk.RTR_LAUNCHES == before
+
+
+def test_rtr_kernel_runs_at_rank_11(card):
+    # r = 11, above the staircase's default top (r_max = 10): the
+    # rank-generic instantiation, one launch, at the gates of its plain
+    # version.
+    prob, params, X, Z, chol = _round(card, d=3, r=11, A=2, n=40, num_lc=10)
+    args, kw = _b3_args(prob, X, Z, chol), _b3_kw(params, prob.meta)
+    before = rk.RTR_LAUNCHES
+    out = rk.rtr(*args, **kw)
+    torch.cuda.synchronize()
+    assert rk.RTR_LAUNCHES == before + 1
+    _assert_b3_matches(out, rk.rtr_reference(*args, **kw))
 
 
 def test_greedy_round_launches_once_at_one_agent(card):
@@ -295,15 +314,42 @@ def test_edge_payload_too_large_for_shared_memory(card):
 
 
 def test_shape_without_kernel_raises_on_card(card):
-    # r = 11 has no instantiation: the solve raises rather than running the
-    # plain formulation on the card.
+    # r = 129 is above the kernels' ceiling: the solve raises rather than
+    # running the plain formulation on the card.
+    meas = make_measurements(np.random.default_rng(5), n=40, d=3, num_lc=10,
+                             rot_noise=0.05, trans_noise=0.05)[0]
+    params = AgentParams(d=3, r=129, num_robots=2)
+    before = rk.LAUNCHES
+    with pytest.raises(ValueError, match="ceiling of r = 128"):
+        rbcd.solve_rbcd(meas, 2, params, max_iters=2)
+    assert rk.LAUNCHES == before
+
+
+def test_solve_runs_the_kernel_at_rank_11(card):
+    # r = 11: B2 once per enqueued round (the rank-generic instantiation),
+    # and each round at the gates of the kernel's plain version.
     meas = make_measurements(np.random.default_rng(5), n=40, d=3, num_lc=10,
                              rot_noise=0.05, trans_noise=0.05)[0]
     params = AgentParams(d=3, r=11, num_robots=2)
     before = rk.LAUNCHES
-    with pytest.raises(ValueError, match="instantiated"):
-        rbcd.solve_rbcd(meas, 2, params, max_iters=2)
-    assert rk.LAUNCHES == before
+    res = rbcd.solve_rbcd(meas, 2, params, max_iters=4, grad_norm_tol=0.0)
+    torch.cuda.synchronize()
+    enqueued = rbcd.rounds_enqueued(res.iterations, params=params,
+                                    max_iters=4, eval_every=1)
+    assert res.iterations == 4 and rk.LAUNCHES - before == enqueued
+    assert bool(torch.isfinite(res.T).all())
+    assert res.cost_history[-1] < res.cost_history[0]
+    prob = rbcd.prepare_problem(meas, 2, params, device=card)
+    g = prob.graph
+    X = prob.X0
+    chol = rbcd.precond_chol(g.edges, g, params)
+    kw = rbcd.kernel_options(params, prob.meta)
+    for _ in range(3):
+        Z = rbcd.neighbor_buffer(rbcd.public_table(X, g), g)
+        args = rbcd.kernel_operands(X, Z, g.edges, chol, g)
+        out = rk.rtr_full(*args, **kw)
+        _assert_b2_matches(out, rk.rtr_full_reference(*args, **kw))
+        X = rk.comp_minor(out.X, 11, 4)
 
 
 def _refine_operands(card, d=3, r=5, n=60, A=4, num_lc=20, rounds=20):
@@ -357,6 +403,81 @@ def test_rtr_refine_full_kernel_matches_plain_version(card, d, r):
     assert rk.REFINE_LAUNCHES == before + 6
 
 
+def _generic_routes(kernel, plan, n_max, r, d, kinc):
+    """Every route of ``kernel`` a call can take at this shape: the planned
+    one, the workspace route, the spread route (B2 and B4) and the
+    smallest cluster that fits, each as the wrapper's forcing keywords."""
+    routes = {"planned": {}, "workspace": {"_cluster": 0}}
+    if kernel in rk.SPREAD_KERNELS and plan.route != "spread":
+        routes["spread"] = {"_spread": 2}
+    fits = [C for C in rk.CLUSTER_SIZES[:4]
+            if rk._fits(rk.cluster_shape(r, d, n_max, kinc, C, kernel))]
+    if fits and plan.route != "cluster":
+        routes["cluster"] = {"_cluster": fits[0]}
+    return routes
+
+
+@pytest.mark.parametrize("size", ["small", "large"])
+@pytest.mark.parametrize("d,r", GENERIC_SHAPES)
+def test_generic_rank_kernels_match_plain_versions(card, d, r, size):
+    # B1-B4 of the rank-generic instantiation on every route the planner
+    # or a forced route reaches, against their plain versions at the
+    # single-launch gates; one launch each.  "small": 15-pose agents (a
+    # cluster is planned); "large": 300-pose agents (B2 and B4 spread, B1
+    # and B3 on the workspace route above r = 16).
+    n, A, num_lc = (60, 4, 20) if size == "small" else (600, 2, 200)
+    prob, params, X, Z, chol = _round(card, d=d, r=r, n=n, A=A,
+                                      num_lc=num_lc)
+    m = prob.meta
+    b2 = rbcd.kernel_operands(X, Z, prob.graph.edges, chol, prob.graph)
+    kw = rbcd.kernel_options(params, m)
+    b3, kw3 = _b3_args(prob, X, Z, chol), _b3_kw(params, m)
+    tkw = {k: kw[k] for k in ("r", "d", "e_max", "max_iters", "kappa",
+                              "theta")}
+    b1 = (*b3[:7], b3[8], b3[9], b3[10], torch.ones(A, device=card), b3[11],
+          b3[12])
+    K = b2[9].shape[-1]
+    checks = {"rtr_full": (b2, kw, _assert_b2_matches),
+              "rtr": (b3, kw3, _assert_b3_matches)}
+    for kernel, (args, k, check) in checks.items():
+        fn, ref_fn = ((rk.rtr_full, rk.rtr_full_reference)
+                      if kernel == "rtr_full" else (rk.rtr, rk.rtr_reference))
+        ref = ref_fn(*args, **k)
+        plan = rk.cluster_plan(m.n_max, m.e_max, K, r, d, kernel, agents=A,
+                               sms=rk.sm_count(card))
+        for opts in _generic_routes(kernel, plan, m.n_max, r, d,
+                                    K).values():
+            out = fn(*args, **opts, **k)
+            torch.cuda.synchronize()
+            check(out, ref)
+    tref = rk.tcg_reference(*b1, **tkw)
+    plan = rk.cluster_plan(m.n_max, m.e_max, K, r, d, "tcg")
+    before = rk.TCG_LAUNCHES
+    routes = _generic_routes("tcg", plan, m.n_max, r, d, K)
+    for opts in routes.values():
+        out = rk.tcg(*b1, **opts, **tkw)
+        torch.cuda.synchronize()
+        assert float((out.eta - tref.eta).abs().max()) <= 1e-4
+        assert float((out.heta - tref.heta).abs().max()
+                     / tref.heta.abs().max()) <= 1e-4
+        assert torch.equal(out.stats, tref.stats)
+    assert rk.TCG_LAUNCHES == before + len(routes)
+    # B4 recentered at the init, from a random feasible correction.
+    prob4, rparams, _, ops4 = _refine_operands(card, d=d, r=r, n=n, A=A,
+                                               num_lc=num_lc, rounds=0)
+    kw4 = rbcd.kernel_options(rparams, prob4.meta)
+    plain4 = rk.rtr_refine_full_reference(*ops4, **kw4)
+    plan = rk.cluster_plan(m.n_max, m.e_max, K, r, d, "rtr_refine_full",
+                           agents=A, sms=rk.sm_count(card))
+    before = rk.REFINE_LAUNCHES
+    routes = _generic_routes("rtr_refine_full", plan, m.n_max, r, d, K)
+    for opts in routes.values():
+        out = rk.rtr_refine_full(*ops4, **opts, **kw4)
+        torch.cuda.synchronize()
+        _assert_refine_matches(out, plain4, ops4[9])
+    assert rk.REFINE_LAUNCHES == before + len(routes)
+
+
 def test_refine_payload_too_large_for_shared_memory(card):
     # One agent with ~2000 edges on the workspace route: the refine payload
     # (144 B an edge at d = 3, r = 5) does not fit in one block's 227 KB.
@@ -370,20 +491,48 @@ def test_refine_payload_too_large_for_shared_memory(card):
     _assert_refine_matches(out, plain, ops[9])
 
 
-def test_refine_shape_without_kernel_raises_on_card(card):
-    # r = 11: above every instantiated shape.
+def _recentered_at_init(card, r):
     meas = make_measurements(np.random.default_rng(5), n=40, d=3, num_lc=10,
                              rot_noise=0.05, trans_noise=0.05)[0]
-    params = AgentParams(d=3, r=11, num_robots=2)
+    params = AgentParams(d=3, r=r, num_robots=2)
     prob = rbcd.prepare_problem(meas, 2, params, device=card)
     Xg = rbcd.gather_to_global(prob.X0, prob.graph, 40).double().cpu()
     ref = refine.recenter(Xg.numpy(), prob.graph, prob.meta, params,
                           refine.host_edges_f64(meas))
+    return prob, params, ref
+
+
+def test_refine_shape_without_kernel_raises_on_card(card):
+    # r = 129: above the kernels' ceiling.
+    prob, params, ref = _recentered_at_init(card, 129)
     before = rk.REFINE_LAUNCHES
-    with pytest.raises(ValueError, match="instantiated"):
+    with pytest.raises(ValueError, match="ceiling of r = 128"):
         refine.refine_round(torch.zeros_like(ref.consts.R), ref.consts,
                             prob.graph, prob.meta, params)
     assert rk.REFINE_LAUNCHES == before
+
+
+def test_refine_rounds_run_the_kernel_at_rank_11(card):
+    # r = 11: B4 once per refine round, each round at the gates of the
+    # kernel's plain version.
+    prob, params, ref = _recentered_at_init(card, 11)
+    g, m = prob.graph, prob.meta
+    kw = rbcd.kernel_options(params, m)
+    D = torch.zeros_like(ref.consts.R)
+    before = rk.REFINE_LAUNCHES
+    for _ in range(3):
+        Dz = rbcd.neighbor_buffer(rbcd.public_table(D, g), g)
+        ops = refine.refine_kernel_operands(D, Dz, ref.consts, g)
+        out = rk.rtr_refine_full(*ops, **kw)
+        _assert_refine_matches(out, rk.rtr_refine_full_reference(*ops, **kw),
+                               ops[9])
+        D = rk.comp_minor(out.D, 11, 4)
+    assert rk.REFINE_LAUNCHES == before + 3
+    D3 = refine.refine_rounds(torch.zeros_like(ref.consts.R), ref.consts, g,
+                              m, params, 3)
+    torch.cuda.synchronize()
+    assert rk.REFINE_LAUNCHES == before + 6
+    assert bool(torch.isfinite(D3).all())
 
 
 # ---------------------------------------------------------------------------
@@ -473,7 +622,11 @@ def test_cluster_that_cannot_be_placed_raises(card):
                                             (2, 3, 350, 7), (3, 4, 40, 3),
                                             (2, 2, 600, 12), (3, 3, 257, 5),
                                             (3, 10, 316, 11),
-                                            (2, 10, 328, 11)])
+                                            (2, 10, 328, 11),
+                                            (3, 11, 316, 11),
+                                            (3, 33, 120, 8),
+                                            (2, 78, 328, 11),
+                                            (3, 128, 40, 5)])
 def test_cluster_smem_bytes_match_the_plan(card, d, r, n_max, kinc):
     # Every kernel's launcher carves the bytes its cluster_shape states.
     lib = rk.load()
@@ -795,7 +948,10 @@ def test_spread_that_cannot_be_placed_raises(card):
 
 @pytest.mark.parametrize("d,r,n_max", [(3, 5, 1594), (3, 5, 97), (3, 7, 1594),
                                        (2, 3, 5000), (3, 4, 40), (2, 2, 700),
-                                       (3, 10, 1594), (2, 10, 5000)])
+                                       (3, 10, 1594), (2, 10, 5000),
+                                       (3, 17, 316), (3, 18, 1594),
+                                       (3, 73, 316), (2, 78, 328),
+                                       (3, 128, 1594)])
 def test_spread_shape_matches_the_launcher(card, d, r, n_max):
     # The launcher sizes each spread kernel by the formula spread_shape
     # states: poses, threads and stripes per CTA, shared memory.
