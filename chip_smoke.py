@@ -191,6 +191,19 @@ synthetic stand-in for sphere2500 (2500 poses, 4948 edges, 8 robots, rank
   enqueued round), then the f32 distributed staircase from rank 4 to
   rank 5 (500 Nesterov-accelerated rounds a rank, eta 0.1), held as
   ``staircase``;
+* ``high_ranks`` — B1-B4 of the rank-generic instantiation (every r >=
+  11) on every route each reaches, against its plain version and itself,
+  timed: on the stand-in and the SE(2) stand-in up to the JAX gate's top
+  ranks there (73, 78), and on the smallGrid3D-size stand-in (125 poses,
+  296 edges, 4 robots) at r = 129, 256 (clusters), 512 (a spread of
+  16-warp poses, the lane cap), 513 and 1636 (the gate's top; the
+  workspace route), and at the gate's top ranks on 16-pose agents (3360
+  at d = 3, 4482 at d = 2); the round ablation and an f32 staircase from
+  r = 11;
+* ``top_ranks`` — ``solve_rbcd``'s path on the smallGrid3D-size stand-in
+  at r = 256 and 1636, 10 float32 rounds (B2 once a round) held to the
+  port's float64 run on the host, then 3 refine rounds at r = 1636 (B4
+  once a round) against the "ell" formulation's;
 
 Every launch gate is exact: the rounds each run enqueued, the per-eval
 loop's discarded speculative segment and the verdict loop's polish and
@@ -379,18 +392,38 @@ RANK_TOP = 10
 #: kernel, in turns with the workspace route; the shapes PERF.md tabulates.
 RANK_REPS, RANK_INNER = 3, 5
 PERF_SHAPES = ((7, 3), (10, 3), (4, 2), (10, 2))
-#: The kernels' ceiling (``csrc/shapes.cuh``): one rank-generic
-#: instantiation per d serves 11 <= r <= RANK_CEIL.  The high_ranks phase
-#: holds it at HIGH_RANKS[d]: a pose of r lanes (one or two a warp), of
-#: one whole warp, and of two and three warps, up to the top rank the JAX
-#: package's VMEM gate admits at each stand-in's agents (73 on the
-#: sphere2500 stand-in, 78 on the SE(2) stand-in); launches per timed run
-#: (the workspace route at r = 73 takes milliseconds a launch).  B3's path
-#: there: the round ablation at HIGH_ABLATE_RANK, its rounds.  The f32
-#: distributed staircase from rank 11 on the stand-in.
-RANK_CEIL = 128
+#: The lane cap (``csrc/lanes.cuh``): one rank-generic instantiation per d
+#: serves every r >= 11, and the cluster and spread routes lay a pose over
+#: ceil(r / 32) warps of one CTA, up to r = LANE_CAP (16 warps); above it
+#: only the workspace route runs.  The high_ranks phase holds the generic
+#: instantiation at HIGH_RANKS[d]: a pose of r lanes (one or two a warp),
+#: of one whole warp, and of two and three warps, up to the top rank the
+#: JAX package's VMEM gate admits at each stand-in's agents (73 on the
+#: sphere2500 stand-in, 78 on the SE(2) stand-in), and at TOP_RANKS on the
+#: smallGrid3D-size stand-in over TOP_ROBOTS (125 poses and 296 edges, the
+#: size of the reference's smallGrid3D, 125 and 297; n_max 32): a cluster
+#: of five- and eight-warp poses (129, 256), a spread of 16-warp poses
+#: (512), the first rank past the cap (513) and the gate's top there
+#: (1636), all workspace above the cap, and at the gate's top ranks at
+#: 16-pose agents (SMALL_AGENT_TOP_RANKS); launches per timed run (the
+#: workspace route takes milliseconds a launch).  B3's path there: the
+#: round ablation at HIGH_ABLATE_RANK, its rounds.  The f32 distributed
+#: staircase from rank 11 on the stand-in.
+LANE_CAP = rk.MAX_LANE_RANK
 HIGH_RANKS = {3: (11, 16, 17, 32, 33, 73), 2: (11, 32, 33, 78)}
 HIGH_INNER = 3
+SMALLGRID_POSES, SMALLGRID_LC, TOP_ROBOTS = 125, 172, 4
+TOP_RANKS = (129, 256, 512, 513, 1636)
+#: The JAX gate's top ranks at 16-pose agents (n_max 16, s_max 12, e_max
+#: 24), by d: the workspace route at the highest ranks the TPU runs, on 2
+#: robots of a 32-pose graph (s_max 6, e_max 25 and 26: admitted there).
+SMALL_AGENT_TOP_RANKS = {3: 3360, 2: 4482}
+#: The main path at the top ranks: ``solve_rbcd`` on the smallGrid3D-size
+#: stand-in in float32 for TOP_ROUNDS rounds (no tolerance stops it) at
+#: each of TOP_PATH_RANKS (a cluster at 256, the workspace route at 1636,
+#: the gate's top), held to the port's float64 run on the host; then
+#: TOP_REFINE_ROUNDS refine rounds (B4) at the top one.
+TOP_PATH_RANKS, TOP_ROUNDS, TOP_REFINE_ROUNDS = (256, 1636), 10, 3
 HIGH_ABLATE_RANK, HIGH_ABLATE_ROUNDS = 11, 20
 #: The SE(2) stand-in at BASELINE.md config #4's size (city10000: 10,000
 #: poses, 20,687 edges), its robots and rank.
@@ -4183,14 +4216,15 @@ def se2_standin():
 
 
 def instantiated_shapes() -> list:
-    """Every (r, d), d in (3, 2) and d <= r <= RANK_CEIL + 1, that the
-    kernel library holds: the launchers refuse any other
-    (``cluster_capacity`` raises)."""
+    """Every (r, d), d in (3, 2) and d <= r <= LANE_CAP + 1, that the
+    cluster route's launchers take: they refuse any other
+    (``cluster_capacity`` raises), and above LANE_CAP a pose that does not
+    fit a CTA."""
     found = []
     for d in (3, 2):
-        for r in range(d, RANK_CEIL + 2):
-            try:  # four poses: one CTA holds them at every rank
-                rk.cluster_capacity(r, d, 4, 2, 1)
+        for r in range(d, LANE_CAP + 2):
+            try:  # one pose: one CTA holds it up to the lane cap
+                rk.cluster_capacity(r, d, 1, 2, 1)
             except ValueError:
                 continue
             found.append((r, d))
@@ -4306,10 +4340,11 @@ def ranks_phase(stand_ins: dict, dev, card: str) -> dict:
     the shapes each route ran at, the largest error, and the PERF_SHAPES
     rows."""
     held = instantiated_shapes()
-    want = [(r, d) for d in (3, 2) for r in range(d, RANK_CEIL + 1)]
-    emit({"phase": "ranks", "check": "shapes", "instantiated": held})
-    check(held == want, "the kernel library does not hold exactly the "
-          "ranks d <= r <= 128, d in (2, 3)")
+    want = [(r, d) for d in (3, 2) for r in range(d, LANE_CAP + 1)]
+    emit({"phase": "ranks", "check": "shapes", "instantiated_up_to":
+          {d: max(r for r, dd in held if dd == d) for d in (3, 2)}})
+    check(held == want, "the cluster route does not take exactly the "
+          f"ranks d <= r <= {LANE_CAP}, d in (2, 3)")
     shapes = [(r, d) for r, d in held if r <= RANK_TOP]
     ran = {k: {"cluster": [], "workspace": []} for k in rk.KERNELS}
     worst = dict.fromkeys(rk.KERNELS, 0.0)
@@ -4402,11 +4437,14 @@ def high_rank_routes(kernel: str, ops: dict, kw: dict) -> dict:
     return routes
 
 
-def high_ranks_phase(stand_ins: dict, dev, card: str) -> dict:
-    """B1-B4 of the rank-generic instantiation (``csrc/shapes.cuh``, 11 <= r
-    <= RANK_CEIL) at HIGH_RANKS[d], d = 3 on the sphere2500 stand-in and
-    d = 2 on the SE(2) stand-in (``stand_ins[d]``), at the card's chordal
-    init (B4 recentered there): each kernel on every route it reaches
+def high_ranks_phase(runs: list, dev, card: str) -> dict:
+    """B1-B4 of the rank-generic instantiation (``csrc/shapes.cuh``, every
+    r >= 11) at each run's ranks: ``runs`` holds (where, measurements,
+    robots, host float64 edges, ranks), at HIGH_RANKS[d] on the sphere2500
+    stand-in (d = 3) and the SE(2) stand-in (d = 2), at TOP_RANKS on the
+    smallGrid3D-size stand-in and at SMALL_AGENT_TOP_RANKS on 16-pose
+    agents; at the card's chordal init (B4
+    recentered there): each kernel on every route it reaches
     (``high_rank_routes``) against its plain version and itself, each
     route's ms per launch, the plain version's time and the launch's
     bound.  Returns, per kernel, the shapes each route ran at, the largest
@@ -4414,13 +4452,13 @@ def high_ranks_phase(stand_ins: dict, dev, card: str) -> dict:
     ran = {k: {} for k in rk.KERNELS}
     worst = dict.fromkeys(rk.KERNELS, 0.0)
     rows = {k: {} for k in rk.KERNELS}
-    for d, ranks in HIGH_RANKS.items():
-        meas, robots, edges64 = stand_ins[d]
+    for where, meas, robots, edges64, ranks in runs:
+        d = meas.d
         for r in ranks:
             t0 = time.perf_counter()
             sets, graph, meta = rank_operands(meas, robots, r, edges64, dev)
-            row = {"phase": "high_ranks", "card": card, "r": r, "d": d,
-                   "agents": robots, "n_max": meta.n_max,
+            row = {"phase": "high_ranks", "card": card, "where": where,
+                   "r": r, "d": d, "agents": robots, "n_max": meta.n_max,
                    "e_max": meta.e_max, "kinc": graph.inc_slot.shape[-1],
                    "kernels": {}}
             for kernel, (ops, kw) in sets.items():
@@ -4450,6 +4488,9 @@ def high_ranks_phase(stand_ins: dict, dev, card: str) -> dict:
                     bound_ms=b_ms, bound_by=b_by,
                     max_tcg_iters=int(tcg_iters_of(out_planned).max()))
                 row["kernels"][kernel] = k_row
+                check(r <= LANE_CAP or plan.route == "workspace",
+                      f"{kernel} at (r, d) = ({r}, {d}), past the lane cap, "
+                      f"is planned on the {plan.route} route")
                 rows[kernel][f"{r},{d}"] = {
                     "route": plan.route, "C": plan.C,
                     **{f"ms_{route}": v["ms"]
@@ -4460,6 +4501,140 @@ def high_ranks_phase(stand_ins: dict, dev, card: str) -> dict:
             emit(row)
             del sets, graph
     return {"shapes": ran, "max_abs_err": worst, "rows": rows}
+
+
+def smallgrid_standin():
+    """The smallGrid3D-size stand-in: 125 poses and 296 edges, the size of
+    the reference's smallGrid3D (125 poses, 297 edges)."""
+    return make_measurements(np.random.default_rng(0), n=SMALLGRID_POSES,
+                             d=3, num_lc=SMALLGRID_LC, rot_noise=0.01,
+                             trans_noise=0.01)[0]
+
+
+def small_agents_standin(d: int):
+    """A 32-pose graph that 2 robots split into 16-pose agents, where the
+    JAX package's VMEM gate admits its highest ranks."""
+    return make_measurements(np.random.default_rng(5), n=32, d=d,
+                             num_lc=10, rot_noise=0.05,
+                             trans_noise=0.05)[0]
+
+
+def top_path_rank(meas, r: int, dev, card: str) -> tuple[int, object]:
+    """``rbcd.dispatch_prepared`` on ``meas`` over TOP_ROBOTS at rank ``r``
+    for TOP_ROUNDS float32 rounds from the host's float64 chordal init,
+    counted (B2 = the rounds); the iterate held to the port's float64 run
+    on the host from the same start: within TRAJ_SPREAD times the largest
+    divergence from that run of the "ell" formulation (float32, on the
+    card) from PERTURBED_STARTS starts moved by one ulp, at most TRAJ_MAX,
+    and every round's cost within FLOOR_DF_RTOL of f0 of the float64 run's
+    (an accept decision that flips on rounding moves f by no more).
+    Returns the B2 launches and the kernel run's result, problem and
+    parameters."""
+    params = AgentParams(d=3, r=r, num_robots=TOP_ROBOTS,
+                         rel_change_tol=0.0)
+    host = rbcd.prepare_problem(meas, TOP_ROBOTS, params,
+                                dtype=torch.float64, device="cpu")
+    prob = dataclasses.replace(
+        rbcd.prepare_problem(meas, TOP_ROBOTS, params, dtype=torch.float32,
+                             init=None, device=dev),
+        X0=host.X0.float().to(dev))
+    m = prob.meta
+    plan = rk.cluster_plan(m.n_max, m.e_max, prob.graph.inc_slot.shape[-1],
+                           r, 3, agents=TOP_ROBOTS, sms=rk.sm_count(dev))
+    rk.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = rbcd.dispatch_prepared(prob, max_iters=TOP_ROUNDS,
+                                 grad_norm_tol=0.0)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    b2 = rk.LAUNCHES
+    t1 = time.perf_counter()
+    res64 = rbcd.dispatch_prepared(host, max_iters=TOP_ROUNDS,
+                                   grad_norm_tol=0.0)
+    host_s = time.perf_counter() - t1
+    X64 = res64.state.X.to(dev)
+    plain = dataclasses.replace(prob, params=dataclasses.replace(
+        params, solver=dataclasses.replace(params.solver,
+                                           pallas_tcg=False)))
+    spread = []
+    for seed in range(PERTURBED_STARTS):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        u = torch.randint(-1, 2, prob.X0.shape, generator=gen, device=dev)
+        ell = rbcd.dispatch_prepared(
+            dataclasses.replace(plain, X0=prob.X0 * (1 + u * 2.0 ** -23)),
+            max_iters=TOP_ROUNDS, grad_norm_tol=0.0)
+        spread.append(float((ell.state.X.double() - X64).abs().max()))
+    limit = min(TRAJ_SPREAD * max(spread), TRAJ_MAX)
+    traj = float((res.state.X.double() - X64).abs().max())
+    f0 = abs(res64.cost_history[0])
+    df = [abs(a - b) / f0 for a, b in zip(res.cost_history,
+                                           res64.cost_history)]
+    emit({"phase": "top_ranks", "check": "solve", "card": card, "rank": r,
+          "robots": TOP_ROBOTS, "poses": meas.num_poses, "edges": len(meas),
+          "n_max": m.n_max, "e_max": m.e_max, "plan": plan._asdict(),
+          "iterations": res.iterations, "b2_launches": b2,
+          "cost": [res.cost_history[0], res.cost_history[-1]],
+          "max_abs_dX_vs_f64": traj, "ell_ulp_moved_starts_max_abs_dX":
+          spread, "limit": limit, "max_rel_df_vs_f64": max(df),
+          "solve_s": solve_s, "ms_per_round": 1e3 * solve_s / TOP_ROUNDS,
+          "host_f64_s": host_s})
+    check(res.iterations == TOP_ROUNDS and b2 == rbcd.rounds_enqueued(
+        res.iterations, params=params, max_iters=TOP_ROUNDS, eval_every=1)
+        == TOP_ROUNDS, f"the solve at rank {r} did not launch B2 once a "
+          "round")
+    check(bool(torch.isfinite(res.state.X).all() and torch.isfinite(res.T)
+               .all()) and res.cost_history[-1] < res.cost_history[0],
+          f"the solve at rank {r} is not finite or its cost did not fall")
+    check(traj <= limit and max(df) <= FLOOR_DF_RTOL,
+          f"the solve at rank {r} leaves the float64 run by more than the "
+          "ell formulation's one-ulp divergence allows")
+    return b2, (res, prob, params)
+
+
+def top_ranks_path(meas, dev, card: str) -> dict:
+    """The main path at the top ranks (``top_path_rank`` at each of
+    TOP_PATH_RANKS), then TOP_REFINE_ROUNDS refine rounds at the last one,
+    recentered in float64 at its final iterate (``refine.refine_round``,
+    B4 once a round, counted), against as many rounds of the "ell"
+    formulation within D_TRAJ_RTOL of its largest correction.  Returns the
+    launches by path."""
+    b2 = {}
+    for r in TOP_PATH_RANKS:
+        b2[f"solve_r{r}"], last = top_path_rank(meas, r, dev, card)
+    res, prob, params = last
+    r = TOP_PATH_RANKS[-1]
+    rparams = dataclasses.replace(params, solver=dataclasses.replace(
+        params.solver, grad_norm_tol=1e-9))
+    plain = dataclasses.replace(rparams, solver=dataclasses.replace(
+        rparams.solver, pallas_tcg=False))
+    graph, meta = prob.graph, prob.meta
+    Xg64 = rbcd.gather_to_global(res.state.X, graph, meas.num_poses) \
+        .double().cpu().numpy()
+    ref = refine.recenter(Xg64, graph, meta, rparams,
+                          refine.host_edges_f64(meas))
+    Dk = De = torch.zeros_like(ref.consts.R)
+    rk.REFINE_LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TOP_REFINE_ROUNDS):
+        Dk, gn = refine.refine_round(Dk, ref.consts, graph, meta, rparams)
+    torch.cuda.synchronize()
+    refine_s = time.perf_counter() - t0
+    b4 = rk.REFINE_LAUNCHES
+    for _ in range(TOP_REFINE_ROUNDS):
+        De = refine.refine_round(De, ref.consts, graph, meta, plain)[0]
+    traj = float((Dk - De).abs().max())
+    scale = float(De.abs().max())
+    emit({"phase": "top_ranks", "check": "refine", "card": card, "rank": r,
+          "rounds": TOP_REFINE_ROUNDS, "b4_launches": b4,
+          "max_abs_dD_vs_ell": traj, "max_abs_D": scale,
+          "gradnorm": gn.tolist(), "seconds": refine_s})
+    check(b4 == TOP_REFINE_ROUNDS, "the refine rounds at rank "
+          f"{r} did not launch B4 once each")
+    check(bool(torch.isfinite(Dk).all()) and traj <= D_TRAJ_RTOL * scale,
+          f"the refine rounds at rank {r} leave the ell formulation's")
+    return {"rtr_full": b2, "rtr_refine_full": {f"refine_r{r}": b4}}
 
 
 def ablate_high(dev, card: str) -> dict:
@@ -5864,13 +6039,23 @@ def main() -> int:
     se2_l = se2_phase(se2, dev, card)
     lap("se2")
     # --- above the templated ranks: the rank-generic instantiation --------
-    high = high_ranks_phase({3: (meas, ROBOTS, refine.host_edges_f64(meas)),
-                             2: (se2, SE2_ROBOTS,
-                                 refine.host_edges_f64(se2))}, dev, card)
+    grid = smallgrid_standin()
+    high = high_ranks_phase(
+        [("sphere2500", meas, ROBOTS, refine.host_edges_f64(meas),
+          HIGH_RANKS[3]),
+         ("se2", se2, SE2_ROBOTS, refine.host_edges_f64(se2), HIGH_RANKS[2]),
+         ("smallgrid3d", grid, TOP_ROBOTS, refine.host_edges_f64(grid),
+          TOP_RANKS)]
+        + [(f"16_pose_agents_d{d}", m, 2, refine.host_edges_f64(m), (r,))
+           for d, r in SMALL_AGENT_TOP_RANKS.items()
+           for m in [small_agents_standin(d)]], dev, card)
     ab_high = ablate_high(dev, card)
     high_b2, high_b4 = staircase_f32("sphere_r11", meas, ROBOTS,
                                      STAIR_HIGH, dev, card)
     lap("high_ranks")
+    # --- the main path at the top ranks: r = 256 and the gate's 1636 -------
+    top = top_ranks_path(grid, dev, card)
+    lap("top_ranks")
     b4_row["launches_by_path"].update(fused_refine=fused_b4,
                                       staircase=stair_b4,
                                       se2=se2_l["staircase_b4"])
@@ -5906,8 +6091,9 @@ def main() -> int:
     rows.extend(generic_rows(high, {
         "tcg": {}, "rtr": {"ablate_r11": ab_high["rtr"]},
         "rtr_full": {"ablate_r11": ab_high["rtr_full"],
-                     "staircase_r11": high_b2},
-        "rtr_refine_full": {"staircase_r11": high_b4}}))
+                     "staircase_r11": high_b2, **top["rtr_full"]},
+        "rtr_refine_full": {"staircase_r11": high_b4,
+                            **top["rtr_refine_full"]}}))
     for row in rows:
         row["launches"] = sum(row["launches_by_path"].values())
     rows.sort(key=lambda r: (r["replaces"], r["name"]))

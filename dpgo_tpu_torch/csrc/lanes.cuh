@@ -1,9 +1,10 @@
 // The lane layout of the cluster and spread kernels at rank r, shared by
-// rtr_cluster.cu and rtr_spread.cu (ops/rtr_kernel.py mirrors the three
+// rtr_cluster.cu and rtr_spread.cu (ops/rtr_kernel.py mirrors the
 // formulae).  Up to r = 32 a pose takes r lanes of a warp, one row each,
 // and a warp holds 32 / r poses; above it a pose takes ceil(r / 32) whole
 // warps, row q on lane q % 32 of warp q / 32, and its group sums meet in
-// kGroupSums shared slots a warp (D (D + 1) / 2 <= 6 values).
+// kGroupSums shared slots a warp (D (D + 1) / 2 <= 6 values).  A pose must
+// fit one CTA: at 512 threads, 16 warps, so r <= 512 (pose_fits).
 
 #pragma once
 
@@ -21,6 +22,12 @@ __host__ __device__ constexpr int poses_per_warp(int r) {
 // Warps one pose takes: 1 up to r = 32, ceil(r / 32) above.
 __host__ __device__ constexpr int pose_warps(int r) {
   return r <= 32 ? 1 : (r + 31) / 32;
+}
+
+// Whether one pose's lane group fits a CTA of `max_threads` threads; the
+// launchers refuse a rank whose pose does not.
+__host__ __device__ constexpr bool pose_fits(int r, int max_threads) {
+  return pose_warps(r) <= max_threads / 32;
 }
 
 // Shared floats of the group-sum slots of a CTA of `warps` warps: only a

@@ -44,15 +44,17 @@
 //     (sym(Y^T W)) and the retraction (M^T M): sums of the d(d+1)/2
 //     entries of a symmetric d x d matrix over the group's lanes by
 //     shuffles, in a fixed order that every lane of the group shares.
-//   * The rank-generic instantiation (R = 0, 11 <= r <= 128; shapes.cuh)
-//     reads r from the launch and keeps that layout up to r = 32 (at r =
-//     17..31 a warp holds one pose and leaves 32 - r lanes idle).  Above
-//     32 a pose takes ceil(r / 32) whole warps, row q on lane q % 32 of
-//     its (q / 32)-th warp, so a thread still holds one row of d + 1
-//     floats; its group sums are warp butterflies met in shared slots
-//     after a block barrier (lanes.cuh's wide_group_sum), which every
-//     group sum's callers reach together (all threads of the CTA call
-//     them).
+//   * The rank-generic instantiation (R = 0, r >= 11; shapes.cuh) reads r
+//     from the launch and keeps that layout up to r = 32 (at r = 17..31 a
+//     warp holds one pose and leaves 32 - r lanes idle).  Above 32 a pose
+//     takes ceil(r / 32) whole warps, row q on lane q % 32 of its
+//     (q / 32)-th warp, so a thread still holds one row of d + 1 floats;
+//     its group sums are warp butterflies met in shared slots after a
+//     block barrier (lanes.cuh's wide_group_sum), which every group sum's
+//     callers reach together (all threads of the CTA call them).  A CTA of
+//     kMaxThreads holds a pose of at most 16 warps: this route ends at
+//     r = 512, and its launchers refuse a higher rank (the workspace route
+//     of rtr_full.cu takes it).
 //   * State on chip: every loop vector (eta, Heta, r, z, delta, Hd, g, the
 //     proposal xp) and the operands read only (X, L, S) live in the owning
 //     CTA's shared memory for the whole launch; nothing of the tCG loop
@@ -1655,6 +1657,7 @@ int Launchers<R, D, true>::rtr_full(const ClusterArgs& g, int r, int A,
                                     int max_rejections, float grad_tol,
                                     float* X_out, float* stats,
                                     int* tcg_iters, cudaStream_t stream) {
+  if (!pose_fits(r, kMaxThreads)) return dpgo_shapes::kUnsupportedShape;
   if (g.s > kIndexMask + 1) return kTooManySlots;
   const ClusterShape sh = cluster_shape(r, D, g.n, g.kinc, C, false);
   return launch_cluster(rtr_full_cluster_kernel<R, D>, A, C, sh, stream,
@@ -1667,6 +1670,7 @@ int Launchers<R, D, true>::rtr(const ClusterArgs& g, int r, int A, int C,
                                float initial_radius, int max_rejections,
                                float* X_out, float* stats, int* tcg_iters,
                                cudaStream_t stream) {
+  if (!pose_fits(r, kMaxThreads)) return dpgo_shapes::kUnsupportedShape;
   if (g.s > kIndexMask + 1) return kTooManySlots;
   const ClusterShape sh = cluster_shape(r, D, g.n, g.kinc, C, false);
   return launch_cluster(rtr_cluster_kernel<R, D>, A, C, sh, stream,
@@ -1678,6 +1682,7 @@ template <int R, int D>
 int Launchers<R, D, true>::tcg(const ClusterArgs& g, int r, int A, int C,
                                const float* radius, float* eta, float* heta,
                                float* stats, cudaStream_t stream) {
+  if (!pose_fits(r, kMaxThreads)) return dpgo_shapes::kUnsupportedShape;
   const ClusterShape sh = cluster_shape(r, D, g.n, g.kinc, C, false);
   return launch_cluster(tcg_cluster_kernel<R, D>, A, C, sh, stream,
                         args_of<R>(g, r), radius, eta, heta, stats);
@@ -1688,6 +1693,7 @@ int Launchers<R, D, true>::refine(const ClusterArgs& g, int r, int A, int C,
                                   float initial_radius, int max_rejections,
                                   float grad_tol, float* D_out, float* stats,
                                   int* tcg_iters, cudaStream_t stream) {
+  if (!pose_fits(r, kMaxThreads)) return dpgo_shapes::kUnsupportedShape;
   if (g.s > kIndexMask + 1) return kTooManySlots;
   const ClusterShape sh = cluster_shape(r, D, g.n, g.kinc, C, true);
   return launch_cluster(rtr_refine_full_cluster_kernel<R, D>, A, C, sh,
@@ -1698,6 +1704,7 @@ int Launchers<R, D, true>::refine(const ClusterArgs& g, int r, int A, int C,
 template <int R, int D>
 int Launchers<R, D, true>::query_clusters(int kernel, int r, int n, int kinc,
                                           int C, int* count) {
+  if (!pose_fits(r, kMaxThreads)) return dpgo_shapes::kUnsupportedShape;
   const ClusterShape sh = cluster_shape(r, D, n, kinc, C, kernel == kRefine);
   switch (kernel) {
     case kRtrFull:
@@ -1740,8 +1747,8 @@ long long dpgo_rtr_cluster_smem_bytes(int r, int d, int n_max, int kinc,
 
 // How many clusters of C CTAs of cluster kernel `kernel` the card can hold
 // at once (cudaOccupancyMaxActiveClusters) into *count; returns a
-// cudaError_t, -1 for an (r, d) without instantiation, -4 for an unknown
-// kernel.
+// cudaError_t, -1 for an (r, d) without instantiation or whose pose spans
+// more warps than a CTA holds (r > 512), -4 for an unknown kernel.
 int dpgo_rtr_cluster_max_clusters(int r, int d, int n_max, int kinc, int C,
                                   int kernel, void* count) {
   int* c = static_cast<int*>(count);

@@ -55,10 +55,12 @@
 // projection, the (d+1)x(d+1) preconditioner solves, the Newton-Schulz
 // sweeps) is unrolled over the template parameters (R, D).  Spreading one
 // agent over several CTAs is what rtr_cluster.cu does.  Above the
-// templated ranks (11 <= r <= 128, shapes.cuh) the *_rt kernels below read
-// r from the launch and walk a pose's rows one at a time, so no thread
-// holds r (d + 1) floats; this route is then the catch-all where no
-// cluster (and, for B2 and B4, no spread) holds an agent.
+// templated ranks (r >= 11, shapes.cuh) the *_rt kernels below read r from
+// the launch and walk a pose's rows one at a time, so no thread holds
+// r (d + 1) floats and the route has no rank limit of its own; it is the
+// catch-all where no cluster (and, for B2 and B4, no spread) holds an
+// agent, and the only route above r = 512, where a pose no longer fits
+// the 16 warps of a cluster or spread CTA.
 //
 // The refine kernel is bound the same way: its payload adds r*d + r floats
 // of reference residuals per edge (144 B an edge at r = 5, d = 3 instead of
@@ -1115,7 +1117,7 @@ rtr_refine_full_kernel(Args args, RefineConsts rc, float initial_radius,
 }
 
 // ---------------------------------------------------------------------------
-// The rank-generic instantiation (R = 0, 11 <= r <= 128; shapes.cuh): the
+// The rank-generic instantiation (R = 0, any r >= 11; shapes.cuh): the
 // same kernels with r read from the launch.  A thread still owns whole
 // poses (and edges), but never holds a pose's r (d + 1) floats: it walks
 // the rows one at a time, d + 1 floats each, through the workspace.  Where
@@ -1142,7 +1144,7 @@ __device__ void load_edges_rt(Problem& P, unsigned char* payload, int a,
   float* swk = strn + D * E;
   float* swt = swk + E;
   float* srr = swt + E;
-  float* srt = srr + rr * D * E;
+  float* srt = srr + (size_t)rr * D * E;
   const int nt = Ep / T;
   const size_t base = (size_t)a * Ep;
   for (int e = threadIdx.x; e < E; e += blockDim.x) {
@@ -1160,12 +1162,16 @@ __device__ void load_edges_rt(Problem& P, unsigned char* payload, int a,
     for (int c = 0; c < D; ++c)
       strn[c * E + e] = trn[(tile * D + c) * T + ln];
     if (rho_rot != nullptr) {
+      // The payload's [r D][E] and [r][E] columns stepped by E: r D E
+      // passes 2^31 on agents of many edges at high rank.
+      float* col = srr + e;
 #pragma unroll
-      for (int c = 0; c < rr * D; ++c)
-        srr[c * E + e] = rho_rot[(tile * (rr * D) + c) * T + ln];
+      for (int c = 0; c < rr * D; ++c, col += E)
+        *col = rho_rot[(tile * (rr * D) + c) * T + ln];
+      col = srt + e;
 #pragma unroll
-      for (int c = 0; c < rr; ++c)
-        srt[c * E + e] = rho_trn[(tile * rr + c) * T + ln];
+      for (int c = 0; c < rr; ++c, col += E)
+        *col = rho_trn[(tile * rr + c) * T + ln];
     }
   }
   P.ei = ei;
@@ -1401,10 +1407,10 @@ __device__ float cost_rt(const Problem& P, int r, const float* V,
       edge_row<D>(P, i, j, a, V, Zv, Rm, t, rR, rt);
 #pragma unroll
       for (int c = 0; c < D; ++c) {
-        if (REFINE) cR += P.rho_rot[(a * D + c) * P.E + e] * rR[c];
+        if (REFINE) cR += P.rho_rot[((size_t)a * D + c) * P.E + e] * rR[c];
         qR += rR[c] * rR[c];
       }
-      if (REFINE) ct += P.rho_trn[a * P.E + e] * rt;
+      if (REFINE) ct += P.rho_trn[(size_t)a * P.E + e] * rt;
       qt += rt * rt;
     }
     const float wk = P.wk[e];

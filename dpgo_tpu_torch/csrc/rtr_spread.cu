@@ -53,14 +53,16 @@
 //     so their round trips overlap; B2's retraction runs each pose's 24
 //     Newton-Schulz sweeps on one lane of its group, not on every row's
 //     (retract_stripes).
-//   * The rank-generic instantiation (R = 0, 11 <= r <= 128; shapes.cuh)
-//     reads r from the launch: up to r = 32 a group is r lanes of a warp as
-//     above; above, a pose takes ceil(r / 32) whole warps (row q on lane q %
-//     32 of its (q / 32)-th warp) and its group sums meet in shared slots
-//     after a block barrier (lanes.cuh's wide_group_sum).  A thread
-//     still holds one row of d + 1 floats; B2's retraction runs on every
-//     row of the pose (retract_row), since a batch of r stripes' sums would
-//     hold r (d + 1) floats a thread.
+//   * The rank-generic instantiation (R = 0, r >= 11; shapes.cuh) reads r
+//     from the launch: up to r = 32 a group is r lanes of a warp as above;
+//     above, a pose takes ceil(r / 32) whole warps (row q on lane q % 32 of
+//     its (q / 32)-th warp) and its group sums meet in shared slots after a
+//     block barrier (lanes.cuh's wide_group_sum).  A CTA holds at most 16
+//     such warps, so this route ends at r = 512 (a pose of 16 warps); the
+//     launchers refuse a higher rank, which the workspace route takes.  A
+//     thread still holds one row of d + 1 floats; B2's retraction runs on
+//     every row of the pose (retract_row), since a batch of r stripes' sums
+//     would hold r (d + 1) floats a thread.
 //   * Sweeps, cost ownership, reductions, the retractions' arithmetic and
 //     the double-buffered direction with two cluster barriers per tCG
 //     iteration are rtr_cluster.cu's.  A thread adds its stripes' terms in
@@ -161,13 +163,16 @@ struct SpreadShape {
 // ceil(P / groups) stripes; shared memory holds the kSmemVecs vectors
 // [P][vec_stride], the double-buffered reduction slots [2][C * warps][4]
 // and, above r = 32, the group-sum slots [warps][kGroupSums].  B2 and B4
-// share it.
+// share it.  A pose of more than kThreads / 32 warps (r > 512) gets one
+// group of W warps, more than kThreads threads: a shape that does not fit,
+// which the launchers refuse.
 SpreadShape spread_shape(int r, int d, int n, int C) {
   const int P = (n + C - 1) / C;
   const int per_warp = poses_per_warp(r);
   const int W = pose_warps(r);
   int threads = (P + per_warp - 1) / per_warp * 32 * W;
-  if (threads > kThreads) threads = kThreads / 32 / W * W * 32;
+  if (threads > kThreads)
+    threads = pose_fits(r, kThreads) ? kThreads / 32 / W * W * 32 : 32 * W;
   const int groups = threads / 32 / W * per_warp;
   const int stripes = (P + groups - 1) / groups;
   const size_t floats = (size_t)kSmemVecs * P * vec_stride(r * (d + 1)) +
@@ -1908,6 +1913,7 @@ int Launchers<R, D, true>::rtr_full(const SpreadArgs& g, int r, int A, int C,
                                     float grad_tol, float* X_out,
                                     float* stats, int* tcg_iters,
                                     cudaStream_t stream) {
+  if (!pose_fits(r, kThreads)) return dpgo_shapes::kUnsupportedShape;
   if (g.s > kIndexMask + 1) return kTooManySlots;
   const SpreadShape sh = spread_shape(r, D, g.n, C);
   return launch_spread(rtr_full_spread_kernel<R, D>, A, C, sh, stream,
@@ -1920,6 +1926,7 @@ int Launchers<R, D, true>::refine(const SpreadArgs& g, int r, int A, int C,
                                   float initial_radius, int max_rejections,
                                   float grad_tol, float* D_out, float* stats,
                                   int* tcg_iters, cudaStream_t stream) {
+  if (!pose_fits(r, kThreads)) return dpgo_shapes::kUnsupportedShape;
   if (g.s > kIndexMask + 1) return kTooManySlots;
   const SpreadShape sh = spread_shape(r, D, g.n, C);
   return launch_spread(rtr_refine_full_spread_kernel<R, D>, A, C, sh, stream,
@@ -1930,6 +1937,7 @@ int Launchers<R, D, true>::refine(const SpreadArgs& g, int r, int A, int C,
 template <int R, int D>
 int Launchers<R, D, true>::query_clusters(int kernel, int r, int n, int C,
                                           int* count) {
+  if (!pose_fits(r, kThreads)) return dpgo_shapes::kUnsupportedShape;
   const SpreadShape sh = spread_shape(r, D, n, C);
   if (C > kMaxCluster) {
     *count = 0;
@@ -1982,8 +1990,9 @@ long long dpgo_rtr_spread_workspace_floats(int r, int d, int n_max, int e_max,
 
 // How many clusters of C CTAs of spread kernel `kernel` the card can hold
 // at once (cudaOccupancyMaxActiveClusters) into *count; returns a
-// cudaError_t, -1 for an (r, d) without instantiation, -4 for a kernel
-// without a spread route.
+// cudaError_t, -1 for an (r, d) without instantiation or whose pose spans
+// more warps than a CTA holds (r > 512), -4 for a kernel without a spread
+// route.
 int dpgo_rtr_spread_max_clusters(int r, int d, int n_max, int C, int kernel,
                                  void* count) {
   int* c = static_cast<int*>(count);

@@ -7,9 +7,13 @@
 //     with 2 <= r <= 10 (DPGO_SHAPES), each with r and d as template
 //     parameters, its loops unrolled over them;
 //   * the rank-generic instantiation, R = 0, one for each d in {2, 3}: the
-//     kernels read r from the launch (kMinGenericRank <= r <= kMaxRank).
-//     A source's R = 0 code keeps every per-thread array bounded by d (a
-//     lane holds one row of d + 1 floats), never by r (d + 1).
+//     kernels read r from the launch (any r >= kMinGenericRank).  A
+//     source's R = 0 code keeps every per-thread array bounded by d (a lane
+//     holds one row of d + 1 floats), never by r (d + 1).  The cluster and
+//     spread routes lay a pose over ceil(r / 32) warps of a CTA of at most
+//     512 threads, so their launchers refuse r > 512 (a pose of more than
+//     16 warps); the workspace route walks a pose's rows one at a time and
+//     takes any rank.
 // A launcher returns -1 for any other (r, d); the Python side keeps no copy
 // of the templated list.
 //
@@ -52,9 +56,9 @@ constexpr Shape kShapes[] = {
 #undef DPGO_SHAPE_ENTRY
 };
 
-// The ranks the generic instantiation serves (ops/rtr_kernel.MAX_RANK).
+// The lowest rank the generic instantiation serves: it takes every rank
+// above the templated ones.
 constexpr int kMinGenericRank = 11;
-constexpr int kMaxRank = 128;
 
 // The part that compiles the generic instantiation.
 constexpr int kGenericPart = DPGO_PARTS;
@@ -72,7 +76,7 @@ constexpr bool in_part(int r, int d) {
 constexpr int kUnsupportedShape = -1;
 
 // f(Launchers<R, D>{}) for a listed (r, d), f(Launchers<0, d>{}) for d in
-// {2, 3} and kMinGenericRank <= r <= kMaxRank, else kUnsupportedShape:
+// {2, 3} and r >= kMinGenericRank, else kUnsupportedShape:
 // `Launchers` is a source's class of per-shape launchers (static members),
 // which take r from their arguments at R = 0.
 template <template <int, int, bool> class Launchers, typename F>
@@ -81,7 +85,7 @@ int dispatch(int r, int d, F&& f) {
   if (r == R_ && d == D_) return f(Launchers<R_, D_, true>{});
   DPGO_SHAPES(DPGO_SHAPE_CASE)
 #undef DPGO_SHAPE_CASE
-  if (r >= kMinGenericRank && r <= kMaxRank) {
+  if (r >= kMinGenericRank) {
     if (d == 3) return f(Launchers<0, 3, true>{});
     if (d == 2) return f(Launchers<0, 2, true>{});
   }

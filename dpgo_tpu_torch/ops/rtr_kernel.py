@@ -25,12 +25,14 @@ was given lie on the CPU.  The kernels are compiled with ``nvcc`` for
 source as its ``BUILD_PARTS`` kernel parts and a dispatch part, one
 ``nvcc`` each, all at once), into one library in
 ``dpgo_tpu_torch/_build/``, and bound through ``ctypes``.  Every kernel
-runs at d in {2, 3} and d <= r <= ``MAX_RANK`` (``csrc/shapes.cuh``): the
-ranks the staircase reaches by default (r <= 10) are templated shapes, and
-one rank-generic instantiation per d, which reads r from the launch, takes
-11 <= r <= 128.  Above ``MAX_RANK`` the route plan, and so every wrapper
-given CUDA tensors, raises (the plain versions run at any rank); a launcher
-refuses any other shape and the wrapper raises.
+runs at d in {2, 3} and every r >= d (``csrc/shapes.cuh``): the ranks the
+staircase reaches by default (r <= 10) are templated shapes, and one
+rank-generic instantiation per d, which reads r from the launch, takes
+every r >= 11.  The cluster and spread routes lay a pose over ceil(r / 32)
+warps of one CTA of at most 512 threads, so they end at ``MAX_LANE_RANK``
+(r = 512, a pose of 16 warps); the workspace route walks a pose's rows one
+at a time and has no rank limit, so the plan always has a route.  A
+launcher refuses any other shape and the wrapper raises.
 
 The route is chosen from the shape before the launch by ``cluster_plan``:
 the **cluster** route (``rtr_cluster.cu``: one thread-block cluster of C
@@ -133,9 +135,10 @@ MAX_SMEM_BYTES = 232448
 #: Threads per CTA the cluster kernels are compiled for (r lanes per pose,
 #: 32 // r poses per warp; above r = 32, ceil(r / 32) warps per pose).
 MAX_CLUSTER_THREADS = 512
-#: The highest rank the kernels run (``csrc/shapes.cuh``: the templated
-#: shapes up to r = 10, the rank-generic instantiation from 11 to here).
-MAX_RANK = 128
+#: The highest rank of the cluster and spread routes: one pose of 16 warps
+#: fills a CTA of 512 threads (``pose_fits`` of ``csrc/lanes.cuh``; their
+#: launchers refuse a higher rank).  Above it only the workspace route runs.
+MAX_LANE_RANK = 512
 #: Shared floats per warp for the group sums of a pose that spans warps
 #: (r > 32; ``kGroupSums`` of ``csrc/lanes.cuh``).
 _GROUP_SUMS = 8
@@ -220,14 +223,6 @@ def _group_slots(r: int, warps: int) -> int:
     return warps * _GROUP_SUMS if r > 32 else 0
 
 
-def _check_rank(r: int) -> None:
-    if r > MAX_RANK:
-        raise ValueError(
-            f"rank r = {r} is above the kernels' ceiling of r = {MAX_RANK} "
-            "(csrc/shapes.cuh: d in {2, 3} and d <= r <= "
-            f"{MAX_RANK})")
-
-
 def _kernel_id(kernel: str) -> int:
     if kernel not in KERNELS:
         raise ValueError(f"unknown kernel {kernel!r}: one of {list(KERNELS)}")
@@ -263,8 +258,11 @@ def cluster_shape(r: int, d: int, n_max: int, kinc: int, C: int,
 
 
 def _fits(plan: ClusterPlan) -> bool:
-    return (plan.threads <= MAX_CLUSTER_THREADS
-            and plan.smem_bytes <= MAX_SMEM_BYTES)
+    """Whether one CTA of a cluster or spread plan fits the card: its
+    threads (at r > ``MAX_LANE_RANK`` one pose alone needs more) and its
+    shared memory."""
+    cap = SPREAD_THREADS if plan.route == "spread" else MAX_CLUSTER_THREADS
+    return plan.threads <= cap and plan.smem_bytes <= MAX_SMEM_BYTES
 
 
 def spread_shape(r: int, d: int, n_max: int, C: int) -> ClusterPlan:
@@ -276,10 +274,12 @@ def spread_shape(r: int, d: int, n_max: int, C: int) -> ClusterPlan:
     walks ceil(P / groups) poses (its stripes); shared memory holds the
     ``_SPREAD_SMEM_VECS`` vectors ``[P, vec_stride]``, the reduction slots
     (two buffers of 4 floats for each warp of the cluster) and, above r =
-    32, the group-sum slots."""
+    32, the group-sum slots.  Above ``MAX_LANE_RANK`` a pose alone takes
+    more than ``SPREAD_THREADS`` threads: one group a CTA, a shape that
+    does not fit (``_fits``)."""
     P = -(-n_max // C)
     per_warp, W = _poses_per_warp(r), _pose_warps(r)
-    threads = min(SPREAD_THREADS // 32 // W * W * 32,
+    threads = min(max(SPREAD_THREADS // 32 // W, 1) * W * 32,
                   -(-P // per_warp) * 32 * W)
     stripes = -(-P // (threads // 32 // W * per_warp))
     floats = (_SPREAD_SMEM_VECS * P * _vec_stride(r * (d + 1))
@@ -291,12 +291,12 @@ def _spread_plan(n_max: int, r: int, d: int, agents: int,
                  sms: int) -> ClusterPlan | None:
     """The spread route's plan: C = sms // agents CTAs per agent (all
     agents' CTAs in one wave over the card's SMs), at least 1, raised until
-    one CTA's shared memory fits, at most the largest cluster; None when
-    no C fits."""
+    one CTA fits (``_fits``), at most the largest cluster; None when no C
+    fits (always above ``MAX_LANE_RANK``)."""
     C = min(max(sms // max(agents, 1), 1), CLUSTER_SIZES[-1])
     for c in range(C, CLUSTER_SIZES[-1] + 1):
         plan = spread_shape(r, d, n_max, c)
-        if plan.smem_bytes <= MAX_SMEM_BYTES:
+        if _fits(plan):
             return plan
     return None
 
@@ -315,8 +315,8 @@ def cluster_plan(n_max: int, e_max: int, kinc: int, r: int, d: int,
     Else, for ``rtr_full`` and ``rtr_refine_full``, the spread route
     (``_spread_plan``) when it fits; else the workspace route (one CTA of
     256 threads per agent; its shared memory holds the edge payload when
-    that fits), which fits any shape.  Raises above ``MAX_RANK``."""
-    _check_rank(r)
+    that fits), which fits any shape and any rank: above ``MAX_LANE_RANK``
+    it is the only route."""
     fitting = [plan for plan in (cluster_shape(r, d, n_max, kinc, C, kernel)
                                  for C in CLUSTER_SIZES) if _fits(plan)]
     if not fitting:
@@ -349,8 +349,8 @@ def _route(cluster: int | None, n_max: int, e_max: int, kinc: int, r: int,
     ``cluster`` ``0`` the workspace route, ``C > 0`` a cluster of C CTAs;
     ``spread`` ``C`` the spread route over C CTAs per agent (``rtr_full``
     and ``rtr_refine_full`` only).  Raises when one CTA of a forced shape
-    cannot fit the card, and above ``MAX_RANK``."""
-    _check_rank(r)
+    cannot fit the card: too much shared memory, or above ``MAX_LANE_RANK``
+    a pose of more than 16 warps."""
     if spread is not None:
         if cluster is not None:
             raise ValueError("force one route: a cluster or a spread")
@@ -359,11 +359,13 @@ def _route(cluster: int | None, n_max: int, e_max: int, kinc: int, r: int,
         if spread < 1:
             raise ValueError(f"spread over {spread} CTAs")
         plan = spread_shape(r, d, n_max, spread)
-        if plan.smem_bytes > MAX_SMEM_BYTES:
+        if not _fits(plan):
             raise ValueError(
                 f"a spread over {spread} CTAs cannot hold an agent of "
-                f"{n_max} poses: {plan.smem_bytes} B of shared memory per "
-                f"CTA (at most {MAX_SMEM_BYTES})")
+                f"{n_max} poses at r = {r}: {plan.threads} threads and "
+                f"{plan.smem_bytes} B of shared memory per CTA (at most "
+                f"{SPREAD_THREADS} and {MAX_SMEM_BYTES}; a pose takes "
+                f"ceil(r / 32) warps, at most 16, so r <= {MAX_LANE_RANK})")
         return plan
     if cluster is None:
         return cluster_plan(n_max, e_max, kinc, r, d, kernel, agents, sms)
@@ -375,9 +377,10 @@ def _route(cluster: int | None, n_max: int, e_max: int, kinc: int, r: int,
     if not _fits(plan):
         raise ValueError(
             f"a cluster of {cluster} CTAs cannot hold an agent of {n_max} "
-            f"poses: {plan.threads} threads and {plan.smem_bytes} B of "
-            f"shared memory per CTA (at most {MAX_CLUSTER_THREADS} and "
-            f"{MAX_SMEM_BYTES})")
+            f"poses at r = {r}: {plan.threads} threads and "
+            f"{plan.smem_bytes} B of shared memory per CTA (at most "
+            f"{MAX_CLUSTER_THREADS} and {MAX_SMEM_BYTES}; a pose takes "
+            f"ceil(r / 32) warps, at most 16, so r <= {MAX_LANE_RANK})")
     return plan
 
 
@@ -1000,9 +1003,10 @@ def _check(name: str, dev, tensors: dict, shapes: dict) -> None:
 def _raise_on(name: str, err: int, r: int, d: int, C: int = 0) -> None:
     """Turn a launcher's non-zero return into an exception."""
     if err == _UNSUPPORTED_SHAPE:
-        raise ValueError(f"{name}: (r, d) = {(r, d)} is not a shape the "
-                         "kernel is instantiated for (csrc/shapes.cuh: d in "
-                         f"{{2, 3}} and d <= r <= {MAX_RANK})")
+        raise ValueError(f"{name}: (r, d) = {(r, d)} is not a shape this "
+                         "route takes (csrc/shapes.cuh: d in {2, 3} and "
+                         "r >= d; the cluster and spread routes end at "
+                         f"r = {MAX_LANE_RANK}, a pose of 16 warps)")
     if err == _UNPLACEABLE:
         raise RuntimeError(f"{name}: the card cannot place a cluster of "
                            f"{C} CTAs of this shape")

@@ -32,11 +32,17 @@ pytestmark = pytest.mark.cuda
 #: d = 2 with 2 <= r <= 10.
 SHAPES = ([(3, r) for r in range(3, 11)]
           + [(2, r) for r in range(2, 11)])
-#: Ranks of the rank-generic instantiation the card tests hold (11 <= r <=
-#: 128): a pose of r lanes (r <= 32, one or two poses a warp) and a pose
-#: over two, three and four warps.
+#: Ranks of the rank-generic instantiation the card tests hold (every
+#: r >= 11): a pose of r lanes (r <= 32, one or two poses a warp) and a
+#: pose over two, three and four warps.
 GENERIC_SHAPES = [(3, 11), (3, 17), (3, 33), (2, 17), (2, 33), (3, 73),
                   (3, 128)]
+#: Ranks past four warps a pose, on 16-pose agents: five and eight warps
+#: (clusters), 16 (the cluster and spread routes' cap, r = 512), the first
+#: rank past it (the workspace route alone) and the top ranks the JAX
+#: package's VMEM gate admits at 16-pose agents (3360 at d = 3, 4482 at
+#: d = 2).
+TOP_SHAPES = [(3, 129), (3, 256), (3, 512), (3, 513), (3, 3360), (2, 4482)]
 
 
 @pytest.fixture
@@ -118,27 +124,27 @@ def test_rtr_kernel_payload_too_large_for_shared_memory(card):
     _assert_b3_matches(out, ref)
 
 
-def test_rtr_kernel_shape_without_instantiation_raises(card):
-    # r = 129 is above the kernels' ceiling (r <= 128): no kernel runs it.
-    prob, params, X, Z, chol = _round(card, d=3, r=129, A=2, n=40,
-                                      num_lc=10)
-    before = rk.RTR_LAUNCHES
-    with pytest.raises(ValueError, match="ceiling of r = 128"):
-        rk.rtr(*_b3_args(prob, X, Z, chol), **_b3_kw(params, prob.meta))
-    assert rk.RTR_LAUNCHES == before
-
-
-def test_rtr_kernel_runs_at_rank_11(card):
-    # r = 11, above the staircase's default top (r_max = 10): the
-    # rank-generic instantiation, one launch, at the gates of its plain
-    # version.
-    prob, params, X, Z, chol = _round(card, d=3, r=11, A=2, n=40, num_lc=10)
+def _b3_launch_holds(card, r):
+    """B3 at rank r on 2 agents of 20 poses: the rank-generic
+    instantiation, one launch, at the gates of its plain version."""
+    prob, params, X, Z, chol = _round(card, d=3, r=r, A=2, n=40, num_lc=10)
     args, kw = _b3_args(prob, X, Z, chol), _b3_kw(params, prob.meta)
     before = rk.RTR_LAUNCHES
     out = rk.rtr(*args, **kw)
     torch.cuda.synchronize()
     assert rk.RTR_LAUNCHES == before + 1
     _assert_b3_matches(out, rk.rtr_reference(*args, **kw))
+
+
+def test_rtr_kernel_runs_at_rank_129(card):
+    # r = 129, past the four-warp pose of r = 128: a cluster of five-warp
+    # poses.
+    _b3_launch_holds(card, 129)
+
+
+def test_rtr_kernel_runs_at_rank_11(card):
+    # r = 11, above the staircase's default top (r_max = 10).
+    _b3_launch_holds(card, 11)
 
 
 def test_greedy_round_launches_once_at_one_agent(card):
@@ -313,24 +319,22 @@ def test_edge_payload_too_large_for_shared_memory(card):
                                rtol=1e-4, atol=0)
 
 
-def test_shape_without_kernel_raises_on_card(card):
-    # r = 129 is above the kernels' ceiling: the solve raises rather than
-    # running the plain formulation on the card.
-    meas = make_measurements(np.random.default_rng(5), n=40, d=3, num_lc=10,
-                             rot_noise=0.05, trans_noise=0.05)[0]
-    params = AgentParams(d=3, r=129, num_robots=2)
-    before = rk.LAUNCHES
-    with pytest.raises(ValueError, match="ceiling of r = 128"):
-        rbcd.solve_rbcd(meas, 2, params, max_iters=2)
-    assert rk.LAUNCHES == before
+def test_solve_runs_the_kernel_at_rank_129(card):
+    # r = 129: the solve launches the kernel, as at r = 11.
+    _solve_holds(card, 129)
 
 
 def test_solve_runs_the_kernel_at_rank_11(card):
-    # r = 11: B2 once per enqueued round (the rank-generic instantiation),
-    # and each round at the gates of the kernel's plain version.
+    _solve_holds(card, 11)
+
+
+def _solve_holds(card, r):
+    """B2 once per enqueued round of ``solve_rbcd`` at rank r (the
+    rank-generic instantiation), and each round at the gates of the
+    kernel's plain version."""
     meas = make_measurements(np.random.default_rng(5), n=40, d=3, num_lc=10,
                              rot_noise=0.05, trans_noise=0.05)[0]
-    params = AgentParams(d=3, r=11, num_robots=2)
+    params = AgentParams(d=3, r=r, num_robots=2)
     before = rk.LAUNCHES
     res = rbcd.solve_rbcd(meas, 2, params, max_iters=4, grad_norm_tol=0.0)
     torch.cuda.synchronize()
@@ -349,7 +353,7 @@ def test_solve_runs_the_kernel_at_rank_11(card):
         args = rbcd.kernel_operands(X, Z, g.edges, chol, g)
         out = rk.rtr_full(*args, **kw)
         _assert_b2_matches(out, rk.rtr_full_reference(*args, **kw))
-        X = rk.comp_minor(out.X, 11, 4)
+        X = rk.comp_minor(out.X, r, 4)
 
 
 def _refine_operands(card, d=3, r=5, n=60, A=4, num_lc=20, rounds=20):
@@ -408,7 +412,8 @@ def _generic_routes(kernel, plan, n_max, r, d, kinc):
     one, the workspace route, the spread route (B2 and B4) and the
     smallest cluster that fits, each as the wrapper's forcing keywords."""
     routes = {"planned": {}, "workspace": {"_cluster": 0}}
-    if kernel in rk.SPREAD_KERNELS and plan.route != "spread":
+    if kernel in rk.SPREAD_KERNELS and plan.route != "spread" and \
+            rk._fits(rk.spread_shape(r, d, n_max, 2)):
         routes["spread"] = {"_spread": 2}
     fits = [C for C in rk.CLUSTER_SIZES[:4]
             if rk._fits(rk.cluster_shape(r, d, n_max, kinc, C, kernel))]
@@ -420,12 +425,30 @@ def _generic_routes(kernel, plan, n_max, r, d, kinc):
 @pytest.mark.parametrize("size", ["small", "large"])
 @pytest.mark.parametrize("d,r", GENERIC_SHAPES)
 def test_generic_rank_kernels_match_plain_versions(card, d, r, size):
-    # B1-B4 of the rank-generic instantiation on every route the planner
-    # or a forced route reaches, against their plain versions at the
-    # single-launch gates; one launch each.  "small": 15-pose agents (a
-    # cluster is planned); "large": 300-pose agents (B2 and B4 spread, B1
-    # and B3 on the workspace route above r = 16).
-    n, A, num_lc = (60, 4, 20) if size == "small" else (600, 2, 200)
+    # "small": 15-pose agents (a cluster is planned); "large": 300-pose
+    # agents (B2 and B4 spread, B1 and B3 on the workspace route above
+    # r = 16).
+    _hold_generic_kernels(card, d, r, *((60, 4, 20) if size == "small"
+                                         else (600, 2, 200)))
+
+
+@pytest.mark.parametrize("d,r", TOP_SHAPES)
+def test_generic_rank_kernels_match_plain_versions_above_rank_128(card, d,
+                                                                  r):
+    # 16-pose agents: clusters up to r = 512 (five, eight, 16 warps a
+    # pose), a spread of 16-warp poses at r = 512, the workspace route
+    # alone from r = 513.
+    _hold_generic_kernels(card, d, r, 32, 2, 10)
+    if r > rk.MAX_LANE_RANK:
+        for kernel in rk.KERNELS:
+            assert rk.cluster_plan(16, 24, 5, r, d, kernel).route == \
+                "workspace"
+
+
+def _hold_generic_kernels(card, d, r, n, A, num_lc):
+    """B1-B4 of the rank-generic instantiation on every route the planner
+    or a forced route reaches, against their plain versions at the
+    single-launch gates; one launch each."""
     prob, params, X, Z, chol = _round(card, d=d, r=r, n=n, A=A,
                                       num_lc=num_lc)
     m = prob.meta
@@ -502,20 +525,18 @@ def _recentered_at_init(card, r):
     return prob, params, ref
 
 
-def test_refine_shape_without_kernel_raises_on_card(card):
-    # r = 129: above the kernels' ceiling.
-    prob, params, ref = _recentered_at_init(card, 129)
-    before = rk.REFINE_LAUNCHES
-    with pytest.raises(ValueError, match="ceiling of r = 128"):
-        refine.refine_round(torch.zeros_like(ref.consts.R), ref.consts,
-                            prob.graph, prob.meta, params)
-    assert rk.REFINE_LAUNCHES == before
+def test_refine_rounds_run_the_kernel_at_rank_129(card):
+    _refine_rounds_hold(card, 129)
 
 
 def test_refine_rounds_run_the_kernel_at_rank_11(card):
-    # r = 11: B4 once per refine round, each round at the gates of the
-    # kernel's plain version.
-    prob, params, ref = _recentered_at_init(card, 11)
+    _refine_rounds_hold(card, 11)
+
+
+def _refine_rounds_hold(card, r):
+    """B4 once per refine round at rank r, each round at the gates of the
+    kernel's plain version."""
+    prob, params, ref = _recentered_at_init(card, r)
     g, m = prob.graph, prob.meta
     kw = rbcd.kernel_options(params, m)
     D = torch.zeros_like(ref.consts.R)
@@ -526,7 +547,7 @@ def test_refine_rounds_run_the_kernel_at_rank_11(card):
         out = rk.rtr_refine_full(*ops, **kw)
         _assert_refine_matches(out, rk.rtr_refine_full_reference(*ops, **kw),
                                ops[9])
-        D = rk.comp_minor(out.D, 11, 4)
+        D = rk.comp_minor(out.D, r, 4)
     assert rk.REFINE_LAUNCHES == before + 3
     D3 = refine.refine_rounds(torch.zeros_like(ref.consts.R), ref.consts, g,
                               m, params, 3)
@@ -626,7 +647,10 @@ def test_cluster_that_cannot_be_placed_raises(card):
                                             (3, 11, 316, 11),
                                             (3, 33, 120, 8),
                                             (2, 78, 328, 11),
-                                            (3, 128, 40, 5)])
+                                            (3, 128, 40, 5),
+                                            (3, 256, 32, 10),
+                                            (3, 512, 16, 5),
+                                            (2, 4482, 16, 5)])
 def test_cluster_smem_bytes_match_the_plan(card, d, r, n_max, kinc):
     # Every kernel's launcher carves the bytes its cluster_shape states.
     lib = rk.load()
@@ -933,6 +957,45 @@ def test_solve_on_the_spread_route_launches_b2_once_per_round(card):
             verdict_every=verdict_every)
 
 
+def test_forced_cluster_or_spread_past_the_lane_cap_raises(card):
+    # r = 513: a pose of 17 warps fits no CTA of the cluster or spread
+    # routes.  A forced route raises before any launch, and the launchers
+    # refuse the rank themselves.
+    prob, params, X, Z, chol = _round(card, d=3, r=513, A=2, n=32,
+                                      num_lc=10)
+    b2 = rbcd.kernel_operands(X, Z, prob.graph.edges, chol, prob.graph)
+    kw = rbcd.kernel_options(params, prob.meta)
+    b3, b3_kw = _b3_args(prob, X, Z, chol), _b3_kw(params, prob.meta)
+    _, _, _, ops4 = _refine_operands(card, r=513, n=32, A=2, num_lc=10,
+                                     rounds=0)
+    before = (rk.LAUNCHES, rk.RTR_LAUNCHES, rk.TCG_LAUNCHES,
+              rk.REFINE_LAUNCHES)
+    for C in (1, 16):
+        with pytest.raises(ValueError, match="r <= 512"):
+            rk.rtr_full(*b2, _cluster=C, **kw)
+        with pytest.raises(ValueError, match="r <= 512"):
+            rk.rtr(*b3, _cluster=C, **b3_kw)
+        with pytest.raises(ValueError, match="r <= 512"):
+            rk.tcg(*_tcg_args(b3, 1.0), _cluster=C, **_tcg_kw(b3_kw))
+        with pytest.raises(ValueError, match="r <= 512"):
+            rk.rtr_refine_full(*ops4, _cluster=C, **kw)
+        with pytest.raises(ValueError, match="r <= 512"):
+            rk.rtr_full(*b2, _spread=C, **kw)
+        with pytest.raises(ValueError, match="r <= 512"):
+            rk.rtr_refine_full(*ops4, _spread=C, **kw)
+    torch.cuda.synchronize()
+    assert (rk.LAUNCHES, rk.RTR_LAUNCHES, rk.TCG_LAUNCHES,
+            rk.REFINE_LAUNCHES) == before
+    for kernel in rk.KERNELS:
+        with pytest.raises(ValueError, match="16 warps"):
+            rk.cluster_capacity(513, 3, 1, 2, 1, kernel)
+        assert rk.cluster_capacity(512, 3, 1, 2, 1, kernel) >= 1
+    for kernel in rk.SPREAD_KERNELS:
+        with pytest.raises(ValueError, match="16 warps"):
+            rk.spread_capacity(513, 3, 1, 1, kernel)
+        assert rk.spread_capacity(512, 3, 1, 1, kernel) >= 1
+
+
 def test_spread_that_cannot_be_placed_raises(card):
     _, b2, kw = _spread_b2(card)
     _, ops, kw4 = _spread_b4(card)
@@ -951,10 +1014,14 @@ def test_spread_that_cannot_be_placed_raises(card):
                                        (3, 10, 1594), (2, 10, 5000),
                                        (3, 17, 316), (3, 18, 1594),
                                        (3, 73, 316), (2, 78, 328),
-                                       (3, 128, 1594)])
+                                       (3, 128, 1594), (3, 256, 32),
+                                       (3, 512, 32), (3, 513, 32),
+                                       (3, 1636, 32), (2, 4482, 16)])
 def test_spread_shape_matches_the_launcher(card, d, r, n_max):
     # The launcher sizes each spread kernel by the formula spread_shape
-    # states: poses, threads and stripes per CTA, shared memory.
+    # states: poses, threads and stripes per CTA, shared memory (past the
+    # lane cap, one group of ceil(r / 32) warps: a shape that does not
+    # fit, never a CTA of 0 threads).
     import ctypes
 
     lib = rk.load()

@@ -1,14 +1,16 @@
 """The port above the staircase's default top rank, as the TPU runs it:
-every kernel at d in {2, 3} and 11 <= r <= 128 (``csrc/shapes.cuh``'s
+every kernel at d in {2, 3} and every r >= 11 (``csrc/shapes.cuh``'s
 rank-generic instantiation).
 
 * the route plan (``rtr_kernel.cluster_plan``) for each of B1-B4 over a
-  grid of agent shapes: the sphere2500 stand-in's, the SE(2) stand-in's
-  and BASELINE.md config #5's per-agent shapes (PERF.md section 4) and
-  small agents, at r in {11, 16, 17, 32, 33, 64, 73, 78, 128}: wherever the
-  JAX package's VMEM gate (``dpgo_tpu.models.rbcd.pallas_vmem_ok``) admits
-  the shape, the plan is a route that fits the card; above r = 128 it
-  raises;
+  grid of agent shapes: the sphere2500 stand-in's, the SE(2) stand-in's,
+  BASELINE.md config #5's and the smallGrid3D-size stand-in's per-agent
+  shapes (PERF.md section 4) and small agents, at ranks from 11 to 4482
+  (``RANKS``): wherever the JAX package's VMEM gate
+  (``dpgo_tpu.models.rbcd.pallas_vmem_ok``) admits the shape, the plan is
+  a route that fits the card, and above ``rtr_kernel.MAX_LANE_RANK``
+  (r = 512, a pose of 16 warps) it is the workspace route; a cluster or
+  spread forced past that cap raises;
 * B1-B4's plain versions against the Pallas kernels
   (``dpgo_tpu.ops.pallas_tcg``, interpreter mode) at (r, d) = (11, 3),
   (17, 3) and (12, 2);
@@ -17,7 +19,8 @@ rank-generic instantiation).
   the JAX package's in float64.
 
 The kernels run only on the card (``test_torch_cuda.py``); here the
-wrappers take their plain versions.
+wrappers take their plain versions.  ``test_torch_top_ranks.py`` holds the
+plain versions and the solve above r = 128 against the JAX package.
 """
 
 import jax.numpy as jnp
@@ -45,13 +48,18 @@ from test_torch_refine import ORDER as REFINE_ORDER
 from test_torch_rtr_kernel import (B3_KW, B3_ORDER, KW, ORDER, RTR_KW,
                                    _b3_operands, _j, _problem)
 
-#: The ranks of the plan's grid.
-RANKS = (11, 16, 17, 32, 33, 64, 73, 78, 128)
+#: The ranks of the plan's grid: poses of one to four warps, the first
+#: rank past four, a pose of eight and of 16 warps (the lane cap), the
+#: first rank past the cap, and the top ranks the JAX gate admits at the
+#: agent shapes below (396 at 120-pose agents, 817 and 1636 at the
+#: smallGrid3D-size stand-in's, 3360 and 4482 at 16-pose agents).
+RANKS = (11, 16, 17, 32, 33, 64, 73, 78, 128, 129, 256, 396, 512, 513, 817,
+         1636, 3360, 4482)
 
-#: Per-agent shapes (n_max, s_max, e_max, Kinc, d, agents): the three
-#: stand-ins of PERF.md section 4 (the sphere2500 stand-in over 8 robots,
-#: the SE(2) stand-in at city10000's size over 32, BASELINE.md config #5
-#: over 64) and small agents at both d.
+#: Per-agent shapes (n_max, s_max, e_max, Kinc, d, agents): the stand-ins
+#: of PERF.md section 4 (the sphere2500 stand-in over 8 robots, the SE(2)
+#: stand-in at city10000's size over 32, BASELINE.md config #5 over 64, the
+#: smallGrid3D-size stand-in over 4 and 2) and small agents at both d.
 AGENT_SHAPES = {
     "sphere2500": (316, 508, 920, 11, 3, 8),
     "se2_city10000": (328, 665, 1019, 11, 2, 32),
@@ -61,6 +69,8 @@ AGENT_SHAPES = {
     "small_d2": (16, 12, 24, 5, 2, 2),
     "mid_d2": (200, 150, 420, 9, 2, 16),
     "large_d2": (900, 400, 1500, 10, 2, 8),
+    "smallgrid3d_4": (32, 53, 112, 10, 3, 4),
+    "smallgrid3d_2": (63, 47, 190, 10, 3, 2),
 }
 
 
@@ -71,6 +81,8 @@ def _jax_admits(n_max, s_max, e_max, r, d):
 
 def _assert_fits(plan, kernel, n_max, r, d, kinc):
     assert plan.smem_bytes <= rk.MAX_SMEM_BYTES
+    if r > rk.MAX_LANE_RANK:
+        assert plan.route == "workspace"
     if plan.route == "cluster":
         assert plan.threads <= rk.MAX_CLUSTER_THREADS
         assert plan.C in rk.CLUSTER_SIZES and plan.C * plan.P >= n_max
@@ -102,9 +114,13 @@ def test_plan_fits_every_shape_the_jax_gate_admits(kernel, where):
 
 def test_the_gate_reaches_the_stand_ins_top_ranks():
     # The TPU runs its kernel up to r = 73 on the sphere2500 stand-in's
-    # agents, r = 78 on the SE(2) stand-in's and r = 18 on config #5's.
+    # agents, r = 78 on the SE(2) stand-in's, r = 18 on config #5's, r =
+    # 1636 and 817 on the smallGrid3D-size stand-in's over 4 and 2 robots,
+    # r = 396 on 120-pose agents and r = 3360 / 4482 on 16-pose agents.
     for where, top in (("sphere2500", 73), ("se2_city10000", 78),
-                       ("config5", 18)):
+                       ("config5", 18), ("smallgrid3d_4", 1636),
+                       ("smallgrid3d_2", 817), ("mid_d3", 396),
+                       ("small_d3", 3360), ("small_d2", 4482)):
         n_max, s_max, e_max, _, d, _ = AGENT_SHAPES[where]
         assert _jax_admits(n_max, s_max, e_max, top, d)
         assert not _jax_admits(n_max, s_max, e_max, top + 1, d)
@@ -158,27 +174,66 @@ def test_lane_layout_above_the_templated_ranks(r):
 
 @pytest.mark.parametrize("kernel", list(rk.KERNELS))
 def test_plan_raises_above_the_ceiling(kernel):
-    assert rk.MAX_RANK == 128
-    with pytest.raises(ValueError, match="ceiling of r = 128"):
-        rk.cluster_plan(16, 24, 5, 129, 3, kernel)
-    with pytest.raises(ValueError, match="ceiling of r = 128"):
-        rk._route(None, 16, 24, 5, 129, 2, kernel)
+    # The ceiling is the cluster and spread routes' own (a pose of at most
+    # 16 warps, r <= 512): the plan never raises for a rank.  At r = 129 on
+    # 16-pose agents every kernel takes a cluster of five-warp poses; at
+    # r = 513 the workspace route, and a cluster or a spread forced there
+    # raises, naming the 16-warp cap.
+    assert rk.MAX_LANE_RANK == 512
+    for d in (3, 2):
+        plan = rk.cluster_plan(16, 24, 5, 129, d, kernel)
+        assert plan.route == "cluster" and plan.threads % (5 * 32) == 0
+        assert rk._route(None, 16, 24, 5, 129, d, kernel) == plan
+        plan = rk.cluster_plan(16, 24, 5, 513, d, kernel)
+        assert plan == rk._workspace_plan(16, 24, 513, d, kernel)
+        assert rk._route(0, 16, 24, 5, 513, d, kernel) == plan
+        for C in (1, 16):
+            with pytest.raises(ValueError, match="at most 16, so r <= 512"):
+                rk._route(C, 16, 24, 5, 513, d, kernel)
+        if kernel in rk.SPREAD_KERNELS:
+            assert rk._route(None, 16, 24, 5, 512, d, kernel,
+                             spread=16).route == "spread"
+            with pytest.raises(ValueError, match="at most 16, so r <= 512"):
+                rk._route(None, 16, 24, 5, 513, d, kernel, spread=16)
 
 
 def test_cpu_wrapper_runs_its_plain_version_above_the_ceiling():
-    # The ceiling is the card kernels' own: on CPU tensors the wrapper runs
-    # its plain version at r = 129, and only a route forced for the card
-    # raises there.
-    _, meta, _, _, _, ops = _problem(5, n=12, A=2, d=2, rank=129, num_lc=4)
-    args = [ops[k] for k in ORDER]
-    kw = dict(r=129, d=2, e_max=meta.e_max, **RTR_KW)
-    out = rk.rtr_full(*args, **kw)
-    ref = rk.rtr_full_reference(*args, **kw)
-    for got, want in zip(out, ref):
-        assert torch.equal(got, want)
-    assert bool(torch.isfinite(out.X).all())
-    with pytest.raises(ValueError, match="ceiling"):
-        rk.rtr_full(*args, _cluster=0, **kw)
+    # On CPU tensors the wrapper runs its plain version at r = 129 and at
+    # r = 513, past the cluster and spread routes' cap; only a route forced
+    # for the card that cannot hold the pose raises there.
+    for r, C in ((129, 16), (513, 0)):
+        _, meta, _, _, _, ops = _problem(5, n=12, A=2, d=2, rank=r,
+                                         num_lc=4)
+        args = [ops[k] for k in ORDER]
+        kw = dict(r=r, d=2, e_max=meta.e_max, **RTR_KW)
+        before = rk.LAUNCHES
+        ref = rk.rtr_full_reference(*args, **kw)
+        for opts in ({}, {"_cluster": C}):
+            out = rk.rtr_full(*args, **opts, **kw)
+            for got, want in zip(out, ref):
+                assert torch.equal(got, want)
+        assert rk.LAUNCHES == before
+        assert bool(torch.isfinite(ref.X).all())
+    with pytest.raises(ValueError, match="r <= 512"):
+        rk.rtr_full(*args, _cluster=1, **kw)
+    with pytest.raises(ValueError, match="r <= 512"):
+        rk.rtr_full(*args, _spread=2, **kw)
+
+
+@pytest.mark.parametrize("r", [513, 817, 1636, 3360, 4482])
+@pytest.mark.parametrize("n_max", [1, 16, 1594])
+def test_spread_shape_past_the_lane_cap_does_not_fit(r, n_max):
+    # Above r = 512 a pose needs more than the spread CTA's 16 warps: the
+    # shape is one group of ceil(r / 32) warps a CTA, which does not fit
+    # (never a CTA of 0 threads), and the plan has no spread to offer.
+    W = -(-r // 32)
+    for C in (1, 2, 16):
+        plan = rk.spread_shape(r, 3, n_max, C)
+        assert plan.threads == 32 * W > rk.SPREAD_THREADS
+        assert plan.stripes == plan.P == -(-n_max // C)
+        assert not rk._fits(plan)
+    assert rk._spread_plan(n_max, r, 3, 4, rk.H100_SMS) is None
+    assert not rk._fits(rk.cluster_shape(r, 3, n_max, 5, 16))
 
 
 #: The plain versions' shapes (d, rank, n, A, num_lc).
