@@ -393,36 +393,40 @@ RANK_TOP = 10
 RANK_REPS, RANK_INNER = 3, 5
 PERF_SHAPES = ((7, 3), (10, 3), (4, 2), (10, 2))
 #: The lane cap (``csrc/lanes.cuh``): one rank-generic instantiation per d
-#: serves every r >= 11, and the cluster and spread routes lay a pose over
-#: ceil(r / 32) warps of one CTA, up to r = LANE_CAP (16 warps); above it
-#: only the workspace route runs.  The high_ranks phase holds the generic
-#: instantiation at HIGH_RANKS[d]: a pose of r lanes (one or two a warp),
-#: of one whole warp, and of two and three warps, up to the top rank the
-#: JAX package's VMEM gate admits at each stand-in's agents (73 on the
-#: sphere2500 stand-in, 78 on the SE(2) stand-in), and at TOP_RANKS on the
-#: smallGrid3D-size stand-in over TOP_ROBOTS (125 poses and 296 edges, the
-#: size of the reference's smallGrid3D, 125 and 297; n_max 32): a cluster
-#: of five- and eight-warp poses (129, 256), a spread of 16-warp poses
-#: (512), the first rank past the cap (513) and the gate's top there
-#: (1636), all workspace above the cap, and at the gate's top ranks at
-#: 16-pose agents (SMALL_AGENT_TOP_RANKS); launches per timed run (the
-#: workspace route takes milliseconds a launch).  B3's path there: the
-#: round ablation at HIGH_ABLATE_RANK, its rounds.  The f32 distributed
-#: staircase from rank 11 on the stand-in.
+#: serves every r >= 11, and the cluster route lays a pose over ceil(r /
+#: 32) warps of one CTA, up to r = LANE_CAP (16 warps); above it B2 and B4
+#: take the spread route with a pose's rows folded over 16 warps
+#: (``rtr_full_fold_kernel``, ``rtr_refine_full_fold_kernel``) wherever
+#: its shared memory fits, B1 and B3 the workspace route.  The high_ranks
+#: phase holds the generic instantiation at HIGH_RANKS[d]: a pose of r
+#: lanes (one or two a warp), of one whole warp, and of two and three
+#: warps, up to the top rank the JAX package's VMEM gate admits at each
+#: stand-in's agents (73 on the sphere2500 stand-in, 78 on the SE(2)
+#: stand-in), and at TOP_RANKS on the smallGrid3D-size stand-in over
+#: TOP_ROBOTS (125 poses and 296 edges, the size of the reference's
+#: smallGrid3D, 125 and 297; n_max 32): a cluster of five- and eight-warp
+#: poses (129, 256), a spread of 16-warp poses (512), the first rank past
+#: the cap (513) and the gate's top there (1636), and at the gate's top
+#: ranks at 16-pose agents (SMALL_AGENT_TOP_RANKS); launches per timed run
+#: (the workspace route takes milliseconds a launch).  B3's path there:
+#: the round ablation at HIGH_ABLATE_RANK, its rounds.  The f32
+#: distributed staircase from rank 11 on the stand-in.
 LANE_CAP = rk.MAX_LANE_RANK
 HIGH_RANKS = {3: (11, 16, 17, 32, 33, 73), 2: (11, 32, 33, 78)}
 HIGH_INNER = 3
 SMALLGRID_POSES, SMALLGRID_LC, TOP_ROBOTS = 125, 172, 4
 TOP_RANKS = (129, 256, 512, 513, 1636)
 #: The JAX gate's top ranks at 16-pose agents (n_max 16, s_max 12, e_max
-#: 24), by d: the workspace route at the highest ranks the TPU runs, on 2
-#: robots of a 32-pose graph (s_max 6, e_max 25 and 26: admitted there).
+#: 24), by d: the highest ranks the TPU runs (B2 and B4 spread, seven and
+#: nine rows a lane), on 2 robots of a 32-pose graph (s_max 6, e_max 25 and
+#: 26: admitted there).
 SMALL_AGENT_TOP_RANKS = {3: 3360, 2: 4482}
 #: The main path at the top ranks: ``solve_rbcd`` on the smallGrid3D-size
 #: stand-in in float32 for TOP_ROUNDS rounds (no tolerance stops it) at
-#: each of TOP_PATH_RANKS (a cluster at 256, the workspace route at 1636,
-#: the gate's top), held to the port's float64 run on the host; then
-#: TOP_REFINE_ROUNDS refine rounds (B4) at the top one.
+#: each of TOP_PATH_RANKS (a cluster at 256, at 1636, the gate's top, the
+#: spread route with four rows a lane), held to the port's float64 run on
+#: the host; then TOP_REFINE_ROUNDS refine rounds (B4, spread) at the top
+#: one.
 TOP_PATH_RANKS, TOP_ROUNDS, TOP_REFINE_ROUNDS = (256, 1636), 10, 3
 HIGH_ABLATE_RANK, HIGH_ABLATE_ROUNDS = 11, 20
 #: The SE(2) stand-in at BASELINE.md config #4's size (city10000: 10,000
@@ -4417,6 +4421,13 @@ def generic_rows(high: dict, launches: dict) -> list:
                        for route in high["shapes"][kernel]},
             "shapes": high["shapes"][kernel],
             "by_rank": high["rows"][kernel]})
+        folded = [[int(x) for x in rd.split(",")]
+                  for rd, row in high["rows"][kernel].items()
+                  if row["route"] == "spread" and row["folds"] > 1]
+        if folded:
+            out[-1]["spread_fold"] = {
+                "kernel": f"{kernel}_fold_kernel",
+                "source": ROUTE_SOURCES["spread"], "shapes": folded}
     return out
 
 
@@ -4446,9 +4457,12 @@ def high_ranks_phase(runs: list, dev, card: str) -> dict:
     agents; at the card's chordal init (B4
     recentered there): each kernel on every route it reaches
     (``high_rank_routes``) against its plain version and itself, each
-    route's ms per launch, the plain version's time and the launch's
-    bound.  Returns, per kernel, the shapes each route ran at, the largest
-    error, and the rows by (r, d)."""
+    route's ms per launch (above LANE_CAP in turns: the routes in order,
+    then in reverse), the plain version's time and the launch's bound;
+    above LANE_CAP B1 and B3 must plan the workspace route and B2 and B4
+    the spread route wherever ``_spread_plan`` fits.  Returns, per
+    kernel, the shapes each route ran at, the largest error, and the rows
+    by (r, d)."""
     ran = {k: {} for k in rk.KERNELS}
     worst = dict.fromkeys(rk.KERNELS, 0.0)
     rows = {k: {} for k in rk.KERNELS}
@@ -4467,18 +4481,27 @@ def high_ranks_phase(runs: list, dev, card: str) -> dict:
                 ref = ref_fn(*ops.values(), **kw)
                 k_row = {"plan": plan._asdict(), "routes": {}}
                 out_planned = None
-                for route, (c, sp) in high_rank_routes(kernel, ops,
-                                                       kw).items():
+                routes = high_rank_routes(kernel, ops, kw)
+                for route, (c, sp) in routes.items():
                     p_row, out = shape_parity(kernel, ops, kw, ref, c, sp)
-                    opts = route_opts(c, sp)
-                    p_row["ms"] = cuda_ms(
-                        lambda: fn(*ops.values(), **opts, **kw),
-                        reps=RANK_REPS, inner=HIGH_INNER, warmup=1)
+                    p_row["ms_runs"] = []
                     k_row["routes"][route] = p_row
                     ran[kernel].setdefault(route, []).append([r, d])
                     worst[kernel] = max(worst[kernel], p_row["err"])
                     if c is None and sp is None:
                         out_planned = out
+                # Past the lane cap B2 and B4 take the spread route's
+                # folded rows in turns with the workspace route; every
+                # other route is timed once.
+                turns = [*routes, *reversed(routes)] \
+                    if r > LANE_CAP and len(routes) > 1 else [*routes]
+                for route in turns:
+                    opts = route_opts(*routes[route])
+                    k_row["routes"][route]["ms_runs"].append(cuda_ms(
+                        lambda: fn(*ops.values(), **opts, **kw),
+                        reps=RANK_REPS, inner=HIGH_INNER, warmup=1))
+                for p_row in k_row["routes"].values():
+                    p_row["ms"] = statistics.mean(p_row["ms_runs"])
                 nbytes, flops = work(ops, out_planned, graph, meta)
                 b_ms, b_by = bound(nbytes, flops)
                 k_row.update(
@@ -4488,11 +4511,16 @@ def high_ranks_phase(runs: list, dev, card: str) -> dict:
                     bound_ms=b_ms, bound_by=b_by,
                     max_tcg_iters=int(tcg_iters_of(out_planned).max()))
                 row["kernels"][kernel] = k_row
-                check(r <= LANE_CAP or plan.route == "workspace",
-                      f"{kernel} at (r, d) = ({r}, {d}), past the lane cap, "
-                      f"is planned on the {plan.route} route")
+                if r > LANE_CAP:
+                    spread = (rk._spread_plan(meta.n_max, r, d, robots,
+                                              rk.sm_count(dev))
+                              if kernel in rk.SPREAD_KERNELS else None)
+                    check(plan == (spread or rk._workspace_plan(
+                        meta.n_max, meta.e_max, r, d, kernel)),
+                          f"{kernel} at (r, d) = ({r}, {d}), past the lane "
+                          f"cap, is planned on the {plan.route} route")
                 rows[kernel][f"{r},{d}"] = {
-                    "route": plan.route, "C": plan.C,
+                    "route": plan.route, "C": plan.C, "folds": plan.folds,
                     **{f"ms_{route}": v["ms"]
                        for route, v in k_row["routes"].items()},
                     **{k: k_row[k] for k in ("plain_ms", "bound_ms",
@@ -4583,6 +4611,10 @@ def top_path_rank(meas, r: int, dev, card: str) -> tuple[int, object]:
         res.iterations, params=params, max_iters=TOP_ROUNDS, eval_every=1)
         == TOP_ROUNDS, f"the solve at rank {r} did not launch B2 once a "
           "round")
+    check(r <= LANE_CAP or (plan.route, plan.folds) == ("spread",
+                                                        -(-r // 512)),
+          f"B2 at rank {r} is planned on the {plan.route} route, not the "
+          "spread route's folded rows")
     check(bool(torch.isfinite(res.state.X).all() and torch.isfinite(res.T)
                .all()) and res.cost_history[-1] < res.cost_history[0],
           f"the solve at rank {r} is not finite or its cost did not fall")
@@ -4613,6 +4645,11 @@ def top_ranks_path(meas, dev, card: str) -> dict:
         .double().cpu().numpy()
     ref = refine.recenter(Xg64, graph, meta, rparams,
                           refine.host_edges_f64(meas))
+    plan = rk.cluster_plan(meta.n_max, meta.e_max,
+                           graph.inc_slot.shape[-1], r, 3, "rtr_refine_full",
+                           agents=TOP_ROBOTS, sms=rk.sm_count(dev))
+    check(plan.route == "spread", f"B4 at rank {r} is planned on the "
+          f"{plan.route} route, not the spread route")
     Dk = De = torch.zeros_like(ref.consts.R)
     rk.REFINE_LAUNCHES = 0
     torch.cuda.synchronize()
@@ -4628,6 +4665,8 @@ def top_ranks_path(meas, dev, card: str) -> dict:
     scale = float(De.abs().max())
     emit({"phase": "top_ranks", "check": "refine", "card": card, "rank": r,
           "rounds": TOP_REFINE_ROUNDS, "b4_launches": b4,
+          "plan": plan._asdict(), "ms_per_round": 1e3 * refine_s
+          / TOP_REFINE_ROUNDS,
           "max_abs_dD_vs_ell": traj, "max_abs_D": scale,
           "gradnorm": gn.tolist(), "seconds": refine_s})
     check(b4 == TOP_REFINE_ROUNDS, "the refine rounds at rank "

@@ -3,8 +3,12 @@
 // formulae).  Up to r = 32 a pose takes r lanes of a warp, one row each,
 // and a warp holds 32 / r poses; above it a pose takes ceil(r / 32) whole
 // warps, row q on lane q % 32 of warp q / 32, and its group sums meet in
-// kGroupSums shared slots a warp (D (D + 1) / 2 <= 6 values).  A pose must
-// fit one CTA: at 512 threads, 16 warps, so r <= 512 (pose_fits).
+// kGroupSums shared slots a warp (D (D + 1) / 2 <= 6 values).  At r = 512 a
+// pose of 16 warps fills a CTA of 512 threads, the cluster route's cap
+// (pose_fits).  Above it the spread route folds a pose's rows over the
+// CTA's lanes: row q on thread q % kFoldRows at fold q / kFoldRows, so a
+// lane holds pose_folds(r) rows and the pose takes pose_warps(kFoldRows)
+// = 16 warps.
 
 #pragma once
 
@@ -13,19 +17,29 @@
 namespace {
 
 constexpr int kGroupSums = 8;
+// Rows of a pose on distinct lanes at most: 16 warps of one CTA.
+constexpr int kFoldRows = 512;
+
+// Rows a lane holds of its pose (its folds): one up to r = kFoldRows,
+// ceil(r / kFoldRows) above (the spread route only).
+__host__ __device__ constexpr int pose_folds(int r) {
+  return r <= kFoldRows ? 1 : (r + kFoldRows - 1) / kFoldRows;
+}
 
 // Poses a warp holds: 32 / r up to r = 32, one (over several warps) above.
 __host__ __device__ constexpr int poses_per_warp(int r) {
   return r <= 32 ? 32 / r : 1;
 }
 
-// Warps one pose takes: 1 up to r = 32, ceil(r / 32) above.
+// Warps one pose takes, one row a lane: 1 up to r = 32, ceil(r / 32)
+// above.
 __host__ __device__ constexpr int pose_warps(int r) {
   return r <= 32 ? 1 : (r + 31) / 32;
 }
 
-// Whether one pose's lane group fits a CTA of `max_threads` threads; the
-// launchers refuse a rank whose pose does not.
+// Whether one pose's lane group, one row a lane, fits a CTA of
+// `max_threads` threads; the cluster launchers refuse a rank whose pose
+// does not (r > 512).
 __host__ __device__ constexpr bool pose_fits(int r, int max_threads) {
   return pose_warps(r) <= max_threads / 32;
 }
@@ -36,11 +50,13 @@ __host__ __device__ constexpr int group_slots(int r, int warps) {
   return r > 32 ? warps * kGroupSums : 0;
 }
 
-// Sums of N values over the rows of a pose that spans warps (r > 32): each
-// warp's butterfly sum goes to its slot of `gslots` ([warps][kGroupSums],
-// shared), and after a block barrier every lane adds its pose's warps'
-// slots in order, so every lane of the pose ends with the same values.  A
-// second barrier frees the slots.  Every thread of the CTA must call it.
+// Sums of N values over the rows of a pose that spans warps (r > 32; a
+// folded pose passes r = kFoldRows, each lane the sum of its rows' terms
+// added in fold order): each warp's butterfly sum goes to its slot of
+// `gslots` ([warps][kGroupSums], shared), and after a block barrier every
+// lane adds its pose's warps' slots in order, so every lane of the pose
+// ends with the same values.  A second barrier frees the slots.  Every
+// thread of the CTA must call it.
 template <int N>
 __device__ void wide_group_sum(float* gslots, int r, float (&v)[N]) {
 #pragma unroll

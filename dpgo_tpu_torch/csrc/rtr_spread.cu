@@ -57,12 +57,30 @@
 //     from the launch: up to r = 32 a group is r lanes of a warp as above;
 //     above, a pose takes ceil(r / 32) whole warps (row q on lane q % 32 of
 //     its (q / 32)-th warp) and its group sums meet in shared slots after a
-//     block barrier (lanes.cuh's wide_group_sum).  A CTA holds at most 16
-//     such warps, so this route ends at r = 512 (a pose of 16 warps); the
-//     launchers refuse a higher rank, which the workspace route takes.  A
-//     thread still holds one row of d + 1 floats; B2's retraction runs on
-//     every row of the pose (retract_row), since a batch of r stripes' sums
-//     would hold r (d + 1) floats a thread.
+//     block barrier (lanes.cuh's wide_group_sum).  Up to r = 512 (a pose
+//     of 16 warps) a thread holds one row of d + 1 floats; B2's retraction
+//     runs on every row of the pose (retract_rows), since a batch of r
+//     stripes' sums would hold r (d + 1) floats a thread.
+//   * Above r = 512 the fold kernels (rtr_full_fold_kernel,
+//     rtr_refine_full_fold_kernel) fold a pose's rows over the CTA's 16
+//     warps: row q on thread q % 512 at fold q / 512, F = ceil(r / 512)
+//     folds (lanes.cuh's pose_folds), one pose a stripe.  Every per-row
+//     phase loops over the thread's folds; a phase that needs a group sum
+//     of its rows (the tangent projection, the retractions' Y^T Y, the
+//     refine start's S1) runs in two passes: the first adds the folds'
+//     terms in fold order and leaves each fold's row in the vector it
+//     writes anyway (kHd, kZv, kG), the group sum follows, the second
+//     finishes each row.  A fold's loads of a vector are one coalesced run
+//     of 512 rows, issued before the fold's first store; a thread holds
+//     one fold's rows at a time (all F folds of a vector would take
+//     F (d + 1) of its 128 registers).  The shared vectors hold every fold
+//     of the CTA's poses, 3 P vec_stride floats (P = 2 at r = 1636 over 16
+//     CTAs, ~160 KB); a shape whose shared memory does not fit is refused
+//     (kUnplaceable).  A thread adds its folds' terms in fold order within
+//     each stripe's, so the sums below keep one fixed order.
+//   * No tensor cores: per edge and row the work is a product of inner
+//     dimension d + 1 <= 4, and the f32 parity gates (bit for bit across
+//     launches, one fixed order of every sum) rule out TF32 wgmma.
 //   * Sweeps, cost ownership, reductions, the retractions' arithmetic and
 //     the double-buffered direction with two cluster barriers per tCG
 //     iteration are rtr_cluster.cu's.  A thread adds its stripes' terms in
@@ -99,6 +117,8 @@ constexpr int kThreads = 512;
 constexpr int kMaxSums = 4;
 constexpr int kPortableCluster = 8;
 constexpr int kMaxCluster = 16;
+// Shared memory one CTA can use on sm_90 (ops/rtr_kernel.MAX_SMEM_BYTES).
+constexpr size_t kMaxSmemBytes = 232448;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kEps = 1e-30f;
 constexpr int kNsSweeps = 24;
@@ -121,9 +141,9 @@ constexpr int kSlot = 1 << 25;
 constexpr int kLive = 1 << 26;
 constexpr int kCostOwner = 1 << 27;
 constexpr int kSideJ = 1 << 28;
-// Launcher errors: the card cannot place one cluster of this size; more
-// neighbor slots than a payload word can index; a kernel number without a
-// spread route.
+// Launcher errors: the card cannot place one cluster of this size (or one
+// CTA's shared memory exceeds kMaxSmemBytes); more neighbor slots than a
+// payload word can index; a kernel number without a spread route.
 constexpr int kUnplaceable = -2;
 constexpr int kTooManySlots = -3;
 constexpr int kUnknownKernel = -4;
@@ -159,20 +179,18 @@ struct SpreadShape {
 
 // The one formula for the spread kernels' shape (ops/rtr_kernel.
 // spread_shape mirrors it): 32 / r poses per warp (ceil(r / 32) warps per
-// pose above r = 32), at most kThreads threads of whole groups,
-// ceil(P / groups) stripes; shared memory holds the kSmemVecs vectors
-// [P][vec_stride], the double-buffered reduction slots [2][C * warps][4]
-// and, above r = 32, the group-sum slots [warps][kGroupSums].  B2 and B4
-// share it.  A pose of more than kThreads / 32 warps (r > 512) gets one
-// group of W warps, more than kThreads threads: a shape that does not fit,
-// which the launchers refuse.
+// pose above r = 32, 16 warps and pose_folds(r) rows a lane above r =
+// 512), at most kThreads threads of whole groups, ceil(P / groups)
+// stripes; shared memory holds the kSmemVecs vectors [P][vec_stride], the
+// double-buffered reduction slots [2][C * warps][4] and, above r = 32, the
+// group-sum slots [warps][kGroupSums].  B2 and B4 share it.  A shape of
+// more than kMaxSmemBytes does not fit, and the launchers refuse it.
 SpreadShape spread_shape(int r, int d, int n, int C) {
   const int P = (n + C - 1) / C;
   const int per_warp = poses_per_warp(r);
-  const int W = pose_warps(r);
+  const int W = pose_warps(r < kFoldRows ? r : kFoldRows);
   int threads = (P + per_warp - 1) / per_warp * 32 * W;
-  if (threads > kThreads)
-    threads = pose_fits(r, kThreads) ? kThreads / 32 / W * W * 32 : 32 * W;
+  if (threads > kThreads) threads = kThreads / 32 / W * W * 32;
   const int groups = threads / 32 / W * per_warp;
   const int stripes = (P + groups - 1) / groups;
   const size_t floats = (size_t)kSmemVecs * P * vec_stride(r * (d + 1)) +
@@ -278,6 +296,12 @@ struct CtxR : Ctx {
   float* gslots;  // shared [warps][kGroupSums] (r > 32)
 };
 
+// The fold kernels' view (r > 512): the thread's folds of a pose.
+struct CtxF : CtxR {
+  int folds;  // rows this thread holds of a pose (pose_folds)
+  int row0;   // its row at fold 0
+};
+
 template <int R>
 using CtxOf = std::conditional_t<R == 0, CtxR, Ctx>;
 
@@ -295,6 +319,14 @@ __device__ __forceinline__ int rank_of(const Ctx& cx) {
 __device__ __forceinline__ void at_stripe(Ctx& cx, int st) {
   cx.pl = st * cx.groups + cx.grp;
   cx.own = cx.lane_ok && cx.pl < cx.P && cx.rank * cx.P + cx.pl < cx.n;
+}
+
+// Point the thread at fold f of the current stripe's pose: row row0 + f
+// kFoldRows, held when the pose is and the row lies below r.
+__device__ __forceinline__ void at_fold(CtxF& cx, int f) {
+  cx.row = cx.row0 + f * kFoldRows;
+  cx.own = cx.lane_ok && cx.pl < cx.P && cx.rank * cx.P + cx.pl < cx.n &&
+           cx.row < cx.r;
 }
 
 // The agent-wide index of this CTA's pose slot pl.
@@ -545,6 +577,20 @@ __device__ __forceinline__ void sym_ytw(const Ctx& cx, const float (&x)[D + 1],
   group_sym<R, D>(cx, m, sy);
 }
 
+// This row's terms of sym(Y^T W) (sym_ytw's), added to m: the fold
+// kernels sum a thread's folds before the group sum.
+template <int D>
+__device__ __forceinline__ void add_sym(const float (&x)[D + 1],
+                                        const float (&w)[D + 1],
+                                        float (&m)[D * (D + 1) / 2]) {
+  int i = 0;
+#pragma unroll
+  for (int b = 0; b < D; ++b)
+#pragma unroll
+    for (int c = b; c < D; ++c, ++i)
+      m[i] += 0.5f * (x[b] * w[c] + x[c] * w[b]);
+}
+
 template <int D>
 __device__ __forceinline__ void sub_ysym(const float (&x)[D + 1],
                                          const float (&sy)[D * D],
@@ -581,6 +627,32 @@ __device__ __forceinline__ void ld_factor(const Ctx& cx,
     for (int i = 0; i < K; ++i)
 #pragma unroll
       for (int q = 0; q <= i; ++q) Lp[i * (i + 1) / 2 + q] = i == q ? 1.f : 0.f;
+  }
+}
+
+// The fold kernels' block-Jacobi solve of one row with its pose's factor
+// record Lp (precond's substitutions without its tangent projection; the
+// diagonal holds reciprocals).  precond keeps its own copy: with precond
+// calling this helper and retract_stripes calling ns_polar, the templated
+// d = 2 B2 kernels' ptxas spills moved.
+template <int D>
+__device__ __forceinline__ void block_solve(const float (&Lp)[l_floats(D)],
+                                            float (&v)[D + 1]) {
+  constexpr int K = D + 1;
+  float y[K];
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    float s = v[i];
+#pragma unroll
+    for (int q = 0; q < i; ++q) s -= Lp[i * (i + 1) / 2 + q] * y[q];
+    y[i] = s * Lp[i * (i + 1) / 2 + i];
+  }
+#pragma unroll
+  for (int i = K - 1; i >= 0; --i) {
+    float s = y[i];
+#pragma unroll
+    for (int q = i + 1; q < K; ++q) s -= Lp[q * (q + 1) / 2 + i] * v[q];
+    v[i] = s * Lp[i * (i + 1) / 2 + i];
   }
 }
 
@@ -623,6 +695,46 @@ __device__ __forceinline__ void matmul3(const float (&A)[D][D],
       for (int e = 0; e < D; ++e) s += A[b][e] * B[e][c];
       C[b][c] = s;
     }
+}
+
+// The fold retraction's polar factor of a pose from its M^T M (MM,
+// symmetric): Zm ends as the 24-sweep Newton-Schulz inverse square root of
+// MM / s, s its trace (at least 1e-37); returns 1 / sqrt(s).  The same
+// sweeps as retract_stripes' and retract_rows', which keep their own copy
+// (see block_solve).
+template <int D>
+__device__ __forceinline__ float ns_polar(const float (&MM)[D * D],
+                                          float (&Zm)[D][D]) {
+  float Y[D][D], T[D][D], tmp[D][D];
+  float s = 0.f;
+#pragma unroll
+  for (int b = 0; b < D; ++b) s += MM[b * D + b];
+  s = fmaxf(s, 1e-37f);
+#pragma unroll
+  for (int b = 0; b < D; ++b)
+#pragma unroll
+    for (int c = 0; c < D; ++c) {
+      Y[b][c] = MM[b * D + c] / s;
+      Zm[b][c] = (b == c) ? 1.f : 0.f;
+    }
+  for (int it = 0; it < kNsSweeps; ++it) {
+    matmul3<D>(Zm, Y, tmp);
+#pragma unroll
+    for (int b = 0; b < D; ++b)
+#pragma unroll
+      for (int c = 0; c < D; ++c)
+        T[b][c] = 0.5f * (((b == c) ? 3.f : 0.f) - tmp[b][c]);
+    matmul3<D>(Y, T, tmp);
+    matmul3<D>(T, Zm, Y);  // Y holds the new Z for a moment
+#pragma unroll
+    for (int b = 0; b < D; ++b)
+#pragma unroll
+      for (int c = 0; c < D; ++c) {
+        Zm[b][c] = Y[b][c];
+        Y[b][c] = tmp[b][c];
+      }
+  }
+  return 1.f / sqrtf(s);
 }
 
 // The retraction of every stripe into kXp: rtr_cluster.cu's retract (this
@@ -796,23 +908,14 @@ __device__ void retract_rows(Ctx& cx) {
   }
 }
 
-// rtr_cluster.cu's retract_refine: this thread's row of the refine step's
-// D_new (the four-term polar-correction series on U = D + V about Rc).
-template <int R, int D>
-__device__ void retract_refine(const Ctx& cx, const float (&rc)[D + 1],
-                               const float (&dd)[D + 1],
-                               const float (&v)[D + 1], float (&o)[D + 1]) {
-  float u[D + 1];
-#pragma unroll
-  for (int q = 0; q <= D; ++q) u[q] = dd[q] + v[q];
-  float m[D * (D + 1) / 2], Ef[D * D];
-  int i = 0;
-#pragma unroll
-  for (int b = 0; b < D; ++b)
-#pragma unroll
-    for (int c = b; c < D; ++c, ++i)
-      m[i] = rc[b] * u[c] + u[b] * rc[c] + u[b] * u[c];
-  group_sym<R, D>(cx, m, Ef);
+// One row of the refine step's D_new from the pose's E = sym(Rc^T U + U^T
+// Rc + U^T U) (Ef): U + (Rc + U)(-E / 2 + 3 E^2 / 8 - 5 E^3 / 16 +
+// 35 E^4 / 128), the translation U's.
+template <int D>
+__device__ __forceinline__ void refine_series(const float (&Ef)[D * D],
+                                              const float (&rc)[D + 1],
+                                              const float (&u)[D + 1],
+                                              float (&o)[D + 1]) {
   float E[D][D], E2[D][D], E3[D][D], E4[D][D];
 #pragma unroll
   for (int b = 0; b < D; ++b)
@@ -831,6 +934,26 @@ __device__ void retract_refine(const Ctx& cx, const float (&rc)[D + 1],
     o[c] = u[c] + s;
   }
   o[D] = u[D];
+}
+
+// rtr_cluster.cu's retract_refine: this thread's row of the refine step's
+// D_new (the four-term polar-correction series on U = D + V about Rc).
+template <int R, int D>
+__device__ void retract_refine(const Ctx& cx, const float (&rc)[D + 1],
+                               const float (&dd)[D + 1],
+                               const float (&v)[D + 1], float (&o)[D + 1]) {
+  float u[D + 1];
+#pragma unroll
+  for (int q = 0; q <= D; ++q) u[q] = dd[q] + v[q];
+  float m[D * (D + 1) / 2], Ef[D * D];
+  int i = 0;
+#pragma unroll
+  for (int b = 0; b < D; ++b)
+#pragma unroll
+    for (int c = b; c < D; ++c, ++i)
+      m[i] = rc[b] * u[c] + u[b] * rc[c] + u[b] * u[c];
+  group_sym<R, D>(cx, m, Ef);
+  refine_series<D>(Ef, rc, u, o);
 }
 
 template <int NV>
@@ -991,8 +1114,11 @@ __device__ void sweep(const Ctx& cx, int v, bool with_z,
 // edge records, then publish everything to the cluster.
 // setup of the rank-generic instantiation (R = 0): r from the launch, the
 // lane layout of that r (r lanes a pose up to 32, ceil(r / 32) warps a
-// pose above), and the group-sum slots after the reduction slots.
-template <int D, bool REFINE>
+// pose above), and the group-sum slots after the reduction slots.  FOLD:
+// the fold kernels' (r > 512: 16 warps a pose, every fold's rows copied,
+// the reference residuals by (edge, row)); their branches leave the other
+// kernels' text as it was.
+template <int D, bool REFINE, bool FOLD = false>
 __device__ CtxR setup_rt(const SpreadArgsR& g, float* smem, int a) {
   constexpr int K = D + 1;
   constexpr int DD = D * D;
@@ -1026,7 +1152,7 @@ __device__ CtxR setup_rt(const SpreadArgsR& g, float* smem, int a) {
     cx.groups = (blockDim.x >> 5) * per_warp;
     cx.grp = warp * per_warp + group;
   } else {
-    const int W = pose_warps(r);
+    const int W = pose_warps(FOLD ? kFoldRows : r);
     cx.grp = warp / W;
     cx.row = (warp - cx.grp * W) * 32 + lane;
     cx.base = 0;
@@ -1054,24 +1180,56 @@ __device__ CtxR setup_rt(const SpreadArgsR& g, float* smem, int a) {
   cx.eids = cx.words + stride;
   int* slots = cx.eids + stride;
 
-  for (int st = 0; st < cx.stripes; ++st) {
-    at_stripe(cx, st);
-    if (!cx.own) continue;
-    const int p = pose_of(cx, cx.pl);
-    const size_t comp = (size_t)a * RK + cx.row * K;
-    float x[K];
+  if constexpr (FOLD) {
+    const int row0 = cx.row;
+    for (int st = 0; st < cx.stripes; ++st) {
+      at_stripe(cx, st);
+      const bool pose_own = cx.own;
+      for (int f = 0; f < pose_folds(r); ++f) {
+        cx.row = row0 + f * kFoldRows;
+        cx.own = pose_own && cx.row < r;
+        if (!cx.own) continue;
+        const int p = pose_of(cx, cx.pl);
+        const size_t comp = (size_t)a * RK + cx.row * K;
+        float x[K];
 #pragma unroll
-    for (int q = 0; q < K; ++q) x[q] = __ldg(g.X + (comp + q) * g.n + p);
-    st_own<0, K>(cx, REFINE ? kD : kX, x);
-    if (REFINE) {
+        for (int q = 0; q < K; ++q) x[q] = __ldg(g.X + (comp + q) * g.n + p);
+        st_own<0, K>(cx, REFINE ? kD : kX, x);
+        if (REFINE) {
 #pragma unroll
-      for (int q = 0; q < K; ++q) x[q] = __ldg(g.Rc + (comp + q) * g.n + p);
-      st_own<0, K>(cx, kRc, x);
+          for (int q = 0; q < K; ++q)
+            x[q] = __ldg(g.Rc + (comp + q) * g.n + p);
+          st_own<0, K>(cx, kRc, x);
+        }
+        if (g.S != nullptr) {
+#pragma unroll
+          for (int q = 0; q < K; ++q)
+            x[q] = __ldg(g.g + (comp + q) * g.n + p);
+          st_own<0, K>(cx, kG, x);
+        }
+      }
     }
-    if (g.S != nullptr) {
+    cx.row = row0;
+  } else {
+    for (int st = 0; st < cx.stripes; ++st) {
+      at_stripe(cx, st);
+      if (!cx.own) continue;
+      const int p = pose_of(cx, cx.pl);
+      const size_t comp = (size_t)a * RK + cx.row * K;
+      float x[K];
 #pragma unroll
-      for (int q = 0; q < K; ++q) x[q] = __ldg(g.g + (comp + q) * g.n + p);
-      st_own<0, K>(cx, kG, x);
+      for (int q = 0; q < K; ++q) x[q] = __ldg(g.X + (comp + q) * g.n + p);
+      st_own<0, K>(cx, REFINE ? kD : kX, x);
+      if (REFINE) {
+#pragma unroll
+        for (int q = 0; q < K; ++q) x[q] = __ldg(g.Rc + (comp + q) * g.n + p);
+        st_own<0, K>(cx, kRc, x);
+      }
+      if (g.S != nullptr) {
+#pragma unroll
+        for (int q = 0; q < K; ++q) x[q] = __ldg(g.g + (comp + q) * g.n + p);
+        st_own<0, K>(cx, kG, x);
+      }
     }
   }
   // The factors' lower triangles (diagonal reciprocals) and S0, one entry
@@ -1098,9 +1256,26 @@ __device__ CtxR setup_rt(const SpreadArgsR& g, float* smem, int a) {
     }
   }
   // The reference residuals by edge and row, the agent's CTAs taking
-  // every C-th block of edges.
+  // every C-th block of edges (FOLD: of (edge, row) pairs, since one
+  // thread walking an edge's r rows makes the fold kernels' setup grow
+  // with r).
   const int nt = g.Ep / g.T;
-  if (REFINE) {
+  if (REFINE && FOLD) {
+    const long long pairs = (long long)g.E * r;
+    for (long long t = cx.rank * blockDim.x + threadIdx.x; t < pairs;
+         t += (long long)cx.C * blockDim.x) {
+      const int e = (int)(t / r);
+      const int row = (int)(t - (long long)e * r);
+      const int tl = e / g.T;
+      const int ln = e - tl * g.T;
+      const size_t tile = (size_t)a * nt + tl;
+      float* rh = cx.rho + (size_t)e * RK + row * K;
+#pragma unroll
+      for (int k = 0; k < D; ++k)
+        rh[k] = g.rho_rot[(tile * (r * D) + row * D + k) * g.T + ln];
+      rh[D] = g.rho_trn[(tile * r + row) * g.T + ln];
+    }
+  } else if (REFINE) {
     for (int e = cx.rank * blockDim.x + threadIdx.x; e < g.E;
          e += cx.C * blockDim.x) {
       const int tl = e / g.T;
@@ -1594,6 +1769,376 @@ __device__ Attempts attempts(Ctx& cx, const SpreadArgs& args, float* xo,
   return at;
 }
 
+// ---------------------------------------------------------------------------
+// The fold kernels (r > 512): a pose's rows folded over the CTA's 16 warps,
+// one pose a stripe.  Each phase is the one of the same name above, its
+// per-row work looped over the thread's folds (at_fold); a group sum takes
+// the folds' terms added in fold order (add_sym), and the rows it finishes
+// are reloaded from the vector the first pass wrote.
+// ---------------------------------------------------------------------------
+
+// group_sym over a folded pose: all 16 warps of the CTA sum (lanes.cuh's
+// wide_group_sum at r = kFoldRows), each lane passing its folds' terms.
+template <int D>
+__device__ __forceinline__ void fold_sym(const CtxF& cx,
+                                         float (&m)[D * (D + 1) / 2],
+                                         float (&sy)[D * D]) {
+  wide_group_sum<D * (D + 1) / 2>(cx.gslots, kFoldRows, m);
+  int i = 0;
+#pragma unroll
+  for (int b = 0; b < D; ++b)
+#pragma unroll
+    for (int c = b; c < D; ++c, ++i) {
+      sy[b * D + c] = m[i];
+      sy[c * D + b] = m[i];
+    }
+}
+
+// tcg over the folds: tcg's iterations, the Hessian's and z's tangent
+// projections in two passes (kHd and kZv hold each fold's row between
+// them).  Every thread of the cluster calls it.
+template <int D>
+__device__ int tcg_fold(CtxF& cx, float radius, int max_iters, float kappa,
+                        float theta, bool* hit) {
+  constexpr int K = D + 1;
+  constexpr int NM = D * (D + 1) / 2;
+  constexpr int SF = s_floats(D);
+  float s2[2] = {0.f, 0.f};
+  for (int st = 0; st < cx.stripes; ++st) {
+    at_stripe(cx, st);
+    at_fold(cx, 0);
+    float Lp[l_floats(D)], m[NM] = {}, sy[D * D];
+    ld_factor<D>(cx, Lp);
+    for (int f = 0; f < cx.folds; ++f) {
+      at_fold(cx, f);
+      float x[K], v[K];
+      ld_own<0, K>(cx, kX, x);
+      ld_own<0, K>(cx, kG, v);
+      st_own<0, K>(cx, kR, v);
+      block_solve<D>(Lp, v);
+      st_own<0, K>(cx, kZv, v);
+      add_sym<D>(x, v, m);
+    }
+    fold_sym<D>(cx, m, sy);
+    for (int f = 0; f < cx.folds; ++f) {
+      at_fold(cx, f);
+      float x[K], v[K], zz[K];
+      const float zero[K] = {};
+      ld_own<0, K>(cx, kX, x);
+      ld_own<0, K>(cx, kR, v);
+      ld_own<0, K>(cx, kZv, zz);
+      sub_ysym<D>(x, sy, zz);
+      st_own<0, K>(cx, kZv, zz);
+      s2[0] += dot<K>(v, zz);
+      s2[1] += dot<K>(v, v);
+#pragma unroll
+      for (int q = 0; q < K; ++q) zz[q] = -zz[q];
+      st_own<0, K>(cx, kDelta, zz);
+      st_own<0, K>(cx, kEta, zero);
+      st_own<0, K>(cx, kHeta, zero);
+    }
+  }
+  cluster_sum<2>(cx, s2);  // also publishes delta
+  float rz = s2[0];
+  const float r0n = sqrtf(s2[1]);
+  float r0n_th;
+  if (theta == 1.f) {
+    r0n_th = r0n;
+  } else if (theta == 0.f) {
+    r0n_th = 1.f;
+  } else {
+    r0n_th = expf(theta * logf(fmaxf(r0n, kEps)));
+  }
+  const float target = r0n * fminf(kappa, r0n_th);
+  const float rad2 = radius * radius;
+
+  int k = 0;
+  bool done = rz <= 0.f;
+  *hit = false;
+  int cur = kDelta, prev = kDeltaB;
+  bool fresh = true;
+  float beta = 0.f;
+  while (k < max_iters && !done) {
+    float s4[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int st = 0; st < cx.stripes; ++st) {
+      at_stripe(cx, st);
+      at_fold(cx, 0);
+      float S[SF], m[NM] = {}, sy[D * D];
+      if (cx.own) ld_rec<SF>(cx.S + (size_t)pose_of(cx, cx.pl) * SF, S);
+      for (int f = 0; f < cx.folds; ++f) {
+        at_fold(cx, f);
+        float x[K], dl[K], h[K] = {};
+        ld_own<0, K>(cx, kX, x);
+        ld_own<0, K>(cx, cur, dl);
+        if (cx.own) {
+          if (fresh) {
+            sweep<0, D, true, false>(cx, cur, false, dl, h, nullptr);
+          } else {
+            sweep<0, D, true, false>(cx, kZv, false, dl, h, nullptr, prev,
+                                     beta);
+          }
+#pragma unroll
+          for (int c = 0; c < D; ++c) {
+            float s = 0.f;
+#pragma unroll
+            for (int b = 0; b < D; ++b) s += dl[b] * S[b * D + c];
+            h[c] -= s;
+          }
+          st_own<0, K>(cx, kHd, h);
+        }
+        add_sym<D>(x, h, m);
+      }
+      fold_sym<D>(cx, m, sy);
+      for (int f = 0; f < cx.folds; ++f) {
+        at_fold(cx, f);
+        float x[K], dl[K], h[K], et[K];
+        ld_own<0, K>(cx, kX, x);
+        ld_own<0, K>(cx, cur, dl);
+        ld_own<0, K>(cx, kEta, et);
+        ld_own<0, K>(cx, kHd, h);
+        sub_ysym<D>(x, sy, h);
+        st_own<0, K>(cx, kHd, h);
+        s4[0] += dot<K>(dl, h);
+        s4[1] += dot<K>(et, et);
+        s4[2] += dot<K>(et, dl);
+        s4[3] += dot<K>(dl, dl);
+      }
+    }
+    cluster_sum<4>(cx, s4);
+    const float d_hd = s4[0], e_e = s4[1], e_d = s4[2], d_d = s4[3];
+    const float alpha = rz / (fabsf(d_hd) < kEps ? kEps : d_hd);
+    const float e_e_next = e_e + 2.f * alpha * e_d + alpha * alpha * d_d;
+    const bool crossing = (d_hd <= 0.f) || (e_e_next >= rad2);
+    const float disc = fmaxf(e_d * e_d + d_d * (rad2 - e_e), 0.f);
+    const float tau = (-e_d + sqrtf(disc)) / (d_d < kEps ? kEps : d_d);
+    const float step = crossing ? tau : alpha;
+
+    s2[0] = 0.f;
+    s2[1] = 0.f;
+    for (int st = 0; st < cx.stripes; ++st) {
+      at_stripe(cx, st);
+      at_fold(cx, 0);
+      float Lp[l_floats(D)], m[NM] = {}, sy[D * D];
+      ld_factor<D>(cx, Lp);
+      for (int f = 0; f < cx.folds; ++f) {
+        at_fold(cx, f);
+        float x[K], dl[K], h[K], et[K], he[K], v[K], zz[K];
+        ld_own<0, K>(cx, kX, x);
+        ld_own<0, K>(cx, cur, dl);
+        ld_own<0, K>(cx, kHd, h);
+        ld_own<0, K>(cx, kEta, et);
+        ld_own<0, K>(cx, kHeta, he);
+        ld_own<0, K>(cx, kR, v);
+#pragma unroll
+        for (int q = 0; q < K; ++q) {
+          et[q] += step * dl[q];
+          he[q] += step * h[q];
+          v[q] += alpha * h[q];
+          zz[q] = v[q];
+        }
+        st_own<0, K>(cx, kEta, et);
+        st_own<0, K>(cx, kHeta, he);
+        st_own<0, K>(cx, kR, v);
+        block_solve<D>(Lp, zz);
+        st_own<0, K>(cx, kZv, zz);
+        add_sym<D>(x, zz, m);
+      }
+      fold_sym<D>(cx, m, sy);
+      for (int f = 0; f < cx.folds; ++f) {
+        at_fold(cx, f);
+        float x[K], v[K], zz[K];
+        ld_own<0, K>(cx, kX, x);
+        ld_own<0, K>(cx, kR, v);
+        ld_own<0, K>(cx, kZv, zz);
+        sub_ysym<D>(x, sy, zz);
+        st_own<0, K>(cx, kZv, zz);
+        s2[0] += dot<K>(v, zz);
+        s2[1] += dot<K>(v, v);
+      }
+    }
+    cluster_sum<2>(cx, s2);
+    const float rz_in = s2[0];
+    const bool converged = sqrtf(s2[1]) <= target;
+    beta = rz_in / (fabsf(rz) < kEps ? kEps : rz);
+    rz = rz_in;
+    ++k;
+    done = crossing || converged;
+    *hit = *hit || crossing;
+    if (!done && k < max_iters) {
+      for (int st = 0; st < cx.stripes; ++st) {
+        at_stripe(cx, st);
+        for (int f = 0; f < cx.folds; ++f) {
+          at_fold(cx, f);
+          if (!cx.own) continue;
+          float dl[K], zz[K];
+          ld_own<0, K>(cx, cur, dl);
+          ld_own<0, K>(cx, kZv, zz);
+#pragma unroll
+          for (int q = 0; q < K; ++q) dl[q] = -zz[q] + beta * dl[q];
+          st_own<0, K>(cx, prev, dl);
+        }
+      }
+      const int t = cur;
+      cur = prev;
+      prev = t;
+      fresh = false;
+    }
+  }
+  return k;
+}
+
+// retract_rows over the folds: each pose's M^T M summed over its folds,
+// then every fold's row of the polar factor into kXp.
+template <int D>
+__device__ void retract_rows_fold(CtxF& cx) {
+  constexpr int K = D + 1;
+  constexpr int NM = D * (D + 1) / 2;
+  for (int st = 0; st < cx.stripes; ++st) {
+    at_stripe(cx, st);
+    float m[NM] = {}, MM[D * D];
+    for (int f = 0; f < cx.folds; ++f) {
+      at_fold(cx, f);
+      float x[K], et[K], M[D];
+      ld_own<0, K>(cx, kX, x);
+      ld_own<0, K>(cx, kEta, et);
+#pragma unroll
+      for (int c = 0; c < D; ++c) M[c] = x[c] + et[c];
+      int i = 0;
+#pragma unroll
+      for (int b = 0; b < D; ++b)
+#pragma unroll
+        for (int c = b; c < D; ++c, ++i) m[i] += M[b] * M[c];
+    }
+    fold_sym<D>(cx, m, MM);
+    float Zm[D][D];
+    const float inv = ns_polar<D>(MM, Zm);
+    for (int f = 0; f < cx.folds; ++f) {
+      at_fold(cx, f);
+      float x[K], et[K], o[K];
+      ld_own<0, K>(cx, kX, x);
+      ld_own<0, K>(cx, kEta, et);
+#pragma unroll
+      for (int c = 0; c < D; ++c) {
+        float acc = 0.f;
+#pragma unroll
+        for (int b = 0; b < D; ++b) acc += (x[b] + et[b]) * Zm[b][c];
+        o[c] = acc * inv;
+      }
+      o[D] = x[D] + et[D];
+      if (pose_of(cx, cx.pl) < cx.n_act) {
+        st_own<0, K>(cx, kXp, o);
+      } else {
+        st_own<0, K>(cx, kXp, x);
+      }
+    }
+  }
+}
+
+// retract_refine over the folds: each pose's E summed over its folds, then
+// every fold's row of D_new into kXp.
+template <int D>
+__device__ void retract_refine_fold(CtxF& cx) {
+  constexpr int K = D + 1;
+  constexpr int NM = D * (D + 1) / 2;
+  for (int st = 0; st < cx.stripes; ++st) {
+    at_stripe(cx, st);
+    float m[NM] = {}, Ef[D * D];
+    for (int f = 0; f < cx.folds; ++f) {
+      at_fold(cx, f);
+      float dd[K], et[K], rc[K], u[K];
+      ld_own<0, K>(cx, kD, dd);
+      ld_own<0, K>(cx, kEta, et);
+      ld_own<0, K>(cx, kRc, rc);
+#pragma unroll
+      for (int q = 0; q < K; ++q) u[q] = dd[q] + et[q];
+      int i = 0;
+#pragma unroll
+      for (int b = 0; b < D; ++b)
+#pragma unroll
+        for (int c = b; c < D; ++c, ++i)
+          m[i] += rc[b] * u[c] + u[b] * rc[c] + u[b] * u[c];
+    }
+    fold_sym<D>(cx, m, Ef);
+    for (int f = 0; f < cx.folds; ++f) {
+      at_fold(cx, f);
+      float dd[K], et[K], rc[K], u[K], o[K];
+      ld_own<0, K>(cx, kD, dd);
+      ld_own<0, K>(cx, kEta, et);
+      ld_own<0, K>(cx, kRc, rc);
+#pragma unroll
+      for (int q = 0; q < K; ++q) u[q] = dd[q] + et[q];
+      refine_series<D>(Ef, rc, u, o);
+      if (pose_of(cx, cx.pl) < cx.n_act) {
+        st_own<0, K>(cx, kXp, o);
+      } else {
+        st_own<0, K>(cx, kXp, dd);
+      }
+    }
+  }
+}
+
+// attempts over the folds.
+template <int D, bool REFINE>
+__device__ Attempts attempts_fold(CtxF& cx, const SpreadArgs& args,
+                                  float* xo, float f0, int k_att,
+                                  float radius, int max_rejections) {
+  constexpr int K = D + 1;
+  Attempts at{k_att, false, f0, 0};
+  while (at.k_att < max_rejections && !at.accepted) {
+    bool hit;
+    at.iters += tcg_fold<D>(cx, radius, args.max_iters, args.kappa,
+                            args.theta, &hit);
+    if constexpr (REFINE) {
+      retract_refine_fold<D>(cx);
+    } else {
+      retract_rows_fold<D>(cx);
+    }
+    __threadfence();
+    cg::this_cluster().sync();  // the cost reads xp across CTAs
+    float s3[3] = {0.f, 0.f, 0.f};
+    for (int st = 0; st < cx.stripes; ++st) {
+      at_stripe(cx, st);
+      for (int f = 0; f < cx.folds; ++f) {
+        at_fold(cx, f);
+        if (!cx.own) continue;
+        float xp[K], unused[K], gv[K], et[K], he[K];
+        ld_own<0, K>(cx, kXp, xp);
+        ld_own<0, K>(cx, kG, gv);
+        ld_own<0, K>(cx, kEta, et);
+        ld_own<0, K>(cx, kHeta, he);
+        sweep<0, D, false, true, REFINE>(cx, kXp, true, xp, unused, &s3[0]);
+        s3[1] += dot<K>(gv, et);
+        s3[2] += dot<K>(et, he);
+      }
+    }
+    cluster_sum<3>(cx, s3);
+    const float f_prop = (REFINE ? 1.f : 0.5f) * s3[0];
+    const float mdec = -(s3[1] + 0.5f * s3[2]);
+    const float rho = (f0 - f_prop) / fmaxf(mdec, kEps);
+    const bool ok = (rho > 0.1f) && (f_prop <= f0);
+    if (ok) {
+      for (int st = 0; st < cx.stripes; ++st) {
+        at_stripe(cx, st);
+        for (int f = 0; f < cx.folds; ++f) {
+          at_fold(cx, f);
+          if (!cx.own) continue;
+          const int p = pose_of(cx, cx.pl);
+          float xp[K];
+          ld_own<0, K>(cx, kXp, xp);
+#pragma unroll
+          for (int q = 0; q < K; ++q) xo[(cx.row * K + q) * cx.n + p] = xp[q];
+        }
+      }
+      at.f_best = f_prop;
+    } else {
+      radius = radius / 4.f;
+    }
+    ++at.k_att;
+    at.accepted = ok;
+  }
+  return at;
+}
+
 template <int R, int D>
 __global__ void __launch_bounds__(kThreads, 1)
 rtr_full_spread_kernel(ArgsOf<R> args, float initial_radius,
@@ -1758,6 +2303,197 @@ rtr_refine_full_spread_kernel(ArgsOf<R> args, float initial_radius,
   cg::this_cluster().sync();  // no CTA leaves while its partials are read
 }
 
+// rtr_full_spread_kernel above r = 512, the rows folded (the fold kernels'
+// note above).
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+rtr_full_fold_kernel(SpreadArgsR args, float initial_radius,
+                     int max_rejections, float grad_tol, float* X_out,
+                     float* stats, int* tcg_iters) {
+  constexpr int K = D + 1;
+  constexpr int NM = D * (D + 1) / 2;
+  extern __shared__ __align__(16) float smem[];
+  const int a = blockIdx.x / cg::this_cluster().num_blocks();
+  CtxF cx;
+  static_cast<CtxR&>(cx) = setup_rt<D, false, true>(args, smem, a);
+  cx.folds = pose_folds(cx.r);
+  cx.row0 = cx.row;
+  float* xo = X_out + (size_t)a * cx.r * K * cx.n;
+
+  // Start point: G = egrad([X | Z]) into kG, S = sym(Y^T G_Y), then g =
+  // P_X(G) over kG, f0.
+  float s2[2] = {0.f, 0.f};
+  for (int st = 0; st < cx.stripes; ++st) {
+    at_stripe(cx, st);
+    const int p = pose_of(cx, cx.pl);
+    float m[NM] = {}, sy[D * D];
+    for (int f = 0; f < cx.folds; ++f) {
+      at_fold(cx, f);
+      float x[K], G[K] = {};
+      ld_own<0, K>(cx, kX, x);
+      if (cx.own) {
+        sweep<0, D, true, true>(cx, kX, true, x, G, &s2[1]);
+#pragma unroll
+        for (int q = 0; q < K; ++q) xo[(cx.row * K + q) * cx.n + p] = x[q];
+        st_own<0, K>(cx, kG, G);
+      }
+      add_sym<D>(x, G, m);
+    }
+    fold_sym<D>(cx, m, sy);
+    for (int f = 0; f < cx.folds; ++f) {
+      at_fold(cx, f);
+      if (cx.own && cx.row == 0) {
+#pragma unroll
+        for (int i = 0; i < D * D; ++i)
+          cx.S[(size_t)p * s_floats(D) + i] = sy[i];
+      }
+      float x[K], G[K];
+      ld_own<0, K>(cx, kX, x);
+      ld_own<0, K>(cx, kG, G);
+      sub_ysym<D>(x, sy, G);
+      st_own<0, K>(cx, kG, G);
+      s2[0] += dot<K>(G, G);
+    }
+  }
+  cluster_sum<2>(cx, s2);
+  const float gn0 = sqrtf(s2[0]);
+  const float f0 = 0.5f * s2[1];
+
+  const Attempts at = attempts_fold<D, false>(
+      cx, args, xo, f0, (gn0 < grad_tol) ? max_rejections : 0,
+      initial_radius, max_rejections);
+  if (cx.rank == 0 && threadIdx.x == 0) {
+    float* st = stats + (size_t)a * 5;
+    st[0] = (float)at.k_att;
+    st[1] = at.accepted ? 1.f : 0.f;
+    st[2] = f0;
+    st[3] = at.f_best;
+    st[4] = gn0;
+    tcg_iters[a] = at.iters;
+  }
+  cg::this_cluster().sync();  // no CTA leaves while its partials are read
+}
+
+// rtr_refine_full_spread_kernel above r = 512, the rows folded: the
+// re-centered start's S1 and preconditioned gradient in three passes (kHd
+// holds dG, kZv the solved gradient between them).
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+rtr_refine_full_fold_kernel(SpreadArgsR args, float initial_radius,
+                            int max_rejections, float grad_tol,
+                            float* D_out, float* stats, int* tcg_iters) {
+  constexpr int K = D + 1;
+  constexpr int NM = D * (D + 1) / 2;
+  constexpr int DD = D * D;
+  extern __shared__ __align__(16) float smem[];
+  const int a = blockIdx.x / cg::this_cluster().num_blocks();
+  CtxF cx;
+  static_cast<CtxR&>(cx) = setup_rt<D, true, true>(args, smem, a);
+  cx.folds = pose_folds(cx.r);
+  cx.row0 = cx.row;
+  const size_t off = (size_t)a * cx.r * K * cx.n;
+  float* xo = D_out + off;
+  const float* gref = args.Gref + off;
+
+  float s3[3] = {0.f, 0.f, 0.f};
+  for (int st = 0; st < cx.stripes; ++st) {
+    at_stripe(cx, st);
+    at_fold(cx, 0);
+    const int p = pose_of(cx, cx.pl);
+    float Lp[l_floats(D)], S0[DD] = {}, m[NM] = {}, S1[DD], St[DD];
+    ld_factor<D>(cx, Lp);
+    if (cx.own) {
+#pragma unroll
+      for (int j = 0; j < DD; ++j) S0[j] = cx.S[(size_t)p * s_floats(D) + j];
+    }
+    for (int f = 0; f < cx.folds; ++f) {
+      at_fold(cx, f);
+      float dd[K], rc[K], y[K], G[K] = {}, gr[K] = {};
+      ld_own<0, K>(cx, kD, dd);
+      ld_own<0, K>(cx, kRc, rc);
+#pragma unroll
+      for (int q = 0; q < K; ++q) y[q] = rc[q] + dd[q];
+      st_own<0, K>(cx, kX, y);
+      if (cx.own) {
+#pragma unroll
+        for (int q = 0; q < K; ++q) gr[q] = gref[(cx.row * K + q) * cx.n + p];
+        sweep<0, D, true, true, true>(cx, kD, true, dd, G, &s3[2]);
+#pragma unroll
+        for (int q = 0; q < K; ++q) xo[(cx.row * K + q) * cx.n + p] = dd[q];
+        st_own<0, K>(cx, kHd, G);
+      }
+      int i = 0;
+#pragma unroll
+      for (int b = 0; b < D; ++b)
+#pragma unroll
+        for (int c = b; c < D; ++c, ++i)
+          m[i] += 0.5f * (dd[b] * gr[c] + dd[c] * gr[b] + y[b] * G[c] +
+                          y[c] * G[b]);
+    }
+    // Every thread has read S0 before the group sum's barriers, so fold 0's
+    // row 0 may overwrite it after them.
+    fold_sym<D>(cx, m, S1);
+#pragma unroll
+    for (int j = 0; j < DD; ++j) St[j] = S0[j] + S1[j];
+    float m2[NM] = {}, sy[DD];
+    for (int f = 0; f < cx.folds; ++f) {
+      at_fold(cx, f);
+      if (cx.own && cx.row == 0) {
+#pragma unroll
+        for (int j = 0; j < DD; ++j) cx.S[(size_t)p * s_floats(D) + j] = St[j];
+      }
+      float dd[K], rc[K], y[K], G[K], gv[K];
+      ld_own<0, K>(cx, kD, dd);
+      ld_own<0, K>(cx, kRc, rc);
+      ld_own<0, K>(cx, kG, gv);  // g0
+      ld_own<0, K>(cx, kHd, G);
+#pragma unroll
+      for (int c = 0; c < D; ++c) {
+        float s = 0.f;
+#pragma unroll
+        for (int b = 0; b < D; ++b)
+          s += rc[b] * S1[b * D + c] + dd[b] * St[b * D + c];
+        gv[c] = gv[c] + G[c] - s;
+      }
+      gv[D] = gv[D] + G[D];
+      st_own<0, K>(cx, kG, gv);
+      s3[0] += dot<K>(gv, gv);
+#pragma unroll
+      for (int q = 0; q < K; ++q) y[q] = rc[q] + dd[q];
+      block_solve<D>(Lp, gv);
+      st_own<0, K>(cx, kZv, gv);
+      add_sym<D>(y, gv, m2);
+    }
+    fold_sym<D>(cx, m2, sy);
+    for (int f = 0; f < cx.folds; ++f) {
+      at_fold(cx, f);
+      float y[K], gv[K];
+      ld_own<0, K>(cx, kX, y);
+      ld_own<0, K>(cx, kZv, gv);
+      sub_ysym<D>(y, sy, gv);
+      s3[1] += dot<K>(gv, gv);
+    }
+  }
+  cluster_sum<3>(cx, s3);  // also publishes S to the pose's rows
+  const float gn0 = sqrtf(s3[0]);
+  const float radius = fminf(initial_radius, 10.f * sqrtf(s3[1]));
+  const float f0 = s3[2];
+
+  const Attempts at = attempts_fold<D, true>(
+      cx, args, xo, f0, (gn0 < grad_tol) ? max_rejections : 0, radius,
+      max_rejections);
+  if (cx.rank == 0 && threadIdx.x == 0) {
+    float* st = stats + (size_t)a * 5;
+    st[0] = (float)at.k_att;
+    st[1] = at.accepted ? 1.f : 0.f;
+    st[2] = f0;
+    st[3] = at.f_best;
+    st[4] = gn0;
+    tcg_iters[a] = at.iters;
+  }
+  cg::this_cluster().sync();  // no CTA leaves while its partials are read
+}
+
 // Launch configuration of A clusters of C CTAs of the spread shape.
 template <typename... KArgs>
 int spread_config(void (*kern)(KArgs...), int A, int C,
@@ -1819,7 +2555,7 @@ int max_clusters(void (*kern)(KArgs...), int C, const SpreadShape& sh,
 template <typename... KArgs, typename... Args>
 int launch_spread(void (*kern)(KArgs...), int A, int C,
                   const SpreadShape& sh, cudaStream_t stream, Args... args) {
-  if (C > kMaxCluster) return kUnplaceable;
+  if (C > kMaxCluster || sh.smem > kMaxSmemBytes) return kUnplaceable;
   int count = 0;
   int err = max_clusters(kern, C, sh, &count);
   if (err != 0) return err;
@@ -1913,9 +2649,14 @@ int Launchers<R, D, true>::rtr_full(const SpreadArgs& g, int r, int A, int C,
                                     float grad_tol, float* X_out,
                                     float* stats, int* tcg_iters,
                                     cudaStream_t stream) {
-  if (!pose_fits(r, kThreads)) return dpgo_shapes::kUnsupportedShape;
   if (g.s > kIndexMask + 1) return kTooManySlots;
   const SpreadShape sh = spread_shape(r, D, g.n, C);
+  if constexpr (R == 0) {
+    if (pose_folds(r) > 1)
+      return launch_spread(rtr_full_fold_kernel<D>, A, C, sh, stream,
+                           args_of<0>(g, r), initial_radius, max_rejections,
+                           grad_tol, X_out, stats, tcg_iters);
+  }
   return launch_spread(rtr_full_spread_kernel<R, D>, A, C, sh, stream,
                        args_of<R>(g, r), initial_radius, max_rejections,
                        grad_tol, X_out, stats, tcg_iters);
@@ -1926,9 +2667,14 @@ int Launchers<R, D, true>::refine(const SpreadArgs& g, int r, int A, int C,
                                   float initial_radius, int max_rejections,
                                   float grad_tol, float* D_out, float* stats,
                                   int* tcg_iters, cudaStream_t stream) {
-  if (!pose_fits(r, kThreads)) return dpgo_shapes::kUnsupportedShape;
   if (g.s > kIndexMask + 1) return kTooManySlots;
   const SpreadShape sh = spread_shape(r, D, g.n, C);
+  if constexpr (R == 0) {
+    if (pose_folds(r) > 1)
+      return launch_spread(rtr_refine_full_fold_kernel<D>, A, C, sh, stream,
+                           args_of<0>(g, r), initial_radius, max_rejections,
+                           grad_tol, D_out, stats, tcg_iters);
+  }
   return launch_spread(rtr_refine_full_spread_kernel<R, D>, A, C, sh, stream,
                        args_of<R>(g, r), initial_radius, max_rejections,
                        grad_tol, D_out, stats, tcg_iters);
@@ -1937,16 +2683,23 @@ int Launchers<R, D, true>::refine(const SpreadArgs& g, int r, int A, int C,
 template <int R, int D>
 int Launchers<R, D, true>::query_clusters(int kernel, int r, int n, int C,
                                           int* count) {
-  if (!pose_fits(r, kThreads)) return dpgo_shapes::kUnsupportedShape;
   const SpreadShape sh = spread_shape(r, D, n, C);
-  if (C > kMaxCluster) {
+  if (C > kMaxCluster || sh.smem > kMaxSmemBytes) {
     *count = 0;
     return 0;
   }
   switch (kernel) {
     case kRtrFull:
+      if constexpr (R == 0) {
+        if (pose_folds(r) > 1)
+          return max_clusters(rtr_full_fold_kernel<D>, C, sh, count);
+      }
       return max_clusters(rtr_full_spread_kernel<R, D>, C, sh, count);
     case kRefine:
+      if constexpr (R == 0) {
+        if (pose_folds(r) > 1)
+          return max_clusters(rtr_refine_full_fold_kernel<D>, C, sh, count);
+      }
       return max_clusters(rtr_refine_full_spread_kernel<R, D>, C, sh, count);
   }
   return kUnknownKernel;
@@ -1969,8 +2722,9 @@ using dpgo_shapes::dispatch;
 extern "C" {
 
 // The spread shape of kernel `kernel` for agents of n_max poses over C
-// CTAs: writes P, threads and stripes to out[0..2] and returns the shared
-// memory bytes of one CTA; -4 for a kernel without a spread route.
+// CTAs: writes P, threads, stripes and the rows a lane holds (pose_folds)
+// to out[0..3] and returns the shared memory bytes of one CTA; -4 for a
+// kernel without a spread route.
 long long dpgo_rtr_spread_shape(int r, int d, int n_max, int C, int kernel,
                                 void* out) {
   if (kernel != kRtrFull && kernel != kRefine) return kUnknownKernel;
@@ -1979,6 +2733,7 @@ long long dpgo_rtr_spread_shape(int r, int d, int n_max, int C, int kernel,
   o[0] = sh.P;
   o[1] = sh.threads;
   o[2] = sh.stripes;
+  o[3] = pose_folds(r);
   return (long long)sh.smem;
 }
 
@@ -1989,10 +2744,9 @@ long long dpgo_rtr_spread_workspace_floats(int r, int d, int n_max, int e_max,
 }
 
 // How many clusters of C CTAs of spread kernel `kernel` the card can hold
-// at once (cudaOccupancyMaxActiveClusters) into *count; returns a
-// cudaError_t, -1 for an (r, d) without instantiation or whose pose spans
-// more warps than a CTA holds (r > 512), -4 for a kernel without a spread
-// route.
+// at once (cudaOccupancyMaxActiveClusters) into *count, 0 for a shape whose
+// shared memory does not fit; returns a cudaError_t, -1 for an (r, d)
+// without instantiation, -4 for a kernel without a spread route.
 int dpgo_rtr_spread_max_clusters(int r, int d, int n_max, int C, int kernel,
                                  void* count) {
   int* c = static_cast<int*>(count);

@@ -9,11 +9,13 @@
 //   * the rank-generic instantiation, R = 0, one for each d in {2, 3}: the
 //     kernels read r from the launch (any r >= kMinGenericRank).  A
 //     source's R = 0 code keeps every per-thread array bounded by d (a lane
-//     holds one row of d + 1 floats), never by r (d + 1).  The cluster and
-//     spread routes lay a pose over ceil(r / 32) warps of a CTA of at most
-//     512 threads, so their launchers refuse r > 512 (a pose of more than
-//     16 warps); the workspace route walks a pose's rows one at a time and
-//     takes any rank.
+//     holds one row of d + 1 floats, or above r = 512 on the spread route
+//     one at a time of its ceil(r / 512) folds), never by r (d + 1).  The
+//     cluster route lays a pose over ceil(r / 32) warps of a CTA of at most
+//     512 threads, so its launchers refuse r > 512 (a pose of more than 16
+//     warps); the spread route folds such a pose's rows over 16 warps, as
+//     far as its shared memory fits; the workspace route walks a pose's
+//     rows one at a time and takes any rank.
 // A launcher returns -1 for any other (r, d); the Python side keeps no copy
 // of the templated list.
 //

@@ -28,11 +28,13 @@ source as its ``BUILD_PARTS`` kernel parts and a dispatch part, one
 runs at d in {2, 3} and every r >= d (``csrc/shapes.cuh``): the ranks the
 staircase reaches by default (r <= 10) are templated shapes, and one
 rank-generic instantiation per d, which reads r from the launch, takes
-every r >= 11.  The cluster and spread routes lay a pose over ceil(r / 32)
-warps of one CTA of at most 512 threads, so they end at ``MAX_LANE_RANK``
-(r = 512, a pose of 16 warps); the workspace route walks a pose's rows one
-at a time and has no rank limit, so the plan always has a route.  A
-launcher refuses any other shape and the wrapper raises.
+every r >= 11.  The cluster route lays a pose over ceil(r / 32) warps of
+one CTA of at most 512 threads, so it ends at ``MAX_LANE_RANK`` (r = 512, a
+pose of 16 warps); above it the spread route folds a pose's rows over the
+CTA's 16 warps (``pose_folds``: ceil(r / 512) rows a lane), as far as its
+shared memory fits; the workspace route walks a pose's rows one at a time
+and has no rank limit, so the plan always has a route.  A launcher refuses
+any other shape and the wrapper raises.
 
 The route is chosen from the shape before the launch by ``cluster_plan``:
 the **cluster** route (``rtr_cluster.cu``: one thread-block cluster of C
@@ -135,10 +137,14 @@ MAX_SMEM_BYTES = 232448
 #: Threads per CTA the cluster kernels are compiled for (r lanes per pose,
 #: 32 // r poses per warp; above r = 32, ceil(r / 32) warps per pose).
 MAX_CLUSTER_THREADS = 512
-#: The highest rank of the cluster and spread routes: one pose of 16 warps
-#: fills a CTA of 512 threads (``pose_fits`` of ``csrc/lanes.cuh``; their
-#: launchers refuse a higher rank).  Above it only the workspace route runs.
+#: The highest rank of the cluster route: one pose of 16 warps, one row a
+#: lane, fills a CTA of 512 threads (``pose_fits`` of ``csrc/lanes.cuh``;
+#: its launchers refuse a higher rank).  The spread route folds the rows
+#: above it (``FOLD_ROWS``).
 MAX_LANE_RANK = 512
+#: Rows of a pose on distinct lanes at most (``kFoldRows`` of
+#: ``csrc/lanes.cuh``): above, a spread lane holds ``_pose_folds(r)`` rows.
+FOLD_ROWS = 512
 #: Shared floats per warp for the group sums of a pose that spans warps
 #: (r > 32; ``kGroupSums`` of ``csrc/lanes.cuh``).
 _GROUP_SUMS = 8
@@ -193,6 +199,7 @@ class ClusterPlan(NamedTuple):
     threads: int     # threads per CTA
     smem_bytes: int  # shared memory per CTA
     stripes: int = 1  # poses each lane group walks (spread route)
+    folds: int = 1   # rows of a pose each lane holds (spread route)
 
 
 # ---------------------------------------------------------------------------
@@ -213,8 +220,15 @@ def _poses_per_warp(r: int) -> int:
 
 
 def _pose_warps(r: int) -> int:
-    """Warps one pose takes: 1 up to r = 32, ceil(r / 32) above."""
+    """Warps one pose takes, one row a lane: 1 up to r = 32, ceil(r / 32)
+    above."""
     return 1 if r <= 32 else -(-r // 32)
+
+
+def _pose_folds(r: int) -> int:
+    """Rows of a pose each lane holds on the spread route: 1 up to r =
+    ``FOLD_ROWS``, ceil(r / ``FOLD_ROWS``) above."""
+    return -(-r // FOLD_ROWS)
 
 
 def _group_slots(r: int, warps: int) -> int:
@@ -259,8 +273,8 @@ def cluster_shape(r: int, d: int, n_max: int, kinc: int, C: int,
 
 def _fits(plan: ClusterPlan) -> bool:
     """Whether one CTA of a cluster or spread plan fits the card: its
-    threads (at r > ``MAX_LANE_RANK`` one pose alone needs more) and its
-    shared memory."""
+    threads (above ``MAX_LANE_RANK`` one pose of a cluster alone needs more)
+    and its shared memory."""
     cap = SPREAD_THREADS if plan.route == "spread" else MAX_CLUSTER_THREADS
     return plan.threads <= cap and plan.smem_bytes <= MAX_SMEM_BYTES
 
@@ -274,17 +288,18 @@ def spread_shape(r: int, d: int, n_max: int, C: int) -> ClusterPlan:
     walks ceil(P / groups) poses (its stripes); shared memory holds the
     ``_SPREAD_SMEM_VECS`` vectors ``[P, vec_stride]``, the reduction slots
     (two buffers of 4 floats for each warp of the cluster) and, above r =
-    32, the group-sum slots.  Above ``MAX_LANE_RANK`` a pose alone takes
-    more than ``SPREAD_THREADS`` threads: one group a CTA, a shape that
-    does not fit (``_fits``)."""
+    32, the group-sum slots.  Above ``FOLD_ROWS`` a pose takes all 16
+    warps and each lane ``folds`` = ceil(r / 512) of its rows: one pose a
+    stripe, the shared vectors holding every fold."""
     P = -(-n_max // C)
-    per_warp, W = _poses_per_warp(r), _pose_warps(r)
-    threads = min(max(SPREAD_THREADS // 32 // W, 1) * W * 32,
+    per_warp, W = _poses_per_warp(r), _pose_warps(min(r, FOLD_ROWS))
+    threads = min(SPREAD_THREADS // 32 // W * W * 32,
                   -(-P // per_warp) * 32 * W)
     stripes = -(-P // (threads // 32 // W * per_warp))
     floats = (_SPREAD_SMEM_VECS * P * _vec_stride(r * (d + 1))
               + 2 * C * (threads // 32) * 4 + _group_slots(r, threads // 32))
-    return ClusterPlan("spread", C, P, threads, 4 * floats, stripes)
+    return ClusterPlan("spread", C, P, threads, 4 * floats, stripes,
+                       _pose_folds(r))
 
 
 def _spread_plan(n_max: int, r: int, d: int, agents: int,
@@ -292,7 +307,7 @@ def _spread_plan(n_max: int, r: int, d: int, agents: int,
     """The spread route's plan: C = sms // agents CTAs per agent (all
     agents' CTAs in one wave over the card's SMs), at least 1, raised until
     one CTA fits (``_fits``), at most the largest cluster; None when no C
-    fits (always above ``MAX_LANE_RANK``)."""
+    fits (the shared vectors of ceil(n_max / 16) poses exceed a CTA's)."""
     C = min(max(sms // max(agents, 1), 1), CLUSTER_SIZES[-1])
     for c in range(C, CLUSTER_SIZES[-1] + 1):
         plan = spread_shape(r, d, n_max, c)
@@ -307,16 +322,18 @@ def cluster_plan(n_max: int, e_max: int, kinc: int, r: int, d: int,
     """The route of ``kernel`` (``rtr_full``, ``rtr``, ``tcg`` or
     ``rtr_refine_full``) for ``agents`` agents of ``n_max`` poses, ``e_max``
     edges and ``kinc`` incidence entries per pose on a card of ``sms`` SMs.
-    The cluster route when some C of ``CLUSTER_SIZES`` fits the card (at
-    most ``MAX_CLUSTER_THREADS`` threads and ``MAX_SMEM_BYTES`` of shared
-    memory per CTA, by ``cluster_shape`` of this kernel): of the portable
-    sizes (up to 8) that fit, the smallest with at most ``SPREAD_WARPS``
-    warps per CTA, else the largest; 16 only when no portable size fits.
-    Else, for ``rtr_full`` and ``rtr_refine_full``, the spread route
-    (``_spread_plan``) when it fits; else the workspace route (one CTA of
-    256 threads per agent; its shared memory holds the edge payload when
-    that fits), which fits any shape and any rank: above ``MAX_LANE_RANK``
-    it is the only route."""
+    The cluster route up to ``MAX_LANE_RANK`` when some C of
+    ``CLUSTER_SIZES`` fits the card (at most ``MAX_CLUSTER_THREADS`` threads
+    and ``MAX_SMEM_BYTES`` of shared memory per CTA, by ``cluster_shape`` of
+    this kernel): of the portable sizes (up to 8) that fit, the smallest
+    with at most ``SPREAD_WARPS`` warps per CTA, else the largest; 16 only
+    when no portable size fits.  Else, for ``rtr_full`` and
+    ``rtr_refine_full``, the spread route (``_spread_plan``; above
+    ``FOLD_ROWS`` its rows folded) when it fits; else the workspace route
+    (one CTA of 256 threads per agent; its shared memory holds the edge
+    payload when that fits), which fits any shape and any rank: above
+    ``MAX_LANE_RANK`` it takes ``rtr`` and ``tcg``, and ``rtr_full`` and
+    ``rtr_refine_full`` where no spread fits."""
     fitting = [plan for plan in (cluster_shape(r, d, n_max, kinc, C, kernel)
                                  for C in CLUSTER_SIZES) if _fits(plan)]
     if not fitting:
@@ -349,8 +366,8 @@ def _route(cluster: int | None, n_max: int, e_max: int, kinc: int, r: int,
     ``cluster`` ``0`` the workspace route, ``C > 0`` a cluster of C CTAs;
     ``spread`` ``C`` the spread route over C CTAs per agent (``rtr_full``
     and ``rtr_refine_full`` only).  Raises when one CTA of a forced shape
-    cannot fit the card: too much shared memory, or above ``MAX_LANE_RANK``
-    a pose of more than 16 warps."""
+    cannot fit the card: too much shared memory, or a cluster above
+    ``MAX_LANE_RANK`` (a pose of more than 16 warps)."""
     if spread is not None:
         if cluster is not None:
             raise ValueError("force one route: a cluster or a spread")
@@ -362,10 +379,8 @@ def _route(cluster: int | None, n_max: int, e_max: int, kinc: int, r: int,
         if not _fits(plan):
             raise ValueError(
                 f"a spread over {spread} CTAs cannot hold an agent of "
-                f"{n_max} poses at r = {r}: {plan.threads} threads and "
-                f"{plan.smem_bytes} B of shared memory per CTA (at most "
-                f"{SPREAD_THREADS} and {MAX_SMEM_BYTES}; a pose takes "
-                f"ceil(r / 32) warps, at most 16, so r <= {MAX_LANE_RANK})")
+                f"{n_max} poses at r = {r}: {plan.smem_bytes} B of shared "
+                f"memory per CTA (at most {MAX_SMEM_BYTES})")
         return plan
     if cluster is None:
         return cluster_plan(n_max, e_max, kinc, r, d, kernel, agents, sms)
@@ -1005,7 +1020,7 @@ def _raise_on(name: str, err: int, r: int, d: int, C: int = 0) -> None:
     if err == _UNSUPPORTED_SHAPE:
         raise ValueError(f"{name}: (r, d) = {(r, d)} is not a shape this "
                          "route takes (csrc/shapes.cuh: d in {2, 3} and "
-                         "r >= d; the cluster and spread routes end at "
+                         "r >= d; the cluster route ends at "
                          f"r = {MAX_LANE_RANK}, a pose of 16 warps)")
     if err == _UNPLACEABLE:
         raise RuntimeError(f"{name}: the card cannot place a cluster of "

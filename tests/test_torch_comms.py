@@ -606,6 +606,7 @@ def test_connect_tcp_retries_until_listener_binds():
         time.sleep(0.25)
         srv.bind(("127.0.0.1", port))
         srv.listen(1)
+        srv.settimeout(10)  # a dial that never comes fails, never hangs
         conn, _ = srv.accept()
         accepted.append(conn)
 

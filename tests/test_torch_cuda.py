@@ -38,10 +38,10 @@ SHAPES = ([(3, r) for r in range(3, 11)]
 GENERIC_SHAPES = [(3, 11), (3, 17), (3, 33), (2, 17), (2, 33), (3, 73),
                   (3, 128)]
 #: Ranks past four warps a pose, on 16-pose agents: five and eight warps
-#: (clusters), 16 (the cluster and spread routes' cap, r = 512), the first
-#: rank past it (the workspace route alone) and the top ranks the JAX
-#: package's VMEM gate admits at 16-pose agents (3360 at d = 3, 4482 at
-#: d = 2).
+#: (clusters), 16 (the cluster route's cap, r = 512), the first rank past
+#: it (B2 and B4 on the spread route, two rows a lane; B1 and B3 on the
+#: workspace route) and the top ranks the JAX package's VMEM gate admits
+#: at 16-pose agents (3360 at d = 3, 4482 at d = 2).
 TOP_SHAPES = [(3, 129), (3, 256), (3, 512), (3, 513), (3, 3360), (2, 4482)]
 
 
@@ -436,13 +436,18 @@ def test_generic_rank_kernels_match_plain_versions(card, d, r, size):
 def test_generic_rank_kernels_match_plain_versions_above_rank_128(card, d,
                                                                   r):
     # 16-pose agents: clusters up to r = 512 (five, eight, 16 warps a
-    # pose), a spread of 16-warp poses at r = 512, the workspace route
-    # alone from r = 513.
+    # pose), a spread of 16-warp poses at r = 512; from r = 513 B2 and B4
+    # spread with a pose's rows folded over 16 warps, B1 and B3 take the
+    # workspace route.
     _hold_generic_kernels(card, d, r, 32, 2, 10)
     if r > rk.MAX_LANE_RANK:
         for kernel in rk.KERNELS:
-            assert rk.cluster_plan(16, 24, 5, r, d, kernel).route == \
-                "workspace"
+            plan = rk.cluster_plan(16, 24, 5, r, d, kernel, agents=2,
+                                   sms=rk.sm_count(card))
+            if kernel in rk.SPREAD_KERNELS:
+                assert (plan.route, plan.folds) == ("spread", -(-r // 512))
+            else:
+                assert plan.route == "workspace"
 
 
 def _hold_generic_kernels(card, d, r, n, A, num_lc):
@@ -958,9 +963,12 @@ def test_solve_on_the_spread_route_launches_b2_once_per_round(card):
 
 
 def test_forced_cluster_or_spread_past_the_lane_cap_raises(card):
-    # r = 513: a pose of 17 warps fits no CTA of the cluster or spread
-    # routes.  A forced route raises before any launch, and the launchers
-    # refuse the rank themselves.
+    # r = 513: a pose of 17 warps fits no cluster CTA.  A forced cluster
+    # raises before any launch, and the cluster launchers refuse the rank
+    # themselves.  The spread route folds the pose's rows over 16 warps: a
+    # spread forced over 16 CTAs (one pose each) runs and holds its plain
+    # version; over one CTA (16 poses) its shared memory does not fit, so
+    # the plan raises and the launcher places no cluster.
     prob, params, X, Z, chol = _round(card, d=3, r=513, A=2, n=32,
                                       num_lc=10)
     b2 = rbcd.kernel_operands(X, Z, prob.graph.edges, chol, prob.graph)
@@ -979,21 +987,29 @@ def test_forced_cluster_or_spread_past_the_lane_cap_raises(card):
             rk.tcg(*_tcg_args(b3, 1.0), _cluster=C, **_tcg_kw(b3_kw))
         with pytest.raises(ValueError, match="r <= 512"):
             rk.rtr_refine_full(*ops4, _cluster=C, **kw)
-        with pytest.raises(ValueError, match="r <= 512"):
-            rk.rtr_full(*b2, _spread=C, **kw)
-        with pytest.raises(ValueError, match="r <= 512"):
-            rk.rtr_refine_full(*ops4, _spread=C, **kw)
+    with pytest.raises(ValueError, match="shared memory"):
+        rk.rtr_full(*b2, _spread=1, **kw)
+    with pytest.raises(ValueError, match="shared memory"):
+        rk.rtr_refine_full(*ops4, _spread=1, **kw)
     torch.cuda.synchronize()
     assert (rk.LAUNCHES, rk.RTR_LAUNCHES, rk.TCG_LAUNCHES,
             rk.REFINE_LAUNCHES) == before
+    _assert_b2_matches(rk.rtr_full(*b2, _spread=16, **kw),
+                       rk.rtr_full_reference(*b2, **kw))
+    _assert_refine_matches(rk.rtr_refine_full(*ops4, _spread=16, **kw),
+                           rk.rtr_refine_full_reference(*ops4, **kw),
+                           ops4[9])
+    torch.cuda.synchronize()
+    assert (rk.LAUNCHES, rk.REFINE_LAUNCHES) == (before[0] + 1,
+                                                 before[3] + 1)
     for kernel in rk.KERNELS:
         with pytest.raises(ValueError, match="16 warps"):
             rk.cluster_capacity(513, 3, 1, 2, 1, kernel)
         assert rk.cluster_capacity(512, 3, 1, 2, 1, kernel) >= 1
     for kernel in rk.SPREAD_KERNELS:
-        with pytest.raises(ValueError, match="16 warps"):
-            rk.spread_capacity(513, 3, 1, 1, kernel)
+        assert rk.spread_capacity(513, 3, 1, 1, kernel) >= 1
         assert rk.spread_capacity(512, 3, 1, 1, kernel) >= 1
+        assert rk.spread_capacity(513, 3, 16, 1, kernel) == 0
 
 
 def test_spread_that_cannot_be_placed_raises(card):
@@ -1019,22 +1035,60 @@ def test_spread_that_cannot_be_placed_raises(card):
                                        (3, 1636, 32), (2, 4482, 16)])
 def test_spread_shape_matches_the_launcher(card, d, r, n_max):
     # The launcher sizes each spread kernel by the formula spread_shape
-    # states: poses, threads and stripes per CTA, shared memory (past the
-    # lane cap, one group of ceil(r / 32) warps: a shape that does not
-    # fit, never a CTA of 0 threads).
+    # states: poses, threads and stripes per CTA, the rows a lane holds
+    # (past the lane cap, ceil(r / 512) folds of a 16-warp pose), shared
+    # memory.
     import ctypes
 
     lib = rk.load()
-    out = (ctypes.c_int * 3)()
+    out = (ctypes.c_int * 4)()
     for kernel in rk.SPREAD_KERNELS:
         for C in range(1, 17):
             smem = lib.dpgo_rtr_spread_shape(r, d, n_max, C,
                                              rk.KERNELS[kernel], out)
             plan = rk.spread_shape(r, d, n_max, C)
             assert (tuple(out), smem) == ((plan.P, plan.threads,
-                                           plan.stripes), plan.smem_bytes)
+                                           plan.stripes, plan.folds),
+                                          plan.smem_bytes)
+    assert plan.folds == (-(-r // 512) if r > 512 else 1)
     assert lib.dpgo_rtr_spread_shape(r, d, n_max, 2, rk.KERNELS["rtr"],
                                      out) == -4
+
+
+@pytest.mark.parametrize("d,r,n,A,num_lc", [(3, 1636, 125, 4, 172),
+                                             (2, 4482, 32, 2, 10)])
+def test_fold_kernels_match_plain_versions_and_repeat(card, d, r, n, A,
+                                                      num_lc):
+    # The top ranks the JAX gate admits: 32-pose agents at r = 1636 (the
+    # smallGrid3D-size stand-in's shape, four folds a lane) and 16-pose
+    # agents at r = 4482 (nine folds).  B2 and B4 plan the spread route of
+    # folded rows, hold their plain versions and repeat bit for bit.
+    prob, params, X, Z, chol = _round(card, d=d, r=r, n=n, A=A,
+                                      num_lc=num_lc)
+    m = prob.meta
+    b2 = rbcd.kernel_operands(X, Z, prob.graph.edges, chol, prob.graph)
+    kw = rbcd.kernel_options(params, m)
+    for kernel in rk.SPREAD_KERNELS:
+        plan = rk.cluster_plan(m.n_max, m.e_max, b2[9].shape[-1], r, d,
+                               kernel, agents=A, sms=rk.sm_count(card))
+        assert (plan.route, plan.folds) == ("spread", -(-r // 512))
+    before = rk.LAUNCHES
+    first, second = rk.rtr_full(*b2, **kw), rk.rtr_full(*b2, **kw)
+    torch.cuda.synchronize()
+    assert rk.LAUNCHES == before + 2
+    _assert_b2_matches(first, rk.rtr_full_reference(*b2, **kw))
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    prob4, rparams, _, ops4 = _refine_operands(card, d=d, r=r, n=n, A=A,
+                                               num_lc=num_lc, rounds=0)
+    kw4 = rbcd.kernel_options(rparams, prob4.meta)
+    before = rk.REFINE_LAUNCHES
+    first, second = (rk.rtr_refine_full(*ops4, **kw4),
+                     rk.rtr_refine_full(*ops4, **kw4))
+    torch.cuda.synchronize()
+    assert rk.REFINE_LAUNCHES == before + 2
+    _assert_refine_matches(first, rk.rtr_refine_full_reference(*ops4, **kw4),
+                           ops4[9])
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 # ---------------------------------------------------------------------------

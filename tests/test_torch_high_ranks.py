@@ -8,18 +8,19 @@ rank-generic instantiation).
   shapes (PERF.md section 4) and small agents, at ranks from 11 to 4482
   (``RANKS``): wherever the JAX package's VMEM gate
   (``dpgo_tpu.models.rbcd.pallas_vmem_ok``) admits the shape, the plan is
-  a route that fits the card, and above ``rtr_kernel.MAX_LANE_RANK``
-  (r = 512, a pose of 16 warps) it is the workspace route; a cluster or
-  spread forced past that cap raises;
-* B1-B4's plain versions against the Pallas kernels
-  (``dpgo_tpu.ops.pallas_tcg``, interpreter mode) at (r, d) = (11, 3),
-  (17, 3) and (12, 2);
+  a route that fits the card; above ``rtr_kernel.MAX_LANE_RANK`` (r = 512,
+  a pose of 16 warps) no cluster: B2 and B4 take the spread route, its
+  rows folded over 16 warps, wherever its shared memory fits, else the
+  workspace route, which B1 and B3 always take there; a cluster forced
+  past that cap raises;
 * ``rbcd.solve_rbcd`` at r = 12 (d = 3) and r = 33 (d = 2), and
   ``parallel.certify.solve_staircase_sharded`` from r = 11 to 12, against
   the JAX package's in float64.
 
 The kernels run only on the card (``test_torch_cuda.py``); here the
-wrappers take their plain versions.  ``test_torch_top_ranks.py`` holds the
+wrappers take their plain versions.  ``test_torch_high_ranks_pallas.py``
+holds B1-B4's plain versions against the Pallas kernels at these ranks,
+``test_torch_top_ranks.py`` and ``test_torch_top_ranks_solve.py`` the
 plain versions and the solve above r = 128 against the JAX package.
 """
 
@@ -30,7 +31,6 @@ import torch
 
 from dpgo_tpu.config import AgentParams as JAgentParams
 from dpgo_tpu.models import rbcd as jrbcd
-from dpgo_tpu.ops import pallas_tcg as ptcg
 from dpgo_tpu.parallel import certify as jdcert
 from dpgo_tpu.parallel import make_mesh as jmake_mesh
 from dpgo_tpu.utils.synthetic import make_measurements as jmake
@@ -41,12 +41,7 @@ from dpgo_tpu_torch.parallel import certify as dcert
 from dpgo_tpu_torch.parallel import make_mesh
 from dpgo_tpu_torch.utils.synthetic import make_measurements as tmake
 
-from test_torch_refine import (D_ATOL, GN_ATOL, _d0, _handoff,
-                               _kernel_operands, _recentered)
-from test_torch_refine import KW as REFINE_KW
-from test_torch_refine import ORDER as REFINE_ORDER
-from test_torch_rtr_kernel import (B3_KW, B3_ORDER, KW, ORDER, RTR_KW,
-                                   _b3_operands, _j, _problem)
+from test_torch_rtr_kernel import ORDER, RTR_KW, _problem
 
 #: The ranks of the plan's grid: poses of one to four warps, the first
 #: rank past four, a pose of eight and of 16 warps (the lane cap), the
@@ -79,10 +74,13 @@ def _jax_admits(n_max, s_max, e_max, r, d):
     return jrbcd.pallas_vmem_ok(n_max, s_max, r, d, T, nt)
 
 
-def _assert_fits(plan, kernel, n_max, r, d, kinc):
+def _assert_fits(plan, kernel, n_max, r, d, kinc, agents):
     assert plan.smem_bytes <= rk.MAX_SMEM_BYTES
     if r > rk.MAX_LANE_RANK:
-        assert plan.route == "workspace"
+        spread = (rk._spread_plan(n_max, r, d, agents, rk.H100_SMS)
+                  if kernel in rk.SPREAD_KERNELS else None)
+        assert plan.route == ("spread" if spread else "workspace")
+        assert spread is None or plan == spread
     if plan.route == "cluster":
         assert plan.threads <= rk.MAX_CLUSTER_THREADS
         assert plan.C in rk.CLUSTER_SIZES and plan.C * plan.P >= n_max
@@ -92,11 +90,13 @@ def _assert_fits(plan, kernel, n_max, r, d, kinc):
         assert plan.threads <= rk.SPREAD_THREADS
         assert plan.C * plan.P >= n_max
         assert plan == rk.spread_shape(r, d, n_max, plan.C)
+        assert plan.folds == -(-r // 512)
     else:
         assert plan.route == "workspace" and plan.threads == 256
         return
-    # Whole lane groups: a pose of r > 32 rows takes ceil(r / 32) warps.
-    warps = -(-r // 32) if r > 32 else 1
+    # Whole lane groups: a pose of r > 32 rows takes ceil(r / 32) warps, 16
+    # once its rows fold (r > 512).
+    warps = -(-min(r, 512) // 32) if r > 32 else 1
     assert plan.threads % (32 * warps) == 0
 
 
@@ -109,7 +109,7 @@ def test_plan_fits_every_shape_the_jax_gate_admits(kernel, where):
     for r in admitted:
         plan = rk.cluster_plan(n_max, e_max, kinc, r, d, kernel,
                                agents=agents, sms=rk.H100_SMS)
-        _assert_fits(plan, kernel, n_max, r, d, kinc)
+        _assert_fits(plan, kernel, n_max, r, d, kinc, agents)
 
 
 def test_the_gate_reaches_the_stand_ins_top_ranks():
@@ -172,43 +172,68 @@ def test_lane_layout_above_the_templated_ranks(r):
                                      + slots)
 
 
+#: The spread plans of B2 and B4 past the lane cap on the stand-ins'
+#: agents (where, r): C, P, folds (rows a lane) and shared bytes a CTA;
+#: 512 threads each, one pose a stripe.
+FOLDED_PLANS = {("smallgrid3d_4", 513): (16, 2, 2, 57952),
+                ("smallgrid3d_4", 817): (16, 2, 2, 87136),
+                ("smallgrid3d_4", 1636): (16, 2, 4, 165856),
+                ("smallgrid3d_2", 513): (16, 4, 2, 107200),
+                ("smallgrid3d_2", 817): (16, 4, 2, 165568),
+                ("small_d3", 3360): (16, 1, 7, 170032),
+                ("small_d2", 4482): (16, 1, 9, 170128)}
+
+
 @pytest.mark.parametrize("kernel", list(rk.KERNELS))
 def test_plan_raises_above_the_ceiling(kernel):
-    # The ceiling is the cluster and spread routes' own (a pose of at most
-    # 16 warps, r <= 512): the plan never raises for a rank.  At r = 129 on
-    # 16-pose agents every kernel takes a cluster of five-warp poses; at
-    # r = 513 the workspace route, and a cluster or a spread forced there
-    # raises, naming the 16-warp cap.
+    # The ceiling is the cluster route's own (a pose of at most 16 warps,
+    # one row a lane, r <= 512): the plan never raises for a rank.  At
+    # r = 129 on 16-pose agents every kernel takes a cluster of five-warp
+    # poses; past 512 B2 and B4 take the spread route, a pose's rows folded
+    # over 16 warps (FOLDED_PLANS), B1 and B3 the workspace route; a
+    # cluster forced there raises, naming the 16-warp cap, and so does a
+    # spread forced at a size whose shared memory does not fit.
     assert rk.MAX_LANE_RANK == 512
     for d in (3, 2):
         plan = rk.cluster_plan(16, 24, 5, 129, d, kernel)
         assert plan.route == "cluster" and plan.threads % (5 * 32) == 0
         assert rk._route(None, 16, 24, 5, 129, d, kernel) == plan
-        plan = rk.cluster_plan(16, 24, 5, 513, d, kernel)
-        assert plan == rk._workspace_plan(16, 24, 513, d, kernel)
-        assert rk._route(0, 16, 24, 5, 513, d, kernel) == plan
+        assert rk._route(0, 16, 24, 5, 513, d, kernel) == \
+            rk._workspace_plan(16, 24, 513, d, kernel)
         for C in (1, 16):
             with pytest.raises(ValueError, match="at most 16, so r <= 512"):
                 rk._route(C, 16, 24, 5, 513, d, kernel)
         if kernel in rk.SPREAD_KERNELS:
             assert rk._route(None, 16, 24, 5, 512, d, kernel,
                              spread=16).route == "spread"
-            with pytest.raises(ValueError, match="at most 16, so r <= 512"):
-                rk._route(None, 16, 24, 5, 513, d, kernel, spread=16)
+            assert rk._route(None, 16, 24, 5, 513, d, kernel,
+                             spread=16).folds == 2
+            with pytest.raises(ValueError, match="shared memory"):
+                rk._route(None, 16, 24, 5, 4482, d, kernel, spread=1)
+    for (where, r), (C, P, folds, smem) in FOLDED_PLANS.items():
+        n_max, _, e_max, kinc, d, agents = AGENT_SHAPES[where]
+        plan = rk.cluster_plan(n_max, e_max, kinc, r, d, kernel,
+                               agents=agents, sms=rk.H100_SMS)
+        if kernel in rk.SPREAD_KERNELS:
+            assert plan == rk.ClusterPlan("spread", C, P, 512, smem, P, folds)
+        else:
+            assert plan == rk._workspace_plan(n_max, e_max, r, d, kernel)
 
 
 def test_cpu_wrapper_runs_its_plain_version_above_the_ceiling():
     # On CPU tensors the wrapper runs its plain version at r = 129 and at
-    # r = 513, past the cluster and spread routes' cap; only a route forced
-    # for the card that cannot hold the pose raises there.
-    for r, C in ((129, 16), (513, 0)):
+    # r = 513, past the cluster route's cap, also where a route is forced
+    # (at 513 the workspace route, or a spread of folded rows); only a
+    # route forced for the card that cannot hold the pose raises there.
+    for r, forced in ((129, ({"_cluster": 16},)),
+                      (513, ({"_cluster": 0}, {"_spread": 2}))):
         _, meta, _, _, _, ops = _problem(5, n=12, A=2, d=2, rank=r,
                                          num_lc=4)
         args = [ops[k] for k in ORDER]
         kw = dict(r=r, d=2, e_max=meta.e_max, **RTR_KW)
         before = rk.LAUNCHES
         ref = rk.rtr_full_reference(*args, **kw)
-        for opts in ({}, {"_cluster": C}):
+        for opts in ({}, *forced):
             out = rk.rtr_full(*args, **opts, **kw)
             for got, want in zip(out, ref):
                 assert torch.equal(got, want)
@@ -216,111 +241,43 @@ def test_cpu_wrapper_runs_its_plain_version_above_the_ceiling():
         assert bool(torch.isfinite(ref.X).all())
     with pytest.raises(ValueError, match="r <= 512"):
         rk.rtr_full(*args, _cluster=1, **kw)
-    with pytest.raises(ValueError, match="r <= 512"):
-        rk.rtr_full(*args, _spread=2, **kw)
 
 
 @pytest.mark.parametrize("r", [513, 817, 1636, 3360, 4482])
 @pytest.mark.parametrize("n_max", [1, 16, 1594])
 def test_spread_shape_past_the_lane_cap_does_not_fit(r, n_max):
-    # Above r = 512 a pose needs more than the spread CTA's 16 warps: the
-    # shape is one group of ceil(r / 32) warps a CTA, which does not fit
-    # (never a CTA of 0 threads), and the plan has no spread to offer.
-    W = -(-r // 32)
+    # Above r = 512 no cluster fits a pose (the plan never offers one),
+    # and the spread shape folds its rows: 16 warps a CTA, one pose a
+    # stripe, ceil(r / 512) rows a lane, the shared vectors holding every
+    # fold.  It fits exactly where that shared memory does: never for
+    # config #5's 1594-pose agents, so there the plan has no spread.
     for C in (1, 2, 16):
         plan = rk.spread_shape(r, 3, n_max, C)
-        assert plan.threads == 32 * W > rk.SPREAD_THREADS
+        assert plan.threads == rk.SPREAD_THREADS
         assert plan.stripes == plan.P == -(-n_max // C)
-        assert not rk._fits(plan)
-    assert rk._spread_plan(n_max, r, 3, 4, rk.H100_SMS) is None
-    assert not rk._fits(rk.cluster_shape(r, 3, n_max, 5, 16))
+        assert plan.folds == -(-r // 512)
+        assert plan.smem_bytes == 4 * (3 * plan.P * rk._vec_stride(4 * r)
+                                       + 2 * C * 16 * 4 + 16 * 8)
+        assert rk._fits(plan) == (plan.smem_bytes <= rk.MAX_SMEM_BYTES)
+    spread = rk._spread_plan(n_max, r, 3, 4, rk.H100_SMS)
+    assert (spread is None) == (n_max == 1594)
+    for kernel in rk.KERNELS:
+        assert rk.cluster_plan(n_max, 24, 5, r, 3, kernel).route != "cluster"
 
 
-#: The plain versions' shapes (d, rank, n, A, num_lc).
-PARITY_SHAPES = [(3, 11, 16, 2, 6), (3, 17, 16, 2, 6), (2, 12, 16, 2, 6)]
-
-
-@pytest.mark.parametrize("d,rank,n,A,num_lc", PARITY_SHAPES)
-def test_tcg_reference_matches_pallas_tcg_at_high_ranks(d, rank, n, A,
-                                                        num_lc):
-    graph, meta, X0, Z, chol, _ = _problem(3, n=n, A=A, d=d, rank=rank,
-                                           num_lc=num_lc)
-    ops = _b3_operands(graph, meta, X0, Z, chol)
-    args = [ops[k] for k in ORDER[:7]] + [ops["Sc"], ops["Lc"], ops["gc"],
-                                          torch.ones(A), ops["inc_slot"],
-                                          ops["inc_mask"]]
-    ref = rk.tcg_reference(*args, r=rank, d=d, e_max=meta.e_max, **KW)
-    for a in range(A):
-        eta_c, heta_c, stats = ptcg.tcg_call(
-            *[_j(ops[k][a]) for k in ORDER[:7]], _j(ops["Sc"][a]),
-            _j(ops["Lc"][a]), _j(ops["gc"][a]),
-            jnp.ones((1, 1), jnp.float32), r=rank, d=d, interpret=True,
-            **KW)
-        np.testing.assert_allclose(ref.eta[a].numpy(), eta_c, atol=1e-5)
-        np.testing.assert_allclose(ref.heta[a].numpy(), heta_c, atol=1e-4)
-        assert int(ref.stats[a, 0]) == int(stats[0, 0])
-        assert bool(ref.stats[a, 1] > 0) == bool(stats[0, 1] > 0)
-
-
-def _assert_step_matches(ref, a, Xo, stats):
-    np.testing.assert_allclose(ref.X[a].numpy(), Xo, atol=1e-5)
-    st = np.asarray(stats)[0]
-    assert ref.stats[a, 0].item() == st[0]  # attempts
-    assert ref.stats[a, 1].item() == st[1]  # accepted
-    np.testing.assert_allclose(ref.stats[a, 2:].numpy(), st[2:], rtol=1e-5)
-
-
-@pytest.mark.parametrize("d,rank,n,A,num_lc", PARITY_SHAPES)
-def test_rtr_full_reference_matches_pallas_kernel_at_high_ranks(d, rank, n,
-                                                                A, num_lc):
-    _, meta, _, _, _, ops = _problem(5, n=n, A=A, d=d, rank=rank,
-                                     num_lc=num_lc)
-    ref = rk.rtr_full_reference(*[ops[k] for k in ORDER], r=rank, d=d,
-                                e_max=meta.e_max, **RTR_KW)
-    for a in range(A):
-        Xo, stats = ptcg.rtr_full_call(
-            *[_j(ops[k][a]) for k in ORDER[:9]], r=rank, d=d,
-            interpret=True, **RTR_KW)
-        _assert_step_matches(ref, a, Xo, stats)
-
-
-@pytest.mark.parametrize("d,rank,n,A,num_lc", PARITY_SHAPES)
-def test_rtr_reference_matches_pallas_kernel_at_high_ranks(d, rank, n, A,
-                                                           num_lc):
-    graph, meta, X0, Z, chol, _ = _problem(5, n=n, A=A, d=d, rank=rank,
-                                           num_lc=num_lc)
-    ops = _b3_operands(graph, meta, X0, Z, chol)
-    ref = rk.rtr_reference(*ops.values(), r=rank, d=d, e_max=meta.e_max,
-                           **B3_KW)
-    for a in range(A):
-        Xo, stats = ptcg.rtr_call(
-            *[_j(ops[k][a]) for k in B3_ORDER[:11]], r=rank, d=d,
-            interpret=True, **B3_KW)
-        _assert_step_matches(ref, a, Xo, stats)
-
-
-@pytest.mark.parametrize("d,r", [(3, 11), (3, 17), (2, 12)])
-def test_rtr_refine_full_reference_matches_pallas_kernel_at_high_ranks(d, r):
-    h = _handoff(d=d, r=r, n=16, A=2, rounds=20)
-    _, tr = _recentered(h)
-    ops = _kernel_operands(h, tr.consts, _d0(h))
-    ref = rk.rtr_refine_full_reference(*ops.values(), r=r, d=d,
-                                       e_max=h.meta.e_max, **REFINE_KW)
-    live = h.graph.pose_mask.numpy() > 0
-    for a in range(h.meta.num_robots):
-        Dc, stats = ptcg.rtr_refine_full_call(
-            *[jnp.asarray(ops[k][a].numpy()) for k in REFINE_ORDER[:15]],
-            r=r, d=d, interpret=True, **REFINE_KW)
-        got = rk.comp_minor(ref.D[a], r, d + 1).numpy()[live[a]]
-        want = np.asarray(ptcg.comp_minor(Dc, r, d + 1))[live[a]]
-        np.testing.assert_allclose(got, want, rtol=0, atol=D_ATOL)
-        st = np.asarray(stats)[0]
-        assert ref.stats[a, 0].item() == st[0]  # attempts
-        assert ref.stats[a, 1].item() == st[1]  # accepted
-        np.testing.assert_allclose(ref.stats[a, 4].item(), st[4], rtol=0,
-                                   atol=GN_ATOL)
-        np.testing.assert_allclose(ref.stats[a, 2:4].numpy(), st[2:4],
-                                   rtol=1e-4, atol=1e-9)
+@pytest.mark.parametrize("where,r", [("smallgrid3d_2", 1636),
+                                     ("sphere2500", 513), ("config5", 600)])
+@pytest.mark.parametrize("kernel", rk.SPREAD_KERNELS)
+def test_spread_that_does_not_fit_plans_the_workspace_route(kernel, where, r):
+    # Past the lane cap a spread whose shared vectors exceed a CTA's shared
+    # memory at every C up to 16 (63-, 316- and 1594-pose agents) leaves B2
+    # and B4 on the workspace route, the catch-all.
+    n_max, _, e_max, kinc, d, agents = AGENT_SHAPES[where]
+    assert all(rk.spread_shape(r, d, n_max, C).smem_bytes
+               > rk.MAX_SMEM_BYTES for C in range(1, 17))
+    plan = rk.cluster_plan(n_max, e_max, kinc, r, d, kernel, agents=agents,
+                           sms=rk.H100_SMS)
+    assert plan == rk._workspace_plan(n_max, e_max, r, d, kernel)
 
 
 @pytest.mark.parametrize("d,r", [(3, 12), (2, 33)])

@@ -1,23 +1,19 @@
 """The spread route of kernels B2 and B4 on the host
 (``dpgo_tpu_torch.ops.rtr_kernel.cluster_plan`` and ``spread_shape``): the
-route across the cluster ceiling at BASELINE.md config #5's shape, the
-stripe and shared-memory formula at its boundary, and the solve at agents
-above the old ceiling against the JAX package's in float64 on the CPU.
-The kernels themselves run only on the card (``test_torch_cuda.py``)."""
+route across the cluster ceiling at BASELINE.md config #5's shape and the
+stripe and shared-memory formula at its boundary
+(``test_torch_rtr_plan_solve.py`` holds the solve at agents above the old
+ceiling against the JAX package's).  The kernels themselves run only on
+the card (``test_torch_cuda.py``)."""
 
 import subprocess
 import sys
 from pathlib import Path
 
-import numpy as np
 import pytest
 import torch
 
-from dpgo_tpu.models import rbcd as jrbcd
-from dpgo_tpu.utils.synthetic import make_measurements
-from dpgo_tpu_torch.models import rbcd
 from dpgo_tpu_torch.ops import rtr_kernel as rk
-from dpgo_tpu_torch.utils.synthetic import make_measurements as t_make
 
 #: Config #5's per-agent shape (100,000 poses over 64 robots, seed 11:
 #: ``rbcd.build_graph`` gives n_max 1594, e_max 2236, Kinc 7) and the
@@ -98,34 +94,6 @@ def test_forced_spread_checks_its_shape():
         rk._route(0, 1594, 2236, 7, 5, 3, "rtr_full", spread=2)
     assert rk._route(None, 1594, 2236, 7, 5, 3, "rtr_full",
                      spread=4) == rk.spread_shape(5, 3, 1594, 4)
-
-
-def test_solve_above_the_old_ceiling_matches_jax():
-    # Two agents of 1,700 poses (no cluster holds one): build_graph and the
-    # tile layout at that size, and three rounds of the solve, in float64
-    # ("ell" on the CPU) against the JAX package's.
-    n, num_lc = 3400, 600
-    meas = make_measurements(np.random.default_rng(3), n=n, d=3,
-                             num_lc=num_lc, rot_noise=0.05,
-                             trans_noise=0.05)[0]
-    ref = jrbcd.solve_rbcd(meas, 2, max_iters=3, grad_norm_tol=0.0)
-    t_meas = t_make(np.random.default_rng(3), n=n, d=3, num_lc=num_lc,
-                    rot_noise=0.05, trans_noise=0.05)[0]
-    prob = rbcd.prepare_problem(t_meas, 2, device="cpu",
-                                dtype=torch.float64)
-    assert prob.meta.n_max == 1700
-    assert rk.cluster_plan(prob.meta.n_max, prob.meta.e_max,
-                           prob.graph.inc_slot.shape[-1], 5, 3,
-                           agents=2).route == "spread"
-    res = rbcd.solve_rbcd(t_meas, 2, max_iters=3, grad_norm_tol=0.0,
-                          device="cpu", dtype=torch.float64)
-    assert res.iterations == ref.iterations == 3
-    np.testing.assert_allclose(res.cost_history, ref.cost_history,
-                               rtol=1e-9)
-    np.testing.assert_allclose(res.grad_norm_history,
-                               ref.grad_norm_history, rtol=1e-9)
-    np.testing.assert_allclose(res.T.numpy(), np.asarray(ref.T), rtol=1e-9,
-                               atol=1e-9)
 
 
 def test_spread_timing_needs_the_card_and_no_jax(monkeypatch):

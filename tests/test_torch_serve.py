@@ -26,7 +26,6 @@ from dpgo_tpu import config as jconfig
 from dpgo_tpu.models import rbcd as jrbcd
 from dpgo_tpu.serve import bucketing as jbucket
 from dpgo_tpu.serve import cache as jcache
-from dpgo_tpu.serve import runner as jrunner
 from dpgo_tpu.utils.synthetic import make_measurements
 from dpgo_tpu_torch import config as tconfig
 from dpgo_tpu_torch import obs
@@ -340,33 +339,6 @@ def _assert_results(a, b, exact=False):
 
 
 MAX_ITERS, EVAL_EVERY, K = 12, 2, 4
-
-
-@pytest.mark.parametrize("case", list(SCHEDULES))
-def test_run_bucket_members_match_jax(case, monkeypatch):
-    """Each member of a mixed batch, per-eval and verdict, equals the JAX
-    package's ``run_bucket`` member: iterations, reason, histories, the
-    rounded trajectory, the iterate and the weights (rtol 1e-9); the
-    port's verdict batch equals its per-eval batch bit for bit."""
-    jp, tp = _both_params(SCHEDULES[case])
-    _replay_async(monkeypatch, SCHEDULES[case], MAX_ITERS + K)
-    jpad, tpad = _mixed_batch(jp, tp)
-    out = {}
-    for ve in (None, K):
-        jres, jinfo = jrunner.run_bucket(
-            jpad, jcache.ExecutableCache(), max_iters=MAX_ITERS,
-            grad_norm_tol=1e-12, eval_every=EVAL_EVERY, verdict_every=ve)
-        tres, tinfo = run_bucket(
-            tpad, ExecutableCache(), max_iters=MAX_ITERS,
-            grad_norm_tol=1e-12, eval_every=EVAL_EVERY, verdict_every=ve)
-        assert (tinfo["rounds"], tinfo["batch"], tinfo["size"]) == \
-            (jinfo["rounds"], jinfo["batch"], jinfo["size"]) == \
-            (MAX_ITERS, 4, 3)
-        for a, b in zip(tres, jres):
-            _assert_results(a, b)
-        out[ve] = tres
-    for a, b in zip(out[None], out[K]):
-        _assert_results(a, b, exact=True)
 
 
 @pytest.mark.parametrize("case", list(SCHEDULES))

@@ -263,7 +263,7 @@ def test_executable_cache_single_flight():
     results = [None] * n
 
     def go(k):
-        started.wait()
+        started.wait(30)
         results[k] = cache.get(fp, builder)
 
     threads = [threading.Thread(target=go, args=(k,)) for k in range(n)]

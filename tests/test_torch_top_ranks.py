@@ -7,18 +7,15 @@ through Pallas (its interpreter takes minutes a case at these ranks).
   (``rtr_full_reference``) and B3 (``rtr_reference``, fed the gradient
   pass) against the "ell" ``dpgo_tpu.models.rbcd._agent_update``, all in
   float64, at (r, d) = (129, 3), the first rank past four warps a pose,
-  (513, 3), the first past the cluster and spread routes' 16-warp cap, and
-  (257, 2);
+  (513, 3), the first past the cluster route's 16-warp cap (where the
+  spread route folds a pose's rows), and (257, 2);
 * B4 (``rtr_refine_full_reference``) against the JAX package's XLA refine
   round (``dpgo_tpu.models.refine.refine_round`` without kernel constants)
-  at the same shapes, in float32 at the JAX refine test's bounds;
-* ``solve_rbcd`` on the smallGrid3D-size stand-in over 4 robots (125 poses
-  and 296 edges, the size of the reference's smallGrid3D) at r = 256,
-  where B1-B4 take clusters on the card, and r = 1636, the top rank the
-  JAX package's VMEM gate admits there (the workspace route), against the
-  JAX package's in float64.
+  at the same shapes, in float32 at the JAX refine test's bounds.
 
-The kernels themselves run only on the card (``test_torch_cuda.py``).
+``test_torch_top_ranks_solve.py`` holds ``solve_rbcd`` at these ranks
+against the JAX package's; the kernels themselves run only on the card
+(``test_torch_cuda.py``).
 """
 
 import functools
@@ -35,11 +32,8 @@ from dpgo_tpu.models import refine as jrefine
 from dpgo_tpu.ops import manifold as jmanifold
 from dpgo_tpu.ops import solver as jsolver
 from dpgo_tpu.types import EdgeSet as JEdgeSet
-from dpgo_tpu.utils.synthetic import make_measurements as jmake
-from dpgo_tpu_torch.config import AgentParams
 from dpgo_tpu_torch.models import rbcd
 from dpgo_tpu_torch.ops import rtr_kernel as rk
-from dpgo_tpu_torch.utils.synthetic import make_measurements as tmake
 
 from test_torch_refine import (D_ATOL, GN_ATOL, _d0, _handoff,
                                _kernel_operands, _recentered)
@@ -176,26 +170,3 @@ def test_rtr_refine_full_reference_matches_jax_refine_round_above_rank_128(
     np.testing.assert_allclose(ref.stats[:, 4].numpy(), gn_jax, rtol=0,
                                atol=GN_ATOL)
     assert bool((ref.stats[:, 1] > 0).all())
-
-
-#: The smallGrid3D-size stand-in: 125 poses, 296 edges.
-SMALLGRID = dict(n=125, d=3, num_lc=172, rot_noise=0.01, trans_noise=0.01)
-
-
-@pytest.mark.parametrize("r", [256, 1636])
-def test_solve_rbcd_on_the_smallgrid3d_stand_in_matches_jax(r):
-    ref = jrbcd.solve_rbcd(jmake(np.random.default_rng(0), **SMALLGRID)[0],
-                           4, JAgentParams(d=3, r=r, num_robots=4),
-                           max_iters=10, grad_norm_tol=0.1)
-    res = rbcd.solve_rbcd(tmake(np.random.default_rng(0), **SMALLGRID)[0],
-                          4, AgentParams(d=3, r=r, num_robots=4),
-                          max_iters=10, grad_norm_tol=0.1, device="cpu",
-                          dtype=torch.float64)
-    assert res.iterations == ref.iterations > 1
-    assert res.terminated_by == ref.terminated_by
-    np.testing.assert_allclose(res.cost_history, ref.cost_history,
-                               rtol=1e-9)
-    np.testing.assert_allclose(res.grad_norm_history,
-                               ref.grad_norm_history, rtol=1e-9)
-    np.testing.assert_allclose(res.T.numpy(), np.asarray(ref.T), atol=1e-8)
-    assert res.state.X.shape[-2:] == (r, 4)
