@@ -161,12 +161,14 @@ synthetic stand-in for sphere2500 (2500 poses, 4948 edges, 8 robots, rank
   shared with ``sharded``) through the main path, ``rbcd.solve_rbcd``
   with the odometry init and the verdict loop (12 rounds, K = 4): B2 once
   per enqueued round on the spread route (``csrc/rtr_spread.cu``; the
-  ``solve`` line carries the four kernels' plan at this shape: B2 and B4
-  spread, B1 and B3 workspace); B2 at the terminal iterate against its
-  plain version (max |ΔX| on live rows at most 1e-4 of the largest live
-  entry, ROADMAP's accept-flip rule), against itself bit for bit with
+  ``solve`` line carries the four kernels' plan at this shape: B1, B2, B3
+  and B4 spread); B2, and B3 and B1 fed the gradient pass there, at the
+  terminal iterate against their plain versions (max |ΔX|, or |Δeta|, on
+  live rows at most 1e-4 of the largest live entry, ROADMAP's
+  accept-flip rule for B2 and B3), against themselves bit for bit with
   the same tCG iterations, and timed in turns with the workspace route
-  (spread, workspace, workspace, spread) beside its bound; B2 at ranks 7
+  (spread, workspace, workspace, spread) beside their bounds; B3 against
+  one B2 launch at the same point (live rows, the flip rule); B2 at ranks 7
   and 10 (the staircase's default top; C = 4 there) at the odometry init
   of config #5's graph, held and timed, and B4 at rank 10 recentered
   there, held on the spread and workspace routes and timed; B4 at this
@@ -197,9 +199,10 @@ synthetic stand-in for sphere2500 (2500 poses, 4948 edges, 8 robots, rank
   ranks there (73, 78), and on the smallGrid3D-size stand-in (125 poses,
   296 edges, 4 robots) at r = 129, 256 (clusters), 512 (a spread of
   16-warp poses, the lane cap), 513 and 1636 (the gate's top; the
-  workspace route), and at the gate's top ranks on 16-pose agents (3360
-  at d = 3, 4482 at d = 2); the round ablation and an f32 staircase from
-  r = 11;
+  spread route's folded rows), and at the gate's top ranks on 16-pose
+  agents (3360 at d = 3, 4482 at d = 2); wherever B3 plans the spread
+  route, B3 against one B2 launch at the same point; the round ablation
+  at r = 11 (cluster) and 73 (spread), and an f32 staircase from r = 11;
 * ``top_ranks`` — ``solve_rbcd``'s path on the smallGrid3D-size stand-in
   at r = 256 and 1636, 10 float32 rounds (B2 once a round) held to the
   port's float64 run on the host, then 3 refine rounds at r = 1636 (B4
@@ -223,9 +226,9 @@ the refine phase B4 is held against its plain version on both routes and
 timed on both and at every cluster size, and at one agent of the whole
 stand-in (2500 poses) on the spread and workspace routes.  The ``plan``
 line gives the route of all four kernels at the slice shape.  The kernel
-table lists each kernel's routes, and the spread route of B2 and B4 as
-rows of their own (``rtr_full_spread``, ``rtr_refine_full_spread``,
-timed at config #5).
+table lists each kernel's routes, and the spread route of each kernel as
+a row of its own (``rtr_full_spread``, ``rtr_spread``, ``tcg_spread``,
+``rtr_refine_full_spread``, timed at config #5).
 
 Each phase prints JSON lines, each with ``elapsed_s`` since the start,
 and a ``seconds`` line when it ends; any failure raises.  The line before the
@@ -336,6 +339,13 @@ STAIR_R_MIN, STAIR_R_MAX, WIND_CYCLES, WIND_LEN = 4, 6, 8, 16
 #: converge (300, ``certify_solution``'s default, until the rank
 #: staircase's phases needed the script's time).
 WIND_ESCAPE_LOBPCG = 100
+#: LOBPCG iterations of the f* iterate's two launch-bound eigensolves
+#: (``certify_solution`` and the deflated device payload, ~18 s each at
+#: 300): every gate on them is a soundness gate against the host float64
+#: eigensolve and the dense oracle, which holds at any iteration count,
+#: and their agreement with the oracle, reported only, is not met at 300
+#: either (10,000 dimensions).
+FSTAR_LOBPCG = 100
 #: The fused refinement (bench_convergence.py's fused arm): descent rounds
 #: before the handoff, the tCG budget, the refine rounds' cap and the
 #: oracle's cadence, and the gap to reach (the oracle stops at 0.3 of it).
@@ -394,10 +404,10 @@ RANK_REPS, RANK_INNER = 3, 5
 PERF_SHAPES = ((7, 3), (10, 3), (4, 2), (10, 2))
 #: The lane cap (``csrc/lanes.cuh``): one rank-generic instantiation per d
 #: serves every r >= 11, and the cluster route lays a pose over ceil(r /
-#: 32) warps of one CTA, up to r = LANE_CAP (16 warps); above it B2 and B4
-#: take the spread route with a pose's rows folded over 16 warps
-#: (``rtr_full_fold_kernel``, ``rtr_refine_full_fold_kernel``) wherever
-#: its shared memory fits, B1 and B3 the workspace route.  The high_ranks
+#: 32) warps of one CTA, up to r = LANE_CAP (16 warps); above it B1-B4
+#: take the spread route with a pose's rows folded over 16 warps (the
+#: ``*_fold_kernel``s of ``csrc/rtr_spread.cu``) wherever its shared
+#: memory fits, else the workspace route.  The high_ranks
 #: phase holds the generic instantiation at HIGH_RANKS[d]: a pose of r
 #: lanes (one or two a warp), of one whole warp, and of two and three
 #: warps, up to the top rank the JAX package's VMEM gate admits at each
@@ -408,16 +418,19 @@ PERF_SHAPES = ((7, 3), (10, 3), (4, 2), (10, 2))
 #: poses (129, 256), a spread of 16-warp poses (512), the first rank past
 #: the cap (513) and the gate's top there (1636), and at the gate's top
 #: ranks at 16-pose agents (SMALL_AGENT_TOP_RANKS); launches per timed run
-#: (the workspace route takes milliseconds a launch).  B3's path there:
-#: the round ablation at HIGH_ABLATE_RANK, its rounds.  The f32
-#: distributed staircase from rank 11 on the stand-in.
+#: (the workspace route takes milliseconds a launch; above LANE_CAP, tens
+#: of milliseconds, it is timed in one run between two of the spread
+#: route's).  B3's path there: the round ablation at each rank of
+#: HIGH_ABLATE_RANKS, with the route B3 plans there (a cluster at 11; the
+#: spread route at 73, the JAX gate's top on the stand-in), its rounds.
+#: The f32 distributed staircase from rank 11 on the stand-in.
 LANE_CAP = rk.MAX_LANE_RANK
 HIGH_RANKS = {3: (11, 16, 17, 32, 33, 73), 2: (11, 32, 33, 78)}
 HIGH_INNER = 3
 SMALLGRID_POSES, SMALLGRID_LC, TOP_ROBOTS = 125, 172, 4
 TOP_RANKS = (129, 256, 512, 513, 1636)
 #: The JAX gate's top ranks at 16-pose agents (n_max 16, s_max 12, e_max
-#: 24), by d: the highest ranks the TPU runs (B2 and B4 spread, seven and
+#: 24), by d: the highest ranks the TPU runs (B1-B4 spread, seven and
 #: nine rows a lane), on 2 robots of a 32-pose graph (s_max 6, e_max 25 and
 #: 26: admitted there).
 SMALL_AGENT_TOP_RANKS = {3: 3360, 2: 4482}
@@ -428,7 +441,8 @@ SMALL_AGENT_TOP_RANKS = {3: 3360, 2: 4482}
 #: the host; then TOP_REFINE_ROUNDS refine rounds (B4, spread) at the top
 #: one.
 TOP_PATH_RANKS, TOP_ROUNDS, TOP_REFINE_ROUNDS = (256, 1636), 10, 3
-HIGH_ABLATE_RANK, HIGH_ABLATE_ROUNDS = 11, 20
+HIGH_ABLATE_RANKS = {11: "cluster", 73: "spread"}
+HIGH_ABLATE_ROUNDS = 20
 #: The SE(2) stand-in at BASELINE.md config #4's size (city10000: 10,000
 #: poses, 20,687 edges), its robots and rank.
 SE2_POSES, SE2_LC, SE2_ROBOTS, SE2_RANK = 10000, 10688, 32, 3
@@ -1038,22 +1052,45 @@ def flip_rule(out, ref) -> dict:
 
 
 def b3_against_b2(b3_ops: dict, b3_kw: dict, b3_out, b2_ops: dict,
-                  kw: dict) -> None:
-    """B3 fed the gradient pass against one B2 launch at the same point:
-    the same step, on every agent B2 does not exit early."""
+                  kw: dict, graph=None, where: str = "") -> dict:
+    """B3 fed the gradient pass against one B2 launch at the same point,
+    each on its planned route: the same step, on every agent B2 does not
+    exit early (max |ΔX| <= X_ATOL, no accept flip).  With ``graph`` (config
+    #5's scale): max |ΔX| on the live rows of the agents whose accept
+    decisions agree at most X_ATOL of the largest live entry, and every
+    flip within FLOOR_DF_RTOL of f0 (ROADMAP's accept-flip rule)."""
     b2 = rk.rtr_full(*b2_ops.values(), **kw)
     torch.cuda.synchronize()
     moving = b2.stats[:, 4] >= kw["grad_tol"]
-    err_b2 = float((b3_out.X - b2.X)[moving].abs().max())
-    flips = int((b3_out.stats[moving, :2] != b2.stats[moving, :2]).any(1)
-                .sum())
-    emit({"phase": "parity", "kernel": "rtr", "against": "rtr_full",
-          "agents_compared": int(moving.sum()), "max_abs_dX": err_b2,
-          "stat_flips": flips,
-          "max_rel_d_f0_f": rel_err(b3_out.stats[moving, 2:4],
-                                    b2.stats[moving, 2:4])})
-    check(int(moving.sum()) > 0 and err_b2 <= X_ATOL and flips == 0,
-          "rtr kernel fed the gradient pass disagrees with rtr_full")
+    flipped = (b3_out.stats[:, :2] != b2.stats[:, :2]).any(1) & moving
+    row = {"phase": "parity", "kernel": "rtr", "against": "rtr_full",
+           "operands": where, "r": kw["r"], "d": kw["d"],
+           "cuda_route": plan_of(b3_ops, b3_kw, "rtr").route,
+           "b2_route": plan_of(b2_ops, kw).route,
+           "agents_compared": int(moving.sum()),
+           "stat_flips": int(flipped.sum()),
+           "max_rel_d_f0_f": rel_err(b3_out.stats[moving, 2:4],
+                                     b2.stats[moving, 2:4])}
+    if graph is None:
+        err = float((b3_out.X - b2.X)[moving].abs().max())
+        row["max_abs_dX"] = err
+        ok = err <= X_ATOL and row["stat_flips"] == 0
+    else:
+        err, scale = live_rel_dX(b3_out.X, b2.X, graph, moving & ~flipped)
+        f0 = b2.stats[:, 2].abs()
+        df = torch.where(b3_out.stats[:, 1] > 0,
+                         (b3_out.stats[:, 3] - b3_out.stats[:, 2]).abs(),
+                         (b2.stats[:, 3] - b2.stats[:, 2]).abs()) / f0
+        row.update(max_abs_dX_live=err, max_abs_X_live=scale,
+                   rel_dX_live=err / max(scale, 1e-30),
+                   flipped_rel_df=df[flipped].tolist())
+        ok = (err <= X_ATOL * scale
+              and all(x <= FLOOR_DF_RTOL for x in row["flipped_rel_df"]))
+    emit(row)
+    check(int(moving.sum()) > 0 and ok,
+          f"rtr kernel fed the gradient pass disagrees with rtr_full "
+          f"({where}, r = {kw['r']}): {row}")
+    return row
 
 
 def tcg_iters_of(out) -> torch.Tensor:
@@ -1717,7 +1754,8 @@ def certify_fstar(meas, dev, card: str) -> dict:
     host float64 eigensolve's agreement with the oracle and the soundness
     of every verdict against it; the two LOBPCG agreements are reported
     (``lobpcg_agreement_met``), not gated: at 10,000 dimensions the
-    reference's 300 LOBPCG iterations stop short of them (PERF.md)."""
+    reference's 300 LOBPCG iterations stop short of them (PERF.md), and
+    both run FSTAR_LOBPCG."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = local_pgo.solve_local(meas, rank=CERT_RANK,
@@ -1726,10 +1764,11 @@ def certify_fstar(meas, dev, card: str) -> dict:
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     e64 = edge_set_from_measurements(meas, dtype=torch.float64, device=dev)
-    cert = certify.certify_solution(res.X, e64)
+    cert = certify.certify_solution(res.X, e64, lobpcg_iters=FSTAR_LOBPCG)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    pay = certify.device_certificate_payload(res.X, e64, 0)
+    pay = certify.device_certificate_payload(res.X, e64, 0,
+                                             lobpcg_iters=FSTAR_LOBPCG)
     dcert = certify.decide_device_certificate(
         pay, 1e-5, float(torch.finfo(torch.float64).eps))
     torch.cuda.synchronize()
@@ -1758,6 +1797,7 @@ def certify_fstar(meas, dev, card: str) -> dict:
            "lambda_min": cert.lambda_min, "certified": cert.certified,
            "decidable": cert.decidable, "tol": tol,
            "sigma": cert.sigma, "stationarity_gap": cert.stationarity_gap,
+           "lobpcg_iters": FSTAR_LOBPCG,
            "deflated": {"verdict": certify.CERT_STATUS[dcert.device_verdict],
                         "lam": dcert.lambda_min, "ritz_unclamped": defl,
                         "defl_resid": float(pay["defl_resid"]),
@@ -4433,13 +4473,13 @@ def generic_rows(high: dict, launches: dict) -> list:
 
 def high_rank_routes(kernel: str, ops: dict, kw: dict) -> dict:
     """Every route ``kernel`` reaches at this shape, as (cluster, spread)
-    forcing arguments: the planned one, the workspace route, and for B2 and
-    B4 the spread route the plan would take above the cluster ceiling."""
+    forcing arguments: the planned one, the workspace route, and the
+    spread route the plan would take above the cluster ceiling."""
     plan = plan_of(ops, kw, kernel)
     routes = {plan.route: (None, None)}
     if plan.route != "workspace":
         routes["workspace"] = (0, None)
-    if kernel in rk.SPREAD_KERNELS and plan.route != "spread":
+    if plan.route != "spread":
         A, n, _ = ops["inc_slot"].shape
         spread = rk._spread_plan(n, kw["r"], kw["d"], A,
                                  rk.sm_count(ops["inc_slot"].device))
@@ -4457,12 +4497,14 @@ def high_ranks_phase(runs: list, dev, card: str) -> dict:
     agents; at the card's chordal init (B4
     recentered there): each kernel on every route it reaches
     (``high_rank_routes``) against its plain version and itself, each
-    route's ms per launch (above LANE_CAP in turns: the routes in order,
-    then in reverse), the plain version's time and the launch's bound;
-    above LANE_CAP B1 and B3 must plan the workspace route and B2 and B4
-    the spread route wherever ``_spread_plan`` fits.  Returns, per
-    kernel, the shapes each route ran at, the largest error, and the rows
-    by (r, d)."""
+    route's ms per launch (above LANE_CAP in turns: the planned route, one
+    run of the workspace route, the planned route again), the plain
+    version's time and the launch's bound; above LANE_CAP every kernel
+    must plan the spread route wherever ``_spread_plan`` fits, else the
+    workspace route; wherever B3 plans the spread route, B3 against one B2
+    launch at the same point (``b3_against_b2``).  Returns, per kernel,
+    the shapes each route ran at, the largest error, and the rows by
+    (r, d)."""
     ran = {k: {} for k in rk.KERNELS}
     worst = dict.fromkeys(rk.KERNELS, 0.0)
     rows = {k: {} for k in rk.KERNELS}
@@ -4490,16 +4532,19 @@ def high_ranks_phase(runs: list, dev, card: str) -> dict:
                     worst[kernel] = max(worst[kernel], p_row["err"])
                     if c is None and sp is None:
                         out_planned = out
-                # Past the lane cap B2 and B4 take the spread route's
-                # folded rows in turns with the workspace route; every
-                # other route is timed once.
-                turns = [*routes, *reversed(routes)] \
+                # Past the lane cap the spread route's folded rows are
+                # timed in two runs around one run of the workspace route
+                # (tens of milliseconds a launch); below it every route
+                # once.
+                turns = [*routes, plan.route] \
                     if r > LANE_CAP and len(routes) > 1 else [*routes]
                 for route in turns:
                     opts = route_opts(*routes[route])
+                    once = r > LANE_CAP and route == "workspace"
                     k_row["routes"][route]["ms_runs"].append(cuda_ms(
                         lambda: fn(*ops.values(), **opts, **kw),
-                        reps=RANK_REPS, inner=HIGH_INNER, warmup=1))
+                        reps=1 if once else RANK_REPS, inner=HIGH_INNER,
+                        warmup=1))
                 for p_row in k_row["routes"].values():
                     p_row["ms"] = statistics.mean(p_row["ms_runs"])
                 nbytes, flops = work(ops, out_planned, graph, meta)
@@ -4511,10 +4556,13 @@ def high_ranks_phase(runs: list, dev, card: str) -> dict:
                     bound_ms=b_ms, bound_by=b_by,
                     max_tcg_iters=int(tcg_iters_of(out_planned).max()))
                 row["kernels"][kernel] = k_row
+                if kernel == "rtr" and plan.route == "spread":
+                    b2_ops, b2_kw = sets["rtr_full"]
+                    k_row["against_rtr_full"] = b3_against_b2(
+                        ops, kw, out_planned, b2_ops, b2_kw, where=where)
                 if r > LANE_CAP:
-                    spread = (rk._spread_plan(meta.n_max, r, d, robots,
-                                              rk.sm_count(dev))
-                              if kernel in rk.SPREAD_KERNELS else None)
+                    spread = rk._spread_plan(meta.n_max, r, d, robots,
+                                             rk.sm_count(dev))
                     check(plan == (spread or rk._workspace_plan(
                         meta.n_max, meta.e_max, r, d, kernel)),
                           f"{kernel} at (r, d) = ({r}, {d}), past the lane "
@@ -4676,24 +4724,33 @@ def top_ranks_path(meas, dev, card: str) -> dict:
     return {"rtr_full": b2, "rtr_refine_full": {f"refine_r{r}": b4}}
 
 
-def ablate_high(dev, card: str) -> dict:
-    """The round ablation at rank HIGH_ABLATE_RANK on the stand-in (B3's
-    path above the templated ranks), counted; returns its launches."""
-    rk.LAUNCHES = 0
-    rk.RTR_LAUNCHES = 0
-    torch.cuda.synchronize()
-    out = measure_r3.ablate(rank=HIGH_ABLATE_RANK, rounds=HIGH_ABLATE_ROUNDS,
-                            device=dev)
-    launches = {"rtr": rk.RTR_LAUNCHES, "rtr_full": rk.LAUNCHES}
-    emit({"phase": "high_ranks", "check": "ablate", "card": card,
-          "rank": HIGH_ABLATE_RANK, **out, "launches": launches})
-    check(bool(np.isfinite(out["b3_stats"]).all()
-               and np.isfinite(out["gn0"]).all()),
-          f"the ablation at rank {HIGH_ABLATE_RANK} returned non-finite "
-          "values")
-    check(launches["rtr"] == out["b3_calls"] > 0 and launches["rtr_full"] > 0,
-          f"the ablation at rank {HIGH_ABLATE_RANK} did not launch B3 once "
-          "per call")
+def ablate_high(high: dict, dev, card: str) -> dict:
+    """The round ablation at each rank of HIGH_ABLATE_RANKS on the
+    stand-in (B3's path above the templated ranks), counted, B3 on the
+    route given there (``high``'s plan of B3 at that rank); returns its
+    launches by kernel and rank."""
+    launches = {"rtr": {}, "rtr_full": {}}
+    for rank, want in HIGH_ABLATE_RANKS.items():
+        route = high["rows"]["rtr"][f"{rank},3"]["route"]
+        rk.LAUNCHES = 0
+        rk.RTR_LAUNCHES = 0
+        torch.cuda.synchronize()
+        out = measure_r3.ablate(rank=rank, rounds=HIGH_ABLATE_ROUNDS,
+                                device=dev)
+        counts = {"rtr": rk.RTR_LAUNCHES, "rtr_full": rk.LAUNCHES}
+        emit({"phase": "high_ranks", "check": "ablate", "card": card,
+              "rank": rank, "b3_route": route, **out, "launches": counts})
+        check(route == want,
+              f"B3 at rank {rank} on the stand-in is planned on the {route} "
+              "route")
+        check(bool(np.isfinite(out["b3_stats"]).all()
+                   and np.isfinite(out["gn0"]).all()),
+              f"the ablation at rank {rank} returned non-finite values")
+        check(counts["rtr"] == out["b3_calls"] > 0
+              and counts["rtr_full"] > 0,
+              f"the ablation at rank {rank} did not launch B3 once per call")
+        for kernel, n in counts.items():
+            launches[kernel][f"ablate_r{rank}"] = n
     return launches
 
 
@@ -4869,62 +4926,83 @@ def live_rel_dX(a: torch.Tensor, b: torch.Tensor, graph,
     return (float((a - b).abs()[live].max()), float(b.abs()[live].max()))
 
 
-def config5_b2(ops: dict, kw: dict, graph, meta, where: str,
-               workspace: bool) -> tuple[dict, object]:
-    """B2 on its planned route at config #5's shape against its plain
-    version: max |ΔX| on live rows of the agents whose accept decisions
-    agree at most X_ATOL of the largest live entry, f0 and f at
-    STAT_RTOL, every flip within FLOOR_DF_RTOL of f0 (ROADMAP's accept-flip
-    rule); a second launch equal bit for bit, with the same tCG
-    iterations; then timed in turns (planned, workspace, workspace,
-    planned) where ``workspace`` (the workspace route has no r = 7), else
-    alone, with the plain version's time and the launch's bound."""
-    out = rk.rtr_full(*ops.values(), **kw)
-    again = rk.rtr_full(*ops.values(), **kw)
-    ref = rk.rtr_full_reference(*ops.values(), **kw)
+#: The config5 phase's line of each kernel it holds.
+C5_CHECKS = {"rtr_full": "b2", "rtr": "b3", "tcg": "b1"}
+
+
+def config5_held(kernel: str, ops: dict, kw: dict, graph, meta,
+                 where: str, workspace: bool) -> tuple[dict, object]:
+    """``kernel`` (B2, B3 or B1) on its planned route at config #5's shape
+    against its plain version: B2 and B3 max |ΔX| on live rows of the
+    agents whose accept decisions agree at most X_ATOL of the largest live
+    entry, f0 and f at STAT_RTOL, every flip within FLOOR_DF_RTOL of f0
+    (ROADMAP's accept-flip rule); B1 max |Δeta| on live rows at most X_ATOL
+    of the largest live entry, Heta at STAT_RTOL of its largest entry, no
+    flip of iterations or boundary hits.  A second launch equal bit for
+    bit, with the same tCG iterations; then timed in turns (planned,
+    workspace, workspace, planned) where ``workspace`` (the workspace
+    route has no r = 7), else alone, with the plain version's time and the
+    launch's bound."""
+    fn, ref_fn, work = KERNEL_FNS[kernel]
+    out = fn(*ops.values(), **kw)
+    again = fn(*ops.values(), **kw)
+    ref = ref_fn(*ops.values(), **kw)
     torch.cuda.synchronize()
-    check(bool(torch.isfinite(out.X).all() and torch.isfinite(out.stats)
-               .all()), "rtr_full returned non-finite values at config #5")
-    plan = plan_of(ops, kw)
-    rule = flip_rule(out, ref)
-    agree = ~(out.stats[:, :2] != ref.stats[:, :2]).any(1)
-    err, scale = live_rel_dX(out.X, ref.X, graph, agree)
+    check(all(bool(torch.isfinite(t).all()) for t in out
+              if t.is_floating_point()),
+          f"{kernel} returned non-finite values at config #5")
+    plan = plan_of(ops, kw, kernel)
     bitwise = all(torch.equal(a, b) for a, b in zip(out, again))
-    row = {"phase": "config5", "check": "b2", "operands": where,
+    iters, ref_iters = tcg_iters_of(out), tcg_iters_of(ref)
+    row = {"phase": "config5", "check": C5_CHECKS[kernel], "operands": where,
            "rank": kw["r"], "agents": ops["Xc"].shape[0],
            "n_max": meta.n_max, "plan": plan._asdict(),
-           "max_abs_dX_live": err, "max_abs_X_live": scale,
-           "rel_dX_live": err / max(scale, 1e-30), **rule,
            "repeat_bitwise": bitwise,
-           "tcg_iters": out.tcg_iters.tolist(),
-           "plain_tcg_iters": ref.tcg_iters.tolist(),
-           "tcg_iter_flips": int((out.tcg_iters != ref.tcg_iters).sum()),
-           "attempts": out.stats[:, 0].tolist(),
-           "plain_attempts": ref.stats[:, 0].tolist()}
-    check(plan.route == "spread", f"B2 at config #5 ({where}) is not on "
-          "the spread route")
-    check(err <= X_ATOL * scale and rule["max_rel_d_f0"] <= STAT_RTOL
-          and rule["max_rel_d_f_agreeing"] <= STAT_RTOL
-          and all(x <= FLOOR_DF_RTOL for x in rule["flipped_rel_df"]),
-          f"B2 at config #5 ({where}) disagrees with its plain version")
-    check(bitwise and torch.equal(out.tcg_iters, again.tcg_iters),
-          f"B2 at config #5 ({where}) does not repeat bit for bit")
-    if workspace:
-        row["timing"] = route_timing(rk.rtr_full, ops, kw, out)
+           "tcg_iters": iters.tolist(), "plain_tcg_iters": ref_iters.tolist(),
+           "tcg_iter_flips": int((iters != ref_iters).sum())}
+    if kernel == "tcg":
+        every = torch.ones(ops["Xc"].shape[0], dtype=torch.bool,
+                           device=ops["Xc"].device)
+        err, scale = live_rel_dX(out.eta, ref.eta, graph, every)
+        herr, hscale = live_rel_dX(out.heta, ref.heta, graph, every)
+        flips = int((out.stats != ref.stats).any(1).sum())
+        row.update(max_abs_d_eta_live=err, max_abs_eta_live=scale,
+                   rel_d_eta_live=err / max(scale, 1e-30),
+                   rel_d_heta_live=herr / max(hscale, 1e-30),
+                   stat_flips=flips)
+        ok = (err <= X_ATOL * scale and herr <= STAT_RTOL * hscale
+              and flips == 0)
     else:
-        ms = cuda_ms(lambda: rk.rtr_full(*ops.values(), **kw), reps=10,
-                     inner=10)
-        iters = max(int(out.tcg_iters.max()), 1)
-        row["timing"] = {"ms": ms, "max_tcg_iters": iters,
-                         "ms_per_tcg_iter": ms / iters,
+        rule = flip_rule(out, ref)
+        agree = ~(out.stats[:, :2] != ref.stats[:, :2]).any(1)
+        err, scale = live_rel_dX(out.X, ref.X, graph, agree)
+        row.update(max_abs_dX_live=err, max_abs_X_live=scale,
+                   rel_dX_live=err / max(scale, 1e-30), **rule,
+                   attempts=out.stats[:, 0].tolist(),
+                   plain_attempts=ref.stats[:, 0].tolist())
+        ok = (err <= X_ATOL * scale and rule["max_rel_d_f0"] <= STAT_RTOL
+              and rule["max_rel_d_f_agreeing"] <= STAT_RTOL
+              and all(x <= FLOOR_DF_RTOL for x in rule["flipped_rel_df"]))
+    check(plan.route == "spread", f"{kernel} at config #5 ({where}) is not "
+          "on the spread route")
+    check(ok, f"{kernel} at config #5 ({where}) disagrees with its plain "
+          f"version: {row}")
+    check(bitwise and torch.equal(iters, tcg_iters_of(again)),
+          f"{kernel} at config #5 ({where}) does not repeat bit for bit")
+    if workspace:
+        row["timing"] = route_timing(fn, ops, kw, out)
+    else:
+        ms = cuda_ms(lambda: fn(*ops.values(), **kw), reps=10, inner=10)
+        top = max(int(iters.max()), 1)
+        row["timing"] = {"ms": ms, "max_tcg_iters": top,
+                         "ms_per_tcg_iter": ms / top,
                          "cuda_route": plan.route, "cluster": plan.C,
                          "ctas": ops["Xc"].shape[0] * plan.C,
                          "stripes": plan.stripes,
                          "smem_bytes_per_cta": plan.smem_bytes}
-    row["plain_ms"] = cuda_ms(lambda: rk.rtr_full_reference(*ops.values(),
-                                                            **kw),
-                              reps=3, warmup=1)
-    row["bytes"], row["flops"] = rtr_full_work(ops, out, graph, meta)
+    row["plain_ms"] = cuda_ms(lambda: ref_fn(*ops.values(), **kw), reps=3,
+                              warmup=1)
+    row["bytes"], row["flops"] = work(ops, out, graph, meta)
     row["bound_ms"], row["bound_by"] = bound(row["bytes"], row["flops"])
     emit(row)
     return row, out
@@ -4932,7 +5010,7 @@ def config5_b2(ops: dict, kw: dict, graph, meta, where: str,
 
 def config5_rank(part, params, rank: int, meas, dev, card: str) -> dict:
     """B2 at ``rank`` on config #5's graph at the odometry init against its
-    plain version (``config5_b2``: the spread route, its plan printed) and,
+    plain version (``config5_held``: the spread route, its plan printed) and,
     at the templated top RANK_TOP and the top of C5_TOP_RANKS, B4
     recentered there against its plain version on the spread and workspace
     routes and timed on the spread route."""
@@ -4943,8 +5021,8 @@ def config5_rank(part, params, rank: int, meas, dev, card: str) -> dict:
     Z = rbcd.neighbor_buffer(rbcd.public_table(X, g), g)
     ops = dict(zip(B2_ORDER, rbcd.kernel_operands(
         X, Z, g.edges, rbcd.precond_chol(g.edges, g, params_r), g)))
-    b2, _ = config5_b2(ops, rbcd.kernel_options(params_r, m), g, m,
-                       "odometry init", False)
+    b2, _ = config5_held("rtr_full", ops, rbcd.kernel_options(params_r, m),
+                         g, m, "odometry init", False)
     out = {"b2": b2}
     if rank in (RANK_TOP, C5_TOP_RANKS[-1]):
         rparams = dataclasses.replace(params_r, solver=dataclasses.replace(
@@ -5022,17 +5100,30 @@ def config5_phase(inst, dev, card: str) -> dict:
           "cost": [res.cost_history[0], res.cost_history[-1]],
           "b2_launches": launches, "rounds_enqueued": enqueued,
           "solve_s": solve_s})
-    check(plans["rtr_full"]["route"] == "spread"
-          and plans["rtr_refine_full"]["route"] == "spread"
-          and plans["rtr"]["route"] == plans["tcg"]["route"] == "workspace",
-          "config #5's plan is not B2 and B4 spread, B1 and B3 workspace")
+    check(all(p["route"] == "spread" for p in plans.values()),
+          "config #5's plan is not B1-B4 spread")
     check(res.iterations == C5_ROUNDS and launches == enqueued
           and bool(np.isfinite(res.cost_history).all())
           and res.cost_history[-1] < res.cost_history[0],
           "config #5's solve did not launch B2 once per enqueued round "
           "with finite, falling costs")
 
-    b2, out = config5_b2(ops, kw, graph, meta, "terminal iterate", True)
+    b2, out = config5_held("rtr_full", ops, kw, graph, meta,
+                           "terminal iterate", True)
+    # B3 and B1 at the same point, fed the gradient pass's g and S (as the
+    # ablation feeds B3), and B3 against the B2 launch there.
+    g, _, S = rbcd.gradient_pass(X, graph, meta)
+    b3_ops = dict(zip(B3_ORDER, rbcd.b3_operands(X, Z, g, S, graph.edges,
+                                                 res.state.chol, graph)))
+    b3_kw = {k: v for k, v in kw.items() if k != "grad_tol"}
+    b3, b3_out = config5_held("rtr", b3_ops, b3_kw, graph, meta,
+                              "terminal iterate", True)
+    b3_vs_b2 = b3_against_b2(b3_ops, b3_kw, b3_out, ops, kw, graph,
+                             "config #5, terminal iterate")
+    tkw = {k: kw[k] for k in ("r", "d", "e_max", "max_iters", "kappa",
+                              "theta")}
+    b1, _ = config5_held("tcg", tcg_operands(b3_ops), tkw, graph, meta,
+                         "terminal iterate, radius 1", True)
     # Higher ranks at the odometry init of config #5's graph.
     tops = {rank: config5_rank(part, params, rank, meas, dev, card)
             for rank in C5_TOP_RANKS}
@@ -5110,7 +5201,23 @@ def config5_phase(inst, dev, card: str) -> dict:
         "by_rank": {rank: {k: t["b4"][k] for k in (
             "ms", "cluster", "ctas", "stripes", "plain_ms", "bound_ms",
             "bound_by")} for rank, t in tops.items() if "b4" in t}}
-    return {"rows": [spread_b2, spread_b4]}
+    # B3's and B1's spread rows: their launches on the paths (B3's in the
+    # ablation at r = 73; B1 is on none) join in main.
+    spread_b31 = [{
+        "name": f"{kernel}_spread", "route": "cuda",
+        "source": "dpgo_tpu_torch/csrc/rtr_spread.cu",
+        "replaces": REPLACES[kernel], "launches_by_path": {},
+        "max_abs_err": row.get("max_abs_dX_live",
+                               row.get("max_abs_d_eta_live")),
+        **one_set_columns(row["timing"]), "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        "library_ms": None, "bytes": row["bytes"], "flops": row["flops"],
+        "stripes": row["timing"]["stripes"]}
+        for kernel, row in (("rtr", b3), ("tcg", b1))]
+    spread_b31[0]["against_rtr_full"] = {
+        k: b3_vs_b2[k] for k in ("agents_compared", "stat_flips",
+                                 "rel_dX_live")}
+    return {"rows": [spread_b2, spread_b4, *spread_b31]}
 
 
 def sharded_scale(mesh, dev, card: str, inst) -> tuple[int, dict]:
@@ -6088,7 +6195,7 @@ def main() -> int:
         + [(f"16_pose_agents_d{d}", m, 2, refine.host_edges_f64(m), (r,))
            for d, r in SMALL_AGENT_TOP_RANKS.items()
            for m in [small_agents_standin(d)]], dev, card)
-    ab_high = ablate_high(dev, card)
+    ab_high = ablate_high(high, dev, card)
     high_b2, high_b4 = staircase_f32("sphere_r11", meas, ROBOTS,
                                      STAIR_HIGH, dev, card)
     lap("high_ranks")
@@ -6112,11 +6219,10 @@ def main() -> int:
         "b2_bound_by", "ms_per_round", "n_max", "peak_memory_bytes")}
     b2_row["serve_64_agents"] = {k: serve_t[k] for k in (
         "ms", "ms_single_cta", "bound_ms", "bound_by", "cluster", "ctas")}
-    routes = {k: ROUTE_SOURCES[k] for k in ("cluster", "workspace")}
     for row in rows:
-        row["routes"] = dict(routes)
-        if row["name"] in rk.SPREAD_KERNELS:
-            row["routes"]["spread"] = f"{row['name']}_spread"
+        row["routes"] = {k: ROUTE_SOURCES[k] for k in ("cluster",
+                                                       "workspace")}
+        row["routes"]["spread"] = f"{row['name']}_spread"
         # The (r, d) each route ran at in this script (the ranks phase),
         # and its largest error there (X, eta or D, as the row's kernel).
         row["shapes"] = ranks["shapes"][row["name"]]
@@ -6124,12 +6230,25 @@ def main() -> int:
         row["perf_shapes"] = {k: v[row["name"]]
                               for k, v in ranks["perf_shapes"].items()}
     for row in c5["rows"]:
-        row["shapes"] = {"spread": [[RANK, 3]] + [
-            [r, 3] for r in row["by_rank"]]}
+        kernel = row["name"].removesuffix("_spread")
+        if "by_rank" in row:
+            row["shapes"] = {"spread": [[RANK, 3]] + [
+                [r, 3] for r in row["by_rank"]]}
+        else:
+            # B3 and B1: config #5, and every (r, d) of high_ranks where
+            # the plan took the spread route; B3's launches on its path.
+            row["shapes"] = {"spread": [[RANK, 3]] + [
+                [int(x) for x in rd.split(",")]
+                for rd, hr in high["rows"][kernel].items()
+                if hr["route"] == "spread"]}
+            row["launches_by_path"] = {
+                k: n for k, n in ab_high.get(kernel, {}).items()
+                if HIGH_ABLATE_RANKS[int(k.removeprefix("ablate_r"))]
+                == "spread"}
     rows.extend(c5["rows"])
     rows.extend(generic_rows(high, {
-        "tcg": {}, "rtr": {"ablate_r11": ab_high["rtr"]},
-        "rtr_full": {"ablate_r11": ab_high["rtr_full"],
+        "tcg": {}, "rtr": ab_high["rtr"],
+        "rtr_full": {**ab_high["rtr_full"],
                      "staircase_r11": high_b2, **top["rtr_full"]},
         "rtr_refine_full": {"staircase_r11": high_b4,
                             **top["rtr_refine_full"]}}))

@@ -54,8 +54,7 @@
 //     callers reach together (all threads of the CTA call them).  A CTA of
 //     kMaxThreads holds a pose of at most 16 warps: this route ends at
 //     r = 512, and its launchers refuse a higher rank (rtr_spread.cu's fold
-//     kernels take B2 and B4 above it, rtr_full.cu's workspace route B1
-//     and B3).
+//     kernels take B1-B4 above it).
 //   * State on chip: every loop vector (eta, Heta, r, z, delta, Hd, g, the
 //     proposal xp) and the operands read only (X, L, S) live in the owning
 //     CTA's shared memory for the whole launch; nothing of the tCG loop

@@ -58,10 +58,10 @@
 // templated ranks (r >= 11, shapes.cuh) the *_rt kernels below read r from
 // the launch and walk a pose's rows one at a time, so no thread holds
 // r (d + 1) floats and the route has no rank limit of its own; it is the
-// catch-all where no cluster (and, for B2 and B4, no spread) holds an
-// agent: above r = 512, where a pose no longer fits the 16 warps of a
-// cluster CTA, it takes B1 and B3, and B2 and B4 only where the spread
-// route's folded rows do not fit a CTA's shared memory.
+// catch-all where neither a cluster nor a spread holds an agent: above
+// r = 512, where a pose no longer fits the 16 warps of a cluster CTA, it
+// takes B1-B4 only where the spread route's folded rows do not fit a
+// CTA's shared memory.
 //
 // The refine kernel is bound the same way: its payload adds r*d + r floats
 // of reference residuals per edge (144 B an edge at r = 5, d = 3 instead of

@@ -1,5 +1,5 @@
 // Fused single-step Riemannian trust-region solve of RBCD for agents above
-// the thread-block cluster ceiling: the spread route of kernels B2 and B4.
+// the thread-block cluster ceiling: the spread route of kernels B1-B4.
 //
 // Replaces the TPU kernels of dpgo_tpu/ops/pallas_tcg.py for agents that no
 // cluster of rtr_cluster.cu holds (ops/rtr_kernel.cluster_plan picks the
@@ -9,11 +9,17 @@
 //     (start-point gradient, S = sym(Y^T G_Y), gn0, the early exit, then at
 //     most max_rejections attempts of {truncated CG, 24-sweep Newton-Schulz
 //     retraction, cost, accept or radius / 4}).
+//   * _rtr_kernel (rtr_call) -> rtr_spread_kernel below: B2's attempt loop
+//     from a given gradient g and curvature term S (setup copies them in;
+//     no gradient sweep, no early exit), after a cost-only sweep for f0.
+//   * _tcg_kernel (tcg_call) -> tcg_spread_kernel below: one truncated CG
+//     from a given g and S at a per-agent radius, every pose live and no
+//     neighbor slot read.
 //   * _rtr_refine_full_kernel (rtr_refine_full_call) ->
 //     rtr_refine_full_spread_kernel below: the re-centered step of the
 //     terminal refinement on the correction D about the reference Rc.
-// The functions are rtr_cluster.cu's; B1 and B3 keep rtr_full.cu's
-// workspace route above the ceiling.
+// The functions are rtr_cluster.cu's; rtr_full.cu's workspace route takes
+// only the agents no spread holds.
 //
 // What bounds it on this card: at BASELINE.md config #5 (64 agents of
 // 1,594 poses, r = 5) a launch does ~1.6 GFLOP (~0.024 ms at the fp32
@@ -61,10 +67,12 @@
 //     of 16 warps) a thread holds one row of d + 1 floats; B2's retraction
 //     runs on every row of the pose (retract_rows), since a batch of r
 //     stripes' sums would hold r (d + 1) floats a thread.
-//   * Above r = 512 the fold kernels (rtr_full_fold_kernel,
-//     rtr_refine_full_fold_kernel) fold a pose's rows over the CTA's 16
-//     warps: row q on thread q % 512 at fold q / 512, F = ceil(r / 512)
-//     folds (lanes.cuh's pose_folds), one pose a stripe.  Every per-row
+//   * Above r = 512 the fold kernels (rtr_full_fold_kernel, rtr_fold_kernel,
+//     tcg_fold_kernel, rtr_refine_full_fold_kernel) fold a pose's rows over
+//     the CTA's 16 warps: row q on thread q % 512 at fold q / 512, F =
+//     ceil(r / 512) folds (lanes.cuh's pose_folds), one pose a stripe.
+//     B3's only phase of its own there is the cost sweep, B1's the
+//     write-back of eta and Heta, each fold by fold.  Every per-row
 //     phase loops over the thread's folds; a phase that needs a group sum
 //     of its rows (the tangent projection, the retractions' Y^T Y, the
 //     refine start's S1) runs in two passes: the first adds the folds'
@@ -143,13 +151,15 @@ constexpr int kCostOwner = 1 << 27;
 constexpr int kSideJ = 1 << 28;
 // Launcher errors: the card cannot place one cluster of this size (or one
 // CTA's shared memory exceeds kMaxSmemBytes); more neighbor slots than a
-// payload word can index; a kernel number without a spread route.
+// payload word can index; an unknown kernel number.
 constexpr int kUnplaceable = -2;
 constexpr int kTooManySlots = -3;
 constexpr int kUnknownKernel = -4;
 // The kernels, as the launchers and the host plan number them
-// (ops/rtr_kernel.KERNELS); only B2 and B4 have this route.
+// (ops/rtr_kernel.KERNELS).
 constexpr int kRtrFull = 0;
+constexpr int kRtr = 1;
+constexpr int kTcg = 2;
 constexpr int kRefine = 3;
 
 __host__ __device__ constexpr int vec_stride(int rk) {
@@ -183,7 +193,7 @@ struct SpreadShape {
 // 512), at most kThreads threads of whole groups, ceil(P / groups)
 // stripes; shared memory holds the kSmemVecs vectors [P][vec_stride], the
 // double-buffered reduction slots [2][C * warps][4] and, above r = 32, the
-// group-sum slots [warps][kGroupSums].  B2 and B4 share it.  A shape of
+// group-sum slots [warps][kGroupSums].  B1-B4 share it.  A shape of
 // more than kMaxSmemBytes does not fit, and the launchers refuse it.
 SpreadShape spread_shape(int r, int d, int n, int C) {
   const int P = (n + C - 1) / C;
@@ -1108,16 +1118,16 @@ __device__ void sweep(const Ctx& cx, int v, bool with_z,
 // Carve this CTA's shared memory and its part of the agent's workspace,
 // copy its poses' operands into the workspace's layout (X, or with REFINE
 // the correction D into kD and Rc into kRc; the lower triangle of L with
-// its diagonal replaced by reciprocals; S0 and g0 when given), write its
+// its diagonal replaced by reciprocals; S and g when given: B1's and B3's
+// Sc and gc, B4's S0 and g0), write its
 // share of the reference residuals (REFINE) and, for its poses' live ELL
 // entries in ELL order, their words (rtr_cluster.cu's), edge numbers and
 // edge records, then publish everything to the cluster.
 // setup of the rank-generic instantiation (R = 0): r from the launch, the
 // lane layout of that r (r lanes a pose up to 32, ceil(r / 32) warps a
 // pose above), and the group-sum slots after the reduction slots.  FOLD:
-// the fold kernels' (r > 512: 16 warps a pose, every fold's rows copied,
-// the reference residuals by (edge, row)); their branches leave the other
-// kernels' text as it was.
+// the fold kernels' (r > 512: 16 warps a pose, every fold's rows copied);
+// its branch leaves the other kernels' text as it was.
 template <int D, bool REFINE, bool FOLD = false>
 __device__ CtxR setup_rt(const SpreadArgsR& g, float* smem, int a) {
   constexpr int K = D + 1;
@@ -1255,12 +1265,11 @@ __device__ CtxR setup_rt(const SpreadArgsR& g, float* smem, int a) {
       cx.S[(size_t)p * SF + e] = __ldg(g.S + ((size_t)a * DD + e) * g.n + p);
     }
   }
-  // The reference residuals by edge and row, the agent's CTAs taking
-  // every C-th block of edges (FOLD: of (edge, row) pairs, since one
-  // thread walking an edge's r rows makes the fold kernels' setup grow
-  // with r).
+  // The reference residuals, one (edge, row) pair a thread over the
+  // agent's CTAs: one thread walking an edge's r rows would make setup grow
+  // with r.
   const int nt = g.Ep / g.T;
-  if (REFINE && FOLD) {
+  if (REFINE) {
     const long long pairs = (long long)g.E * r;
     for (long long t = cx.rank * blockDim.x + threadIdx.x; t < pairs;
          t += (long long)cx.C * blockDim.x) {
@@ -1274,22 +1283,6 @@ __device__ CtxR setup_rt(const SpreadArgsR& g, float* smem, int a) {
       for (int k = 0; k < D; ++k)
         rh[k] = g.rho_rot[(tile * (r * D) + row * D + k) * g.T + ln];
       rh[D] = g.rho_trn[(tile * r + row) * g.T + ln];
-    }
-  } else if (REFINE) {
-    for (int e = cx.rank * blockDim.x + threadIdx.x; e < g.E;
-         e += cx.C * blockDim.x) {
-      const int tl = e / g.T;
-      const int ln = e - tl * g.T;
-      const size_t tile = (size_t)a * nt + tl;
-      float* rh = cx.rho + (size_t)e * RK;
-#pragma unroll
-      for (int row = 0; row < r; ++row) {
-#pragma unroll
-        for (int k = 0; k < D; ++k)
-          rh[row * K + k] = g.rho_rot[(tile * (r * D) + row * D + k) * g.T +
-                                      ln];
-        rh[row * K + D] = g.rho_trn[(tile * r + row) * g.T + ln];
-      }
     }
   }
   // Each pose's live ELL entries, numbered in ELL order: the slot of
@@ -1452,24 +1445,23 @@ __device__ CtxOf<R> setup(const ArgsOf<R>& g, float* smem, int a) {
         cx.S[(size_t)p * SF + e] = __ldg(g.S + ((size_t)a * DD + e) * g.n + p);
       }
     }
-    // The reference residuals by edge and row, the agent's CTAs taking
-    // every C-th block of edges.
+    // The reference residuals, one (edge, row) pair a thread (setup_rt's
+    // copy).
     const int nt = g.Ep / g.T;
     if (REFINE) {
-      for (int e = cx.rank * blockDim.x + threadIdx.x; e < g.E;
-           e += cx.C * blockDim.x) {
+      const long long pairs = (long long)g.E * R;
+      for (long long t = cx.rank * blockDim.x + threadIdx.x; t < pairs;
+           t += (long long)cx.C * blockDim.x) {
+        const int e = (int)(t / R);
+        const int row = (int)(t - (long long)e * R);
         const int tl = e / g.T;
         const int ln = e - tl * g.T;
         const size_t tile = (size_t)a * nt + tl;
-        float* rh = cx.rho + (size_t)e * RK;
+        float* rh = cx.rho + (size_t)e * RK + row * K;
 #pragma unroll
-        for (int row = 0; row < R; ++row) {
-#pragma unroll
-          for (int k = 0; k < D; ++k)
-            rh[row * K + k] = g.rho_rot[(tile * (R * D) + row * D + k) * g.T +
-                                        ln];
-          rh[row * K + D] = g.rho_trn[(tile * R + row) * g.T + ln];
-        }
+        for (int k = 0; k < D; ++k)
+          rh[k] = g.rho_rot[(tile * (R * D) + row * D + k) * g.T + ln];
+        rh[D] = g.rho_trn[(tile * R + row) * g.T + ln];
       }
     }
     // Each pose's live ELL entries, numbered in ELL order: the slot of
@@ -2198,6 +2190,81 @@ rtr_full_spread_kernel(ArgsOf<R> args, float initial_radius,
   cg::this_cluster().sync();  // no CTA leaves while its partials are read
 }
 
+// B3: args.S and args.g are the given curvature term Sc and gradient gc,
+// which setup copies into the S records and kG.  f0 from a cost-only sweep
+// (X copied to the output), then the attempts from the first, with no
+// early exit; stats [A, 4].
+template <int R, int D>
+__global__ void __launch_bounds__(kThreads, 1)
+rtr_spread_kernel(ArgsOf<R> args, float initial_radius, int max_rejections,
+                  float* X_out, float* stats, int* tcg_iters) {
+  constexpr int K = D + 1;
+  extern __shared__ __align__(16) float smem[];
+  const int a = blockIdx.x / cg::this_cluster().num_blocks();
+  CtxOf<R> cx = setup<R, D, false>(args, smem, a);
+  float* xo = X_out + (size_t)a * rank_of<R>(cx) * K * cx.n;
+  float s1[1] = {0.f};
+  for (int st = 0; st < cx.stripes; ++st) {
+    at_stripe(cx, st);
+    if (!cx.own) continue;
+    const int p = pose_of(cx, cx.pl);
+    float x[K], unused[K];
+    ld_own<R, K>(cx, kX, x);
+    sweep<R, D, false, true>(cx, kX, true, x, unused, &s1[0]);
+#pragma unroll
+    for (int q = 0; q < K; ++q) xo[(cx.row * K + q) * cx.n + p] = x[q];
+  }
+  cluster_sum<1>(cx, s1);
+  const float f0 = 0.5f * s1[0];
+  const Attempts at = attempts<R, D, false>(cx, args, xo, f0, 0,
+                                            initial_radius, max_rejections);
+  if (cx.rank == 0 && threadIdx.x == 0) {
+    float* st = stats + (size_t)a * 4;
+    st[0] = (float)at.k_att;
+    st[1] = at.accepted ? 1.f : 0.f;
+    st[2] = f0;
+    st[3] = at.f_best;
+    tcg_iters[a] = at.iters;
+  }
+  cg::this_cluster().sync();  // no CTA leaves while its partials are read
+}
+
+// B1: one truncated CG from the given Sc and gc (as B3's) at the agent's
+// radius; eta and Heta written back component-major, stats [A, 2]
+// (iterations, hit the boundary).  No neighbor slot is read (s = 0) and
+// every pose is live.
+template <int R, int D>
+__global__ void __launch_bounds__(kThreads, 1)
+tcg_spread_kernel(ArgsOf<R> args, const float* radius, float* eta_out,
+                  float* heta_out, float* stats) {
+  constexpr int K = D + 1;
+  extern __shared__ __align__(16) float smem[];
+  const int a = blockIdx.x / cg::this_cluster().num_blocks();
+  CtxOf<R> cx = setup<R, D, false>(args, smem, a);
+  const size_t off = (size_t)a * rank_of<R>(cx) * K * cx.n;
+  bool hit;
+  const int k = tcg<R, D>(cx, radius[a], args.max_iters, args.kappa,
+                          args.theta, &hit);
+  for (int st = 0; st < cx.stripes; ++st) {
+    at_stripe(cx, st);
+    if (!cx.own) continue;
+    const int p = pose_of(cx, cx.pl);
+    float et[K], he[K];
+    ld_own<R, K>(cx, kEta, et);
+    ld_own<R, K>(cx, kHeta, he);
+#pragma unroll
+    for (int q = 0; q < K; ++q) {
+      eta_out[off + (cx.row * K + q) * cx.n + p] = et[q];
+      heta_out[off + (cx.row * K + q) * cx.n + p] = he[q];
+    }
+  }
+  if (cx.rank == 0 && threadIdx.x == 0) {
+    stats[(size_t)a * 2] = (float)k;
+    stats[(size_t)a * 2 + 1] = hit ? 1.f : 0.f;
+  }
+  cg::this_cluster().sync();  // no CTA leaves while its partials are read
+}
+
 // args.X is the correction D, args.Z its neighbor slots Dz, args.S and
 // args.g the constants S0 and g0.
 template <int R, int D>
@@ -2370,6 +2437,89 @@ rtr_full_fold_kernel(SpreadArgsR args, float initial_radius,
     st[3] = at.f_best;
     st[4] = gn0;
     tcg_iters[a] = at.iters;
+  }
+  cg::this_cluster().sync();  // no CTA leaves while its partials are read
+}
+
+// rtr_spread_kernel above r = 512, the rows folded: the cost sweep fold
+// by fold, then attempts_fold.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+rtr_fold_kernel(SpreadArgsR args, float initial_radius, int max_rejections,
+                float* X_out, float* stats, int* tcg_iters) {
+  constexpr int K = D + 1;
+  extern __shared__ __align__(16) float smem[];
+  const int a = blockIdx.x / cg::this_cluster().num_blocks();
+  CtxF cx;
+  static_cast<CtxR&>(cx) = setup_rt<D, false, true>(args, smem, a);
+  cx.folds = pose_folds(cx.r);
+  cx.row0 = cx.row;
+  float* xo = X_out + (size_t)a * cx.r * K * cx.n;
+  float s1[1] = {0.f};
+  for (int st = 0; st < cx.stripes; ++st) {
+    at_stripe(cx, st);
+    for (int f = 0; f < cx.folds; ++f) {
+      at_fold(cx, f);
+      if (!cx.own) continue;
+      const int p = pose_of(cx, cx.pl);
+      float x[K], unused[K];
+      ld_own<0, K>(cx, kX, x);
+      sweep<0, D, false, true>(cx, kX, true, x, unused, &s1[0]);
+#pragma unroll
+      for (int q = 0; q < K; ++q) xo[(cx.row * K + q) * cx.n + p] = x[q];
+    }
+  }
+  cluster_sum<1>(cx, s1);
+  const float f0 = 0.5f * s1[0];
+  const Attempts at = attempts_fold<D, false>(cx, args, xo, f0, 0,
+                                              initial_radius, max_rejections);
+  if (cx.rank == 0 && threadIdx.x == 0) {
+    float* st = stats + (size_t)a * 4;
+    st[0] = (float)at.k_att;
+    st[1] = at.accepted ? 1.f : 0.f;
+    st[2] = f0;
+    st[3] = at.f_best;
+    tcg_iters[a] = at.iters;
+  }
+  cg::this_cluster().sync();  // no CTA leaves while its partials are read
+}
+
+// tcg_spread_kernel above r = 512, the rows folded: tcg_fold, then eta and
+// Heta written back fold by fold.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+tcg_fold_kernel(SpreadArgsR args, const float* radius, float* eta_out,
+                float* heta_out, float* stats) {
+  constexpr int K = D + 1;
+  extern __shared__ __align__(16) float smem[];
+  const int a = blockIdx.x / cg::this_cluster().num_blocks();
+  CtxF cx;
+  static_cast<CtxR&>(cx) = setup_rt<D, false, true>(args, smem, a);
+  cx.folds = pose_folds(cx.r);
+  cx.row0 = cx.row;
+  const size_t off = (size_t)a * cx.r * K * cx.n;
+  bool hit;
+  const int k = tcg_fold<D>(cx, radius[a], args.max_iters, args.kappa,
+                            args.theta, &hit);
+  for (int st = 0; st < cx.stripes; ++st) {
+    at_stripe(cx, st);
+    for (int f = 0; f < cx.folds; ++f) {
+      at_fold(cx, f);
+      if (!cx.own) continue;
+      const int p = pose_of(cx, cx.pl);
+      float et[K], he[K];
+      ld_own<0, K>(cx, kEta, et);
+      ld_own<0, K>(cx, kHeta, he);
+#pragma unroll
+      for (int q = 0; q < K; ++q) {
+        eta_out[off + (cx.row * K + q) * cx.n + p] = et[q];
+        heta_out[off + (cx.row * K + q) * cx.n + p] = he[q];
+      }
+    }
+  }
+  if (cx.rank == 0 && threadIdx.x == 0) {
+    stats[(size_t)a * 2] = (float)k;
+    stats[(size_t)a * 2 + 1] = hit ? 1.f : 0.f;
   }
   cg::this_cluster().sync();  // no CTA leaves while its partials are read
 }
@@ -2621,6 +2771,12 @@ struct Launchers<R, D, true> {
                       float initial_radius, int max_rejections,
                       float grad_tol, float* X_out, float* stats,
                       int* tcg_iters, cudaStream_t stream);
+  static int rtr(const SpreadArgs& g, int r, int A, int C,
+                 float initial_radius, int max_rejections, float* X_out,
+                 float* stats, int* tcg_iters, cudaStream_t stream);
+  static int tcg(const SpreadArgs& g, int r, int A, int C,
+                 const float* radius, float* eta, float* heta, float* stats,
+                 cudaStream_t stream);
   static int refine(const SpreadArgs& g, int r, int A, int C,
                     float initial_radius, int max_rejections, float grad_tol,
                     float* D_out, float* stats, int* tcg_iters,
@@ -2663,6 +2819,38 @@ int Launchers<R, D, true>::rtr_full(const SpreadArgs& g, int r, int A, int C,
 }
 
 template <int R, int D>
+int Launchers<R, D, true>::rtr(const SpreadArgs& g, int r, int A, int C,
+                               float initial_radius, int max_rejections,
+                               float* X_out, float* stats, int* tcg_iters,
+                               cudaStream_t stream) {
+  if (g.s > kIndexMask + 1) return kTooManySlots;
+  const SpreadShape sh = spread_shape(r, D, g.n, C);
+  if constexpr (R == 0) {
+    if (pose_folds(r) > 1)
+      return launch_spread(rtr_fold_kernel<D>, A, C, sh, stream,
+                           args_of<0>(g, r), initial_radius, max_rejections,
+                           X_out, stats, tcg_iters);
+  }
+  return launch_spread(rtr_spread_kernel<R, D>, A, C, sh, stream,
+                       args_of<R>(g, r), initial_radius, max_rejections,
+                       X_out, stats, tcg_iters);
+}
+
+template <int R, int D>
+int Launchers<R, D, true>::tcg(const SpreadArgs& g, int r, int A, int C,
+                               const float* radius, float* eta, float* heta,
+                               float* stats, cudaStream_t stream) {
+  const SpreadShape sh = spread_shape(r, D, g.n, C);
+  if constexpr (R == 0) {
+    if (pose_folds(r) > 1)
+      return launch_spread(tcg_fold_kernel<D>, A, C, sh, stream,
+                           args_of<0>(g, r), radius, eta, heta, stats);
+  }
+  return launch_spread(tcg_spread_kernel<R, D>, A, C, sh, stream,
+                       args_of<R>(g, r), radius, eta, heta, stats);
+}
+
+template <int R, int D>
 int Launchers<R, D, true>::refine(const SpreadArgs& g, int r, int A, int C,
                                   float initial_radius, int max_rejections,
                                   float grad_tol, float* D_out, float* stats,
@@ -2695,6 +2883,18 @@ int Launchers<R, D, true>::query_clusters(int kernel, int r, int n, int C,
           return max_clusters(rtr_full_fold_kernel<D>, C, sh, count);
       }
       return max_clusters(rtr_full_spread_kernel<R, D>, C, sh, count);
+    case kRtr:
+      if constexpr (R == 0) {
+        if (pose_folds(r) > 1)
+          return max_clusters(rtr_fold_kernel<D>, C, sh, count);
+      }
+      return max_clusters(rtr_spread_kernel<R, D>, C, sh, count);
+    case kTcg:
+      if constexpr (R == 0) {
+        if (pose_folds(r) > 1)
+          return max_clusters(tcg_fold_kernel<D>, C, sh, count);
+      }
+      return max_clusters(tcg_spread_kernel<R, D>, C, sh, count);
     case kRefine:
       if constexpr (R == 0) {
         if (pose_folds(r) > 1)
@@ -2723,11 +2923,11 @@ extern "C" {
 
 // The spread shape of kernel `kernel` for agents of n_max poses over C
 // CTAs: writes P, threads, stripes and the rows a lane holds (pose_folds)
-// to out[0..3] and returns the shared memory bytes of one CTA; -4 for a
-// kernel without a spread route.
+// to out[0..3] and returns the shared memory bytes of one CTA; -4 for an
+// unknown kernel.
 long long dpgo_rtr_spread_shape(int r, int d, int n_max, int C, int kernel,
                                 void* out) {
-  if (kernel != kRtrFull && kernel != kRefine) return kUnknownKernel;
+  if (kernel < kRtrFull || kernel > kRefine) return kUnknownKernel;
   const SpreadShape sh = spread_shape(r, d, n_max, C);
   int* o = static_cast<int*>(out);
   o[0] = sh.P;
@@ -2737,7 +2937,8 @@ long long dpgo_rtr_spread_shape(int r, int d, int n_max, int C, int kernel,
   return (long long)sh.smem;
 }
 
-// Floats of one agent's workspace on the spread route of `kernel`.
+// Floats of one agent's workspace on the spread route of `kernel`: B4's
+// adds D, Rc and the reference residuals.
 long long dpgo_rtr_spread_workspace_floats(int r, int d, int n_max, int e_max,
                                            int kinc, int C, int kernel) {
   return workspace_floats(r, d, n_max, e_max, kinc, C, kernel == kRefine);
@@ -2746,7 +2947,7 @@ long long dpgo_rtr_spread_workspace_floats(int r, int d, int n_max, int e_max,
 // How many clusters of C CTAs of spread kernel `kernel` the card can hold
 // at once (cudaOccupancyMaxActiveClusters) into *count, 0 for a shape whose
 // shared memory does not fit; returns a cudaError_t, -1 for an (r, d)
-// without instantiation, -4 for a kernel without a spread route.
+// without instantiation, -4 for an unknown kernel.
 int dpgo_rtr_spread_max_clusters(int r, int d, int n_max, int C, int kernel,
                                  void* count) {
   int* c = static_cast<int*>(count);
@@ -2774,6 +2975,52 @@ int dpgo_rtr_full_spread_launch(
   return dispatch<Launchers>(r, d, [&](auto launchers) {
     return launchers.rtr_full(g, r, A, C, initial_radius, max_rejections,
                               grad_tol, xo, st, it, cs);
+  });
+}
+
+int dpgo_rtr_spread_launch(
+    int r, int d, int C, int A, int n, int s, int Ep, int T, int e_max,
+    int kinc, const void* idx_i, const void* idx_j, const void* rot,
+    const void* trn, const void* wk, const void* wt, const void* X,
+    const void* Z, const void* S, const void* L, const void* g,
+    const void* inc_slot, const void* inc_mask, const void* n_local,
+    void* X_out, void* stats, void* tcg_iters, void* ws, long long ws_stride,
+    int max_iters, float kappa, float theta, float initial_radius,
+    int max_rejections, void* stream) {
+  const SpreadArgs a = make_args(n, s, Ep, T, e_max, kinc, idx_i, idx_j, rot,
+                                 trn, wk, wt, X, Z, S, L, g, inc_slot,
+                                 inc_mask, n_local, ws, ws_stride, max_iters,
+                                 kappa, theta);
+  float* xo = static_cast<float*>(X_out);
+  float* st = static_cast<float*>(stats);
+  int* it = static_cast<int*>(tcg_iters);
+  cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  return dispatch<Launchers>(r, d, [&](auto launchers) {
+    return launchers.rtr(a, r, A, C, initial_radius, max_rejections, xo, st,
+                         it, cs);
+  });
+}
+
+int dpgo_tcg_spread_launch(
+    int r, int d, int C, int A, int n, int Ep, int T, int e_max, int kinc,
+    const void* idx_i, const void* idx_j, const void* rot, const void* trn,
+    const void* wk, const void* wt, const void* X, const void* S,
+    const void* L, const void* g, const void* radius, const void* inc_slot,
+    const void* inc_mask, const void* n_local, void* eta, void* heta,
+    void* stats, void* ws, long long ws_stride, int max_iters, float kappa,
+    float theta, void* stream) {
+  // The tCG sweeps are Hessian sweeps only: no neighbor slots are read.
+  const SpreadArgs a = make_args(n, 0, Ep, T, e_max, kinc, idx_i, idx_j, rot,
+                                 trn, wk, wt, X, X, S, L, g, inc_slot,
+                                 inc_mask, n_local, ws, ws_stride, max_iters,
+                                 kappa, theta);
+  const float* rd = static_cast<const float*>(radius);
+  float* e = static_cast<float*>(eta);
+  float* h = static_cast<float*>(heta);
+  float* st = static_cast<float*>(stats);
+  cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  return dispatch<Launchers>(r, d, [&](auto launchers) {
+    return launchers.tcg(a, r, A, C, rd, e, h, st, cs);
   });
 }
 

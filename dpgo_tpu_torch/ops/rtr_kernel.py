@@ -40,15 +40,14 @@ The route is chosen from the shape before the launch by ``cluster_plan``:
 the **cluster** route (``rtr_cluster.cu``: one thread-block cluster of C
 CTAs per agent, its loop vectors and edge payload in the cluster's shared
 memory) for every agent that fits a cluster; above that ceiling, the
-**spread** route for ``rtr_full`` and ``rtr_refine_full`` (``rtr_spread.cu``:
-C CTAs per agent picked so that all agents' CTAs cover the card's SMs in one
-wave, lane groups walking the CTA's poses in stripes, the CG direction and
-z in shared memory, the other loop vectors and the payload in a per-agent
-device-memory workspace) and the **workspace** route for ``rtr`` and
-``tcg`` (``rtr_full.cu``: one CTA per agent, loop vectors in a per-agent
-workspace), which is also where the other two go when no spread fits.  A
-cluster the card refuses or cannot place raises; nothing retries another
-route.
+**spread** route (``rtr_spread.cu``: C CTAs per agent picked so that all
+agents' CTAs cover the card's SMs in one wave, lane groups walking the
+CTA's poses in stripes, the CG direction and z in shared memory, the other
+loop vectors and the payload in a per-agent device-memory workspace); and
+where no spread fits, the **workspace** route (``rtr_full.cu``: one CTA
+per agent, loop vectors in a per-agent workspace).  The four kernels share
+each route's shape.  A cluster the card refuses or cannot place raises;
+nothing retries another route.
 
 Inputs use the JAX package's tile-major layout (``models.rbcd.build_graph``),
 batched over agents with a leading ``A``:
@@ -117,8 +116,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: runs once for each, once more for the source's rank-generic part and once
 #: for its dispatch part, all at once (``csrc/shapes.cuh`` deals the
 #: instantiations to the parts).  ``rtr_full.cu``, whose templated kernels
-#: hold r(d+1)-float rows a thread, takes the most compiling.
-BUILD_PARTS = {"rtr_cluster.cu": 3, "rtr_full.cu": 8, "rtr_spread.cu": 3}
+#: hold r(d+1)-float rows a thread, takes the most compiling in all;
+#: ``rtr_spread.cu``, four kernels at each shape, the longest parts.
+BUILD_PARTS = {"rtr_cluster.cu": 3, "rtr_full.cu": 8, "rtr_spread.cu": 5}
 #: The cluster launcher's own error codes: the card cannot place one
 #: cluster of the size asked for; more neighbor slots than its edge payload
 #: can index (2**20).
@@ -158,8 +158,8 @@ SPREAD_THREADS = 512
 #: direction (twice) and z, which the Hessian sweep reads at the other
 #: endpoints.
 _SPREAD_SMEM_VECS = 3
-#: The kernels with a spread route (B2 and B4).
-SPREAD_KERNELS = ("rtr_full", "rtr_refine_full")
+#: The kernels with a spread route: all four.
+SPREAD_KERNELS = ("rtr_full", "rtr", "tcg", "rtr_refine_full")
 #: SMs of an H100 SXM: what the plan assumes where it is not told the card's
 #: own count (``sm_count``).
 H100_SMS = 132
@@ -281,7 +281,7 @@ def _fits(plan: ClusterPlan) -> bool:
 
 def spread_shape(r: int, d: int, n_max: int, C: int) -> ClusterPlan:
     """The shape of the spread kernels for ``C`` CTAs per agent (the
-    formula of ``rtr_spread.cu``'s ``spread_shape``; B2 and B4 share it):
+    formula of ``rtr_spread.cu``'s ``spread_shape``; B1-B4 share it):
     P = ceil(n_max / C) poses in each CTA, r lanes per pose and 32 // r
     poses per warp (above r = 32, ceil(r / 32) whole warps per pose), at
     most ``SPREAD_THREADS`` threads of whole lane groups, so each lane group
@@ -327,19 +327,15 @@ def cluster_plan(n_max: int, e_max: int, kinc: int, r: int, d: int,
     and ``MAX_SMEM_BYTES`` of shared memory per CTA, by ``cluster_shape`` of
     this kernel): of the portable sizes (up to 8) that fit, the smallest
     with at most ``SPREAD_WARPS`` warps per CTA, else the largest; 16 only
-    when no portable size fits.  Else, for ``rtr_full`` and
-    ``rtr_refine_full``, the spread route (``_spread_plan``; above
-    ``FOLD_ROWS`` its rows folded) when it fits; else the workspace route
-    (one CTA of 256 threads per agent; its shared memory holds the edge
-    payload when that fits), which fits any shape and any rank: above
-    ``MAX_LANE_RANK`` it takes ``rtr`` and ``tcg``, and ``rtr_full`` and
-    ``rtr_refine_full`` where no spread fits."""
+    when no portable size fits.  Else the spread route (``_spread_plan``;
+    above ``FOLD_ROWS`` its rows folded) when it fits; else the workspace
+    route (one CTA of 256 threads per agent; its shared memory holds the
+    edge payload when that fits), which fits any shape and any rank."""
     fitting = [plan for plan in (cluster_shape(r, d, n_max, kinc, C, kernel)
                                  for C in CLUSTER_SIZES) if _fits(plan)]
     if not fitting:
-        plan = (_spread_plan(n_max, r, d, agents, sms)
-                if kernel in SPREAD_KERNELS else None)
-        return plan or _workspace_plan(n_max, e_max, r, d, kernel)
+        return (_spread_plan(n_max, r, d, agents, sms)
+                or _workspace_plan(n_max, e_max, r, d, kernel))
     portable = [plan for plan in fitting if plan.C <= 8] or fitting
     spread = [plan for plan in portable
               if plan.threads <= 32 * SPREAD_WARPS]
@@ -364,15 +360,13 @@ def _route(cluster: int | None, n_max: int, e_max: int, kinc: int, r: int,
            sms: int = H100_SMS) -> ClusterPlan:
     """``cluster_plan``, or the route a test or ``chip_smoke.py`` forces:
     ``cluster`` ``0`` the workspace route, ``C > 0`` a cluster of C CTAs;
-    ``spread`` ``C`` the spread route over C CTAs per agent (``rtr_full``
-    and ``rtr_refine_full`` only).  Raises when one CTA of a forced shape
-    cannot fit the card: too much shared memory, or a cluster above
-    ``MAX_LANE_RANK`` (a pose of more than 16 warps)."""
+    ``spread`` ``C`` the spread route over C CTAs per agent.  Raises when
+    one CTA of a forced shape cannot fit the card: too much shared memory,
+    or a cluster above ``MAX_LANE_RANK`` (a pose of more than 16 warps)."""
+    _kernel_id(kernel)
     if spread is not None:
         if cluster is not None:
             raise ValueError("force one route: a cluster or a spread")
-        if kernel not in SPREAD_KERNELS:
-            raise ValueError(f"{kernel} has no spread route")
         if spread < 1:
             raise ValueError(f"spread over {spread} CTAs")
         plan = spread_shape(r, d, n_max, spread)
@@ -702,8 +696,8 @@ SYMBOLS = ("dpgo_rtr_workspace_floats", "dpgo_rtr_full_launch",
            "dpgo_rtr_cluster_launch", "dpgo_tcg_cluster_launch",
            "dpgo_rtr_refine_full_cluster_launch", "dpgo_rtr_spread_shape",
            "dpgo_rtr_spread_workspace_floats", "dpgo_rtr_spread_max_clusters",
-           "dpgo_rtr_full_spread_launch",
-           "dpgo_rtr_refine_full_spread_launch")
+           "dpgo_rtr_full_spread_launch", "dpgo_rtr_spread_launch",
+           "dpgo_tcg_spread_launch", "dpgo_rtr_refine_full_spread_launch")
 #: Serializes ``build`` and ``load``: the agents' optimization threads
 #: (``agent.PGOAgent.start_optimization_loop``) may make the first launch
 #: from several threads of one process at once.
@@ -927,6 +921,12 @@ def _bind(path):
     lib.dpgo_rtr_full_spread_launch.argtypes = (
         [I] * 10 + [P] * 16 + [LL, I, F, F, F, I, F, P])
     lib.dpgo_rtr_full_spread_launch.restype = I
+    lib.dpgo_rtr_spread_launch.argtypes = (
+        [I] * 10 + [P] * 18 + [LL, I, F, F, F, I, P])
+    lib.dpgo_rtr_spread_launch.restype = I
+    lib.dpgo_tcg_spread_launch.argtypes = (
+        [I] * 9 + [P] * 18 + [LL, I, F, F, P])
+    lib.dpgo_tcg_spread_launch.restype = I
     lib.dpgo_rtr_refine_full_spread_launch.argtypes = (
         [I] * 10 + [P] * 22 + [LL, I, F, F, F, I, F, P])
     lib.dpgo_rtr_refine_full_spread_launch.restype = I
@@ -1113,12 +1113,13 @@ def rtr_full(idx_i, idx_j, rot, trn, wk, wt, Xc, Zc, Lc, inc_slot, inc_mask,
 def rtr(idx_i, idx_j, rot, trn, wk, wt, Xc, Zc, Sc, Lc, gc, inc_slot,
         inc_mask, n_local, *, r: int, d: int, e_max: int, max_iters: int,
         kappa: float, theta: float, initial_radius: float,
-        max_rejections: int, _cluster: int | None = None) -> RTROut:
+        max_rejections: int, _cluster: int | None = None,
+        _spread: int | None = None) -> RTROut:
     """The attempt loop for every agent from the given ``Sc`` and ``gc``
     (see the module docstring for the layouts).  CUDA tensors launch the
     kernel of the route ``cluster_plan`` picks on the current stream, once
-    for all agents; CPU tensors run ``rtr_reference``.  ``_cluster`` as in
-    ``rtr_full``."""
+    for all agents; CPU tensors run ``rtr_reference``.  ``_cluster`` and
+    ``_spread`` as in ``rtr_full``."""
     global RTR_LAUNCHES
     A, _, n = Xc.shape
     s, K = Zc.shape[-1], inc_slot.shape[-1]
@@ -1126,7 +1127,7 @@ def rtr(idx_i, idx_j, rot, trn, wk, wt, Xc, Zc, Sc, Lc, gc, inc_slot,
                    Xc=Xc, Zc=Zc, Sc=Sc, Lc=Lc, gc=gc, inc_slot=inc_slot,
                    inc_mask=inc_mask, n_local=n_local)
     _check("rtr", Xc.device, tensors, _shapes(idx_i, r, d, n, s, K, A))
-    plan = _plan(Xc.device, _cluster, n, e_max, K, r, d, "rtr")
+    plan = _plan(Xc.device, _cluster, n, e_max, K, r, d, "rtr", _spread, A)
     kw = dict(r=r, d=d, e_max=e_max, max_iters=max_iters, kappa=kappa,
               theta=theta, initial_radius=initial_radius,
               max_rejections=max_rejections)
@@ -1144,6 +1145,14 @@ def rtr(idx_i, idx_j, rot, trn, wk, wt, Xc, Zc, Sc, Lc, gc, inc_slot,
         err = lib.dpgo_rtr_cluster_launch(
             r, d, plan.C, A, n, s, nt * T, T, e_max, K, *ptrs, max_iters,
             kappa, theta, initial_radius, max_rejections, stream)
+    elif plan.route == "spread":
+        ws_floats = lib.dpgo_rtr_spread_workspace_floats(
+            r, d, n, e_max, K, plan.C, KERNELS["rtr"])
+        ws = torch.empty((A, ws_floats), dtype=torch.float32, device=dev)
+        err = lib.dpgo_rtr_spread_launch(
+            r, d, plan.C, A, n, s, nt * T, T, e_max, K, *ptrs, ws.data_ptr(),
+            ws_floats, max_iters, kappa, theta, initial_radius,
+            max_rejections, stream)
     else:
         ws_floats = lib.dpgo_rtr_workspace_floats(r, d, n, e_max, 0)
         ws = torch.empty((A, ws_floats), dtype=torch.float32, device=dev)
@@ -1159,12 +1168,13 @@ def rtr(idx_i, idx_j, rot, trn, wk, wt, Xc, Zc, Sc, Lc, gc, inc_slot,
 
 def tcg(idx_i, idx_j, rot, trn, wk, wt, Xc, Sc, Lc, gc, radius, inc_slot,
         inc_mask, *, r: int, d: int, e_max: int, max_iters: int,
-        kappa: float, theta: float, _cluster: int | None = None) -> TCGOut:
+        kappa: float, theta: float, _cluster: int | None = None,
+        _spread: int | None = None) -> TCGOut:
     """Truncated CG for every agent from ``Sc`` and ``gc`` at per-agent
     ``radius [A]``, every pose live.  CUDA tensors launch the kernel of the
     route ``cluster_plan`` picks on the current stream, once for all
-    agents; CPU tensors run ``tcg_reference``.  ``_cluster`` as in
-    ``rtr_full``."""
+    agents; CPU tensors run ``tcg_reference``.  ``_cluster`` and
+    ``_spread`` as in ``rtr_full``."""
     global TCG_LAUNCHES
     A, _, n = Xc.shape
     K = inc_slot.shape[-1]
@@ -1172,7 +1182,7 @@ def tcg(idx_i, idx_j, rot, trn, wk, wt, Xc, Sc, Lc, gc, radius, inc_slot,
                    Xc=Xc, Sc=Sc, Lc=Lc, gc=gc, radius=radius,
                    inc_slot=inc_slot, inc_mask=inc_mask)
     _check("tcg", Xc.device, tensors, _shapes(idx_i, r, d, n, 0, K, A))
-    plan = _plan(Xc.device, _cluster, n, e_max, K, r, d, "tcg")
+    plan = _plan(Xc.device, _cluster, n, e_max, K, r, d, "tcg", _spread, A)
     kw = dict(r=r, d=d, e_max=e_max, max_iters=max_iters, kappa=kappa,
               theta=theta)
     if Xc.device.type == "cpu":
@@ -1191,6 +1201,13 @@ def tcg(idx_i, idx_j, rot, trn, wk, wt, Xc, Sc, Lc, gc, radius, inc_slot,
         err = lib.dpgo_tcg_cluster_launch(
             r, d, plan.C, A, n, nt * T, T, e_max, K, *ptrs, max_iters, kappa,
             theta, stream)
+    elif plan.route == "spread":
+        ws_floats = lib.dpgo_rtr_spread_workspace_floats(
+            r, d, n, e_max, K, plan.C, KERNELS["tcg"])
+        ws = torch.empty((A, ws_floats), dtype=torch.float32, device=dev)
+        err = lib.dpgo_tcg_spread_launch(
+            r, d, plan.C, A, n, nt * T, T, e_max, K, *ptrs, ws.data_ptr(),
+            ws_floats, max_iters, kappa, theta, stream)
     else:
         ws_floats = lib.dpgo_rtr_workspace_floats(r, d, n, e_max, 0)
         ws = torch.empty((A, ws_floats), dtype=torch.float32, device=dev)

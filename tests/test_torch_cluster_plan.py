@@ -94,12 +94,12 @@ def test_workspace_route_exactly_when_no_cluster_fits(d, rank, n, A,
 def test_plan_routes_at_the_slice_shape():
     # The chip run's shape (sphere2500 stand-in over 8 agents) takes a
     # cluster of more than one CTA; one agent of 4200 poses the spread
-    # route for B2 and the workspace route for B3.
+    # route, B3 at B2's shape.
     assert _plan(*_graph(3, 5, 2500, 8, 2449)) == rk.ClusterPlan(
         "cluster", 8, 40, 224, rk.cluster_shape(5, 3, 316, 11, 8).smem_bytes)
     graph, meta = _graph(3, 4, 4200, 1, 1000)
     assert _plan(graph, meta).route == "spread"
-    assert _kernel_plan(graph, meta, "rtr").route == "workspace"
+    assert _kernel_plan(graph, meta, "rtr") == _plan(graph, meta)
 
 
 def test_forced_cluster_that_cannot_hold_the_agent_raises():
@@ -187,16 +187,15 @@ def test_kernel_plan_fits_the_card(kernel, d, rank, n, A, num_lc):
         assert (owner[lo:hi] == -1).all()
         owner[lo:hi] = c
     assert (owner >= 0).all()
-    # Another route exactly when no C fits, else the plan's rule: B4's
-    # spread route where one fits, B1's workspace route.
+    # Another route exactly when no C fits, else the plan's rule: the
+    # spread route where one fits, else the workspace route.
     fitting = [C for C in rk.CLUSTER_SIZES
                if rk._fits(rk.cluster_shape(rank, d, meta.n_max, K, C,
                                             kernel))]
     assert (plan.route != "cluster") == (not fitting)
     assert (plan.route == "workspace") == (plan.C == 0)
     if not fitting:
-        spread = (rk._spread_plan(meta.n_max, rank, d, 1, rk.H100_SMS)
-                  if kernel in rk.SPREAD_KERNELS else None)
+        spread = rk._spread_plan(meta.n_max, rank, d, 1, rk.H100_SMS)
         assert plan.route == ("spread" if spread else "workspace")
     if fitting:
         portable = [C for C in fitting if C <= 8] or fitting
@@ -227,10 +226,10 @@ def test_refine_shape_holds_d_rc_and_the_residuals(kernel, d, rank, n, A,
 
 def test_new_kernels_plan_routes_at_the_slice_shape():
     # The chip run's shape: B1 and B4 take clusters of several CTAs, as B2
-    # does; one agent of the whole stand-in (2500 poses) takes B4's spread
-    # route (16 CTAs of 157 poses, two stripes) and B1's workspace route;
-    # B4's forced workspace route keeps its payload (144 B an edge) in
-    # device memory.
+    # does; one agent of the whole stand-in (2500 poses) takes the spread
+    # route (16 CTAs of 157 poses, two stripes), B1 and B4 alike; B4's
+    # forced workspace route keeps its payload (144 B an edge) in device
+    # memory.
     graph, meta = _graph(3, 5, 2500, 8, 2449)
     assert _kernel_plan(graph, meta, "tcg") == _plan(graph, meta)
     b4 = _kernel_plan(graph, meta, "rtr_refine_full")
@@ -239,7 +238,7 @@ def test_new_kernels_plan_routes_at_the_slice_shape():
     assert _kernel_plan(g1, m1, "rtr_refine_full") == rk.spread_shape(
         5, 3, 2500, 16)
     assert rk.spread_shape(5, 3, 2500, 16).stripes == 2
-    assert _kernel_plan(g1, m1, "tcg").route == "workspace"
+    assert _kernel_plan(g1, m1, "tcg") == rk.spread_shape(5, 3, 2500, 16)
     ws = rk._route(0, m1.n_max, m1.e_max, g1.inc_slot.shape[-1], 5, 3,
                    "rtr_refine_full")
     assert ws == rk.ClusterPlan("workspace", 0, 2500, 256, 128)

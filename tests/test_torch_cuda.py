@@ -39,9 +39,9 @@ GENERIC_SHAPES = [(3, 11), (3, 17), (3, 33), (2, 17), (2, 33), (3, 73),
                   (3, 128)]
 #: Ranks past four warps a pose, on 16-pose agents: five and eight warps
 #: (clusters), 16 (the cluster route's cap, r = 512), the first rank past
-#: it (B2 and B4 on the spread route, two rows a lane; B1 and B3 on the
-#: workspace route) and the top ranks the JAX package's VMEM gate admits
-#: at 16-pose agents (3360 at d = 3, 4482 at d = 2).
+#: it (B1-B4 on the spread route, two rows a lane) and the top ranks the
+#: JAX package's VMEM gate admits at 16-pose agents (3360 at d = 3, 4482
+#: at d = 2).
 TOP_SHAPES = [(3, 129), (3, 256), (3, 512), (3, 513), (3, 3360), (2, 4482)]
 
 
@@ -409,11 +409,10 @@ def test_rtr_refine_full_kernel_matches_plain_version(card, d, r):
 
 def _generic_routes(kernel, plan, n_max, r, d, kinc):
     """Every route of ``kernel`` a call can take at this shape: the planned
-    one, the workspace route, the spread route (B2 and B4) and the
-    smallest cluster that fits, each as the wrapper's forcing keywords."""
+    one, the workspace route, the spread route and the smallest cluster
+    that fits, each as the wrapper's forcing keywords."""
     routes = {"planned": {}, "workspace": {"_cluster": 0}}
-    if kernel in rk.SPREAD_KERNELS and plan.route != "spread" and \
-            rk._fits(rk.spread_shape(r, d, n_max, 2)):
+    if plan.route != "spread" and rk._fits(rk.spread_shape(r, d, n_max, 2)):
         routes["spread"] = {"_spread": 2}
     fits = [C for C in rk.CLUSTER_SIZES[:4]
             if rk._fits(rk.cluster_shape(r, d, n_max, kinc, C, kernel))]
@@ -426,8 +425,7 @@ def _generic_routes(kernel, plan, n_max, r, d, kinc):
 @pytest.mark.parametrize("d,r", GENERIC_SHAPES)
 def test_generic_rank_kernels_match_plain_versions(card, d, r, size):
     # "small": 15-pose agents (a cluster is planned); "large": 300-pose
-    # agents (B2 and B4 spread, B1 and B3 on the workspace route above
-    # r = 16).
+    # agents (B1-B4 spread above r = 16).
     _hold_generic_kernels(card, d, r, *((60, 4, 20) if size == "small"
                                          else (600, 2, 200)))
 
@@ -436,18 +434,14 @@ def test_generic_rank_kernels_match_plain_versions(card, d, r, size):
 def test_generic_rank_kernels_match_plain_versions_above_rank_128(card, d,
                                                                   r):
     # 16-pose agents: clusters up to r = 512 (five, eight, 16 warps a
-    # pose), a spread of 16-warp poses at r = 512; from r = 513 B2 and B4
-    # spread with a pose's rows folded over 16 warps, B1 and B3 take the
-    # workspace route.
+    # pose), a spread of 16-warp poses at r = 512; from r = 513 B1-B4
+    # spread with a pose's rows folded over 16 warps.
     _hold_generic_kernels(card, d, r, 32, 2, 10)
     if r > rk.MAX_LANE_RANK:
         for kernel in rk.KERNELS:
             plan = rk.cluster_plan(16, 24, 5, r, d, kernel, agents=2,
                                    sms=rk.sm_count(card))
-            if kernel in rk.SPREAD_KERNELS:
-                assert (plan.route, plan.folds) == ("spread", -(-r // 512))
-            else:
-                assert plan.route == "workspace"
+            assert (plan.route, plan.folds) == ("spread", -(-r // 512))
 
 
 def _hold_generic_kernels(card, d, r, n, A, num_lc):
@@ -479,7 +473,8 @@ def _hold_generic_kernels(card, d, r, n, A, num_lc):
             torch.cuda.synchronize()
             check(out, ref)
     tref = rk.tcg_reference(*b1, **tkw)
-    plan = rk.cluster_plan(m.n_max, m.e_max, K, r, d, "tcg")
+    plan = rk.cluster_plan(m.n_max, m.e_max, K, r, d, "tcg", agents=A,
+                           sms=rk.sm_count(card))
     before = rk.TCG_LAUNCHES
     routes = _generic_routes("tcg", plan, m.n_max, r, d, K)
     for opts in routes.values():
@@ -616,22 +611,23 @@ def test_cluster_route_matches_plain_versions_at_every_size(card, d, r, A):
 
 def test_agent_above_the_cluster_limit_takes_the_workspace_route(card):
     # 4200 poses in one agent: at C = 16 a CTA would hold 263 poses, 1408
-    # threads at 5 lanes a pose, more than the kernel's 512.  B3 takes the
-    # workspace route, B2 the spread route (and the workspace route when
-    # forced).
+    # threads at 5 lanes a pose, more than the kernel's 512.  B2 and B3
+    # take the spread route, and the workspace route when forced.
     prob, params, X, Z, chol = _round(card, n=4200, A=1, num_lc=1000)
     b2 = rbcd.kernel_operands(X, Z, prob.graph.edges, chol, prob.graph)
     kw = rbcd.kernel_options(params, prob.meta)
     assert rk.cluster_plan(prob.meta.n_max, prob.meta.e_max,
                            b2[9].shape[-1], 5, 3).route == "spread"
     assert rk.cluster_plan(prob.meta.n_max, prob.meta.e_max,
-                           b2[9].shape[-1], 5, 3, "rtr").route == "workspace"
+                           b2[9].shape[-1], 5, 3, "rtr").route == "spread"
     ref2 = rk.rtr_full_reference(*b2, **kw)
     _assert_b2_matches(rk.rtr_full(*b2, **kw), ref2)
     _assert_b2_matches(rk.rtr_full(*b2, _cluster=0, **kw), ref2)
     b3 = _b3_args(prob, X, Z, chol)
     b3_kw = _b3_kw(params, prob.meta)
-    _assert_b3_matches(rk.rtr(*b3, **b3_kw), rk.rtr_reference(*b3, **b3_kw))
+    ref3 = rk.rtr_reference(*b3, **b3_kw)
+    _assert_b3_matches(rk.rtr(*b3, **b3_kw), ref3)
+    _assert_b3_matches(rk.rtr(*b3, _cluster=0, **b3_kw), ref3)
 
 
 def test_cluster_that_cannot_be_placed_raises(card):
@@ -774,18 +770,21 @@ def test_refine_cluster_route_matches_plain_version_at_every_size(card, d, r,
 
 def test_b1_b4_above_the_cluster_limit_take_the_workspace_route(card):
     # 4200 poses in one agent: no cluster holds it (see the B2 case above).
+    # B1 and B4 take the spread route there, and the workspace route when
+    # forced.
     prob, params, X, Z, chol = _round(card, n=4200, A=1, num_lc=1000)
     b3 = _b3_args(prob, X, Z, chol)
     tkw = _tcg_kw(_b3_kw(params, prob.meta))
     n, K = prob.meta.n_max, b3[11].shape[-1]
     assert rk.cluster_plan(n, prob.meta.e_max, K, 5, 3, "tcg").route == \
-        "workspace"
+        "spread"
     args = _tcg_args(b3, 1.0)
-    _assert_tcg_matches(rk.tcg(*args, **tkw), rk.tcg_reference(*args, **tkw))
+    tref = rk.tcg_reference(*args, **tkw)
+    _assert_tcg_matches(rk.tcg(*args, **tkw), tref)
+    _assert_tcg_matches(rk.tcg(*args, _cluster=0, **tkw), tref)
     prob, params, _, ops = _refine_operands(card, n=4200, A=1, num_lc=1000,
                                             rounds=3)
     kw = rbcd.kernel_options(params, prob.meta)
-    # B4 takes the spread route there, and the workspace route when forced.
     assert rk.cluster_plan(prob.meta.n_max, prob.meta.e_max,
                            ops[15].shape[-1], 5, 3,
                            "rtr_refine_full").route == "spread"
@@ -844,7 +843,7 @@ def test_workspace_route_matches_plain_versions_at_every_shape(card, d, r):
 
 
 # ---------------------------------------------------------------------------
-# The spread route of B2 and B4 (csrc/rtr_spread.cu)
+# The spread route of B1-B4 (csrc/rtr_spread.cu)
 # ---------------------------------------------------------------------------
 
 #: Four agents of 1700 poses: no cluster holds one (at r = 5 a CTA of the
@@ -857,6 +856,17 @@ def _spread_b2(card):
                                       A=SPREAD_A, num_lc=250 * SPREAD_A)
     b2 = rbcd.kernel_operands(X, Z, prob.graph.edges, chol, prob.graph)
     return prob, b2, rbcd.kernel_options(params, prob.meta)
+
+
+def _spread_b3(card, d=3, r=5, n=SPREAD_A * SPREAD_N, A=SPREAD_A,
+               num_lc=250 * SPREAD_A):
+    """B2's operands and options, and B3's fed the gradient pass at the
+    same point (the chordal init), on agents no cluster holds."""
+    prob, params, X, Z, chol = _round(card, d=d, r=r, n=n, A=A,
+                                      num_lc=num_lc)
+    b2 = rbcd.kernel_operands(X, Z, prob.graph.edges, chol, prob.graph)
+    return (prob, b2, rbcd.kernel_options(params, prob.meta),
+            _b3_args(prob, X, Z, chol), _b3_kw(params, prob.meta))
 
 
 def _spread_b4(card):
@@ -897,6 +907,47 @@ def test_spread_route_matches_plain_versions(card):
                          ops[9])
     torch.cuda.synchronize()
     assert rk.REFINE_LAUNCHES == before + 2
+    # B3 and B1 from the gradient pass's g and S: planned (B2's spread
+    # shape) and forced over 2, 5 and 8 CTAs.
+    prob, _, _, b3, b3_kw = _spread_b3(card)
+    assert rk.cluster_plan(m.n_max, m.e_max, b3[11].shape[-1], 5, 3, "rtr",
+                           agents=SPREAD_A, sms=rk.sm_count(card)) == plan
+    args, tkw = _tcg_args(b3, 1.0), _tcg_kw(b3_kw)
+    ref3 = rk.rtr_reference(*b3, **b3_kw)
+    ref1 = rk.tcg_reference(*args, **tkw)
+    before = (rk.RTR_LAUNCHES, rk.TCG_LAUNCHES)
+    for opts in ({}, {"_spread": 2}, {"_spread": 5}, {"_spread": 8}):
+        _assert_b3_matches(rk.rtr(*b3, **opts, **b3_kw), ref3)
+        _assert_tcg_matches(rk.tcg(*args, **opts, **tkw), ref1)
+    torch.cuda.synchronize()
+    assert (rk.RTR_LAUNCHES, rk.TCG_LAUNCHES) == (before[0] + 4,
+                                                  before[1] + 4)
+
+
+def test_b3_on_the_spread_route_matches_b2_from_its_gradient(card):
+    # B3 fed the gradient pass's g and S against one B2 launch at the same
+    # point, both on the spread route, on the agents B2 does not exit
+    # early: the same step (chip_smoke.py's b3_against_b2).  Config #5's
+    # agent shape (1594 poses at r = 5, over config #5's C = 2 CTAs), and
+    # the smallGrid3D-size stand-in at r = 1636 (folded rows).
+    for d, r, n, A, num_lc, spread in ((3, 5, 4 * 1594, 4, 1000, 2),
+                                       (3, 1636, 125, 4, 172, None)):
+        prob, b2, kw, b3, b3_kw = _spread_b3(card, d=d, r=r, n=n, A=A,
+                                             num_lc=num_lc)
+        m = prob.meta
+        assert rk.cluster_plan(m.n_max, m.e_max, b2[9].shape[-1], r, d,
+                               agents=A).route == "spread"
+        opts = {} if spread is None else {"_spread": spread}
+        out2 = rk.rtr_full(*b2, **opts, **kw)
+        out3 = rk.rtr(*b3, **opts, **b3_kw)
+        torch.cuda.synchronize()
+        moving = out2.stats[:, 4] >= kw["grad_tol"]
+        assert bool(moving.any())
+        assert float((out3.X - out2.X)[moving].abs().max()) <= 1e-4
+        assert torch.equal(out3.stats[moving, :2], out2.stats[moving, :2])
+        torch.testing.assert_close(out3.stats[moving, 2:4],
+                                   out2.stats[moving, 2:4], rtol=1e-4,
+                                   atol=0)
 
 
 @pytest.mark.parametrize("d,r", [(3, 10), (2, 10)])
@@ -941,6 +992,12 @@ def test_spread_route_repeats_bit_for_bit(card):
                      rk.rtr_refine_full(*ops, **kw4))
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+    _, _, _, b3, b3_kw = _spread_b3(card)
+    args, tkw = _tcg_args(b3, 1.0), _tcg_kw(b3_kw)
+    for fn, a, k in ((rk.rtr, b3, b3_kw), (rk.tcg, args, tkw)):
+        first, second = fn(*a, **k), fn(*a, **k)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(first, second))
 
 
 def test_solve_on_the_spread_route_launches_b2_once_per_round(card):
@@ -965,10 +1022,11 @@ def test_solve_on_the_spread_route_launches_b2_once_per_round(card):
 def test_forced_cluster_or_spread_past_the_lane_cap_raises(card):
     # r = 513: a pose of 17 warps fits no cluster CTA.  A forced cluster
     # raises before any launch, and the cluster launchers refuse the rank
-    # themselves.  The spread route folds the pose's rows over 16 warps: a
-    # spread forced over 16 CTAs (one pose each) runs and holds its plain
-    # version; over one CTA (16 poses) its shared memory does not fit, so
-    # the plan raises and the launcher places no cluster.
+    # themselves.  The spread route folds the pose's rows over 16 warps
+    # for every kernel: a spread forced over 16 CTAs (one pose each) runs
+    # and holds its plain version; over one CTA (16 poses) its shared
+    # memory does not fit, so the plan raises and the launcher places no
+    # cluster.
     prob, params, X, Z, chol = _round(card, d=3, r=513, A=2, n=32,
                                       num_lc=10)
     b2 = rbcd.kernel_operands(X, Z, prob.graph.edges, chol, prob.graph)
@@ -991,17 +1049,26 @@ def test_forced_cluster_or_spread_past_the_lane_cap_raises(card):
         rk.rtr_full(*b2, _spread=1, **kw)
     with pytest.raises(ValueError, match="shared memory"):
         rk.rtr_refine_full(*ops4, _spread=1, **kw)
+    with pytest.raises(ValueError, match="shared memory"):
+        rk.rtr(*b3, _spread=1, **b3_kw)
+    with pytest.raises(ValueError, match="shared memory"):
+        rk.tcg(*_tcg_args(b3, 1.0), _spread=1, **_tcg_kw(b3_kw))
     torch.cuda.synchronize()
     assert (rk.LAUNCHES, rk.RTR_LAUNCHES, rk.TCG_LAUNCHES,
             rk.REFINE_LAUNCHES) == before
     _assert_b2_matches(rk.rtr_full(*b2, _spread=16, **kw),
                        rk.rtr_full_reference(*b2, **kw))
+    _assert_b3_matches(rk.rtr(*b3, _spread=16, **b3_kw),
+                       rk.rtr_reference(*b3, **b3_kw))
+    args, tkw = _tcg_args(b3, 1.0), _tcg_kw(b3_kw)
+    _assert_tcg_matches(rk.tcg(*args, _spread=16, **tkw),
+                        rk.tcg_reference(*args, **tkw))
     _assert_refine_matches(rk.rtr_refine_full(*ops4, _spread=16, **kw),
                            rk.rtr_refine_full_reference(*ops4, **kw),
                            ops4[9])
     torch.cuda.synchronize()
-    assert (rk.LAUNCHES, rk.REFINE_LAUNCHES) == (before[0] + 1,
-                                                 before[3] + 1)
+    assert (rk.LAUNCHES, rk.RTR_LAUNCHES, rk.TCG_LAUNCHES,
+            rk.REFINE_LAUNCHES) == tuple(b + 1 for b in before)
     for kernel in rk.KERNELS:
         with pytest.raises(ValueError, match="16 warps"):
             rk.cluster_capacity(513, 3, 1, 2, 1, kernel)
@@ -1051,7 +1118,7 @@ def test_spread_shape_matches_the_launcher(card, d, r, n_max):
                                            plan.stripes, plan.folds),
                                           plan.smem_bytes)
     assert plan.folds == (-(-r // 512) if r > 512 else 1)
-    assert lib.dpgo_rtr_spread_shape(r, d, n_max, 2, rk.KERNELS["rtr"],
+    assert lib.dpgo_rtr_spread_shape(r, d, n_max, 2, len(rk.KERNELS),
                                      out) == -4
 
 
@@ -1061,7 +1128,7 @@ def test_fold_kernels_match_plain_versions_and_repeat(card, d, r, n, A,
                                                       num_lc):
     # The top ranks the JAX gate admits: 32-pose agents at r = 1636 (the
     # smallGrid3D-size stand-in's shape, four folds a lane) and 16-pose
-    # agents at r = 4482 (nine folds).  B2 and B4 plan the spread route of
+    # agents at r = 4482 (nine folds).  B1-B4 plan the spread route of
     # folded rows, hold their plain versions and repeat bit for bit.
     prob, params, X, Z, chol = _round(card, d=d, r=r, n=n, A=A,
                                       num_lc=num_lc)
@@ -1078,6 +1145,18 @@ def test_fold_kernels_match_plain_versions_and_repeat(card, d, r, n, A,
     assert rk.LAUNCHES == before + 2
     _assert_b2_matches(first, rk.rtr_full_reference(*b2, **kw))
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+    b3, b3_kw = _b3_args(prob, X, Z, chol), _b3_kw(params, m)
+    args, tkw = _tcg_args(b3, 1.0), _tcg_kw(b3_kw)
+    before = (rk.RTR_LAUNCHES, rk.TCG_LAUNCHES)
+    for fn, ref_fn, a, k, hold in (
+            (rk.rtr, rk.rtr_reference, b3, b3_kw, _assert_b3_matches),
+            (rk.tcg, rk.tcg_reference, args, tkw, _assert_tcg_matches)):
+        first, second = fn(*a, **k), fn(*a, **k)
+        torch.cuda.synchronize()
+        hold(first, ref_fn(*a, **k))
+        assert all(torch.equal(x, y) for x, y in zip(first, second))
+    assert (rk.RTR_LAUNCHES, rk.TCG_LAUNCHES) == (before[0] + 2,
+                                                  before[1] + 2)
     prob4, rparams, _, ops4 = _refine_operands(card, d=d, r=r, n=n, A=A,
                                                num_lc=num_lc, rounds=0)
     kw4 = rbcd.kernel_options(rparams, prob4.meta)

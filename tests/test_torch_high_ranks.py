@@ -9,10 +9,9 @@ rank-generic instantiation).
   (``RANKS``): wherever the JAX package's VMEM gate
   (``dpgo_tpu.models.rbcd.pallas_vmem_ok``) admits the shape, the plan is
   a route that fits the card; above ``rtr_kernel.MAX_LANE_RANK`` (r = 512,
-  a pose of 16 warps) no cluster: B2 and B4 take the spread route, its
-  rows folded over 16 warps, wherever its shared memory fits, else the
-  workspace route, which B1 and B3 always take there; a cluster forced
-  past that cap raises;
+  a pose of 16 warps) no cluster: B1-B4 take the spread route, its rows
+  folded over 16 warps, wherever its shared memory fits, else the
+  workspace route; a cluster forced past that cap raises;
 * ``rbcd.solve_rbcd`` at r = 12 (d = 3) and r = 33 (d = 2), and
   ``parallel.certify.solve_staircase_sharded`` from r = 11 to 12, against
   the JAX package's in float64.
@@ -77,8 +76,7 @@ def _jax_admits(n_max, s_max, e_max, r, d):
 def _assert_fits(plan, kernel, n_max, r, d, kinc, agents):
     assert plan.smem_bytes <= rk.MAX_SMEM_BYTES
     if r > rk.MAX_LANE_RANK:
-        spread = (rk._spread_plan(n_max, r, d, agents, rk.H100_SMS)
-                  if kernel in rk.SPREAD_KERNELS else None)
+        spread = rk._spread_plan(n_max, r, d, agents, rk.H100_SMS)
         assert plan.route == ("spread" if spread else "workspace")
         assert spread is None or plan == spread
     if plan.route == "cluster":
@@ -86,7 +84,6 @@ def _assert_fits(plan, kernel, n_max, r, d, kinc, agents):
         assert plan.C in rk.CLUSTER_SIZES and plan.C * plan.P >= n_max
         assert plan == rk.cluster_shape(r, d, n_max, kinc, plan.C, kernel)
     elif plan.route == "spread":
-        assert kernel in rk.SPREAD_KERNELS
         assert plan.threads <= rk.SPREAD_THREADS
         assert plan.C * plan.P >= n_max
         assert plan == rk.spread_shape(r, d, n_max, plan.C)
@@ -129,16 +126,12 @@ def test_the_gate_reaches_the_stand_ins_top_ranks():
 @pytest.mark.parametrize("kernel", list(rk.KERNELS))
 def test_stand_in_routes_at_its_top_rank(kernel):
     # r = 73 on the sphere2500 stand-in: no cluster holds a 316-pose agent
-    # (a pose takes three warps), so B2 and B4 spread over 16 CTAs a
-    # agent, 480 threads (five poses at a time, four stripes), and B1 and
-    # B3 take the workspace route.
+    # (a pose takes three warps), so every kernel spreads over 16 CTAs an
+    # agent, 480 threads (five poses at a time, four stripes).
     n_max, _, e_max, kinc, d, agents = AGENT_SHAPES["sphere2500"]
     plan = rk.cluster_plan(n_max, e_max, kinc, 73, d, kernel, agents=agents)
-    if kernel in rk.SPREAD_KERNELS:
-        assert (plan.route, plan.C, plan.threads, plan.stripes) == (
-            "spread", 16, 480, 4)
-    else:
-        assert plan.route == "workspace"
+    assert (plan.route, plan.C, plan.threads, plan.stripes) == (
+        "spread", 16, 480, 4)
 
 
 @pytest.mark.parametrize("kernel", rk.SPREAD_KERNELS)
@@ -172,9 +165,9 @@ def test_lane_layout_above_the_templated_ranks(r):
                                      + slots)
 
 
-#: The spread plans of B2 and B4 past the lane cap on the stand-ins'
-#: agents (where, r): C, P, folds (rows a lane) and shared bytes a CTA;
-#: 512 threads each, one pose a stripe.
+#: The spread plans of B1-B4 past the lane cap on the stand-ins' agents
+#: (where, r): C, P, folds (rows a lane) and shared bytes a CTA; 512
+#: threads each, one pose a stripe.
 FOLDED_PLANS = {("smallgrid3d_4", 513): (16, 2, 2, 57952),
                 ("smallgrid3d_4", 817): (16, 2, 2, 87136),
                 ("smallgrid3d_4", 1636): (16, 2, 4, 165856),
@@ -189,10 +182,10 @@ def test_plan_raises_above_the_ceiling(kernel):
     # The ceiling is the cluster route's own (a pose of at most 16 warps,
     # one row a lane, r <= 512): the plan never raises for a rank.  At
     # r = 129 on 16-pose agents every kernel takes a cluster of five-warp
-    # poses; past 512 B2 and B4 take the spread route, a pose's rows folded
-    # over 16 warps (FOLDED_PLANS), B1 and B3 the workspace route; a
-    # cluster forced there raises, naming the 16-warp cap, and so does a
-    # spread forced at a size whose shared memory does not fit.
+    # poses; past 512 every kernel takes the spread route, a pose's rows
+    # folded over 16 warps (FOLDED_PLANS); a cluster forced there raises,
+    # naming the 16-warp cap, and so does a spread forced at a size whose
+    # shared memory does not fit.
     assert rk.MAX_LANE_RANK == 512
     for d in (3, 2):
         plan = rk.cluster_plan(16, 24, 5, 129, d, kernel)
@@ -203,21 +196,38 @@ def test_plan_raises_above_the_ceiling(kernel):
         for C in (1, 16):
             with pytest.raises(ValueError, match="at most 16, so r <= 512"):
                 rk._route(C, 16, 24, 5, 513, d, kernel)
-        if kernel in rk.SPREAD_KERNELS:
-            assert rk._route(None, 16, 24, 5, 512, d, kernel,
-                             spread=16).route == "spread"
-            assert rk._route(None, 16, 24, 5, 513, d, kernel,
-                             spread=16).folds == 2
-            with pytest.raises(ValueError, match="shared memory"):
-                rk._route(None, 16, 24, 5, 4482, d, kernel, spread=1)
+        assert rk._route(None, 16, 24, 5, 512, d, kernel,
+                         spread=16).route == "spread"
+        assert rk._route(None, 16, 24, 5, 513, d, kernel,
+                         spread=16).folds == 2
+        with pytest.raises(ValueError, match="shared memory"):
+            rk._route(None, 16, 24, 5, 4482, d, kernel, spread=1)
     for (where, r), (C, P, folds, smem) in FOLDED_PLANS.items():
         n_max, _, e_max, kinc, d, agents = AGENT_SHAPES[where]
         plan = rk.cluster_plan(n_max, e_max, kinc, r, d, kernel,
                                agents=agents, sms=rk.H100_SMS)
-        if kernel in rk.SPREAD_KERNELS:
-            assert plan == rk.ClusterPlan("spread", C, P, 512, smem, P, folds)
-        else:
-            assert plan == rk._workspace_plan(n_max, e_max, r, d, kernel)
+        assert plan == rk.ClusterPlan("spread", C, P, 512, smem, P, folds)
+
+
+@pytest.mark.parametrize("kernel", ["rtr", "tcg"])
+@pytest.mark.parametrize("where,r", [
+    ("config5", 5), ("config5", 7), ("config5", 10), ("config5", 18),
+    ("sphere2500", 17), ("sphere2500", 73), ("se2_city10000", 78),
+    ("smallgrid3d_4", 513), ("smallgrid3d_4", 1636), ("small_d3", 3360),
+    ("small_d2", 4482)])
+def test_b1_and_b3_plan_b2s_spread_above_the_ceiling(kernel, where, r):
+    # Above the cluster ceiling B1 and B3 take B2's spread route at the
+    # same shape: C, P, threads, stripes, folds and shared bytes (the four
+    # kernels share rtr_spread.cu's spread_shape); the workspace route only
+    # where no spread fits.
+    n_max, _, e_max, kinc, d, agents = AGENT_SHAPES[where]
+    b2 = rk.cluster_plan(n_max, e_max, kinc, r, d, "rtr_full",
+                         agents=agents, sms=rk.H100_SMS)
+    plan = rk.cluster_plan(n_max, e_max, kinc, r, d, kernel, agents=agents,
+                           sms=rk.H100_SMS)
+    assert b2.route == "spread" and plan == b2
+    assert plan == rk._spread_plan(n_max, r, d, agents, rk.H100_SMS)
+    assert plan.folds == (-(-r // 512) if r > 512 else 1)
 
 
 def test_cpu_wrapper_runs_its_plain_version_above_the_ceiling():

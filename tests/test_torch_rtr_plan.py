@@ -1,4 +1,4 @@
-"""The spread route of kernels B2 and B4 on the host
+"""The spread route of kernels B1-B4 on the host
 (``dpgo_tpu_torch.ops.rtr_kernel.cluster_plan`` and ``spread_shape``): the
 route across the cluster ceiling at BASELINE.md config #5's shape and the
 stripe and shared-memory formula at its boundary
@@ -52,18 +52,17 @@ def test_route_across_the_cluster_ceiling(kernel, r, shape, sms, route, C,
         assert plan.threads == rk.SPREAD_THREADS
         groups = plan.threads // 32 * (32 // r)
         assert plan.stripes == -(-plan.P // groups) > 1
-        # B1 and B3 keep the workspace route above the ceiling.
-        for other in ("rtr", "tcg"):
+        # The four kernels share the spread shape above the ceiling.
+        for other in rk.KERNELS:
             assert rk.cluster_plan(shape["n_max"], shape["e_max"],
                                    shape["kinc"], r, 3, other,
-                                   agents=shape["agents"],
-                                   sms=sms).route == "workspace"
+                                   agents=shape["agents"], sms=sms) == plan
     else:
         assert plan == rk.cluster_shape(r, 3, shape["n_max"], shape["kinc"],
                                         C, kernel)
     if shape is STANDIN:
-        smem = {"rtr_full": rk.cluster_shape(5, 3, 316, 11, 8).smem_bytes,
-                "rtr_refine_full": 105792}[kernel]
+        smem = (105792 if kernel == "rtr_refine_full"
+                else rk.cluster_shape(5, 3, 316, 11, 8).smem_bytes)
         assert plan == rk.ClusterPlan("cluster", 8, 40, 224, smem)
 
 
@@ -86,8 +85,13 @@ def test_stripes_and_shared_memory_at_the_boundary(P, threads, stripes):
 
 
 def test_forced_spread_checks_its_shape():
-    with pytest.raises(ValueError, match="no spread route"):
-        rk._route(None, 1594, 2236, 7, 5, 3, "rtr", spread=2)
+    # Every kernel has the spread route, at B2's shape; an unknown kernel
+    # has none.
+    for kernel in ("rtr", "tcg"):
+        assert rk._route(None, 1594, 2236, 7, 5, 3, kernel, spread=2) == \
+            rk._route(None, 1594, 2236, 7, 5, 3, "rtr_full", spread=2)
+    with pytest.raises(ValueError, match="unknown kernel"):
+        rk._route(None, 1594, 2236, 7, 5, 3, "rtr_fast", spread=2)
     with pytest.raises(ValueError, match="cannot hold"):
         rk._route(None, 1594, 2236, 7, 5, 3, "rtr_full", spread=1)
     with pytest.raises(ValueError, match="one route"):

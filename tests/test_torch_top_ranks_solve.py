@@ -2,8 +2,8 @@
 float64: the smallGrid3D-size stand-in over 4 robots (125 poses and 296
 edges, the size of the reference's smallGrid3D) at r = 256, where B1-B4
 take clusters on the card, and r = 1636, the top rank the JAX package's
-VMEM gate admits there (B2 and B4 on the spread route, four rows of a
-pose a lane; B1 and B3 on the workspace route).  A file of its own, apart
+VMEM gate admits there (B1-B4 on the spread route, four rows of a pose
+a lane).  A file of its own, apart
 from ``test_torch_top_ranks.py``'s plain-version checks, so that the
 test runner's workers (``--dist loadfile``) take the two long solves
 apart from those.
