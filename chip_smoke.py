@@ -207,6 +207,15 @@ synthetic stand-in for sphere2500 (2500 poses, 4948 edges, 8 robots, rank
   at r = 256 and 1636, 10 float32 rounds (B2 once a round) held to the
   port's float64 run on the host, then 3 refine rounds at r = 1636 (B4
   once a round) against the "ell" formulation's;
+* ``orbax`` — the Orbax checkpoint pair (``utils.logger``, its own zstd
+  decoder and OCDBT reader, no ``orbax`` package): the committed
+  checkpoint the JAX package wrote (``tests/torch_data/orbax_seed0``)
+  loaded bit for bit; 25 rounds on the stand-in (B2 once a round),
+  saved, loaded and resumed on a fresh state through
+  ``refresh_problem``, 15 rounds more, held against the uninterrupted 40
+  by ``trajectory_gap``'s limit; save and load timed at config #5's
+  shapes, with the bytes written; and no ``jax``, ``orbax``,
+  ``tensorstore`` or ``zstandard`` in ``sys.modules``;
 
 Every launch gate is exact: the rounds each run enqueued, the per-eval
 loop's discarded speculative segment and the verdict loop's polish and
@@ -272,7 +281,8 @@ from dpgo_tpu_torch.models import (certify, dist_init,  # noqa: E402
                                    local_pgo, rbcd, refine, refine_fused)
 from dpgo_tpu_torch.ops import averaging, df32, quadratic, solver  # noqa
 from dpgo_tpu_torch.ops import rtr_kernel as rk  # noqa: E402
-from dpgo_tpu_torch.utils import g2o, graph_plan, native_io  # noqa: E402
+from dpgo_tpu_torch.utils import g2o, graph_plan, logger  # noqa: E402
+from dpgo_tpu_torch.utils import native_io  # noqa: E402
 from dpgo_tpu_torch.utils import partition  # noqa: E402
 from dpgo_tpu_torch.types import edge_set_from_measurements  # noqa: E402
 from dpgo_tpu_torch.utils.synthetic import (  # noqa: E402
@@ -291,6 +301,17 @@ X_ATOL, STAT_RTOL = 1e-4, 1e-4
 #: at most TRAJ_SPREAD times the largest divergence of "ell" itself from
 #: the PERTURBED_STARTS starts moved by one ulp, and never above TRAJ_MAX.
 TRAJ_SPREAD, TRAJ_MAX = 2.0, 1e-3
+#: The orbax phase: the checkpoint the JAX package's Orbax pair wrote from
+#: ``np.random.default_rng(0)`` (``tests/test_torch_orbax.py`` gives the
+#: snippet), the rounds before the save and after the resume, and config
+#: #5's checkpoint shapes (64 agents of n_max 1594 at r = 5, d = 3; 2236
+#: edge slots an agent).
+ORBAX_FIXTURE = ROOT / "tests" / "torch_data" / "orbax_seed0"
+ORBAX_ROUNDS = (25, 15)
+C5_CHECKPOINT = {"X": (64, 1594, 5, 4), "weights": (64, 2236)}
+#: Modules the port must never load (``orbax`` phase, check (d)).
+FOREIGN_MODULES = ("jax", "jaxlib", "orbax", "tensorstore", "zstandard",
+                   "dpgo_tpu")
 #: Fused JACOBI rounds from the chordal init to the float32 floor, where
 #: B2 rejects every attempt on most agents (B2's and B3's second operand
 #: set).  An accept decision there that differs from the plain version's
@@ -5843,6 +5864,114 @@ def fleet_phase(dev, card: str, tmp: Path) -> int:
     return inproc + children, lone[0]
 
 
+def orbax_phase(prob, params, traj_limit: float, dev, card: str,
+                tmp: Path) -> int:
+    """The Orbax checkpoint pair on the card's machine, which has no
+    ``orbax``, ``tensorstore`` or ``zstandard``: (a) the committed
+    checkpoint the JAX package wrote loads bit for bit; (b) a solve
+    checkpointed after 25 rounds resumes on a fresh state and, 15 rounds
+    on, is within ``traj_limit`` of the uninterrupted 40; (c) save and
+    load at config #5's shapes, timed; (d) no foreign module loaded.
+    Returns (b)'s B2 launches."""
+    t0 = time.perf_counter()
+    got = logger.load_checkpoint_orbax(str(ORBAX_FIXTURE))
+    fixture_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    want_X = rng.standard_normal((2, 40, 5, 4)).astype(np.float32)
+    want_w = rng.uniform(size=(2, 50))
+    exact = (got.X.dtype == want_X.dtype and got.X.tobytes()
+             == want_X.tobytes() and got.weights.dtype == want_w.dtype
+             and got.weights.tobytes() == want_w.tobytes()
+             and got.mu == 0.25 and got.iteration == 17)
+    emit({"phase": "orbax", "check": "jax_fixture", "card": card,
+          "X": [list(got.X.shape), str(got.X.dtype)],
+          "weights": [list(got.weights.shape), str(got.weights.dtype)],
+          "bit_for_bit": exact, "load_s": fixture_s})
+    check(exact, "the JAX package's Orbax checkpoint does not load bit for "
+          "bit")
+
+    graph, meta = prob.graph, prob.meta
+    first, then = ORBAX_ROUNDS
+    where = tmp / "orbax_resume"
+    rk.LAUNCHES = 0
+    st = rbcd.rbcd_steps(rbcd.init_state(graph, meta, prob.X0, params),
+                         graph, first, meta, params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logger.save_checkpoint_orbax(logger.Checkpoint(
+        X=st.X, weights=st.weights, mu=float(st.mu),
+        iteration=st.iteration), str(where))
+    save_s = time.perf_counter() - t0
+    full = rbcd.rbcd_steps(st, graph, then, meta, params)
+    fresh = rbcd.init_state(graph, meta, prob.X0, params)
+    t0 = time.perf_counter()
+    ck = logger.load_checkpoint_orbax(str(where), like=logger.Checkpoint(
+        X=fresh.X, weights=fresh.weights, mu=0.0, iteration=0))
+    resumed = fresh._replace(
+        X=torch.from_numpy(ck.X).to(dev),
+        weights=torch.from_numpy(ck.weights).to(dev),
+        mu=torch.tensor(ck.mu, dtype=fresh.mu.dtype, device=dev),
+        iteration=ck.iteration)
+    resumed = rbcd.refresh_problem(resumed, graph, meta, params)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    resumed = rbcd.rbcd_steps(resumed, graph, first + then - ck.iteration,
+                              meta, params)
+    torch.cuda.synchronize()
+    launches = rk.LAUNCHES
+    gap = float((resumed.X - full.X).abs().max())
+    emit({"phase": "orbax", "check": "resume", "card": card,
+          "rounds": [first, then], "iteration_saved": ck.iteration,
+          "iteration_final": [resumed.iteration, full.iteration],
+          "max_abs_dX": gap, "limit": traj_limit,
+          "bit_for_bit": bool(torch.equal(resumed.X, full.X)),
+          "save_s": save_s, "load_resume_s": load_s,
+          "launches": {"rtr_full": launches},
+          "rounds_enqueued": 2 * (first + then) - ck.iteration})
+    check(resumed.iteration == full.iteration == first + then
+          and gap <= traj_limit and bool(torch.isfinite(resumed.X).all()),
+          "the resumed solve leaves the uninterrupted one")
+    # the 25 rounds, the uninterrupted 15 and the resumed 15
+    check(launches == 2 * (first + then) - ck.iteration,
+          "the checkpointed solve did not launch B2 once per round")
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    X5 = torch.randn(C5_CHECKPOINT["X"], generator=gen, device=dev)
+    w5 = torch.rand(C5_CHECKPOINT["weights"], generator=gen, device=dev,
+                    dtype=torch.float64)
+    where = tmp / "orbax_config5"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logger.save_checkpoint_orbax(logger.Checkpoint(
+        X=X5, weights=w5, mu=1e-3, iteration=2048), str(where))
+    save_s = time.perf_counter() - t0
+    nbytes = sum(f.stat().st_size for f in where.rglob("*") if f.is_file())
+    t0 = time.perf_counter()
+    ck = logger.load_checkpoint_orbax(str(where), like=logger.Checkpoint(
+        X=X5, weights=w5, mu=0.0, iteration=0))
+    X_back = torch.from_numpy(ck.X).to(dev)
+    w_back = torch.from_numpy(ck.weights).to(dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    exact = torch.equal(X_back, X5) and torch.equal(w_back, w5) \
+        and ck.iteration == 2048
+    emit({"phase": "orbax", "check": "config5_shapes", "card": card,
+          "X": [list(X5.shape), "float32"],
+          "weights": [list(w5.shape), "float64"], "bytes_written": nbytes,
+          "array_bytes": X5.numel() * 4 + w5.numel() * 8,
+          "save_s": save_s, "load_to_device_s": load_s,
+          "bit_for_bit": exact})
+    check(exact, "a config #5-size checkpoint does not round-trip")
+    del X5, w5, X_back, w_back
+
+    foreign = sorted(m for m in sys.modules
+                     if m.split(".")[0] in FOREIGN_MODULES)
+    emit({"phase": "orbax", "check": "modules", "card": card,
+          "absent": list(FOREIGN_MODULES), "loaded": foreign})
+    check(not foreign, f"the port loaded {foreign}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -6202,6 +6331,11 @@ def main() -> int:
     # --- the main path at the top ranks: r = 256 and the gate's 1636 -------
     top = top_ranks_path(grid, dev, card)
     lap("top_ranks")
+    # --- the Orbax checkpoint pair: the JAX package's layout, no orbax -----
+    with tempfile.TemporaryDirectory(dir=native_io.BUILD_DIR) as tmp:
+        orbax_b2 = orbax_phase(prob, params, traj_limit, dev, card,
+                               Path(tmp))
+    lap("orbax")
     b4_row["launches_by_path"].update(fused_refine=fused_b4,
                                       staircase=stair_b4,
                                       se2=se2_l["staircase_b4"])
@@ -6212,7 +6346,8 @@ def main() -> int:
         dense=0, fused_refine=fused_b2, agents=agents_b2,
         telemetry=telemetry_b2, tcp=tcp_b2, serve=sum(serve_by.values()) + fleet_lone_b2,
         fleet=fleet_b2, sharded=sharded_b2, sharded_multihost=mh_b2,
-        staircase=stair_b2, se2=se2_l["gnc"] + se2_l["staircase_b2"])
+        staircase=stair_b2, se2=se2_l["gnc"] + se2_l["staircase_b2"],
+        orbax=orbax_b2)
     b2_row["serve_launches_by_agents"] = serve_by
     b2_row["sharded_config5"] = {k: scale_row[k] for k in (
         "b2_ms_per_launch", "b2_route", "b2_cluster", "b2_bound_ms",

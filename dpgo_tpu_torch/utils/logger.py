@@ -23,8 +23,13 @@ form.  The same bytes as the JAX package's writer for the same values.
   CUDA tensor is copied to the host); ``load_checkpoint`` returns numpy,
   for the caller to put on its device.
 
-Not ported: the Orbax pair (``save_checkpoint_orbax`` /
-``load_checkpoint_orbax``), which needs the ``orbax`` package (ROADMAP).
+* ``save_checkpoint_orbax`` / ``load_checkpoint_orbax`` — the same
+  checkpoint in the layout of Orbax's ``StandardCheckpointer`` under
+  ``<directory>/state``, read and written without Orbax (numpy and the
+  standard library: ``utils.orbax_store``).  The loader reads what the
+  JAX package's pair writes (OCDBT store, zarr v2 chunks in zstd frames);
+  the writer writes Orbax's per-directory layout with uncompressed
+  chunks, which the JAX package's loader restores.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ import os
 import numpy as np
 
 from ..types import Measurements
+from . import orbax_store
 from .lie import quat_to_rotation, rotation_to_quat
 
 TRAJECTORY_HEADER = "pose_index,qx,qy,qz,qw,tx,ty,tz"
@@ -214,3 +220,51 @@ def load_checkpoint(directory: str) -> Checkpoint:
         meta = json.load(f)
     return Checkpoint(X=data["X"], weights=data["weights"],
                       mu=meta["mu"], iteration=meta["iteration"])
+
+
+# ---------------------------------------------------------------------------
+# Orbax layout (``StandardCheckpointer``), without Orbax
+# ---------------------------------------------------------------------------
+
+def _dtype_of(x) -> np.dtype:
+    """The numpy dtype of an array or tensor, without copying it."""
+    if hasattr(x, "detach"):
+        import torch
+        return torch.empty(0, dtype=x.dtype).numpy().dtype
+    return np.asarray(x).dtype
+
+
+def save_checkpoint_orbax(ckpt: Checkpoint, directory: str) -> None:
+    """Write the checkpoint as Orbax's ``StandardCheckpointer`` does, under
+    ``<directory>/state``, replacing one there: X and weights at their
+    dtype, ``mu`` as a 0-d float64, ``iteration`` as a 0-d int64.  The
+    layout is Orbax's per-directory one (``"use_ocdbt": false``, chunks
+    uncompressed), committed atomically; the JAX package's
+    ``load_checkpoint_orbax`` restores it.  Tensors are saved through
+    numpy (a CUDA tensor is copied to the host)."""
+    orbax_store.write_tree(
+        os.path.join(os.path.abspath(directory), "state"),
+        {"X": _host(ckpt.X), "weights": _host(ckpt.weights),
+         "mu": np.asarray(float(ckpt.mu), np.float64),
+         "iteration": np.asarray(int(ckpt.iteration), np.int64)})
+
+
+def load_checkpoint_orbax(directory: str,
+                          like: Checkpoint | None = None) -> Checkpoint:
+    """Restore a checkpoint in Orbax's ``StandardCheckpointer`` layout
+    under ``<directory>/state``: what either package's
+    ``save_checkpoint_orbax`` wrote.  Returns numpy arrays, for the caller
+    to put on its device.
+
+    With ``like`` (anything with the target arrays, e.g. the fresh solver
+    state wrapped in a ``Checkpoint``), X and weights come back cast to
+    ``like``'s dtypes, as the JAX package's typed restore returns them;
+    their shapes stay the saved ones whatever ``like``'s are, as there."""
+    tree = orbax_store.read_tree(
+        os.path.join(os.path.abspath(directory), "state"))
+    X, weights = tree["X"], tree["weights"]
+    if like is not None:
+        X = X.astype(_dtype_of(like.X), copy=False)
+        weights = weights.astype(_dtype_of(like.weights), copy=False)
+    return Checkpoint(X=X, weights=weights, mu=float(tree["mu"]),
+                      iteration=int(tree["iteration"]))

@@ -1938,3 +1938,39 @@ def test_in_process_replicas_launch_b2_from_two_threads(card, tmp_path):
         assert abs(a.cost_history[-1] - b.cost_history[-1]) <= \
             1e-5 * abs(b.cost_history[-1])
         assert a.T.shape == b.T.shape and bool(torch.isfinite(a.T).all())
+
+
+def test_orbax_pair_round_trips_cuda_tensors_and_loads_the_jax_fixture(
+        card, tmp_path):
+    """A ``Checkpoint`` of CUDA tensors goes through the port's Orbax pair
+    bit for bit (saved through the host, loaded as numpy, put back on the
+    card), and the committed checkpoint the JAX package wrote
+    (``tests/torch_data/orbax_seed0``) loads to its seed's arrays."""
+    import os
+
+    from dpgo_tpu_torch.utils import logger
+
+    gen = torch.Generator(device=card).manual_seed(3)
+    X = torch.randn((4, 50, 5, 4), generator=gen, device=card)
+    w = torch.rand((4, 70), generator=gen, device=card, dtype=torch.float64)
+    logger.save_checkpoint_orbax(logger.Checkpoint(
+        X=X, weights=w, mu=torch.tensor(0.125, device=card), iteration=31),
+        str(tmp_path))
+    for like in (None, logger.Checkpoint(X=X, weights=w, mu=0.0,
+                                         iteration=0)):
+        got = logger.load_checkpoint_orbax(str(tmp_path), like=like)
+        assert torch.equal(torch.from_numpy(got.X).to(card), X)
+        assert torch.equal(torch.from_numpy(got.weights).to(card), w)
+        assert got.mu == 0.125 and got.iteration == 31
+
+    fixture = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "torch_data", "orbax_seed0")
+    got = logger.load_checkpoint_orbax(fixture)
+    rng = np.random.default_rng(0)
+    want_X = rng.standard_normal((2, 40, 5, 4)).astype(np.float32)
+    want_w = rng.uniform(size=(2, 50))
+    assert got.X.dtype == want_X.dtype and got.X.tobytes() == \
+        want_X.tobytes()
+    assert got.weights.dtype == want_w.dtype and got.weights.tobytes() == \
+        want_w.tobytes()
+    assert got.mu == 0.25 and got.iteration == 17
