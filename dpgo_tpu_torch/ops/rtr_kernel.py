@@ -1,6 +1,6 @@
 """The fused local RTR step of RBCD: the hand-written CUDA kernels
-(``csrc/rtr_cluster.cu``, ``csrc/rtr_spread.cu``, ``csrc/rtr_full.cu``) and
-their plain PyTorch versions.
+(``csrc/rtr_cluster.cu``, ``csrc/rtr_spread.cu``, ``csrc/rtr_grid.cu``,
+``csrc/rtr_full.cu``) and their plain PyTorch versions.
 
 Port of the TPU kernels ``dpgo_tpu/ops/pallas_tcg.py``:
 
@@ -43,10 +43,16 @@ memory) for every agent that fits a cluster; above that ceiling, the
 **spread** route (``rtr_spread.cu``: C CTAs per agent picked so that all
 agents' CTAs cover the card's SMs in one wave, lane groups walking the
 CTA's poses in stripes, the CG direction and z in shared memory, the other
-loop vectors and the payload in a per-agent device-memory workspace); and
-where no spread fits, the **workspace** route (``rtr_full.cu``: one CTA
-per agent, loop vectors in a per-agent workspace).  The four kernels share
-each route's shape.  A cluster the card refuses or cannot place raises;
+loop vectors and the payload in a per-agent device-memory workspace);
+where no spread fits, for B2 and B4 up to r = 512, the **grid** route
+(``rtr_grid.cu``: the spread route's phases with every loop vector in the
+workspace, C = sms // A CTAs per agent over the whole card in one
+cooperative launch, one barrier and one set of reduction slots per agent in
+its workspace); and for the rest (B1 and B3 where no spread fits, ranks
+above 512 where no spread fits, more agents than SMs) the **workspace**
+route (``rtr_full.cu``: one CTA per agent, loop vectors in a per-agent
+workspace).  The four kernels share each route's shape.  A cluster the
+card refuses or cannot place, or a grid it cannot keep resident, raises;
 nothing retries another route.
 
 Inputs use the JAX package's tile-major layout (``models.rbcd.build_graph``),
@@ -117,12 +123,19 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: for its dispatch part, all at once (``csrc/shapes.cuh`` deals the
 #: instantiations to the parts).  ``rtr_full.cu``, whose templated kernels
 #: hold r(d+1)-float rows a thread, takes the most compiling in all;
-#: ``rtr_spread.cu``, four kernels at each shape, the longest parts.
-BUILD_PARTS = {"rtr_cluster.cu": 3, "rtr_full.cu": 8, "rtr_spread.cu": 5}
+#: ``rtr_spread.cu``, four kernels at each shape, the longest parts;
+#: ``rtr_grid.cu`` two kernels a shape, in parts of their own.
+BUILD_PARTS = {"rtr_cluster.cu": 3, "rtr_full.cu": 8, "rtr_spread.cu": 5,
+               "rtr_grid.cu": 3}
 #: The cluster launcher's own error codes: the card cannot place one
 #: cluster of the size asked for; more neighbor slots than its edge payload
-#: can index (2**20).
+#: can index (2**20).  The grid launcher's: the card cannot keep all A C
+#: CTAs resident at once; more poses in an agent than an ELL word can index.
 _UNPLACEABLE, _TOO_MANY_SLOTS = -2, -3
+_NOT_RESIDENT, _TOO_MANY_POSES = -5, -6
+#: cudaErrorCooperativeLaunchTooLarge: the runtime's own refusal of a
+#: cooperative launch that cannot be resident.
+_COOPERATIVE_TOO_LARGE = 82
 
 #: Cluster sizes the plan picks from.  Above 8 a size is non-portable: the
 #: launcher allows it only where the card can place one such cluster.
@@ -160,6 +173,14 @@ SPREAD_THREADS = 512
 _SPREAD_SMEM_VECS = 3
 #: The kernels with a spread route: all four.
 SPREAD_KERNELS = ("rtr_full", "rtr", "tcg", "rtr_refine_full")
+#: The kernels with a grid route (``rtr_grid.cu``): B2 and B4, where no
+#: spread holds an agent; B1 and B3 keep the workspace route there.
+GRID_KERNELS = ("rtr_full", "rtr_refine_full")
+#: Poses of one agent the grid route indexes at most (an ELL word's 20
+#: bits).
+MAX_GRID_POSES = 1 << 20
+#: Floats a reduction slot holds (``kMaxSums``).
+_MAX_SUMS = 4
 #: SMs of an H100 SXM: what the plan assumes where it is not told the card's
 #: own count (``sm_count``).
 H100_SMS = 132
@@ -193,12 +214,12 @@ class TCGOut(NamedTuple):
 
 
 class ClusterPlan(NamedTuple):
-    route: str       # "cluster", "spread" or "workspace"
+    route: str       # "cluster", "spread", "grid" or "workspace"
     C: int           # CTAs per agent (0 on the workspace route)
     P: int           # poses per CTA
     threads: int     # threads per CTA
     smem_bytes: int  # shared memory per CTA
-    stripes: int = 1  # poses each lane group walks (spread route)
+    stripes: int = 1  # poses each lane group walks (spread, grid routes)
     folds: int = 1   # rows of a pose each lane holds (spread route)
 
 
@@ -316,6 +337,59 @@ def _spread_plan(n_max: int, r: int, d: int, agents: int,
     return None
 
 
+def grid_shape(r: int, d: int, n_max: int, C: int) -> ClusterPlan:
+    """The shape of the grid kernels (``rtr_grid.cu``'s ``grid_shape``) for
+    ``C`` CTAs per agent: the spread shape's P, threads and stripes, every
+    loop vector in the workspace, so shared memory holds only the block
+    sums (4 floats a warp) and, above r = 32, the group-sum slots."""
+    sp = spread_shape(r, d, n_max, C)
+    warps = sp.threads // 32
+    return ClusterPlan("grid", C, sp.P, sp.threads,
+                       4 * (warps * _MAX_SUMS + _group_slots(r, warps)),
+                       sp.stripes)
+
+
+def _grid_plan(n_max: int, r: int, d: int, kernel: str, agents: int,
+               sms: int) -> ClusterPlan | None:
+    """The grid route's plan for B2 and B4 (``GRID_KERNELS``): C = sms //
+    agents CTAs per agent, one CTA an SM over the whole card; None for B1
+    and B3, above ``MAX_LANE_RANK`` (the fold kernels have no grid form),
+    when there are more agents than SMs or an agent has more than
+    ``MAX_GRID_POSES`` poses."""
+    if (kernel not in GRID_KERNELS or r > MAX_LANE_RANK or agents > sms
+            or n_max > MAX_GRID_POSES):
+        return None
+    return grid_shape(r, d, n_max, sms // max(agents, 1))
+
+
+def _quad(n: int) -> int:
+    """``n`` floats rounded up to whole float4s."""
+    return -(-n // 4) * 4
+
+
+def grid_workspace_floats(r: int, d: int, n_max: int, e_max: int,
+                          kinc: int, C: int, kernel: str = "rtr_full") -> int:
+    """Floats of one agent's workspace on the grid route (the launcher's
+    ``dpgo_rtr_grid_workspace_floats``, ``workspace_floats`` of
+    ``spread_core.cuh`` at grid): every loop vector ``[C P][vec_stride]``
+    (10; B4 adds D and Rc), the factor and curvature records, each CTA's
+    edge records of its poses' live ELL entries, B4's reference residuals
+    and the ints (counts, words, edge numbers, slots), rounded to whole
+    float4s; then the reduction buffers ``[2][C][4]`` and the arrival
+    counter (4 floats)."""
+    refine = _kernel_id(kernel) == KERNELS["rtr_refine_full"]
+    if kernel not in GRID_KERNELS:
+        raise ValueError(f"{kernel} has no grid route")
+    P = -(-n_max // C)
+    vecs = 12 if refine else 10
+    floats = (vecs * C * P * _vec_stride(r * (d + 1))
+              + (_quad((d + 1) * (d + 2) // 2) + _quad(d * d)) * C * P
+              + C * kinc * P * _quad(d * d + d + 2)
+              + (e_max * r * (d + 1) if refine else 0)
+              + C * P * (1 + 3 * kinc))
+    return _quad(floats) + 2 * C * _MAX_SUMS + 4
+
+
 def cluster_plan(n_max: int, e_max: int, kinc: int, r: int, d: int,
                  kernel: str = "rtr_full", agents: int = 1,
                  sms: int = H100_SMS) -> ClusterPlan:
@@ -328,13 +402,17 @@ def cluster_plan(n_max: int, e_max: int, kinc: int, r: int, d: int,
     this kernel): of the portable sizes (up to 8) that fit, the smallest
     with at most ``SPREAD_WARPS`` warps per CTA, else the largest; 16 only
     when no portable size fits.  Else the spread route (``_spread_plan``;
-    above ``FOLD_ROWS`` its rows folded) when it fits; else the workspace
-    route (one CTA of 256 threads per agent; its shared memory holds the
-    edge payload when that fits), which fits any shape and any rank."""
+    above ``FOLD_ROWS`` its rows folded) when it fits; else, for B2 and B4
+    up to ``MAX_LANE_RANK``, the grid route over the whole card
+    (``_grid_plan``); else the workspace route (one CTA of 256 threads per
+    agent; its shared memory holds the edge payload when that fits), which
+    fits any shape and any rank: B1 and B3 where no spread fits, ranks above
+    512 where no spread fits, and more agents than SMs."""
     fitting = [plan for plan in (cluster_shape(r, d, n_max, kinc, C, kernel)
                                  for C in CLUSTER_SIZES) if _fits(plan)]
     if not fitting:
         return (_spread_plan(n_max, r, d, agents, sms)
+                or _grid_plan(n_max, r, d, kernel, agents, sms)
                 or _workspace_plan(n_max, e_max, r, d, kernel))
     portable = [plan for plan in fitting if plan.C <= 8] or fitting
     spread = [plan for plan in portable
@@ -357,16 +435,33 @@ def _workspace_plan(n_max: int, e_max: int, r: int, d: int,
 
 def _route(cluster: int | None, n_max: int, e_max: int, kinc: int, r: int,
            d: int, kernel: str, spread: int | None = None, agents: int = 1,
-           sms: int = H100_SMS) -> ClusterPlan:
+           sms: int = H100_SMS, grid: int | None = None) -> ClusterPlan:
     """``cluster_plan``, or the route a test or ``chip_smoke.py`` forces:
     ``cluster`` ``0`` the workspace route, ``C > 0`` a cluster of C CTAs;
-    ``spread`` ``C`` the spread route over C CTAs per agent.  Raises when
-    one CTA of a forced shape cannot fit the card: too much shared memory,
-    or a cluster above ``MAX_LANE_RANK`` (a pose of more than 16 warps)."""
+    ``spread`` ``C`` the spread route over C CTAs per agent; ``grid`` ``C``
+    the grid route over C CTAs per agent (B2 and B4).  Raises when one CTA
+    of a forced shape cannot fit the card (too much shared memory, or a
+    cluster above ``MAX_LANE_RANK``: a pose of more than 16 warps), or when
+    a forced grid cannot be resident (more than ``sms`` CTAs in all) or
+    has no lane layout or kernel for the shape."""
     _kernel_id(kernel)
+    if sum(x is not None for x in (cluster, spread, grid)) > 1:
+        raise ValueError("force one route: a cluster, a spread or a grid")
+    if grid is not None:
+        if kernel not in GRID_KERNELS:
+            raise ValueError(f"{kernel} has no grid route (only "
+                             f"{', '.join(GRID_KERNELS)})")
+        if grid < 1 or agents * grid > sms:
+            raise ValueError(
+                f"a grid of {grid} CTAs per agent over {agents} agents "
+                f"cannot be resident on a card of {sms} SMs (one CTA an "
+                "SM)")
+        if r > MAX_LANE_RANK or n_max > MAX_GRID_POSES:
+            raise ValueError(
+                f"the grid route holds agents of at most {MAX_GRID_POSES} "
+                f"poses at r <= {MAX_LANE_RANK}, not {n_max} at r = {r}")
+        return grid_shape(r, d, n_max, grid)
     if spread is not None:
-        if cluster is not None:
-            raise ValueError("force one route: a cluster or a spread")
         if spread < 1:
             raise ValueError(f"spread over {spread} CTAs")
         plan = spread_shape(r, d, n_max, spread)
@@ -697,7 +792,10 @@ SYMBOLS = ("dpgo_rtr_workspace_floats", "dpgo_rtr_full_launch",
            "dpgo_rtr_refine_full_cluster_launch", "dpgo_rtr_spread_shape",
            "dpgo_rtr_spread_workspace_floats", "dpgo_rtr_spread_max_clusters",
            "dpgo_rtr_full_spread_launch", "dpgo_rtr_spread_launch",
-           "dpgo_tcg_spread_launch", "dpgo_rtr_refine_full_spread_launch")
+           "dpgo_tcg_spread_launch", "dpgo_rtr_refine_full_spread_launch",
+           "dpgo_rtr_grid_shape", "dpgo_rtr_grid_workspace_floats",
+           "dpgo_rtr_grid_max_ctas", "dpgo_rtr_full_grid_launch",
+           "dpgo_rtr_refine_full_grid_launch")
 #: Serializes ``build`` and ``load``: the agents' optimization threads
 #: (``agent.PGOAgent.start_optimization_loop``) may make the first launch
 #: from several threads of one process at once.
@@ -930,6 +1028,18 @@ def _bind(path):
     lib.dpgo_rtr_refine_full_spread_launch.argtypes = (
         [I] * 10 + [P] * 22 + [LL, I, F, F, F, I, F, P])
     lib.dpgo_rtr_refine_full_spread_launch.restype = I
+    lib.dpgo_rtr_grid_shape.argtypes = [I] * 4 + [P]
+    lib.dpgo_rtr_grid_shape.restype = LL
+    lib.dpgo_rtr_grid_workspace_floats.argtypes = [I] * 7
+    lib.dpgo_rtr_grid_workspace_floats.restype = LL
+    lib.dpgo_rtr_grid_max_ctas.argtypes = [I] * 5 + [P]
+    lib.dpgo_rtr_grid_max_ctas.restype = I
+    lib.dpgo_rtr_full_grid_launch.argtypes = (
+        [I] * 10 + [P] * 16 + [LL, I, F, F, F, I, F, P])
+    lib.dpgo_rtr_full_grid_launch.restype = I
+    lib.dpgo_rtr_refine_full_grid_launch.argtypes = (
+        [I] * 10 + [P] * 22 + [LL, I, F, F, F, I, F, P])
+    lib.dpgo_rtr_refine_full_grid_launch.restype = I
     _lib = lib
     return lib
 
@@ -960,6 +1070,18 @@ def spread_capacity(r: int, d: int, n_max: int, C: int,
     return count.value
 
 
+def grid_capacity(r: int, d: int, n_max: int, C: int,
+                  kernel: str = "rtr_full") -> int:
+    """How many CTAs of grid kernel ``kernel`` (C per agent, ``n_max``
+    poses an agent) the card keeps resident at once (blocks per SM times
+    SMs): a cooperative launch of more is refused."""
+    count = ctypes.c_int(0)
+    err = load().dpgo_rtr_grid_max_ctas(r, d, n_max, C, _kernel_id(kernel),
+                                        ctypes.byref(count))
+    _raise_on("grid_capacity", err, r, d)
+    return count.value
+
+
 @functools.lru_cache(maxsize=None)
 def _card_sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -977,15 +1099,16 @@ def sm_count(dev) -> int:
 
 def _plan(dev, cluster: int | None, n_max: int, e_max: int, kinc: int,
           r: int, d: int, kernel: str, spread: int | None = None,
-          agents: int = 1) -> ClusterPlan | None:
+          agents: int = 1, grid: int | None = None) -> ClusterPlan | None:
     """The route a wrapper launches on a CUDA ``dev`` (``_route`` on its
     card's SMs).  On the CPU the plain version runs at any rank: there only
     a forced route is planned, so that a shape the card cannot hold raises
     there as well, and None is returned otherwise."""
-    if dev.type == "cpu" and cluster is None and spread is None:
+    if dev.type == "cpu" and cluster is None and spread is None \
+            and grid is None:
         return None
     return _route(cluster, n_max, e_max, kinc, r, d, kernel, spread, agents,
-                  sm_count(dev))
+                  sm_count(dev), grid)
 
 
 def _check(name: str, dev, tensors: dict, shapes: dict) -> None:
@@ -1015,8 +1138,10 @@ def _check(name: str, dev, tensors: dict, shapes: dict) -> None:
                                "the CPU")
 
 
-def _raise_on(name: str, err: int, r: int, d: int, C: int = 0) -> None:
-    """Turn a launcher's non-zero return into an exception."""
+def _raise_on(name: str, err: int, r: int, d: int, C: int = 0,
+              shape: str = "") -> None:
+    """Turn a launcher's non-zero return into an exception (``shape``
+    describes a grid launch)."""
     if err == _UNSUPPORTED_SHAPE:
         raise ValueError(f"{name}: (r, d) = {(r, d)} is not a shape this "
                          "route takes (csrc/shapes.cuh: d in {2, 3} and "
@@ -1027,10 +1152,24 @@ def _raise_on(name: str, err: int, r: int, d: int, C: int = 0) -> None:
                            f"{C} CTAs of this shape")
     if err == _TOO_MANY_SLOTS:
         raise ValueError(f"{name}: more than 2**20 neighbor slots per agent "
-                         "on the cluster and spread routes")
+                         "on the cluster, spread and grid routes")
+    if err in (_NOT_RESIDENT, _COOPERATIVE_TOO_LARGE):
+        raise RuntimeError(f"{name}: the card cannot keep every CTA of the "
+                           f"grid route resident at once ({shape}); the "
+                           "cooperative launch is refused")
+    if err == _TOO_MANY_POSES:
+        raise ValueError(f"{name}: more than 2**20 poses per agent on the "
+                         f"grid route ({shape})")
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed (cudaError_t "
                            f"{err})")
+
+
+def _grid_shape_note(plan: ClusterPlan, A: int, r: int, d: int,
+                     n: int) -> str:
+    """The launch's shape, for a refused grid launch's error."""
+    return (f"{A} agents x {plan.C} CTAs of {plan.threads} threads, "
+            f"{n} poses an agent at (r, d) = {(r, d)}")
 
 
 def _shapes(idx_i, r, d, n, s, K, A):
@@ -1052,14 +1191,17 @@ def rtr_full(idx_i, idx_j, rot, trn, wk, wt, Xc, Zc, Lc, inc_slot, inc_mask,
              kappa: float, theta: float, initial_radius: float,
              max_rejections: int, grad_tol: float,
              _cluster: int | None = None,
-             _spread: int | None = None) -> RTRFullOut:
+             _spread: int | None = None,
+             _grid: int | None = None) -> RTRFullOut:
     """One local RTR step for every agent (see the module docstring for the
     layouts).  CUDA tensors launch the kernel of the route ``cluster_plan``
     picks on the current stream, once for all agents; CPU tensors run
-    ``rtr_full_reference``.  ``_cluster`` and ``_spread`` force a route,
-    for the card tests and ``chip_smoke.py`` only: ``_cluster=0`` the
-    workspace route, ``_cluster=C`` a cluster of C CTAs, ``_spread=C`` the
-    spread route over C CTAs per agent."""
+    ``rtr_full_reference``.  ``_cluster``, ``_spread`` and ``_grid`` force
+    a route, for the card tests and ``chip_smoke.py`` only: ``_cluster=0``
+    the workspace route, ``_cluster=C`` a cluster of C CTAs, ``_spread=C``
+    the spread route over C CTAs per agent, ``_grid=C`` the grid route over
+    C CTAs per agent (one cooperative launch of A C CTAs, which raises when
+    the card cannot keep them all resident)."""
     global LAUNCHES
     A, _, n = Xc.shape
     s, K = Zc.shape[-1], inc_slot.shape[-1]
@@ -1068,7 +1210,7 @@ def rtr_full(idx_i, idx_j, rot, trn, wk, wt, Xc, Zc, Lc, inc_slot, inc_mask,
                    inc_mask=inc_mask, n_local=n_local)
     _check("rtr_full", Xc.device, tensors, _shapes(idx_i, r, d, n, s, K, A))
     plan = _plan(Xc.device, _cluster, n, e_max, K, r, d, "rtr_full",
-                 _spread, A)
+                 _spread, A, _grid)
     kw = dict(r=r, d=d, e_max=e_max, max_iters=max_iters, kappa=kappa,
               theta=theta, initial_radius=initial_radius,
               max_rejections=max_rejections, grad_tol=grad_tol)
@@ -1097,6 +1239,14 @@ def rtr_full(idx_i, idx_j, rot, trn, wk, wt, Xc, Zc, Lc, inc_slot, inc_mask,
             r, d, plan.C, A, n, s, nt * T, T, e_max, K, *ptrs, ws.data_ptr(),
             ws_floats, max_iters, kappa, theta, initial_radius,
             max_rejections, grad_tol, stream)
+    elif plan.route == "grid":
+        ws_floats = lib.dpgo_rtr_grid_workspace_floats(
+            r, d, n, e_max, K, plan.C, KERNELS["rtr_full"])
+        ws = torch.empty((A, ws_floats), dtype=torch.float32, device=dev)
+        err = lib.dpgo_rtr_full_grid_launch(
+            r, d, plan.C, A, n, s, nt * T, T, e_max, K, *ptrs, ws.data_ptr(),
+            ws_floats, max_iters, kappa, theta, initial_radius,
+            max_rejections, grad_tol, stream)
     else:
         ws_floats = lib.dpgo_rtr_workspace_floats(r, d, n, e_max, 0)
         ws = torch.empty((A, ws_floats), dtype=torch.float32, device=dev)
@@ -1104,7 +1254,9 @@ def rtr_full(idx_i, idx_j, rot, trn, wk, wt, Xc, Zc, Lc, inc_slot, inc_mask,
             r, d, A, n, s, nt * T, T, e_max, K, *ptrs, ws.data_ptr(),
             ws_floats, max_iters, kappa, theta, initial_radius,
             max_rejections, grad_tol, stream)
-    _raise_on("rtr_full", err, r, d, plan.C)
+    if err:
+        _raise_on("rtr_full", err, r, d, plan.C,
+                  _grid_shape_note(plan, A, r, d, n))
     with _COUNT_LOCK:
         LAUNCHES += 1
     return RTRFullOut(X_out, stats, iters)
@@ -1226,12 +1378,13 @@ def rtr_refine_full(idx_i, idx_j, rot, trn, wk, wt, rho_rot, rho_trn, Rc,
                     kappa: float, theta: float, initial_radius: float,
                     max_rejections: int, grad_tol: float,
                     _cluster: int | None = None,
-                    _spread: int | None = None) -> RTRRefineOut:
+                    _spread: int | None = None,
+                    _grid: int | None = None) -> RTRRefineOut:
     """One re-centered RTR step on the corrections ``Dc`` for every agent
     (see the module docstring for the layouts).  CUDA tensors launch the
     kernel of the route ``cluster_plan`` picks on the current stream, once
     for all agents; CPU tensors run ``rtr_refine_full_reference``.
-    ``_cluster`` and ``_spread`` as in ``rtr_full``."""
+    ``_cluster``, ``_spread`` and ``_grid`` as in ``rtr_full``."""
     global REFINE_LAUNCHES
     A, _, n = Dc.shape
     s, K = Dzc.shape[-1], inc_slot.shape[-1]
@@ -1242,7 +1395,7 @@ def rtr_refine_full(idx_i, idx_j, rot, trn, wk, wt, rho_rot, rho_trn, Rc,
     _check("rtr_refine_full", Dc.device, tensors,
            _shapes(idx_i, r, d, n, s, K, A))
     plan = _plan(Dc.device, _cluster, n, e_max, K, r, d, "rtr_refine_full",
-                 _spread, A)
+                 _spread, A, _grid)
     kw = dict(r=r, d=d, e_max=e_max, max_iters=max_iters, kappa=kappa,
               theta=theta, initial_radius=initial_radius,
               max_rejections=max_rejections, grad_tol=grad_tol)
@@ -1268,6 +1421,14 @@ def rtr_refine_full(idx_i, idx_j, rot, trn, wk, wt, rho_rot, rho_trn, Rc,
             r, d, plan.C, A, n, s, nt * T, T, e_max, K, *ptrs, ws.data_ptr(),
             ws_floats, max_iters, kappa, theta, initial_radius,
             max_rejections, grad_tol, stream)
+    elif plan.route == "grid":
+        ws_floats = lib.dpgo_rtr_grid_workspace_floats(
+            r, d, n, e_max, K, plan.C, KERNELS["rtr_refine_full"])
+        ws = torch.empty((A, ws_floats), dtype=torch.float32, device=dev)
+        err = lib.dpgo_rtr_refine_full_grid_launch(
+            r, d, plan.C, A, n, s, nt * T, T, e_max, K, *ptrs, ws.data_ptr(),
+            ws_floats, max_iters, kappa, theta, initial_radius,
+            max_rejections, grad_tol, stream)
     else:
         ws_floats = lib.dpgo_rtr_workspace_floats(r, d, n, e_max, 1)
         ws = torch.empty((A, ws_floats), dtype=torch.float32, device=dev)
@@ -1275,7 +1436,9 @@ def rtr_refine_full(idx_i, idx_j, rot, trn, wk, wt, rho_rot, rho_trn, Rc,
             r, d, A, n, s, nt * T, T, e_max, K, *ptrs, ws.data_ptr(),
             ws_floats, max_iters, kappa, theta, initial_radius,
             max_rejections, grad_tol, stream)
-    _raise_on("rtr_refine_full", err, r, d, plan.C)
+    if err:
+        _raise_on("rtr_refine_full", err, r, d, plan.C,
+                  _grid_shape_note(plan, A, r, d, n))
     with _COUNT_LOCK:
         REFINE_LAUNCHES += 1
     return RTRRefineOut(D_out, stats, iters)

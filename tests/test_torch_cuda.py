@@ -1171,6 +1171,144 @@ def test_fold_kernels_match_plain_versions_and_repeat(card, d, r, n, A,
 
 
 # ---------------------------------------------------------------------------
+# The grid route of B2 and B4 (csrc/rtr_grid.cu)
+# ---------------------------------------------------------------------------
+
+#: Ranks the grid route is held at beyond the templated shapes: the
+#: rank-generic instantiation with a pose of r lanes (11), of three warps
+#: (73) and of 16 warps (512, the lane layout's top); by rank, the graph
+#: (poses, loop closures) over GRID_A agents, smaller as r grows.
+GRID_GENERIC = {(3, 11): (600, 200), (3, 73): (200, 60), (3, 512): (64, 20)}
+GRID_A = 2
+
+
+def _grid_operands(card, d, r, n=None, num_lc=None):
+    """B2's operands and options at the chordal init, and B4's recentered
+    a few rounds in (at the init above r = 11), on GRID_A agents of n / 2
+    poses (by rank, GRID_GENERIC's or 300)."""
+    if n is None:
+        n, num_lc = GRID_GENERIC.get((d, r), (600, 200))
+    prob, params, X, Z, chol = _round(card, d=d, r=r, n=n, A=GRID_A,
+                                      num_lc=num_lc)
+    b2 = rbcd.kernel_operands(X, Z, prob.graph.edges, chol, prob.graph)
+    prob4, rparams, _, ops4 = _refine_operands(
+        card, d=d, r=r, n=n, A=GRID_A, num_lc=num_lc,
+        rounds=3 if r <= 11 else 0)
+    return (b2, rbcd.kernel_options(params, prob.meta), ops4,
+            rbcd.kernel_options(rparams, prob4.meta))
+
+
+@pytest.mark.parametrize("d,r", SHAPES + list(GRID_GENERIC))
+def test_grid_route_matches_plain_versions(card, d, r):
+    # B2 and B4 forced onto the grid route over 4 and 33 CTAs an agent
+    # (at r = 512, 33 CTAs for 32 poses: one CTA holds none), one launch
+    # each, against their plain versions at the single-launch gates.
+    b2, kw, ops4, kw4 = _grid_operands(card, d, r)
+    ref2 = rk.rtr_full_reference(*b2, **kw)
+    ref4 = rk.rtr_refine_full_reference(*ops4, **kw4)
+    before = (rk.LAUNCHES, rk.REFINE_LAUNCHES)
+    for C in (4, 33):
+        out2 = rk.rtr_full(*b2, _grid=C, **kw)
+        out4 = rk.rtr_refine_full(*ops4, _grid=C, **kw4)
+        torch.cuda.synchronize()
+        _assert_b2_matches(out2, ref2)
+        _assert_refine_gates(out4, ref4, ops4[9])
+    assert (rk.LAUNCHES, rk.REFINE_LAUNCHES) == (before[0] + 2,
+                                                 before[1] + 2)
+
+
+def test_grid_route_repeats_bit_for_bit(card):
+    for d, r in ((3, 5), (2, 3), (3, 73)):
+        b2, kw, ops4, kw4 = _grid_operands(card, d, r)
+        for fn, args, k in ((rk.rtr_full, b2, kw),
+                            (rk.rtr_refine_full, ops4, kw4)):
+            first, second = fn(*args, _grid=33, **k), fn(*args, _grid=33,
+                                                          **k)
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_grid_that_cannot_be_resident_raises(card, monkeypatch):
+    # The plan gives a grid one CTA an SM: a forced grid of more CTAs than
+    # the card's SMs raises before any launch.  With the plan told of a
+    # larger card, the launcher itself refuses a cooperative launch of more
+    # CTAs than the card keeps resident, and the wrapper raises with the
+    # shape.  Agents of 7,000 poses: at sms // 2 + 1 CTAs an agent each
+    # CTA still holds 105 poses, 512 threads (one CTA an SM; smaller CTAs
+    # would be resident several to an SM).
+    b2, kw, ops4, kw4 = _grid_operands(card, 3, 5, n=GRID_A * 7000,
+                                       num_lc=2000)
+    sms = rk.sm_count(card)
+    C = sms // GRID_A + 1
+    assert rk.grid_shape(5, 3, 7000, C).threads == 512
+    assert rk.grid_capacity(5, 3, 7000, C) == sms < GRID_A * C
+    before = (rk.LAUNCHES, rk.REFINE_LAUNCHES)
+    with pytest.raises(ValueError, match="cannot be resident"):
+        rk.rtr_full(*b2, _grid=C, **kw)
+    monkeypatch.setattr(rk, "sm_count", lambda dev: GRID_A * C)
+    with pytest.raises(RuntimeError, match="resident at once"):
+        rk.rtr_full(*b2, _grid=C, **kw)
+    with pytest.raises(RuntimeError, match="resident at once"):
+        rk.rtr_refine_full(*ops4, _grid=C, **kw4)
+    assert (rk.LAUNCHES, rk.REFINE_LAUNCHES) == before
+    # The card is not left in a failed state: the grid launches after.
+    out = rk.rtr_full(*b2, _grid=sms // GRID_A, **kw)
+    torch.cuda.synchronize()
+    _assert_b2_matches(out, rk.rtr_full_reference(*b2, **kw))
+
+
+@pytest.mark.parametrize("d,r,n_max,kinc", [(3, 5, 25000, 7), (3, 5, 300, 9),
+                                            (2, 3, 50000, 8),
+                                            (3, 73, 100, 6),
+                                            (3, 512, 32, 5)])
+def test_grid_shape_and_workspace_match_the_launcher(card, d, r, n_max,
+                                                     kinc):
+    import ctypes
+
+    lib = rk.load()
+    out = (ctypes.c_int * 3)()
+    for C in (1, 4, 33, 66, 132):
+        smem = lib.dpgo_rtr_grid_shape(r, d, n_max, C, out)
+        plan = rk.grid_shape(r, d, n_max, C)
+        assert (tuple(out), smem) == ((plan.P, plan.threads, plan.stripes),
+                                      plan.smem_bytes)
+        for kernel in rk.GRID_KERNELS:
+            assert lib.dpgo_rtr_grid_workspace_floats(
+                r, d, n_max, 3 * n_max, kinc, C, rk.KERNELS[kernel]) == \
+                rk.grid_workspace_floats(r, d, n_max, 3 * n_max, kinc, C,
+                                         kernel)
+    for kernel in ("rtr", "tcg"):
+        assert lib.dpgo_rtr_grid_workspace_floats(
+            r, d, n_max, 3 * n_max, kinc, 4, rk.KERNELS[kernel]) == -4
+
+
+def test_solve_on_the_grid_route_launches_b2_once_per_round(card):
+    # Two agents of 16,000 poses at r = 5: no spread of 16 CTAs holds one
+    # (above ~15k poses), so B2 plans the grid route over sms // 2 CTAs an
+    # agent, and a solve launches it once per enqueued round.
+    from dpgo_tpu_torch.utils.synthetic import make_measurements_vectorized
+
+    meas = make_measurements_vectorized(np.random.default_rng(11), 32000,
+                                        d=3, num_lc=6400, rot_noise=0.05,
+                                        trans_noise=0.05)[0]
+    params = AgentParams(d=3, r=5, num_robots=2, rel_change_tol=0.0)
+    prob = rbcd.prepare_problem(meas, 2, params, device=card)
+    m = prob.meta
+    plan = rk.cluster_plan(m.n_max, m.e_max, prob.graph.inc_slot.shape[-1],
+                           5, 3, agents=2, sms=rk.sm_count(card))
+    assert (plan.route, plan.C) == ("grid", rk.sm_count(card) // 2)
+    before = rk.LAUNCHES
+    res = rbcd.dispatch_prepared(prob, max_iters=4, grad_norm_tol=0.0,
+                                 verdict_every=2)
+    assert res.iterations == 4
+    assert rk.LAUNCHES - before == rbcd.rounds_enqueued(
+        res.iterations, max_iters=4, eval_every=1, params=params,
+        verdict_every=2)
+    assert bool(np.isfinite(res.cost_history).all())
+    assert res.cost_history[-1] < res.cost_history[0]
+
+
+# ---------------------------------------------------------------------------
 # The certificate on the card
 # ---------------------------------------------------------------------------
 
