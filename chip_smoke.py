@@ -214,7 +214,9 @@ synthetic stand-in for sphere2500 (2500 poses, 4948 edges, 8 robots, rank
 * ``high_ranks`` — B1-B4 of the rank-generic instantiation (every r >=
   11) on every route each reaches, against its plain version and itself,
   timed: on the stand-in and the SE(2) stand-in up to the JAX gate's top
-  ranks there (73, 78), and on the smallGrid3D-size stand-in (125 poses,
+  ranks there (73, 78; up to r = 32 B2 and B4 on every cluster layout, r
+  lanes a pose or folded over 8 and 16 lanes, and the spread route, in
+  turns: ``fold_layouts``), and on the smallGrid3D-size stand-in (125 poses,
   296 edges, 4 robots) at r = 129, 256 (clusters), 512 (a spread of
   16-warp poses, the lane cap), 513 and 1636 (the gate's top; the
   spread route's folded rows), and at the gate's top ranks on 16-pose
@@ -473,8 +475,14 @@ PERF_SHAPES = ((7, 3), (10, 3), (4, 2), (10, 2))
 #: spread route at 73, the JAX gate's top on the stand-in), its rounds.
 #: The f32 distributed staircase from rank 11 on the stand-in.
 LANE_CAP = rk.MAX_LANE_RANK
-HIGH_RANKS = {3: (11, 16, 17, 32, 33, 73), 2: (11, 32, 33, 78)}
+HIGH_RANKS = {3: (11, 12, 16, 17, 32, 33, 73), 2: (11, 32, 33, 78)}
 HIGH_INNER = 3
+#: The cluster route's layouts of B2 and B4 at the high ranks up to 32
+#: (``rk.FOLD_RANKS``), timed in turns (each layout once, then in reverse
+#: order) at runs and launches a run: the row-a-lane layout (r lanes a
+#: pose), the folded layout at 8 and 16 lanes a pose, and the spread route,
+#: each where it fits.  ``rk.FOLD_RULE`` is written from these times.
+LAYOUT_REPS, LAYOUT_INNER = 5, 5
 SMALLGRID_POSES, SMALLGRID_LC, TOP_ROBOTS = 125, 172, 4
 TOP_RANKS = (129, 256, 512, 513, 1636)
 #: The JAX gate's top ranks at 16-pose agents (n_max 16, s_max 12, e_max
@@ -1002,14 +1010,15 @@ def first_agent(ops: dict) -> dict:
 
 
 def plan_of(ops: dict, kw: dict, kernel: str = "rtr_full",
-            cluster: int | None = None, spread: int | None = None):
+            cluster: int | None = None, spread: int | None = None,
+            lanes: int | None = None):
     """The route ``kernel`` takes on ``ops``: the plan's for this many
-    agents on this card, or the one ``cluster`` or ``spread`` forces (as
-    the wrappers' ``_cluster`` and ``_spread``)."""
+    agents on this card, or the one ``cluster``, ``spread`` or ``lanes``
+    forces (as the wrappers' ``_cluster``, ``_spread`` and ``_lanes``)."""
     A, n, K = ops["inc_slot"].shape
     return rk._route(cluster, n, kw["e_max"], K, kw["r"], kw["d"], kernel,
                      spread, agents=A,
-                     sms=rk.sm_count(ops["inc_slot"].device))
+                     sms=rk.sm_count(ops["inc_slot"].device), lanes=lanes)
 
 
 def kernel_parity(fn, ref_fn, ops: dict, kw: dict, where: str,
@@ -4399,29 +4408,34 @@ def rank_operands(meas, robots: int, r: int, edges64, dev) -> tuple:
             graph, meta)
 
 
-def route_opts(cluster: int | None, spread: int | None = None) -> dict:
+def route_opts(cluster: int | None, spread: int | None = None,
+               lanes: int | None = None) -> dict:
     """The wrappers' route-forcing keywords."""
+    if lanes is not None:
+        return {"_lanes": lanes}
     return ({"_spread": spread} if spread is not None
             else {"_cluster": cluster})
 
 
 def shape_parity(kernel: str, ops: dict, kw: dict, ref,
                  cluster: int | None,
-                 spread: int | None = None) -> tuple[dict, object]:
+                 spread: int | None = None,
+                 lanes: int | None = None) -> tuple[dict, object]:
     """``kernel`` on its planned route (``cluster=None``), the workspace
-    route (``0``) or a spread over ``spread`` CTAs against its plain
-    version's output ``ref``, with the gates of the slice shape's checks
-    (B2/B3 ``kernel_parity``, B1 the tcg radii, B4 ``refine_parity``), and
-    a second launch bit for bit."""
+    route (``0``), a spread over ``spread`` CTAs or the cluster layout
+    ``lanes`` against its plain version's output ``ref``, with the gates of
+    the slice shape's checks (B2/B3 ``kernel_parity``, B1 the tcg radii, B4
+    ``refine_parity``), and a second launch bit for bit."""
     fn = KERNEL_FNS[kernel][0]
-    opts = route_opts(cluster, spread)
+    opts = route_opts(cluster, spread, lanes)
     out = fn(*ops.values(), **opts, **kw)
     again = fn(*ops.values(), **opts, **kw)
     torch.cuda.synchronize()
-    route = plan_of(ops, kw, kernel, cluster, spread)
+    route = plan_of(ops, kw, kernel, cluster, spread, lanes)
     flips = int((out.stats != ref.stats).any(1).sum()) if kernel == "tcg" \
         else int((out.stats[:, :2] != ref.stats[:, :2]).any(1).sum())
-    row = {"route": route.route, "C": route.C, "stat_flips": flips,
+    row = {"route": route.route, "C": route.C, "lanes": route.lanes,
+           "stat_flips": flips,
            "repeat_bitwise": all(torch.equal(a, b)
                                  for a, b in zip(out, again))}
     if kernel == "tcg":
@@ -4531,19 +4545,26 @@ ROUTE_SOURCES = {"cluster": "dpgo_tpu_torch/csrc/rtr_cluster.cu",
 
 def generic_rows(high: dict, launches: dict) -> list:
     """The kernel-table rows of the rank-generic instantiation: per kernel,
-    its launches on the paths above the templated ranks (``launches``),
-    its time, plain time and bound at the stand-in's rank 11 (the path's
-    shape), every (r, d) it ran at by route, and its largest error."""
+    its launches on the paths above the templated ranks (``launches``: of
+    B2 and B4, those the folded cluster layout did not take), its time,
+    plain time and bound at the stand-in's rank 11 (the path's shape; B2's
+    and B4's on the row-a-lane layout, timed in turns with the others),
+    every (r, d) it ran at by route, and its largest error."""
     out = []
     for kernel, paths in launches.items():
         at11 = high["rows"][kernel]["11,3"]
+        route, ms, C = at11["route"], at11[f"ms_{at11['route']}"], at11["C"]
+        lay11 = high["layouts"].get(kernel, {}).get("11,3")
+        if lay11 is not None:
+            pr17 = lay11["layouts"]["lanes_r"]
+            route, ms, C = "cluster", pr17["ms"], pr17["C"]
         out.append({
             "name": f"{kernel}_generic", "route": "cuda",
-            "source": ROUTE_SOURCES[at11["route"]],
+            "source": ROUTE_SOURCES[route],
             "replaces": REPLACES[kernel], "launches_by_path": paths,
             "max_abs_err": high["max_abs_err"][kernel],
-            "cuda_route": at11["route"], "cluster": at11["C"],
-            "ms": at11[f"ms_{at11['route']}"], "plain_ms": at11["plain_ms"],
+            "cuda_route": route, "cluster": C,
+            "ms": ms, "plain_ms": at11["plain_ms"],
             "bound_ms": at11["bound_ms"], "bound_by": at11["bound_by"],
             "library_ms": None,
             "routes": {route: ROUTE_SOURCES[route]
@@ -4557,6 +4578,42 @@ def generic_rows(high: dict, launches: dict) -> list:
             out[-1]["spread_fold"] = {
                 "kernel": f"{kernel}_fold_kernel",
                 "source": ROUTE_SOURCES["spread"], "shapes": folded}
+    return out
+
+
+def cluster_fold_rows(high: dict, launches: dict) -> list:
+    """The kernel-table rows of the cluster route's folded layout (B2's
+    ``rtr_full_cluster_fold_kernel<L, d>``, B4's
+    ``rtr_refine_full_cluster_fold_kernel<L, d>``): per kernel its launches
+    by path (``launches``), its largest error over every folded launch of
+    ``fold_layouts``, and its time at the stand-in's rank 11 on the layout
+    the plan takes there (else the faster folded one) beside the plain
+    version's and the bound; every shape's layouts in ``by_shape``."""
+    out = []
+    for kernel, paths in launches.items():
+        lays = high["layouts"][kernel]
+        lay11 = lays["11,3"]
+        folds = {k: v for k, v in lay11["layouts"].items() if v["lanes"]}
+        pick = (lay11["planned_layout"] if lay11["planned_layout"] in folds
+                else min(folds, key=lambda k: folds[k]["ms"]))
+        out.append({
+            "name": f"{kernel}_cluster_fold", "route": "cuda",
+            "source": ROUTE_SOURCES["cluster"], "replaces": REPLACES[kernel],
+            "kernel": f"{kernel}_cluster_fold_kernel<L, d>",
+            "launches_by_path": paths,
+            "max_abs_err": max(v["err"] for lay in lays.values()
+                               for v in lay["layouts"].values()
+                               if v["lanes"]),
+            "lanes": folds[pick]["lanes"], "cluster": folds[pick]["C"],
+            "ms": folds[pick]["ms"], "plain_ms": lay11["plain_ms"],
+            "bound_ms": lay11["bound_ms"], "bound_by": lay11["bound_by"],
+            "library_ms": None,
+            "by_shape": {rd: {"planned": lay["planned_layout"],
+                              **{k: {f: v[f] for f in (
+                                  "ms", "us_per_tcg_iter", "max_tcg_iters",
+                                  "C", "P", "threads", "smem_bytes")}
+                                 for k, v in lay["layouts"].items()}}
+                         for rd, lay in lays.items()}})
     return out
 
 
@@ -4575,6 +4632,72 @@ def high_rank_routes(kernel: str, ops: dict, kw: dict) -> dict:
         if spread is not None:
             routes["spread"] = (None, spread.C)
     return routes
+
+
+def layout_options(kernel: str, ops: dict, kw: dict) -> dict:
+    """The layouts ``kernel`` (B2 or B4) can take at this shape up to r =
+    32, as ``shape_parity``'s forcing arguments (cluster, spread, lanes):
+    the row-a-lane layout ("lanes_r"), the folded layout ("lanes_8",
+    "lanes_16"), each at its own cluster size where one fits, and the
+    spread route."""
+    A, n, K = ops["inc_slot"].shape
+    r, d = kw["r"], kw["d"]
+    options = {}
+    for lanes in (0, *rk.FOLD_LANES):
+        if rk.layout_plan(lanes, n, K, r, d, kernel) is not None:
+            options[f"lanes_{lanes or 'r'}"] = (None, None, lanes)
+    spread = rk._spread_plan(n, r, d, A, rk.sm_count(ops["inc_slot"].device))
+    if spread is not None:
+        options["spread"] = (None, spread.C, None)
+    return options
+
+
+def fold_layouts(kernel: str, ops: dict, kw: dict, ref, graph, meta,
+                 where: str, card: str) -> dict:
+    """B2 or B4 at a rank of ``rk.FOLD_RANKS`` on every layout of
+    ``layout_options``: each against its plain version's output ``ref`` and
+    itself (``shape_parity``), then timed in turns (every layout, then the
+    same in reverse order, LAYOUT_REPS runs of LAYOUT_INNER launches each):
+    ms per launch, µs per tCG iteration over the agent's most iterations,
+    those iterations, the plan (C, P, threads, bytes), beside the plain
+    version's time and the launch's bound.  Emits one line; returns it."""
+    fn, ref_fn, work = KERNEL_FNS[kernel]
+    options = layout_options(kernel, ops, kw)
+    row = {"phase": "high_ranks", "check": "fold_layouts", "card": card,
+           "where": where, "kernel": kernel, "r": kw["r"], "d": kw["d"],
+           "plan": plan_of(ops, kw, kernel)._asdict(), "layouts": {}}
+    outs = {}
+    for name, (c, sp, lanes) in options.items():
+        p_row, outs[name] = shape_parity(kernel, ops, kw, ref, c, sp, lanes)
+        plan = plan_of(ops, kw, kernel, c, sp, lanes)
+        iters = max(int(tcg_iters_of(outs[name]).max()), 1)
+        row["layouts"][name] = {**p_row, "max_tcg_iters": iters,
+                                "C": plan.C, "P": plan.P,
+                                "threads": plan.threads,
+                                "smem_bytes": plan.smem_bytes,
+                                "ms_runs": []}
+    for name in [*options, *reversed(options)]:
+        opts = route_opts(*options[name])
+        row["layouts"][name]["ms_runs"].append(cuda_ms(
+            lambda: fn(*ops.values(), **opts, **kw), reps=LAYOUT_REPS,
+            inner=LAYOUT_INNER, warmup=1))
+    for lay in row["layouts"].values():
+        lay["ms"] = statistics.mean(lay["ms_runs"])
+        lay["us_per_tcg_iter"] = 1e3 * lay["ms"] / lay["max_tcg_iters"]
+    planned = row["plan"]
+    row["planned_layout"] = next(
+        (name for name, (c, sp, lanes) in options.items()
+         if plan_of(ops, kw, kernel, c, sp, lanes)._asdict() == planned),
+        None)
+    check(row["planned_layout"] is not None, f"{kernel} at (r, d) = "
+          f"({kw['r']}, {kw['d']}) is planned on none of its layouts")
+    nbytes, flops = work(ops, outs[row["planned_layout"]], graph, meta)
+    row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
+    row["plain_ms"] = cuda_ms(lambda: ref_fn(*ops.values(), **kw), reps=1,
+                              warmup=0)
+    row["fastest"] = min(row["layouts"], key=lambda k: row["layouts"][k]["ms"])
+    emit(row)
+    return row
 
 
 def high_ranks_phase(runs: list, dev, card: str) -> dict:
@@ -4597,6 +4720,7 @@ def high_ranks_phase(runs: list, dev, card: str) -> dict:
     ran = {k: {} for k in rk.KERNELS}
     worst = dict.fromkeys(rk.KERNELS, 0.0)
     rows = {k: {} for k in rk.KERNELS}
+    layouts = {k: {} for k in rk.FOLD_KERNELS}
     for where, meas, robots, edges64, ranks in runs:
         d = meas.d
         for r in ranks:
@@ -4645,6 +4769,10 @@ def high_ranks_phase(runs: list, dev, card: str) -> dict:
                     bound_ms=b_ms, bound_by=b_by,
                     max_tcg_iters=int(tcg_iters_of(out_planned).max()))
                 row["kernels"][kernel] = k_row
+                if kernel in rk.FOLD_KERNELS and r in rk.FOLD_RANKS:
+                    lay = fold_layouts(kernel, ops, kw, ref, graph, meta,
+                                       where, card)
+                    layouts[kernel][f"{r},{d}"] = lay
                 if kernel == "rtr" and plan.route == "spread":
                     b2_ops, b2_kw = sets["rtr_full"]
                     k_row["against_rtr_full"] = b3_against_b2(
@@ -4665,7 +4793,8 @@ def high_ranks_phase(runs: list, dev, card: str) -> dict:
             row["seconds"] = time.perf_counter() - t0
             emit(row)
             del sets, graph
-    return {"shapes": ran, "max_abs_err": worst, "rows": rows}
+    return {"shapes": ran, "max_abs_err": worst, "rows": rows,
+            "layouts": layouts}
 
 
 def smallgrid_standin():
@@ -4818,15 +4947,19 @@ def ablate_high(high: dict, dev, card: str) -> dict:
     stand-in (B3's path above the templated ranks), counted, B3 on the
     route given there (``high``'s plan of B3 at that rank); returns its
     launches by kernel and rank."""
-    launches = {"rtr": {}, "rtr_full": {}}
+    launches = {"rtr": {}, "rtr_full": {}, "rtr_full_cluster_fold": {}}
     for rank, want in HIGH_ABLATE_RANKS.items():
         route = high["rows"]["rtr"][f"{rank},3"]["route"]
         rk.LAUNCHES = 0
         rk.RTR_LAUNCHES = 0
+        rk.FOLD_LAUNCHES.clear()
         torch.cuda.synchronize()
         out = measure_r3.ablate(rank=rank, rounds=HIGH_ABLATE_ROUNDS,
                                 device=dev)
-        counts = {"rtr": rk.RTR_LAUNCHES, "rtr_full": rk.LAUNCHES}
+        fold = sum(n for (k, _), n in rk.FOLD_LAUNCHES.items()
+                   if k == "rtr_full")
+        counts = {"rtr": rk.RTR_LAUNCHES, "rtr_full": rk.LAUNCHES - fold,
+                  "rtr_full_cluster_fold": fold}
         emit({"phase": "high_ranks", "check": "ablate", "card": card,
               "rank": rank, "b3_route": route, **out, "launches": counts})
         check(route == want,
@@ -4836,8 +4969,13 @@ def ablate_high(high: dict, dev, card: str) -> dict:
                    and np.isfinite(out["gn0"]).all()),
               f"the ablation at rank {rank} returned non-finite values")
         check(counts["rtr"] == out["b3_calls"] > 0
-              and counts["rtr_full"] > 0,
+              and counts["rtr_full"] + fold > 0,
               f"the ablation at rank {rank} did not launch B3 once per call")
+        b2_plan = high["layouts"]["rtr_full"].get(f"{rank},3")
+        folded = b2_plan is not None and b2_plan["plan"]["lanes"] > 0
+        check((fold > 0) == folded and (counts["rtr_full"] > 0) != folded,
+              f"the ablation at rank {rank} did not launch B2 on its planned "
+              f"layout ({b2_plan and b2_plan['planned_layout']}): {counts}")
         for kernel, n in counts.items():
             launches[kernel][f"ablate_r{rank}"] = n
     return launches
@@ -4869,7 +5007,9 @@ def staircase_f32(where: str, meas, robots: int, run: dict, dev,
     (``refine.ROUNDS``).  Every rank's verdict is held for soundness on
     the iterate it certified against the float64 Cholesky of S + tol I on
     the card (``psd_shifted``); a certificate it refutes fails the phase.
-    Returns the B2 and B4 launches."""
+    Returns the B2 and B4 launches (the folded cluster layout's, by
+    kernel and lanes, stay in ``rk.FOLD_LAUNCHES`` until the next count).
+    """
     from dpgo_tpu_torch.parallel import certify as pcert
     from dpgo_tpu_torch.parallel import sharded
 
@@ -4889,6 +5029,7 @@ def staircase_f32(where: str, meas, robots: int, run: dict, dev,
     try:
         rk.LAUNCHES = 0
         rk.REFINE_LAUNCHES = 0
+        rk.FOLD_LAUNCHES.clear()
         refine.ROUNDS = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -6583,6 +6724,13 @@ def main() -> int:
     ab_high = ablate_high(high, dev, card)
     high_b2, high_b4 = staircase_f32("sphere_r11", meas, ROBOTS,
                                      STAIR_HIGH, dev, card)
+    stair_fold = {k: sum(n for (kk, _), n in rk.FOLD_LAUNCHES.items()
+                         if kk == k) for k in rk.FOLD_KERNELS}
+    for kernel, n in stair_fold.items():
+        folded = high["layouts"][kernel]["11,3"]["plan"]["lanes"] > 0
+        check((n > 0) == folded, f"the staircase from r = 11 launched "
+              f"{kernel}'s folded cluster layout {n} times, where the plan "
+              f"at (11, 3) is {high['layouts'][kernel]['11,3']['plan']}")
     lap("high_ranks")
     # --- the main path at the top ranks: r = 256 and the gate's 1636 -------
     top = top_ranks_path(grid, dev, card)
@@ -6641,9 +6789,16 @@ def main() -> int:
     rows.extend(generic_rows(high, {
         "tcg": {}, "rtr": ab_high["rtr"],
         "rtr_full": {**ab_high["rtr_full"],
-                     "staircase_r11": high_b2, **top["rtr_full"]},
-        "rtr_refine_full": {"staircase_r11": high_b4,
-                            **top["rtr_refine_full"]}}))
+                     "staircase_r11": high_b2 - stair_fold["rtr_full"],
+                     **top["rtr_full"]},
+        "rtr_refine_full": {
+            "staircase_r11": high_b4 - stair_fold["rtr_refine_full"],
+            **top["rtr_refine_full"]}}))
+    rows.extend(cluster_fold_rows(high, {
+        "rtr_full": {**ab_high["rtr_full_cluster_fold"],
+                     "staircase_r11": stair_fold["rtr_full"]},
+        "rtr_refine_full": {
+            "staircase_r11": stair_fold["rtr_refine_full"]}}))
     for row in rows:
         row["launches"] = sum(row["launches_by_path"].values())
     rows.sort(key=lambda r: (r["replaces"], r["name"]))

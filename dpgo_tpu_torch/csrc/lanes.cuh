@@ -8,7 +8,11 @@
 // (pose_fits).  Above it the spread route folds a pose's rows over the
 // CTA's lanes: row q on thread q % kFoldRows at fold q / kFoldRows, so a
 // lane holds pose_folds(r) rows and the pose takes pose_warps(kFoldRows)
-// = 16 warps.
+// = 16 warps.  The cluster route's B2 and B4 at 11 <= r <= 32 may fold a
+// pose's rows over an aligned segment of L lanes instead (L in {8, 16}):
+// row q on lane q % L at fold q / L, lane_folds(r, L) <= 4 rows a lane,
+// 32 / L poses a warp, and a group sum is each lane's folds added in fold
+// order, then log2 L butterfly steps within the segment (segment_sum).
 
 #pragma once
 
@@ -78,6 +82,25 @@ __device__ void wide_group_sum(float* gslots, int r, float (&v)[N]) {
     v[i] = s;
   }
   __syncthreads();
+}
+
+// Rows a lane holds of its pose on a segment of L lanes: ceil(r / L).
+__host__ __device__ constexpr int lane_folds(int r, int L) {
+  return (r + L - 1) / L;
+}
+
+// Sums of N values over an aligned segment of L lanes (a power of two up
+// to 32): log2 L butterfly steps, each adding the same two operands on
+// both lanes it pairs, so every lane of the segment ends with bit-identical
+// values and no barrier is needed.  All 32 lanes of the warp must call it.
+template <int L, int N>
+__device__ __forceinline__ void segment_sum(float (&v)[N]) {
+  static_assert(L > 0 && L <= 32 && (L & (L - 1)) == 0,
+                "a segment is a power of two lanes");
+#pragma unroll
+  for (int o = L / 2; o > 0; o >>= 1)
+#pragma unroll
+    for (int i = 0; i < N; ++i) v[i] += __shfl_xor_sync(0xffffffffu, v[i], o);
 }
 
 }  // namespace

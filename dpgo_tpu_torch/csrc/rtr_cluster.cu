@@ -55,6 +55,13 @@
 //     kMaxThreads holds a pose of at most 16 warps: this route ends at
 //     r = 512, and its launchers refuse a higher rank (rtr_spread.cu's fold
 //     kernels take B1-B4 above it).
+//   * B2 and B4 at 11 <= r <= 32 also have a folded layout
+//     (rtr_full_cluster_fold_kernel<L, d>, rtr_refine_full_cluster_fold_
+//     kernel<L, d>; the section at the end, built in parts of its own): a
+//     pose on an aligned segment of L in {8, 16} lanes, ceil(r / L) rows a
+//     lane, 32 / L poses a warp, its group sums log2 L butterfly steps
+//     (lanes.cuh's segment_sum).  ops/rtr_kernel.cluster_plan picks the
+//     layout by a rule measured on the card.
 //   * State on chip: every loop vector (eta, Heta, r, z, delta, Hd, g, the
 //     proposal xp) and the operands read only (X, L, S) live in the owning
 //     CTA's shared memory for the whole launch; nothing of the tCG loop
@@ -201,6 +208,32 @@ ClusterShape cluster_shape(int r, int d, int n, int kinc, int C,
                         group_slots(r, threads / 32);
   return {P, threads, floats * sizeof(float)};
 }
+
+// The folded lane layout of B2 and B4 at kMinGenericRank <= r <=
+// kFoldMaxRank (fold_shape; rtr_kernel.cluster_fold_shape mirrors it): a
+// pose on an aligned segment of L lanes, 32 / L poses a warp, the same
+// shared arrays as cluster_shape and no group-sum slots.
+constexpr int kFoldMaxRank = 32;
+constexpr size_t kMaxSmemBytes = 232448;
+
+ClusterShape fold_shape(int r, int d, int n, int kinc, int C, int L,
+                        bool refine) {
+  const int P = (n + C - 1) / C;
+  const int per_warp = 32 / L;
+  const int threads = (P + per_warp - 1) / per_warp * 32;
+  const int k = d + 1;
+  const int vecs = refine ? kRefineVecs : kVecs;
+  const int fields = payload_fields(d) + (refine ? refine_fields(r, d) : 0);
+  const size_t floats = (size_t)vecs * P * vec_stride(r * k) +
+                        (size_t)(k * k + d * d) * P +
+                        (size_t)fields * kinc * P +
+                        2 * (size_t)C * (threads / 32) * kMaxSums;
+  return {P, threads, floats * sizeof(float)};
+}
+
+// The build part of the folded layout at L lanes a segment: the parts
+// after the generic one (ops/rtr_kernel.FOLD_PARTS), one per L.
+constexpr int fold_part(int L) { return DPGO_PARTS + (L == 8 ? 1 : 2); }
 
 }  // namespace
 
@@ -1636,6 +1669,26 @@ struct Launchers<R, D, true> {
                             int* count);
 };
 
+// The launchers of the folded layout at L lanes a segment and d = D (B2 and
+// B4 only, r from the launch): defined and instantiated in part
+// fold_part(L), called by the dispatch part.
+template <int L, int D, bool kInPart = true>
+struct FoldLaunchers {};
+
+template <int L, int D>
+struct FoldLaunchers<L, D, true> {
+  static int rtr_full(const ClusterArgs& g, int r, int A, int C,
+                      float initial_radius, int max_rejections,
+                      float grad_tol, float* X_out, float* stats,
+                      int* tcg_iters, cudaStream_t stream);
+  static int refine(const ClusterArgs& g, int r, int A, int C,
+                    float initial_radius, int max_rejections, float grad_tol,
+                    float* D_out, float* stats, int* tcg_iters,
+                    cudaStream_t stream);
+  static int query_clusters(int kernel, int r, int n, int kinc, int C,
+                            int* count);
+};
+
 #if DPGO_PART >= 0
 
 // The kernels' arguments at this shape: the rank joins them at R = 0.
@@ -1726,11 +1779,879 @@ DPGO_SHAPES(DPGO_INSTANTIATE)
 DPGO_GENERIC_SHAPES(DPGO_INSTANTIATE)
 #undef DPGO_INSTANTIATE
 
+#if DPGO_PART > DPGO_PARTS
+
+// ---------------------------------------------------------------------------
+// The folded lane layout of B2 and B4 at 11 <= r <= 32 (parts fold_part(L)).
+//
+// Replaces, as a second cluster layout, the same TPU kernels as
+// rtr_full_cluster_kernel and rtr_refine_full_cluster_kernel
+// (pallas_tcg.py's _rtr_full_kernel and _rtr_refine_full_kernel).  Like
+// them it is bound by neither bytes nor operations (both bounds are a few
+// microseconds) but by the dependency chain of the tCG iterations.
+//
+// The row-a-lane layout gives a pose r lanes, one row each, so a warp
+// holds 32 / r poses and leaves 32 mod r lanes idle (10 at r = 11, 32 - r
+// above r = 16); a 316-pose agent then needs a 16-CTA cluster at r >= 11
+// (the CTA's 512-thread cap), and a group sum is a chain of r dependent
+// shuffles.  Here a pose sits on an aligned segment of L lanes (L in {8,
+// 16}), row q on lane q % L at fold q / L, so a lane holds F = ceil(r / L)
+// <= 4 rows and a warp 32 / L poses: the same agent fits an 8-CTA cluster
+// at L = 8 (B2 up to r = 17, B4 up to r = 12 at d = 3), and a group sum is
+// each lane's folds added in fold order, then log2 L butterfly steps in the
+// segment (lanes.cuh's segment_sum), bit-identical on every lane of the
+// segment.  Each per-row phase loops over the folds; a phase that needs a
+// sum over the pose's rows runs in two passes, the first parking each
+// fold's row in a shared vector it writes anyway (or in one the phase does
+// not use yet), the second finishing it.  Rows stay in the CTA's shared
+// vectors at their usual places, so the sweeps, the reductions and the
+// remote reads are the rank-generic ones (R = 0), with the context's row
+// set to the fold's.  What it costs: a lane with F rows runs F times the
+// per-row chain of a Hessian sweep, which is why L = 8 pays only where it
+// halves the cluster (ops/rtr_kernel.FOLD_RULE holds the measured rule).
+// ---------------------------------------------------------------------------
+
+namespace {
+
+// One thread's view of its agent in the folded layout: its segment lane,
+// its pose's folds, and whether its CTA holds the pose; row and own follow
+// the fold the thread is at (at_lane_fold).
+struct CtxL : CtxR {
+  int folds;  // ceil(r / L): rows a lane holds of its pose
+  int seg;    // the lane's place in its segment: its row at fold 0
+  bool held;  // the pose is this CTA's (slot < P, pose < n)
+};
+
+// Point the thread at fold f: row seg + f L, held when the pose is and the
+// row lies below r.
+template <int L>
+__device__ __forceinline__ void at_lane_fold(CtxL& cx, int f) {
+  cx.row = cx.seg + f * L;
+  cx.own = cx.held && cx.row < cx.r;
+}
+
+// m += the D(D+1)/2 entries b <= c of sym(x^T w) for one row.
+template <int D>
+__device__ __forceinline__ void add_sym(float (&m)[D * (D + 1) / 2],
+                                        const float (&x)[D + 1],
+                                        const float (&w)[D + 1]) {
+  int i = 0;
+#pragma unroll
+  for (int b = 0; b < D; ++b)
+#pragma unroll
+    for (int c = b; c < D; ++c, ++i)
+      m[i] += 0.5f * (x[b] * w[c] + x[c] * w[b]);
+}
+
+// The pose's sums of m over its segment into the full row-major matrix.
+template <int L, int D>
+__device__ __forceinline__ void segment_sym(float (&m)[D * (D + 1) / 2],
+                                            float (&sy)[D * D]) {
+  segment_sum<L, D * (D + 1) / 2>(m);
+  int i = 0;
+#pragma unroll
+  for (int b = 0; b < D; ++b)
+#pragma unroll
+    for (int c = b; c < D; ++c, ++i) {
+      sy[b * D + c] = m[i];
+      sy[c * D + b] = m[i];
+    }
+}
+
+// The block-Jacobi solve of the thread's row (precond's substitutions,
+// without the tangent projection, which needs the pose's other rows).
+template <int D>
+__device__ __forceinline__ void jacobi_solve(const Ctx& cx,
+                                             float (&v)[D + 1]) {
+  constexpr int K = D + 1;
+  float Lp[K * K];
+#pragma unroll
+  for (int i = 0; i < K * K; ++i) Lp[i] = cx.L[i * cx.P + cx.pl];
+  float y[K];
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    float s = v[i];
+#pragma unroll
+    for (int q = 0; q < i; ++q) s -= Lp[i * K + q] * y[q];
+    y[i] = s * Lp[i * K + i];
+  }
+#pragma unroll
+  for (int i = K - 1; i >= 0; --i) {
+    float s = y[i];
+#pragma unroll
+    for (int q = i + 1; q < K; ++q) s -= Lp[q * K + i] * v[q];
+    v[i] = s * Lp[i * K + i];
+  }
+}
+
+// retract's Newton-Schulz sweeps on the pose's M^T M (MM): the polar
+// factor's right part Zm and 1 / sqrt(trace).
+template <int D>
+__device__ void ns_polar(const float (&MM)[D * D], float (&Zm)[D][D],
+                         float* inv) {
+  float Y[D][D], T[D][D], tmp[D][D];
+  float s = 0.f;
+#pragma unroll
+  for (int b = 0; b < D; ++b) s += MM[b * D + b];
+  s = fmaxf(s, 1e-37f);
+#pragma unroll
+  for (int b = 0; b < D; ++b)
+#pragma unroll
+    for (int c = 0; c < D; ++c) {
+      Y[b][c] = MM[b * D + c] / s;
+      Zm[b][c] = (b == c) ? 1.f : 0.f;
+    }
+  for (int it = 0; it < kNsSweeps; ++it) {
+    matmul3<D>(Zm, Y, tmp);
+#pragma unroll
+    for (int b = 0; b < D; ++b)
+#pragma unroll
+      for (int c = 0; c < D; ++c)
+        T[b][c] = 0.5f * (((b == c) ? 3.f : 0.f) - tmp[b][c]);
+    matmul3<D>(Y, T, tmp);
+    matmul3<D>(T, Zm, Y);  // Y holds the new Z for a moment
+#pragma unroll
+    for (int b = 0; b < D; ++b)
+#pragma unroll
+      for (int c = 0; c < D; ++c) {
+        Zm[b][c] = Y[b][c];
+        Y[b][c] = tmp[b][c];
+      }
+  }
+  *inv = 1.f / sqrtf(s);
+}
+
+// retract_refine's correction C ~ (I + E)^(-1/2) - I from the pose's E.
+template <int D>
+__device__ void polar_correction(const float (&Ef)[D * D],
+                                 float (&Cm)[D][D]) {
+  float E[D][D], E2[D][D], E3[D][D], E4[D][D];
+#pragma unroll
+  for (int b = 0; b < D; ++b)
+#pragma unroll
+    for (int c = 0; c < D; ++c) E[b][c] = Ef[b * D + c];
+  matmul3<D>(E, E, E2);
+  matmul3<D>(E2, E, E3);
+  matmul3<D>(E2, E2, E4);
+#pragma unroll
+  for (int b = 0; b < D; ++b)
+#pragma unroll
+    for (int c = 0; c < D; ++c)
+      Cm[b][c] = -0.5f * E[b][c] + 0.375f * E2[b][c] - 0.3125f * E3[b][c] +
+                 0.2734375f * E4[b][c];
+}
+
+// setup_rt in the folded layout: the segment's lanes gather the pose's
+// rows fold by fold, and L and S by segment lane.
+template <int L, int D, bool REFINE>
+__device__ CtxL setup_fold(const ClusterArgsR& g, float* smem, int a) {
+  constexpr int K = D + 1;
+  constexpr int DD = D * D;
+  constexpr int KK = K * K;
+  constexpr int F0 = payload_fields(D);
+  cg::cluster_group cl = cg::this_cluster();
+  CtxL cx;
+  cx.r = g.r;
+  const int r = g.r;
+  const int RK = r * K;
+  const int F = F0 + (REFINE ? refine_fields(r, D) : 0);
+  cx.n = g.n;
+  cx.s = g.s;
+  cx.kinc = g.kinc;
+  cx.n_act = g.n_local[a];
+  cx.C = (int)cl.num_blocks();
+  cx.rank = (int)cl.block_rank();
+  cx.P = (g.n + cx.C - 1) / cx.C;
+  cx.parity = 0;
+  const int lane = threadIdx.x & 31;
+  const int group = lane / L;
+  cx.seg = lane - group * L;
+  cx.base = group * L;
+  cx.pl = (threadIdx.x >> 5) * (32 / L) + group;
+  cx.folds = lane_folds(r, L);
+  const int c0 = cx.rank * cx.P;
+  const int p = c0 + cx.pl;
+  cx.held = cx.pl < cx.P && p < g.n;
+  cx.Z = g.Z + (size_t)a * RK * g.s;
+  cx.vec = smem;
+  cx.L = cx.vec + (size_t)(REFINE ? kRefineVecs : kVecs) * cx.P *
+                      vec_stride(RK);
+  cx.S = cx.L + (size_t)KK * cx.P;
+  cx.pay = cx.S + (size_t)DD * cx.P;
+  cx.red = cx.pay + (size_t)F * g.kinc * cx.P;  // [2][C nw][4]
+  cx.gslots = nullptr;
+
+  if (cx.held) {
+    for (int f = 0; f < cx.folds; ++f) {
+      at_lane_fold<L>(cx, f);
+      if (!cx.own) continue;
+      float* x = row_at<0, K>(cx, REFINE ? kD : kX, cx.pl);
+      const size_t comp = (size_t)a * RK + cx.row * K;
+#pragma unroll
+      for (int q = 0; q < K; ++q)
+        cp_async4(x + q, g.X + (comp + q) * g.n + p);
+      if (REFINE) {
+        float* rc = row_at<0, K>(cx, kRc, cx.pl);
+#pragma unroll
+        for (int q = 0; q < K; ++q)
+          cp_async4(rc + q, g.Rc + (comp + q) * g.n + p);
+      }
+      if (g.S != nullptr) {
+        float* gv = row_at<0, K>(cx, kG, cx.pl);
+#pragma unroll
+        for (int q = 0; q < K; ++q)
+          cp_async4(gv + q, g.g + (comp + q) * g.n + p);
+      }
+    }
+    for (int i = cx.seg; i < KK; i += L)
+      cp_async4(cx.L + i * cx.P + cx.pl, g.L + ((size_t)a * KK + i) * g.n + p);
+    if (g.S != nullptr) {
+      for (int i = cx.seg; i < DD; i += L)
+        cp_async4(cx.S + i * cx.P + cx.pl,
+                  g.S + ((size_t)a * DD + i) * g.n + p);
+    }
+  }
+  const int nt = g.Ep / g.T;
+  const int stride = g.kinc * cx.P;
+  int* words = reinterpret_cast<int*>(cx.pay);
+#pragma unroll 4
+  for (int t = threadIdx.x; t < stride; t += blockDim.x) {
+    const int c = t / cx.P;
+    const int pe = c0 + t - c * cx.P;
+    const size_t ie = ((size_t)a * g.n + min(pe, g.n - 1)) * g.kinc + c;
+    const float m = g.incm[ie];
+    const int sl = g.inc[ie];
+    const bool side_j = sl >= g.E;
+    const int e = side_j ? sl - g.E : sl;
+    const size_t ge = (size_t)a * g.Ep + e;
+    const int ii = g.idx_i[ge];
+    const int other = side_j ? ii : g.idx_j[ge];
+    int w = 0;
+    if (pe < g.n && m != 0.f) {
+      w = kLive | (side_j ? kSideJ : 0) |
+          ((!side_j || ii >= g.n) ? kCostOwner : 0);
+      if (other < g.n) {
+        const int rank = other / cx.P;
+        w |= kPose | (rank << kRankShift) | (other - rank * cx.P);
+      } else if (other < g.n + g.s) {
+        w |= kSlot | (other - g.n);
+      }
+      const int tl = e / g.T;
+      const int ln = e - tl * g.T;
+      const size_t tile = (size_t)a * nt + tl;
+#pragma unroll
+      for (int k = 0; k < DD; ++k)
+        cp_async4(cx.pay + (1 + k) * stride + t,
+                  g.rot + (tile * DD + k) * g.T + ln);
+#pragma unroll
+      for (int k = 0; k < D; ++k)
+        cp_async4(cx.pay + (1 + DD + k) * stride + t,
+                  g.trn + (tile * D + k) * g.T + ln);
+      cp_async4(cx.pay + (1 + DD + D) * stride + t, g.wk + ge);
+      cp_async4(cx.pay + (2 + DD + D) * stride + t, g.wt + ge);
+      if (REFINE && (w & kCostOwner)) {
+        for (int k = 0; k < r * D; ++k)
+          cp_async4(cx.pay + (F0 + k) * stride + t,
+                    g.rho_rot + (tile * (r * D) + k) * g.T + ln);
+        for (int k = 0; k < r; ++k)
+          cp_async4(cx.pay + (F0 + r * D + k) * stride + t,
+                    g.rho_trn + (tile * r + k) * g.T + ln);
+      }
+    }
+    words[t] = w;
+  }
+  cp_async_wait_all();
+  __syncthreads();  // every thread's copies of L have landed
+  if (cx.held && cx.seg == 0) {
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+      float* diag = cx.L + i * (K + 1) * cx.P + cx.pl;
+      *diag = 1.f / *diag;
+    }
+  }
+  cl.sync();
+  at_lane_fold<L>(cx, 0);
+  return cx;
+}
+
+// tcg in the folded layout: the same iteration, scalars and barriers; each
+// per-row phase loops over the folds, and each tangent projection takes
+// two passes (the rows' sym(Y^T W) summed over the segment between them).
+template <int L, int D>
+__device__ int tcg_fold(CtxL& cx, float radius, int max_iters, float kappa,
+                        float theta, bool* hit) {
+  constexpr int K = D + 1;
+  constexpr int M = D * (D + 1) / 2;
+  float s2[2] = {0.f, 0.f};
+  {
+    // r = g; z = precond(g), parked unprojected in kZv; then z projected,
+    // delta = -z, eta = Heta = 0.
+    float m[M] = {}, sy[D * D];
+    for (int f = 0; f < cx.folds; ++f) {
+      at_lane_fold<L>(cx, f);
+      if (!cx.own) continue;
+      float x[K], v[K];
+      ld_own<0, K>(cx, kX, x);
+      ld_own<0, K>(cx, kG, v);
+      st_own<0, K>(cx, kR, v);
+      jacobi_solve<D>(cx, v);
+      st_own<0, K>(cx, kZv, v);
+      add_sym<D>(m, x, v);
+    }
+    segment_sym<L, D>(m, sy);
+    const float zero[K] = {};
+    for (int f = 0; f < cx.folds; ++f) {
+      at_lane_fold<L>(cx, f);
+      if (!cx.own) continue;
+      float x[K], v[K], zz[K];
+      ld_own<0, K>(cx, kX, x);
+      ld_own<0, K>(cx, kR, v);
+      ld_own<0, K>(cx, kZv, zz);
+      sub_ysym<D>(x, sy, zz);
+      st_own<0, K>(cx, kZv, zz);
+      s2[0] += dot<K>(v, zz);
+      s2[1] += dot<K>(v, v);
+#pragma unroll
+      for (int q = 0; q < K; ++q) zz[q] = -zz[q];
+      st_own<0, K>(cx, kDelta, zz);
+      st_own<0, K>(cx, kEta, zero);
+      st_own<0, K>(cx, kHeta, zero);
+    }
+  }
+  cluster_sum<2>(cx, s2);  // also publishes delta
+  float rz = s2[0];
+  const float r0n = sqrtf(s2[1]);
+  float r0n_th;
+  if (theta == 1.f) {
+    r0n_th = r0n;
+  } else if (theta == 0.f) {
+    r0n_th = 1.f;
+  } else {
+    r0n_th = expf(theta * logf(fmaxf(r0n, kEps)));
+  }
+  const float target = r0n * fminf(kappa, r0n_th);
+  const float rad2 = radius * radius;
+
+  int k = 0;
+  bool done = rz <= 0.f;
+  *hit = false;
+  int cur = kDelta, prev = kDeltaB;  // this iteration's delta, the last one's
+  bool fresh = true;                 // remote poses' delta stored in cur
+  float beta = 0.f;
+  while (k < max_iters && !done) {
+    // Hd = P_X(EucHess[delta] - [delta_Y S | 0]), parked unprojected in
+    // kHd; then projected, and the four dots.
+    float s4[4] = {0.f, 0.f, 0.f, 0.f};
+    {
+      float m[M] = {}, sy[D * D];
+      for (int f = 0; f < cx.folds; ++f) {
+        at_lane_fold<L>(cx, f);
+        if (!cx.own) continue;
+        float x[K], dl[K], h[K];
+        ld_own<0, K>(cx, kX, x);
+        ld_own<0, K>(cx, cur, dl);
+        if (fresh) {
+          sweep<0, D, true, false>(cx, cur, false, dl, h, nullptr);
+        } else {
+          sweep<0, D, true, false>(cx, kZv, false, dl, h, nullptr, prev,
+                                   beta);
+        }
+#pragma unroll
+        for (int c = 0; c < D; ++c) {
+          float s = 0.f;
+#pragma unroll
+          for (int b = 0; b < D; ++b)
+            s += dl[b] * cx.S[(b * D + c) * cx.P + cx.pl];
+          h[c] -= s;
+        }
+        st_own<0, K>(cx, kHd, h);
+        add_sym<D>(m, x, h);
+      }
+      segment_sym<L, D>(m, sy);
+      for (int f = 0; f < cx.folds; ++f) {
+        at_lane_fold<L>(cx, f);
+        if (!cx.own) continue;
+        float x[K], dl[K], h[K], et[K];
+        ld_own<0, K>(cx, kX, x);
+        ld_own<0, K>(cx, cur, dl);
+        ld_own<0, K>(cx, kHd, h);
+        ld_own<0, K>(cx, kEta, et);
+        sub_ysym<D>(x, sy, h);
+        st_own<0, K>(cx, kHd, h);
+        s4[0] += dot<K>(dl, h);
+        s4[1] += dot<K>(et, et);
+        s4[2] += dot<K>(et, dl);
+        s4[3] += dot<K>(dl, dl);
+      }
+    }
+    cluster_sum<4>(cx, s4);
+    const float d_hd = s4[0], e_e = s4[1], e_d = s4[2], d_d = s4[3];
+    const float alpha = rz / (fabsf(d_hd) < kEps ? kEps : d_hd);
+    const float e_e_next = e_e + 2.f * alpha * e_d + alpha * alpha * d_d;
+    const bool crossing = (d_hd <= 0.f) || (e_e_next >= rad2);
+    const float disc = fmaxf(e_d * e_d + d_d * (rad2 - e_e), 0.f);
+    const float tau = (-e_d + sqrtf(disc)) / (d_d < kEps ? kEps : d_d);
+    const float step = crossing ? tau : alpha;
+
+    // eta += step delta, Heta += step Hd, r += alpha Hd; z = M^-1 r parked
+    // unprojected in kZv, then projected, and the two dots.
+    {
+      float m[M] = {}, sy[D * D];
+      for (int f = 0; f < cx.folds; ++f) {
+        at_lane_fold<L>(cx, f);
+        if (!cx.own) continue;
+        float x[K], dl[K], h[K], v[K];
+        ld_own<0, K>(cx, kX, x);
+        ld_own<0, K>(cx, cur, dl);
+        ld_own<0, K>(cx, kHd, h);
+        ld_own<0, K>(cx, kEta, v);
+#pragma unroll
+        for (int q = 0; q < K; ++q) v[q] += step * dl[q];
+        st_own<0, K>(cx, kEta, v);
+        ld_own<0, K>(cx, kHeta, v);
+#pragma unroll
+        for (int q = 0; q < K; ++q) v[q] += step * h[q];
+        st_own<0, K>(cx, kHeta, v);
+        ld_own<0, K>(cx, kR, v);
+#pragma unroll
+        for (int q = 0; q < K; ++q) v[q] += alpha * h[q];
+        st_own<0, K>(cx, kR, v);
+        jacobi_solve<D>(cx, v);
+        st_own<0, K>(cx, kZv, v);
+        add_sym<D>(m, x, v);
+      }
+      segment_sym<L, D>(m, sy);
+      s2[0] = 0.f;
+      s2[1] = 0.f;
+      for (int f = 0; f < cx.folds; ++f) {
+        at_lane_fold<L>(cx, f);
+        if (!cx.own) continue;
+        float x[K], v[K], zz[K];
+        ld_own<0, K>(cx, kX, x);
+        ld_own<0, K>(cx, kR, v);
+        ld_own<0, K>(cx, kZv, zz);
+        sub_ysym<D>(x, sy, zz);
+        st_own<0, K>(cx, kZv, zz);
+        s2[0] += dot<K>(v, zz);
+        s2[1] += dot<K>(v, v);
+      }
+    }
+    cluster_sum<2>(cx, s2);
+    const float rz_in = s2[0];
+    const bool converged = sqrtf(s2[1]) <= target;
+    beta = rz_in / (fabsf(rz) < kEps ? kEps : rz);
+    rz = rz_in;
+    ++k;
+    done = crossing || converged;
+    *hit = *hit || crossing;
+    if (!done && k < max_iters) {
+      for (int f = 0; f < cx.folds; ++f) {
+        at_lane_fold<L>(cx, f);
+        if (!cx.own) continue;
+        float dl[K], zz[K];
+        ld_own<0, K>(cx, cur, dl);
+        ld_own<0, K>(cx, kZv, zz);
+#pragma unroll
+        for (int q = 0; q < K; ++q) dl[q] = -zz[q] + beta * dl[q];
+        st_own<0, K>(cx, prev, dl);
+      }
+      const int t = cur;
+      cur = prev;
+      prev = t;
+      fresh = false;
+    }
+  }
+  return k;
+}
+
+// attempts in the folded layout: the retraction's sum over the pose's rows
+// (M^T M, or the refine step's E) between a pass that accumulates it and a
+// pass that writes each row's proposal.
+template <int L, int D, bool REFINE>
+__device__ Attempts attempts_fold(CtxL& cx, const ClusterArgs& args,
+                                  float* xo, float f0, int k_att,
+                                  float radius, int max_rejections) {
+  constexpr int K = D + 1;
+  constexpr int M = D * (D + 1) / 2;
+  constexpr int kVar = REFINE ? kD : kX;
+  const int p = cx.rank * cx.P + cx.pl;
+  Attempts at{k_att, false, f0, 0};
+  while (at.k_att < max_rejections && !at.accepted) {
+    bool hit;
+    at.iters += tcg_fold<L, D>(cx, radius, args.max_iters, args.kappa,
+                               args.theta, &hit);
+    {
+      float m[M] = {}, sy[D * D];
+      for (int f = 0; f < cx.folds; ++f) {
+        at_lane_fold<L>(cx, f);
+        if (!cx.own) continue;
+        float x[K], et[K];
+        ld_own<0, K>(cx, kVar, x);
+        ld_own<0, K>(cx, kEta, et);
+        int i = 0;
+        if constexpr (REFINE) {
+          float rc[K];
+          ld_own<0, K>(cx, kRc, rc);
+#pragma unroll
+          for (int b = 0; b < D; ++b)
+#pragma unroll
+            for (int c = b; c < D; ++c, ++i) {
+              const float ub = x[b] + et[b], uc = x[c] + et[c];
+              m[i] += rc[b] * uc + ub * rc[c] + ub * uc;
+            }
+        } else {
+#pragma unroll
+          for (int b = 0; b < D; ++b)
+#pragma unroll
+            for (int c = b; c < D; ++c, ++i)
+              m[i] += (x[b] + et[b]) * (x[c] + et[c]);
+        }
+      }
+      segment_sym<L, D>(m, sy);
+      float Cm[D][D], inv = 1.f;
+      if constexpr (REFINE) {
+        polar_correction<D>(sy, Cm);
+      } else {
+        ns_polar<D>(sy, Cm, &inv);
+      }
+      for (int f = 0; f < cx.folds; ++f) {
+        at_lane_fold<L>(cx, f);
+        if (!cx.own) continue;
+        float x[K], et[K], xp[K];
+        ld_own<0, K>(cx, kVar, x);
+        ld_own<0, K>(cx, kEta, et);
+        if constexpr (REFINE) {
+          float rc[K], u[K];
+          ld_own<0, K>(cx, kRc, rc);
+#pragma unroll
+          for (int q = 0; q < K; ++q) u[q] = x[q] + et[q];
+#pragma unroll
+          for (int c = 0; c < D; ++c) {
+            float s = 0.f;
+#pragma unroll
+            for (int b = 0; b < D; ++b) s += (rc[b] + u[b]) * Cm[b][c];
+            xp[c] = u[c] + s;
+          }
+          xp[D] = u[D];
+        } else {
+#pragma unroll
+          for (int c = 0; c < D; ++c) {
+            float acc = 0.f;
+#pragma unroll
+            for (int b = 0; b < D; ++b) acc += (x[b] + et[b]) * Cm[b][c];
+            xp[c] = acc * inv;
+          }
+          xp[D] = x[D] + et[D];
+        }
+        if (p < cx.n_act) {
+          st_own<0, K>(cx, kXp, xp);
+        } else {
+          st_own<0, K>(cx, kXp, x);
+        }
+      }
+    }
+    cg::this_cluster().sync();  // the cost reads xp across CTAs
+    float s3[3] = {0.f, 0.f, 0.f};
+    for (int f = 0; f < cx.folds; ++f) {
+      at_lane_fold<L>(cx, f);
+      if (!cx.own) continue;
+      float xp[K], unused[K], gv[K], et[K], he[K];
+      ld_own<0, K>(cx, kXp, xp);
+      sweep<0, D, false, true, REFINE>(cx, kXp, true, xp, unused, &s3[0]);
+      ld_own<0, K>(cx, kG, gv);
+      ld_own<0, K>(cx, kEta, et);
+      ld_own<0, K>(cx, kHeta, he);
+      s3[1] += dot<K>(gv, et);
+      s3[2] += dot<K>(et, he);
+    }
+    cluster_sum<3>(cx, s3);
+    const float f_prop = (REFINE ? 1.f : 0.5f) * s3[0];
+    const float mdec = -(s3[1] + 0.5f * s3[2]);
+    const float rho = (f0 - f_prop) / fmaxf(mdec, kEps);
+    const bool ok = (rho > 0.1f) && (f_prop <= f0);
+    if (ok) {
+      for (int f = 0; f < cx.folds; ++f) {
+        at_lane_fold<L>(cx, f);
+        if (!cx.own) continue;
+        float xp[K];
+        ld_own<0, K>(cx, kXp, xp);
+#pragma unroll
+        for (int q = 0; q < K; ++q) xo[(cx.row * K + q) * cx.n + p] = xp[q];
+      }
+      at.f_best = f_prop;
+    } else {
+      radius = radius / 4.f;
+    }
+    ++at.k_att;
+    at.accepted = ok;
+  }
+  return at;
+}
+
+// B2 in the folded layout (rtr_full_cluster_kernel's phases).
+template <int L, int D>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+rtr_full_cluster_fold_kernel(ClusterArgsR args, float initial_radius,
+                             int max_rejections, float grad_tol,
+                             float* X_out, float* stats, int* tcg_iters) {
+  constexpr int K = D + 1;
+  constexpr int M = D * (D + 1) / 2;
+  extern __shared__ __align__(16) float smem[];
+  const int a = blockIdx.x / cg::this_cluster().num_blocks();
+  CtxL cx = setup_fold<L, D, false>(args, smem, a);
+  float* xo = X_out + (size_t)a * cx.r * K * cx.n;
+
+  // Start point: G = egrad([X | Z]) parked in kG with f0's terms; S =
+  // sym(Y^T G_Y) over the segment; g = P_X(G), |g|^2.
+  float s2[2] = {0.f, 0.f};
+  {
+    const int p = cx.rank * cx.P + cx.pl;
+    float m[M] = {}, sy[D * D];
+    for (int f = 0; f < cx.folds; ++f) {
+      at_lane_fold<L>(cx, f);
+      if (!cx.own) continue;
+      float x[K], G[K];
+      ld_own<0, K>(cx, kX, x);
+      sweep<0, D, true, true>(cx, kX, true, x, G, &s2[1]);
+#pragma unroll
+      for (int q = 0; q < K; ++q) xo[(cx.row * K + q) * cx.n + p] = x[q];
+      st_own<0, K>(cx, kG, G);
+      add_sym<D>(m, x, G);
+    }
+    segment_sym<L, D>(m, sy);
+    if (cx.held && cx.seg == 0) {
+#pragma unroll
+      for (int i = 0; i < D * D; ++i) cx.S[i * cx.P + cx.pl] = sy[i];
+    }
+    for (int f = 0; f < cx.folds; ++f) {
+      at_lane_fold<L>(cx, f);
+      if (!cx.own) continue;
+      float x[K], G[K];
+      ld_own<0, K>(cx, kX, x);
+      ld_own<0, K>(cx, kG, G);
+      sub_ysym<D>(x, sy, G);
+      st_own<0, K>(cx, kG, G);
+      s2[0] += dot<K>(G, G);
+    }
+  }
+  cluster_sum<2>(cx, s2);
+  const float gn0 = sqrtf(s2[0]);
+  const float f0 = 0.5f * s2[1];
+
+  const Attempts at = attempts_fold<L, D, false>(
+      cx, args, xo, f0, (gn0 < grad_tol) ? max_rejections : 0,
+      initial_radius, max_rejections);
+  if (cx.rank == 0 && threadIdx.x == 0) {
+    float* st = stats + (size_t)a * 5;
+    st[0] = (float)at.k_att;
+    st[1] = at.accepted ? 1.f : 0.f;
+    st[2] = f0;
+    st[3] = at.f_best;
+    st[4] = gn0;
+    tcg_iters[a] = at.iters;
+  }
+  cg::this_cluster().sync();  // no CTA leaves while its partials are read
+}
+
+// B4 in the folded layout (rtr_refine_full_cluster_kernel's phases): dG
+// parks in kHd and precond(g) in kZv between their passes (tcg writes both
+// before it reads them).
+template <int L, int D>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+rtr_refine_full_cluster_fold_kernel(ClusterArgsR args, float initial_radius,
+                                    int max_rejections, float grad_tol,
+                                    float* D_out, float* stats,
+                                    int* tcg_iters) {
+  constexpr int K = D + 1;
+  constexpr int M = D * (D + 1) / 2;
+  constexpr int DD = D * D;
+  extern __shared__ __align__(16) float smem[];
+  const int a = blockIdx.x / cg::this_cluster().num_blocks();
+  CtxL cx = setup_fold<L, D, true>(args, smem, a);
+  const size_t off = (size_t)a * cx.r * K * cx.n;
+  float* xo = D_out + off;
+  const float* gref = args.Gref + off;
+
+  float s3[3] = {0.f, 0.f, 0.f};
+  {
+    const int p = cx.rank * cx.P + cx.pl;
+    float m[M] = {}, S1[DD], St[DD];
+    for (int f = 0; f < cx.folds; ++f) {
+      at_lane_fold<L>(cx, f);
+      if (!cx.own) continue;
+      float dd[K], rc[K], y[K], G[K], gr[K];
+      ld_own<0, K>(cx, kD, dd);
+      ld_own<0, K>(cx, kRc, rc);
+#pragma unroll
+      for (int q = 0; q < K; ++q) y[q] = rc[q] + dd[q];
+      st_own<0, K>(cx, kX, y);
+      sweep<0, D, true, true, true>(cx, kD, true, dd, G, &s3[2]);
+#pragma unroll
+      for (int q = 0; q < K; ++q) {
+        gr[q] = gref[(cx.row * K + q) * cx.n + p];
+        xo[(cx.row * K + q) * cx.n + p] = dd[q];
+      }
+      st_own<0, K>(cx, kHd, G);
+      int i = 0;
+#pragma unroll
+      for (int b = 0; b < D; ++b)
+#pragma unroll
+        for (int c = b; c < D; ++c, ++i)
+          m[i] += 0.5f * (dd[b] * gr[c] + dd[c] * gr[b] + y[b] * G[c] +
+                          y[c] * G[b]);
+    }
+    segment_sym<L, D>(m, S1);
+#pragma unroll
+    for (int j = 0; j < DD; ++j)
+      St[j] = (cx.held ? cx.S[j * cx.P + cx.pl] : 0.f) + S1[j];
+    __syncwarp();  // every lane of the segment has read S0
+    if (cx.held && cx.seg == 0) {
+#pragma unroll
+      for (int j = 0; j < DD; ++j) cx.S[j * cx.P + cx.pl] = St[j];
+    }
+    float m2[M] = {}, sy[DD];
+    for (int f = 0; f < cx.folds; ++f) {
+      at_lane_fold<L>(cx, f);
+      if (!cx.own) continue;
+      float dd[K], rc[K], y[K], G[K], gv[K];
+      ld_own<0, K>(cx, kD, dd);
+      ld_own<0, K>(cx, kRc, rc);
+      ld_own<0, K>(cx, kX, y);
+      ld_own<0, K>(cx, kHd, G);
+      ld_own<0, K>(cx, kG, gv);  // g0
+#pragma unroll
+      for (int c = 0; c < D; ++c) {
+        float s = 0.f;
+#pragma unroll
+        for (int b = 0; b < D; ++b)
+          s += rc[b] * S1[b * D + c] + dd[b] * St[b * D + c];
+        gv[c] = gv[c] + G[c] - s;
+      }
+      gv[D] = gv[D] + G[D];
+      st_own<0, K>(cx, kG, gv);
+      s3[0] += dot<K>(gv, gv);
+      jacobi_solve<D>(cx, gv);
+      st_own<0, K>(cx, kZv, gv);
+      add_sym<D>(m2, y, gv);
+    }
+    segment_sym<L, D>(m2, sy);
+    for (int f = 0; f < cx.folds; ++f) {
+      at_lane_fold<L>(cx, f);
+      if (!cx.own) continue;
+      float y[K], z[K];
+      ld_own<0, K>(cx, kX, y);
+      ld_own<0, K>(cx, kZv, z);
+      sub_ysym<D>(y, sy, z);
+      s3[1] += dot<K>(z, z);
+    }
+  }
+  cluster_sum<3>(cx, s3);  // also publishes S to the pose's rows
+  const float gn0 = sqrtf(s3[0]);
+  const float radius = fminf(initial_radius, 10.f * sqrtf(s3[1]));
+  const float f0 = s3[2];
+
+  const Attempts at = attempts_fold<L, D, true>(
+      cx, args, xo, f0, (gn0 < grad_tol) ? max_rejections : 0, radius,
+      max_rejections);
+  if (cx.rank == 0 && threadIdx.x == 0) {
+    float* st = stats + (size_t)a * 5;
+    st[0] = (float)at.k_att;
+    st[1] = at.accepted ? 1.f : 0.f;
+    st[2] = f0;
+    st[3] = at.f_best;
+    st[4] = gn0;
+    tcg_iters[a] = at.iters;
+  }
+  cg::this_cluster().sync();  // no CTA leaves while its partials are read
+}
+
+// A folded launch's shape, or kUnsupportedShape outside kMinGenericRank <=
+// r <= kFoldMaxRank, or kUnplaceable where one CTA exceeds the card's
+// threads or shared memory (the plan does not offer such a shape; a
+// forced one raises with it).
+int fold_launch_shape(int r, int d, int n, int kinc, int C, int L,
+                             bool refine, ClusterShape* sh) {
+  if (r < dpgo_shapes::kMinGenericRank || r > kFoldMaxRank)
+    return dpgo_shapes::kUnsupportedShape;
+  *sh = fold_shape(r, d, n, kinc, C, L, refine);
+  if (sh->threads > kMaxThreads || sh->smem > kMaxSmemBytes)
+    return kUnplaceable;
+  return 0;
+}
+
+}  // namespace
+
+template <int L, int D>
+int FoldLaunchers<L, D, true>::rtr_full(const ClusterArgs& g, int r, int A,
+                                        int C, float initial_radius,
+                                        int max_rejections, float grad_tol,
+                                        float* X_out, float* stats,
+                                        int* tcg_iters, cudaStream_t stream) {
+  if (g.s > kIndexMask + 1) return kTooManySlots;
+  ClusterShape sh;
+  const int err = fold_launch_shape(r, D, g.n, g.kinc, C, L, false, &sh);
+  if (err != 0) return err;
+  return launch_cluster(rtr_full_cluster_fold_kernel<L, D>, A, C, sh, stream,
+                        args_of<0>(g, r), initial_radius, max_rejections,
+                        grad_tol, X_out, stats, tcg_iters);
+}
+
+template <int L, int D>
+int FoldLaunchers<L, D, true>::refine(const ClusterArgs& g, int r, int A,
+                                      int C, float initial_radius,
+                                      int max_rejections, float grad_tol,
+                                      float* D_out, float* stats,
+                                      int* tcg_iters, cudaStream_t stream) {
+  if (g.s > kIndexMask + 1) return kTooManySlots;
+  ClusterShape sh;
+  const int err = fold_launch_shape(r, D, g.n, g.kinc, C, L, true, &sh);
+  if (err != 0) return err;
+  return launch_cluster(rtr_refine_full_cluster_fold_kernel<L, D>, A, C, sh,
+                        stream, args_of<0>(g, r), initial_radius,
+                        max_rejections, grad_tol, D_out, stats, tcg_iters);
+}
+
+template <int L, int D>
+int FoldLaunchers<L, D, true>::query_clusters(int kernel, int r, int n,
+                                              int kinc, int C, int* count) {
+  if (kernel != kRtrFull && kernel != kRefine) return kUnknownKernel;
+  ClusterShape sh;
+  const int err = fold_launch_shape(r, D, n, kinc, C, L, kernel == kRefine,
+                                    &sh);
+  if (err == kUnplaceable) {
+    *count = 0;
+    return 0;
+  }
+  if (err != 0) return err;
+  if (kernel == kRtrFull)
+    return max_clusters(rtr_full_cluster_fold_kernel<L, D>, C, sh, count);
+  return max_clusters(rtr_refine_full_cluster_fold_kernel<L, D>, C, sh,
+                      count);
+}
+
+template struct FoldLaunchers<8, 3, DPGO_PART == fold_part(8)>;
+template struct FoldLaunchers<8, 2, DPGO_PART == fold_part(8)>;
+template struct FoldLaunchers<16, 3, DPGO_PART == fold_part(16)>;
+template struct FoldLaunchers<16, 2, DPGO_PART == fold_part(16)>;
+
+#endif  // DPGO_PART > DPGO_PARTS
+
 #endif  // DPGO_PART >= 0
 
 #if DPGO_PART < 0
 
 using dpgo_shapes::dispatch;
+
+// The folded layout's launchers at L lanes a segment (8 or 16) and d,
+// else kUnsupportedShape.
+template <typename F>
+int fold_dispatch(int lanes, int d, F&& f) {
+  if (lanes == 8 && d == 3) return f(FoldLaunchers<8, 3>{});
+  if (lanes == 8 && d == 2) return f(FoldLaunchers<8, 2>{});
+  if (lanes == 16 && d == 3) return f(FoldLaunchers<16, 3>{});
+  if (lanes == 16 && d == 2) return f(FoldLaunchers<16, 2>{});
+  return dpgo_shapes::kUnsupportedShape;
+}
 
 // The entry points have C linkage: their names are global, whatever the
 // namespace.
@@ -1843,6 +2764,77 @@ int dpgo_rtr_refine_full_cluster_launch(
   int* it = static_cast<int*>(tcg_iters);
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
   return dispatch<Launchers>(r, d, [&](auto launchers) {
+    return launchers.refine(a, r, A, C, initial_radius, max_rejections,
+                            grad_tol, dout, st, it, cs);
+  });
+}
+
+// Shared-memory bytes of one CTA of B2 (kernel 0) or B4 (kernel 3) in the
+// folded layout at `lanes` lanes a pose.
+long long dpgo_rtr_cluster_fold_smem_bytes(int lanes, int r, int d,
+                                           int n_max, int kinc, int C,
+                                           int kernel) {
+  return (long long)fold_shape(r, d, n_max, kinc, C, lanes, kernel == kRefine)
+      .smem;
+}
+
+// As dpgo_rtr_cluster_max_clusters, for the folded layout (0 clusters
+// where one CTA exceeds the card's threads or shared memory); -1 for a
+// lane count, d or r (11 <= r <= 32) without instantiation, -4 for a
+// kernel other than B2 and B4.
+int dpgo_rtr_cluster_fold_max_clusters(int lanes, int r, int d, int n_max,
+                                       int kinc, int C, int kernel,
+                                       void* count) {
+  int* c = static_cast<int*>(count);
+  return fold_dispatch(lanes, d, [&](auto launchers) {
+    return launchers.query_clusters(kernel, r, n_max, kinc, C, c);
+  });
+}
+
+int dpgo_rtr_full_cluster_fold_launch(
+    int lanes, int r, int d, int C, int A, int n, int s, int Ep, int T,
+    int e_max, int kinc, const void* idx_i, const void* idx_j,
+    const void* rot, const void* trn, const void* wk, const void* wt,
+    const void* X, const void* Z, const void* L, const void* inc_slot,
+    const void* inc_mask, const void* n_local, void* X_out, void* stats,
+    void* tcg_iters, int max_iters, float kappa, float theta,
+    float initial_radius, int max_rejections, float grad_tol, void* stream) {
+  const ClusterArgs g = make_args(n, s, Ep, T, e_max, kinc, idx_i, idx_j,
+                                  rot, trn, wk, wt, X, Z, nullptr, L, nullptr,
+                                  inc_slot, inc_mask, n_local, max_iters,
+                                  kappa, theta);
+  float* xo = static_cast<float*>(X_out);
+  float* st = static_cast<float*>(stats);
+  int* it = static_cast<int*>(tcg_iters);
+  cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  return fold_dispatch(lanes, d, [&](auto launchers) {
+    return launchers.rtr_full(g, r, A, C, initial_radius, max_rejections,
+                              grad_tol, xo, st, it, cs);
+  });
+}
+
+int dpgo_rtr_refine_full_cluster_fold_launch(
+    int lanes, int r, int d, int C, int A, int n, int s, int Ep, int T,
+    int e_max, int kinc, const void* idx_i, const void* idx_j,
+    const void* rot, const void* trn, const void* wk, const void* wt,
+    const void* rho_rot, const void* rho_trn, const void* Rc, const void* D,
+    const void* Dz, const void* g0, const void* Gref, const void* S0,
+    const void* L, const void* inc_slot, const void* inc_mask,
+    const void* n_local, void* D_out, void* stats, void* tcg_iters,
+    int max_iters, float kappa, float theta, float initial_radius,
+    int max_rejections, float grad_tol, void* stream) {
+  ClusterArgs a = make_args(n, s, Ep, T, e_max, kinc, idx_i, idx_j, rot, trn,
+                            wk, wt, D, Dz, S0, L, g0, inc_slot, inc_mask,
+                            n_local, max_iters, kappa, theta);
+  a.Rc = static_cast<const float*>(Rc);
+  a.Gref = static_cast<const float*>(Gref);
+  a.rho_rot = static_cast<const float*>(rho_rot);
+  a.rho_trn = static_cast<const float*>(rho_trn);
+  float* dout = static_cast<float*>(D_out);
+  float* st = static_cast<float*>(stats);
+  int* it = static_cast<int*>(tcg_iters);
+  cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  return fold_dispatch(lanes, d, [&](auto launchers) {
     return launchers.refine(a, r, A, C, initial_radius, max_rejections,
                             grad_tol, dout, st, it, cs);
   });

@@ -11,7 +11,7 @@ holds ``state/``).  A checkpoint at config #5's shapes is written into
 
     python -c "import numpy as np, jax; \\
     jax.config.update('jax_platforms', 'cpu'); \\
-    from dpgo_tpu.utils import logger; rng = np.random.default_rng(0); \\
+    rng = np.random.default_rng(0); from dpgo_tpu.utils import logger; \\
     logger.save_checkpoint_orbax(logger.Checkpoint( \\
     X=rng.standard_normal((64, 1594, 5, 4)).astype(np.float32), \\
     weights=rng.uniform(size=(64, 2236)), mu=1e-3, iteration=2048), 'ck5')"

@@ -39,7 +39,9 @@ any other shape and the wrapper raises.
 The route is chosen from the shape before the launch by ``cluster_plan``:
 the **cluster** route (``rtr_cluster.cu``: one thread-block cluster of C
 CTAs per agent, its loop vectors and edge payload in the cluster's shared
-memory) for every agent that fits a cluster; above that ceiling, the
+memory) for every agent that fits a cluster, B2 and B4 at 11 <= r <= 32
+with a pose's rows folded over an aligned segment of L = 8 or 16 lanes
+(ceil(r / L) rows a lane) as ``fold_rule`` picks; above that ceiling, the
 **spread** route (``rtr_spread.cu``: C CTAs per agent picked so that all
 agents' CTAs cover the card's SMs in one wave, lane groups walking the
 CTA's poses in stripes, the CG direction and z in shared memory, the other
@@ -78,6 +80,7 @@ batched over agents with a leading ``A``:
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
@@ -105,6 +108,11 @@ RTR_LAUNCHES = 0
 TCG_LAUNCHES = 0
 #: Launches of the ``rtr_refine_full`` kernel.
 REFINE_LAUNCHES = 0
+#: Launches of the cluster route's folded-layout kernels, by (wrapper name,
+#: lanes a pose): ``rtr_full_cluster_fold_kernel<L, d>`` and
+#: ``rtr_refine_full_cluster_fold_kernel<L, d>`` (each also counts in its
+#: wrapper's count above).
+FOLD_LAUNCHES: collections.Counter = collections.Counter()
 
 #: Newton-Schulz sweeps of the retraction (fixed in the kernel source).
 NS_SWEEPS = 24
@@ -127,6 +135,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: ``rtr_grid.cu`` two kernels a shape, in parts of their own.
 BUILD_PARTS = {"rtr_cluster.cu": 3, "rtr_full.cu": 8, "rtr_spread.cu": 5,
                "rtr_grid.cu": 3}
+#: Parts a source compiles after its rank-generic part: ``rtr_cluster.cu``'s
+#: folded layout of B2 and B4, one part per segment width (``FOLD_LANES``).
+FOLD_PARTS = {"rtr_cluster.cu": 2}
 #: The cluster launcher's own error codes: the card cannot place one
 #: cluster of the size asked for; more neighbor slots than its edge payload
 #: can index (2**20).  The grid launcher's: the card cannot keep all A C
@@ -181,6 +192,12 @@ GRID_KERNELS = ("rtr_full", "rtr_refine_full")
 MAX_GRID_POSES = 1 << 20
 #: Floats a reduction slot holds (``kMaxSums``).
 _MAX_SUMS = 4
+#: The cluster route's folded layout (``rtr_cluster.cu``'s fold section):
+#: the kernels that have it, its segment widths L (lanes a pose, ceil(r /
+#: L) rows a lane, 32 / L poses a warp) and its ranks.
+FOLD_KERNELS = ("rtr_full", "rtr_refine_full")
+FOLD_LANES = (8, 16)
+FOLD_RANKS = range(11, 33)
 #: SMs of an H100 SXM: what the plan assumes where it is not told the card's
 #: own count (``sm_count``).
 H100_SMS = 132
@@ -220,7 +237,8 @@ class ClusterPlan(NamedTuple):
     threads: int     # threads per CTA
     smem_bytes: int  # shared memory per CTA
     stripes: int = 1  # poses each lane group walks (spread, grid routes)
-    folds: int = 1   # rows of a pose each lane holds (spread route)
+    folds: int = 1   # rows of a pose each lane holds (spread, folded cluster)
+    lanes: int = 0   # lanes a pose on the folded cluster layout (0: r lanes)
 
 
 # ---------------------------------------------------------------------------
@@ -290,6 +308,28 @@ def cluster_shape(r: int, d: int, n_max: int, kinc: int, C: int,
               + fields * kinc * P + 2 * C * (threads // 32) * 4
               + _group_slots(r, threads // 32))
     return ClusterPlan("cluster", C, P, threads, 4 * floats)
+
+
+def cluster_fold_shape(r: int, d: int, n_max: int, kinc: int, C: int,
+                       lanes: int, kernel: str = "rtr_full") -> ClusterPlan:
+    """The shape of B2 or B4 on the cluster route's folded layout (the
+    formula of ``rtr_cluster.cu``'s ``fold_shape``): ``lanes`` L lanes a
+    pose, row q on lane q % L at fold q / L (ceil(r / L) rows a lane), 32 //
+    L poses a warp; the shared arrays of ``cluster_shape`` and no group-sum
+    slots."""
+    if _kernel_id(kernel) not in (KERNELS[k] for k in FOLD_KERNELS):
+        raise ValueError(f"{kernel} has no folded cluster layout (only "
+                         f"{', '.join(FOLD_KERNELS)})")
+    refine = kernel == "rtr_refine_full"
+    P = -(-n_max // C)
+    k = d + 1
+    threads = -(-P // (32 // lanes)) * 32
+    vecs = _CLUSTER_VECS + (2 if refine else 0)
+    fields = d * d + d + 3 + (r * k if refine else 0)
+    floats = (vecs * P * _vec_stride(r * k) + (k * k + d * d) * P
+              + fields * kinc * P + 2 * C * (threads // 32) * 4)
+    return ClusterPlan("cluster", C, P, threads, 4 * floats, 1,
+                       -(-r // lanes), lanes)
 
 
 def _fits(plan: ClusterPlan) -> bool:
@@ -390,34 +430,96 @@ def grid_workspace_floats(r: int, d: int, n_max: int, e_max: int,
     return _quad(floats) + 2 * C * _MAX_SUMS + 4
 
 
+#: The layout of B2 and B4 at ``FOLD_RANKS``: (lanes a pose, the largest
+#: cluster size taken), tried in order, each where ``layout_plan`` finds a
+#: cluster of it that fits; else the spread route.  The rule, from B2 and
+#: B4 timed in turns on the card at the stand-ins' agents (NVIDIA H100
+#: 80GB HBM3, 700 W; PERF.md section 6): the folded layout at L =
+#: 8 where a portable cluster (C <= 8) of it fits, else at L = 16, else
+#: the spread route.  ms per launch, B2 / B4, at the chordal init:
+#:
+#:   (r, d)   r lanes      L = 8               L = 16       spread
+#:   (11, 3)  0.161/0.157  0.145/0.146 (C 8)   0.157/0.153  0.192/0.200
+#:   (12, 3)  0.158/0.161  0.138/0.148 (C 8)   0.152/0.155  0.189/0.207
+#:   (16, 3)  0.172/0.165  0.141 (C 8)/0.190   0.162/0.156  0.198/0.212
+#:   (17, 3)  no fit       0.186 (C 8)/0.250   0.218/0.216  0.322/0.322
+#:   (32, 3)  no fit       0.316/no fit        0.227/no fit 0.377/0.381
+#:   (11, 2)  0.385/0.383  0.238/0.245 (C 8)   0.383/0.372  0.257/0.305
+#:   (32, 2)  no fit       0.415 (C 8)/0.734   0.553/0.588  0.515/0.661
+#:
+#: L = 8 at C = 16 (a CTA of 5-6 warps, 3-4 rows a lane) lost to L = 16
+#: every time; the row-a-lane layout (r lanes a pose) lost to the folded
+#: one at every shape where it fits, and fits only where L = 16 does, so
+#: B2 and B4 never take it here (B1 and B3 keep it).
+FOLD_RULE = ((8, 8), (16, 16))
+
+
+def fold_rule(r: int) -> tuple:
+    """The (lanes, largest C) B2 and B4 try at rank ``r`` (``FOLD_RULE``,
+    measured at d = 3 and d = 2 alike), in order; empty outside
+    ``FOLD_RANKS``."""
+    return FOLD_RULE if r in FOLD_RANKS else ()
+
+
+def _pick_cluster(plans) -> ClusterPlan | None:
+    """Of one layout's cluster plans (one per C of ``CLUSTER_SIZES``) those
+    that fit the card (``_fits``): of the portable sizes (up to 8), the
+    smallest with at most ``SPREAD_WARPS`` warps per CTA, else the largest;
+    16 only when no portable size fits; None when none fits."""
+    fitting = [plan for plan in plans if _fits(plan)]
+    if not fitting:
+        return None
+    portable = [plan for plan in fitting if plan.C <= 8] or fitting
+    spread = [plan for plan in portable
+              if plan.threads <= 32 * SPREAD_WARPS]
+    return spread[0] if spread else portable[-1]
+
+
+def layout_plan(lanes: int, n_max: int, kinc: int, r: int, d: int,
+                kernel: str = "rtr_full") -> ClusterPlan | None:
+    """The cluster plan of one layout (``_pick_cluster`` over the cluster
+    sizes): ``lanes`` 0 the row-a-lane layout (``cluster_shape``: r lanes
+    a pose), 8 or 16 the folded layout (``cluster_fold_shape``, B2 and B4);
+    None when no cluster of it fits."""
+    if lanes:
+        return _pick_cluster(cluster_fold_shape(r, d, n_max, kinc, C, lanes,
+                                                kernel)
+                             for C in CLUSTER_SIZES)
+    return _pick_cluster(cluster_shape(r, d, n_max, kinc, C, kernel)
+                         for C in CLUSTER_SIZES)
+
+
 def cluster_plan(n_max: int, e_max: int, kinc: int, r: int, d: int,
                  kernel: str = "rtr_full", agents: int = 1,
                  sms: int = H100_SMS) -> ClusterPlan:
     """The route of ``kernel`` (``rtr_full``, ``rtr``, ``tcg`` or
     ``rtr_refine_full``) for ``agents`` agents of ``n_max`` poses, ``e_max``
     edges and ``kinc`` incidence entries per pose on a card of ``sms`` SMs.
-    The cluster route up to ``MAX_LANE_RANK`` when some C of
-    ``CLUSTER_SIZES`` fits the card (at most ``MAX_CLUSTER_THREADS`` threads
-    and ``MAX_SMEM_BYTES`` of shared memory per CTA, by ``cluster_shape`` of
-    this kernel): of the portable sizes (up to 8) that fit, the smallest
-    with at most ``SPREAD_WARPS`` warps per CTA, else the largest; 16 only
-    when no portable size fits.  Else the spread route (``_spread_plan``;
-    above ``FOLD_ROWS`` its rows folded) when it fits; else, for B2 and B4
-    up to ``MAX_LANE_RANK``, the grid route over the whole card
-    (``_grid_plan``); else the workspace route (one CTA of 256 threads per
-    agent; its shared memory holds the edge payload when that fits), which
-    fits any shape and any rank: B1 and B3 where no spread fits, ranks above
-    512 where no spread fits, and more agents than SMs."""
-    fitting = [plan for plan in (cluster_shape(r, d, n_max, kinc, C, kernel)
-                                 for C in CLUSTER_SIZES) if _fits(plan)]
-    if not fitting:
-        return (_spread_plan(n_max, r, d, agents, sms)
-                or _grid_plan(n_max, r, d, kernel, agents, sms)
-                or _workspace_plan(n_max, e_max, r, d, kernel))
-    portable = [plan for plan in fitting if plan.C <= 8] or fitting
-    spread = [plan for plan in portable
-              if plan.threads <= 32 * SPREAD_WARPS]
-    return spread[0] if spread else portable[-1]
+    B2 and B4 at ``FOLD_RANKS`` first try the folded layouts of
+    ``fold_rule`` in order, each where ``layout_plan`` finds a cluster of
+    it no larger than the rule's.  Otherwise the cluster route up to
+    ``MAX_LANE_RANK`` when some C of ``CLUSTER_SIZES`` fits the card (at
+    most ``MAX_CLUSTER_THREADS`` threads and ``MAX_SMEM_BYTES`` of shared
+    memory per CTA, by ``cluster_shape`` of this kernel): of the portable
+    sizes (up to 8) that fit, the smallest with at most ``SPREAD_WARPS``
+    warps per CTA, else the largest; 16 only when no portable size fits.
+    Else the spread route (``_spread_plan``; above ``FOLD_ROWS`` its rows
+    folded) when it fits; else, for B2 and B4 up to ``MAX_LANE_RANK``, the
+    grid route over the whole card (``_grid_plan``); else the workspace
+    route (one CTA of 256 threads per agent; its shared memory holds the
+    edge payload when that fits), which fits any shape and any rank: B1 and
+    B3 where no spread fits, ranks above 512 where no spread fits, and more
+    agents than SMs."""
+    _kernel_id(kernel)
+    if kernel in FOLD_KERNELS:
+        for lanes, c_max in fold_rule(r):
+            plan = layout_plan(lanes, n_max, kinc, r, d, kernel)
+            if plan is not None and plan.C <= c_max:
+                return plan
+    return (layout_plan(0, n_max, kinc, r, d, kernel)
+            or _spread_plan(n_max, r, d, agents, sms)
+            or _grid_plan(n_max, r, d, kernel, agents, sms)
+            or _workspace_plan(n_max, e_max, r, d, kernel))
 
 
 def _workspace_plan(n_max: int, e_max: int, r: int, d: int,
@@ -435,18 +537,25 @@ def _workspace_plan(n_max: int, e_max: int, r: int, d: int,
 
 def _route(cluster: int | None, n_max: int, e_max: int, kinc: int, r: int,
            d: int, kernel: str, spread: int | None = None, agents: int = 1,
-           sms: int = H100_SMS, grid: int | None = None) -> ClusterPlan:
+           sms: int = H100_SMS, grid: int | None = None,
+           lanes: int | None = None) -> ClusterPlan:
     """``cluster_plan``, or the route a test or ``chip_smoke.py`` forces:
     ``cluster`` ``0`` the workspace route, ``C > 0`` a cluster of C CTAs;
     ``spread`` ``C`` the spread route over C CTAs per agent; ``grid`` ``C``
-    the grid route over C CTAs per agent (B2 and B4).  Raises when one CTA
-    of a forced shape cannot fit the card (too much shared memory, or a
-    cluster above ``MAX_LANE_RANK``: a pose of more than 16 warps), or when
-    a forced grid cannot be resident (more than ``sms`` CTAs in all) or
-    has no lane layout or kernel for the shape."""
+    the grid route over C CTAs per agent (B2 and B4); ``lanes`` a cluster
+    layout (``_fold_route``).  Raises when one CTA of a forced shape cannot
+    fit the card (too much shared memory, or a cluster above
+    ``MAX_LANE_RANK``: a pose of more than 16 warps), or when a forced grid
+    cannot be resident (more than ``sms`` CTAs in all) or has no lane
+    layout or kernel for the shape."""
     _kernel_id(kernel)
     if sum(x is not None for x in (cluster, spread, grid)) > 1:
         raise ValueError("force one route: a cluster, a spread or a grid")
+    if lanes is not None:
+        if spread is not None or grid is not None:
+            raise ValueError("a cluster layout is forced with a cluster "
+                             "size or alone, not with a spread or a grid")
+        return _fold_route(lanes, cluster, n_max, kinc, r, d, kernel)
     if grid is not None:
         if kernel not in GRID_KERNELS:
             raise ValueError(f"{kernel} has no grid route (only "
@@ -485,6 +594,42 @@ def _route(cluster: int | None, n_max: int, e_max: int, kinc: int, r: int,
             f"{plan.smem_bytes} B of shared memory per CTA (at most "
             f"{MAX_CLUSTER_THREADS} and {MAX_SMEM_BYTES}; a pose takes "
             f"ceil(r / 32) warps, at most 16, so r <= {MAX_LANE_RANK})")
+    return plan
+
+
+def _fold_route(lanes: int, cluster: int | None, n_max: int, kinc: int,
+                r: int, d: int, kernel: str) -> ClusterPlan:
+    """The cluster layout ``lanes`` forced (0 the row-a-lane layout, r
+    lanes a pose; 8 or 16 the folded layout, B2 and B4 at ``FOLD_RANKS``
+    only) at ``cluster`` CTAs, or at ``layout_plan``'s C when ``cluster``
+    is None; raises, naming the shape, where the layout has no kernel or
+    one CTA cannot fit the card."""
+    if lanes and (lanes not in FOLD_LANES or kernel not in FOLD_KERNELS
+                  or r not in FOLD_RANKS):
+        raise ValueError(
+            f"no folded cluster layout of {lanes} lanes for {kernel} at "
+            f"(r, d) = {(r, d)}: lanes in {FOLD_LANES}, kernels "
+            f"{', '.join(FOLD_KERNELS)}, ranks {FOLD_RANKS.start}.."
+            f"{FOLD_RANKS.stop - 1}")
+    if cluster is None:
+        plan = layout_plan(lanes, n_max, kinc, r, d, kernel)
+        if plan is None:
+            raise ValueError(
+                f"no cluster of the {lanes or 'r'}-lane layout holds an "
+                f"agent of {n_max} poses at (r, d) = {(r, d)} for {kernel}")
+        return plan
+    if cluster < 1:
+        raise ValueError(f"a cluster layout needs a cluster size, not "
+                         f"{cluster}")
+    plan = (cluster_fold_shape(r, d, n_max, kinc, cluster, lanes, kernel)
+            if lanes else cluster_shape(r, d, n_max, kinc, cluster, kernel))
+    if not _fits(plan):
+        raise ValueError(
+            f"a cluster of {cluster} CTAs of the {lanes or 'r'}-lane layout "
+            f"cannot hold an agent of {n_max} poses at (r, d) = {(r, d)} for "
+            f"{kernel}: P = {plan.P}, {plan.threads} threads and "
+            f"{plan.smem_bytes} B of shared memory per CTA (at most "
+            f"{MAX_CLUSTER_THREADS} and {MAX_SMEM_BYTES})")
     return plan
 
 
@@ -795,7 +940,11 @@ SYMBOLS = ("dpgo_rtr_workspace_floats", "dpgo_rtr_full_launch",
            "dpgo_tcg_spread_launch", "dpgo_rtr_refine_full_spread_launch",
            "dpgo_rtr_grid_shape", "dpgo_rtr_grid_workspace_floats",
            "dpgo_rtr_grid_max_ctas", "dpgo_rtr_full_grid_launch",
-           "dpgo_rtr_refine_full_grid_launch")
+           "dpgo_rtr_refine_full_grid_launch",
+           "dpgo_rtr_cluster_fold_smem_bytes",
+           "dpgo_rtr_cluster_fold_max_clusters",
+           "dpgo_rtr_full_cluster_fold_launch",
+           "dpgo_rtr_refine_full_cluster_fold_launch")
 #: Serializes ``build`` and ``load``: the agents' optimization threads
 #: (``agent.PGOAgent.start_optimization_loop``) may make the first launch
 #: from several threads of one process at once.
@@ -823,9 +972,11 @@ def _nvcc() -> str:
 
 def source_digest() -> str:
     """The library's source identity: sha256 over ``NVCC_FLAGS``,
-    ``BUILD_PARTS`` and every source and header (name and bytes)."""
+    ``BUILD_PARTS``, ``FOLD_PARTS`` and every source and header (name and
+    bytes)."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode()
                             + f" parts={sorted(BUILD_PARTS.items())}"
+                            f" fold={sorted(FOLD_PARTS.items())}"
                             .encode())
     for src in SOURCES + HEADERS:
         digest.update(src.name.encode() + b"\0" + src.read_bytes())
@@ -888,14 +1039,16 @@ def _build() -> Path:
 
 def _compile(lib: Path) -> None:
     """Run nvcc: every part of every source to an object (the dispatch part
-    ``-1``, the source's kernel parts ``0 .. BUILD_PARTS[name] - 1`` and its
-    rank-generic part ``BUILD_PARTS[name]``), all at once, then the link to
-    ``lib`` by an atomic rename."""
+    ``-1``, the source's kernel parts ``0 .. BUILD_PARTS[name] - 1``, its
+    rank-generic part ``BUILD_PARTS[name]`` and its ``FOLD_PARTS[name]``
+    parts after it), all at once, then the link to ``lib`` by an atomic
+    rename."""
     global BUILD_LOG
     nvcc, tag_u = _nvcc(), _unique_suffix()
     tag = lib.stem.rsplit("_", 1)[-1]
     units = [(src, part) for src in SOURCES
-             for part in range(-1, BUILD_PARTS[src.name] + 1)]
+             for part in range(-1, BUILD_PARTS[src.name] + 1
+                               + FOLD_PARTS.get(src.name, 0))]
     objs = [BUILD_DIR / f"{src.stem}_{part + 1}_{tag}.{tag_u}.o"
             for src, part in units]
     logs = [o.with_suffix(".log") for o in objs]
@@ -1040,19 +1193,35 @@ def _bind(path):
     lib.dpgo_rtr_refine_full_grid_launch.argtypes = (
         [I] * 10 + [P] * 22 + [LL, I, F, F, F, I, F, P])
     lib.dpgo_rtr_refine_full_grid_launch.restype = I
+    lib.dpgo_rtr_cluster_fold_smem_bytes.argtypes = [I] * 7
+    lib.dpgo_rtr_cluster_fold_smem_bytes.restype = LL
+    lib.dpgo_rtr_cluster_fold_max_clusters.argtypes = [I] * 7 + [P]
+    lib.dpgo_rtr_cluster_fold_max_clusters.restype = I
+    lib.dpgo_rtr_full_cluster_fold_launch.argtypes = (
+        [I] * 11 + [P] * 15 + [I, F, F, F, I, F, P])
+    lib.dpgo_rtr_full_cluster_fold_launch.restype = I
+    lib.dpgo_rtr_refine_full_cluster_fold_launch.argtypes = (
+        [I] * 11 + [P] * 21 + [I, F, F, F, I, F, P])
+    lib.dpgo_rtr_refine_full_cluster_fold_launch.restype = I
     _lib = lib
     return lib
 
 
 def cluster_capacity(r: int, d: int, n_max: int, kinc: int, C: int,
-                     kernel: str = "rtr_full") -> int:
-    """How many clusters of ``C`` CTAs of cluster kernel ``kernel`` the card
-    can hold at once for agents of this shape
-    (``cudaOccupancyMaxActiveClusters``); 0 when it cannot place one."""
+                     kernel: str = "rtr_full", lanes: int = 0) -> int:
+    """How many clusters of ``C`` CTAs of cluster kernel ``kernel`` (at
+    ``lanes`` > 0 on the folded layout) the card can hold at once for
+    agents of this shape (``cudaOccupancyMaxActiveClusters``); 0 when it
+    cannot place one."""
     count = ctypes.c_int(0)
-    err = load().dpgo_rtr_cluster_max_clusters(r, d, n_max, kinc, C,
-                                               _kernel_id(kernel),
-                                               ctypes.byref(count))
+    if lanes:
+        err = load().dpgo_rtr_cluster_fold_max_clusters(
+            lanes, r, d, n_max, kinc, C, _kernel_id(kernel),
+            ctypes.byref(count))
+    else:
+        err = load().dpgo_rtr_cluster_max_clusters(r, d, n_max, kinc, C,
+                                                   _kernel_id(kernel),
+                                                   ctypes.byref(count))
     _raise_on("cluster_capacity", err, r, d)
     return count.value
 
@@ -1099,16 +1268,17 @@ def sm_count(dev) -> int:
 
 def _plan(dev, cluster: int | None, n_max: int, e_max: int, kinc: int,
           r: int, d: int, kernel: str, spread: int | None = None,
-          agents: int = 1, grid: int | None = None) -> ClusterPlan | None:
+          agents: int = 1, grid: int | None = None,
+          lanes: int | None = None) -> ClusterPlan | None:
     """The route a wrapper launches on a CUDA ``dev`` (``_route`` on its
     card's SMs).  On the CPU the plain version runs at any rank: there only
     a forced route is planned, so that a shape the card cannot hold raises
     there as well, and None is returned otherwise."""
     if dev.type == "cpu" and cluster is None and spread is None \
-            and grid is None:
+            and grid is None and lanes is None:
         return None
     return _route(cluster, n_max, e_max, kinc, r, d, kernel, spread, agents,
-                  sm_count(dev), grid)
+                  sm_count(dev), grid, lanes)
 
 
 def _check(name: str, dev, tensors: dict, shapes: dict) -> None:
@@ -1149,7 +1319,8 @@ def _raise_on(name: str, err: int, r: int, d: int, C: int = 0,
                          f"r = {MAX_LANE_RANK}, a pose of 16 warps)")
     if err == _UNPLACEABLE:
         raise RuntimeError(f"{name}: the card cannot place a cluster of "
-                           f"{C} CTAs of this shape")
+                           f"{C} CTAs of this shape"
+                           + (f" ({shape})" if shape else ""))
     if err == _TOO_MANY_SLOTS:
         raise ValueError(f"{name}: more than 2**20 neighbor slots per agent "
                          "on the cluster, spread and grid routes")
@@ -1167,8 +1338,10 @@ def _raise_on(name: str, err: int, r: int, d: int, C: int = 0,
 
 def _grid_shape_note(plan: ClusterPlan, A: int, r: int, d: int,
                      n: int) -> str:
-    """The launch's shape, for a refused grid launch's error."""
+    """The launch's shape, for a refused grid or cluster launch's error."""
+    layout = f", {plan.lanes} lanes a pose" if plan.lanes else ""
     return (f"{A} agents x {plan.C} CTAs of {plan.threads} threads, "
+            f"{plan.smem_bytes} B of shared memory{layout}, "
             f"{n} poses an agent at (r, d) = {(r, d)}")
 
 
@@ -1192,7 +1365,8 @@ def rtr_full(idx_i, idx_j, rot, trn, wk, wt, Xc, Zc, Lc, inc_slot, inc_mask,
              max_rejections: int, grad_tol: float,
              _cluster: int | None = None,
              _spread: int | None = None,
-             _grid: int | None = None) -> RTRFullOut:
+             _grid: int | None = None,
+             _lanes: int | None = None) -> RTRFullOut:
     """One local RTR step for every agent (see the module docstring for the
     layouts).  CUDA tensors launch the kernel of the route ``cluster_plan``
     picks on the current stream, once for all agents; CPU tensors run
@@ -1201,7 +1375,10 @@ def rtr_full(idx_i, idx_j, rot, trn, wk, wt, Xc, Zc, Lc, inc_slot, inc_mask,
     the workspace route, ``_cluster=C`` a cluster of C CTAs, ``_spread=C``
     the spread route over C CTAs per agent, ``_grid=C`` the grid route over
     C CTAs per agent (one cooperative launch of A C CTAs, which raises when
-    the card cannot keep them all resident)."""
+    the card cannot keep them all resident); ``_lanes`` a cluster layout
+    (0 the row-a-lane layout, r lanes a pose; 8 or 16 the folded layout,
+    ``FOLD_RANKS`` only), at ``_cluster`` CTAs or at the layout's own
+    cluster size."""
     global LAUNCHES
     A, _, n = Xc.shape
     s, K = Zc.shape[-1], inc_slot.shape[-1]
@@ -1210,7 +1387,7 @@ def rtr_full(idx_i, idx_j, rot, trn, wk, wt, Xc, Zc, Lc, inc_slot, inc_mask,
                    inc_mask=inc_mask, n_local=n_local)
     _check("rtr_full", Xc.device, tensors, _shapes(idx_i, r, d, n, s, K, A))
     plan = _plan(Xc.device, _cluster, n, e_max, K, r, d, "rtr_full",
-                 _spread, A, _grid)
+                 _spread, A, _grid, _lanes)
     kw = dict(r=r, d=d, e_max=e_max, max_iters=max_iters, kappa=kappa,
               theta=theta, initial_radius=initial_radius,
               max_rejections=max_rejections, grad_tol=grad_tol)
@@ -1227,7 +1404,12 @@ def rtr_full(idx_i, idx_j, rot, trn, wk, wt, Xc, Zc, Lc, inc_slot, inc_mask,
     ptrs = [t.data_ptr() for t in (idx_i, idx_j, rot, trn, wk, wt, Xc, Zc,
                                    Lc, inc_slot, inc_mask, n_local, X_out,
                                    stats, iters)]
-    if plan.route == "cluster":
+    if plan.route == "cluster" and plan.lanes:
+        err = lib.dpgo_rtr_full_cluster_fold_launch(
+            plan.lanes, r, d, plan.C, A, n, s, nt * T, T, e_max, K, *ptrs,
+            max_iters, kappa, theta, initial_radius, max_rejections,
+            grad_tol, stream)
+    elif plan.route == "cluster":
         err = lib.dpgo_rtr_full_cluster_launch(
             r, d, plan.C, A, n, s, nt * T, T, e_max, K, *ptrs, max_iters,
             kappa, theta, initial_radius, max_rejections, grad_tol, stream)
@@ -1259,6 +1441,8 @@ def rtr_full(idx_i, idx_j, rot, trn, wk, wt, Xc, Zc, Lc, inc_slot, inc_mask,
                   _grid_shape_note(plan, A, r, d, n))
     with _COUNT_LOCK:
         LAUNCHES += 1
+        if plan.lanes:
+            FOLD_LAUNCHES["rtr_full", plan.lanes] += 1
     return RTRFullOut(X_out, stats, iters)
 
 
@@ -1379,12 +1563,14 @@ def rtr_refine_full(idx_i, idx_j, rot, trn, wk, wt, rho_rot, rho_trn, Rc,
                     max_rejections: int, grad_tol: float,
                     _cluster: int | None = None,
                     _spread: int | None = None,
-                    _grid: int | None = None) -> RTRRefineOut:
+                    _grid: int | None = None,
+                    _lanes: int | None = None) -> RTRRefineOut:
     """One re-centered RTR step on the corrections ``Dc`` for every agent
     (see the module docstring for the layouts).  CUDA tensors launch the
     kernel of the route ``cluster_plan`` picks on the current stream, once
     for all agents; CPU tensors run ``rtr_refine_full_reference``.
-    ``_cluster``, ``_spread`` and ``_grid`` as in ``rtr_full``."""
+    ``_cluster``, ``_spread``, ``_grid`` and ``_lanes`` as in
+    ``rtr_full``."""
     global REFINE_LAUNCHES
     A, _, n = Dc.shape
     s, K = Dzc.shape[-1], inc_slot.shape[-1]
@@ -1395,7 +1581,7 @@ def rtr_refine_full(idx_i, idx_j, rot, trn, wk, wt, rho_rot, rho_trn, Rc,
     _check("rtr_refine_full", Dc.device, tensors,
            _shapes(idx_i, r, d, n, s, K, A))
     plan = _plan(Dc.device, _cluster, n, e_max, K, r, d, "rtr_refine_full",
-                 _spread, A, _grid)
+                 _spread, A, _grid, _lanes)
     kw = dict(r=r, d=d, e_max=e_max, max_iters=max_iters, kappa=kappa,
               theta=theta, initial_radius=initial_radius,
               max_rejections=max_rejections, grad_tol=grad_tol)
@@ -1409,7 +1595,12 @@ def rtr_refine_full(idx_i, idx_j, rot, trn, wk, wt, rho_rot, rho_trn, Rc,
     iters = torch.empty((A,), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     ptrs = [t.data_ptr() for t in (*tensors.values(), D_out, stats, iters)]
-    if plan.route == "cluster":
+    if plan.route == "cluster" and plan.lanes:
+        err = lib.dpgo_rtr_refine_full_cluster_fold_launch(
+            plan.lanes, r, d, plan.C, A, n, s, nt * T, T, e_max, K, *ptrs,
+            max_iters, kappa, theta, initial_radius, max_rejections,
+            grad_tol, stream)
+    elif plan.route == "cluster":
         err = lib.dpgo_rtr_refine_full_cluster_launch(
             r, d, plan.C, A, n, s, nt * T, T, e_max, K, *ptrs, max_iters,
             kappa, theta, initial_radius, max_rejections, grad_tol, stream)
@@ -1441,4 +1632,6 @@ def rtr_refine_full(idx_i, idx_j, rot, trn, wk, wt, rho_rot, rho_trn, Rc,
                   _grid_shape_note(plan, A, r, d, n))
     with _COUNT_LOCK:
         REFINE_LAUNCHES += 1
+        if plan.lanes:
+            FOLD_LAUNCHES["rtr_refine_full", plan.lanes] += 1
     return RTRRefineOut(D_out, stats, iters)

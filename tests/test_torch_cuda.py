@@ -1309,6 +1309,155 @@ def test_solve_on_the_grid_route_launches_b2_once_per_round(card):
 
 
 # ---------------------------------------------------------------------------
+# The cluster route's folded layout of B2 and B4 (csrc/rtr_cluster.cu's fold
+# section): 11 <= r <= 32, a pose on an aligned segment of 8 or 16 lanes
+# ---------------------------------------------------------------------------
+
+#: (d, r) of the folded layout held here: the high_ranks shapes at r <= 32
+#: (chip_smoke.py times the layouts there in turns).
+FOLD_SHAPES = [(3, 11), (3, 12), (3, 16), (3, 17), (3, 32), (2, 11), (2, 32)]
+#: The float32 floor of the folded B2: rounds before the launch, and the
+#: largest change of f an accept flip may make relative to f0 (rounding).
+FOLD_FLOOR_ROUNDS, FOLD_FLOOR_DF_RTOL = 200, 1e-5
+
+
+def _fold_b2(card, d, r, rounds=0):
+    """B2's operands and options on 2 agents of ~300 poses (about the
+    stand-ins' agents) after ``rounds`` float32 rounds from the chordal
+    init."""
+    prob, params, X, _, _ = _round(card, d=d, r=r, n=600, A=2, num_lc=200)
+    g, m = prob.graph, prob.meta
+    state = rbcd.init_state(g, m, X, params)
+    for _ in range(rounds):
+        state = rbcd.rbcd_step(state, g, m, params)
+    X = state.X
+    Z = rbcd.neighbor_buffer(rbcd.public_table(X, g), g)
+    chol = rbcd.precond_chol(g.edges, g, params)
+    return (prob, rbcd.kernel_operands(X, Z, g.edges, chol, g),
+            rbcd.kernel_options(params, m))
+
+
+def _fold_sets(card, d, r):
+    """B2 and B4 at the chordal init of 2 agents of ~300 poses (B4
+    recentered there, a random feasible correction): per kernel its
+    wrapper, operands, options, plain output and gate."""
+    prob, b2, kw = _fold_b2(card, d, r)
+    prob4, rparams, _, ops4 = _refine_operands(card, d=d, r=r, n=600, A=2,
+                                               num_lc=200, rounds=0)
+    kw4 = rbcd.kernel_options(rparams, prob4.meta)
+    return {"rtr_full": (rk.rtr_full, b2, kw,
+                         rk.rtr_full_reference(*b2, **kw),
+                         _assert_b2_matches),
+            "rtr_refine_full": (rk.rtr_refine_full, ops4, kw4,
+                                rk.rtr_refine_full_reference(*ops4, **kw4),
+                                lambda o, ref: _assert_refine_gates(
+                                    o, ref, ops4[9]))}
+
+
+@pytest.mark.parametrize("d,r", FOLD_SHAPES)
+def test_cluster_fold_kernels_match_plain_versions_and_repeat(card, d, r):
+    # Each folded kernel wherever one of its clusters fits the agent: its
+    # plain version's gates, a second launch bit for bit, one count a
+    # launch; where none fits, forcing the layout raises before a launch.
+    for kernel, (fn, ops, kw, ref, gate) in _fold_sets(card, d, r).items():
+        A, n, K = ops[-3].shape  # inc_slot
+        for lanes in rk.FOLD_LANES:
+            plan = rk.layout_plan(lanes, n, K, r, d, kernel)
+            before = rk.FOLD_LAUNCHES[kernel, lanes]
+            if plan is None:
+                with pytest.raises(ValueError, match="no cluster"):
+                    fn(*ops, _lanes=lanes, **kw)
+                assert rk.FOLD_LAUNCHES[kernel, lanes] == before
+                continue
+            first = fn(*ops, _lanes=lanes, **kw)
+            second = fn(*ops, _lanes=lanes, **kw)
+            torch.cuda.synchronize()
+            gate(first, ref)
+            assert all(torch.equal(a, b) for a, b in zip(first, second))
+            assert rk.FOLD_LAUNCHES[kernel, lanes] == before + 2
+
+
+@pytest.mark.parametrize("d,r", FOLD_SHAPES)
+def test_cluster_fold_b2_at_the_float32_floor(card, d, r):
+    # After 200 float32 rounds the accept test compares costs that differ
+    # by rounding, so two sum orders may decide an attempt differently
+    # (chip_smoke.flip_rule): X and f at 1e-4 on the agents whose attempts
+    # and accepted agree, f0 at 1e-4 on all, and a flipped agent's accepted
+    # step moves f by at most 1e-5 of f0.
+    prob, b2, kw = _fold_b2(card, d, r, rounds=FOLD_FLOOR_ROUNDS)
+    ref = rk.rtr_full_reference(*b2, **kw)
+    A, n, K = b2[9].shape
+    for lanes in rk.FOLD_LANES:
+        if rk.layout_plan(lanes, n, K, r, d) is None:
+            continue
+        out = rk.rtr_full(*b2, _lanes=lanes, **kw)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(out.X).all())
+        flips = (out.stats[:, :2] != ref.stats[:, :2]).any(1)
+        agree = ~flips
+        if bool(agree.any()):
+            assert float((out.X - ref.X)[agree].abs().max()) <= 1e-4
+            torch.testing.assert_close(out.stats[agree, 3],
+                                       ref.stats[agree, 3], rtol=1e-4,
+                                       atol=0)
+        torch.testing.assert_close(out.stats[:, 2], ref.stats[:, 2],
+                                   rtol=1e-4, atol=0)
+        f0 = ref.stats[:, 2].abs()
+        df = torch.where(out.stats[:, 1] > 0,
+                         (out.stats[:, 3] - out.stats[:, 2]).abs(),
+                         (ref.stats[:, 3] - ref.stats[:, 2]).abs()) / f0
+        assert all(float(x) <= FOLD_FLOOR_DF_RTOL for x in df[flips])
+
+
+@pytest.mark.parametrize("d,r", FOLD_SHAPES)
+def test_cluster_fold_smem_bytes_match_the_plan(card, d, r):
+    # The launcher carves the bytes cluster_fold_shape states at every
+    # cluster size and segment width, and the card places a cluster of
+    # every layout the plan offers at the stand-ins' agents.
+    lib = rk.load()
+    for n_max, kinc in ((316, 11), (328, 11), (120, 8)):
+        for kernel in rk.FOLD_KERNELS:
+            kid = rk.KERNELS[kernel]
+            for lanes in rk.FOLD_LANES:
+                for C in rk.CLUSTER_SIZES:
+                    assert lib.dpgo_rtr_cluster_fold_smem_bytes(
+                        lanes, r, d, n_max, kinc, C, kid) == \
+                        rk.cluster_fold_shape(r, d, n_max, kinc, C, lanes,
+                                              kernel).smem_bytes
+                plan = rk.layout_plan(lanes, n_max, kinc, r, d, kernel)
+                if plan is not None:
+                    assert rk.cluster_capacity(r, d, n_max, kinc, plan.C,
+                                               kernel, lanes) >= 1
+
+
+def test_cluster_fold_that_cannot_be_placed_raises(card, monkeypatch):
+    # A forced folded layout whose CTA exceeds the card (one CTA of 300
+    # poses: 75 warps) raises with its shape before a launch; the launcher
+    # refuses it on its own too (the plan's check bypassed), and the
+    # wrapper raises with the shape; a layout outside 11 <= r <= 32 or for
+    # B1 and B3 has no kernel.
+    prob, b2, kw = _fold_b2(card, 3, 11)
+    n = prob.meta.n_max
+    threads = -(-n // 4) * 32
+    assert threads > 512
+    before = rk.LAUNCHES
+    with pytest.raises(ValueError, match=f"P = {n}, {threads} threads"):
+        rk.rtr_full(*b2, _cluster=1, _lanes=8, **kw)
+    monkeypatch.setattr(rk, "_fits", lambda plan: True)
+    with pytest.raises(RuntimeError,
+                       match=f"{threads} threads.*8 lanes a pose"):
+        rk.rtr_full(*b2, _cluster=1, _lanes=8, **kw)
+    monkeypatch.undo()
+    assert rk.LAUNCHES == before
+    _, b2_10, kw10 = _fold_b2(card, 3, 10)
+    with pytest.raises(ValueError, match="no folded cluster layout"):
+        rk.rtr_full(*b2_10, _lanes=8, **kw10)
+    with pytest.raises(ValueError, match="no folded cluster layout"):
+        rk._route(None, n, prob.meta.e_max, b2[9].shape[-1], 11, 3, "rtr",
+                  lanes=8)
+
+
+# ---------------------------------------------------------------------------
 # The certificate on the card
 # ---------------------------------------------------------------------------
 

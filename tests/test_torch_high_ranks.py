@@ -82,7 +82,14 @@ def _assert_fits(plan, kernel, n_max, r, d, kinc, agents):
     if plan.route == "cluster":
         assert plan.threads <= rk.MAX_CLUSTER_THREADS
         assert plan.C in rk.CLUSTER_SIZES and plan.C * plan.P >= n_max
-        assert plan == rk.cluster_shape(r, d, n_max, kinc, plan.C, kernel)
+        # B2 and B4 at 11 <= r <= 32 may fold a pose's rows over 8 or 16
+        # lanes (rk.FOLD_RULE); every other cluster has r lanes a pose.
+        assert plan == (rk.cluster_fold_shape(r, d, n_max, kinc, plan.C,
+                                              plan.lanes, kernel)
+                        if plan.lanes else
+                        rk.cluster_shape(r, d, n_max, kinc, plan.C, kernel))
+        assert not plan.lanes or (kernel in rk.FOLD_KERNELS
+                                  and r in rk.FOLD_RANKS)
     elif plan.route == "spread":
         assert plan.threads <= rk.SPREAD_THREADS
         assert plan.C * plan.P >= n_max
@@ -219,10 +226,16 @@ def test_b1_and_b3_plan_b2s_spread_above_the_ceiling(kernel, where, r):
     # Above the cluster ceiling B1 and B3 take B2's spread route at the
     # same shape: C, P, threads, stripes, folds and shared bytes (the four
     # kernels share rtr_spread.cu's spread_shape); the workspace route only
-    # where no spread fits.
+    # where no spread fits.  Where B2 folds a pose's rows on a cluster
+    # instead (rk.FOLD_RULE: the stand-in at r = 17), its spread is the one
+    # a forced spread of the plan's size takes.
     n_max, _, e_max, kinc, d, agents = AGENT_SHAPES[where]
     b2 = rk.cluster_plan(n_max, e_max, kinc, r, d, "rtr_full",
                          agents=agents, sms=rk.H100_SMS)
+    if b2.lanes:
+        C = rk._spread_plan(n_max, r, d, agents, rk.H100_SMS).C
+        b2 = rk._route(None, n_max, e_max, kinc, r, d, "rtr_full", spread=C,
+                       agents=agents, sms=rk.H100_SMS)
     plan = rk.cluster_plan(n_max, e_max, kinc, r, d, kernel, agents=agents,
                            sms=rk.H100_SMS)
     assert b2.route == "spread" and plan == b2
